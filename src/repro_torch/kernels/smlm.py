@@ -1,0 +1,76 @@
+"""SMLM — segmented multi-LoRA multiplication, CUDA kernel and wrapper.
+
+Replaces the Pallas kernel ``repro/kernels/smlm.py:39`` (``smlm``; body
+``_smlm_kernel`` :28, ``pallas_call`` :63)::
+
+    Y[t] = scale[tile] * (X[t] @ A[id[tile]]) @ B[id[tile]]
+
+for a token stream whose ``block_t``-token tiles are adapter-uniform (the
+flow planner pads every segment to the tile).
+
+Bound on an H100 SXM: each token tile reads its rows of X, one adapter's
+A [d_in, r] and B [r, d_out], and writes its rows of Y, for
+2 * T * r * (d_in + d_out) FLOPs — a few FLOPs per byte at r = 8, far under
+the card's ~295 FLOP/byte ridge, so memory bandwidth (3.35 TB/s) bounds it.
+
+Design (``csrc/smlm.cu``): one block per (token tile, 1024 output columns);
+the tile's id and scale are read in the block; the [block_t, r] shrink is
+reduced in fp32 into shared memory while streaming d_in (up to 14336), one
+warp per token row, so the rank-r intermediate never touches device memory;
+the expand writes four columns per thread, masked at the d_out edge, so no
+``d_out % block_o`` restriction exists.  A tile with scale 0 writes zeros
+without reading weights.  The shrink is recomputed by each output-column
+block of a tile; a later PR can share it (as the BGMV kernel does) or move
+both products onto tensor cores.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.build import I, P, require
+from repro_torch.kernels.ref import smlm_ref as smlm_plain
+
+_ARGS = [P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+MAX_RANK = 64
+
+
+def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+         tile_ids: torch.Tensor, tile_scale: torch.Tensor, *,
+         block_t: int) -> torch.Tensor:
+    """x: [T, d_in]; a: [n, d_in, r]; b: [n, r, d_out] (same dtype as x);
+    tile_ids: [T / block_t] int32; tile_scale: [T / block_t] float32 (0
+    disables a tile).  Returns [T, d_out] in x's dtype.  CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return smlm_plain(x, a, b, tile_ids, tile_scale, block_t)
+    require(x.device.type == "cuda", f"no SMLM kernel for {x.device}")
+    T, d_in = x.shape
+    n, d_in_a, r = a.shape
+    d_out = b.shape[-1]
+    require(d_in_a == d_in and b.shape == (n, r, d_out),
+            f"smlm shapes x{tuple(x.shape)} a{tuple(a.shape)} "
+            f"b{tuple(b.shape)}")
+    require(a.dtype == x.dtype and b.dtype == x.dtype,
+            "smlm takes x, a and b in one dtype")
+    require(block_t > 0 and T % block_t == 0,
+            f"T={T} is not a multiple of block_t={block_t}")
+    require(0 < r <= MAX_RANK, f"rank {r} outside [1, {MAX_RANK}]")
+    require(block_t * r * 4 <= 227 * 1024, "block_t * r too large")
+    nt = T // block_t
+    require(tile_ids.dtype == torch.int32 and tile_ids.shape == (nt,),
+            "tile_ids must be int32 [T / block_t]")
+    require(tile_scale.dtype == torch.float32 and tile_scale.shape == (nt,),
+            "tile_scale must be float32 [T / block_t]")
+    build.check_cuda(x, a, b, tile_ids, tile_scale)
+    out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
+    fn = build.function("smlm", "smlm_launch", _ARGS)
+    err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), tile_ids.data_ptr(),
+             tile_scale.data_ptr(), out.data_ptr(), T, n, d_in, r, d_out,
+             block_t, build.dtype_code(x), build.stream_of(x))
+    build.check(err, "smlm")
+    smlm.launches += 1
+    return out
+
+
+smlm.launches = 0

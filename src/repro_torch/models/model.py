@@ -1,0 +1,278 @@
+"""The attention+FFN decoder on the paged KV layout, with the paper's unified
+computation flow: one joint projection per linear for every request bucket
+(``core.lora.dense``: base product plus one multi-LoRA kernel call per
+bucket), per-bucket attention, and per-bucket logits.
+
+Port of the serving path of ``repro.models.model``.  Differences of form:
+
+* the JAX ``lax.scan`` over periods becomes a loop over layers;
+* the JAX functions return a new cache; here the paged pool is written in
+  place (``_paged_write_prompt`` / ``_paged_write_chunk`` are index writes
+  into the pool tensor) and ``unified_forward`` returns the same cache;
+* on CUDA tensors, suffix prefill and decode attention are the hand-written
+  kernels (``kernels.prefill_attn``, ``kernels.decode_attn``); their plain
+  versions run only for CPU tensors.  There is no backend switch.
+
+The ft bucket, dense-row caches, verify chunks, MLA, Mamba, MoE and cross-
+attention belong to later slices and raise here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.lora import dense
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attn import paged_decode_attention
+from repro_torch.kernels.prefill_attn import paged_prefill_attention
+from repro_torch.models import layers as L
+from repro_torch.models.configs import ModelConfig
+from repro_torch.models.schema import check_supported
+from repro_torch.models.stream import ModelOut, UnifiedBatch
+
+
+# ---------------------------------------------------------------------------
+# stream plan: bucket sizes, per-token adapter routing, split/merge
+# ---------------------------------------------------------------------------
+
+class _Plan:
+    def __init__(self, cfg: ModelConfig, batch: UnifiedBatch,
+                 lora_scale: Optional[torch.Tensor], block_t: int):
+        if batch.ft is not None:
+            raise NotImplementedError(
+                "fine-tune/eval rows come with the training slice")
+        pf, dec = batch.pf, batch.dec
+        self.pf, self.dec = pf, dec
+        self.Bp, self.Sp = tuple(pf.tokens.shape) if pf is not None else (0, 0)
+        if dec is not None:
+            if dec.tokens.ndim != 1:
+                raise NotImplementedError(
+                    "verify chunks come with the speculation slice")
+            self.Bd = dec.tokens.shape[0]
+        else:
+            self.Bd = 0
+        self.sizes = [self.Bp * self.Sp, self.Bd]
+        self.T = sum(self.sizes)
+        ids = []
+        if pf is not None:
+            ids.append(torch.repeat_interleave(pf.adapter, self.Sp))
+        if dec is not None:
+            ids.append(dec.adapter)
+        self.ids = torch.cat(ids) if ids else None
+        self.route = None
+        if lora_scale is not None and self.ids is not None:
+            n = lora_scale.shape[0]
+            scale_t = lora_scale[self.ids.long().clamp(0, n - 1)]
+            self.route = ops.route(self.ids, scale_t, n, self.sizes[0],
+                                   block_t)
+        if pf is not None:
+            if pf.block_tables is None:
+                raise NotImplementedError(
+                    "dense-row caches are not ported; use the paged layout")
+            ar = torch.arange(self.Sp, dtype=torch.int32,
+                              device=pf.tokens.device)
+            self.pf_cached = pf.cached_len
+            if pf.cached_len is not None:
+                self.pf_pos = pf.cached_len[:, None] + ar[None, :]
+            else:
+                self.pf_pos = ar[None, :].expand(self.Bp, self.Sp)
+            self.pf_valid = ar[None, :] < pf.length[:, None]
+        if dec is not None:
+            if dec.block_tables is None:
+                raise NotImplementedError(
+                    "dense-row caches are not ported; use the paged layout")
+            self.dec_pos = dec.pos
+            self.dec_len = (dec.length if dec.length is not None
+                            else torch.ones_like(dec.pos))
+
+    def split(self, x: torch.Tensor):
+        """[T, ...] -> (xp [Bp, Sp, ...], xd [Bd, 1, ...])"""
+        t0 = self.sizes[0]
+        rest = x.shape[1:]
+        xp = x[:t0].reshape(self.Bp, self.Sp, *rest) if t0 else None
+        xd = x[t0:].reshape(self.Bd, 1, *rest) if self.Bd else None
+        return xp, xd
+
+
+def _merge_flat(plan: _Plan, xp, xd) -> torch.Tensor:
+    parts = []
+    if xp is not None:
+        parts.append(xp.reshape(plan.sizes[0], -1))
+    if xd is not None:
+        parts.append(xd.reshape(plan.sizes[1], -1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# paged KV pool: per layer [n_blocks, block_size, g, hd]; block 0 is the
+# reserved null block that absorbs padding writes (masked on read)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     device: torch.device, dtype: torch.dtype) -> Dict:
+    """``{"k": [L, n_blocks, bs, g, hd], "v": ...}``; ``cache["k"][l]`` is
+    layer ``l``'s contiguous pool."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, device=device, dtype=dtype),
+            "v": torch.zeros(shape, device=device, dtype=dtype)}
+
+
+def _paged_write_prompt(pool: torch.Tensor, xh: torch.Tensor,
+                        tables: torch.Tensor) -> None:
+    """In place: scatter prefill rows ``[Bp, Sp, ...]`` into pool blocks via
+    tables ``[Bp, nbt]``; positions beyond ``nbt * block_size`` are
+    dropped (padding past the context limit)."""
+    bs = pool.shape[1]
+    Bp, Sp = xh.shape[:2]
+    nbp = min(-(-Sp // bs), tables.shape[1])
+    Lp = nbp * bs
+    if Sp < Lp:
+        xh = F.pad(xh, (0, 0) * (xh.ndim - 2) + (0, Lp - Sp))
+    else:
+        xh = xh[:, :Lp]
+    xb = xh.reshape(Bp, nbp, bs, *xh.shape[2:])
+    tbl = tables[:, :nbp].long().clamp(min=0)
+    pool[tbl] = xb.to(pool.dtype)
+
+
+def _paged_write_chunk(pool: torch.Tensor, xh: torch.Tensor,
+                       tables: torch.Tensor, pos: torch.Tensor,
+                       length: torch.Tensor) -> None:
+    """In place: row ``b``'s token ``j`` lands at position ``pos[b] + j``;
+    positions at or beyond ``length[b]`` go to the null block."""
+    bs = pool.shape[1]
+    Bd, Sd = xh.shape[:2]
+    tbl = tables.long().clamp(min=0)
+    j = torch.arange(Sd, device=xh.device)[None, :]
+    p = pos.long()[:, None] + j                                   # [Bd, Sd]
+    valid = j < length.long()[:, None]
+    bi = (p // bs).clamp(0, tbl.shape[1] - 1)
+    bid = torch.where(valid, torch.gather(tbl, 1, bi),
+                      torch.zeros((), dtype=torch.long, device=xh.device))
+    flat = xh.reshape(Bd * Sd, *xh.shape[2:])
+    pool[bid.reshape(-1), (p % bs).reshape(-1)] = flat.to(pool.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention and FFN sublayers
+# ---------------------------------------------------------------------------
+
+def _rope_heads(x: torch.Tensor, pos: torch.Tensor, n: int,
+                theta: float) -> torch.Tensor:
+    """[B, S, n*hd] -> rope -> [B, S, n, hd]"""
+    B, S = x.shape[:2]
+    return L.rope(x.reshape(B, S, n, -1), pos, theta)
+
+
+def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
+                x: torch.Tensor, k_pool: torch.Tensor,
+                v_pool: torch.Tensor) -> torch.Tensor:
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+
+    def dn(name, bias=None):
+        return dense(xn, p[name], p.get(bias) if bias else None,
+                     lr.get(name), plan.route)
+
+    q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
+    qp, qd = plan.split(q)
+    kp, kd = plan.split(k)
+    vp, vd = plan.split(v)
+    outs = [None, None]
+    if qp is not None:           # prefill: causal + cache write
+        pf = plan.pf
+        qh = _rope_heads(qp, plan.pf_pos, h, cfg.rope_theta)
+        kh = _rope_heads(kp, plan.pf_pos, kv, cfg.rope_theta)
+        vh = vp.reshape(plan.Bp, plan.Sp, kv, hd)
+        if plan.pf_cached is not None:
+            # suffix-only prefill: write the suffix K/V at its offset (all
+            # writes land at positions >= cached_len, never in a shared
+            # prefix block), then attend over the pool so the cached prefix
+            # is read instead of recomputed
+            _paged_write_chunk(k_pool, kh, pf.block_tables, plan.pf_cached,
+                               pf.length)
+            _paged_write_chunk(v_pool, vh, pf.block_tables, plan.pf_cached,
+                               pf.length)
+            outs[0] = paged_prefill_attention(
+                qh, k_pool, v_pool, pf.block_tables, plan.pf_cached,
+                pf.length)
+        else:
+            # cold prefill: prompt-local attention (plain tensor code, as
+            # the JAX package computes it outside any kernel), then straight
+            # into the blocks
+            outs[0] = L.attention(qh, kh, vh, q_pos=plan.pf_pos,
+                                  k_pos=plan.pf_pos, k_valid=plan.pf_valid,
+                                  causal=True)
+            _paged_write_prompt(k_pool, kh, pf.block_tables)
+            _paged_write_prompt(v_pool, vh, pf.block_tables)
+    if qd is not None:           # decode: one token per row
+        dec = plan.dec
+        dpos = plan.dec_pos[:, None]
+        qh = _rope_heads(qd, dpos, h, cfg.rope_theta)
+        kh = _rope_heads(kd, dpos, kv, cfg.rope_theta)
+        vh = vd.reshape(plan.Bd, 1, kv, hd)
+        _paged_write_chunk(k_pool, kh, dec.block_tables, plan.dec_pos,
+                           plan.dec_len)
+        _paged_write_chunk(v_pool, vh, dec.block_tables, plan.dec_pos,
+                           plan.dec_len)
+        o = paged_decode_attention(qh[:, 0].contiguous(), k_pool, v_pool,
+                                   dec.block_tables, plan.dec_pos)
+        outs[1] = o[:, None]
+    out = _merge_flat(plan, *outs)
+    return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
+
+
+def _ffn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
+               x: torch.Tensor) -> torch.Tensor:
+    xn = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    g = dense(xn, p["wg"], None, lr.get("wg"), plan.route)
+    u = dense(xn, p["wu"], None, lr.get("wu"), plan.route)
+    return x + dense(F.silu(g) * u, p["wd"], None, lr.get("wd"), plan.route)
+
+
+# ---------------------------------------------------------------------------
+# unified forward (Algorithm 1, serving buckets)
+# ---------------------------------------------------------------------------
+
+def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
+                    cache: Optional[Dict] = None, *,
+                    loras: Optional[Dict] = None,
+                    lora_scale: Optional[torch.Tensor] = None,
+                    block_t: int, attn_chunk: int = 0) -> ModelOut:
+    """One joint forward over the prefill and decode buckets.  ``block_t``
+    is the flow planner's SMLM tile (``FlowConfig.block_t``).  The paged
+    ``cache`` is updated in place and returned in ``ModelOut.cache``."""
+    if attn_chunk:
+        raise NotImplementedError("attn_chunk > 0 is not ported yet")
+    check_supported(cfg)
+    plan = _Plan(cfg, batch, lora_scale, block_t)
+    if cache is None:
+        raise ValueError("prefill/decode buckets require a cache")
+    toks = []
+    if batch.pf is not None:
+        toks.append(batch.pf.tokens.reshape(-1))
+    if batch.dec is not None:
+        toks.append(batch.dec.tokens.reshape(-1))
+    x = params["embed"][torch.cat(toks).long()]                    # [T, d]
+
+    lora_layers = (loras["layers"] if loras is not None
+                   else [{} for _ in range(cfg.n_layers)])
+    for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
+        x = _attn_apply(cfg, p, lr, plan, x, cache["k"][li], cache["v"][li])
+        x = _ffn_apply(cfg, p, lr, plan, x)
+
+    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    xp, xd = plan.split(x)
+    pf_logits = dec_logits = None
+    if xd is not None:
+        dec_logits = xd[:, 0] @ head
+    if xp is not None:
+        last = (batch.pf.length.long() - 1).clamp(min=0)
+        pf_logits = xp[torch.arange(plan.Bp, device=x.device), last] @ head
+    return ModelOut(ft_loss_sum=None, ft_tok_count=None, ft_logits=None,
+                    pf_logits=pf_logits, dec_logits=dec_logits, cache=cache,
+                    aux_loss=torch.zeros((), device=x.device))

@@ -1,0 +1,97 @@
+"""The port's CUDA kernels vs their plain PyTorch versions on the card
+(``cuda`` marker; each test skips without an NVIDIA GPU, since a CUDA kernel
+has no CPU mode).  Imports no JAX, so it runs on the GPU machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerance: fp32 within 1e-4 and bf16 within 2e-2 of max(1, largest plain
+output): bf16 rounds the output once; fp32 sums in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.bgmv import bgmv
+from repro_torch.kernels.decode_attn import paged_decode_attention
+from repro_torch.kernels.prefill_attn import paged_prefill_attention
+from repro_torch.kernels.smlm import smlm
+
+
+def t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _lora_inputs(rng, T, d, r, n, o):
+    x = rng.standard_normal((T, d), dtype=np.float32)
+    a = rng.standard_normal((n, d, r), dtype=np.float32) * 0.3
+    b = rng.standard_normal((n, r, o), dtype=np.float32) * 0.3
+    return x, a, b
+
+
+def _paged_inputs(rng, B, g, hd, bs, nbt, need):
+    n_blocks = nbt * B + 2
+    kp = rng.standard_normal((n_blocks, bs, g, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_blocks, bs, g, hd), dtype=np.float32)
+    tables = np.zeros((B, nbt), np.int32)
+    for b in range(B):
+        k = min(need[b], nbt)
+        tables[b, :k] = rng.choice(np.arange(1, n_blocks), size=k,
+                                   replace=False)
+    return kp, vp, tables
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _close(y, plain, dtype):
+    y, plain = y.float().cpu(), plain.float().cpu()
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(y).all()
+    err = float((y - plain).abs().max())
+    assert err <= tol * max(1.0, float(plain.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_smlm_and_bgmv_match_plain(dtype):
+    dev = _card()
+    rng = np.random.default_rng(3)
+    n, d, r, o, bt = 4, 512, 8, 300, 16        # ragged d_out edge
+    x, a, b = (v.to(dev, dtype) for v in map(t, _lora_inputs(rng, 64, d, r,
+                                                             n, o)))
+    tile_ids = t(rng.integers(-1, n + 1, 64 // bt).astype(np.int32)).to(dev)
+    rt = ops.route(torch.repeat_interleave(tile_ids, bt)[:56].contiguous(),
+                   None, n, n_head=48, block_t=bt)
+    y = smlm(x[:48], a, b, rt.tile_ids, rt.tile_scale, block_t=bt)
+    _close(y, ref.smlm_ref(x[:48], a, b, rt.tile_ids, rt.tile_scale, bt),
+           dtype)
+    y = bgmv(x[48:56], a, b, rt.tail_ids, rt.tail_scale)
+    _close(y, ref.bgmv_ref(x[48:56], a, b, rt.tail_ids, rt.tail_scale),
+           dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_matches_plain(dtype):
+    dev = _card()
+    rng = np.random.default_rng(4)
+    B, h, g, hd, bs, nbt, Sq = 4, 8, 2, 64, 32, 4, 20
+    pos = np.array([0, 31, 64, 100], np.int32)
+    kp, vp, tables = _paged_inputs(rng, B, g, hd, bs, nbt, pos // bs + 1)
+    tables[0] = 0
+    cuda = lambda x: t(x).to(dev)
+    kpd, vpd = cuda(kp).to(dtype), cuda(vp).to(dtype)
+    q = cuda(rng.standard_normal((B, h, hd), dtype=np.float32)).to(dtype)
+    args = (q, kpd, vpd, cuda(tables), cuda(pos))
+    _close(paged_decode_attention(*args), ref.paged_decode_ref(*args), dtype)
+    cached = np.array([0, 0, 32, 60], np.int32)
+    seg = np.array([0, 20, 7, 20], np.int32)
+    qp = cuda(rng.standard_normal((B, Sq, h, hd), dtype=np.float32)
+              ).to(dtype)
+    args = (qp, kpd, vpd, cuda(tables), cuda(cached), cuda(seg))
+    _close(paged_prefill_attention(*args), ref.paged_prefill_ref(*args),
+           dtype)
