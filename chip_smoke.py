@@ -6,21 +6,36 @@
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
 
-1. build   — compile the four CUDA kernels from ``src/repro_torch/kernels/
-             csrc`` (one nvcc per source, in parallel).
+1. build   — compile the six CUDA kernel libraries from ``src/repro_torch/
+             kernels/csrc`` (one nvcc per source, in parallel).
 2. kernels — each kernel vs its plain PyTorch version on the card at the
-             main path's shapes, bf16 and fp32, with the stated tolerance;
-             then, in bf16 at one main-path shape each, kernel, plain and
-             library times (CUDA events after warm-up) beside the bound.
+             main path's shapes, bf16 and fp32, with the stated tolerance
+             (verify at B=8 Sq=5 with a lens 0 row and an inactive row, both
+             exactly 0; split-K decode and verify, partials and merge at the
+             long-context shape B=2 nbt=128 for ns in 1, 2, 4, 8 and one
+             ns > nbt); then, in bf16 at one main-path shape each, kernel,
+             plain and library times (CUDA events after warm-up) beside the
+             bound, and at the long-context shape the time of every
+             candidate split beside ``autotune.choose``'s pick.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
-             logits within tolerance.
+             logits within tolerance; then the same with speculation (suffix
+             drafter fed the plain outputs): tokens equal on both devices
+             and to the plain run's, drafts accepted, verify kernel used.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
              prefill rows carry cached_len), 16 new tokens each; every
              kernel's launch counter must be > 0 for that run.
+5. spec    — the same weights and requests with ``SpecConfig(k_max=4,
+             drafter="suffix")`` fed each prompt plus the plain run's output:
+             all finish, logits finite, the pool drains pristine, the verify
+             kernel launched; acceptance, verify-tick latency, decode tokens
+             per second and the tokens equal to the plain run's are printed.
+6. long    — the same weights at capacity 2, s_max 4096: 2 requests with
+             ~3000-token prompts, 16 new tokens, without and with
+             speculation; the split-K decode and verify kernels launched.
 
 Then one JSON line of per-kernel numbers, the card's name and power limit,
 and the last line ``{"ok": true, "device": {...}}``.
@@ -51,10 +66,32 @@ def _import_port():
     from repro_torch.kernels.ops import route
     from repro_torch.kernels.prefill_attn import paged_prefill_attention
     from repro_torch.kernels.smlm import smlm
+    from repro_torch.kernels import autotune, splitk
+    from repro_torch.kernels.verify_attn import paged_verify_attention
     return dict(build=build, ref=ref, smlm=smlm, bgmv=bgmv, route=route,
                 block_t=FlowConfig().block_t,
                 decode=paged_decode_attention,
-                prefill=paged_prefill_attention)
+                prefill=paged_prefill_attention,
+                verify=paged_verify_attention,
+                decode_splitk=splitk.paged_decode_attention_splitk,
+                verify_splitk=splitk.paged_verify_attention_splitk,
+                partials=splitk.splitk_partials, merge=splitk.lse_merge,
+                autotune=autotune)
+
+
+# launch counters of the main path, by wrapper
+COUNTERS = ("smlm", "bgmv", "decode", "prefill", "verify", "partials",
+            "merge")
+
+
+def reset_counts(K):
+    for k in COUNTERS:
+        K[k].launches = 0
+    K["partials"].shapes.clear()
+
+
+def read_counts(K, names=COUNTERS):
+    return {k: K[k].launches for k in names}
 
 
 # ---------------------------------------------------------------- helpers
@@ -252,6 +289,133 @@ def check_attention(K, dtype, dev, gen, timing: bool):
     return rows
 
 
+def chunk_case(dev, gen, dtype, pos, lens, Sq, nbt, h=32, bs=32, g=8,
+               hd=128):
+    """Verify-chunk inputs: tables naming the blocks of keys 0 .. pos +
+    lens - 1 of each request, null-padded."""
+    B = len(pos)
+    need = [-(-(int(p) + int(n)) // bs) for p, n in zip(pos, lens)]
+    kp, vp, tables = paged_case(dev, gen, dtype, B, nbt, need,
+                                n_blocks=sum(need) + 2, bs=bs, g=g, hd=hd)
+    q = torch.randn(B, Sq, h, hd, generator=gen, device=dev).to(dtype)
+    as32 = lambda x: torch.tensor(x, device=dev, dtype=torch.int32)
+    return q, kp, vp, tables, as32(pos), as32(lens)
+
+
+def chunk_work(q, pos, lens, g, it):
+    """Bytes and FLOPs a verify chunk needs: q read and the output written
+    once, the K/V rows of keys 0 .. pos + lens - 1 of each request read once
+    (fp32 partials are the split kernel's choice, not the function's need);
+    row i of a request scores min(pos + i + 1, pos + lens) keys."""
+    B, Sq, h, hd = q.shape
+    kend = (pos + lens).long()
+    qi = pos.long()[:, None] + torch.arange(Sq, device=q.device)[None, :]
+    keys = torch.minimum(qi + 1, kend[:, None]).clamp(min=0)
+    nbytes = (2 * q.numel() + 2 * int(kend.sum()) * g * hd) * it
+    flops = int(4 * h * hd * keys.sum())
+    return nbytes, flops, qi, kend
+
+
+def check_verify(K, dtype, dev, gen, timing: bool):
+    """Serving verify shape: B=8 chunks of Sq=5 over nbt=16 blocks of 32:
+    an inactive row (pos 0, lens 0, null table) and a lens 0 row over a
+    real block (both exactly 0), chunks that straddle block edges, a
+    partial chunk and a one-token row."""
+    rows = {}
+    Sq, g = 5, 8
+    pos = [0, 0, 30, 61, 100, 200, 300, 506]
+    lens = [0, 0, 5, 5, 2, 5, 1, 5]
+    q, kp, vp, tables, p, n = chunk_case(dev, gen, dtype, pos, lens, Sq, 16)
+    tables[1, 0] = tables[2, 0]            # a real block behind lens 0
+    args = (q, kp, vp, tables, p, n)
+    out = K["verify"](*args)
+    if float(out[:2].float().abs().max()) != 0.0:
+        raise AssertionError("verify rows with no valid key are not 0")
+    err = compare(out, K["ref"].paged_verify_ref(*args), dtype)
+    print(f"kernels: paged_verify  {str(dtype)[6:]:<8} max_abs_err={err:.3e}"
+          f" tol={TOL[dtype]:g}xmax|plain| per row B=8 Sq=5 h=32 g=8 hd=128 "
+          "bs=32 nbt=16 lens-0 and inactive rows=0, block-edge chunks ok")
+    if timing:
+        nbytes, flops, qi, kend = chunk_work(q, p, n, g, q.element_size())
+        bms, by = bound(nbytes, flops, dtype)
+        lib = sdpa_yardstick(q, kp, vp, tables, q_pos=qi, kend=kend)
+        rows["paged_verify"] = dict(
+            max_abs_err=err, ms=time_ms(lambda: K["verify"](*args)),
+            plain_ms=time_ms(lambda: K["ref"].paged_verify_ref(*args)),
+            library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+            shape="B=8 Sq=5 h=32 g=8 hd=128 bs=32 nbt=16 pos up to 506")
+    return rows
+
+
+LONG = dict(pos=[3001, 2900], lens=[5, 3], dpos=[3005, 2950], nbt=128)
+
+
+def check_splitk(K, dtype, dev, gen, timing: bool):
+    """Long context, B=2 over nbt=128 blocks of 32: split-K verify (Sq=5,
+    ragged lens) and decode, and the partial and merge kernels alone, for
+    ns in 1, 2, 4, 8 and 200 (> nbt)."""
+    rows = {}
+    ref, g = K["ref"], 8
+    q, kp, vp, tables, p, n = chunk_case(dev, gen, dtype, LONG["pos"],
+                                         LONG["lens"], 5, LONG["nbt"])
+    args = (q, kp, vp, tables, p, n)
+    dq = q[:, 0].contiguous()
+    dp = torch.tensor(LONG["dpos"], device=dev, dtype=torch.int32)
+    dargs = (dq, kp, vp, tables, dp)
+    plain_v = ref.paged_verify_ref(*args)
+    plain_d = ref.paged_decode_ref(*dargs)
+    errs = {"verify": 0.0, "decode": 0.0, "partials": 0.0, "merge": 0.0}
+    for ns in (1, 2, 4, 8, 200):
+        o, m, l = K["partials"](*args, ns)
+        po, pm, pl = ref.splitk_partials_ref(*args, ns)
+        errs["partials"] = max(errs["partials"], compare(o, po, dtype))
+        # m and l hold against the plain ones up to each split's own max
+        compare(torch.exp(m - m.amax(1, keepdim=True)) * l,
+                torch.exp(pm - pm.amax(1, keepdim=True)) * pl, dtype)
+        errs["merge"] = max(errs["merge"], compare(
+            K["merge"](o, m, l, dtype), ref.lse_merge(o, m, l), dtype))
+        errs["verify"] = max(errs["verify"], compare(
+            K["verify_splitk"](*args, num_splits=ns), plain_v, dtype))
+        errs["decode"] = max(errs["decode"], compare(
+            K["decode_splitk"](*dargs, num_splits=ns), plain_d, dtype))
+    err = max(errs.values())
+    print(f"kernels: paged_splitk  {str(dtype)[6:]:<8} max_abs_err={err:.3e}"
+          f" tol={TOL[dtype]:g}xmax|plain| per row B=2 nbt=128 bs=32 h=32 "
+          f"g=8 hd=128 verify Sq=5 lens=5/3 and decode, ns=1,2,4,8,200: "
+          + " ".join(f"{k}={v:.3e}" for k, v in errs.items()) + " ok")
+    if not timing:
+        return rows
+    at = K["autotune"]
+    pick = at.choose(128, 32, LONG["nbt"], 2 * 32,
+                     lanes=at.effective_lanes(dev)).num_splits
+    nbytes, flops, qi, kend = chunk_work(q, p, n, g, q.element_size())
+    bms, by = bound(nbytes, flops, dtype)
+    lib = sdpa_yardstick(q, kp, vp, tables, q_pos=qi, kend=kend)
+
+    def plain():
+        return ref.lse_merge(*ref.splitk_partials_ref(*args, pick))
+
+    rows["paged_splitk"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: K["verify_splitk"](*args, num_splits=pick)),
+        plain_ms=time_ms(plain), library_ms=time_ms(lib), bound_ms=bms,
+        bound_by=by, shape=f"verify B=2 Sq=5 nbt=128 pos~3000 ns={pick} "
+                           "(partials + merge)")
+    # every candidate split, and the sequential kernels, at this shape
+    for name, fn, seq, a in (
+            ("verify", K["verify_splitk"], K["verify"], args),
+            ("decode", K["decode_splitk"], K["decode"], dargs)):
+        seq_ms = time_ms(lambda: seq(*a))
+        ts = {ns: time_ms(lambda: fn(*a, num_splits=ns))
+              for ns in at.candidate_splits(LONG["nbt"])}
+        best = min(ts, key=ts.get)
+        print(f"splits: {name} bf16 B=2 nbt=128 sequential_kernel_ms="
+              f"{seq_ms:.5f} " + " ".join(f"ns{k}_ms={v:.5f}"
+                                          for k, v in ts.items())
+              + f" choose={pick} fastest={best}")
+    return rows
+
+
 def sdpa_yardstick(q, kp, vp, tables, q_pos, kend):
     """One ``scaled_dot_product_attention`` call on the gathered K/V view
     (gathered in advance): the library yardstick, timed only."""
@@ -339,6 +503,7 @@ def shared_prefix_trace(vocab, adapters, seed, n=8, head=64):
 
 
 def parity(K, devices=("cuda", "cpu")):
+    from repro_torch.spec import SpecConfig
     from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
     from repro_torch.configs import get_reduced
     from repro_torch.core.lora import LoRAConfig
@@ -348,49 +513,67 @@ def parity(K, devices=("cuda", "cpu")):
     flat = numpy_weights(cfg, seed=0)
     ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
           for i in range(2)}
-    results = {}
+    engines = {}
     for dev in devices:
         params = params_from_numpy(flat, device=dev)
         adapters = {}
         for name, f in ad.items():
             layers = bank_from_numpy(f, device=dev)["layers"]
             adapters[name] = {"layers": layers}
-        eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
-                           torch.float32,
-                           EngineConfig(capacity=4, pf_capacity=2, s_max=128,
-                                        virtual_time=True))
+        engines[dev] = lambda spec, p=params, a=adapters, d=dev: build_engine(
+            cfg, p, a, lcfg, torch.device(d), torch.float32,
+            EngineConfig(capacity=4, pf_capacity=2, s_max=128,
+                         virtual_time=True, spec=spec))
+
+    def run(dev, spec, suffix=None):
+        eng = engines[dev](spec)
         seen = record_logits(eng, keep=True)
-        for k in ("smlm", "bgmv", "decode", "prefill"):
-            K[k].launches = 0
+        reset_counts(K)
         for r in shared_prefix_trace(cfg.vocab, list(ad), seed=3):
+            if suffix is not None:
+                r.draft_suffix = np.concatenate(
+                    [r.prompt, np.asarray(suffix[r.rid], np.int64)])
             eng.submit(r)
         eng.run(max_ticks=10000)
-        launches = {k: K[k].launches for k in ("smlm", "bgmv", "decode",
-                                                "prefill")}
-        results[dev] = (eng, seen, launches)
-    (ge, gs, gl), (ce, cs, _) = (results[d] for d in devices)
-    gtok = {r.rid: r.output for r in ge.finished}
-    ctok = {r.rid: r.output for r in ce.finished}
+        return eng, seen, read_counts(K), {r.rid: r.output
+                                            for r in eng.finished}
+
+    (ge, gs, gl, gtok), (ce, cs, _, ctok) = (run(d, None) for d in devices)
     if len(gtok) != 8 or gtok != ctok:
         raise AssertionError(f"greedy tokens differ: cuda {gtok} cpu {ctok}")
     err = max(float((gs[0][k] - cs[0][k]).abs().max()) for k in gs[0])
     if err > 1e-3:
         raise AssertionError(f"first-step logits differ by {err:.3e}")
-    if min(gl.values()) == 0:
+    plain_kernels = ("smlm", "bgmv", "decode", "prefill")
+    if min(gl[k] for k in plain_kernels) == 0:
         raise AssertionError(f"a kernel did not launch at reduced size: {gl}")
     print(f"parity: reduced llama3-8b fp32 cuda==cpu greedy tokens for 8 "
           f"requests (48 tokens), first-step logits max_abs_err={err:.3e} "
           f"tol=1e-3, reused_prefix_tokens={ge.metrics.reused_prefix_tokens}"
-          f", cuda launches={gl} ok")
+          f", cuda launches={ {k: gl[k] for k in plain_kernels} } ok")
+    spec = SpecConfig(k_max=4, drafter="suffix")
+    (se, _, sl, stok), (sc, _, _, sctok) = (run(d, spec, gtok)
+                                            for d in devices)
+    if stok != sctok or stok != gtok:
+        raise AssertionError(f"spec tokens differ: cuda {stok} cpu {sctok} "
+                             f"plain {gtok}")
+    if se.metrics.spec_accepted == 0 or sl["verify"] == 0:
+        raise AssertionError(f"no draft accepted ({se.metrics.spec_accepted})"
+                             f" or verify kernel unused: {sl}")
+    m = se.metrics
+    print(f"parity: spec k_max=4 suffix drafter, cuda==cpu==plain greedy "
+          f"tokens for 8 requests, drafted={m.spec_drafted} "
+          f"accepted={m.spec_accepted} steps={m.steps} (plain "
+          f"{ge.metrics.steps}), cuda verify launches={sl['verify']} ok")
 
 
-# ------------------------------------------------ phase 4: full width run
-def full_width(K, cfg, dev, dtype, head=128, tail=16, max_new=16, seed=0):
+# ------------------------------------- phases 4-6: full width, one weight set
+def full_weights(cfg, dev, dtype, seed=0):
+    """Random full-width weights and two gaussian-B adapters, made on the
+    card from seeds once and shared by the full, spec and long phases."""
     from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.virtualization import AdapterStore
     from repro_torch.models.schema import init_params
-    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
-    from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
-    from repro_torch.serving.request import Request, State
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -401,84 +584,220 @@ def full_width(K, cfg, dev, dtype, head=128, tail=16, max_new=16, seed=0):
         g = torch.Generator(device=dev)
         g.manual_seed(100 + i)
         store.load_random(f"lora{i}", g, gaussian_b=True)
+    torch.cuda.synchronize()
+    return params, store, time.perf_counter() - t0
+
+
+def timed_engine(cfg, weights, **ecfg):
+    """An engine on the shared weights, its logits' finiteness recorded on
+    the device and its ticks timed: (engine, finite flags, tick records,
+    tick()).  A tick record is (seconds, prefill tokens, decode tokens,
+    forward enqueue seconds, device wait seconds): the host time spent
+    issuing the forward step, then the wait for the device to finish it (a
+    synchronize the tick's token read would do a moment later anyway); the
+    rest of the tick is the engine's host work."""
+    from repro_torch.core.virtualization import MixedLoraModel
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    params, store, _ = weights
     eng = UnifiedEngine(MixedLoraModel(cfg, params, store),
-                        EngineConfig(capacity=8, pf_capacity=4, s_max=512))
+                        EngineConfig(**ecfg))
     seen = record_logits(eng, keep=False)
-    if dev.type == "cuda":
+    m, ticks, step, split = eng.metrics, [], eng.forward_step, []
+
+    def timed_step(*a):
+        t0 = time.perf_counter()
+        out = step(*a)
+        t1 = time.perf_counter()
         torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed)
-    heads = [rng.integers(0, cfg.vocab, head).astype(np.int32)
-             for _ in range(4)]
+        split.append((t1 - t0, time.perf_counter() - t1))
+        return out
 
-    def wave(base_rid):
-        return [Request(rid=base_rid + i,
-                        prompt=np.concatenate([heads[i], rng.integers(
-                            0, cfg.vocab, tail).astype(np.int32)]),
-                        adapter=f"lora{i % 2}", max_new_tokens=max_new,
-                        arrival=eng.clock.now()) for i in range(4)]
-
-    m = eng.metrics
-    ticks = []          # (seconds, prefill tokens, decode tokens) per tick
+    eng.forward_step = timed_step
 
     def tick():
         p0, d0 = m.prefill_tokens, m.decode_tokens
+        split.clear()
         t = time.perf_counter()
         eng.tick()      # ends in the host reading the sampled tokens
+        enq, wait = split[0] if split else (0.0, 0.0)
         ticks.append((time.perf_counter() - t, m.prefill_tokens - p0,
-                      m.decode_tokens - d0))
+                      m.decode_tokens - d0, enq, wait))
 
-    for k in ("smlm", "bgmv", "decode", "prefill"):
-        K[k].launches = 0
-    w1 = wave(0)
-    for r in w1:
-        eng.submit(r)
-    while not all(r.state in (State.DECODE, State.DONE) for r in w1):
-        tick()
-    w2 = wave(4)
-    for r in w2:
-        eng.submit(r)
+    return eng, seen, ticks, tick
+
+
+def run_waves(eng, tick, waves):
+    """Submit each wave once the previous one is decoding, then drain."""
+    from repro_torch.serving.request import State
+    for i, wave in enumerate(waves):
+        for r in wave:
+            r.arrival = eng.clock.now()
+            eng.submit(r)
+        if i + 1 < len(waves):
+            while not all(r.state in (State.DECODE, State.DONE)
+                          for r in wave):
+                tick()
     while eng.waiting or eng.active or eng.prefilling or eng.future:
         tick()
-    launches = {k: K[k].launches for k in ("smlm", "bgmv", "decode",
-                                            "prefill")}
+
+
+def check_drained(eng, seen, n, max_new):
     done = list(eng.finished)
-    if len(done) != 8 or any(len(r.output) != max_new for r in done):
+    if len(done) != n or any(len(r.output) != max_new for r in done):
         raise AssertionError("not every request finished with "
                              f"{max_new} tokens")
     if not bool(torch.stack(seen).all()):
         raise AssertionError("non-finite logits")
     if not eng.cachemgr.pristine:
         raise AssertionError("the KV pool did not drain pristine")
+    return {r.rid: list(r.output) for r in done}
+
+
+def tick_stats(ticks, label="decode"):
+    """Decode-only ticks (no prefill rows; verify ticks under speculation):
+    their ms and the decode tokens per second they emit."""
+    dec = [(t, d, e, w) for t, p, d, e, w in ticks if not p]
+    ms = [t * 1e3 for t, *_ in dec]
+    tps = sum(d for _, d, *_ in dec) / sum(t for t, *_ in dec)
+    enq = np.mean([e for *_, e, _ in dec]) * 1e3
+    wait = np.mean([w for *_, w in dec]) * 1e3
+    return (f"{label}_ticks={len(dec)} {label}_tick_ms_mean={np.mean(ms):.3f}"
+            f" {label}_tick_ms_p50={np.median(ms):.3f} "
+            f"(forward enqueue {enq:.3f} + device wait {wait:.3f} + engine "
+            f"{np.mean(ms) - enq - wait:.3f}) decode_tok_per_s={tps:.3f}")
+
+
+def request_waves(cfg, rng, head=128, tail=16, max_new=16):
+    """Two waves of 4: wave 2 reuses wave 1's 128-token heads."""
+    from repro_torch.serving.request import Request
+    heads = [rng.integers(0, cfg.vocab, head).astype(np.int32)
+             for _ in range(4)]
+    return [[Request(rid=base + i, prompt=np.concatenate(
+        [heads[i], rng.integers(0, cfg.vocab, tail).astype(np.int32)]),
+        adapter=f"lora{i % 2}", max_new_tokens=max_new)
+        for i in range(4)] for base in (0, 4, 8)]
+
+
+def with_suffix(waves, outputs):
+    """Fresh copies of the requests with the static-suffix drafter's
+    reference stream: prompt + the plain run's output."""
+    from repro_torch.serving.request import Request
+    return [[Request(rid=r.rid, prompt=r.prompt, adapter=r.adapter,
+                     max_new_tokens=r.max_new_tokens,
+                     draft_suffix=np.concatenate(
+                         [r.prompt, np.asarray(outputs[r.rid], np.int64)]))
+             for r in wave] for wave in waves]
+
+
+def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
+    """Phase 4: the plain serving path; returns its counts and outputs."""
+    eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=8,
+                                          pf_capacity=4, s_max=512)
+    waves = request_waves(cfg, np.random.default_rng(seed), head,
+                          max_new=max_new)
+    reset_counts(K)
+    run_waves(eng, tick, waves[:2])
+    launches = read_counts(K, ("smlm", "bgmv", "decode", "prefill"))
+    out = check_drained(eng, seen, 8, max_new)
+    m = eng.metrics
     if m.reused_prefix_tokens != 4 * head:
         raise AssertionError(f"wave 2 reused {m.reused_prefix_tokens} "
                              f"prefix tokens, expected {4 * head}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel never launched: {launches}")
-    ttft = {r.rid: r.t_first_token - r.arrival for r in done}
-    pf_ms = [t * 1e3 for t, p, _ in ticks if p]
-    dec = [(t, d) for t, p, d in ticks if not p]
-    dec_ms = [t * 1e3 for t, _ in dec]
-    print(f"full: {cfg.name} {str(dtype)[6:]} L={cfg.n_layers} "
-          f"d={cfg.d_model} V={cfg.vocab} setup_s={setup_s:.3f} "
-          f"requests=8 tokens_each={max_new} steps={len(ticks)} "
-          f"run_s={sum(t for t, _, _ in ticks):.4f} "
+    done = {r.rid: r for r in eng.finished}
+    ttft = {i: r.t_first_token - r.arrival for i, r in done.items()}
+    pf_ms = [t * 1e3 for t, p, *_ in ticks if p]
+    print(f"full: {cfg.name} bf16 L={cfg.n_layers} d={cfg.d_model} "
+          f"V={cfg.vocab} setup_s={weights[2]:.3f} requests=8 "
+          f"tokens_each={max_new} steps={len(ticks)} "
+          f"run_s={sum(t for t, *_ in ticks):.4f} "
           f"prefill_tick_ms={[round(x, 3) for x in pf_ms]} "
-          f"decode_ticks={len(dec)} "
-          f"decode_tick_ms_mean={np.mean(dec_ms):.3f} "
-          f"decode_tick_ms_p50={np.median(dec_ms):.3f} "
-          f"decode_tok_per_s="
-          f"{sum(d for _, d in dec) / sum(t for t, _ in dec):.3f} "
+          f"{tick_stats(ticks)} "
           f"ttft_wave1_s={np.mean([ttft[i] for i in range(4)]):.4f} "
           f"ttft_wave2_s={np.mean([ttft[i] for i in range(4, 8)]):.4f} "
           f"reused_prefix_tokens={m.reused_prefix_tokens} "
           f"hash_hits={m.hash_hits} launches={launches} "
           f"finite=True pristine=True ok")
-    profile_wave(eng, wave(8), dev)
+    profile_wave(eng, waves[2], dev, "plain")
+    out.update({r.rid: list(r.output) for r in waves[2]})
+    return launches, waves, out
+
+
+def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
+    """Phase 5: the same requests with speculation, the suffix drafter fed
+    each prompt plus the plain run's output."""
+    from repro_torch.spec import SpecConfig
+    eng, seen, ticks, tick = timed_engine(
+        cfg, weights, capacity=8, pf_capacity=4, s_max=512,
+        spec=SpecConfig(k_max=4, drafter="suffix"))
+    reset_counts(K)
+    run_waves(eng, tick, with_suffix(waves[:2], plain))
+    launches = read_counts(K, ("smlm", "bgmv", "prefill", "verify"))
+    out = check_drained(eng, seen, 8, max_new)
+    if launches["verify"] == 0:
+        raise AssertionError(f"the verify kernel never launched: {launches}")
+    m = eng.metrics
+    same = sum(int(a == b) for rid in out
+               for a, b in zip(out[rid], plain[rid]))
+    print(f"spec: {cfg.name} bf16 k_max=4 suffix drafter requests=8 "
+          f"steps={len(ticks)} drafted={m.spec_drafted} "
+          f"accepted={m.spec_accepted} acceptance={m.acceptance_rate:.4f} "
+          f"{tick_stats(ticks, 'verify')} "
+          f"tokens_equal_to_plain={same}/{8 * max_new} launches={launches} "
+          f"finite=True pristine=True ok")
+    profile_wave(eng, with_suffix(waves[2:], plain)[0], dev, "spec")
     return launches
 
 
-def profile_wave(eng, reqs, dev):
+def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
+    """Phase 6: capacity 2, s_max 4096, two ~3000-token prompts, without
+    and with speculation: the shape where ``choose`` splits the walk."""
+    from repro_torch.serving.request import Request
+    from repro_torch.spec import SpecConfig
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(
+        0, cfg.vocab, prompt - 50 * i).astype(np.int32),
+        adapter=f"lora{i}", max_new_tokens=max_new) for i in range(2)]
+    counts, outs = {}, {}
+    for spec in (None, SpecConfig(k_max=4, drafter="suffix")):
+        eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=2,
+                                              pf_capacity=2, s_max=4096,
+                                              spec=spec)
+        batch = reqs if spec is None else with_suffix([reqs], outs[None])[0]
+        reset_counts(K)
+        run_waves(eng, tick, [batch])
+        counts[spec is not None] = c = read_counts(K)
+        # split-K launches of this run by (chunk length, splits), as the
+        # partial kernel's wrapper counted them
+        shapes = dict(K["partials"].shapes)
+        outs[spec] = check_drained(eng, seen, 2, max_new)
+        walks = [n for (sq, _), n in shapes.items()
+                 if (sq > 1 if spec else sq == 1)]
+        if sum(walks) == 0 or c["partials"] != c["merge"]:
+            raise AssertionError(
+                f"split-K {'verify' if spec else 'decode'} did not launch: "
+                f"{c} by (Sq, ns): {shapes}")
+        ns = sorted({k for (_, k) in shapes})
+        m = eng.metrics
+        same = sum(int(a == b) for rid in outs[spec]
+                   for a, b in zip(outs[spec][rid], outs[None][rid]))
+        print(f"long: {cfg.name} bf16 capacity=2 s_max=4096 prompts="
+              f"{[len(r.prompt) for r in reqs]} spec="
+              f"{'k_max=4 suffix' if spec else 'off'} ns_used={ns} "
+              f"steps={len(ticks)} prefill_tick_ms="
+              f"{[round(t * 1e3, 3) for t, p, *_ in ticks if p]} "
+              f"{tick_stats(ticks, 'verify' if spec else 'decode')} "
+              f"drafted={m.spec_drafted} "
+              f"accepted={m.spec_accepted} tokens_equal_to_plain={same}/"
+              f"{2 * max_new} launches={ {k: v for k, v in c.items() if v} } "
+              f"splitk_by_sq_ns={shapes} "
+              f"finite=True pristine=True ok")
+        del eng
+    return counts
+
+
+def profile_wave(eng, reqs, dev, label):
     """Profile one more wave (after the main path's counters were read):
     the device's busy share of the window and the kernels that fill it."""
     if dev.type != "cuda":
@@ -503,7 +822,7 @@ def profile_wave(eng, reqs, dev):
     top = sorted(kern, key=dev_t, reverse=True)[:8]
     names = "; ".join(f"{e.key[:48]}={dev_t(e) / 1e3:.3f}ms/{e.count}"
                       for e in top)
-    print(f"profile: wave of {len(reqs)} requests, "
+    print(f"profile: {label} wave of {len(reqs)} requests, "
           f"{eng.metrics.steps - steps0} steps, wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} "
           f"busy_share={busy_ms / wall_ms:.4f} top: {names}")
@@ -518,9 +837,14 @@ SOURCES = {
                       "src/repro/kernels/prefill_attn.py:78"),
     "paged_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                      "src/repro/kernels/decode_attn.py:154"),
+    "paged_verify": ("src/repro_torch/kernels/csrc/verify_attn.cu",
+                     "src/repro/kernels/decode_attn.py:254"),
+    "paged_splitk": ("src/repro_torch/kernels/csrc/splitk.cu",
+                     "src/repro/kernels/splitk.py:107"),
 }
 COUNTER = {"smlm": "smlm", "bgmv": "bgmv", "paged_prefill": "prefill",
-           "paged_decode": "decode"}
+           "paged_decode": "decode", "paged_verify": "verify",
+           "paged_splitk": "splitk"}
 
 
 def main() -> int:
@@ -545,6 +869,8 @@ def main() -> int:
         timing = dtype == torch.bfloat16
         rows.update(check_lora(K, dtype, dev, gen, timing))
         rows.update(check_attention(K, dtype, dev, gen, timing))
+        rows.update(check_verify(K, dtype, dev, gen, timing))
+        rows.update(check_splitk(K, dtype, dev, gen, timing))
     for name, r in rows.items():
         print(f"timing: {name:<13} bf16 {r['shape']}: ms={r['ms']:.5f} "
               f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
@@ -553,10 +879,18 @@ def main() -> int:
     parity(K)
 
     from repro_torch.configs import get_config
-    launches = full_width(K, get_config("llama3-8b"), dev, torch.bfloat16)
+    cfg = get_config("llama3-8b")
+    weights = full_weights(cfg, dev, torch.bfloat16)
+    launches, waves, plain = full_width(K, cfg, weights, dev)
+    launches["verify"] = full_spec(K, cfg, weights, dev, waves,
+                                   plain)["verify"]
+    long_counts = long_context(K, cfg, weights, dev)
+    # each split-K call launches the partial and the merge kernel once
+    launches["splitk"] = sum(c["partials"] for c in long_counts.values())
 
     kernels = []
-    for name in ("smlm", "bgmv", "paged_prefill", "paged_decode"):
+    for name in ("smlm", "bgmv", "paged_prefill", "paged_decode",
+                 "paged_verify", "paged_splitk"):
         r = rows[name]
         src, replaces = SOURCES[name]
         kernels.append({

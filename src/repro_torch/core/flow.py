@@ -1,11 +1,12 @@
 """Unified computation-flow planning (host side of Algorithms 1-2).
 
 Port of the serving half of ``repro.core.flow``: heterogeneous pending work
-(prefill requests, decode slots) becomes ONE ``UnifiedBatch`` whose shapes
-snap to bucket grids, with every prefill row padded to a multiple of
-``block_t`` so that each SMLM token tile is adapter-uniform.  Padding rows
-carry ``adapter = -1`` (base only).  Tensors are built on the engine's
-device.  The fine-tune planner (``plan_ft``) comes with the training slice.
+(prefill requests, decode slots or verify chunks) becomes ONE
+``UnifiedBatch`` whose shapes snap to bucket grids, with every prefill row
+padded to a multiple of ``block_t`` so that each SMLM token tile is
+adapter-uniform.  Padding rows carry ``adapter = -1`` (base only).
+Tensors are built on the engine's device.  The fine-tune planner
+(``plan_ft``) comes with the training slice.
 """
 from __future__ import annotations
 
@@ -93,6 +94,8 @@ def plan_pf(reqs: List[PFReq], fcfg: FlowConfig,
 def plan_dec(tokens: np.ndarray, pos: np.ndarray, slots: np.ndarray,
              device: torch.device, tables: Optional[np.ndarray] = None,
              lengths: Optional[np.ndarray] = None) -> Optional[DECBatch]:
+    """``tokens`` is [Bd] for plain decode or [Bd, Sd] for speculative
+    verify chunks; ``lengths`` gives each row's valid chunk length."""
     if len(tokens) == 0:
         return None
     as32 = lambda a: _t(np.asarray(a, np.int32), device)
@@ -118,7 +121,9 @@ def token_adapter_ids(batch: UnifiedBatch) -> np.ndarray:
         Sp = batch.pf.tokens.shape[1]
         ids.append(np.repeat(batch.pf.adapter.cpu().numpy(), Sp))
     if batch.dec is not None:
-        ids.append(batch.dec.adapter.cpu().numpy())
+        tok = batch.dec.tokens
+        Sd = tok.shape[1] if tok.ndim == 2 else 1
+        ids.append(np.repeat(batch.dec.adapter.cpu().numpy(), Sd))
     return np.concatenate(ids) if ids else np.zeros((0,), np.int32)
 
 

@@ -2,8 +2,10 @@
 
 PyTorch runs eagerly, so the JAX package's jitted step cache has no
 counterpart: ``make_forward_step`` returns a plain closure over the config
-and the planner's SMLM tile, run under ``torch.inference_mode``.  The grad
-and optimizer steps come with the training slice.
+and the planner's SMLM tile, run under ``torch.inference_mode``.  Nothing
+keys on ``kernels.autotune.table_version()``: the model asks for its split
+choice on every forward.  The grad and optimizer steps come with the
+training slice.
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from repro_torch.models.stream import ModelOut, UnifiedBatch
 
 def make_forward_step(cfg: ModelConfig, *, block_t: int,
                       attn_chunk: int = 0) -> Callable:
-    """Inference-only unified step (prefill + decode)."""
+    """Inference-only unified step (prefill + decode or verify)."""
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> ModelOut:
         with torch.inference_mode():

@@ -22,7 +22,8 @@ from typing import Dict, Sequence, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-KERNELS = ("smlm", "bgmv", "prefill_attn", "decode_attn")
+KERNELS = ("smlm", "bgmv", "prefill_attn", "decode_attn", "verify_attn",
+           "splitk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

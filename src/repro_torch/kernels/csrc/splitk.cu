@@ -1,0 +1,185 @@
+// Split-K (flash-decoding) paged attention: partials, then an LSE merge.
+//
+// Port of the Pallas kernel repro/kernels/splitk.py:107
+// (`paged_verify_attention_splitk`, body `_splitk_kernel` :64) and of its
+// jnp epilogue `lse_merge` (:40).  A long table walked by one thread block
+// per (request, KV head) leaves most SMs idle at small batch; here the walk
+// is cut into `ns` independent runs of npb = ceil(nbt / ns) table entries,
+// grid (request, KV head, split x row group).  Each run is the block walk of
+// `paged_walk.cuh` over its entries (the table is padded with null entries
+// past nbt, which the mask excludes, so the walk stops at the block holding
+// key pos + lens - 1) and writes its un-normalized fp32 partial (acc, m, l);
+// a run with no valid key writes (0, NEG_INF, 0).  A second launch merges
+// the runs of every (request, chunk row, query head), one warp each, with
+// weights exp(min(m - m_max, 0)) and l clamped at 1e-30, so all-empty rows
+// give zeros.  Decode is the Sq = 1, lens = 1 case.
+#include "paged_walk.cuh"
+
+namespace {
+
+template <typename T>
+__global__ void splitk_partials_kernel(
+    const T* __restrict__ q, const T* __restrict__ kp,
+    const T* __restrict__ vp, const int* __restrict__ tables,
+    const int* __restrict__ pos, const int* __restrict__ lens,
+    float* __restrict__ o_part, float* __restrict__ m_part,
+    float* __restrict__ l_part, int h, int g, int hd, int bs, int nbt, int sq,
+    int ns, int npb, int nz, int per, float scale) {
+  extern __shared__ float sm[];
+  const int b = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int s = blockIdx.z / nz;
+  const int m = h / g;
+  const int row0 = (blockIdx.z - s * nz) * per;
+  const int rows = min(per, m * sq - row0);
+  const int p = pos[b];
+  const int kend = p + lens[b];
+  const int nblk = repro::walk_blocks(kend, bs, nbt);
+  const int lo = s * npb;
+  const int hi = min(lo + npb, nblk);   // empty when lo >= nblk
+  const repro::WalkState st = repro::chunk_walk<T>(
+      q, kp, vp, tables + static_cast<size_t>(b) * nbt, sm, b, kvh, h, g, hd,
+      bs, sq, row0, rows, p, kend, lo, hi, scale);
+  const int w = threadIdx.x >> 5;
+  if (w >= rows) return;
+  const int r = row0 + w;
+  const int qh = r / sq, i = r - qh * sq;
+  const int lane = threadIdx.x & 31;
+  // [B, ns, sq, h] row of this (request, split, chunk row, query head)
+  const size_t row = ((static_cast<size_t>(b) * ns + s) * sq + i) * h +
+                     kvh * m + qh;
+  float* ob = o_part + row * hd + lane;
+  const int ni = hd / 32;
+#pragma unroll
+  for (int k = 0; k < repro::WALK_MAX_NI; ++k)
+    if (k < ni) ob[32 * k] = st.acc[k];
+  if (lane == 0) {
+    m_part[row] = st.m;
+    l_part[row] = st.l;
+  }
+}
+
+// One warp per (request, chunk row, query head): combine its ns partials.
+template <typename T>
+__global__ void lse_merge_kernel(const float* __restrict__ o_part,
+                                 const float* __restrict__ m_part,
+                                 const float* __restrict__ l_part,
+                                 T* __restrict__ out, int B, int ns, int rows,
+                                 int hd) {
+  const int lane = threadIdx.x & 31;
+  const long long wid =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  if (wid >= static_cast<long long>(B) * rows) return;
+  const int b = static_cast<int>(wid / rows);
+  const int r = static_cast<int>(wid - static_cast<long long>(b) * rows);
+  // rows = sq * h; partial row (b, s, r) sits at (b * ns + s) * rows + r
+  float m_max = repro::NEG_INF;
+  for (int s = lane; s < ns; s += 32)
+    m_max = fmaxf(m_max, m_part[(static_cast<size_t>(b) * ns + s) * rows + r]);
+  m_max = repro::warp_max(m_max);
+  float l_tot = 0.f;
+  float acc[repro::WALK_MAX_NI];
+#pragma unroll
+  for (int k = 0; k < repro::WALK_MAX_NI; ++k) acc[k] = 0.f;
+  const int ni = hd / 32;
+  for (int s = 0; s < ns; ++s) {
+    const size_t row = (static_cast<size_t>(b) * ns + s) * rows + r;
+    const float wgt = expf(fminf(m_part[row] - m_max, 0.f));
+    l_tot += l_part[row] * wgt;
+    const float* op = o_part + row * hd + lane;
+#pragma unroll
+    for (int k = 0; k < repro::WALK_MAX_NI; ++k)
+      if (k < ni) acc[k] += op[32 * k] * wgt;
+  }
+  const float l = fmaxf(l_tot, 1e-30f);
+  T* ob = out + (static_cast<size_t>(b) * rows + r) * hd + lane;
+#pragma unroll
+  for (int k = 0; k < repro::WALK_MAX_NI; ++k)
+    if (k < ni) ob[32 * k] = repro::from_f<T>(acc[k] / l);
+}
+
+template <typename T>
+cudaError_t partials_t(const void* q, const void* kp, const void* vp,
+                       const int* tables, const int* pos, const int* lens,
+                       float* o_part, float* m_part, float* l_part, int B,
+                       int h, int g, int hd, int bs, int nbt, int sq, int ns,
+                       float scale, cudaStream_t stream) {
+  int nz, per;
+  repro::row_groups((h / g) * sq, &nz, &per);
+  const int npb = (nbt + ns - 1) / ns;
+  const size_t smem = repro::walk_smem_bytes(bs, hd, per);
+  cudaError_t e = repro::allow_smem(splitk_partials_kernel<T>, smem);
+  if (e != cudaSuccess) return e;
+  splitk_partials_kernel<T><<<dim3(B, g, ns * nz), 32 * per, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(kp),
+      static_cast<const T*>(vp), tables, pos, lens, o_part, m_part, l_part, h,
+      g, hd, bs, nbt, sq, ns, npb, nz, per, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t merge_t(const float* o_part, const float* m_part,
+                    const float* l_part, void* out, int B, int ns, int rows,
+                    int hd, cudaStream_t stream) {
+  const int threads = 128;  // four warps, one (request, row) each
+  const long long warps = static_cast<long long>(B) * rows;
+  const long long blocks = (warps * 32 + threads - 1) / threads;
+  lse_merge_kernel<T><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      o_part, m_part, l_part, static_cast<T*>(out), B, ns, rows, hd);
+  return cudaGetLastError();
+}
+
+bool bad_shape(int g, int h, int hd, int bs, int nbt) {
+  return g <= 0 || h % g != 0 || hd % 32 != 0 ||
+         hd > 32 * repro::WALK_MAX_NI || bs <= 0 || nbt <= 0;
+}
+
+}  // namespace
+
+extern "C" int splitk_partials_launch(const void* q, const void* k_pool,
+                                      const void* v_pool, const void* tables,
+                                      const void* pos, const void* lens,
+                                      void* o_part, void* m_part,
+                                      void* l_part, int B, int sq, int h,
+                                      int g, int hd, int bs, int nbt, int ns,
+                                      float scale, int dtype, void* stream) {
+  if (B <= 0 || sq <= 0) return 0;
+  if (bad_shape(g, h, hd, bs, nbt) || ns <= 0) return cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(tables);
+  const int* ps = static_cast<const int*>(pos);
+  const int* ln = static_cast<const int*>(lens);
+  float* o = static_cast<float*>(o_part);
+  float* m = static_cast<float*>(m_part);
+  float* l = static_cast<float*>(l_part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = partials_t<float>(q, k_pool, v_pool, tb, ps, ln, o, m, l, B, h, g, hd,
+                          bs, nbt, sq, ns, scale, s);
+  else if (dtype == DT_BF16)
+    e = partials_t<__nv_bfloat16>(q, k_pool, v_pool, tb, ps, ln, o, m, l, B,
+                                  h, g, hd, bs, nbt, sq, ns, scale, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+extern "C" int lse_merge_launch(const void* o_part, const void* m_part,
+                                const void* l_part, void* out, int B, int ns,
+                                int rows, int hd, int dtype, void* stream) {
+  if (B <= 0 || rows <= 0) return 0;
+  if (ns <= 0 || hd % 32 != 0 || hd > 32 * repro::WALK_MAX_NI)
+    return cudaErrorInvalidValue;
+  const float* o = static_cast<const float*>(o_part);
+  const float* m = static_cast<const float*>(m_part);
+  const float* l = static_cast<const float*>(l_part);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = merge_t<float>(o, m, l, out, B, ns, rows, hd, s);
+  else if (dtype == DT_BF16)
+    e = merge_t<__nv_bfloat16>(o, m, l, out, B, ns, rows, hd, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}

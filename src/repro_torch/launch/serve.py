@@ -2,7 +2,7 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       [--reduced] [--device cuda|cpu] [--dtype bfloat16|float32] \\
-      --rps 2 --requests 40 --adapters 2
+      [--spec K] --rps 2 --requests 40 --adapters 2
 
 Runs on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
 random, drawn from ``--seed``.  Prints what the JAX CLI prints for the
@@ -23,6 +23,7 @@ from repro_torch.models.schema import init_params
 from repro_torch.serving.engine import EngineConfig, UnifiedEngine
 from repro_torch.serving.request import PRIORITY_CLASSES, Request
 from repro_torch.serving.slo import SLOConfig, slo_attainment
+from repro_torch.spec import SpecConfig
 
 
 def main(argv=None):
@@ -44,6 +45,9 @@ def main(argv=None):
                     help="per-tick prefill-token budget (0 = unchunked)")
     ap.add_argument("--no-hash-dedup", action="store_true",
                     help="disable content-hash KV block dedup")
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="speculative decoding with up to K drafted tokens "
+                         "(n-gram prompt-lookup drafter)")
     ap.add_argument("--priority", default="standard",
                     choices=["interactive", "standard", "batch", "mixed"])
     ap.add_argument("--seed", type=int, default=0)
@@ -65,7 +69,9 @@ def main(argv=None):
     eng = UnifiedEngine(model, EngineConfig(
         capacity=8, pf_capacity=4, s_max=256,
         virtual_time=not args.wall_clock, prefill_chunk=args.prefill_chunk,
-        hash_dedup=not args.no_hash_dedup))
+        hash_dedup=not args.no_hash_dedup,
+        spec=(SpecConfig(k_max=args.spec, drafter="ngram") if args.spec > 0
+              else None)))
 
     prompts = datasets.sharegpt_prompts(args.requests, vocab=cfg.vocab,
                                         seed=args.seed)
@@ -95,6 +101,10 @@ def main(argv=None):
               f"swap_in_bytes={m.adapter_swap_in_bytes} "
               f"resident_hits={m.adapter_resident_hits} "
               f"peak_coresident={m.adapter_peak_coresident}")
+    if args.spec > 0:
+        print(f"spec: drafted={m.spec_drafted} accepted={m.spec_accepted} "
+              f"acceptance={m.spec_accepted / max(m.spec_drafted, 1):.2f} "
+              f"steps={m.steps}")
     if eng.hash_dedup:
         print(f"dedup: hash_hits={m.hash_hits} "
               f"resident_blocks={m.hash_blocks_resident} "

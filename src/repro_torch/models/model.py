@@ -9,12 +9,16 @@ Port of the serving path of ``repro.models.model``.  Differences of form:
 * the JAX functions return a new cache; here the paged pool is written in
   place (``_paged_write_prompt`` / ``_paged_write_chunk`` are index writes
   into the pool tensor) and ``unified_forward`` returns the same cache;
-* on CUDA tensors, suffix prefill and decode attention are the hand-written
-  kernels (``kernels.prefill_attn``, ``kernels.decode_attn``); their plain
-  versions run only for CPU tensors.  There is no backend switch.
+* on CUDA tensors, suffix prefill, decode and verify attention are the
+  hand-written kernels (``kernels.prefill_attn``, ``kernels.decode_attn``,
+  ``kernels.verify_attn``, ``kernels.splitk``); their plain versions run
+  only for CPU tensors.  There is no backend switch: the decode/verify
+  bucket takes the split-K kernels whenever ``kernels.autotune.choose``
+  gives more than one split for its shape, as the JAX ``splitk`` kernel
+  modes do.
 
-The ft bucket, dense-row caches, verify chunks, MLA, Mamba, MoE and cross-
-attention belong to later slices and raise here.
+The ft bucket, dense-row caches, MLA, Mamba, MoE and cross-attention belong
+to later slices and raise here.
 """
 from __future__ import annotations
 
@@ -24,9 +28,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.lora import dense
-from repro_torch.kernels import ops
+from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
+from repro_torch.kernels.splitk import (paged_decode_attention_splitk,
+                                        paged_verify_attention_splitk)
+from repro_torch.kernels.verify_attn import paged_verify_attention
 from repro_torch.models import layers as L
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models.schema import check_supported
@@ -46,20 +53,19 @@ class _Plan:
         pf, dec = batch.pf, batch.dec
         self.pf, self.dec = pf, dec
         self.Bp, self.Sp = tuple(pf.tokens.shape) if pf is not None else (0, 0)
+        # decode bucket: [Bd] plain decode or [Bd, Sd] verify chunks
         if dec is not None:
-            if dec.tokens.ndim != 1:
-                raise NotImplementedError(
-                    "verify chunks come with the speculation slice")
             self.Bd = dec.tokens.shape[0]
+            self.Sd = dec.tokens.shape[1] if dec.tokens.ndim == 2 else 1
         else:
-            self.Bd = 0
-        self.sizes = [self.Bp * self.Sp, self.Bd]
+            self.Bd, self.Sd = 0, 1
+        self.sizes = [self.Bp * self.Sp, self.Bd * self.Sd]
         self.T = sum(self.sizes)
         ids = []
         if pf is not None:
             ids.append(torch.repeat_interleave(pf.adapter, self.Sp))
         if dec is not None:
-            ids.append(dec.adapter)
+            ids.append(torch.repeat_interleave(dec.adapter, self.Sd))
         self.ids = torch.cat(ids) if ids else None
         self.route = None
         if lora_scale is not None and self.ids is not None:
@@ -83,16 +89,21 @@ class _Plan:
             if dec.block_tables is None:
                 raise NotImplementedError(
                     "dense-row caches are not ported; use the paged layout")
+            # per-query positions of the (1 + k)-token chunk, and per-row
+            # valid chunk lengths (trailing draft slots may be padding)
             self.dec_pos = dec.pos
+            ard = torch.arange(self.Sd, dtype=torch.int32,
+                               device=dec.pos.device)
+            self.dec_qpos = dec.pos[:, None] + ard[None, :]
             self.dec_len = (dec.length if dec.length is not None
-                            else torch.ones_like(dec.pos))
+                            else torch.full_like(dec.pos, self.Sd))
 
     def split(self, x: torch.Tensor):
-        """[T, ...] -> (xp [Bp, Sp, ...], xd [Bd, 1, ...])"""
+        """[T, ...] -> (xp [Bp, Sp, ...], xd [Bd, Sd, ...])"""
         t0 = self.sizes[0]
         rest = x.shape[1:]
         xp = x[:t0].reshape(self.Bp, self.Sp, *rest) if t0 else None
-        xd = x[t0:].reshape(self.Bd, 1, *rest) if self.Bd else None
+        xd = x[t0:].reshape(self.Bd, self.Sd, *rest) if self.Bd else None
         return xp, xd
 
 
@@ -208,19 +219,31 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                                   causal=True)
             _paged_write_prompt(k_pool, kh, pf.block_tables)
             _paged_write_prompt(v_pool, vh, pf.block_tables)
-    if qd is not None:           # decode: one token per row
-        dec = plan.dec
-        dpos = plan.dec_pos[:, None]
-        qh = _rope_heads(qd, dpos, h, cfg.rope_theta)
-        kh = _rope_heads(kd, dpos, kv, cfg.rope_theta)
-        vh = vd.reshape(plan.Bd, 1, kv, hd)
-        _paged_write_chunk(k_pool, kh, dec.block_tables, plan.dec_pos,
-                           plan.dec_len)
-        _paged_write_chunk(v_pool, vh, dec.block_tables, plan.dec_pos,
-                           plan.dec_len)
-        o = paged_decode_attention(qh[:, 0].contiguous(), k_pool, v_pool,
-                                   dec.block_tables, plan.dec_pos)
-        outs[1] = o[:, None]
+    if qd is not None:           # decode / verify: (1 + k)-token chunk
+        dec, Sd, ns = plan.dec, plan.Sd, plan.num_splits
+        tbl, dpos, dlen = dec.block_tables, plan.dec_pos, plan.dec_len
+        qh = _rope_heads(qd, plan.dec_qpos, h, cfg.rope_theta)
+        kh = _rope_heads(kd, plan.dec_qpos, kv, cfg.rope_theta)
+        vh = vd.reshape(plan.Bd, Sd, kv, hd)
+        _paged_write_chunk(k_pool, kh, tbl, dpos, dlen)
+        _paged_write_chunk(v_pool, vh, tbl, dpos, dlen)
+        # the shape decides: one split walks the table in one thread block
+        # per (request, KV head); more split it and merge (flash decoding)
+        if Sd == 1 and ns == 1:
+            o = paged_decode_attention(qh[:, 0].contiguous(), k_pool, v_pool,
+                                       tbl, dpos)[:, None]
+        elif Sd == 1:
+            o = paged_decode_attention_splitk(
+                qh[:, 0].contiguous(), k_pool, v_pool, tbl, dpos,
+                num_splits=ns, lens=dlen)[:, None]
+        elif ns == 1:
+            o = paged_verify_attention(qh.contiguous(), k_pool, v_pool, tbl,
+                                       dpos, dlen)
+        else:
+            o = paged_verify_attention_splitk(qh.contiguous(), k_pool,
+                                              v_pool, tbl, dpos, dlen,
+                                              num_splits=ns)
+        outs[1] = o
     out = _merge_flat(plan, *outs)
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
 
@@ -251,6 +274,12 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     plan = _Plan(cfg, batch, lora_scale, block_t)
     if cache is None:
         raise ValueError("prefill/decode buckets require a cache")
+    if plan.Bd:
+        # one split choice per forward, keyed as the JAX model keys it
+        plan.num_splits = autotune.choose(
+            cfg.hd, cache["k"].shape[2], batch.dec.block_tables.shape[1],
+            plan.Bd * cfg.n_heads,
+            lanes=autotune.effective_lanes(cache["k"].device)).num_splits
     toks = []
     if batch.pf is not None:
         toks.append(batch.pf.tokens.reshape(-1))
@@ -269,7 +298,9 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     xp, xd = plan.split(x)
     pf_logits = dec_logits = None
     if xd is not None:
-        dec_logits = xd[:, 0] @ head
+        # [Bd, V] for plain decode; [Bd, Sd, V] for verify chunks (one
+        # next-token distribution per chunk position, the acceptance oracle)
+        dec_logits = xd[:, 0] @ head if plan.Sd == 1 else xd @ head
     if xp is not None:
         last = (batch.pf.length.long() - 1).clamp(min=0)
         pf_logits = xp[torch.arange(plan.Bp, device=x.device), last] @ head

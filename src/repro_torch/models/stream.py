@@ -1,8 +1,9 @@
 """Unified token-stream batch types (the paper's four request kinds), holding
 torch tensors.  Same fields and layouts as ``repro.models.stream``; any subset
-of (ft, pf, dec) may be present.  The serving slice runs the pf and dec
-buckets; the ft bucket (``FTBatch``) comes with the training slice, and a
-batch that carries one is refused."""
+of (ft, pf, dec) may be present.  The serving path runs the pf and dec
+buckets (dec as plain decode or speculative verify chunks); the ft bucket
+(``FTBatch``) comes with the training slice, and a batch that carries one is
+refused."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -25,9 +26,13 @@ class PFBatch(NamedTuple):
 
 
 class DECBatch(NamedTuple):
-    """Decode bucket: ``tokens`` is ``[Bd]`` for plain one-token decode
-    (``[Bd, Sd]`` verify chunks belong to the speculation slice)."""
-    tokens: Tensor                   # [Bd] int32
+    """Decode/verify bucket.  ``tokens`` is ``[Bd]`` for plain one-token
+    decode, or ``[Bd, Sd]`` for speculative verify chunks: each row carries
+    its current token plus up to ``Sd - 1`` drafts, verified in one
+    forward.  ``length`` gives each row's real chunk length (1 = plain
+    decode row, 0 = padding row); trailing positions write to the null
+    block."""
+    tokens: Tensor                   # [Bd] or [Bd, Sd] int32
     pos: Tensor                      # [Bd] int32 start positions (= cache len)
     adapter: Tensor                  # [Bd] int32
     block_tables: Optional[Tensor] = None  # [Bd, nbt] int32
@@ -45,6 +50,6 @@ class ModelOut(NamedTuple):
     ft_tok_count: Optional[Tensor]   # [Bf] f32 valid target tokens
     ft_logits: Optional[Tensor]      # [Bf, Sf, V] (only if requested)
     pf_logits: Optional[Tensor]      # [Bp, V] logits at last valid position
-    dec_logits: Optional[Tensor]     # [Bd, V]
+    dec_logits: Optional[Tensor]     # [Bd, V]; [Bd, Sd, V] for verify chunks
     cache: Optional[dict]
     aux_loss: Tensor                 # scalar

@@ -1,16 +1,19 @@
 """UnifiedEngine — the Loquetier runtime on the serve path.
 
-Every tick assembles ONE unified batch (prefill + decode), executes ONE
-forward step, then scatters sampled tokens back to the requests.  Port of
-``repro.serving.engine`` with its default settings: paged KV,
-``block_size=32``, content-hash dedup on, suffix-only prefill over adopted
-prefixes.  Tensors live on the model's device; the K/V pool is written in
-place by the model, so ``cachemgr.update`` is a no-op.
+Every tick assembles ONE unified batch (prefill + decode or verify),
+executes ONE forward step, then scatters sampled tokens back to the
+requests.  Port of ``repro.serving.engine`` with its default settings: paged
+KV, ``block_size=32``, content-hash dedup on, suffix-only prefill over
+adopted prefixes, and speculative decoding under ``EngineConfig.spec``
+(model-free drafters, ``(1 + k)``-token verify chunks, exact greedy
+acceptance, rollback through ``PagedCacheManager.truncate``).  Tensors live
+on the model's device; the K/V pool is written in place by the model, so
+``cachemgr.update`` is a no-op.
 
-Fine-tuning rows and trainers (``add_trainer``), speculation (``spec``), the
-host KV tier (``kv_host_blocks``), unified adapter paging
-(``adapter_paging``), over-admission lending and the dense-row layout belong
-to later slices and raise ``NotImplementedError``.
+Fine-tuning rows and trainers (``add_trainer``), the host KV tier
+(``kv_host_blocks``), unified adapter paging (``adapter_paging``),
+over-admission lending and the dense-row layout belong to later slices and
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +30,9 @@ from repro_torch.serving.kvcache import (OutOfBlocksError, PagedCacheManager,
                                          request_chain_keys)
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
-from repro_torch.serving.slo import Metrics, SLOConfig
+from repro_torch.serving.slo import Metrics, SLOConfig, spread_token_times
+from repro_torch.spec import AdaptiveK, Drafter, accept_greedy_ids, \
+    make_drafter
 
 TRAINING_SLICE = "the training slice (ft rows, grad step, AdamW, trainer)"
 FEATURES_SLICE = "a later engine-features slice"
@@ -48,7 +53,7 @@ class EngineConfig:
     block_size: int = 32              # KV tokens per block
     n_blocks: int = 0                 # pool size; 0 = match dense capacity
     over_admit: float = 1.0           # reservation lending (later slice)
-    spec: Optional[object] = None     # speculative decoding (later slice)
+    spec: Optional[object] = None     # spec.SpecConfig (speculation)
     prefill_chunk: int = 0            # per-tick prefill-token budget
     hash_dedup: bool = True           # content-hash block dedup
     adapter_paging: bool = False      # unified adapter paging (later slice)
@@ -63,8 +68,7 @@ class UnifiedEngine:
         self.ecfg = ecfg or EngineConfig()
         self.cfg = model.cfg
         e = self.ecfg
-        for flag, name in ((e.spec is not None, "spec"),
-                           (e.adapter_paging, "adapter_paging"),
+        for flag, name in ((e.adapter_paging, "adapter_paging"),
                            (not e.paged, "paged=False (dense rows)")):
             if flag:
                 raise NotImplementedError(f"{name} comes with "
@@ -99,6 +103,30 @@ class UnifiedEngine:
         self.active: Dict[int, Request] = {}  # decode slot -> request
         self.finished: List[Request] = []
         self._last_tokens = np.zeros((e.capacity,), np.int64)
+        # speculative decoding: rollback-able K/V (paged blocks) and a
+        # positional cache, which the attention-only decoder has
+        self.spec = e.spec if (e.spec is not None and e.spec.enabled) \
+            else None
+        self._spec: Dict[int, Tuple[Drafter, AdaptiveK]] = {}
+
+    @property
+    def spec_headroom(self) -> int:
+        """Transient +k draft tokens each resident request may hold
+        mid-verify, charged to its block budget at admission."""
+        return self.spec.k_max if self.spec else 0
+
+    def _headroom_for(self, r: Request) -> int:
+        """Per-request draft headroom: when the +k charge would push the
+        request past the whole pool (it fits its plain projection but not
+        the inflated one), admit it with no reserved draft room instead of
+        stranding it; its drafts then ride the best-effort overshoot path
+        in ``grow`` and are trimmed when the pool is dry."""
+        h = self.spec_headroom
+        if h and self.cachemgr.projected_blocks(
+                r.prompt_len, r.remaining_new + h) \
+                > self.cachemgr.total_blocks:
+            return 0
+        return h
 
     # ------------------------------------------------------------------
     def submit(self, req: Request):
@@ -176,7 +204,9 @@ class UnifiedEngine:
             s_max=e.s_max,
             need_fn=lambda r: cm.fresh_need(
                 r.prompt_len, r.remaining_new, r.prompt, r.adapter,
-                keys=self._keys_of(r), shareable=r.aux_embed is None),
+                headroom=self._headroom_for(r), keys=self._keys_of(r),
+                shareable=r.aux_embed is None),
+            spec_headroom=self.spec_headroom,
             pf_rows_used=len(pf_reqs), pf_token_budget=budget_left,
             suffix_fn=lambda r: r.prompt_len - self._resident_tokens(r),
             chunked=bool(self.chunk_budget),
@@ -210,29 +240,65 @@ class UnifiedEngine:
             for name in resolved:
                 self.model.store.release(name)
 
-        # decode bucket: the full capacity table whenever a request is
-        # active; block growth first, preempting when a fork finds the pool
-        # dry
+        # decode / verify bucket: the full capacity table whenever a
+        # request is active; chunk width 1 + k_max whenever speculation is
+        # on, so the bucket shape is fixed
         use_dec = bool(self.active)
-        plans: List[Tuple[int, Request, int]] = []
+        Sd = 1 + (self.spec.k_max if (self.spec and use_dec) else 0)
+        drafts: Dict[int, np.ndarray] = {}
+        dec_lens = None
+        plans: List[Tuple[int, Request, int, np.ndarray]] = []
         if use_dec:
+            # phase 1: drafts and block growth, preempting when a fork
+            # finds the pool dry.  Slots carrying a prefill row this tick
+            # are pinned: their PFReq already holds a block table.
             pinned = frozenset(c[0].dec_slot for c in chunks)
             for slot, r in list(self.active.items()):
                 if slot not in self.active:
                     continue              # preempted as an earlier victim
                 L = int(cm.lens[slot])
-                self._grow_or_preempt(slot, r, L, pinned)
-                if slot in self.active:
-                    plans.append((slot, r, L))
+                draft = np.zeros((0,), np.int64)
+                if Sd > 1:
+                    drafter, ctl = self._spec[slot]
+                    # clamp drafts to what the request can still emit and
+                    # to the context limit (writes land at L .. L + k)
+                    k = min(ctl.k, r.max_new_tokens - len(r.output) - 1,
+                            e.s_max - 1 - L)
+                    if k > 0:
+                        # the prompt already holds output[:rolled] after a
+                        # preemption: append only the unrolled tail
+                        draft = np.asarray(drafter.draft(
+                            np.concatenate([np.asarray(r.prompt, np.int64),
+                                            np.asarray(r.output[r.rolled:],
+                                                       np.int64)]),
+                            k), np.int64)
+                # grow the table over the chunk and copy-on-write shared
+                # blocks in the write range; a dry pool trims the draft tail
+                writable = self._grow_or_preempt(slot, r, L, 1 + len(draft),
+                                                 pinned)
+                if slot not in self.active:
+                    continue              # became its own victim
+                draft = draft[:max(writable - 1, 0)]
+                plans.append((slot, r, L, draft))
             plans = [p for p in plans if p[0] in self.active]
             use_dec = bool(plans)
         planned = frozenset(p[0] for p in plans)
         if use_dec:
-            dec_tokens = np.zeros((e.capacity,), np.int64)
+            # phase 2: assemble the bucket from the surviving rows
+            dec_tokens = (np.zeros((e.capacity, Sd), np.int64) if Sd > 1
+                          else np.zeros((e.capacity,), np.int64))
             dec_pos = np.zeros((e.capacity,), np.int64)
             dec_slots = np.full((e.capacity,), -1, np.int64)
-            for slot, r, L in plans:
-                dec_tokens[slot] = self._last_tokens[slot]
+            if Sd > 1:
+                dec_lens = np.zeros((e.capacity,), np.int64)
+            for slot, r, L, draft in plans:
+                if Sd > 1:
+                    dec_tokens[slot, 0] = self._last_tokens[slot]
+                    dec_tokens[slot, 1:1 + len(draft)] = draft
+                    dec_lens[slot] = 1 + len(draft)
+                    drafts[slot] = draft
+                else:
+                    dec_tokens[slot] = self._last_tokens[slot]
                 dec_pos[slot] = L
                 dec_slots[slot] = (self.model.store.slot_of(r.adapter)
                                    if r.adapter else -1)
@@ -248,14 +314,16 @@ class UnifiedEngine:
             return False
 
         batch = flow.assemble(pf_reqs, dec_tokens, dec_pos, dec_slots,
-                              e.flow, self.device, dec_tables=dec_tables)
+                              e.flow, self.device, dec_tables=dec_tables,
+                              dec_lens=dec_lens)
         if pf_reqs and self.active and batch.dec is None:
             self.metrics.starved_ticks += 1
         store = self.model.store
         out = self.forward_step(self.model.base, store.bank, store.scale,
                                 batch, cm.step_cache())
         # the one step barrier: greedy tokens drive the next tick's inputs
-        # (argmax on the device, only token ids cross to the host)
+        # (argmax on the device, only token ids cross to the host; [Bd, Sd]
+        # of them for verify chunks)
         pf_tok_ids = (out.pf_logits.argmax(-1).cpu().numpy()
                       if out.pf_logits is not None else None)
         dec_tok_ids = (out.dec_logits.argmax(-1).cpu().numpy()
@@ -268,6 +336,8 @@ class UnifiedEngine:
             swap_bytes = store.swap_in_bytes - self._swaps_seen[1]
             self._swaps_seen = (store.swap_ins, store.swap_in_bytes)
             cost = self.clock.step_cost(pf_tok, len(self.active), 0,
+                                        dec_extra_tokens=int(sum(
+                                            len(d) for d in drafts.values())),
                                         adapter_swaps=swaps,
                                         adapter_swap_bytes=swap_bytes)
             self.clock.charge(cost)
@@ -312,6 +382,10 @@ class UnifiedEngine:
             for slot, r in list(self.active.items()):
                 if r.state is not State.DECODE or slot not in planned:
                     continue    # just prefilled this tick: no decode row
+                if Sd > 1:
+                    self._scatter_verify(slot, r, dec_tok_ids[slot],
+                                         drafts[slot], now)
+                    continue
                 tok = int(dec_tok_ids[slot])
                 r.output.append(tok)
                 r.token_times.append(now)
@@ -361,6 +435,7 @@ class UnifiedEngine:
             else:
                 aslot = -1
             adm = cm.try_admit(r.prompt, r.remaining_new, r.adapter,
+                               headroom=self._headroom_for(r),
                                shareable=r.aux_embed is None,
                                keys=self._keys_of(r),
                                priority=r.priority_class)
@@ -374,6 +449,14 @@ class UnifiedEngine:
                 r.adapter_retained = True
             r.dec_slot = slot
             r.state = State.PREFILL
+            if self.spec:
+                kind = ("suffix" if (self.spec.drafter == "suffix"
+                                     and r.draft_suffix is not None)
+                        else "ngram")
+                self._spec[slot] = (
+                    make_drafter(kind, ngram_n=self.spec.ngram_n,
+                                 suffix=r.draft_suffix),
+                    AdaptiveK(self.spec))
             self.waiting.remove(r)
             # suffix-only prefill: the shared prefix is read through the
             # full block table; writes land at positions >= cached_len.  A
@@ -397,14 +480,15 @@ class UnifiedEngine:
             chunks.append((r, take, r.prefilled + take >= r.prompt_len))
 
     # ---------------------------------------------------------- preemption
-    def _grow_or_preempt(self, slot: int, r: Request, L: int,
+    def _grow_or_preempt(self, slot: int, r: Request, L: int, n: int,
                          pinned: frozenset) -> int:
-        """``prepare_write`` of the token at ``L``; when a copy-on-write
-        finds the pool dry, preempt the lowest-priority resident (possibly
-        this one) and retry."""
+        """``prepare_write`` of the ``n`` chunk tokens from ``L``; when not
+        even the committed token at ``L`` can be written (a copy-on-write
+        found the pool dry), preempt the lowest-priority resident (possibly
+        this one) and retry.  Returns the writable token count."""
         while True:
             try:
-                writable = self.cachemgr.prepare_write(slot, L, 1)
+                writable = self.cachemgr.prepare_write(slot, L, n)
             except OutOfBlocksError:
                 writable = 0
             if writable >= 1:
@@ -441,9 +525,42 @@ class UnifiedEngine:
         r.state = State.WAITING
         r.preemptions += 1
         r.recount_pending = True
+        self._spec.pop(slot, None)
         self.cachemgr.free(slot)
         self.waiting.insert(0, r)
         self.metrics.preemptions += 1
+
+    def _scatter_verify(self, slot: int, r: Request, arg: np.ndarray,
+                        draft: np.ndarray, now: float):
+        """Greedy acceptance for one verify chunk (``arg``: the chunk's
+        argmax ids): keep the longest draft prefix matching the model's
+        argmax plus the bonus token, then roll the paged cache back past the
+        accepted length, releasing blocks the rejected drafts occupied."""
+        L = int(self.cachemgr.lens[slot])
+        n_acc, emitted = accept_greedy_ids(draft, arg)
+        # exactness clamps: never emit past max_new_tokens, stop at eos:
+        # the cuts plain greedy decode would have made tick by tick
+        emitted = emitted[:r.max_new_tokens - len(r.output)]
+        if r.eos_token >= 0 and r.eos_token in emitted:
+            emitted = emitted[:emitted.index(r.eos_token) + 1]
+        n_kept = len(emitted)
+        t_prev = r.token_times[-1] if r.token_times else now
+        r.token_times.extend(spread_token_times(t_prev, now, n_kept))
+        r.output.extend(emitted)
+        # the cache holds K/V of [current, accepted drafts]; the bonus token
+        # is the next step's input.  Roll back the rejected positions, then
+        # commit the accepted input tokens (which may publish blocks)
+        self.cachemgr.truncate(slot, L + n_kept)
+        self.cachemgr.commit_tokens(
+            slot, [int(self._last_tokens[slot])] + list(emitted[:-1]))
+        self._last_tokens[slot] = emitted[-1]
+        self.metrics.decode_tokens += n_kept
+        if len(draft):
+            self.metrics.spec_drafted += len(draft)
+            self.metrics.spec_accepted += n_acc
+            self.metrics.spec_steps += 1
+            self._spec[slot][1].update(len(draft), n_acc)
+        self._maybe_finish(r, now)
 
     def _maybe_finish(self, r: Request, now: float):
         done_len = len(r.output) >= r.max_new_tokens
@@ -453,6 +570,7 @@ class UnifiedEngine:
             r.state = State.DONE
             r.t_finish = now
             self.active.pop(r.dec_slot, None)
+            self._spec.pop(r.dec_slot, None)
             self.cachemgr.free(r.dec_slot)
             self._drop_retain(r)
             self.finished.append(r)

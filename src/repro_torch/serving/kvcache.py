@@ -395,6 +395,39 @@ class PagedCacheManager:
             self._debt += self._debt_of(slot) - d0
         return min(len(table) * self.block_size, self.s_max)
 
+    def truncate(self, slot: int, new_len: int):
+        """Roll ``slot`` back to ``new_len`` tokens (speculation rollback):
+        release table blocks past the new length, restoring the slot's
+        reservation debt.  Shared (adopted/CoW/index-held) blocks are only
+        dereferenced: another holder's refcount keeps them alive.  The slot's
+        own dedup record is de-published: its committed tokens and key chain
+        shrink with the length, so a re-fill with other content publishes
+        fresh keys (index entries for the old content stay valid)."""
+        new_len = max(int(new_len), 0)
+        table = self.tables[slot]
+        nb = -(-new_len // self.block_size)
+        if nb < len(table):
+            d0 = self._debt_of(slot)
+            dropped = len(table) - nb
+            freed = 0
+            for bid in table[nb:]:
+                self.allocator.decref(bid)
+                if self.allocator.ref[bid] == 0:
+                    freed += 1
+            del table[nb:]
+            self.shared_count[slot] = min(self.shared_count.get(slot, 0), nb)
+            # a dropped block that other holders keep alive never re-enters
+            # the free list, so the slot's re-grow claim on it is surrendered
+            # with it: re-crediting the full drop would make the debt exceed
+            # the blocks actually available
+            self.reserved[slot] = max(
+                self.reserved.get(slot, 0) - (dropped - freed), len(table))
+            self._debt += self._debt_of(slot) - d0
+        if slot in self._seqs:
+            self._seq_len[slot] = min(self._seq_len[slot], new_len)
+            del self._chains[slot][new_len // self.block_size:]
+        self.lens[slot] = new_len
+
     def prepare_write(self, slot: int, start: int, n: int) -> int:
         """Make positions ``[start, start + n)`` writable: grow the table and
         copy-on-write every shared block in the range.  Returns how many of

@@ -134,7 +134,7 @@ def test_default_planner_pads_like_jax():
 def test_engine_raises_for_later_slices(pair):
     cfg, params, store = pair[3:]
     model = MixedLoraModel(cfg, params, store)
-    for kw in (dict(spec=object()), dict(kv_host_blocks=4),
+    for kw in (dict(kv_host_blocks=4),
                dict(adapter_paging=True), dict(over_admit=2.0),
                dict(paged=False)):
         with pytest.raises(NotImplementedError):

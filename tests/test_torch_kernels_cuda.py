@@ -16,6 +16,11 @@ from repro_torch.kernels.bgmv import bgmv
 from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
 from repro_torch.kernels.smlm import smlm
+from repro_torch.kernels.splitk import (lse_merge,
+                                        paged_decode_attention_splitk,
+                                        paged_verify_attention_splitk,
+                                        splitk_partials)
+from repro_torch.kernels.verify_attn import paged_verify_attention
 
 
 def t(x):
@@ -95,3 +100,63 @@ def test_cuda_paged_attention_matches_plain(dtype):
     args = (qp, kpd, vpd, cuda(tables), cuda(cached), cuda(seg))
     _close(paged_prefill_attention(*args), ref.paged_prefill_ref(*args),
            dtype)
+
+
+def _chunk_case(rng, dev, dtype, B, Sq, h, g, hd, bs, nbt, pos, lens):
+    """Pools and tables naming the blocks of keys 0 .. pos + lens - 1."""
+    n_blocks = nbt * B + 2
+    kp = rng.standard_normal((n_blocks, bs, g, hd), dtype=np.float32)
+    vp = rng.standard_normal((n_blocks, bs, g, hd), dtype=np.float32)
+    tables = np.zeros((B, nbt), np.int32)
+    for b in range(B):
+        need = -(-int(pos[b] + lens[b]) // bs)
+        tables[b, :need] = rng.choice(np.arange(1, n_blocks), size=need,
+                                      replace=False)
+    q = rng.standard_normal((B, Sq, h, hd), dtype=np.float32)
+    cuda = lambda x: t(x).to(dev)
+    return (cuda(q).to(dtype), cuda(kp).to(dtype), cuda(vp).to(dtype),
+            cuda(tables), cuda(pos.astype(np.int32)),
+            cuda(lens.astype(np.int32)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_verify_matches_plain(dtype):
+    """The serving verify shape (B=8, Sq=5, h=32, g=8, hd=128, bs=32,
+    nbt=16): chunks straddling block edges, a partial chunk, a lens == 0
+    row with a real table and an inactive row (both pos 0: exact 0)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    pos = np.array([0, 0, 30, 61, 100, 200, 300, 506])
+    lens = np.array([0, 0, 5, 5, 2, 5, 1, 5])
+    args = _chunk_case(rng, dev, dtype, 8, 5, 32, 8, 128, 32, 16, pos, lens)
+    args[3][0] = 0
+    args[3][1, 0] = 7                       # a real block, but lens 0
+    y = paged_verify_attention(*args)
+    _close(y, ref.paged_verify_ref(*args), dtype)
+    assert float(y[:2].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [1, 2, 4, 8, 200])
+def test_cuda_splitk_matches_plain(dtype, ns):
+    """Long context (B=2, nbt=128, bs=32): split-K verify and decode, the
+    partials and the merge each against their plain versions, ns above nbt
+    included."""
+    dev = _card()
+    rng = np.random.default_rng(ns)
+    pos, lens = np.array([3001, 2900]), np.array([5, 3])
+    args = _chunk_case(rng, dev, dtype, 2, 5, 32, 8, 128, 32, 128, pos, lens)
+    o, m, l = splitk_partials(*args, ns)
+    po, pm, pl = ref.splitk_partials_ref(*args, ns)
+    _close(o, po, dtype)
+    _close(torch.exp(m - m.amax(1, keepdim=True)) * l,
+           torch.exp(pm - pm.amax(1, keepdim=True)) * pl, dtype)
+    _close(lse_merge(o, m, l, dtype), ref.lse_merge(o, m, l), dtype)
+    _close(paged_verify_attention_splitk(*args, num_splits=ns),
+           ref.paged_verify_ref(*args), dtype)
+    q, kp, vp, tables, p, _ = args
+    _close(paged_decode_attention_splitk(q[:, 0].contiguous(), kp, vp,
+                                         tables, p, num_splits=ns),
+           ref.paged_decode_ref(q[:, 0], kp, vp, tables, p), dtype)

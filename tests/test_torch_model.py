@@ -135,9 +135,12 @@ def test_unified_forward_matches_jax_over_prefill_decode_and_suffix(setup):
 
 
 def test_unified_forward_rejects_unported_buckets(setup):
+    """The fine-tune bucket comes with the training slice (verify chunks
+    are served since the speculation slice: ``test_torch_spec.py``)."""
     s = setup
     _, tb = _batches(dec=dict(tokens=_i32([[1, 2]]), pos=_i32([0]),
                               adapter=_i32([0]), tables=_table()[None]))
+    tb = tb._replace(ft=(torch.zeros((1, 8), dtype=torch.int32),))
     cache = TM.init_paged_cache(s["cfg"], NB, BS, torch.device("cpu"),
                                 torch.float32)
     with pytest.raises(NotImplementedError):
