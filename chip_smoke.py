@@ -2,32 +2,46 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
+    python3 chip_smoke.py --paged-timing [--root TREE] [--iters N]
+
+The second form only checks and times the paged attention kernels (3-6 of
+``PERF.md``) of the port in ``TREE`` (default: this checkout), at the
+shapes below: run it over two checkouts in turns (A, B, B, A) within one
+call to compare a kernel change with its parent.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
 
-1. build   — compile the six CUDA kernel libraries from ``src/repro_torch/
-             kernels/csrc`` (one nvcc per source, in parallel).
+1. build   — compile the seven CUDA kernel libraries (eight kernels: the
+             decode library holds the paged and the dense-row decode) from
+             ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
+             parallel).
 2. kernels — each kernel vs its plain PyTorch version on the card at the
              main path's shapes, bf16 and fp32, with the stated tolerance
              (verify at B=8 Sq=5 with a lens 0 row and an inactive row, both
              exactly 0; split-K decode and verify, partials and merge at the
              long-context shape B=2 nbt=128 for ns in 1, 2, 4, 8 and one
-             ns > nbt); then, in bf16 at one main-path shape each, kernel,
-             plain and library times (CUDA events after warm-up) beside the
-             bound, and at the long-context shape the time of every
-             candidate split beside ``autotune.choose``'s pick.
+             ns > nbt; flash attention causal and not, ragged lengths with a
+             0 and S != T; dense-row decode linear and rolling); then, in
+             bf16 at one main-path shape each, kernel, plain and library
+             times (CUDA events after warm-up) beside the bound, and at the
+             long-context shape the time of every candidate split beside
+             ``autotune.choose``'s pick.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
              logits within tolerance; then the same with speculation (suffix
              drafter fed the plain outputs): tokens equal on both devices
-             and to the plain run's, drafts accepted, verify kernel used.
+             and to the plain run's, drafts accepted, verify kernel used;
+             then the dense-row engine (``paged=False``): tokens equal on
+             both devices and to the paged run's, the flash and dense-decode
+             kernels used.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
-             prefill rows carry cached_len), 16 new tokens each; every
-             kernel's launch counter must be > 0 for that run.
+             prefill rows carry cached_len; wave 1's cold prefills take the
+             flash kernel), 16 new tokens each; every kernel's launch
+             counter must be > 0 for that run.
 5. spec    — the same weights and requests with ``SpecConfig(k_max=4,
              drafter="suffix")`` fed each prompt plus the plain run's output:
              all finish, logits finite, the pool drains pristine, the verify
@@ -35,13 +49,22 @@ printing its lines; any failure raises and exits non-zero:
              per second and the tokens equal to the plain run's are printed.
 6. long    — the same weights at capacity 2, s_max 4096: 2 requests with
              ~3000-token prompts, 16 new tokens, without and with
-             speculation; the split-K decode and verify kernels launched.
+             speculation; the split-K decode and verify kernels launched,
+             and the flash kernel for the cold 3000-token prefills.
+7. dense   — the waves of phase 4 through ``EngineConfig(paged=False)``
+             (dense rows, every prompt prefilled whole): all finish, logits
+             finite, the flash and dense-decode kernels launched; then both
+             layouts in turns (paged, dense, dense, paged, twice), their
+             decode ticks side by side.
 
-Then one JSON line of per-kernel numbers, the card's name and power limit,
-and the last line ``{"ok": true, "device": {...}}``.
+Then one JSON line of per-kernel numbers (``launches`` from the kernel's
+main-path run, named in ``launches_path``; ``launches_by_path`` from every
+run of phases 4-7 that launched it), the card's name and power limit, and
+the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -57,8 +80,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|plain| per row
 
 
-def _import_port():
-    sys.path.insert(0, os.path.join(ROOT, "src"))
+def _import_port(root: str = ROOT, paged_only: bool = False):
+    """The port's kernel wrappers from ``root``; ``paged_only``: only
+    those of kernels 1-6, which every checkout of the port has."""
+    sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.core.flow import FlowConfig
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.bgmv import bgmv
@@ -68,20 +93,23 @@ def _import_port():
     from repro_torch.kernels.smlm import smlm
     from repro_torch.kernels import autotune, splitk
     from repro_torch.kernels.verify_attn import paged_verify_attention
-    return dict(build=build, ref=ref, smlm=smlm, bgmv=bgmv, route=route,
-                block_t=FlowConfig().block_t,
-                decode=paged_decode_attention,
-                prefill=paged_prefill_attention,
-                verify=paged_verify_attention,
-                decode_splitk=splitk.paged_decode_attention_splitk,
-                verify_splitk=splitk.paged_verify_attention_splitk,
-                partials=splitk.splitk_partials, merge=splitk.lse_merge,
-                autotune=autotune)
+    K = dict(build=build, ref=ref, smlm=smlm, bgmv=bgmv, route=route,
+             block_t=FlowConfig().block_t, decode=paged_decode_attention,
+             prefill=paged_prefill_attention, verify=paged_verify_attention,
+             decode_splitk=splitk.paged_decode_attention_splitk,
+             verify_splitk=splitk.paged_verify_attention_splitk,
+             partials=splitk.splitk_partials, merge=splitk.lse_merge,
+             autotune=autotune)
+    if not paged_only:
+        from repro_torch.kernels.decode_attn import decode_attention
+        from repro_torch.kernels.flash_attn import flash_attention
+        K.update(dense_decode=decode_attention, flash=flash_attention)
+    return K
 
 
 # launch counters of the main path, by wrapper
 COUNTERS = ("smlm", "bgmv", "decode", "prefill", "verify", "partials",
-            "merge")
+            "merge", "flash", "dense_decode")
 
 
 def reset_counts(K):
@@ -95,7 +123,11 @@ def read_counts(K, names=COUNTERS):
 
 
 # ---------------------------------------------------------------- helpers
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+ITERS = 20          # timed calls per measurement (--iters)
+
+
+def time_ms(fn, iters: int = 0, warmup: int = 3) -> float:
+    iters = iters or ITERS
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -131,6 +163,14 @@ def compare(out, plain, dtype) -> float:
             f"{bad} of {len(err_row)} rows over the limit; worst row {worst}:"
             f" err {float(err_row[worst]):.3e} > {float(lim_row[worst]):.3e}")
     return float(err_row.max())
+
+
+def worst_row(out, plain) -> float:
+    """The largest ratio of a row's max abs error to its max |plain|."""
+    o = out.float().reshape(-1, out.shape[-1])
+    p = plain.float().reshape(-1, plain.shape[-1])
+    return float(((o - p).abs().amax(-1)
+                  / p.abs().amax(-1).clamp_min(1e-30)).max())
 
 
 # -------------------------------------------------- phase 2: kernel checks
@@ -396,7 +436,8 @@ def check_splitk(K, dtype, dev, gen, timing: bool):
         return ref.lse_merge(*ref.splitk_partials_ref(*args, pick))
 
     rows["paged_splitk"] = dict(
-        max_abs_err=err,
+        max_abs_err=compare(K["verify_splitk"](*args, num_splits=pick),
+                            plain_v, dtype),
         ms=time_ms(lambda: K["verify_splitk"](*args, num_splits=pick)),
         plain_ms=time_ms(plain), library_ms=time_ms(lib), bound_ms=bms,
         bound_by=by, shape=f"verify B=2 Sq=5 nbt=128 pos~3000 ns={pick} "
@@ -413,6 +454,132 @@ def check_splitk(K, dtype, dev, gen, timing: bool):
               f"{seq_ms:.5f} " + " ".join(f"ns{k}_ms={v:.5f}"
                                           for k, v in ts.items())
               + f" choose={pick} fastest={best}")
+    return rows
+
+
+FLASH_SERVE = dict(B=4, S=256, length=144)     # wave 1: 144-token prompts
+FLASH_LONG = dict(B=1, S=4096, length=3000)     # one long prompt, 4096 bucket
+DENSE_POS = [0, 143, 150, 200, 37, 255, 300, 511]   # B=8, S=s_max=512
+
+
+def flash_case(dev, gen, dtype, B, S, T, h=32, g=8, hd=128):
+    qkv = [torch.randn(B, n, m, hd, generator=gen, device=dev).to(dtype)
+           for n, m in ((S, h), (T, g), (T, g))]
+    return qkv
+
+
+def flash_work(S, lengths, h, g, hd, it):
+    """Bytes and FLOPs causal flash attention needs: q read and the output
+    written once (all S rows), the K/V rows < length read once; FLOPs of the
+    live query rows (row i < length scores i + 1 keys), as the rows past the
+    length are padding of the prompt bucket."""
+    keys = sum(int(n) for n in lengths)
+    nbytes = (2 * len(lengths) * S * h * hd + 2 * keys * g * hd) * it
+    flops = sum(4 * h * hd * int(n) * (int(n) + 1) // 2 for n in lengths)
+    return nbytes, flops
+
+
+def check_dense_kernels(K, dtype, dev, gen, timing: bool):
+    """Flash attention (causal and not, ragged lengths with a 0 whose rows
+    are exactly 0, rows past their length, S != T) and the dense-row decode
+    (linear rows at the serving positions, a rolling 64-slot row with pos
+    far past it, S % 32 == 0)."""
+    rows = {}
+    ref, h, g, hd = K["ref"], 32, 8, 128
+    it = torch.empty((), dtype=dtype).element_size()
+    errs = []
+    for causal, S, T, lens in ((True, 256, 256, [144, 0, 100, 256]),
+                               (False, 200, 300, [300, 0, 17, 250])):
+        q, k, v = flash_case(dev, gen, dtype, 4, S, T)
+        ln = torch.tensor(lens, device=dev, dtype=torch.int32)
+        out = K["flash"](q, k, v, ln, causal)
+        if float(out[1].float().abs().max()) != 0.0:
+            raise AssertionError("flash rows with length 0 are not 0")
+        errs.append(compare(out, ref.flash_attention_ref(q, k, v, ln, causal),
+                            dtype))
+    print(f"kernels: flash_attn    {str(dtype)[6:]:<8} max_abs_err="
+          f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row h=32 g=8 "
+          "hd=128 causal B=4 S=T=256 lens=144/0/100/256, non-causal S=200 "
+          "T=300 lens=300/0/17/250, length-0 rows=0 ok")
+    # the main path's shapes, causal with every row at the prompt's length,
+    # held against the plain version in fp32 on the same inputs: in bf16
+    # the plain version rounds its scores and probabilities to bf16, an
+    # error of its own that grows with the keys a row sees (printed beside)
+    for name, c in (("flash_attention_serve", FLASH_SERVE),
+                    ("flash_attention", FLASH_LONG)):
+        q, k, v = flash_case(dev, gen, dtype, c["B"], c["S"], c["S"])
+        ln = torch.full((c["B"],), c["length"], device=dev,
+                        dtype=torch.int32)
+        shape = (f"causal B={c['B']} S=T={c['S']} length={c['length']} h=32"
+                 " g=8 hd=128")
+        out = K["flash"](q, k, v, ln, True)
+        exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), ln,
+                                        True)
+        err = compare(out, exact, dtype)
+        note = ""
+        if dtype != torch.float32:
+            plain = ref.flash_attention_ref(q, k, v, ln, True)
+            note = (f"; worst row err/max|plain| against the fp32 plain "
+                    f"{worst_row(out, exact):.4f}, against the {str(dtype)[6:]}"
+                    f" plain {worst_row(out, plain):.4f}, that plain against "
+                    f"the fp32 plain {worst_row(plain, exact):.4f}")
+            del plain
+        print(f"kernels: flash_attn    {str(dtype)[6:]:<8} max_abs_err="
+              f"{err:.3e} tol={TOL[dtype]:g}xmax|plain| per row against the "
+              f"fp32 plain, main-path shape {shape}{note} ok")
+        del out, exact
+        if not timing:
+            continue
+        nbytes, flops = flash_work(c["S"], ln.tolist(), h, g, hd, it)
+        bms, by = bound(nbytes, flops, dtype)
+        j = torch.arange(c["S"], device=dev)
+        mask = (j[None, :] <= j[:, None]) & (j[None, :] < c["length"])
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows[name] = dict(
+            max_abs_err=err,
+            ms=time_ms(lambda: K["flash"](q, k, v, ln, True)),
+            plain_ms=time_ms(
+                lambda: ref.flash_attention_ref(q, k, v, ln, True), iters=5),
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True)),
+            bound_ms=bms, bound_by=by, shape=shape)
+        del q, k, v, qt, kt, vt
+    # dense decode: linear rows (window 0) and a rolling row (window 64)
+    errs, cases = [], {}
+    for window, S, pos in ((0, 512, DENSE_POS),
+                           (64, 64, [0, 5, 63, 64, 100, 1000, 2047, 31])):
+        q = torch.randn(8, h, hd, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(8, S, g, hd, generator=gen, device=dev
+                            ).to(dtype) for _ in range(2))
+        cases[window] = (q, k, v, torch.tensor(pos, device=dev,
+                                                dtype=torch.int32))
+        errs.append(compare(
+            K["dense_decode"](*cases[window], window=window),
+            ref.decode_attention_ref(*cases[window], window=window), dtype))
+    print(f"kernels: dense_decode  {str(dtype)[6:]:<8} max_abs_err="
+          f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row B=8 h=32 "
+          "g=8 hd=128 linear S=512 pos 0..511, rolling S=window=64 pos "
+          "0..2047 ok")
+    if timing:
+        q, k, v, p = args = cases[0]
+        # K/V rows the function needs: slots 0..pos of each row
+        keys = sum(x + 1 for x in DENSE_POS)
+        nbytes = (2 * q.numel() + 2 * keys * g * hd) * it
+        bms, by = bound(nbytes, 4 * h * hd * keys, dtype)
+        mask = (torch.arange(512, device=dev)[None, :]
+                <= p.long()[:, None])[:, None, None, :]
+        qt = q[:, :, None].contiguous()
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows["dense_decode"] = dict(
+            max_abs_err=errs[0],
+            ms=time_ms(lambda: K["dense_decode"](*args)),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(*args)),
+            library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True)),
+            bound_ms=bms, bound_by=by,
+            shape="B=8 S=512 h=32 g=8 hd=128 window=0 pos up to 511")
     return rows
 
 
@@ -520,13 +687,14 @@ def parity(K, devices=("cuda", "cpu")):
         for name, f in ad.items():
             layers = bank_from_numpy(f, device=dev)["layers"]
             adapters[name] = {"layers": layers}
-        engines[dev] = lambda spec, p=params, a=adapters, d=dev: build_engine(
-            cfg, p, a, lcfg, torch.device(d), torch.float32,
-            EngineConfig(capacity=4, pf_capacity=2, s_max=128,
-                         virtual_time=True, spec=spec))
+        engines[dev] = lambda spec, paged, p=params, a=adapters, d=dev: \
+            build_engine(cfg, p, a, lcfg, torch.device(d), torch.float32,
+                         EngineConfig(capacity=4, pf_capacity=2, s_max=128,
+                                      virtual_time=True, spec=spec,
+                                      paged=paged))
 
-    def run(dev, spec, suffix=None):
-        eng = engines[dev](spec)
+    def run(dev, spec, suffix=None, paged=True):
+        eng = engines[dev](spec, paged)
         seen = record_logits(eng, keep=True)
         reset_counts(K)
         for r in shared_prefix_trace(cfg.vocab, list(ad), seed=3):
@@ -544,7 +712,7 @@ def parity(K, devices=("cuda", "cpu")):
     err = max(float((gs[0][k] - cs[0][k]).abs().max()) for k in gs[0])
     if err > 1e-3:
         raise AssertionError(f"first-step logits differ by {err:.3e}")
-    plain_kernels = ("smlm", "bgmv", "decode", "prefill")
+    plain_kernels = ("smlm", "bgmv", "decode", "prefill", "flash")
     if min(gl[k] for k in plain_kernels) == 0:
         raise AssertionError(f"a kernel did not launch at reduced size: {gl}")
     print(f"parity: reduced llama3-8b fp32 cuda==cpu greedy tokens for 8 "
@@ -565,6 +733,18 @@ def parity(K, devices=("cuda", "cpu")):
           f"tokens for 8 requests, drafted={m.spec_drafted} "
           f"accepted={m.spec_accepted} steps={m.steps} (plain "
           f"{ge.metrics.steps}), cuda verify launches={sl['verify']} ok")
+    (de, _, dl, dtok), (_, _, _, dctok) = (run(d, None, paged=False)
+                                           for d in devices)
+    if dtok != dctok or dtok != gtok:
+        raise AssertionError(f"dense tokens differ: cuda {dtok} cpu {dctok} "
+                             f"paged {gtok}")
+    dense_kernels = ("smlm", "bgmv", "flash", "dense_decode")
+    if min(dl[k] for k in dense_kernels) == 0 or dl["decode"] \
+            or dl["prefill"]:
+        raise AssertionError(f"dense rows did not run their kernels: {dl}")
+    print(f"parity: dense rows (paged=False), cuda==cpu==paged greedy tokens "
+          f"for 8 requests, steps={de.metrics.steps}, cuda launches="
+          f"{ {k: dl[k] for k in dense_kernels} } ok")
 
 
 # ------------------------------------- phases 4-6: full width, one weight set
@@ -678,6 +858,14 @@ def request_waves(cfg, rng, head=128, tail=16, max_new=16):
         for i in range(4)] for base in (0, 4, 8)]
 
 
+def copies(waves):
+    """Fresh copies of the requests (same rid, prompt, adapter, length)."""
+    from repro_torch.serving.request import Request
+    return [[Request(rid=r.rid, prompt=r.prompt, adapter=r.adapter,
+                     max_new_tokens=r.max_new_tokens) for r in wave]
+            for wave in waves]
+
+
 def with_suffix(waves, outputs):
     """Fresh copies of the requests with the static-suffix drafter's
     reference stream: prompt + the plain run's output."""
@@ -697,7 +885,9 @@ def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
                           max_new=max_new)
     reset_counts(K)
     run_waves(eng, tick, waves[:2])
-    launches = read_counts(K, ("smlm", "bgmv", "decode", "prefill"))
+    counts = read_counts(K)
+    launches = {k: counts[k] for k in ("smlm", "bgmv", "decode", "prefill",
+                                       "flash")}
     out = check_drained(eng, seen, 8, max_new)
     m = eng.metrics
     if m.reused_prefix_tokens != 4 * head:
@@ -721,7 +911,7 @@ def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
           f"finite=True pristine=True ok")
     profile_wave(eng, waves[2], dev, "plain")
     out.update({r.rid: list(r.output) for r in waves[2]})
-    return launches, waves, out
+    return counts, waves, out
 
 
 def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
@@ -733,7 +923,8 @@ def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
         spec=SpecConfig(k_max=4, drafter="suffix"))
     reset_counts(K)
     run_waves(eng, tick, with_suffix(waves[:2], plain))
-    launches = read_counts(K, ("smlm", "bgmv", "prefill", "verify"))
+    counts = read_counts(K)
+    launches = {k: counts[k] for k in ("smlm", "bgmv", "prefill", "verify")}
     out = check_drained(eng, seen, 8, max_new)
     if launches["verify"] == 0:
         raise AssertionError(f"the verify kernel never launched: {launches}")
@@ -747,7 +938,64 @@ def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
           f"tokens_equal_to_plain={same}/{8 * max_new} launches={launches} "
           f"finite=True pristine=True ok")
     profile_wave(eng, with_suffix(waves[2:], plain)[0], dev, "spec")
-    return launches
+    return counts
+
+
+def full_dense(K, cfg, weights, dev, waves, plain, max_new=16):
+    """Phase 7: the waves of phase 4 on dense rows: a slot per request,
+    every prompt prefilled whole through the flash kernel, decode through
+    the dense-row kernel."""
+    eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=8,
+                                          pf_capacity=4, s_max=512,
+                                          paged=False)
+    fresh = copies(waves)
+    reset_counts(K)
+    run_waves(eng, tick, fresh[:2])
+    counts = read_counts(K)
+    launches = {k: counts[k] for k in ("smlm", "bgmv", "flash",
+                                       "dense_decode", "decode", "prefill")}
+    out = check_drained(eng, seen, 8, max_new)
+    if min(launches[k] for k in ("smlm", "bgmv", "flash", "dense_decode")) \
+            == 0 or launches["decode"] or launches["prefill"]:
+        raise AssertionError(f"dense rows did not run their kernels: "
+                             f"{launches}")
+    done = {r.rid: r for r in eng.finished}
+    ttft = {i: r.t_first_token - r.arrival for i, r in done.items()}
+    same = sum(int(a == b) for rid in out
+               for a, b in zip(out[rid], plain[rid]))
+    print(f"dense: {cfg.name} bf16 paged=False capacity=8 pf_capacity=4 "
+          f"s_max=512 requests=8 tokens_each={max_new} steps={len(ticks)} "
+          f"run_s={sum(t for t, *_ in ticks):.4f} prefill_tick_ms="
+          f"{[round(t * 1e3, 3) for t, p, *_ in ticks if p]} "
+          f"{tick_stats(ticks)} "
+          f"ttft_wave1_s={np.mean([ttft[i] for i in range(4)]):.4f} "
+          f"ttft_wave2_s={np.mean([ttft[i] for i in range(4, 8)]):.4f} "
+          f"tokens_equal_to_paged={same}/{8 * max_new} launches={launches} "
+          f"finite=True pristine=True ok")
+    profile_wave(eng, fresh[2], dev, "dense")
+    return counts
+
+
+def layouts_in_turns(cfg, weights, waves, rounds=2):
+    """Phase 7, after the dense run's counts were read: the waves of phase
+    4 served paged, dense, dense, paged per round, so a drift of the
+    host's speed over the run falls on both layouts alike; prints each
+    run's decode ticks."""
+    got = {True: [], False: []}
+    for _ in range(rounds):
+        for paged in (True, False, False, True):
+            eng, seen, ticks, tick = timed_engine(
+                cfg, weights, capacity=8, pf_capacity=4, s_max=512,
+                paged=paged)
+            run_waves(eng, tick, copies(waves[:2]))
+            check_drained(eng, seen, 8, waves[0][0].max_new_tokens)
+            got[paged].append(round(float(np.mean(
+                [t for t, p, *_ in ticks if not p])) * 1e3, 3))
+            del eng
+    wins = sum(int(d < p) for d, p in zip(got[False], got[True]))
+    print(f"turns: paged, dense, dense, paged x{rounds}: decode_tick_ms_mean"
+          f" paged={got[True]} dense={got[False]} dense_faster_in="
+          f"{wins}/{2 * rounds} ok")
 
 
 def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
@@ -774,9 +1022,10 @@ def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
         outs[spec] = check_drained(eng, seen, 2, max_new)
         walks = [n for (sq, _), n in shapes.items()
                  if (sq > 1 if spec else sq == 1)]
-        if sum(walks) == 0 or c["partials"] != c["merge"]:
+        if sum(walks) == 0 or c["partials"] != c["merge"] or not c["flash"]:
             raise AssertionError(
-                f"split-K {'verify' if spec else 'decode'} did not launch: "
+                f"split-K {'verify' if spec else 'decode'} or flash did not "
+                f"launch: "
                 f"{c} by (Sq, ns): {shapes}")
         ns = sorted({k for (_, k) in shapes})
         m = eng.metrics
@@ -841,69 +1090,115 @@ SOURCES = {
                      "src/repro/kernels/decode_attn.py:254"),
     "paged_splitk": ("src/repro_torch/kernels/csrc/splitk.cu",
                      "src/repro/kernels/splitk.py:107"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:67"),
+    "dense_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                     "src/repro/kernels/decode_attn.py:67"),
 }
-COUNTER = {"smlm": "smlm", "bgmv": "bgmv", "paged_prefill": "prefill",
-           "paged_decode": "decode", "paged_verify": "verify",
-           "paged_splitk": "splitk"}
+# each kernel's launch counter and the run of its main path: the plain
+# paged serving run for kernels 1-4, speculation for verify, plain long
+# context for split-K (its decode walks), dense rows for kernels 7-8 (each
+# split-K call launches the partial and the merge kernel once)
+COUNTER = {"smlm": ("smlm", "full"), "bgmv": ("bgmv", "full"),
+           "paged_prefill": ("prefill", "full"),
+           "paged_decode": ("decode", "full"),
+           "paged_verify": ("verify", "spec"),
+           "paged_splitk": ("partials", "long"),
+           "flash_attention": ("flash", "dense"),
+           "dense_decode": ("dense_decode", "dense")}
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device is available", file=sys.stderr)
-        return 2
-    K = _import_port()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    verbose = "--verbose-build" in sys.argv[1:]
-    t0 = time.perf_counter()
-    K["build"].build(verbose=verbose)
-    print(f"build: {len(K['build'].KERNELS)} kernels (nvcc sm_90a, parallel)"
-          f" in {time.perf_counter() - t0:.3f} s -> "
-          f"{os.path.relpath(K['build'].build_dir(), ROOT)}")
-
-    dev = torch.device("cuda")
+def check_kernels(K, dev, paged_only=False):
+    """Phase 2: every kernel against its plain version in bf16 and fp32,
+    timed in bf16; prints the ``timing:`` lines and returns their rows."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         timing = dtype == torch.bfloat16
-        rows.update(check_lora(K, dtype, dev, gen, timing))
+        if not paged_only:
+            rows.update(check_lora(K, dtype, dev, gen, timing))
         rows.update(check_attention(K, dtype, dev, gen, timing))
         rows.update(check_verify(K, dtype, dev, gen, timing))
         rows.update(check_splitk(K, dtype, dev, gen, timing))
+        if not paged_only:
+            rows.update(check_dense_kernels(K, dtype, dev, gen, timing))
     for name, r in rows.items():
-        print(f"timing: {name:<13} bf16 {r['shape']}: ms={r['ms']:.5f} "
+        print(f"timing: {name:<15} bf16 {r['shape']}: ms={r['ms']:.5f} "
               f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
               f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+    return rows
+
+
+def card() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    global ITERS
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--paged-timing", action="store_true",
+                    help="only check and time the paged attention kernels")
+    ap.add_argument("--root", default=ROOT,
+                    help="checkout whose port --paged-timing imports")
+    ap.add_argument("--iters", type=int, default=ITERS,
+                    help="timed calls per measurement")
+    ap.add_argument("--verbose-build", action="store_true")
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    ITERS = a.iters
+    root = os.path.abspath(a.root) if a.paged_timing else ROOT
+    K = _import_port(root, paged_only=a.paged_timing)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    K["build"].build(verbose=a.verbose_build)
+    print(f"build: {len(K['build'].KERNELS)} kernels (nvcc sm_90a, parallel)"
+          f" in {time.perf_counter() - t0:.3f} s -> "
+          f"{os.path.relpath(K['build'].build_dir(), ROOT)}")
+    dev = torch.device("cuda")
+    rows = check_kernels(K, dev, paged_only=a.paged_timing)
+    if a.paged_timing:
+        print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
+                          "ms": {k: r["ms"] for k, r in rows.items()}}))
+        print(card())
+        return 0
 
     parity(K)
 
     from repro_torch.configs import get_config
     cfg = get_config("llama3-8b")
     weights = full_weights(cfg, dev, torch.bfloat16)
-    launches, waves, plain = full_width(K, cfg, weights, dev)
-    launches["verify"] = full_spec(K, cfg, weights, dev, waves,
-                                   plain)["verify"]
+    by_path = {}
+    by_path["full"], waves, plain = full_width(K, cfg, weights, dev)
+    by_path["spec"] = full_spec(K, cfg, weights, dev, waves, plain)
     long_counts = long_context(K, cfg, weights, dev)
-    # each split-K call launches the partial and the merge kernel once
-    launches["splitk"] = sum(c["partials"] for c in long_counts.values())
+    by_path["long"], by_path["long_spec"] = long_counts[False], \
+        long_counts[True]
+    by_path["dense"] = full_dense(K, cfg, weights, dev, waves, plain)
+    layouts_in_turns(cfg, weights, waves)
 
     kernels = []
-    for name in ("smlm", "bgmv", "paged_prefill", "paged_decode",
-                 "paged_verify", "paged_splitk"):
+    for name in SOURCES:
         r = rows[name]
         src, replaces = SOURCES[name]
+        counter, path = COUNTER[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[COUNTER[name]],
+            "replaces": replaces, "launches": by_path[path][counter],
+            "launches_path": path,
+            "launches_by_path": {p: c[counter] for p, c in by_path.items()
+                                 if c[counter]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(json.dumps({"kernels": kernels}))
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

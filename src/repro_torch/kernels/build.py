@@ -23,7 +23,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("smlm", "bgmv", "prefill_attn", "decode_attn", "verify_attn",
-           "splitk")
+           "splitk", "flash_attn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

@@ -37,9 +37,10 @@ __global__ void splitk_partials_kernel(
   const int nblk = repro::walk_blocks(kend, bs, nbt);
   const int lo = s * npb;
   const int hi = min(lo + npb, nblk);   // empty when lo >= nblk
+  const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, hd};
   const repro::WalkState st = repro::chunk_walk<T>(
-      q, kp, vp, tables + static_cast<size_t>(b) * nbt, sm, b, kvh, h, g, hd,
-      bs, sq, row0, rows, p, kend, lo, hi, scale);
+      q, kp, vp, kv, repro::ChunkMask{p, kend}, sm, b, kvh, h, g, sq, row0,
+      rows, lo, hi, scale);
   const int w = threadIdx.x >> 5;
   if (w >= rows) return;
   const int r = row0 + w;

@@ -33,9 +33,10 @@ __global__ void paged_verify_kernel(const T* __restrict__ q,
   const int p = pos[b];
   const int kend = p + lens[b];
   const int nblk = repro::walk_blocks(kend, bs, nbt);
+  const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, hd};
   const repro::WalkState st = repro::chunk_walk<T>(
-      q, kp, vp, tables + static_cast<size_t>(b) * nbt, sm, b, kvh, h, g, hd,
-      bs, sq, row0, rows, p, kend, 0, nblk, scale);
+      q, kp, vp, kv, repro::ChunkMask{p, kend}, sm, b, kvh, h, g, sq, row0,
+      rows, 0, nblk, scale);
   const int w = threadIdx.x >> 5;
   if (w >= rows) return;
   const int r = row0 + w;

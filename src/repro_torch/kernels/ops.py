@@ -1,5 +1,7 @@
-"""Multi-LoRA dispatch over the unified token stream, with the semantics of
-``repro.core.lora.lora_apply_ref`` (exact per token).
+"""Kernel entry points with the JAX package's ``repro.kernels.ops``
+signatures: the multi-LoRA dispatch over the unified token stream, with the
+semantics of ``repro.core.lora.lora_apply_ref`` (exact per token), and the
+dense attention kernels (``flash_attention``, ``decode_attention``).
 
 The stream is ``[ft rows | pf rows | dec rows]``.  The flow planner pads
 every ft/pf row to a multiple of ``FlowConfig.block_t``, so that head is
@@ -21,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import decode_attn, flash_attn
 from repro_torch.kernels.bgmv import bgmv
 from repro_torch.kernels.smlm import smlm
 
@@ -71,3 +74,24 @@ def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.shape[0] > rt.n_head:
         parts.append(bgmv(x[rt.n_head:], a, b, rt.tail_ids, rt.tail_scale))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    lengths: torch.Tensor, *, causal: bool = True,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+    """Flash attention (every cold prefill): q [B, S, h, hd] over k/v
+    [B, T, g, hd], keys ``j < lengths[b]`` (and ``j <= i`` when causal).
+    ``block_q``/``block_k`` are the Pallas kernel's tiles; the CUDA kernel
+    picks its own, and the result does not depend on them."""
+    del block_q, block_k
+    return flash_attn.flash_attention(q, k, v, lengths, causal)
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     pos: torch.Tensor, *, window: int = 0,
+                     block_k: int = 512) -> torch.Tensor:
+    """Dense-row decode attention (one query per request over its cache
+    row, linear or rolling).  ``block_k`` is the Pallas kernel's tile and
+    does not change the result."""
+    del block_k
+    return decode_attn.decode_attention(q, k, v, pos, window=window)

@@ -12,9 +12,10 @@ Bound on an H100 SXM: each request reads its K/V blocks up to
 FLOPs.  At the smoke shapes (16-token suffixes over 128 cached tokens) that
 is ~2 * Sq * h / g FLOPs per byte, under the ridge, so bytes bound it.
 
-Design (``csrc/prefill_attn.cu``): one block per (request, query tile, KV
-head); the tile holds 64 / (h/g) query positions times the h/g query heads
-of the group, so every K/V block is read once per tile and serves them all.
+Design (``csrc/prefill_attn.cu`` over ``csrc/tile_walk.cuh``, the walk of
+the flash attention kernel): one block per (request, query tile, KV head);
+the tile holds 64 / (h/g) query positions times the h/g query heads of the
+group, so every K/V block is read once per tile and serves them all.
 The walk stops at the last block that the causal and valid limits allow;
 the online softmax runs in fp32 CUDA cores, not tensor cores (a later PR's
 work).

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import NEG_INF, attention
+from repro_torch.models.layers import NEG_INF, attention, dec_cache_pos
 
 
 def _onehot(ids: torch.Tensor, n: int) -> torch.Tensor:
@@ -46,6 +46,35 @@ def _gather_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
     tbl = tables.long().clamp(min=0)
     B, nbt = tbl.shape
     return pool[tbl].reshape(B, nbt * pool.shape[1], *pool.shape[2:])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, causal: bool = True
+                        ) -> torch.Tensor:
+    """Masked GQA attention, full-scores form: query ``i`` of request ``b``
+    sees keys ``j < lengths[b]`` (and ``j <= i`` when ``causal``); a row
+    with no valid key gives 0.  q: [B, S, h, hd]; k/v: [B, T, g, hd];
+    lengths: [B].  Returns [B, S, h, hd]."""
+    B, S = q.shape[:2]
+    T = k.shape[1]
+    q_pos = torch.arange(S, device=q.device)[None, :].expand(B, S)
+    k_pos = torch.arange(T, device=q.device)[None, :].expand(B, T)
+    k_valid = k_pos < lengths.long()[:, None]
+    return attention(q, k, v, q_pos=q_pos, k_pos=k_pos, k_valid=k_valid,
+                     causal=causal)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """One query per request over its dense cache row of ``sc`` slots,
+    linear or rolling: slot ``j`` holds position ``j + sc * floor((pos -
+    j) / sc)`` (``layers.dec_cache_pos``); keys ``0 <= k_pos <= pos`` are
+    valid, and ``pos - k_pos < window`` when ``window > 0``.  q: [B, h, hd];
+    k/v: [B, sc, g, hd]; pos: [B].  Returns [B, h, hd]."""
+    k_pos, k_valid = dec_cache_pos(pos, k.shape[1])
+    return attention(q[:, None], k, v, q_pos=pos.long()[:, None],
+                     k_pos=k_pos, k_valid=k_valid, causal=True,
+                     window=window)[:, 0]
 
 
 def paged_decode_ref(q: torch.Tensor, k_pool: torch.Tensor,

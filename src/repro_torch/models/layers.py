@@ -59,6 +59,18 @@ def _build_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
     return m
 
 
+def dec_cache_pos(pos: torch.Tensor, sc: int):
+    """Per-row ``(k_pos [B, sc], k_valid [B, sc])`` of a dense cache row of
+    ``sc`` slots (linear, or rolling once ``pos >= sc``) after the current
+    token at ``pos`` was written: slot ``j`` holds the latest position
+    ``<= pos`` congruent to ``j`` mod ``sc`` (``_dec_cache_pos`` of the JAX
+    model)."""
+    j = torch.arange(sc, device=pos.device)[None, :]
+    p = pos.long()[:, None]
+    k_pos = j + sc * torch.div(p - j, sc, rounding_mode="floor")
+    return k_pos, j <= p
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_pos: torch.Tensor, k_pos: torch.Tensor,
               k_valid: torch.Tensor, causal: bool = True, window: int = 0,

@@ -1,24 +1,31 @@
-"""The attention+FFN decoder on the paged KV layout, with the paper's unified
-computation flow: one joint projection per linear for every request bucket
-(``core.lora.dense``: base product plus one multi-LoRA kernel call per
-bucket), per-bucket attention, and per-bucket logits.
+"""The attention+FFN decoder on the paged and the dense-row KV layouts, with
+the paper's unified computation flow: one joint projection per linear for
+every request bucket (``core.lora.dense``: base product plus one multi-LoRA
+kernel call per bucket), per-bucket attention, and per-bucket logits.
 
 Port of the serving path of ``repro.models.model``.  Differences of form:
 
 * the JAX ``lax.scan`` over periods becomes a loop over layers;
-* the JAX functions return a new cache; here the paged pool is written in
-  place (``_paged_write_prompt`` / ``_paged_write_chunk`` are index writes
-  into the pool tensor) and ``unified_forward`` returns the same cache;
-* on CUDA tensors, suffix prefill, decode and verify attention are the
-  hand-written kernels (``kernels.prefill_attn``, ``kernels.decode_attn``,
+* the JAX functions return a new cache; here the cache is written in place
+  (the paged pool by ``_paged_write_prompt`` / ``_paged_write_chunk``, the
+  dense rows by ``_dense_write_prompt`` and a slot write, all index writes
+  into the cache tensors) and ``unified_forward`` returns the same cache;
+* the layout is the batch's: a bucket with block tables runs on the paged
+  pool, one without on dense rows, as in the JAX model;
+* every cold prefill (dense rows, and paged rows with ``cached_len=None``)
+  attends through ``ops.flash_attention``, which the JAX model computes
+  with plain ``L.attention`` (the same function);
+* on CUDA tensors, flash, suffix prefill, decode (paged and dense) and
+  verify attention are the hand-written kernels (``kernels.flash_attn``,
+  ``kernels.prefill_attn``, ``kernels.decode_attn``,
   ``kernels.verify_attn``, ``kernels.splitk``); their plain versions run
-  only for CPU tensors.  There is no backend switch: the decode/verify
-  bucket takes the split-K kernels whenever ``kernels.autotune.choose``
-  gives more than one split for its shape, as the JAX ``splitk`` kernel
-  modes do.
+  only for CPU tensors.  There is no backend switch: the paged
+  decode/verify bucket takes the split-K kernels whenever
+  ``kernels.autotune.choose`` gives more than one split for its shape, as
+  the JAX ``splitk`` kernel modes do.
 
-The ft bucket, dense-row caches, MLA, Mamba, MoE and cross-attention belong
-to later slices and raise here.
+The ft bucket, sliding windows, dense-row verify chunks, MLA, Mamba, MoE and
+cross-attention belong to later slices and raise here.
 """
 from __future__ import annotations
 
@@ -74,9 +81,6 @@ class _Plan:
             self.route = ops.route(self.ids, scale_t, n, self.sizes[0],
                                    block_t)
         if pf is not None:
-            if pf.block_tables is None:
-                raise NotImplementedError(
-                    "dense-row caches are not ported; use the paged layout")
             ar = torch.arange(self.Sp, dtype=torch.int32,
                               device=pf.tokens.device)
             self.pf_cached = pf.cached_len
@@ -84,11 +88,11 @@ class _Plan:
                 self.pf_pos = pf.cached_len[:, None] + ar[None, :]
             else:
                 self.pf_pos = ar[None, :].expand(self.Bp, self.Sp)
-            self.pf_valid = ar[None, :] < pf.length[:, None]
         if dec is not None:
-            if dec.block_tables is None:
+            if dec.block_tables is None and self.Sd > 1:
                 raise NotImplementedError(
-                    "dense-row caches are not ported; use the paged layout")
+                    "verify chunks on dense rows: the engine runs "
+                    "speculation on the paged layout only")
             # per-query positions of the (1 + k)-token chunk, and per-row
             # valid chunk lengths (trailing draft slots may be padding)
             self.dec_pos = dec.pos
@@ -114,6 +118,45 @@ def _merge_flat(plan: _Plan, xp, xd) -> torch.Tensor:
     if xd is not None:
         parts.append(xd.reshape(plan.sizes[1], -1))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# dense rows: per layer [n_rows, sc, g, hd], one row per resident request.
+# Prefill writes rows [Bd, Bd + Bp) (Bd: this tick's decode-bucket size);
+# decode updates rows [0, Bd) in place
+# ---------------------------------------------------------------------------
+
+def cache_seq_len(cfg: ModelConfig, s_max: int) -> int:
+    w = cfg.sliding_window
+    return min(s_max, w) if w > 0 else s_max
+
+
+def init_cache(cfg: ModelConfig, n_rows: int, s_max: int,
+               device: torch.device, dtype: torch.dtype) -> Dict:
+    """``{"k": [L, n_rows, sc, g, hd], "v": ...}``; ``cache["k"][l]`` is
+    layer ``l``'s rows (the JAX layout ``[n_periods, n_rows, sc, g, hd]``
+    of an attention-only pattern, period axis unrolled)."""
+    check_supported(cfg)
+    shape = (cfg.n_layers, n_rows, cache_seq_len(cfg, s_max),
+             cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(shape, device=device, dtype=dtype),
+            "v": torch.zeros(shape, device=device, dtype=dtype)}
+
+
+def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
+                        r0: int) -> None:
+    """In place: prefill rows ``[Bp, Sp, ...]`` land in cache rows
+    ``[r0, r0 + Bp)`` at positions ``:Sp``.  A bucket longer than the row
+    (``Sp > sc``) takes the rolling write of the JAX model: the last ``sc``
+    positions at slots ``p % sc``, so its padding tail overwrites the head
+    of the prompt (ROADMAP Queue 3)."""
+    Bp, Sp = xh.shape[:2]
+    sc = rows.shape[1]
+    if Sp <= sc:
+        rows[r0:r0 + Bp, :Sp] = xh.to(rows.dtype)
+    else:
+        sl = torch.arange(Sp - sc, Sp, device=xh.device) % sc
+        rows[r0:r0 + Bp, sl] = xh[:, -sc:].to(rows.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +224,9 @@ def _rope_heads(x: torch.Tensor, pos: torch.Tensor, n: int,
 def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 x: torch.Tensor, k_pool: torch.Tensor,
                 v_pool: torch.Tensor) -> torch.Tensor:
+    """``k_pool``/``v_pool``: the layer's paged pool ``[n_blocks, bs, g,
+    hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the buckets' tables
+    say."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
 
@@ -198,7 +244,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         qh = _rope_heads(qp, plan.pf_pos, h, cfg.rope_theta)
         kh = _rope_heads(kp, plan.pf_pos, kv, cfg.rope_theta)
         vh = vp.reshape(plan.Bp, plan.Sp, kv, hd)
-        if plan.pf_cached is not None:
+        if pf.block_tables is not None and plan.pf_cached is not None:
             # suffix-only prefill: write the suffix K/V at its offset (all
             # writes land at positions >= cached_len, never in a shared
             # prefix block), then attend over the pool so the cached prefix
@@ -211,15 +257,27 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 qh, k_pool, v_pool, pf.block_tables, plan.pf_cached,
                 pf.length)
         else:
-            # cold prefill: prompt-local attention (plain tensor code, as
-            # the JAX package computes it outside any kernel), then straight
-            # into the blocks
-            outs[0] = L.attention(qh, kh, vh, q_pos=plan.pf_pos,
-                                  k_pos=plan.pf_pos, k_valid=plan.pf_valid,
-                                  causal=True)
-            _paged_write_prompt(k_pool, kh, pf.block_tables)
-            _paged_write_prompt(v_pool, vh, pf.block_tables)
-    if qd is not None:           # decode / verify: (1 + k)-token chunk
+            # cold prefill: prompt-local causal attention over the bucket's
+            # own K/V (flash attention), then into the blocks or the rows
+            outs[0] = ops.flash_attention(qh, kh, vh, pf.length,
+                                          causal=True)
+            if pf.block_tables is not None:
+                _paged_write_prompt(k_pool, kh, pf.block_tables)
+                _paged_write_prompt(v_pool, vh, pf.block_tables)
+            else:
+                _dense_write_prompt(k_pool, kh, plan.Bd)
+                _dense_write_prompt(v_pool, vh, plan.Bd)
+    if qd is not None and plan.dec.block_tables is None:   # dense decode
+        qh = _rope_heads(qd, plan.dec_qpos, h, cfg.rope_theta)
+        kh = _rope_heads(kd, plan.dec_qpos, kv, cfg.rope_theta)
+        rows = torch.arange(plan.Bd, device=x.device)
+        slot = plan.dec_pos.long() % k_pool.shape[1]
+        k_pool[rows, slot] = kh[:, 0].to(k_pool.dtype)
+        v_pool[rows, slot] = vd.reshape(plan.Bd, kv, hd).to(v_pool.dtype)
+        outs[1] = ops.decode_attention(qh[:, 0].contiguous(),
+                                       k_pool[:plan.Bd], v_pool[:plan.Bd],
+                                       plan.dec_pos)[:, None]
+    elif qd is not None:         # paged decode / verify: (1 + k)-token chunk
         dec, Sd, ns = plan.dec, plan.Sd, plan.num_splits
         tbl, dpos, dlen = dec.block_tables, plan.dec_pos, plan.dec_len
         qh = _rope_heads(qd, plan.dec_qpos, h, cfg.rope_theta)
@@ -274,7 +332,7 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     plan = _Plan(cfg, batch, lora_scale, block_t)
     if cache is None:
         raise ValueError("prefill/decode buckets require a cache")
-    if plan.Bd:
+    if plan.Bd and batch.dec.block_tables is not None:
         # one split choice per forward, keyed as the JAX model keys it
         plan.num_splits = autotune.choose(
             cfg.hd, cache["k"].shape[2], batch.dec.block_tables.shape[1],

@@ -6,18 +6,22 @@ requests.  Port of ``repro.serving.engine`` with its default settings: paged
 KV, ``block_size=32``, content-hash dedup on, suffix-only prefill over
 adopted prefixes, and speculative decoding under ``EngineConfig.spec``
 (model-free drafters, ``(1 + k)``-token verify chunks, exact greedy
-acceptance, rollback through ``PagedCacheManager.truncate``).  Tensors live
-on the model's device; the K/V pool is written in place by the model, so
-``cachemgr.update`` is a no-op.
+acceptance, rollback through ``PagedCacheManager.truncate``).  With
+``EngineConfig(paged=False)`` (or a sliding-window model) it serves on dense
+rows (``CacheManager``) as the JAX engine does: a slot per request, every
+prompt prefilled whole, no table growth, no dedup, no suffix or chunked
+prefill and no speculation.  Tensors live on the model's device; the model
+writes the cache in place, so ``cachemgr.update`` swaps nothing.
 
 Fine-tuning rows and trainers (``add_trainer``), the host KV tier
-(``kv_host_blocks``), unified adapter paging (``adapter_paging``),
-over-admission lending and the dense-row layout belong to later slices and
-raise ``NotImplementedError``.
+(``kv_host_blocks``), unified adapter paging (``adapter_paging``) and
+over-admission lending belong to later slices and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -26,7 +30,8 @@ from repro_torch.core import flow
 from repro_torch.core.unified import make_forward_step
 from repro_torch.core.virtualization import MixedLoraModel
 from repro_torch.serving.clock import CostModel, VirtualClock, WallClock
-from repro_torch.serving.kvcache import (OutOfBlocksError, PagedCacheManager,
+from repro_torch.serving.kvcache import (CacheManager, OutOfBlocksError,
+                                         PagedCacheManager,
                                          request_chain_keys)
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
@@ -48,8 +53,9 @@ class EngineConfig:
     flow: flow.FlowConfig = dataclasses.field(default_factory=flow.FlowConfig)
     attn_chunk: int = 0
     virtual_time: bool = False        # deterministic trace replay
-    paged: bool = True                # block-table KV layout (the only one
-    #                                   ported)
+    paged: bool = True                # block-table KV layout (False: dense
+    #                                   rows; keep s_max a padded prompt
+    #                                   bucket there, see UnifiedEngine)
     block_size: int = 32              # KV tokens per block
     n_blocks: int = 0                 # pool size; 0 = match dense capacity
     over_admit: float = 1.0           # reservation lending (later slice)
@@ -68,33 +74,50 @@ class UnifiedEngine:
         self.ecfg = ecfg or EngineConfig()
         self.cfg = model.cfg
         e = self.ecfg
-        for flag, name in ((e.adapter_paging, "adapter_paging"),
-                           (not e.paged, "paged=False (dense rows)")):
-            if flag:
-                raise NotImplementedError(f"{name} comes with "
-                                          f"{FEATURES_SLICE}")
+        if e.adapter_paging:
+            raise NotImplementedError(f"adapter_paging comes with "
+                                      f"{FEATURES_SLICE}")
         self.device = model.store.device
         dtype = model.base["embed"].dtype
         if model.base["embed"].device.type != self.device.type:
             raise ValueError("base params and adapter bank live on "
                              "different devices")
-        self.cachemgr = PagedCacheManager(
-            self.cfg, e.capacity, e.pf_capacity, e.s_max,
-            device=self.device, dtype=dtype, block_size=e.block_size,
-            n_blocks=e.n_blocks, over_admit=e.over_admit,
-            hash_dedup=e.hash_dedup, host_blocks=e.kv_host_blocks)
+        self.paged = e.paged and self.cfg.sliding_window == 0
+        if self.paged:
+            self.cachemgr = PagedCacheManager(
+                self.cfg, e.capacity, e.pf_capacity, e.s_max,
+                device=self.device, dtype=dtype, block_size=e.block_size,
+                n_blocks=e.n_blocks, over_admit=e.over_admit,
+                hash_dedup=e.hash_dedup, host_blocks=e.kv_host_blocks)
+        else:
+            self.cachemgr = CacheManager(self.cfg, e.capacity,
+                                         e.pf_capacity, e.s_max,
+                                         device=self.device, dtype=dtype)
+            over = flow._pad_seq(e.s_max, e.flow)
+            if over > e.s_max:
+                # as in the JAX model, a prompt bucket longer than the row
+                # is written rolling, so its padding overwrites the
+                # prompt's first slots (ROADMAP Queue 3)
+                warnings.warn(
+                    f"dense rows of {e.s_max} slots: a prompt that pads to "
+                    f"the {over}-token bucket has its first slots "
+                    f"overwritten by the bucket's padding; choose an s_max "
+                    f"that is a padded prompt bucket", RuntimeWarning,
+                    stacklevel=2)
         st = model.store
         self._swaps_base = (st.swap_ins, st.swap_in_bytes, st.resident_hits)
         self._swaps_seen = self._swaps_base[:2]
         self.sched = Scheduler(e.scheduler, e.capacity)
         self.clock = VirtualClock(e.cost) if e.virtual_time else WallClock()
         self.metrics = Metrics()
-        # suffix-only prefill reads shared-prefix K/V through the block
-        # tables instead of recomputing it (attention-only decoder)
-        self.suffix_prefill = True
-        self.chunk_budget = e.prefill_chunk if e.prefill_chunk > 0 else 0
+        # paged rows prefill suffix-only: shared-prefix K/V is read through
+        # the block tables instead of recomputed (attention-only decoder),
+        # and long prompts may prefill in chunks; dense rows recompute every
+        # prompt whole
+        self.chunk_budget = (e.prefill_chunk
+                             if e.prefill_chunk > 0 and self.paged else 0)
         self.prefilling: Dict[int, Request] = {}  # slot -> partial prefill
-        self.hash_dedup = e.hash_dedup
+        self.hash_dedup = self.paged and e.hash_dedup
         self.forward_step = make_forward_step(self.cfg,
                                               block_t=e.flow.block_t,
                                               attn_chunk=e.attn_chunk)
@@ -105,8 +128,8 @@ class UnifiedEngine:
         self._last_tokens = np.zeros((e.capacity,), np.int64)
         # speculative decoding: rollback-able K/V (paged blocks) and a
         # positional cache, which the attention-only decoder has
-        self.spec = e.spec if (e.spec is not None and e.spec.enabled) \
-            else None
+        self.spec = e.spec if (e.spec is not None and e.spec.enabled
+                               and self.paged) else None
         self._spec: Dict[int, Tuple[Drafter, AdaptiveK]] = {}
 
     @property
@@ -166,53 +189,60 @@ class UnifiedEngine:
         pf_reqs: List[flow.PFReq] = []
         chunks: List[Tuple[Request, int, bool]] = []
         budget_left = self.chunk_budget if self.chunk_budget else None
-        for slot, r in list(self.prefilling.items()):
-            if len(pf_reqs) >= e.pf_capacity:
-                break
-            if budget_left is not None and budget_left <= 0:
-                break
-            rem = r.prompt_len - r.prefilled
-            take = rem if budget_left is None else min(rem, budget_left)
-            if budget_left is not None:
-                budget_left -= take
-            pf_reqs.append(flow.PFReq(
-                tokens=r.prompt[r.prefilled:r.prefilled + take], rid=r.rid,
-                slot=(self.model.store.slot_of(r.adapter)
-                      if r.adapter else -1),
-                block_table=cm.table_of(slot), cached_len=r.prefilled))
-            chunks.append((r, take, r.prefilled + take >= r.prompt_len))
-        # a request is unservable only when its FRESH block need can never
-        # fit the pool
-        for r in list(self.waiting):
-            if cm.projected_blocks(r.prompt_len, r.remaining_new) \
-                    <= cm.total_blocks:
-                continue
-            need = cm.fresh_need(r.prompt_len, r.remaining_new, r.prompt,
-                                 r.adapter, keys=self._keys_of(r),
-                                 shareable=r.aux_embed is None)
-            if need > cm.total_blocks:
-                r.state = State.FAILED
-                r.t_finish = self.clock.now()
-                self._drop_retain(r)
-                self.waiting.remove(r)
-                self.finished.append(r)
-        decision = self.sched.decide(
-            self.waiting, len(self.active) + len(self.prefilling),
-            cm.n_free, e.pf_capacity, False,
-            free_blocks=cm.free_blocks + cm.reclaimable_blocks,
-            total_blocks=cm.total_blocks, block_size=cm.block_size,
-            s_max=e.s_max,
-            need_fn=lambda r: cm.fresh_need(
-                r.prompt_len, r.remaining_new, r.prompt, r.adapter,
-                headroom=self._headroom_for(r), keys=self._keys_of(r),
-                shareable=r.aux_embed is None),
-            spec_headroom=self.spec_headroom,
-            pf_rows_used=len(pf_reqs), pf_token_budget=budget_left,
-            suffix_fn=lambda r: r.prompt_len - self._resident_tokens(r),
-            chunked=bool(self.chunk_budget),
-            lent_frac=0.0,      # no lending: over_admit is 1.0
-            probe_fn=self._resident_tokens if self.hash_dedup else None,
-            now=self.clock.now())
+        if self.paged:
+            for slot, r in list(self.prefilling.items()):
+                if len(pf_reqs) >= e.pf_capacity:
+                    break
+                if budget_left is not None and budget_left <= 0:
+                    break
+                rem = r.prompt_len - r.prefilled
+                take = rem if budget_left is None else min(rem, budget_left)
+                if budget_left is not None:
+                    budget_left -= take
+                pf_reqs.append(flow.PFReq(
+                    tokens=r.prompt[r.prefilled:r.prefilled + take],
+                    rid=r.rid,
+                    slot=(self.model.store.slot_of(r.adapter)
+                          if r.adapter else -1),
+                    block_table=cm.table_of(slot), cached_len=r.prefilled))
+                chunks.append((r, take, r.prefilled + take >= r.prompt_len))
+            # a request is unservable only when its FRESH block need can
+            # never fit the pool
+            for r in list(self.waiting):
+                if cm.projected_blocks(r.prompt_len, r.remaining_new) \
+                        <= cm.total_blocks:
+                    continue
+                need = cm.fresh_need(r.prompt_len, r.remaining_new,
+                                     r.prompt, r.adapter,
+                                     keys=self._keys_of(r),
+                                     shareable=r.aux_embed is None)
+                if need > cm.total_blocks:
+                    r.state = State.FAILED
+                    r.t_finish = self.clock.now()
+                    self._drop_retain(r)
+                    self.waiting.remove(r)
+                    self.finished.append(r)
+            decision = self.sched.decide(
+                self.waiting, len(self.active) + len(self.prefilling),
+                cm.n_free, e.pf_capacity, False,
+                free_blocks=cm.free_blocks + cm.reclaimable_blocks,
+                total_blocks=cm.total_blocks, block_size=cm.block_size,
+                s_max=e.s_max,
+                need_fn=lambda r: cm.fresh_need(
+                    r.prompt_len, r.remaining_new, r.prompt, r.adapter,
+                    headroom=self._headroom_for(r), keys=self._keys_of(r),
+                    shareable=r.aux_embed is None),
+                spec_headroom=self.spec_headroom,
+                pf_rows_used=len(pf_reqs), pf_token_budget=budget_left,
+                suffix_fn=lambda r: r.prompt_len - self._resident_tokens(r),
+                chunked=bool(self.chunk_budget),
+                lent_frac=0.0,      # no lending: over_admit is 1.0
+                probe_fn=self._resident_tokens if self.hash_dedup else None,
+                now=self.clock.now())
+        else:
+            # dense rows: a free slot is the whole admission gate
+            decision = self.sched.decide(self.waiting, len(self.active),
+                                         cm.n_free, e.pf_capacity, False)
 
         # prefill admissions: adapters resolved once per tick per name and
         # held until the admission loop ends
@@ -272,13 +302,15 @@ class UnifiedEngine:
                                             np.asarray(r.output[r.rolled:],
                                                        np.int64)]),
                             k), np.int64)
-                # grow the table over the chunk and copy-on-write shared
-                # blocks in the write range; a dry pool trims the draft tail
-                writable = self._grow_or_preempt(slot, r, L, 1 + len(draft),
-                                                 pinned)
-                if slot not in self.active:
-                    continue              # became its own victim
-                draft = draft[:max(writable - 1, 0)]
+                if self.paged:
+                    # grow the table over the chunk and copy-on-write shared
+                    # blocks in the write range; a dry pool trims the draft
+                    # tail
+                    writable = self._grow_or_preempt(slot, r, L,
+                                                     1 + len(draft), pinned)
+                    if slot not in self.active:
+                        continue          # became its own victim
+                    draft = draft[:max(writable - 1, 0)]
                 plans.append((slot, r, L, draft))
             plans = [p for p in plans if p[0] in self.active]
             use_dec = bool(plans)
@@ -302,7 +334,7 @@ class UnifiedEngine:
                 dec_pos[slot] = L
                 dec_slots[slot] = (self.model.store.slot_of(r.adapter)
                                    if r.adapter else -1)
-            dec_tables = cm.dec_tables(self.active)
+            dec_tables = cm.dec_tables(self.active) if self.paged else None
         else:
             dec_tokens = dec_pos = dec_slots = np.zeros((0,), np.int64)
             dec_tables = None
@@ -404,8 +436,9 @@ class UnifiedEngine:
         self.metrics.adapter_resident_hits = (store.resident_hits
                                               - self._swaps_base[2])
         self.metrics.adapter_peak_coresident = store.peak_coresident
-        self.metrics.hash_hits = cm.hash_hits
-        self.metrics.hash_blocks_resident = cm.hash_blocks_resident
+        if self.paged:
+            self.metrics.hash_hits = cm.hash_hits
+            self.metrics.hash_blocks_resident = cm.hash_blocks_resident
         return True
 
     # ------------------------------------------------------- admission body
@@ -434,14 +467,17 @@ class UnifiedEngine:
                 aslot = resolved[r.adapter]
             else:
                 aslot = -1
-            adm = cm.try_admit(r.prompt, r.remaining_new, r.adapter,
-                               headroom=self._headroom_for(r),
-                               shareable=r.aux_embed is None,
-                               keys=self._keys_of(r),
-                               priority=r.priority_class)
-            if adm is None:
+            if self.paged:
+                adm = cm.try_admit(r.prompt, r.remaining_new, r.adapter,
+                                   headroom=self._headroom_for(r),
+                                   shareable=r.aux_embed is None,
+                                   keys=self._keys_of(r),
+                                   priority=r.priority_class)
+                slot, reused = adm if adm is not None else (None, 0)
+            else:
+                slot = cm.alloc()
+            if slot is None:
                 break
-            slot, reused = adm
             if r.adapter and not r.adapter_retained:
                 # reprolint: ownership-transfer — the hold moves onto the
                 # request; _drop_retain releases it at finish/failure
@@ -458,6 +494,13 @@ class UnifiedEngine:
                                  suffix=r.draft_suffix),
                     AdaptiveK(self.spec))
             self.waiting.remove(r)
+            if not self.paged:
+                # dense rows: full-prompt recompute into the bucket's rows
+                r.prefilled = 0
+                pf_reqs.append(flow.PFReq(tokens=r.prompt, rid=r.rid,
+                                          slot=aslot))
+                chunks.append((r, r.prompt_len, True))
+                continue
             # suffix-only prefill: the shared prefix is read through the
             # full block table; writes land at positions >= cached_len.  A
             # cold start keeps the prompt-local attention (cached_len=None)

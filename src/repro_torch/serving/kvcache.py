@@ -1,7 +1,16 @@
-"""Engine-side paged KV cache management.
+"""Engine-side KV cache management: dense rows and paged blocks.
 
-Port of the part of ``repro.serving.kvcache`` that the default engine uses.
-Attention K/V lives in a flat pool of fixed-size blocks (``init_paged_cache``:
+Port of the part of ``repro.serving.kvcache`` that the engine uses.
+
+**Dense** (``CacheManager``, ``EngineConfig(paged=False)``): the cache has
+``capacity + pf_capacity`` rows of ``s_max`` key/value slots per layer
+(``init_cache``); rows ``[0, capacity)`` are the persistent decode table,
+and each step's prefill writes rows ``[Bd, Bd + Bp)`` (``Bd`` is that tick's
+decode-bucket size).  After the step ``commit_prefill`` copies the freshly
+prefilled rows into their decode slots.  Every resident request pays
+``s_max`` slots whether it uses them or not.
+
+**Paged** (``PagedCacheManager``, the default): attention K/V lives in a flat pool of fixed-size blocks (``init_paged_cache``:
 ``[L, n_blocks, block_size, g, hd]`` on the engine's device); each request
 owns a *block table*.  Admission is a block budget: a request is admitted
 only when its projected life ``ceil(min(prompt + max_new, s_max) /
@@ -34,7 +43,7 @@ import torch
 
 from repro_torch.errors import ConfigInvariantError, InvariantError
 from repro_torch.models.configs import ModelConfig
-from repro_torch.models.model import init_paged_cache
+from repro_torch.models.model import init_cache, init_paged_cache
 
 
 class KVAccountingError(InvariantError):
@@ -94,6 +103,79 @@ def request_chain_keys(r, block_size: int) -> List[str]:
         memo = (tag, prompt_chain_keys(r.prompt, r.adapter, block_size))
         r._hash_keys = memo
     return memo[1]
+
+
+class CacheManager:
+    """Dense slot-per-request cache (the equivalence baseline of the paged
+    path)."""
+
+    def __init__(self, cfg: ModelConfig, capacity: int, pf_capacity: int,
+                 s_max: int, *, device: torch.device, dtype: torch.dtype):
+        self.cfg = cfg
+        self.capacity = capacity          # decode-table rows
+        self.pf_capacity = pf_capacity    # scratch rows for prefill buckets
+        self.s_max = s_max
+        self.cache = init_cache(cfg, capacity + pf_capacity, s_max, device,
+                                dtype)
+        self._free: Deque[int] = deque(range(capacity))
+        self.lens = np.zeros((capacity,), np.int64)   # absolute positions
+
+    # -- slot lifecycle ------------------------------------------------------
+    def alloc(self) -> Optional[int]:
+        return self._free.popleft() if self._free else None
+
+    def free(self, slot: int):
+        self.lens[slot] = 0
+        self._free.append(slot)
+
+    @property
+    def n_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def pristine(self) -> bool:
+        """Post-drain invariant: every slot is free with length 0."""
+        return self.n_free == self.capacity and not self.lens.any()
+
+    def truncate(self, slot: int, new_len: int):
+        """Roll the sequence back.  Dense rows are position-indexed and
+        masked by position, so stale K/V beyond ``new_len`` is invisible:
+        only the length moves."""
+        self.lens[slot] = new_len
+
+    def commit_tokens(self, slot: int, toks: Sequence[int]):
+        """Advance the committed length past freshly written decode
+        positions (no block identity to publish)."""
+        self.lens[slot] += len(toks)
+
+    # -- step plumbing -------------------------------------------------------
+    def step_cache(self):
+        return self.cache
+
+    def update(self, new_cache):
+        """The model wrote the rows in place (``new_cache`` is
+        ``self.cache``)."""
+        self.cache = new_cache
+
+    def commit_prefill(self, assignments: List[Tuple[int, int]],
+                       lengths: List[int], src_base: Optional[int] = None):
+        """assignments: (prefill row within the bucket, decode slot).
+        ``src_base`` is the decode-bucket size of the step that produced the
+        prefill rows (the model writes them at ``[Bd, Bd + Bp)``); it
+        defaults to ``capacity``.  On a prefill-only tick the sources are
+        rows ``0 .. n-1`` and may overlap the destination slots: every
+        source row is gathered before any destination row is written."""
+        if not assignments:
+            return
+        base = self.capacity if src_base is None else src_base
+        dev = self.cache["k"].device
+        src = torch.tensor([base + i for i, _ in assignments], device=dev)
+        dst = torch.tensor([s for _, s in assignments], device=dev)
+        for name in ("k", "v"):
+            rows = self.cache[name]
+            rows[:, dst] = rows[:, src]       # the gather copies first
+        for (_, slot), ln in zip(assignments, lengths):
+            self.lens[slot] = ln
 
 
 class BlockAllocator:

@@ -135,8 +135,7 @@ def test_engine_raises_for_later_slices(pair):
     cfg, params, store = pair[3:]
     model = MixedLoraModel(cfg, params, store)
     for kw in (dict(kv_host_blocks=4),
-               dict(adapter_paging=True), dict(over_admit=2.0),
-               dict(paged=False)):
+               dict(adapter_paging=True), dict(over_admit=2.0)):
         with pytest.raises(NotImplementedError):
             UnifiedEngine(model, EngineConfig(**kw))
     with pytest.raises(NotImplementedError):

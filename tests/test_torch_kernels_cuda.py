@@ -13,7 +13,9 @@ import torch
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bgmv import bgmv
-from repro_torch.kernels.decode_attn import paged_decode_attention
+from repro_torch.kernels.decode_attn import (decode_attention,
+                                             paged_decode_attention)
+from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
 from repro_torch.kernels.smlm import smlm
 from repro_torch.kernels.splitk import (lse_merge,
@@ -160,3 +162,45 @@ def test_cuda_splitk_matches_plain(dtype, ns):
     _close(paged_decode_attention_splitk(q[:, 0].contiguous(), kp, vp,
                                          tables, p, num_splits=ns),
            ref.paged_decode_ref(q[:, 0], kp, vp, tables, p), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+def test_cuda_flash_attention_matches_plain(dtype, causal):
+    """GQA h=32 over g=8, hd=128: ragged lengths with a 0 (exact zeros),
+    rows past their length, S != T, a ragged last query and key tile."""
+    dev = _card()
+    rng = np.random.default_rng(6)
+    B, S, T, h, g, hd = 4, 100, 77, 32, 8, 128
+    q = rng.standard_normal((B, S, h, hd), dtype=np.float32)
+    k = rng.standard_normal((B, T, g, hd), dtype=np.float32)
+    v = rng.standard_normal((B, T, g, hd), dtype=np.float32)
+    lens = np.array([0, 77, 40, 1], np.int32)
+    cuda = lambda x: t(x).to(dev)
+    args = (cuda(q).to(dtype), cuda(k).to(dtype), cuda(v).to(dtype),
+            cuda(lens))
+    y = flash_attention(*args, causal=causal)
+    _close(y, ref.flash_attention_ref(*args, causal=causal), dtype)
+    assert float(y[0].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window,S", [(0, 512), (64, 64), (0, 40), (40, 40)])
+def test_cuda_dense_decode_matches_plain(dtype, window, S):
+    """Dense rows, linear (pos 0, tile edges, the last slot, and past the
+    row once it would have wrapped) and rolling (pos below and far above
+    S); S=40 leaves a ragged last 32-slot tile."""
+    dev = _card()
+    rng = np.random.default_rng(7 + window + S)
+    B, h, g, hd = 6, 32, 8, 128
+    pos = np.array([0, 1, 31, 32, S - 1, 5 * S + 3], np.int32)
+    q = rng.standard_normal((B, h, hd), dtype=np.float32)
+    k = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+    v = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+    cuda = lambda x: t(x).to(dev)
+    args = (cuda(q).to(dtype), cuda(k).to(dtype), cuda(v).to(dtype),
+            cuda(pos))
+    _close(decode_attention(*args, window=window),
+           ref.decode_attention_ref(*args, window=window), dtype)
