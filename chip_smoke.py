@@ -2,12 +2,20 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
-    python3 chip_smoke.py --paged-timing [--root TREE] [--iters N]
+    python3 chip_smoke.py --attn-timing [--root TREE] [--iters N]
+    python3 chip_smoke.py --tune-splits PATH
 
-The second form only checks and times the paged attention kernels (3-6 of
-``PERF.md``) of the port in ``TREE`` (default: this checkout), at the
-shapes below: run it over two checkouts in turns (A, B, B, A) within one
-call to compare a kernel change with its parent.
+The second form only checks and times the attention kernels (3-8 of
+``PERF.md``: paged prefill, decode, verify, split-K, and flash at both of
+its main-path shapes, dense decode) of the port in ``TREE`` (default: this
+checkout), at the shapes below: run it over two checkouts in turns (A, B,
+B, A) within one call to compare a kernel change with its parent.  The
+third fills the split table (``kernels/autotune.py``) with
+``sweep(measure=...)``: for each key the model asks at the smoke's serving
+and long-context buckets, every candidate split timed on the card (decode
+plus verify at that bucket's positions); it writes the table as JSON to
+PATH, the file the model loads at its first call on the card
+(``src/repro_torch/kernels/splits_h100.json``).
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -23,10 +31,13 @@ printing its lines; any failure raises and exits non-zero:
              long-context shape B=2 nbt=128 for ns in 1, 2, 4, 8 and one
              ns > nbt; flash attention causal and not, ragged lengths with a
              0 and S != T; dense-row decode linear and rolling); then, in
-             bf16 at one main-path shape each, kernel, plain and library
-             times (CUDA events after warm-up) beside the bound, and at the
-             long-context shape the time of every candidate split beside
-             ``autotune.choose``'s pick.
+             bf16 at one main-path shape each (flash at both of its), the
+             kernel's and the library call's device time (``time_ms``: the
+             calls captured in a CUDA graph and replayed between CUDA
+             events) and the plain version's eager time, beside the bound;
+             and at the serving and long-context decode buckets the time of
+             every candidate split beside the model's pick (the split table
+             it loads on the card, else ``autotune.choose``).
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -80,9 +91,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|plain| per row
 
 
-def _import_port(root: str = ROOT, paged_only: bool = False):
-    """The port's kernel wrappers from ``root``; ``paged_only``: only
-    those of kernels 1-6, which every checkout of the port has."""
+def _import_port(root: str = ROOT):
+    """The port's kernel wrappers from ``root``."""
     sys.path.insert(0, os.path.join(root, "src"))
     from repro_torch.core.flow import FlowConfig
     from repro_torch.kernels import build, ref
@@ -100,10 +110,9 @@ def _import_port(root: str = ROOT, paged_only: bool = False):
              verify_splitk=splitk.paged_verify_attention_splitk,
              partials=splitk.splitk_partials, merge=splitk.lse_merge,
              autotune=autotune)
-    if not paged_only:
-        from repro_torch.kernels.decode_attn import decode_attention
-        from repro_torch.kernels.flash_attn import flash_attention
-        K.update(dense_decode=decode_attention, flash=flash_attention)
+    from repro_torch.kernels.decode_attn import decode_attention
+    from repro_torch.kernels.flash_attn import flash_attention
+    K.update(dense_decode=decode_attention, flash=flash_attention)
     return K
 
 
@@ -126,17 +135,37 @@ def read_counts(K, names=COUNTERS):
 ITERS = 20          # timed calls per measurement (--iters)
 
 
-def time_ms(fn, iters: int = 0, warmup: int = 3) -> float:
+def time_ms(fn, iters: int = 0, warmup: int = 3, eager: bool = False
+            ) -> float:
+    """Device time of one call of ``fn``, in ms: ``iters`` calls captured in
+    one CUDA graph after a warm-up, replayed once between CUDA events, so
+    the host's cost of issuing a call (which bounds an eager loop of small
+    kernels) is not counted.  ``eager`` times an eager loop of calls
+    instead: the plain versions, whose host reads a graph cannot hold."""
     iters = iters or ITERS
-    for _ in range(warmup):
-        fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    if eager:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+    else:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
+        graph.replay()
+        start.record()
+        graph.replay()
+        end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
 
@@ -233,7 +262,8 @@ def check_lora(K, dtype, dev, gen, timing: bool):
                 ag, bg = a[sel], b[sel]
                 lib = lambda: torch.bmm(torch.bmm(xa, ag), bg)
                 rows[name] = dict(
-                    max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain),
+                    max_abs_err=err, ms=time_ms(run),
+                    plain_ms=time_ms(plain, eager=True),
                     library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
                     shape=f"T={T} d_in={d_in} d_out={d_out} r=8 n=4"
                           + (f" block_t={bt}" if name == "smlm" else ""))
@@ -288,7 +318,8 @@ def check_attention(K, dtype, dev, gen, timing: bool):
                              kend=pos.long() + 1)
         rows["paged_decode"] = dict(
             max_abs_err=err, ms=time_ms(lambda: K["decode"](*args)),
-            plain_ms=time_ms(lambda: K["ref"].paged_decode_ref(*args)),
+            plain_ms=time_ms(lambda: K["ref"].paged_decode_ref(*args),
+                             eager=True),
             library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
             shape="B=8 h=32 g=8 hd=128 bs=32 pos up to 511")
     # prefill: 16-token suffixes over 128 cached tokens, one cold row
@@ -323,7 +354,8 @@ def check_attention(K, dtype, dev, gen, timing: bool):
         lib = sdpa_yardstick(qp, kp, vp, tables, q_pos=qpos, kend=kend)
         rows["paged_prefill"] = dict(
             max_abs_err=err, ms=time_ms(lambda: K["prefill"](*args)),
-            plain_ms=time_ms(lambda: K["ref"].paged_prefill_ref(*args)),
+            plain_ms=time_ms(lambda: K["ref"].paged_prefill_ref(*args),
+                             eager=True),
             library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
             shape="B=5 Sq=16 cached 128 h=32 g=8 hd=128 bs=32")
     return rows
@@ -381,13 +413,54 @@ def check_verify(K, dtype, dev, gen, timing: bool):
         lib = sdpa_yardstick(q, kp, vp, tables, q_pos=qi, kend=kend)
         rows["paged_verify"] = dict(
             max_abs_err=err, ms=time_ms(lambda: K["verify"](*args)),
-            plain_ms=time_ms(lambda: K["ref"].paged_verify_ref(*args)),
+            plain_ms=time_ms(lambda: K["ref"].paged_verify_ref(*args),
+                             eager=True),
             library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
             shape="B=8 Sq=5 h=32 g=8 hd=128 bs=32 nbt=16 pos up to 506")
     return rows
 
 
 LONG = dict(pos=[3001, 2900], lens=[5, 3], dpos=[3005, 2950], nbt=128)
+# the decode buckets whose split the model chooses in the full-width runs:
+# serving (capacity 8, nbt 16, decode positions mid-run: 144-token prompts
+# plus 8 tokens) and long context (capacity 2, nbt 128); verify chunks of 5
+SPLIT_BUCKETS = {
+    "serving": dict(nbt=16, dpos=[152] * 8, pos=[148] * 8, lens=[5] * 8),
+    "long": dict(nbt=128, dpos=LONG["dpos"], pos=LONG["pos"],
+                 lens=LONG["lens"]),
+}
+
+
+def split_key(at, dev, bucket, g=8, hd=128, bs=32):
+    """The model's split key for a bucket and the split it picks: the table
+    the model loads on the card, else the heuristic (a parent checkout
+    without a card table takes the heuristic)."""
+    if hasattr(at, "load_card_table"):
+        at.load_card_table(dev)
+    key = (hd, bs, bucket["nbt"], len(bucket["dpos"]) * g)
+    return key, at.choose(*key, lanes=at.effective_lanes(dev)).num_splits
+
+
+def bucket_case(K, dev, gen, dtype, bucket):
+    """Decode and verify inputs at a bucket's positions (one pool)."""
+    q, kp, vp, tables, p, n = chunk_case(dev, gen, dtype, bucket["pos"],
+                                         bucket["lens"], 5, bucket["nbt"])
+    dp = torch.tensor(bucket["dpos"], device=dev, dtype=torch.int32)
+    return (q[:, 0].contiguous(), kp, vp, tables, dp), (q, kp, vp, tables,
+                                                        p, n)
+
+
+def bucket_ms(K, ns, dargs, vargs, which=("decode", "verify")):
+    """Times of a bucket's decode and verify attention at split ns, as the
+    model runs it (the sequential kernels at ns = 1)."""
+    out = {}
+    if "decode" in which:
+        out["decode"] = time_ms(lambda: K["decode"](*dargs)) if ns == 1 \
+            else time_ms(lambda: K["decode_splitk"](*dargs, num_splits=ns))
+    if "verify" in which:
+        out["verify"] = time_ms(lambda: K["verify"](*vargs)) if ns == 1 \
+            else time_ms(lambda: K["verify_splitk"](*vargs, num_splits=ns))
+    return out
 
 
 def check_splitk(K, dtype, dev, gen, timing: bool):
@@ -426,8 +499,7 @@ def check_splitk(K, dtype, dev, gen, timing: bool):
     if not timing:
         return rows
     at = K["autotune"]
-    pick = at.choose(128, 32, LONG["nbt"], 2 * 32,
-                     lanes=at.effective_lanes(dev)).num_splits
+    _, pick = split_key(at, dev, SPLIT_BUCKETS["long"])
     nbytes, flops, qi, kend = chunk_work(q, p, n, g, q.element_size())
     bms, by = bound(nbytes, flops, dtype)
     lib = sdpa_yardstick(q, kp, vp, tables, q_pos=qi, kend=kend)
@@ -439,22 +511,59 @@ def check_splitk(K, dtype, dev, gen, timing: bool):
         max_abs_err=compare(K["verify_splitk"](*args, num_splits=pick),
                             plain_v, dtype),
         ms=time_ms(lambda: K["verify_splitk"](*args, num_splits=pick)),
-        plain_ms=time_ms(plain), library_ms=time_ms(lib), bound_ms=bms,
-        bound_by=by, shape=f"verify B=2 Sq=5 nbt=128 pos~3000 ns={pick} "
-                           "(partials + merge)")
-    # every candidate split, and the sequential kernels, at this shape
-    for name, fn, seq, a in (
-            ("verify", K["verify_splitk"], K["verify"], args),
-            ("decode", K["decode_splitk"], K["decode"], dargs)):
-        seq_ms = time_ms(lambda: seq(*a))
-        ts = {ns: time_ms(lambda: fn(*a, num_splits=ns))
-              for ns in at.candidate_splits(LONG["nbt"])}
-        best = min(ts, key=ts.get)
-        print(f"splits: {name} bf16 B=2 nbt=128 sequential_kernel_ms="
-              f"{seq_ms:.5f} " + " ".join(f"ns{k}_ms={v:.5f}"
-                                          for k, v in ts.items())
-              + f" choose={pick} fastest={best}")
+        plain_ms=time_ms(plain, eager=True), library_ms=time_ms(lib),
+        bound_ms=bms, bound_by=by,
+        shape=f"verify B=2 Sq=5 nbt=128 pos~3000 ns={pick} "
+              "(partials + merge)")
+    # every candidate split beside the model's pick, at each bucket whose
+    # split the model chooses (ns1 is the sequential kernel); the JAX
+    # model's key (Bd x 32 query heads) picks jax_key_choose
+    for label, bucket in SPLIT_BUCKETS.items():
+        key, pick = split_key(at, dev, bucket)
+        jax_pick = at.heuristic(*key[:3], key[3] * 4,
+                                lanes=at.effective_lanes(dev)).num_splits
+        dargs, vargs = bucket_case(K, dev, gen, dtype, bucket)
+        ts = {ns: bucket_ms(K, ns, dargs, vargs)
+              for ns in at.candidate_splits(bucket["nbt"])}
+        for name in ("verify", "decode"):
+            t = {ns: v[name] for ns, v in ts.items()}
+            best = min(t, key=t.get)
+            print(f"splits: {name} bf16 {label} B={len(bucket['dpos'])} "
+                  f"nbt={bucket['nbt']} " + " ".join(
+                      f"ns{k}_ms={v:.5f}" for k, v in t.items())
+                  + f" choose={pick} jax_key_choose={jax_pick} "
+                  f"fastest={best} pick_over_fastest="
+                  f"{t[pick] / t[best]:.4f}")
     return rows
+
+
+def tune_splits(K, dev, path):
+    """Fill the split table with ``autotune.sweep(measure=...)`` at the
+    model's keys of ``SPLIT_BUCKETS`` (bf16 decode plus verify time at the
+    bucket's positions, per candidate split) and write it to ``path``."""
+    at = K["autotune"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    at.clear_table()
+    cases, seen = {}, {}
+    for bucket in SPLIT_BUCKETS.values():
+        key, _ = split_key(at, dev, bucket)
+        cases[key] = bucket_case(K, dev, gen, torch.bfloat16, bucket)
+    at.clear_table()      # time every candidate, not the loaded table
+
+    def measure(key, cfg):
+        ms = sum(bucket_ms(K, cfg.num_splits, *cases[key]).values())
+        seen.setdefault(key, {})[cfg.num_splits] = ms
+        return ms
+
+    chosen = at.sweep(list(cases), measure=measure,
+                      lanes=at.effective_lanes(dev))
+    for key, cfg in chosen.items():
+        print(f"tune: key={key} " + " ".join(
+            f"ns{k}_ms={v:.5f}" for k, v in seen[key].items())
+              + f" heuristic={at.heuristic(*key).num_splits} "
+              f"chosen={cfg.num_splits}")
+    print(f"tune: wrote {at.save_table(path)} entries to {path}")
 
 
 FLASH_SERVE = dict(B=4, S=256, length=144)     # wave 1: 144-token prompts
@@ -540,7 +649,8 @@ def check_dense_kernels(K, dtype, dev, gen, timing: bool):
             max_abs_err=err,
             ms=time_ms(lambda: K["flash"](q, k, v, ln, True)),
             plain_ms=time_ms(
-                lambda: ref.flash_attention_ref(q, k, v, ln, True), iters=5),
+                lambda: ref.flash_attention_ref(q, k, v, ln, True), iters=5,
+                eager=True),
             library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                             enable_gqa=True)),
             bound_ms=bms, bound_by=by, shape=shape)
@@ -575,7 +685,8 @@ def check_dense_kernels(K, dtype, dev, gen, timing: bool):
         rows["dense_decode"] = dict(
             max_abs_err=errs[0],
             ms=time_ms(lambda: K["dense_decode"](*args)),
-            plain_ms=time_ms(lambda: ref.decode_attention_ref(*args)),
+            plain_ms=time_ms(lambda: ref.decode_attention_ref(*args),
+                             eager=True),
             library_ms=time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                             enable_gqa=True)),
             bound_ms=bms, bound_by=by,
@@ -1108,25 +1219,27 @@ COUNTER = {"smlm": ("smlm", "full"), "bgmv": ("bgmv", "full"),
            "dense_decode": ("dense_decode", "dense")}
 
 
-def check_kernels(K, dev, paged_only=False):
-    """Phase 2: every kernel against its plain version in bf16 and fp32,
-    timed in bf16; prints the ``timing:`` lines and returns their rows."""
+def check_kernels(K, dev, attn_only=False):
+    """Phase 2: every kernel (``attn_only``: every attention kernel) against
+    its plain version in bf16 and fp32, timed in bf16; prints the
+    ``timing:`` lines, each with the kernel's share of its bound (bound_ms /
+    ms), and returns their rows."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         timing = dtype == torch.bfloat16
-        if not paged_only:
+        if not attn_only:
             rows.update(check_lora(K, dtype, dev, gen, timing))
         rows.update(check_attention(K, dtype, dev, gen, timing))
         rows.update(check_verify(K, dtype, dev, gen, timing))
         rows.update(check_splitk(K, dtype, dev, gen, timing))
-        if not paged_only:
-            rows.update(check_dense_kernels(K, dtype, dev, gen, timing))
+        rows.update(check_dense_kernels(K, dtype, dev, gen, timing))
     for name, r in rows.items():
         print(f"timing: {name:<15} bf16 {r['shape']}: ms={r['ms']:.5f} "
               f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
-              f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']})")
+              f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
+              f"bound_share={r['bound_ms'] / r['ms']:.4f}")
     return rows
 
 
@@ -1140,10 +1253,13 @@ def card() -> str:
 def main() -> int:
     global ITERS
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--paged-timing", action="store_true",
-                    help="only check and time the paged attention kernels")
+    ap.add_argument("--attn-timing", action="store_true",
+                    help="only check and time the attention kernels")
     ap.add_argument("--root", default=ROOT,
-                    help="checkout whose port --paged-timing imports")
+                    help="checkout whose port --attn-timing imports")
+    ap.add_argument("--tune-splits", metavar="PATH",
+                    help="time every split at the model's split keys and "
+                         "write the table to PATH")
     ap.add_argument("--iters", type=int, default=ITERS,
                     help="timed calls per measurement")
     ap.add_argument("--verbose-build", action="store_true")
@@ -1152,8 +1268,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     ITERS = a.iters
-    root = os.path.abspath(a.root) if a.paged_timing else ROOT
-    K = _import_port(root, paged_only=a.paged_timing)
+    root = os.path.abspath(a.root) if a.attn_timing else ROOT
+    K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1162,8 +1278,12 @@ def main() -> int:
           f" in {time.perf_counter() - t0:.3f} s -> "
           f"{os.path.relpath(K['build'].build_dir(), ROOT)}")
     dev = torch.device("cuda")
-    rows = check_kernels(K, dev, paged_only=a.paged_timing)
-    if a.paged_timing:
+    if a.tune_splits:
+        tune_splits(K, dev, a.tune_splits)
+        print(card())
+        return 0
+    rows = check_kernels(K, dev, attn_only=a.attn_timing)
+    if a.attn_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
                           "ms": {k: r["ms"] for k, r in rows.items()}}))
         print(card())

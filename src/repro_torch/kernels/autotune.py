@@ -2,8 +2,11 @@
 ``repro.kernels.autotune``).
 
 The split-K kernels need a ``num_splits``; this module owns that choice per
-shape key ``(head_dim, block_size, nbt, bh)``, where ``bh = Bd * n_heads``
-is the batch parallelism the model computes it from (as the JAX model does):
+shape key ``(head_dim, block_size, nbt, bh)``, where ``bh`` is the batch
+parallelism of the attention grid.  The JAX model passes ``Bd * n_heads``,
+one TPU grid cell per query head; the port's kernels run one thread block
+per (request, KV head), so the port's model passes ``Bd * n_kv_heads``.
+``heuristic`` and ``choose`` are the JAX package's for the same arguments:
 
 * a tuning TABLE: an in-memory dict, loadable from and savable to a small
   JSON file in the JAX package's layout, filled by ``sweep`` (with a
@@ -23,10 +26,17 @@ checked-in ``attn_tune.json`` came from a modeled TPU/CPU occupancy.
 ``choose`` memoizes its answer per (key, lanes, table version), so the
 model pays one dict lookup per forward; every table mutation bumps
 ``table_version()``, which invalidates the memo.
+
+``splits_h100.json`` beside this module is the table that
+``chip_smoke.py --tune-splits`` measured on an H100 (``sweep`` with
+every candidate timed at the smoke's serving and long-context buckets);
+the model merges it at its first call on a card with the table's lane
+count (``load_card_table``), never at import and never for a CPU run.
 """
 from __future__ import annotations
 
 import json
+from pathlib import Path
 from typing import Callable, Dict, Iterable, NamedTuple, Optional, Tuple
 
 import torch
@@ -53,6 +63,8 @@ _TABLE: Dict[ShapeKey, AttnConfig] = {}
 _VERSION = 0
 _CHOSEN: Dict[Tuple[ShapeKey, int, int], AttnConfig] = {}
 _SMS: Dict[int, int] = {}
+CARD_TABLE = Path(__file__).with_name("splits_h100.json")
+_CARD_LOADED = False
 
 
 def table_version() -> int:
@@ -173,6 +185,22 @@ def load_table(path: str) -> int:
         _TABLE[key] = AttnConfig(int(val[0]), int(val[1]))
     _VERSION += 1
     return len(entries)
+
+
+def load_card_table(device: torch.device) -> int:
+    """Merge ``CARD_TABLE`` into the table once per process, when
+    ``device`` is a CUDA device whose lane count is the table's; returns
+    the entries merged (0 when it was merged before or does not apply)."""
+    global _CARD_LOADED
+    device = torch.device(device)
+    if _CARD_LOADED or device.type != "cuda" or not CARD_TABLE.exists():
+        return 0
+    _CARD_LOADED = True
+    with open(CARD_TABLE) as f:
+        lanes = json.load(f).get("lanes")
+    if lanes != effective_lanes(device):
+        return 0
+    return load_table(str(CARD_TABLE))
 
 
 # ------------------------------------------------------------------ sweep

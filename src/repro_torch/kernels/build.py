@@ -164,3 +164,12 @@ def check_cuda(*tensors: torch.Tensor) -> torch.device:
             f"tensor on {dev} but the current device is "
             f"cuda:{torch.cuda.current_device()}")
     return dev
+
+
+def check_vectors(*tensors: torch.Tensor) -> None:
+    """The attention kernels copy rows as 16-byte vectors: every tensor
+    must start on a 16-byte boundary (a fresh tensor does; a view may
+    not)."""
+    for t in tensors:
+        require(t.data_ptr() % 16 == 0,
+                "attention inputs must start on a 16-byte boundary")

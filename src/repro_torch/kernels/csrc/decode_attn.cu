@@ -5,8 +5,7 @@
 // `paged_decode_attention` (:154, body :117) and `decode_attention` (:67,
 // body :23).  The TPU grids (B, h, ...) stream every K/V tile once per QUERY
 // head; here one thread block serves a (request, KV head) pair and all m =
-// h/g query heads of that group (one warp each) from one read of each tile.
-// Both are the walk of `paged_walk.cuh` with a one-token chunk:
+// h/g query heads of that group from one read of each 32-key tile:
 //  * paged: 32-key pool blocks named by the table; keys j <= pos are valid,
 //    and the walk stops at the block holding `pos` (table entries < 0 read
 //    block 0, which the mask excludes);
@@ -15,68 +14,102 @@
 //    0 <= k_pos <= pos (and pos - k_pos < window) are valid.  With window 0
 //    the walk stops at the tile holding slot min(pos, S - 1); a rolling row
 //    walks all S slots.
-// A row with no valid key finalizes to 0 (l clamped at 1e-30).
+// The element type picks the walk at compile time: bf16 takes the
+// tensor-core walk of `tile_walk.cuh` (the group's m heads are the rows of
+// a one-position query tile), fp32 the CUDA-core walk of `paged_walk.cuh`
+// (the m heads shared among the block's warps).  A row with no valid key
+// finalizes to 0 (l clamped at 1e-30).
 #include "paged_walk.cuh"
 
 namespace {
 
-constexpr int DENSE_TILE = 32;   // dense slots staged per step
+using bf16 = __nv_bfloat16;
 
-template <typename T>
+constexpr int DENSE_TILE = 32;   // dense slots per tile of the fp32 walk
+
+// Dense rows for the bf16 walk: the rolling mask over slots [0, hi).
+struct SlotMask {
+  repro::RollingMask roll;
+  int lo, hi;
+  __device__ __forceinline__ int end(int) const { return hi; }
+  __device__ __forceinline__ bool operator()(int j, int) const {
+    return j < hi && roll(j, 0);
+  }
+  __device__ __forceinline__ bool whole(int, int, int) const { return false; }
+};
+
+// Each warp of the fp32 walk writes its rows (query heads: the chunk is
+// one token).
 __device__ __forceinline__ void write_out(const repro::WalkState& st,
-                                          T* __restrict__ out, int b, int h,
-                                          int g, int hd) {
+                                          float* __restrict__ out, int b,
+                                          int h, int g, int hd) {
   const int m = h / g;
-  const int qh = threadIdx.x >> 5;   // this warp's query head in the group
-  const float l = fmaxf(st.l, 1e-30f);
-  T* ob = out + (static_cast<size_t>(b) * h + blockIdx.y * m + qh) * hd +
-          (threadIdx.x & 31);
   const int ni = hd / 32;
 #pragma unroll
-  for (int i = 0; i < repro::WALK_MAX_NI; ++i)
-    if (i < ni) ob[32 * i] = repro::from_f<T>(st.acc[i] / l);
+  for (int r = 0; r < repro::WALK_RPW; ++r) {
+    if (r >= st.nr) continue;
+    const float l = fmaxf(st.l[r], 1e-30f);
+    float* ob = out + (static_cast<size_t>(b) * h + blockIdx.y * m +
+                       st.row0 + r) * hd + (threadIdx.x & 31);
+#pragma unroll
+    for (int i = 0; i < repro::WALK_MAX_NI; ++i)
+      if (i < ni) ob[32 * i] = st.acc[r][i] / l;
+  }
 }
 
-template <typename T>
-__global__ void paged_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ kp,
-                                    const T* __restrict__ vp,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ pos,
-                                    T* __restrict__ out, int h, int g, int hd,
-                                    int bs, int nbt, float scale) {
-  extern __shared__ float sm[];
+// grid (B, g); q [B, h, hd] is the [B, 1, h, hd] chunk of one token at
+// pos.  HD: the bf16 walk's head dim (0 for fp32).
+template <typename T, int HD>
+__global__ void __launch_bounds__(repro::ChunkThreads<T, HD>::value)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp, const int* __restrict__ tables,
+                    const int* __restrict__ pos, T* __restrict__ out, int h,
+                    int g, int hd, int bs, int nbt, int rpw, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int p = pos[b];
-  // q [B, h, hd] is the [B, 1, h, hd] chunk of one token at pos
   const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, hd};
-  const repro::WalkState st = repro::chunk_walk<T>(
-      q, kp, vp, kv, repro::ChunkMask{p, p + 1}, sm, b, kvh, h, g, 1, 0,
-      h / g, 0, repro::walk_blocks(p + 1, bs, nbt), scale);
-  write_out<T>(st, out, b, h, g, hd);
+  if constexpr (std::is_same<T, float>::value) {
+    const repro::WalkState st = repro::chunk_walk<T>(
+        q, kp, vp, kv, repro::ChunkMask{p, p + 1}, smem, b, kvh, h, g, 1, 0,
+        h / g, rpw, 0, repro::walk_blocks(p + 1, bs, nbt), scale);
+    write_out(st, out, b, h, g, hd);
+  } else {
+    repro::tile_walk<HD, repro::CHUNK_TILE>(
+        q, kp, vp, kv, repro::PosMask<true>{0, min(p + 1, nbt * bs)},
+        repro::Bf16Out{out, 1, h}, reinterpret_cast<bf16*>(smem), b, 0, kvh,
+        1, h, g, p, scale);
+  }
 }
 
-template <typename T>
-__global__ void dense_decode_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ k,
-                                    const T* __restrict__ v,
-                                    const int* __restrict__ pos,
-                                    T* __restrict__ out, int h, int g, int hd,
-                                    int S, int window, float scale) {
-  extern __shared__ float sm[];
+template <typename T, int HD>
+__global__ void __launch_bounds__(repro::ChunkThreads<T, HD>::value)
+dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ pos,
+                    T* __restrict__ out, int h, int g, int hd, int S,
+                    int window, int rpw, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int p = pos[b];
   const int span = window > 0 ? S : min(p + 1, S);
-  const repro::DenseRows kv{static_cast<size_t>(b) * S * g * hd, S,
-                            DENSE_TILE, g, hd};
-  const repro::WalkState st = repro::chunk_walk<T>(
-      q, k, v, kv, repro::RollingMask{p, S, window}, sm, b, kvh, h, g, 1, 0,
-      h / g, 0,
-      repro::walk_blocks(span, DENSE_TILE, (S + DENSE_TILE - 1) / DENSE_TILE),
-      scale);
-  write_out<T>(st, out, b, h, g, hd);
+  const repro::RollingMask roll{p, S, window};
+  const size_t base = static_cast<size_t>(b) * S * g * hd;
+  if constexpr (std::is_same<T, float>::value) {
+    const repro::DenseRows kv{base, S, DENSE_TILE, g, hd};
+    const repro::WalkState st = repro::chunk_walk<T>(
+        q, k, v, kv, roll, smem, b, kvh, h, g, 1, 0, h / g, rpw, 0,
+        repro::walk_blocks(span, DENSE_TILE,
+                           (S + DENSE_TILE - 1) / DENSE_TILE),
+        scale);
+    write_out(st, out, b, h, g, hd);
+  } else {
+    const repro::DenseRows kv{base, S, repro::CHUNK_TILE, g, hd};
+    repro::tile_walk<HD, repro::CHUNK_TILE>(
+        q, k, v, kv, SlotMask{roll, 0, span}, repro::Bf16Out{out, 1, h},
+        reinterpret_cast<bf16*>(smem), b, 0, kvh, 1, h, g, p, scale);
+  }
 }
 
 template <typename T>
@@ -84,30 +117,34 @@ cudaError_t paged_t(const void* q, const void* kp, const void* vp,
                     const int* tables, const int* pos, void* out, int B,
                     int h, int g, int hd, int bs, int nbt, float scale,
                     cudaStream_t stream) {
-  const int m = h / g;
-  const size_t smem = repro::walk_smem_bytes(bs, hd, m);
-  cudaError_t e = repro::allow_smem(paged_decode_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  paged_decode_kernel<T><<<dim3(B, g), 32 * m, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, pos, static_cast<T*>(out), h, g, hd,
-      bs, nbt, scale);
-  return cudaGetLastError();
+  auto go = [&](auto HD, int nz, int threads, size_t smem, int, int rpw) {
+    auto kern = paged_decode_kernel<T, decltype(HD)::value>;
+    cudaError_t e = repro::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(B, g, nz), threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp),
+        static_cast<const T*>(vp), tables, pos, static_cast<T*>(out), h, g,
+        hd, bs, nbt, rpw, scale);
+    return cudaGetLastError();
+  };
+  return repro::launch_chunk<T>(h, g, hd, bs, 1, go);
 }
 
 template <typename T>
 cudaError_t dense_t(const void* q, const void* k, const void* v,
                     const int* pos, void* out, int B, int h, int g, int hd,
                     int S, int window, float scale, cudaStream_t stream) {
-  const int m = h / g;
-  const size_t smem = repro::walk_smem_bytes(DENSE_TILE, hd, m);
-  cudaError_t e = repro::allow_smem(dense_decode_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  dense_decode_kernel<T><<<dim3(B, g), 32 * m, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(out), h, g, hd, S,
-      window, scale);
-  return cudaGetLastError();
+  auto go = [&](auto HD, int nz, int threads, size_t smem, int, int rpw) {
+    auto kern = dense_decode_kernel<T, decltype(HD)::value>;
+    cudaError_t e = repro::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(B, g, nz), threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), pos, static_cast<T*>(out), h, g, hd, S,
+        window, rpw, scale);
+    return cudaGetLastError();
+  };
+  return repro::launch_chunk<T>(h, g, hd, DENSE_TILE, 1, go);
 }
 
 bool bad_heads(int h, int g, int hd) {
@@ -132,7 +169,7 @@ extern "C" int paged_decode_launch(const void* q, const void* k_pool,
   if (dtype == DT_F32)
     e = paged_t<float>(q, k_pool, v_pool, tb, ps, out, B, h, g, hd, bs, nbt, scale, s);
   else if (dtype == DT_BF16)
-    e = paged_t<__nv_bfloat16>(q, k_pool, v_pool, tb, ps, out, B, h, g, hd, bs, nbt, scale, s);
+    e = paged_t<bf16>(q, k_pool, v_pool, tb, ps, out, B, h, g, hd, bs, nbt, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -151,7 +188,7 @@ extern "C" int dense_decode_launch(const void* q, const void* k,
   if (dtype == DT_F32)
     e = dense_t<float>(q, k, v, ps, out, B, h, g, hd, S, window, scale, s);
   else if (dtype == DT_BF16)
-    e = dense_t<__nv_bfloat16>(q, k, v, ps, out, B, h, g, hd, S, window, scale, s);
+    e = dense_t<bf16>(q, k, v, ps, out, B, h, g, hd, S, window, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

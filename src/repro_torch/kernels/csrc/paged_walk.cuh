@@ -1,32 +1,78 @@
-// The block walk shared by the paged decode, verify and split-K kernels and
-// the dense-row decode kernel.
+// The fp32 block walk shared by the paged decode, verify and split-K kernels
+// and the dense-row decode kernel (in bf16 they take the tensor-core walk of
+// `tile_walk.cuh`, where the chunk is a query tile; the CUDA cores keep the
+// fp32 parity runs at 1e-4).
 //
-// One thread block serves one (request, KV head) pair and a group of query
-// rows of that KV head: row r of the group is query head `r / sq` of the
-// group's m = h/g heads at chunk position `r % sq`, one warp each.  Each
-// tile of keys (a pool block, or a run of dense rows: `kv_rows.cuh`) is read
-// once per thread block and staged in shared memory as fp32 with a padded
-// row (conflict-free column reads); every warp then scores its own query row
-// against it with an online softmax in fp32 registers: lane j scores key j
-// of a 32-key chunk, and each lane owns hd/32 output dims.  Which keys are
-// valid is the mask policy's: `ChunkMask` (paged chunks: j <= pos + i and
-// j < kend = pos + lens, the mask of the Pallas kernels) or `RollingMask`
-// (dense rows, linear or rolling).  Addressing and mask are template
-// parameters, so each kernel compiles only its own.
+// One thread block serves one (request, KV head) pair and every query row
+// of that KV head: row r is query head `r / sq` of the group's m = h/g heads
+// at chunk position `r % sq`, m * sq rows in all (4 for a decode, 20 for a
+// 5-token verify chunk at m = 4), so each tile of keys (a pool block, or a
+// run of dense rows: `kv_rows.cuh`) is read from device memory once.  The
+// rows are shared among the block's warps, several rows a warp (`walk_shape`:
+// at most 8 warps of at most 8 rows; a group of more than 64 rows takes
+// several thread blocks).  `launch_chunk` gives the launch shape of a chunk
+// kernel for either walk.
+//
+// Tiles stream through a ring of WALK_STAGES tiles in shared memory, in the
+// element type, by 16-byte `cp.async` copies, so two tiles are in flight
+// while the block computes on a third; the table is read once per tile.
+// Lane j scores key j of a 32-key chunk against each of its warp's rows: it
+// reads its key's row as 16-byte vectors (rows padded by 16 bytes, so the
+// lanes' reads do not conflict) and widens them to fp32 in registers,
+// against the fp32 query rows read as broadcast 16-byte loads.  The online
+// softmax stays in fp32 registers (the row sum as per-lane shares, summed
+// once at the end); the chunk's probabilities go through a per-warp
+// shared-memory row, and each lane accumulates hd/32 output dims of each of
+// its rows from one read of each V row.  Which keys are valid is the mask
+// policy's: `ChunkMask` (paged chunks: j <= pos + i and j < kend = pos +
+// lens, the mask of the Pallas kernels) or `RollingMask` (dense rows, linear
+// or rolling).  Addressing and mask are template parameters, so each kernel
+// compiles only its own.
 #pragma once
 
-#include "kv_rows.cuh"
+#include "tile_walk.cuh"
 
 namespace repro {
 
 constexpr int WALK_MAX_NI = 8;      // hd / 32 <= 8, i.e. hd <= 256
-constexpr int WALK_MAX_WARPS = 16;  // query rows per thread block
+constexpr int CHUNK_TILE = 32;      // keys per tile of the bf16 chunk walk
+constexpr int WALK_STAGES = 3;      // K/V tiles in the ring
+constexpr int WALK_MAX_WARPS = 8;
+constexpr int WALK_RPW = 8;         // rows a warp can hold
+constexpr int WALK_MAX_ROWS = WALK_MAX_WARPS * WALK_RPW;
 
-// Shared memory of one thread block: K and V of one tile of `bs` keys, fp32
-// with a padded row, and the group's query rows.
-inline size_t walk_smem_bytes(int bs, int hd, int rows) {
-  return (2 * static_cast<size_t>(bs) * (hd + 1) +
-          static_cast<size_t>(rows) * hd) * sizeof(float);
+// How a group of `rows` query rows is laid out: `nz` thread blocks of `per`
+// rows (one unless rows > WALK_MAX_ROWS), each of `warps` warps of `rpw`
+// rows.
+struct WalkShape {
+  int nz, per, warps, rpw;
+};
+
+inline WalkShape walk_shape(int rows) {
+  WalkShape s;
+  s.nz = (rows + WALK_MAX_ROWS - 1) / WALK_MAX_ROWS;
+  s.per = (rows + s.nz - 1) / s.nz;
+  s.warps = s.per < WALK_MAX_WARPS ? s.per : WALK_MAX_WARPS;
+  s.rpw = (s.per + s.warps - 1) / s.warps;
+  s.warps = (s.per + s.rpw - 1) / s.rpw;
+  return s;
+}
+
+// Row length of a ring tile, in elements: hd plus 16 bytes.
+template <typename T>
+__host__ __device__ constexpr int walk_ld(int hd) {
+  return hd + 16 / static_cast<int>(sizeof(T));
+}
+
+// Shared memory of one thread block: the ring, the fp32 query rows, and
+// each warp's row of probabilities per row it can hold.
+template <typename T>
+inline size_t walk_smem_bytes(int bs, int hd, const WalkShape& s) {
+  return static_cast<size_t>(WALK_STAGES) * 2 * bs * walk_ld<T>(hd) *
+             sizeof(T) +
+         (static_cast<size_t>(s.per) * hd +
+          static_cast<size_t>(s.warps) * WALK_RPW * 32) *
+             sizeof(float);
 }
 
 // Paged chunks: chunk row i sits at position pos + i; keys j <= pos + i
@@ -52,81 +98,160 @@ struct RollingMask {
   }
 };
 
+// The calling warp's rows row0 .. row0 + nr - 1 of the block's group:
+// un-normalized output, running max and row sum of each.
 struct WalkState {
-  float acc[WALK_MAX_NI];
-  float m;
-  float l;
+  float acc[WALK_RPW][WALK_MAX_NI];
+  float m[WALK_RPW];
+  float l[WALK_RPW];
+  int row0, nr;
 };
 
-// Walks tiles [ib_lo, ib_hi) of `kv` for the calling warp's query row
-// `row0 + warp` of the group (`rows` rows from `row0`).  Every thread of the
-// block must call it with the same range (it synchronises).  `q` is [B, sq,
-// h, hd]; the tile size is `kv.bs`.
+// 8 consecutive elements of a ring row (16-byte aligned) as fp32
+__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0];
+  const float4 b = reinterpret_cast<const float4*>(p)[1];
+  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+// Walks tiles [ib_lo, ib_hi) of `kv` for rows [g0, g0 + per) of the group of
+// KV head `kvh` (`per` rows, `rpw` a warp).  Every thread of the block must
+// call it with the same arguments (it synchronises).  `q` is [B, sq, h, hd];
+// the tile size is `kv.bs`; `smem` is laid out as `walk_smem_bytes` counts.
 template <typename T, typename Rows, typename Mask>
 __device__ __forceinline__ WalkState chunk_walk(
     const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const Rows& kv, const Mask& mask, float* sm,
-    int b, int kvh, int h, int g, int sq, int row0, int rows, int ib_lo,
-    int ib_hi, float scale) {
+    const T* __restrict__ vp, const Rows& kv, const Mask& mask,
+    unsigned char* smem, int b, int kvh, int h, int g, int sq, int g0,
+    int per, int rpw, int ib_lo, int ib_hi, float scale) {
+  constexpr int RPW = WALK_RPW;
   const int hd = kv.hd, bs = kv.bs;
-  const int ldk = hd + 1;
-  float* Ks = sm;                 // [bs][hd + 1]
-  float* Vs = Ks + bs * ldk;      // [bs][hd + 1]
-  float* Qs = Vs + bs * ldk;      // [rows][hd]
+  const int ld = walk_ld<T>(hd);
   const int m = h / g;
-  const int lane = threadIdx.x & 31;
-  const int w = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int ni = hd / 32;
+  const size_t tile_elems = static_cast<size_t>(2) * bs * ld;
+  T* ring = reinterpret_cast<T*>(smem);
+  float* Qs = reinterpret_cast<float*>(smem + WALK_STAGES * tile_elems *
+                                                  sizeof(T));   // [per][hd]
+  float* Ps = Qs + static_cast<size_t>(per) * hd + w * RPW * 32;
 
-  for (int e = threadIdx.x; e < rows * hd; e += blockDim.x) {
-    const int rr = row0 + e / hd, d = e - (e / hd) * hd;
-    const int qh_ = rr / sq, i_ = rr - qh_ * sq;
-    Qs[e] = to_f(q[((static_cast<size_t>(b) * sq + i_) * h + kvh * m + qh_) *
+  for (int e = threadIdx.x; e < per * hd; e += blockDim.x) {
+    const int r = g0 + e / hd, d = e - (e / hd) * hd;
+    const int qh = r / sq, i = r - qh * sq;
+    Qs[e] = to_f(q[((static_cast<size_t>(b) * sq + i) * h + kvh * m + qh) *
                        hd + d]);
   }
-  // a warp past the group's last row repeats that row (its result is not
-  // written): every warp must take part in the block's barriers
-  const int wr = min(w, rows - 1);
-  const int i = (row0 + wr) % sq;
 
   WalkState st;
+  st.row0 = w * rpw;
+  st.nr = max(0, min(rpw, per - st.row0));
+  int ipos[RPW];
 #pragma unroll
-  for (int k = 0; k < WALK_MAX_NI; ++k) st.acc[k] = 0.f;
-  st.m = NEG_INF;
-  st.l = 0.f;
-  const float* qrow = Qs + wr * hd;
-
-  for (int ib = ib_lo; ib < ib_hi; ++ib) {
-    __syncthreads();  // Q is staged / the previous tile's reads are done
-    stage_tile<T>(kp, vp, kv, ib, kvh, Ks, Vs, ldk);
-    __syncthreads();
-    for (int c = 0; c < bs; c += 32) {
-      const int j = c + lane;
-      const bool valid = j < bs && mask(ib * bs + j, i);
-      float s = NEG_INF;
-      if (valid) {
-        const float* kr = Ks + j * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot += qrow[d] * kr[d];
-        s = dot * scale;
-      }
-      const float m_new = fmaxf(st.m, warp_max(s));
-      const float pj = valid ? expf(s - m_new) : 0.f;
-      const float corr = expf(fminf(st.m - m_new, 0.f));
-      st.l = st.l * corr + warp_sum(pj);
+  for (int r = 0; r < RPW; ++r) {
+    st.m[r] = NEG_INF;
+    st.l[r] = 0.f;
 #pragma unroll
-      for (int k = 0; k < WALK_MAX_NI; ++k) st.acc[k] *= corr;
-      const int nj = min(32, bs - c);
-      for (int jj = 0; jj < nj; ++jj) {
-        const float pv = __shfl_sync(FULL_MASK, pj, jj);
-        const float* vr = Vs + (c + jj) * ldk + lane;
-#pragma unroll
-        for (int k = 0; k < WALK_MAX_NI; ++k)
-          if (k < ni) st.acc[k] += pv * vr[32 * k];
-      }
-      st.m = m_new;
-    }
+    for (int k = 0; k < WALK_MAX_NI; ++k) st.acc[r][k] = 0.f;
+    ipos[r] = (g0 + st.row0 + r) % sq;   // chunk position of the row
   }
+
+  const int n = ib_hi - ib_lo;
+#pragma unroll
+  for (int s = 0; s < WALK_STAGES - 1; ++s) {
+    if (s < n) {
+      T* Ks = ring + s * tile_elems;
+      copy_tile_async<T>(kp, vp, kv, ib_lo + s, kvh, Ks, Ks + bs * ld, ld);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < n; ++it) {
+    const int nxt = it + WALK_STAGES - 1;
+    if (nxt < n) {
+      T* Ks = ring + (nxt % WALK_STAGES) * tile_elems;
+      copy_tile_async<T>(kp, vp, kv, ib_lo + nxt, kvh, Ks, Ks + bs * ld, ld);
+    }
+    cp_async_commit();
+    cp_async_wait<WALK_STAGES - 1>();   // tile `it` has landed
+    __syncthreads();                    // ... for every thread (and Q)
+    const T* Ks = ring + (it % WALK_STAGES) * tile_elems;
+    const T* Vs = Ks + bs * ld;
+    const int ib = ib_lo + it;
+    if (st.nr > 0) {
+      for (int c = 0; c < bs; c += 32) {
+        const int j = c + lane;
+        float s[RPW];
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) s[r] = 0.f;
+        if (j < bs) {
+          const T* kr = Ks + j * ld;
+          for (int d = 0; d < hd; d += 8) {
+            float kx[8];
+            load8(kr + d, kx);
+#pragma unroll
+            for (int r = 0; r < RPW; ++r) {
+              if (r < st.nr) {
+                float qx[8];
+                load8(Qs + (st.row0 + r) * hd + d, qx);
+#pragma unroll
+                for (int u = 0; u < 8; ++u) s[r] += qx[u] * kx[u];
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < RPW; ++r) {
+          if (r < st.nr) {
+            const bool valid = j < bs && mask(ib * bs + j, ipos[r]);
+            const float sv = valid ? s[r] * scale : NEG_INF;
+            const float m_new = fmaxf(st.m[r], warp_max(sv));
+            const float p = valid ? expf(sv - m_new) : 0.f;
+            const float corr = expf(fminf(st.m[r] - m_new, 0.f));
+            st.l[r] = st.l[r] * corr + p;      // this lane's share
+#pragma unroll
+            for (int k = 0; k < WALK_MAX_NI; ++k) st.acc[r][k] *= corr;
+            st.m[r] = m_new;
+            Ps[r * 32 + lane] = p;
+          }
+        }
+        __syncwarp();
+        const int nj = min(32, bs - c);
+        for (int jj = 0; jj < nj; ++jj) {
+          const T* vr = Vs + (c + jj) * ld + lane;
+          float vx[WALK_MAX_NI];
+#pragma unroll
+          for (int k = 0; k < WALK_MAX_NI; ++k)
+            vx[k] = k < ni ? to_f(vr[32 * k]) : 0.f;
+#pragma unroll
+          for (int r = 0; r < RPW; ++r) {
+            if (r < st.nr) {
+              const float p = Ps[r * 32 + jj];
+#pragma unroll
+              for (int k = 0; k < WALK_MAX_NI; ++k)
+                if (k < ni) st.acc[r][k] += p * vx[k];
+            }
+          }
+        }
+        __syncwarp();
+      }
+    }
+    __syncthreads();   // the slot is free for tile it + WALK_STAGES
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) st.l[r] = warp_sum(st.l[r]);
   return st;
 }
 
@@ -135,11 +260,38 @@ __device__ __forceinline__ int walk_blocks(int kend, int bs, int nbt) {
   return kend <= 0 ? 0 : min(nbt, (kend - 1) / bs + 1);
 }
 
-// Row groups of a (request, KV head) pair: `rows` query rows in `nz` thread
-// blocks of at most WALK_MAX_WARPS warps, balanced.
-inline void row_groups(int rows, int* nz, int* per) {
-  *nz = (rows + WALK_MAX_WARPS - 1) / WALK_MAX_WARPS;
-  *per = (rows + *nz - 1) / *nz;
+// Threads of a chunk kernel (decode, verify, split-K): HD is the head dim
+// of the bf16 walk, 0 for the fp32 walk.
+template <typename T, int HD>
+struct ChunkThreads {
+  static constexpr int value = WALK_MAX_WARPS * 32;
+};
+template <int HD>
+struct ChunkThreads<__nv_bfloat16, HD> {
+  static constexpr int value = TcWalk<HD, CHUNK_TILE>::kThreads;
+};
+
+// Launch shape of a chunk kernel of m * sq query rows per (request, KV
+// head): calls go(HD, nz, threads, smem, per, rpw), with nz thread blocks
+// per pair.  fp32: the CUDA-core walk, nz row groups of `per` rows, `rpw` a
+// warp, HD = 0.  bf16: the tensor-core walk compiled for the head dim HD,
+// nz query tiles of 64 / m positions (m <= 64).
+template <typename T, typename Go>
+inline cudaError_t launch_chunk(int h, int g, int hd, int bs, int sq,
+                                Go&& go) {
+  const int m = h / g;
+  if constexpr (std::is_same<T, float>::value) {
+    const WalkShape ws = walk_shape(m * sq);
+    return go(std::integral_constant<int, 0>{}, ws.nz, 32 * ws.warps,
+              walk_smem_bytes<T>(bs, hd, ws), ws.per, ws.rpw);
+  } else {
+    const int bq = TW_ROWS / m;
+    if (bq == 0) return cudaErrorInvalidValue;
+    return with_hd(hd, [&](auto HD) {
+      using W = TcWalk<decltype(HD)::value, CHUNK_TILE>;
+      return go(HD, (sq + bq - 1) / bq, W::kThreads, W::kSmem, 0, 0);
+    });
+  }
 }
 
 }  // namespace repro

@@ -5,58 +5,89 @@
 // jnp epilogue `lse_merge` (:40).  A long table walked by one thread block
 // per (request, KV head) leaves most SMs idle at small batch; here the walk
 // is cut into `ns` independent runs of npb = ceil(nbt / ns) table entries,
-// grid (request, KV head, split x row group).  Each run is the block walk of
-// `paged_walk.cuh` over its entries (the table is padded with null entries
-// past nbt, which the mask excludes, so the walk stops at the block holding
-// key pos + lens - 1) and writes its un-normalized fp32 partial (acc, m, l);
-// a run with no valid key writes (0, NEG_INF, 0).  A second launch merges
-// the runs of every (request, chunk row, query head), one warp each, with
-// weights exp(min(m - m_max, 0)) and l clamped at 1e-30, so all-empty rows
-// give zeros.  Decode is the Sq = 1, lens = 1 case.
+// grid (request, KV head, split), so B * g * ns thread blocks fill the card
+// (the model picks ns from that count: `kernels/autotune.py`).  Each run
+// walks its entries for every query row of the group (m heads x Sq chunk
+// positions in one thread block, so no K/V tile is read twice), with the
+// tiles streaming through a `cp.async` ring; the table is padded with null
+// entries past nbt, which the mask excludes, so the walk stops at the block
+// holding key pos + lens - 1.  The element type picks the walk at compile
+// time: bf16 the tensor-core walk of `tile_walk.cuh` (the chunk is a query
+// tile of 64 / m positions x m heads; a longer chunk takes several), fp32
+// the CUDA-core walk of `paged_walk.cuh` (several rows a warp; more than 64
+// rows take several thread blocks): grid z = split x (query tile or row
+// group).  Each run writes its un-normalized fp32 partial (acc, m, l); a run
+// with no valid key writes (0, NEG_INF, 0).
+//
+// The merge stays a second launch, one warp per (request, chunk row, query
+// head), with weights exp(min(m - m_max, 0)) and l clamped at 1e-30, so
+// all-empty rows give zeros: folding it into the last run of each (request,
+// KV head) would need a global counter reset per call and a fence per block,
+// for a pass over ns * hd floats a row that costs a few microseconds.
+// Decode is the Sq = 1, lens = 1 case.
 #include "paged_walk.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void splitk_partials_kernel(
-    const T* __restrict__ q, const T* __restrict__ kp,
-    const T* __restrict__ vp, const int* __restrict__ tables,
-    const int* __restrict__ pos, const int* __restrict__ lens,
-    float* __restrict__ o_part, float* __restrict__ m_part,
-    float* __restrict__ l_part, int h, int g, int hd, int bs, int nbt, int sq,
-    int ns, int npb, int nz, int per, float scale) {
-  extern __shared__ float sm[];
+using bf16 = __nv_bfloat16;
+
+// grid (B, g, split x (row groups or query tiles)); HD: the bf16 walk's
+// head dim (0 for fp32)
+template <typename T, int HD>
+__global__ void __launch_bounds__(repro::ChunkThreads<T, HD>::value)
+splitk_partials_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                       const T* __restrict__ vp,
+                       const int* __restrict__ tables,
+                       const int* __restrict__ pos,
+                       const int* __restrict__ lens,
+                       float* __restrict__ o_part, float* __restrict__ m_part,
+                       float* __restrict__ l_part, int h, int g, int hd,
+                       int bs, int nbt, int sq, int ns, int npb, int nz,
+                       int per, int rpw, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int s = blockIdx.z / nz;
+  const int z = blockIdx.z - s * nz;
   const int m = h / g;
-  const int row0 = (blockIdx.z - s * nz) * per;
-  const int rows = min(per, m * sq - row0);
   const int p = pos[b];
   const int kend = p + lens[b];
   const int nblk = repro::walk_blocks(kend, bs, nbt);
   const int lo = s * npb;
   const int hi = min(lo + npb, nblk);   // empty when lo >= nblk
   const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, hd};
-  const repro::WalkState st = repro::chunk_walk<T>(
-      q, kp, vp, kv, repro::ChunkMask{p, kend}, sm, b, kvh, h, g, sq, row0,
-      rows, lo, hi, scale);
-  const int w = threadIdx.x >> 5;
-  if (w >= rows) return;
-  const int r = row0 + w;
-  const int qh = r / sq, i = r - qh * sq;
-  const int lane = threadIdx.x & 31;
-  // [B, ns, sq, h] row of this (request, split, chunk row, query head)
-  const size_t row = ((static_cast<size_t>(b) * ns + s) * sq + i) * h +
-                     kvh * m + qh;
-  float* ob = o_part + row * hd + lane;
-  const int ni = hd / 32;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g0 = z * per;
+    const int rows = min(per, m * sq - g0);
+    const repro::WalkState st = repro::chunk_walk<T>(
+        q, kp, vp, kv, repro::ChunkMask{p, kend}, smem, b, kvh, h, g, sq, g0,
+        rows, rpw, lo, hi, scale);
+    const int lane = threadIdx.x & 31;
+    const int ni = hd / 32;
 #pragma unroll
-  for (int k = 0; k < repro::WALK_MAX_NI; ++k)
-    if (k < ni) ob[32 * k] = st.acc[k];
-  if (lane == 0) {
-    m_part[row] = st.m;
-    l_part[row] = st.l;
+    for (int r = 0; r < repro::WALK_RPW; ++r) {
+      if (r >= st.nr) continue;
+      const int gr = g0 + st.row0 + r;
+      const int qh = gr / sq, i = gr - qh * sq;
+      // [B, ns, sq, h] row of this (request, split, chunk row, query head)
+      const size_t row = ((static_cast<size_t>(b) * ns + s) * sq + i) * h +
+                         kvh * m + qh;
+      float* ob = o_part + row * hd + lane;
+#pragma unroll
+      for (int k = 0; k < repro::WALK_MAX_NI; ++k)
+        if (k < ni) ob[32 * k] = st.acc[r][k];
+      if (lane == 0) {
+        m_part[row] = st.m[r];
+        l_part[row] = st.l[r];
+      }
+    }
+  } else {
+    // keys of this run's blocks, below pos + lens
+    const repro::PosMask<true> mask{lo * bs, min(hi * bs, kend)};
+    repro::tile_walk<HD, repro::CHUNK_TILE>(
+        q, kp, vp, kv, mask,
+        repro::PartialOut{o_part, m_part, l_part, ns, s, sq, h},
+        reinterpret_cast<bf16*>(smem), b, z, kvh, sq, h, g, p, scale);
   }
 }
 
@@ -105,17 +136,20 @@ cudaError_t partials_t(const void* q, const void* kp, const void* vp,
                        float* o_part, float* m_part, float* l_part, int B,
                        int h, int g, int hd, int bs, int nbt, int sq, int ns,
                        float scale, cudaStream_t stream) {
-  int nz, per;
-  repro::row_groups((h / g) * sq, &nz, &per);
   const int npb = (nbt + ns - 1) / ns;
-  const size_t smem = repro::walk_smem_bytes(bs, hd, per);
-  cudaError_t e = repro::allow_smem(splitk_partials_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  splitk_partials_kernel<T><<<dim3(B, g, ns * nz), 32 * per, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, pos, lens, o_part, m_part, l_part, h,
-      g, hd, bs, nbt, sq, ns, npb, nz, per, scale);
-  return cudaGetLastError();
+  auto go = [&](auto HD, int nz, int threads, size_t smem, int per,
+                int rpw) {
+    if (static_cast<long long>(ns) * nz > 65535) return cudaErrorInvalidValue;
+    auto kern = splitk_partials_kernel<T, decltype(HD)::value>;
+    cudaError_t e = repro::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(B, g, ns * nz), threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp),
+        static_cast<const T*>(vp), tables, pos, lens, o_part, m_part, l_part,
+        h, g, hd, bs, nbt, sq, ns, npb, nz, per, rpw, scale);
+    return cudaGetLastError();
+  };
+  return repro::launch_chunk<T>(h, g, hd, bs, sq, go);
 }
 
 template <typename T>
@@ -158,8 +192,8 @@ extern "C" int splitk_partials_launch(const void* q, const void* k_pool,
     e = partials_t<float>(q, k_pool, v_pool, tb, ps, ln, o, m, l, B, h, g, hd,
                           bs, nbt, sq, ns, scale, s);
   else if (dtype == DT_BF16)
-    e = partials_t<__nv_bfloat16>(q, k_pool, v_pool, tb, ps, ln, o, m, l, B,
-                                  h, g, hd, bs, nbt, sq, ns, scale, s);
+    e = partials_t<bf16>(q, k_pool, v_pool, tb, ps, ln, o, m, l, B, h, g, hd,
+                         bs, nbt, sq, ns, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);
@@ -179,7 +213,7 @@ extern "C" int lse_merge_launch(const void* o_part, const void* m_part,
   if (dtype == DT_F32)
     e = merge_t<float>(o, m, l, out, B, ns, rows, hd, s);
   else if (dtype == DT_BF16)
-    e = merge_t<__nv_bfloat16>(o, m, l, out, B, ns, rows, hd, s);
+    e = merge_t<bf16>(o, m, l, out, B, ns, rows, hd, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

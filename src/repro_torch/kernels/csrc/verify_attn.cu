@@ -4,50 +4,62 @@
 // (`paged_verify_attention`, body `_paged_verify_kernel` :215).  The TPU grid
 // (B, h, nbt) streams every K/V block once per QUERY head; here one thread
 // block serves a (request, KV head) pair and all m = h/g query heads x Sq
-// chunk rows of that group (one warp per row, at most 16 rows per thread
-// block) from one read of each K/V block (`paged_walk.cuh`).  The walk stops
-// at the block holding key pos + lens - 1; keys are valid for j <= pos + i
-// and j < pos + lens.  The finalize divides by l clamped at 1e-30, so a row
-// with no valid key (pos = lens = 0: an inactive decode row on the null
-// block) gives exact zeros.
+// chunk rows of that group from one read of each K/V block.  The element
+// type picks the walk at compile time: bf16 takes the tensor-core walk of
+// `tile_walk.cuh` (the chunk is a query tile of Sq positions x m heads,
+// 64 / m positions a tile), fp32 the CUDA-core walk of `paged_walk.cuh`
+// (several rows a warp; more than 64 rows take several thread blocks).  The
+// walk stops at the block holding key pos + lens - 1; keys are valid for
+// j <= pos + i and j < pos + lens.  The finalize divides by l clamped at
+// 1e-30, so a row with no valid key (pos = lens = 0: an inactive decode row
+// on the null block) gives exact zeros.
 #include "paged_walk.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void paged_verify_kernel(const T* __restrict__ q,
-                                    const T* __restrict__ kp,
-                                    const T* __restrict__ vp,
-                                    const int* __restrict__ tables,
-                                    const int* __restrict__ pos,
-                                    const int* __restrict__ lens,
-                                    T* __restrict__ out, int h, int g, int hd,
-                                    int bs, int nbt, int sq, int per,
-                                    float scale) {
-  extern __shared__ float sm[];
+using bf16 = __nv_bfloat16;
+
+// grid (B, g, row groups or query tiles); HD: the bf16 walk's head dim (0
+// for fp32)
+template <typename T, int HD>
+__global__ void __launch_bounds__(repro::ChunkThreads<T, HD>::value)
+paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp, const int* __restrict__ tables,
+                    const int* __restrict__ pos, const int* __restrict__ lens,
+                    T* __restrict__ out, int h, int g, int hd, int bs,
+                    int nbt, int sq, int per, int rpw, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
   const int m = h / g;
-  const int row0 = blockIdx.z * per;
-  const int rows = min(per, m * sq - row0);
   const int p = pos[b];
   const int kend = p + lens[b];
-  const int nblk = repro::walk_blocks(kend, bs, nbt);
   const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, hd};
-  const repro::WalkState st = repro::chunk_walk<T>(
-      q, kp, vp, kv, repro::ChunkMask{p, kend}, sm, b, kvh, h, g, sq, row0,
-      rows, 0, nblk, scale);
-  const int w = threadIdx.x >> 5;
-  if (w >= rows) return;
-  const int r = row0 + w;
-  const int qh = r / sq, i = r - qh * sq;
-  const float l = fmaxf(st.l, 1e-30f);
-  T* ob = out + ((static_cast<size_t>(b) * sq + i) * h + kvh * m + qh) * hd +
-          (threadIdx.x & 31);
-  const int ni = hd / 32;
+  if constexpr (std::is_same<T, float>::value) {
+    const int g0 = blockIdx.z * per;
+    const int rows = min(per, m * sq - g0);
+    const repro::WalkState st = repro::chunk_walk<T>(
+        q, kp, vp, kv, repro::ChunkMask{p, kend}, smem, b, kvh, h, g, sq, g0,
+        rows, rpw, 0, repro::walk_blocks(kend, bs, nbt), scale);
+    const int ni = hd / 32;
 #pragma unroll
-  for (int k = 0; k < repro::WALK_MAX_NI; ++k)
-    if (k < ni) ob[32 * k] = repro::from_f<T>(st.acc[k] / l);
+    for (int r = 0; r < repro::WALK_RPW; ++r) {
+      if (r >= st.nr) continue;
+      const int row = g0 + st.row0 + r;
+      const int qh = row / sq, i = row - qh * sq;
+      const float l = fmaxf(st.l[r], 1e-30f);
+      float* ob = out + ((static_cast<size_t>(b) * sq + i) * h + kvh * m +
+                         qh) * hd + (threadIdx.x & 31);
+#pragma unroll
+      for (int k = 0; k < repro::WALK_MAX_NI; ++k)
+        if (k < ni) ob[32 * k] = st.acc[r][k] / l;
+    }
+  } else {
+    repro::tile_walk<HD, repro::CHUNK_TILE>(
+        q, kp, vp, kv, repro::PosMask<true>{0, min(kend, nbt * bs)},
+        repro::Bf16Out{out, sq, h}, reinterpret_cast<bf16*>(smem), b,
+        blockIdx.z, kvh, sq, h, g, p, scale);
+  }
 }
 
 template <typename T>
@@ -55,16 +67,18 @@ cudaError_t launch_t(const void* q, const void* kp, const void* vp,
                      const int* tables, const int* pos, const int* lens,
                      void* out, int B, int h, int g, int hd, int bs, int nbt,
                      int sq, float scale, cudaStream_t stream) {
-  int nz, per;
-  repro::row_groups((h / g) * sq, &nz, &per);
-  const size_t smem = repro::walk_smem_bytes(bs, hd, per);
-  cudaError_t e = repro::allow_smem(paged_verify_kernel<T>, smem);
-  if (e != cudaSuccess) return e;
-  paged_verify_kernel<T><<<dim3(B, g, nz), 32 * per, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp),
-      static_cast<const T*>(vp), tables, pos, lens, static_cast<T*>(out), h, g,
-      hd, bs, nbt, sq, per, scale);
-  return cudaGetLastError();
+  auto go = [&](auto HD, int nz, int threads, size_t smem, int per,
+                int rpw) {
+    auto kern = paged_verify_kernel<T, decltype(HD)::value>;
+    cudaError_t e = repro::allow_smem(kern, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<dim3(B, g, nz), threads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(kp),
+        static_cast<const T*>(vp), tables, pos, lens, static_cast<T*>(out), h,
+        g, hd, bs, nbt, sq, per, rpw, scale);
+    return cudaGetLastError();
+  };
+  return repro::launch_chunk<T>(h, g, hd, bs, sq, go);
 }
 
 }  // namespace
@@ -77,7 +91,7 @@ extern "C" int paged_verify_launch(const void* q, const void* k_pool,
                                    int dtype, void* stream) {
   if (B <= 0 || sq <= 0) return 0;
   if (g <= 0 || h % g != 0 || hd % 32 != 0 ||
-      hd > 32 * repro::WALK_MAX_NI || bs <= 0 || nbt <= 0)
+      hd > 32 * repro::WALK_MAX_NI || bs <= 0 || nbt <= 0 || g > 65535)
     return cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(tables);
   const int* ps = static_cast<const int*>(pos);
@@ -88,8 +102,8 @@ extern "C" int paged_verify_launch(const void* q, const void* k_pool,
     e = launch_t<float>(q, k_pool, v_pool, tb, ps, ln, out, B, h, g, hd, bs,
                         nbt, sq, scale, s);
   else if (dtype == DT_BF16)
-    e = launch_t<__nv_bfloat16>(q, k_pool, v_pool, tb, ps, ln, out, B, h, g,
-                                hd, bs, nbt, sq, scale, s);
+    e = launch_t<bf16>(q, k_pool, v_pool, tb, ps, ln, out, B, h, g, hd, bs,
+                       nbt, sq, scale, s);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

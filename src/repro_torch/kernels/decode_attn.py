@@ -20,11 +20,14 @@ Bound on an H100 SXM: each request reads the K and V rows of its valid keys
 (2 * keys * g * hd elements) for 4 * h * keys * hd FLOPs — about h/g FLOPs
 per byte, so memory bandwidth (3.35 TB/s) bounds both.
 
-Design (``csrc/decode_attn.cu`` over ``csrc/paged_walk.cuh``): the TPU
-grids (B, h, ...) stream each K/V tile once per query head; here one block
-per (request, KV head) serves all h/g query heads of the group, one warp
-each, from a single read of each 32-key tile (a pool block, or 32 dense
-slots), staged in shared memory as fp32.  The paged walk stops at the block
+Design (``csrc/decode_attn.cu``): the TPU grids (B, h, ...) stream each
+K/V tile once per query head; here one block per (request, KV head) serves
+all h/g query heads of the group from a single read of each 32-key tile (a
+pool block, or 32 dense slots), copied by 16-byte ``cp.async`` into a ring
+in shared memory.  bf16 runs the tensor-core query-tile walk of
+``csrc/tile_walk.cuh`` (the m heads are the rows of a one-position tile,
+``mma.sync`` products), fp32 the CUDA-core walk of ``csrc/paged_walk.cuh``
+(the heads shared among the warps).  The paged walk stops at the block
 holding ``pos``, the linear dense walk at slot ``pos``; the online softmax
 runs in fp32; rows with no valid key give 0.  Inactive paged decode rows
 (``pos = 0``, null table) read only block 0.
@@ -72,6 +75,7 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     require(pos.dtype == torch.int32 and pos.shape == (B,),
             "pos must be int32 [B]")
     build.check_cuda(q, k_pool, v_pool, block_tables, pos)
+    build.check_vectors(q, k_pool, v_pool)
     out = torch.empty_like(q)
     fn = build.function("decode_attn", "paged_decode_launch", _ARGS)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -105,6 +109,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(pos.dtype == torch.int32 and pos.shape == (B,),
             "pos must be int32 [B]")
     build.check_cuda(q, k, v, pos)
+    build.check_vectors(q, k, v)
     out = torch.empty_like(q)
     fn = build.function("decode_attn", "dense_decode_launch", _DENSE_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),

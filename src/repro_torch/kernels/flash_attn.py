@@ -13,11 +13,19 @@ tokens on the operations (989 TFLOP/s in bf16 on the tensor cores) bound it,
 not the bytes.
 
 Design (``csrc/flash_attn.cu`` over ``csrc/tile_walk.cuh``, the walk of the
-paged prefill kernel): one thread block per (request, query tile, KV head)
+paged prefill kernel): one thread block per (KV head, request, query tile)
 serves the group's h/g query heads x 64/(h/g) positions from one read of
-each 32-key K/V tile, staged in shared memory as fp32; the online softmax
-runs in fp32 on the CUDA cores, not the tensor cores (later work);
-the causal walk stops at the last tile the query tile can see.
+each K/V tile.  The element type picks the walk at compile time.  bf16 runs
+on the tensor cores: four warps of 16 query rows, S = Q K^T and O += P V as
+``mma.sync.m16n8k16`` products with fp32 accumulators fed by ``ldmatrix``,
+64-key tiles (32 above hd 128) through a two-stage ring of 16-byte
+``cp.async`` copies so that the copy of the next tile overlaps the math of
+this one; the online softmax stays in fp32 registers and P is rounded to
+bf16 only as the operand of P V.  fp32 keeps the CUDA-core walk (32-key
+tiles staged as fp32), which holds the fp32 parity runs at 1e-4.  The
+causal walk stops at the last tile the query tile can see and masks only
+the tiles that straddle a limit; the longest query tiles launch first.
+``wgmma`` (the card's full tensor-core rate) is later work.
 """
 from __future__ import annotations
 
@@ -52,6 +60,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     require(lengths.dtype == torch.int32 and lengths.shape == (B,),
             "lengths must be int32 [B]")
     build.check_cuda(q, k, v, lengths)
+    build.check_vectors(q, k, v)
     out = torch.empty_like(q)
     fn = build.function("flash_attn", "flash_attention_launch", _ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),

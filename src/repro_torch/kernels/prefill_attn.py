@@ -16,9 +16,10 @@ Design (``csrc/prefill_attn.cu`` over ``csrc/tile_walk.cuh``, the walk of
 the flash attention kernel): one block per (request, query tile, KV head);
 the tile holds 64 / (h/g) query positions times the h/g query heads of the
 group, so every K/V block is read once per tile and serves them all.
-The walk stops at the last block that the causal and valid limits allow;
-the online softmax runs in fp32 CUDA cores, not tensor cores (a later PR's
-work).
+The walk stops at the last key that the causal and valid limits allow.  In
+bf16 it is the flash kernel's tensor-core walk (``mma.sync``, a ``cp.async``
+ring) over 32-key tiles, one pool block at the engine's block size; in fp32
+the CUDA-core walk, one pool block at a time.
 """
 from __future__ import annotations
 
@@ -60,6 +61,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pool: torch.Tensor,
         require(t.dtype == torch.int32 and t.shape == (B,),
                 f"{name} must be int32 [B]")
     build.check_cuda(q, k_pool, v_pool, block_tables, cached_len, seg_len)
+    build.check_vectors(q, k_pool, v_pool)
     out = torch.empty_like(q)
     fn = build.function("prefill_attn", "paged_prefill_launch", _ARGS)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -17,14 +17,19 @@ parallelism when ``B * g`` thread blocks cannot fill the 132 SMs (long
 context, small batch).  The fp32 partials are the kernel's choice, not the
 function's need.
 
-Design (``csrc/splitk.cu`` over ``csrc/paged_walk.cuh``): grid (request, KV
-head, split x row group), each thread block walking its run as the verify
-kernel walks the whole table (one read of each K/V block serves all h/g
-query heads x Sq rows of the group); runs past the block holding key ``pos +
-lens - 1`` stop at once and write ``(0, NEG_INF, 0)``.  A second launch
-merges, one warp per (request, chunk row, query head).  The merge could be
-plain tensor code, as in the JAX package, but the decode tick is host-bound
-and six eager ops per layer would add to it.
+Design (``csrc/splitk.cu``): grid (request, KV head, split), B * g * ns
+thread blocks (the model keys its split choice on that count, ``Bd *
+n_kv_heads``, and on the card takes it from ``autotune``'s measured table),
+each walking its run as the verify kernel walks the whole table: every
+query row of the group (h/g heads x Sq) in one thread block, so each K/V
+block is read once, streaming through a ring of 16-byte ``cp.async``
+copies; bf16 on the tensor-core walk of ``csrc/tile_walk.cuh``, fp32 on the
+CUDA-core walk of ``csrc/paged_walk.cuh``.  Runs past the block holding key
+``pos + lens - 1`` stop at once and write ``(0, NEG_INF, 0)``.  A second launch merges,
+one warp per (request, chunk row, query head): folding it into the last run
+would need a counter reset per call for a pass of a few microseconds.  The
+merge could be plain tensor code, as in the JAX package, but the decode
+tick is host-bound and six eager ops per layer would add to it.
 """
 from __future__ import annotations
 

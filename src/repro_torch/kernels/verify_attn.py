@@ -11,13 +11,16 @@ pos + lens - 1`` (2 * (pos + lens) * g * hd elements) for about 4 * h * Sq *
 (pos + lens) * hd FLOPs, about Sq * h/g FLOPs per byte, so memory bandwidth
 (3.35 TB/s) bounds it at the chunk widths speculation uses.
 
-Design (``csrc/verify_attn.cu`` over ``csrc/paged_walk.cuh``): the TPU grid
-(B, h, nbt) streams each K/V block once per query head; here one thread
-block per (request, KV head) serves all h/g query heads x Sq chunk rows of
-the group (one warp per row, at most 16 per thread block) from a single read
-of each block, staged in shared memory as fp32.  The walk stops at the block
-holding key ``pos + lens - 1``; the online softmax runs in fp32; rows with no
-valid key (``pos = lens = 0``) give exact zeros.
+Design (``csrc/verify_attn.cu``): the TPU grid (B, h, nbt) streams each
+K/V block once per query head; here one thread block per (request, KV head)
+serves all h/g query heads x Sq chunk rows of the group from a single read
+of each block, copied by 16-byte ``cp.async`` into a ring in shared memory.
+bf16 runs the tensor-core query-tile walk of ``csrc/tile_walk.cuh`` (the
+chunk is a tile of Sq positions x h/g heads, at most 64/(h/g) positions a
+tile), fp32 the CUDA-core walk of ``csrc/paged_walk.cuh`` (several rows a
+warp; more than 64 rows take several thread blocks).  The walk stops at the
+block holding key ``pos + lens - 1``; the online softmax runs in fp32; rows
+with no valid key (``pos = lens = 0``) give exact zeros.
 """
 from __future__ import annotations
 
@@ -43,6 +46,8 @@ def check_chunk_args(q: torch.Tensor, k_pool: torch.Tensor,
     require(k_pool.dtype == q.dtype and v_pool.dtype == q.dtype,
             "q and the pools must share a dtype")
     require(h % g == 0, "need h % g == 0")
+    require(q.dtype != torch.bfloat16 or h // g <= 64,
+            "the bf16 walk takes at most 64 query heads per KV head")
     require(hd % 32 == 0 and hd <= 256, "head dim must be 32k <= 256")
     require(block_tables.dtype == torch.int32
             and block_tables.shape == (B, nbt),
@@ -51,6 +56,7 @@ def check_chunk_args(q: torch.Tensor, k_pool: torch.Tensor,
         require(v.dtype == torch.int32 and v.shape == (B,),
                 f"{name} must be int32 [B]")
     build.check_cuda(q, k_pool, v_pool, block_tables, pos, lens)
+    build.check_vectors(q, k_pool, v_pool)
 
 
 def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,

@@ -333,10 +333,13 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     if cache is None:
         raise ValueError("prefill/decode buckets require a cache")
     if plan.Bd and batch.dec.block_tables is not None:
-        # one split choice per forward, keyed as the JAX model keys it
+        autotune.load_card_table(cache["k"].device)   # once, on a card
+        # one split choice per forward, keyed on the kernels' own grid: one
+        # thread block per (request, KV head), where the JAX model counts a
+        # TPU grid cell per query head (h/g times more)
         plan.num_splits = autotune.choose(
             cfg.hd, cache["k"].shape[2], batch.dec.block_tables.shape[1],
-            plan.Bd * cfg.n_heads,
+            plan.Bd * cfg.n_kv_heads,
             lanes=autotune.effective_lanes(cache["k"].device)).num_splits
     toks = []
     if batch.pf is not None:

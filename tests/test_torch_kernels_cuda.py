@@ -204,3 +204,78 @@ def test_cuda_dense_decode_matches_plain(dtype, window, S):
             cuda(pos))
     _close(decode_attention(*args, window=window),
            ref.decode_attention_ref(*args, window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("m,hd", [(1, 64), (2, 128), (4, 64), (4, 128),
+                                  (8, 64), (8, 128), (64, 64)])
+def test_cuda_flash_attention_tiles(dtype, causal, m, hd):
+    """The query tile (64 / m positions x m heads of a group) at every
+    group size, hd 64 and 128: lengths that end inside a key tile (of 32 or
+    64 keys), a length 0 (exact zeros), S != T and a ragged last tile of
+    both queries and keys."""
+    dev = _card()
+    rng = np.random.default_rng(100 + m + hd)
+    B, S, T, g = 4, 97, 130, 2
+    h = m * g
+    q = rng.standard_normal((B, S, h, hd), dtype=np.float32)
+    k = rng.standard_normal((B, T, g, hd), dtype=np.float32)
+    v = rng.standard_normal((B, T, g, hd), dtype=np.float32)
+    lens = np.array([130, 0, 65, 33], np.int32)
+    cuda = lambda x: t(x).to(dev)
+    args = (cuda(q).to(dtype), cuda(k).to(dtype), cuda(v).to(dtype),
+            cuda(lens))
+    y = flash_attention(*args, causal=causal)
+    _close(y, ref.flash_attention_ref(*args, causal=causal), dtype)
+    assert float(y[1].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ns", [4, 8, 16])
+def test_cuda_splitk_empty_splits_and_decode_lens(dtype, ns):
+    """Short walks under a wide table (nbt 16): most of the ns runs hold no
+    valid block and write empty partials; decode with ``lens`` given (an
+    inactive row: pos 0, lens 0, exact zeros)."""
+    dev = _card()
+    rng = np.random.default_rng(200 + ns)
+    pos, lens = np.array([40, 5, 0]), np.array([5, 3, 0])
+    args = _chunk_case(rng, dev, dtype, 3, 5, 32, 8, 128, 32, 16, pos, lens)
+    o, m, l = splitk_partials(*args, ns)
+    po, pm, pl = ref.splitk_partials_ref(*args, ns)
+    _close(o, po, dtype)
+    _close(lse_merge(o, m, l, dtype), ref.lse_merge(o, m, l), dtype)
+    y = paged_verify_attention_splitk(*args, num_splits=ns)
+    _close(y, ref.paged_verify_ref(*args), dtype)
+    assert float(y[2].abs().max()) == 0.0
+    q, kp, vp, tables, p, _ = args
+    dlens = t(np.array([1, 1, 0], np.int32)).to(dev)
+    y = paged_decode_attention_splitk(q[:, 0].contiguous(), kp, vp, tables,
+                                      p, num_splits=ns, lens=dlens)
+    _close(y[:2], ref.paged_decode_ref(q[:2, 0], kp, vp, tables[:2], p[:2]),
+           dtype)
+    assert float(y[2].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,Sq", [(4, 5), (16, 5), (8, 9)])
+def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq):
+    """Groups of m * Sq query rows: 20 (one thread block, several rows a
+    warp), 80 and 72 (more than one block holds: two row groups), through
+    the verify kernel and split-K at ns 1 and 4."""
+    dev = _card()
+    rng = np.random.default_rng(300 + m * Sq)
+    g = 2
+    pos, lens = np.array([0, 61, 200]), np.array([0, Sq, Sq - 2])
+    args = _chunk_case(rng, dev, dtype, 3, Sq, m * g, g, 64, 32, 8, pos,
+                       lens)
+    plain = ref.paged_verify_ref(*args)
+    y = paged_verify_attention(*args)
+    _close(y, plain, dtype)
+    assert float(y[0].abs().max()) == 0.0
+    for ns in (1, 4):
+        _close(paged_verify_attention_splitk(*args, num_splits=ns), plain,
+               dtype)

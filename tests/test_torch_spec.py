@@ -28,6 +28,7 @@ from repro.configs import get_reduced as j_get_reduced
 from repro.core.lora import LoRAConfig as JLoRAConfig
 from repro.core.virtualization import AdapterStore as JAdapterStore, \
     MixedLoraModel as JMixedLoraModel
+from repro.kernels import autotune as j_autotune
 from repro.models import model as JM
 from repro.models.stream import DECBatch as JDEC, PFBatch as JPF, \
     UnifiedBatch as JUB
@@ -173,13 +174,17 @@ def test_verify_bucket_matches_jax(model_pair, monkeypatch, nbt, mode, ns):
     5-token chunk straddling a block edge, a 2-token chunk (trailing
     padding slots), and an inactive row (pos 0, lens 0, null table).  At
     132 lanes a 6-entry table walks sequentially and an 8-entry one splits
-    in two (Bd 3 x 8 heads), on both sides."""
+    in two on both sides: the port keys on its grid (Bd 3 x 2 KV heads),
+    the JAX model on its own (Bd 3 x 8 heads)."""
     s = model_pair
     monkeypatch.setenv("REPRO_PAGED_ATTN_KERNEL", mode)
     # the JAX chooser at the card's lane count, which the port uses here
     monkeypatch.setenv("REPRO_ATTN_LANES", "132")
-    bh = 3 * s["cfg"].n_heads
-    assert autotune.choose(s["cfg"].hd, BS, nbt, bh).num_splits == ns
+    hd = s["cfg"].hd
+    assert autotune.choose(hd, BS, nbt, 3 * s["cfg"].n_kv_heads
+                           ).num_splits == ns
+    assert j_autotune.choose(hd, BS, nbt, 3 * s["cfg"].n_heads
+                             ).num_splits == ns
     rng = np.random.default_rng(nbt)
     V = s["cfg"].vocab
     state = {"j": JM.init_paged_cache(s["jcfg"], NB, BS, 3),

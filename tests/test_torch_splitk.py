@@ -181,18 +181,65 @@ def test_heuristic_matches_jax_for_the_same_lanes(hd, bs, nbt, bh, lanes):
 
 
 def test_choose_uses_the_card_lane_prior():
-    """Off the card the lanes are the H100 SXM's 132 SMs: the long-context
-    shape (hd 128, bs 32, nbt 128, Bd 2 x 32 heads) splits in two, the
-    serving shape (nbt 16, Bd 8 x 32 heads) walks sequentially, both as
-    JAX decides at 132 lanes; with JAX's own 16 lanes the choices agree
-    too."""
+    """Off the card the lanes are the H100 SXM's 132 SMs.  Keyed on the
+    port's grid (Bd x 8 KV heads), the long-context shape (hd 128, bs 32,
+    nbt 128, Bd 2) splits in eight (128 thread blocks) and the serving shape
+    (nbt 16, Bd 8) in two; keyed as the JAX model keys it (Bd x 32 heads)
+    the same shapes split in two and not at all.  Every choice is the JAX
+    heuristic's for the same arguments, at 132 lanes and at JAX's own 16."""
     assert autotune.effective_lanes() == 132
     assert autotune.effective_lanes(torch.device("cpu")) == 132
-    for key, ns in (((128, 32, 128, 64), 2), ((128, 32, 16, 256), 1)):
+    for key, ns in (((128, 32, 128, 16), 8), ((128, 32, 16, 64), 2),
+                    ((128, 32, 128, 64), 2), ((128, 32, 16, 256), 1)):
         assert autotune.choose(*key).num_splits == ns
         assert j_autotune.heuristic(*key, lanes=132).num_splits == ns
         assert autotune.choose(*key, lanes=16) \
             == j_autotune.heuristic(*key, lanes=16)
+
+
+@pytest.mark.parametrize("Bd,nbt,ns", [(2, 128, 8), (8, 16, 2),
+                                        (1, 4, 1)])
+def test_unified_forward_keys_the_split_on_kv_heads(monkeypatch, Bd, nbt,
+                                                    ns):
+    """The model asks ``choose`` once per forward with ``bh = Bd *
+    n_kv_heads`` (one thread block per request and KV head), and walks with
+    the split it answers: at llama3-8b's head shapes (32 heads over 8 KV
+    heads, hd 128, bs 32) the long-context decode bucket (Bd 2, nbt 128)
+    splits in eight at 132 lanes, a short table (nbt 4) not at all."""
+    import dataclasses
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import init_params
+    from repro_torch.models.stream import DECBatch, UnifiedBatch
+    cfg = dataclasses.replace(get_reduced("llama3-8b"), n_heads=32,
+                              n_kv_heads=8, head_dim=128, n_layers=1)
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device="cpu", dtype=torch.float32)
+    bs = 32
+    cache = TM.init_paged_cache(cfg, nbt * Bd + 1, bs, torch.device("cpu"),
+                                torch.float32)
+    asked, walked = [], []
+    real_choose = autotune.choose
+    monkeypatch.setattr(autotune, "choose", lambda *a, **k: asked.append(
+        (a, k)) or real_choose(*a, **k))
+    monkeypatch.setattr(TM, "paged_decode_attention_splitk",
+                        lambda *a, num_splits, **k: walked.append(num_splits)
+                        or torch.zeros_like(a[0]))
+    tables = torch.arange(Bd * nbt, dtype=torch.int32).reshape(Bd, nbt) + 1
+    pos = torch.full((Bd,), nbt * bs - 2, dtype=torch.int32)
+    dec = DECBatch(tokens=torch.zeros((Bd,), dtype=torch.int32), pos=pos,
+                   adapter=torch.full((Bd,), -1, dtype=torch.int32),
+                   block_tables=tables,
+                   length=torch.ones((Bd,), dtype=torch.int32))
+    out = TM.unified_forward(cfg, params, UnifiedBatch(dec=dec), cache,
+                             block_t=8)
+    assert len(asked) == 1
+    (hd, bsz, width, bh), kw = asked[0]
+    assert (hd, bsz, width, bh) == (cfg.hd, bs, nbt, Bd * cfg.n_kv_heads)
+    assert kw["lanes"] == 132
+    assert real_choose(*asked[0][0], **kw).num_splits == ns
+    assert walked == ([ns] * cfg.n_layers if ns > 1 else [])
+    assert torch.isfinite(out.dec_logits).all()
 
 
 def test_table_round_trip_with_jax_and_memo_follows_version(tmp_path):
