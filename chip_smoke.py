@@ -2,14 +2,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
     python3 chip_smoke.py          # from the repository root, one GPU
-    python3 chip_smoke.py --attn-timing [--root TREE] [--iters N]
+    python3 chip_smoke.py --kernel-timing [--root TREE] [--iters N]
     python3 chip_smoke.py --tune-splits PATH
 
-The second form only checks and times the attention kernels (3-8 of
-``PERF.md``: paged prefill, decode, verify, split-K, and flash at both of
-its main-path shapes, dense decode) of the port in ``TREE`` (default: this
-checkout), at the shapes below: run it over two checkouts in turns (A, B,
-B, A) within one call to compare a kernel change with its parent.  The
+The second form only checks and times the eight kernels of ``PERF.md``
+(SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV, paged prefill,
+decode, verify, split-K, flash at both of its main-path shapes, dense
+decode) of the port in ``TREE`` (default: this checkout), at the shapes
+below: run it over two checkouts in turns (A, B, B, A) within one call to
+compare a kernel change with its parent.  The
 third fills the split table (``kernels/autotune.py``) with
 ``sweep(measure=...)``: for each key the model asks at the smoke's serving
 and long-context buckets, every candidate split timed on the card (decode
@@ -32,7 +33,8 @@ printing its lines; any failure raises and exits non-zero:
              ns > nbt; flash attention causal and not, ragged lengths with a
              0 and S != T; dense-row decode linear and rolling); then, in
              bf16 at one main-path shape each (flash at both of its), the
-             kernel's and the library call's device time (``time_ms``: the
+             kernel's and the library call's device time (SMLM also at
+             ``SMLM_SHAPES``; ``time_ms``: the
              calls captured in a CUDA graph and replayed between CUDA
              events) and the plain version's eager time, beside the bound;
              and at the serving and long-context decode buckets the time of
@@ -61,7 +63,10 @@ printing its lines; any failure raises and exits non-zero:
 6. long    — the same weights at capacity 2, s_max 4096: 2 requests with
              ~3000-token prompts, 16 new tokens, without and with
              speculation; the split-K decode and verify kernels launched,
-             and the flash kernel for the cold 3000-token prefills.
+             and the flash kernel for the cold 3000-token prefills; then
+             the prefill tick of one more 3000-token request profiled
+             (``profile: long prefill`` line: wall, device busy, SMLM's
+             device time and share of it, the top device operations).
 7. dense   — the waves of phase 4 through ``EngineConfig(paged=False)``
              (dense rows, every prompt prefilled whole): all finish, logits
              finite, the flash and dense-decode kernels launched; then both
@@ -217,60 +222,86 @@ def lora_case(T, d_in, d_out, dtype, dev, gen, block_t, n=4, r=8):
     return x, a, b, ids, scale
 
 
+def lora_row(K, x, a, b, ids, scale, bt, err):
+    """Timing row of one SMLM (``bt``: the planner's tile) or BGMV (``bt``
+    None) call: kernel, plain and library device times beside the bound."""
+    T, d_in = x.shape
+    d_out, r = b.shape[-1], a.shape[-1]
+    args = (x, a, b, ids, scale)
+    if bt:
+        run = lambda: K["smlm"](*args, block_t=bt)
+        plain = lambda: K["ref"].smlm_ref(*args, bt)
+        t_live = int((scale != 0).sum()) * bt
+    else:
+        run = lambda: K["bgmv"](*args)
+        plain = lambda: K["ref"].bgmv_ref(*args)
+        t_live = int((scale != 0).sum())
+    used = torch.unique(ids[scale != 0]).numel()
+    it = x.element_size()
+    # X rows of live tokens only (a disabled tile or token needs none),
+    # every output row, each used adapter once
+    nbytes = (t_live * d_in + T * d_out) * it \
+        + used * r * (d_in + d_out) * it
+    flops = 2 * t_live * r * (d_in + d_out)
+    bms, by = bound(nbytes, flops, x.dtype)
+    # library yardstick: torch.bmm shrink + expand on A/B gathered per tile
+    # (SMLM) or per token (BGMV) in advance
+    sel = ids.long()
+    xa = x.view(-1, bt or 1, d_in)
+    ag, bg = a[sel], b[sel]
+    lib = lambda: torch.bmm(torch.bmm(xa, ag), bg)
+    return dict(
+        max_abs_err=err, ms=time_ms(run),
+        plain_ms=time_ms(plain, eager=True),
+        library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+        shape=f"T={T} d_in={d_in} d_out={d_out} r={r} n={a.shape[0]}"
+              + (f" block_t={bt}" if bt else ""))
+
+
+# SMLM's timed shapes beyond the main one: (T, d_in, d_out) — the
+# suffix-prefill, cold serving and long-context token counts at the widest
+# projection, and the other projection shapes at T=1024
+SMLM_SHAPES = ((64, 4096, 14336), (576, 4096, 14336), (3000, 4096, 14336),
+               (1024, 4096, 4096), (1024, 4096, 1024), (1024, 14336, 4096))
+
+
 def check_lora(K, dtype, dev, gen, timing: bool):
     rows = {}
     bt = K["block_t"]
     for name, T in (("smlm", 1024), ("bgmv", 8)):
         errs = []
-        for d_in, d_out in ((4096, 4096), (4096, 1024), (4096, 14336),
-                            (14336, 4096)):
-            x, a, b, ids, scale = lora_case(T, d_in, d_out, dtype, dev,
+        shapes = [(T, 4096, 4096), (T, 4096, 1024), (T, 4096, 14336),
+                  (T, 14336, 4096)]
+        if name == "smlm":
+            shapes += [s for s in SMLM_SHAPES if s[0] != T]
+        for T_, d_in, d_out in shapes:
+            x, a, b, ids, scale = lora_case(T_, d_in, d_out, dtype, dev,
                                             gen, bt)
             if name == "bgmv":
                 ids = torch.tensor([0, 1, 2, 3, 3, -1, 1, 5], device=dev,
                                    dtype=torch.int32)
-            n_head = T if name == "smlm" else 0
+            n_head = T_ if name == "smlm" else 0
             rt = K["route"](ids, scale[ids.long().clamp(0, 3)], 4, n_head,
                             bt)
             if name == "smlm":
                 args = (x, a, b, rt.tile_ids, rt.tile_scale)
-                run = lambda: K["smlm"](*args, block_t=bt)
-                plain = lambda: K["ref"].smlm_ref(*args, bt)
-                live_ids, live_scale = rt.tile_ids, rt.tile_scale
-                t_live = int((rt.tile_scale != 0).sum()) * bt
+                err = compare(K["smlm"](*args, block_t=bt),
+                              K["ref"].smlm_ref(*args, bt), dtype)
             else:
                 args = (x, a, b, rt.tail_ids, rt.tail_scale)
-                run = lambda: K["bgmv"](*args)
-                plain = lambda: K["ref"].bgmv_ref(*args)
-                live_ids, live_scale = rt.tail_ids, rt.tail_scale
-                t_live = int((rt.tail_scale != 0).sum())
-            err = compare(run(), plain(), dtype)
+                err = compare(K["bgmv"](*args), K["ref"].bgmv_ref(*args),
+                              dtype)
             errs.append(err)
-            if timing and (d_in, d_out) == (4096, 14336):
-                used = torch.unique(live_ids[live_scale != 0]).numel()
-                it = x.element_size()
-                # X rows of live tokens only (a disabled tile or token
-                # needs none), every output row, each used adapter once
-                nbytes = (t_live * d_in + T * d_out) * it \
-                    + used * 8 * (d_in + d_out) * it
-                flops = 2 * t_live * 8 * (d_in + d_out)
-                bms, by = bound(nbytes, flops, dtype)
-                # library yardstick: torch.bmm shrink + expand on A/B
-                # gathered per tile (SMLM) or per token (BGMV) in advance
-                sel = live_ids.long()
-                xa = x.view(-1, bt if name == "smlm" else 1, d_in)
-                ag, bg = a[sel], b[sel]
-                lib = lambda: torch.bmm(torch.bmm(xa, ag), bg)
-                rows[name] = dict(
-                    max_abs_err=err, ms=time_ms(run),
-                    plain_ms=time_ms(plain, eager=True),
-                    library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
-                    shape=f"T={T} d_in={d_in} d_out={d_out} r=8 n=4"
-                          + (f" block_t={bt}" if name == "smlm" else ""))
+            main = (T_, d_in, d_out) == (T, 4096, 14336)
+            if timing and (main or (name == "smlm"
+                                    and (T_, d_in, d_out) in SMLM_SHAPES)):
+                key = name if main else f"smlm T={T_} {d_in}x{d_out}"
+                rows[key] = lora_row(K, *args,
+                                     bt if name == "smlm" else None, err)
         print(f"kernels: {name:<13} {str(dtype)[6:]:<8} "
               f"max_abs_err={max(errs):.3e} tol={TOL[dtype]:g}x"
-              f"max|plain| per row block_t={bt} shapes=(4096,4096),"
-              "(4096,1024),(4096,14336),(14336,4096) ok")
+              f"max|plain| per row block_t={bt} shapes(T,d_in,d_out)="
+              f"{','.join(f'({a},{b},{c})' for a, b, c in shapes)} ok")
     return rows
 
 
@@ -1153,8 +1184,29 @@ def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
               f"{2 * max_new} launches={ {k: v for k, v in c.items() if v} } "
               f"splitk_by_sq_ns={shapes} "
               f"finite=True pristine=True ok")
+        if spec is None:
+            profile_prefill(eng, tick, Request(
+                rid=9, prompt=rng.integers(0, cfg.vocab, prompt).astype(
+                    np.int32), adapter="lora0", max_new_tokens=2), "long")
         del eng
     return counts
+
+
+def device_top(prof, n=8):
+    """(device busy ms, the top ``n`` device operations as text, device ms
+    by kernel-name substring) of a finished profile.  The profiles record
+    device activity only: host operator events, which nothing here reads,
+    took tens of seconds a profiled wave to aggregate."""
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_t = lambda e: getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+    busy_ms = sum(dev_t(e) for e in kern) / 1e3
+    top = sorted(kern, key=dev_t, reverse=True)[:n]
+    names = "; ".join(f"{e.key[:48]}={dev_t(e) / 1e3:.3f}ms/{e.count}"
+                      for e in top)
+    by = lambda sub: sum(dev_t(e) for e in kern if sub in e.key) / 1e3
+    return busy_ms, names, by
 
 
 def profile_wave(eng, reqs, dev, label):
@@ -1164,8 +1216,7 @@ def profile_wave(eng, reqs, dev, label):
         return
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for r in reqs:
             r.arrival = eng.clock.now()
@@ -1174,18 +1225,40 @@ def profile_wave(eng, reqs, dev, label):
         eng.run(max_ticks=10000)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dev_t = lambda e: getattr(e, "self_device_time_total",
-                              getattr(e, "self_cuda_time_total", 0.0))
-    busy_ms = sum(dev_t(e) for e in kern) / 1e3
-    top = sorted(kern, key=dev_t, reverse=True)[:8]
-    names = "; ".join(f"{e.key[:48]}={dev_t(e) / 1e3:.3f}ms/{e.count}"
-                      for e in top)
+    busy_ms, names, _ = device_top(prof)
     print(f"profile: {label} wave of {len(reqs)} requests, "
           f"{eng.metrics.steps - steps0} steps, wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} "
           f"busy_share={busy_ms / wall_ms:.4f} top: {names}")
+
+
+def profile_prefill(eng, tick, req, label):
+    """Profile the prefill tick(s) of one more request (after the main
+    path's counters were read), then drain it unprofiled: the tick's wall
+    time, the device's busy time in it, SMLM's share of that, and the top
+    device operations."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.request import State
+    torch.cuda.synchronize()
+    req.arrival = eng.clock.now()
+    eng.submit(req)
+    n = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while req.state not in (State.DECODE, State.DONE):
+            tick()
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, names, by = device_top(prof)
+    smlm_ms = by("::smlm_")     # its shrink and expand launches
+    print(f"profile: {label} prefill of {len(req.prompt)} tokens, {n} "
+          f"tick(s), wall_ms={wall_ms:.3f} device_busy_ms={busy_ms:.3f} "
+          f"busy_share={busy_ms / wall_ms:.4f} smlm_ms={smlm_ms:.3f} "
+          f"smlm_share_of_busy={smlm_ms / max(busy_ms, 1e-9):.4f} "
+          f"top: {names}")
+    while eng.waiting or eng.active or eng.prefilling or eng.future:
+        tick()
 
 
 SOURCES = {
@@ -1219,9 +1292,9 @@ COUNTER = {"smlm": ("smlm", "full"), "bgmv": ("bgmv", "full"),
            "dense_decode": ("dense_decode", "dense")}
 
 
-def check_kernels(K, dev, attn_only=False):
-    """Phase 2: every kernel (``attn_only``: every attention kernel) against
-    its plain version in bf16 and fp32, timed in bf16; prints the
+def check_kernels(K, dev):
+    """Phase 2: every kernel against its plain version in bf16 and fp32,
+    timed in bf16; prints the
     ``timing:`` lines, each with the kernel's share of its bound (bound_ms /
     ms), and returns their rows."""
     gen = torch.Generator(device=dev)
@@ -1229,8 +1302,7 @@ def check_kernels(K, dev, attn_only=False):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         timing = dtype == torch.bfloat16
-        if not attn_only:
-            rows.update(check_lora(K, dtype, dev, gen, timing))
+        rows.update(check_lora(K, dtype, dev, gen, timing))
         rows.update(check_attention(K, dtype, dev, gen, timing))
         rows.update(check_verify(K, dtype, dev, gen, timing))
         rows.update(check_splitk(K, dtype, dev, gen, timing))
@@ -1253,10 +1325,10 @@ def card() -> str:
 def main() -> int:
     global ITERS
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--attn-timing", action="store_true",
-                    help="only check and time the attention kernels")
+    ap.add_argument("--kernel-timing", action="store_true",
+                    help="only check and time the kernels")
     ap.add_argument("--root", default=ROOT,
-                    help="checkout whose port --attn-timing imports")
+                    help="checkout whose port --kernel-timing imports")
     ap.add_argument("--tune-splits", metavar="PATH",
                     help="time every split at the model's split keys and "
                          "write the table to PATH")
@@ -1268,7 +1340,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     ITERS = a.iters
-    root = os.path.abspath(a.root) if a.attn_timing else ROOT
+    root = os.path.abspath(a.root) if a.kernel_timing else ROOT
     K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1282,10 +1354,12 @@ def main() -> int:
         tune_splits(K, dev, a.tune_splits)
         print(card())
         return 0
-    rows = check_kernels(K, dev, attn_only=a.attn_timing)
-    if a.attn_timing:
+    rows = check_kernels(K, dev)
+    if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
-                          "ms": {k: r["ms"] for k, r in rows.items()}}))
+                          "ms": {k: r["ms"] for k, r in rows.items()},
+                          "library_ms": {k: r["library_ms"]
+                                         for k, r in rows.items()}}))
         print(card())
         return 0
 

@@ -5,20 +5,29 @@
 // `paged_decode_attention` (:154, body :117) and `decode_attention` (:67,
 // body :23).  The TPU grids (B, h, ...) stream every K/V tile once per QUERY
 // head; here one thread block serves a (request, KV head) pair and all m =
-// h/g query heads of that group from one read of each 32-key tile:
-//  * paged: 32-key pool blocks named by the table; keys j <= pos are valid,
-//    and the walk stops at the block holding `pos` (table entries < 0 read
-//    block 0, which the mask excludes);
+// h/g query heads of that group from one read of each K/V row:
+//  * paged: pool blocks named by the table; keys j <= pos are valid, and the
+//    walk stops at the key `pos` (table entries < 0 read block 0, which the
+//    mask excludes);
 //  * dense: the row's S slots in 32-slot tiles; slot j holds position k_pos
 //    = j + S*floor((pos - j)/S) when window > 0 (rolling), else j; keys with
 //    0 <= k_pos <= pos (and pos - k_pos < window) are valid.  With window 0
 //    the walk stops at the tile holding slot min(pos, S - 1); a rolling row
 //    walks all S slots.
-// The element type picks the walk at compile time: bf16 takes the
-// tensor-core walk of `tile_walk.cuh` (the group's m heads are the rows of
-// a one-position query tile), fp32 the CUDA-core walk of `paged_walk.cuh`
-// (the m heads shared among the block's warps).  A row with no valid key
-// finalizes to 0 (l clamped at 1e-30).
+// Both are bytes-bound (every valid K/V row read once for ~m FLOPs a byte).
+// The element type and the group size pick the walk at compile time:
+//  * bf16 paged, m <= 8: the split-key walk of `decode_walk.cuh`: every
+//    warp (eight up to hd 128, four above) walks keys (32-key units dealt
+//    in turn), each through its own three-stage ring of 16-key `cp.async`
+//    tiles, with transposed `mma.sync` products (keys on M, heads on N),
+//    and the warps' partials merged in warp order at the end;
+//  * bf16 paged with m > 8, and bf16 dense rows: the tensor-core query-tile
+//    walk of `tile_walk.cuh` (the group's m heads are the rows of a
+//    one-position query tile);
+//  * fp32: the CUDA-core walk of `paged_walk.cuh` (the m heads shared among
+//    the block's warps).
+// A row with no valid key finalizes to 0 (l clamped at 1e-30).
+#include "decode_walk.cuh"
 #include "paged_walk.cuh"
 
 namespace {
@@ -83,6 +92,23 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
+// grid (B, g), bf16, m = h/g <= DW_MAX_M: the split-key walk
+template <int HD>
+__global__ void __launch_bounds__(repro::DecodeWalk<HD>::kThreads)
+paged_decode_split_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ kp,
+                          const bf16* __restrict__ vp,
+                          const int* __restrict__ tables,
+                          const int* __restrict__ pos, bf16* __restrict__ out,
+                          int h, int g, int bs, int nbt, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, HD};
+  repro::decode_walk<HD>(q, kp, vp, kv, min(pos[b] + 1, nbt * bs), out,
+                         reinterpret_cast<bf16*>(smem), b, blockIdx.y, h, g,
+                         scale);
+}
+
 template <typename T, int HD>
 __global__ void __launch_bounds__(repro::ChunkThreads<T, HD>::value)
 dense_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -117,6 +143,21 @@ cudaError_t paged_t(const void* q, const void* kp, const void* vp,
                     const int* tables, const int* pos, void* out, int B,
                     int h, int g, int hd, int bs, int nbt, float scale,
                     cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (h / g <= repro::DW_MAX_M) {
+      return repro::with_hd(hd, [&](auto HD) {
+        using W = repro::DecodeWalk<decltype(HD)::value>;
+        auto kern = paged_decode_split_kernel<decltype(HD)::value>;
+        cudaError_t e = repro::allow_smem(kern, W::kSmem);
+        if (e != cudaSuccess) return e;
+        kern<<<dim3(B, g), W::kThreads, W::kSmem, stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(kp),
+            static_cast<const bf16*>(vp), tables, pos,
+            static_cast<bf16*>(out), h, g, bs, nbt, scale);
+        return cudaGetLastError();
+      });
+    }
+  }
   auto go = [&](auto HD, int nz, int threads, size_t smem, int, int rpw) {
     auto kern = paged_decode_kernel<T, decltype(HD)::value>;
     cudaError_t e = repro::allow_smem(kern, smem);

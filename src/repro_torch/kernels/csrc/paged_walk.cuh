@@ -13,9 +13,11 @@
 // several thread blocks).  `launch_chunk` gives the launch shape of a chunk
 // kernel for either walk.
 //
-// Tiles stream through a ring of WALK_STAGES tiles in shared memory, in the
-// element type, by 16-byte `cp.async` copies, so two tiles are in flight
-// while the block computes on a third; the table is read once per tile.
+// Tiles stream through a ring of WALK_STAGES tiles in shared memory (fewer
+// where that many would not fit beside the query rows: fp32 above hd 192),
+// in the element type, by 16-byte `cp.async` copies, so two tiles are in
+// flight while the block computes on a third; the table is read once per
+// tile.
 // Lane j scores key j of a 32-key chunk against each of its warp's rows: it
 // reads its key's row as 16-byte vectors (rows padded by 16 bytes, so the
 // lanes' reads do not conflict) and widens them to fp32 in registers,
@@ -36,7 +38,8 @@ namespace repro {
 
 constexpr int WALK_MAX_NI = 8;      // hd / 32 <= 8, i.e. hd <= 256
 constexpr int CHUNK_TILE = 32;      // keys per tile of the bf16 chunk walk
-constexpr int WALK_STAGES = 3;      // K/V tiles in the ring
+constexpr int WALK_STAGES = 3;      // K/V tiles in the ring (at most)
+static_assert(WALK_STAGES == 3, "chunk_walk waits on 2, 1 or 0 groups");
 constexpr int WALK_MAX_WARPS = 8;
 constexpr int WALK_RPW = 8;         // rows a warp can hold
 constexpr int WALK_MAX_ROWS = WALK_MAX_WARPS * WALK_RPW;
@@ -48,7 +51,7 @@ struct WalkShape {
   int nz, per, warps, rpw;
 };
 
-inline WalkShape walk_shape(int rows) {
+__host__ __device__ inline WalkShape walk_shape(int rows) {
   WalkShape s;
   s.nz = (rows + WALK_MAX_ROWS - 1) / WALK_MAX_ROWS;
   s.per = (rows + s.nz - 1) / s.nz;
@@ -64,15 +67,31 @@ __host__ __device__ constexpr int walk_ld(int hd) {
   return hd + 16 / static_cast<int>(sizeof(T));
 }
 
-// Shared memory of one thread block: the ring, the fp32 query rows, and
-// each warp's row of probabilities per row it can hold.
+// Shared memory of one thread block beside the ring: the fp32 query rows,
+// and each warp's row of probabilities per row it can hold.
+__host__ __device__ inline size_t walk_rows_bytes(int hd, const WalkShape& s) {
+  return (static_cast<size_t>(s.per) * hd +
+          static_cast<size_t>(s.warps) * WALK_RPW * 32) *
+         sizeof(float);
+}
+
+// Tiles in the ring: WALK_STAGES, or as many as fit in a block's 227 KB
+// beside the rows (at least one).  Host and device compute it alike.
+template <typename T>
+__host__ __device__ inline int walk_stages(int bs, int hd,
+                                           const WalkShape& s) {
+  const size_t tile = static_cast<size_t>(2) * bs * walk_ld<T>(hd) * sizeof(T);
+  int n = WALK_STAGES;
+  while (n > 1 && n * tile + walk_rows_bytes(hd, s) > 232448) --n;
+  return n;
+}
+
+// Shared memory of one thread block: the ring and the rows.
 template <typename T>
 inline size_t walk_smem_bytes(int bs, int hd, const WalkShape& s) {
-  return static_cast<size_t>(WALK_STAGES) * 2 * bs * walk_ld<T>(hd) *
-             sizeof(T) +
-         (static_cast<size_t>(s.per) * hd +
-          static_cast<size_t>(s.warps) * WALK_RPW * 32) *
-             sizeof(float);
+  return static_cast<size_t>(walk_stages<T>(bs, hd, s)) * 2 * bs *
+             walk_ld<T>(hd) * sizeof(T) +
+         walk_rows_bytes(hd, s);
 }
 
 // Paged chunks: chunk row i sits at position pos + i; keys j <= pos + i
@@ -143,8 +162,9 @@ __device__ __forceinline__ WalkState chunk_walk(
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int ni = hd / 32;
   const size_t tile_elems = static_cast<size_t>(2) * bs * ld;
+  const int stages = walk_stages<T>(bs, hd, walk_shape(m * sq));
   T* ring = reinterpret_cast<T*>(smem);
-  float* Qs = reinterpret_cast<float*>(smem + WALK_STAGES * tile_elems *
+  float* Qs = reinterpret_cast<float*>(smem + stages * tile_elems *
                                                   sizeof(T));   // [per][hd]
   float* Ps = Qs + static_cast<size_t>(per) * hd + w * RPW * 32;
 
@@ -170,7 +190,7 @@ __device__ __forceinline__ WalkState chunk_walk(
 
   const int n = ib_hi - ib_lo;
 #pragma unroll
-  for (int s = 0; s < WALK_STAGES - 1; ++s) {
+  for (int s = 0; s < stages - 1; ++s) {
     if (s < n) {
       T* Ks = ring + s * tile_elems;
       copy_tile_async<T>(kp, vp, kv, ib_lo + s, kvh, Ks, Ks + bs * ld, ld);
@@ -178,15 +198,20 @@ __device__ __forceinline__ WalkState chunk_walk(
     cp_async_commit();
   }
   for (int it = 0; it < n; ++it) {
-    const int nxt = it + WALK_STAGES - 1;
+    const int nxt = it + stages - 1;
     if (nxt < n) {
-      T* Ks = ring + (nxt % WALK_STAGES) * tile_elems;
+      T* Ks = ring + (nxt % stages) * tile_elems;
       copy_tile_async<T>(kp, vp, kv, ib_lo + nxt, kvh, Ks, Ks + bs * ld, ld);
     }
     cp_async_commit();
-    cp_async_wait<WALK_STAGES - 1>();   // tile `it` has landed
+    if (stages == 3)                    // tile `it` has landed
+      cp_async_wait<2>();
+    else if (stages == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     __syncthreads();                    // ... for every thread (and Q)
-    const T* Ks = ring + (it % WALK_STAGES) * tile_elems;
+    const T* Ks = ring + (it % stages) * tile_elems;
     const T* Vs = Ks + bs * ld;
     const int ib = ib_lo + it;
     if (st.nr > 0) {
@@ -247,7 +272,7 @@ __device__ __forceinline__ WalkState chunk_walk(
         __syncwarp();
       }
     }
-    __syncthreads();   // the slot is free for tile it + WALK_STAGES
+    __syncthreads();   // the slot is free for tile it + stages
   }
   cp_async_wait<0>();
 #pragma unroll

@@ -5,7 +5,9 @@ has no CPU mode).  Imports no JAX, so it runs on the GPU machine:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerance: fp32 within 1e-4 and bf16 within 2e-2 of max(1, largest plain
-output): bf16 rounds the output once; fp32 sums in another order.
+output): bf16 rounds the output once; fp32 sums in another order.  The SMLM
+and paged decode cases hold each row (last axis) to its own max |plain|
+instead, with the same factors (``_close_rows``).
 """
 import numpy as np
 import pytest
@@ -60,6 +62,21 @@ def _close(y, plain, dtype):
     assert torch.isfinite(y).all()
     err = float((y - plain).abs().max())
     assert err <= tol * max(1.0, float(plain.abs().max()))
+
+
+def _close_rows(y, plain, dtype):
+    """Each row (last axis) within 1e-4 (fp32) / 2e-2 (bf16) of its own max
+    |plain|: an all-zero plain row must come out exactly 0."""
+    y = y.float().cpu().reshape(-1, y.shape[-1])
+    plain = plain.float().cpu().reshape(-1, plain.shape[-1])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    assert torch.isfinite(y).all()
+    err = (y - plain).abs().amax(-1)
+    lim = tol * plain.abs().amax(-1)
+    bad = torch.nonzero(err > lim).flatten()
+    assert bad.numel() == 0, (
+        f"{bad.numel()} rows over the limit, first {int(bad[0])}: "
+        f"{float(err[bad[0]]):.3e} > {float(lim[bad[0]]):.3e}")
 
 
 @pytest.mark.cuda
@@ -279,3 +296,68 @@ def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq):
     for ns in (1, 4):
         _close(paged_verify_attention_splitk(*args, num_splits=ns), plain,
                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,d_in,d_out,T,bt", [
+    (8, 4096, 14336, 64, 8),      # the suffix-prefill shape
+    (8, 4096, 1024, 3000, 8),     # long context, a narrow output
+    (8, 14336, 4096, 8, 8),       # one tile
+    (4, 1000, 300, 64, 8),        # d_in and d_out not multiples of 8
+    (16, 4096, 4100, 64, 8),      # a ragged d_out edge only
+    (64, 1004, 4096, 64, 16),     # a ragged d_in, two tokens a warp
+    (5, 512, 512, 48, 4),         # a rank that is no vector width
+    (8, 4096, 4096, 72, 24),      # three token groups per tile
+])
+def test_cuda_smlm_shapes_match_plain(dtype, r, d_in, d_out, T, bt):
+    """SMLM against its plain version, each token row within its own
+    tolerance: adjacent tiles of different adapters and scales, tiles of
+    scale 0 and of out-of-range ids (exact zeros), vector and scalar edges;
+    two calls on the same inputs give the same bits (the shrink's partials
+    are summed in a fixed order)."""
+    dev = _card()
+    rng = np.random.default_rng(400 + r + d_in % 97 + T)
+    n = 4
+    x, a, b = (v.to(dev, dtype)
+               for v in map(t, _lora_inputs(rng, T, d_in, r, n, d_out)))
+    nt = T // bt
+    pattern = np.array([0, -1, 1, n, 2, 3, 1, 0], np.int32)
+    tiles = np.resize(pattern, nt)
+    tiles[8:] = rng.integers(-1, n + 1, max(0, nt - 8))
+    tok_scale = np.repeat(rng.choice([0.5, 1.0, 2.0], nt), bt)
+    ids = t(np.repeat(tiles, bt).astype(np.int32)).to(dev)
+    rt = ops.route(ids, t(tok_scale.astype(np.float32)).to(dev), n,
+                   n_head=T, block_t=bt)
+    args = (x, a, b, rt.tile_ids, rt.tile_scale)
+    y = smlm(*args, block_t=bt)
+    plain = ref.smlm_ref(*args, bt)
+    _close_rows(y, plain, dtype)
+    dead = torch.repeat_interleave(rt.tile_scale == 0, bt)
+    if dead.any():
+        assert float(y[dead].abs().max()) == 0.0
+    assert torch.equal(smlm(*args, block_t=bt), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_paged_decode_groups_match_plain(dtype, m, hd):
+    """Paged decode at every group size and head dim the walks split on:
+    an inactive row (pos 0, null table: block 0 only), pos 0 with a real
+    table, pos 31 / 32 (a tile edge), 95 (warps that get no unit), 511 and
+    the table's last slot, each row within its own tolerance."""
+    dev = _card()
+    rng = np.random.default_rng(500 + m + hd)
+    g, bs, nbt = 2, 32, 20
+    pos = np.array([0, 0, 31, 32, 95, 511, nbt * bs - 1], np.int32)
+    B = len(pos)
+    kp, vp, tables = _paged_inputs(rng, B, g, hd, bs, nbt, pos // bs + 1)
+    tables[0] = 0
+    cuda = lambda x: t(x).to(dev)
+    q = rng.standard_normal((B, m * g, hd), dtype=np.float32)
+    args = (cuda(q).to(dtype), cuda(kp).to(dtype), cuda(vp).to(dtype),
+            cuda(tables), cuda(pos))
+    y = paged_decode_attention(*args)
+    _close_rows(y, ref.paged_decode_ref(*args), dtype)
