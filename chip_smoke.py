@@ -4,9 +4,12 @@
     python3 chip_smoke.py          # from the repository root, one GPU
     python3 chip_smoke.py --kernel-timing [--root TREE] [--iters N]
     python3 chip_smoke.py --tune-splits PATH
+    python3 chip_smoke.py --bgmv-splits [--root TREE]
+    python3 chip_smoke.py --divergence [--root TREE]
 
 The second form only checks and times the eight kernels of ``PERF.md``
-(SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV, paged prefill,
+(SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
+``BGMV_SHAPES``, paged prefill,
 decode, verify, split-K, flash at both of its main-path shapes, dense
 decode) of the port in ``TREE`` (default: this checkout), at the shapes
 below: run it over two checkouts in turns (A, B, B, A) within one call to
@@ -16,7 +19,12 @@ third fills the split table (``kernels/autotune.py``) with
 and long-context buckets, every candidate split timed on the card (decode
 plus verify at that bucket's positions); it writes the table as JSON to
 PATH, the file the model loads at its first call on the card
-(``src/repro_torch/kernels/splits_h100.json``).
+(``src/repro_torch/kernels/splits_h100.json``).  The fourth times BGMV at
+the decode and verify ticks' projections as its wrapper ships and for 8,
+16 and 32 slices of d_in beside the slices that wrapper picks.  The fifth serves phase 4's waves
+plain, speculative and on dense rows without timing, with every tick's
+logits kept, and prints each request's first divergence from the plain
+run (the lines phases 5 and 7 print), for the port in ``TREE``.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -59,7 +67,12 @@ printing its lines; any failure raises and exits non-zero:
              drafter="suffix")`` fed each prompt plus the plain run's output:
              all finish, logits finite, the pool drains pristine, the verify
              kernel launched; acceptance, verify-tick latency, decode tokens
-             per second and the tokens equal to the plain run's are printed.
+             per second and the tokens equal to the plain run's are printed;
+             then untimed copies of the plain and the speculative run, every
+             tick's logits kept on the host, give each differing request's
+             first divergence: the two tokens, the top-1 minus top-2 logit
+             gap and each run's margin of its token over the other's, in
+             both runs, beside the bf16 spacing at the top logit.
 6. long    — the same weights at capacity 2, s_max 4096: 2 requests with
              ~3000-token prompts, 16 new tokens, without and with
              speculation; the split-K decode and verify kernels launched,
@@ -69,9 +82,10 @@ printing its lines; any failure raises and exits non-zero:
              device time and share of it, the top device operations).
 7. dense   — the waves of phase 4 through ``EngineConfig(paged=False)``
              (dense rows, every prompt prefilled whole): all finish, logits
-             finite, the flash and dense-decode kernels launched; then both
-             layouts in turns (paged, dense, dense, paged, twice), their
-             decode ticks side by side.
+             finite, the flash and dense-decode kernels launched, and each
+             request's first divergence from the paged run as in phase 5;
+             then both layouts in turns (paged, dense, dense, paged, twice),
+             their decode ticks side by side.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
@@ -263,6 +277,52 @@ def lora_row(K, x, a, b, ids, scale, bt, err):
 # projection, and the other projection shapes at T=1024
 SMLM_SHAPES = ((64, 4096, 14336), (576, 4096, 14336), (3000, 4096, 14336),
                (1024, 4096, 4096), (1024, 4096, 1024), (1024, 14336, 4096))
+# BGMV's timed shapes: the four projections of a decode tick (T=8) and the
+# widest one of a verify tick (8 requests x (k_max + 1) = 40 tokens); the
+# decode tick's 8 ids (4 slots, a repeated one, a base-only row and one
+# outside the bank), each request's id repeated over its verify chunk
+BGMV_SHAPES = ((8, 4096, 4096), (8, 4096, 1024), (8, 4096, 14336),
+               (8, 14336, 4096), (40, 4096, 14336))
+BGMV_IDS = (0, 1, 2, 3, 3, -1, 1, 5)
+
+
+def bgmv_splits(K, dev):
+    """BGMV's device time at the decode (T=8) and verify (T=40) ticks' four
+    projections as the wrapper ships and, where its ``n_split(d_in, T)``
+    picks the slices of d_in, for 8, 16 and 32 slices beside its pick: the
+    data behind that choice (``--root`` times another checkout's wrapper
+    as shipped)."""
+    import inspect
+    mod = sys.modules[K["bgmv"].__module__]
+    pick = mod.n_split
+    sweep = len(inspect.signature(pick).parameters) == 2
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    try:
+        for T in (8, 40):
+            for d_in, d_out in ((4096, 4096), (4096, 1024), (14336, 4096),
+                                (4096, 14336)):
+                x, a, b, ids, scale = lora_case(T, d_in, d_out,
+                                                torch.bfloat16, dev, gen, 8)
+                ids = torch.tensor(BGMV_IDS, device=dev, dtype=torch.int32
+                                   ).repeat_interleave(T // len(BGMV_IDS))
+                rt = K["route"](ids, scale[ids.long().clamp(0, 3)], 4, 0, 8)
+                args = (x, a, b, rt.tail_ids, rt.tail_scale)
+                plain = K["ref"].bgmv_ref(*args)
+                run = lambda: K["bgmv"](*args)
+                compare(run(), plain, torch.bfloat16)
+                line = f"shipped={time_ms(run):.5f}"
+                if sweep:
+                    got = {}
+                    for ns in (8, 16, 32):
+                        mod.n_split = lambda d, t, ns=ns: ns
+                        compare(run(), plain, torch.bfloat16)
+                        got[ns] = round(time_ms(run), 5)
+                    mod.n_split = pick
+                    line += f" by_slices={got} pick={pick(d_in, T)}"
+                print(f"bgmv-splits: T={T} {d_in}x{d_out} ms {line}")
+    finally:
+        mod.n_split = pick
 
 
 def check_lora(K, dtype, dev, gen, timing: bool):
@@ -270,16 +330,19 @@ def check_lora(K, dtype, dev, gen, timing: bool):
     bt = K["block_t"]
     for name, T in (("smlm", 1024), ("bgmv", 8)):
         errs = []
-        shapes = [(T, 4096, 4096), (T, 4096, 1024), (T, 4096, 14336),
-                  (T, 14336, 4096)]
         if name == "smlm":
+            shapes = [(T, 4096, 4096), (T, 4096, 1024), (T, 4096, 14336),
+                      (T, 14336, 4096)]
             shapes += [s for s in SMLM_SHAPES if s[0] != T]
+            timed = SMLM_SHAPES
+        else:
+            shapes = timed = list(BGMV_SHAPES)
         for T_, d_in, d_out in shapes:
             x, a, b, ids, scale = lora_case(T_, d_in, d_out, dtype, dev,
                                             gen, bt)
             if name == "bgmv":
-                ids = torch.tensor([0, 1, 2, 3, 3, -1, 1, 5], device=dev,
-                                   dtype=torch.int32)
+                ids = torch.tensor(BGMV_IDS, device=dev, dtype=torch.int32
+                                   ).repeat_interleave(T_ // len(BGMV_IDS))
             n_head = T_ if name == "smlm" else 0
             rt = K["route"](ids, scale[ids.long().clamp(0, 3)], 4, n_head,
                             bt)
@@ -293,9 +356,8 @@ def check_lora(K, dtype, dev, gen, timing: bool):
                               dtype)
             errs.append(err)
             main = (T_, d_in, d_out) == (T, 4096, 14336)
-            if timing and (main or (name == "smlm"
-                                    and (T_, d_in, d_out) in SMLM_SHAPES)):
-                key = name if main else f"smlm T={T_} {d_in}x{d_out}"
+            if timing and (main or (T_, d_in, d_out) in timed):
+                key = name if main else f"{name} T={T_} {d_in}x{d_out}"
                 rows[key] = lora_row(K, *args,
                                      bt if name == "smlm" else None, err)
         print(f"kernels: {name:<13} {str(dtype)[6:]:<8} "
@@ -797,6 +859,98 @@ def record_logits(eng, keep: bool):
     return seen
 
 
+def logit_run(cfg, weights, waves, **ecfg):
+    """An untimed copy of a run: the requests of ``waves`` on a fresh
+    engine over the shared weights, every tick's logits kept on the host
+    (``record_logits(keep=True)``), and each emitted token matched to the
+    logits row that chose it (a prefill row by the tick's prefill order, a
+    decode or verify row by the request's slot and the token's place in
+    the tick's emission).  Returns {rid: [(token, fp32 logits [V]), ...]}
+    and how many of the tokens are their row's argmax."""
+    from repro_torch.core.virtualization import MixedLoraModel
+    from repro_torch.serving import engine as E
+    params, store, _ = weights
+    eng = E.UnifiedEngine(MixedLoraModel(cfg, params, store),
+                          E.EngineConfig(**ecfg))
+    seen = record_logits(eng, keep=True)
+    reqs = [r for wave in waves for r in wave]
+    rows = {r.rid: [] for r in reqs}
+    pf_rids = []
+    assemble = E.flow.assemble
+
+    def recorded_assemble(pf_reqs, *a, **kw):
+        pf_rids[:] = [p.rid for p in pf_reqs]
+        return assemble(pf_reqs, *a, **kw)
+
+    def tick():
+        before = {r.rid: len(r.output) for r in reqs}
+        n_seen = len(seen)
+        pf_rids.clear()
+        eng.tick()
+        if len(seen) == n_seen:
+            return
+        got = seen[-1]
+        for r in reqs:
+            n0, new = before[r.rid], len(r.output) - before[r.rid]
+            if not new:
+                continue
+            if n0 == 0 and r.rid in pf_rids:
+                emitted = [got["pf_logits"][pf_rids.index(r.rid)]]
+            else:
+                d = got["dec_logits"][r.dec_slot]
+                emitted = [d] if d.dim() == 1 else list(d[:new])
+            rows[r.rid] += list(zip(r.output[n0:], emitted))
+
+    E.flow.assemble = recorded_assemble
+    try:
+        run_waves(eng, tick, waves)
+    finally:
+        E.flow.assemble = assemble
+    argmax_ok = sum(int(int(row.argmax()) == tok)
+                    for got in rows.values() for tok, row in got)
+    return rows, argmax_ok
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at magnitude |x| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(max(abs(x), 1e-30))) - 7)
+
+
+def divergences(label, ref_name, ref, name, got, n_tokens):
+    """One line for each request whose tokens differ from the reference
+    run's, at its first differing token: the two tokens; in both runs the
+    top-1 minus top-2 logit gap and the margin of the run's own token over
+    the other run's; and the bf16 spacing at the top logit's magnitude, the
+    scale of a near tie.  Then a summary line.  Returns the gaps in ulps."""
+    worst = []
+    for rid in sorted(ref):
+        a, b = ref[rid], got[rid]
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x[0] != y[0]),
+                 None)
+        if i is None:
+            continue
+        (ta, ra), (tb, rb) = a[i], b[i]
+        va, vb = torch.topk(ra, 2).values, torch.topk(rb, 2).values
+        ulp = bf16_ulp(max(float(va[0]), float(vb[0]), key=abs))
+        gap_a, gap_b = float(va[0] - va[1]), float(vb[0] - vb[1])
+        mar_a, mar_b = float(ra[ta] - ra[tb]), float(rb[tb] - rb[ta])
+        worst.append(max(gap_a, gap_b, mar_a, mar_b) / ulp)
+        print(f"{label}: first divergence rid={rid} token={i} {ref_name}="
+              f"{ta} {name}={tb} top1-top2 gap {ref_name}={gap_a:.6g} "
+              f"{name}={gap_b:.6g} own-token margin {ref_name}={mar_a:.6g} "
+              f"{name}={mar_b:.6g} bf16_ulp_at_top1={ulp:.6g} "
+              f"(|top1|={abs(float(va[0])):.6g}) in ulps: gap "
+              f"{gap_a / ulp:.3g}/{gap_b / ulp:.3g} margin "
+              f"{mar_a / ulp:.3g}/{mar_b / ulp:.3g}")
+    same = sum(int(x[0] == y[0]) for rid in ref
+               for x, y in zip(ref[rid], got[rid]))
+    print(f"{label}: divergence summary requests_differing={len(worst)}/"
+          f"{len(ref)} tokens_equal={same}/{n_tokens} max_gap_or_margin_"
+          f"ulps={max(worst, default=0.0):.3g} (untimed copies, logits on "
+          f"the host)")
+    return worst
+
+
 def shared_prefix_trace(vocab, adapters, seed, n=8, head=64):
     from repro_torch.serving.request import Request
     rng = np.random.default_rng(seed)
@@ -1056,9 +1210,48 @@ def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
     return counts, waves, out
 
 
-def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
+def logged_copy(label, cfg, weights, waves, timed, **ecfg):
+    """``logit_run`` of ``waves``, printing whether the copy emitted the
+    timed run's tokens (``timed``: {rid: tokens}, or None)."""
+    rows, argmax_ok = logit_run(cfg, weights, waves, **ecfg)
+    n = sum(len(v) for v in rows.values())
+    same = "not compared" if timed is None else sum(
+        int(tok == t) for rid, got in rows.items()
+        for (tok, _), t in zip(got, timed[rid]))
+    print(f"{label}: untimed copy with logits kept: tokens_equal_to_timed_"
+          f"run={same}/{n} tokens_that_are_their_row's_argmax={argmax_ok}/"
+          f"{n}")
+    return rows
+
+
+def plain_logits(cfg, weights, waves, plain):
+    """The reference of phases 5 and 7: an untimed copy of phase 4's plain
+    paged run of waves 1-2, with its logits."""
+    return logged_copy("full", cfg, weights, copies(waves[:2]), plain,
+                       capacity=8, pf_capacity=4, s_max=512)
+
+
+def spec_divergence(cfg, weights, waves, plain, ref_rows, timed=None,
+                    max_new=16):
+    from repro_torch.spec import SpecConfig
+    rows = logged_copy("spec", cfg, weights, with_suffix(waves[:2], plain),
+                       timed, capacity=8, pf_capacity=4, s_max=512,
+                       spec=SpecConfig(k_max=4, drafter="suffix"))
+    return divergences("spec", "plain", ref_rows, "spec", rows, 8 * max_new)
+
+
+def dense_divergence(cfg, weights, waves, ref_rows, timed=None, max_new=16):
+    rows = logged_copy("dense", cfg, weights, copies(waves[:2]), timed,
+                       capacity=8, pf_capacity=4, s_max=512, paged=False)
+    return divergences("dense", "paged", ref_rows, "dense", rows,
+                       8 * max_new)
+
+
+def full_spec(K, cfg, weights, dev, waves, plain, ref_rows, max_new=16):
     """Phase 5: the same requests with speculation, the suffix drafter fed
-    each prompt plus the plain run's output."""
+    each prompt plus the plain run's output; then, for each request whose
+    tokens differ from the plain run's, its first divergence (untimed
+    copies of both runs)."""
     from repro_torch.spec import SpecConfig
     eng, seen, ticks, tick = timed_engine(
         cfg, weights, capacity=8, pf_capacity=4, s_max=512,
@@ -1080,13 +1273,16 @@ def full_spec(K, cfg, weights, dev, waves, plain, max_new=16):
           f"tokens_equal_to_plain={same}/{8 * max_new} launches={launches} "
           f"finite=True pristine=True ok")
     profile_wave(eng, with_suffix(waves[2:], plain)[0], dev, "spec")
+    del eng
+    spec_divergence(cfg, weights, waves, plain, ref_rows, out, max_new)
     return counts
 
 
-def full_dense(K, cfg, weights, dev, waves, plain, max_new=16):
+def full_dense(K, cfg, weights, dev, waves, plain, ref_rows, max_new=16):
     """Phase 7: the waves of phase 4 on dense rows: a slot per request,
     every prompt prefilled whole through the flash kernel, decode through
-    the dense-row kernel."""
+    the dense-row kernel; then, for each request whose tokens differ from
+    the paged run's, its first divergence (untimed copies of both runs)."""
     eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=8,
                                           pf_capacity=4, s_max=512,
                                           paged=False)
@@ -1115,6 +1311,8 @@ def full_dense(K, cfg, weights, dev, waves, plain, max_new=16):
           f"tokens_equal_to_paged={same}/{8 * max_new} launches={launches} "
           f"finite=True pristine=True ok")
     profile_wave(eng, fresh[2], dev, "dense")
+    del eng
+    dense_divergence(cfg, weights, waves, ref_rows, out, max_new)
     return counts
 
 
@@ -1327,8 +1525,17 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel-timing", action="store_true",
                     help="only check and time the kernels")
+    ap.add_argument("--bgmv-splits", action="store_true",
+                    help="only time BGMV at its serving shapes for 8, 16 "
+                         "and 32 slices of d_in")
+    ap.add_argument("--divergence", action="store_true",
+                    help="only serve the full-width waves plain, "
+                         "speculative and on dense rows, untimed, and print "
+                         "each request's first divergence from the plain "
+                         "run with the logit margins")
     ap.add_argument("--root", default=ROOT,
-                    help="checkout whose port --kernel-timing imports")
+                    help="checkout whose port --kernel-timing, "
+                         "--bgmv-splits or --divergence imports")
     ap.add_argument("--tune-splits", metavar="PATH",
                     help="time every split at the model's split keys and "
                          "write the table to PATH")
@@ -1340,7 +1547,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     ITERS = a.iters
-    root = os.path.abspath(a.root) if a.kernel_timing else ROOT
+    root = os.path.abspath(a.root) if (a.kernel_timing or a.divergence
+                                       or a.bgmv_splits) else ROOT
     K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1352,6 +1560,23 @@ def main() -> int:
     dev = torch.device("cuda")
     if a.tune_splits:
         tune_splits(K, dev, a.tune_splits)
+        print(card())
+        return 0
+    if a.bgmv_splits:
+        bgmv_splits(K, dev)
+        print(card())
+        return 0
+    if a.divergence:
+        from repro_torch.configs import get_config
+        cfg = get_config("llama3-8b")
+        weights = full_weights(cfg, dev, torch.bfloat16)
+        waves = request_waves(cfg, np.random.default_rng(0), 128)
+        ref_rows = plain_logits(cfg, weights, waves, None)
+        plain = {rid: [tok for tok, _ in got]
+                 for rid, got in ref_rows.items()}
+        spec_divergence(cfg, weights, waves, plain, ref_rows)
+        dense_divergence(cfg, weights, waves, ref_rows)
+        print(f"divergence: root={os.path.relpath(root, ROOT)}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -1370,11 +1595,15 @@ def main() -> int:
     weights = full_weights(cfg, dev, torch.bfloat16)
     by_path = {}
     by_path["full"], waves, plain = full_width(K, cfg, weights, dev)
-    by_path["spec"] = full_spec(K, cfg, weights, dev, waves, plain)
+    ref_rows = plain_logits(cfg, weights, waves, plain)
+    by_path["spec"] = full_spec(K, cfg, weights, dev, waves, plain,
+                                ref_rows)
     long_counts = long_context(K, cfg, weights, dev)
     by_path["long"], by_path["long_spec"] = long_counts[False], \
         long_counts[True]
-    by_path["dense"] = full_dense(K, cfg, weights, dev, waves, plain)
+    by_path["dense"] = full_dense(K, cfg, weights, dev, waves, plain,
+                                  ref_rows)
+    del ref_rows
     layouts_in_turns(cfg, weights, waves)
 
     kernels = []

@@ -1,23 +1,27 @@
 """BGMV — per-token gathered multi-LoRA multiplication, CUDA kernel and
-wrapper (the decode bucket of every projection).
+wrapper (the decode and verify tail of every projection).
 
 Replaces the Pallas kernel ``repro/kernels/bgmv.py:30`` (``bgmv``; body
 ``_bgmv_kernel`` :20, ``pallas_call`` :51)::
 
     y[t] = scale[t] * (x[t] @ A[ids[t]]) @ B[ids[t]]
 
-Bound on an H100 SXM: every token may name its own adapter, so each reads
-x[t], an A [d_in, r] and a B [r, d_out] and writes y[t]; at decode batch
-sizes that is ~2 FLOPs per weight byte, so memory bandwidth (3.35 TB/s)
-bounds it.
+Bound on an H100 SXM: latency.  A decode tick's call (T = 8 tokens over a
+few adapters) moves about 1.5 MB, under half a microsecond of the card's
+bytes, so the launches and the chain of dependent loads set its time.
 
-Design (``csrc/bgmv.cu``): the TPU grid (T, d_out / bo) recomputes the shrink
-once per output tile; here it is computed once per token.  A shrink launch
-splits d_in over ``n_split`` blocks per token (enough blocks to keep the SMs
-busy at T = 8), each writing fp32 partials [T, n_split, r] (no atomics, a
-fixed sum order); an expand launch sums the partials, scales, and writes one
-output column per thread, masked at the d_out edge.  Tokens with scale 0
-write zeros.  Both launches count as one BGMV launch.
+Design (``csrc/bgmv.cu``), two launches.  The shrink splits d_in over ns
+blocks a group of 8 tokens (one warp a token, 16-byte loads of x and A)
+into fp32 partials [ns, T, RP]; above 16 tokens clusters of 8 blocks sum theirs on
+chip first, since every expand block reads every token's partials.  The
+expand, a programmatic dependent of the shrink, gives each block 64
+columns of d_out for all tokens: it lists the adapters its tokens use (a
+token with scale 0 or an id outside ``[0, n)`` writes exact zeros), copies
+each one's B slice into shared memory once while the shrink still runs,
+then sums each token's partials in order, scales them (x @ A stays fp32)
+and applies the slice to every token that names the adapter, with 16-byte
+stores.  No atomics, so two calls give the same bits.  Both launches count
+as one BGMV launch.
 """
 from __future__ import annotations
 
@@ -29,11 +33,28 @@ from repro_torch.kernels.ref import bgmv_ref as bgmv_plain
 
 _ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
 MAX_RANK = 64
-SPLIT_CHUNK = 1024      # d_in elements per shrink block
+MAX_SLOTS = 1024        # adapters the kernel lists per block
+SPLIT_CHUNK = 128       # d_in a shrink block reduces for few tokens
+MAX_SPLITS = 32         # most shrink blocks a group of 8 tokens
+CLUSTER = 8             # shrink blocks whose partials are summed on chip
+CLUSTER_T = 16          # ... above this many tokens
 
 
-def n_split(d_in: int) -> int:
-    return max(1, min(32, -(-d_in // SPLIT_CHUNK)))
+def n_split(d_in: int, T: int) -> int:
+    """The shrink's slices of d_in.  Up to ``CLUSTER_T`` tokens: slices of
+    ``SPLIT_CHUNK`` elements, at most ``MAX_SPLITS``.  Above, the slices
+    form clusters of ``CLUSTER`` whose partials are summed on chip: one
+    cluster, or two from d_in 2048 (``chip_smoke.py --bgmv-splits`` times
+    8, 16 and 32 slices at the serving shapes on a card)."""
+    if T > CLUSTER_T:
+        return CLUSTER * max(1, min(2, -(-d_in // 2048)))
+    return max(1, min(MAX_SPLITS, -(-d_in // SPLIT_CHUNK)))
+
+
+def padded_rank(r: int) -> int:
+    """The rank the kernel computes with: r rounded up to 4, 8, 16, 32 or
+    64."""
+    return next(p for p in (4, 8, 16, 32, 64) if p >= r)
 
 
 def bgmv(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -54,13 +75,15 @@ def bgmv(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     require(a.dtype == x.dtype and b.dtype == x.dtype,
             "bgmv takes x, a and b in one dtype")
     require(0 < r <= MAX_RANK, f"rank {r} outside [1, {MAX_RANK}]")
+    require(0 < n <= MAX_SLOTS, f"{n} adapter slots outside [1, {MAX_SLOTS}]")
     require(ids.dtype == torch.int32 and ids.shape == (T,),
             "ids must be int32 [T]")
     require(scale.dtype == torch.float32 and scale.shape == (T,),
             "scale must be float32 [T]")
     build.check_cuda(x, a, b, ids, scale)
-    ns = n_split(d_in)
-    part = torch.empty((T, ns, r), dtype=torch.float32, device=x.device)
+    ns = n_split(d_in, T)
+    part = torch.empty(ns * T * padded_rank(r),
+                       dtype=torch.float32, device=x.device)
     out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     fn = build.function("bgmv", "bgmv_launch", _ARGS)
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), ids.data_ptr(),

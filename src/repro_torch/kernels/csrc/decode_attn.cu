@@ -12,18 +12,21 @@
 //  * dense: the row's S slots in 32-slot tiles; slot j holds position k_pos
 //    = j + S*floor((pos - j)/S) when window > 0 (rolling), else j; keys with
 //    0 <= k_pos <= pos (and pos - k_pos < window) are valid.  With window 0
-//    the walk stops at the tile holding slot min(pos, S - 1); a rolling row
-//    walks all S slots.
+//    the walk stops at slot min(pos, S - 1); a rolling row walks all S
+//    slots (the split-key walk skips its tiles that hold no valid slot).
 // Both are bytes-bound (every valid K/V row read once for ~m FLOPs a byte).
 // The element type and the group size pick the walk at compile time:
-//  * bf16 paged, m <= 8: the split-key walk of `decode_walk.cuh`: every
-//    warp (eight up to hd 128, four above) walks keys (32-key units dealt
-//    in turn), each through its own three-stage ring of 16-key `cp.async`
-//    tiles, with transposed `mma.sync` products (keys on M, heads on N),
-//    and the warps' partials merged in warp order at the end;
-//  * bf16 paged with m > 8, and bf16 dense rows: the tensor-core query-tile
-//    walk of `tile_walk.cuh` (the group's m heads are the rows of a
-//    one-position query tile);
+//  * bf16, m <= 8, paged and dense: the split-key walk of
+//    `decode_walk.cuh`: every warp (eight up to hd 128, four above) walks
+//    keys (32-key units dealt in turn), each through its own three-stage
+//    ring of 16-key `cp.async` tiles, with transposed `mma.sync` products
+//    (keys on M, heads on N), and the warps' partials merged in warp order
+//    at the end.  Paged units read the table once; a dense unit is one run
+//    of rows (`DenseRows`), no slot >= S is read, and the key mask
+//    `RowArc` admits the row's valid slots: a prefix (window 0) or the
+//    rolling arc, whose tiles without a valid slot are skipped;
+//  * bf16 with m > 8: the tensor-core query-tile walk of `tile_walk.cuh`
+//    (the group's m heads are the rows of a one-position query tile);
 //  * fp32: the CUDA-core walk of `paged_walk.cuh` (the m heads shared among
 //    the block's warps).
 // A row with no valid key finalizes to 0 (l clamped at 1e-30).
@@ -36,7 +39,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int DENSE_TILE = 32;   // dense slots per tile of the fp32 walk
 
-// Dense rows for the bf16 walk: the rolling mask over slots [0, hi).
+// Dense rows for the bf16 query-tile walk (m > 8): the rolling mask over
+// slots [0, hi).
 struct SlotMask {
   repro::RollingMask roll;
   int lo, hi;
@@ -104,7 +108,53 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, HD};
-  repro::decode_walk<HD>(q, kp, vp, kv, min(pos[b] + 1, nbt * bs), out,
+  repro::decode_walk<HD>(q, kp, vp, kv,
+                         repro::KeyPrefix{min(pos[b] + 1, nbt * bs)}, out,
+                         reinterpret_cast<bf16*>(smem), b, blockIdx.y, h, g,
+                         scale);
+}
+
+// The valid slots of a dense row for the query at pos, as the split-key
+// walk's key mask: [0, a) and [c, kend), a <= c <= kend.  They are the
+// slots `RollingMask` admits: with window 0 the prefix [0, min(pos + 1,
+// S)); with window > 0 the slots holding positions pos - window + 1 ..
+// pos, an arc of the row that wraps past slot S - 1 to slot 0 once pos >=
+// S (then [0, pos % S] and [pos % S - window + 1 + S, S)).
+struct RowArc {
+  int a, c, kend;
+  static __device__ __forceinline__ RowArc of(int pos, int S, int window) {
+    if (pos < 0) return {0, 0, 0};
+    if (window <= 0) return {0, 0, min(pos + 1, S)};
+    if (pos < S) return {0, max(0, pos - window + 1), pos + 1};
+    if (window >= S) return {0, 0, S};
+    const int p = pos % S, lo = p - window + 1;
+    return lo >= 0 ? RowArc{0, lo, p + 1} : RowArc{p + 1, lo + S, S};
+  }
+  __device__ __forceinline__ bool any(int k0, int k1) const {
+    return k0 < a || (k1 > c && k0 < kend);
+  }
+  __device__ __forceinline__ bool whole(int k0, int k1) const {
+    return k1 <= a || (k0 >= c && k1 <= kend);
+  }
+  __device__ __forceinline__ bool operator()(int j) const {
+    return j < a || (j >= c && j < kend);
+  }
+};
+
+// grid (B, g), bf16, m = h/g <= DW_MAX_M: the split-key walk over dense
+// rows (every 32-slot unit one run of rows: no table)
+template <int HD>
+__global__ void __launch_bounds__(repro::DecodeWalk<HD>::kThreads)
+dense_decode_split_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const int* __restrict__ pos, bf16* __restrict__ out,
+                          int h, int g, int S, int window, float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int b = blockIdx.x;
+  const repro::DenseRows kv{static_cast<size_t>(b) * S * g * HD, S,
+                            repro::DW_UNIT, g, HD};
+  repro::decode_walk<HD>(q, k, v, kv, RowArc::of(pos[b], S, window), out,
                          reinterpret_cast<bf16*>(smem), b, blockIdx.y, h, g,
                          scale);
 }
@@ -175,6 +225,21 @@ template <typename T>
 cudaError_t dense_t(const void* q, const void* k, const void* v,
                     const int* pos, void* out, int B, int h, int g, int hd,
                     int S, int window, float scale, cudaStream_t stream) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (h / g <= repro::DW_MAX_M) {
+      return repro::with_hd(hd, [&](auto HD) {
+        using W = repro::DecodeWalk<decltype(HD)::value>;
+        auto kern = dense_decode_split_kernel<decltype(HD)::value>;
+        cudaError_t e = repro::allow_smem(kern, W::kSmem);
+        if (e != cudaSuccess) return e;
+        kern<<<dim3(B, g), W::kThreads, W::kSmem, stream>>>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), pos, static_cast<bf16*>(out), h, g,
+            S, window, scale);
+        return cudaGetLastError();
+      });
+    }
+  }
   auto go = [&](auto HD, int nz, int threads, size_t smem, int, int rpw) {
     auto kern = dense_decode_kernel<T, decltype(HD)::value>;
     cudaError_t e = repro::allow_smem(kern, smem);

@@ -25,7 +25,14 @@
 // both S^T and O^T, so the online softmax (exp2 units, fp32) rescales its
 // own accumulators; a head's max over keys is a 3-step shuffle among the 8
 // lanes that share the column.  Keys at or past kend copy as zeros and
-// score -inf (only the tile that straddles kend is masked).
+// score -inf.  Which keys of [0, kend) are valid is the key mask's (a
+// template parameter): `KeyPrefix` (paged rows, linear dense rows) makes
+// all of them valid, so only the tile that straddles kend is masked;
+// `RowArc` (`decode_attn.cu`, rolling dense rows) a cyclic arc of the row.
+// A mask's `whole(k0, k1)` says that every key of a tile is valid (no
+// per-key test), `any(k0, k1)` that one is: a tile with none is neither
+// copied nor computed, but still commits its (empty) copy group, so the
+// ring's commit/wait order is the same for every tile.
 // At the end each warp leaves its un-normalized partial (O, m, l per head)
 // in its own ring, and the block merges the kWarps partials in warp order
 // with exp2 weights; a warp that walked no key has m = -inf and is skipped,
@@ -59,6 +66,17 @@ struct DecodeWalk {
                 "partials outgrow the ring");
 };
 
+// Keys [0, kend) all valid: the paged walk (kend = pos + 1) and linear
+// dense rows (kend = min(pos + 1, S)).
+struct KeyPrefix {
+  int kend;
+  __device__ __forceinline__ bool any(int, int) const { return true; }
+  __device__ __forceinline__ bool whole(int, int k1) const {
+    return k1 <= kend;
+  }
+  __device__ __forceinline__ bool operator()(int j) const { return j < kend; }
+};
+
 // the transpose of an 8x8 b16 matrix held one 32-bit pair a thread
 __device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
   unsigned y;
@@ -68,13 +86,13 @@ __device__ __forceinline__ unsigned movmatrix_t(unsigned x) {
   return y;
 }
 
-// The walk of KV head `kvh` of request `b` over keys [0, kend) of `kv`:
-// q and out are [B, h, HD].  Launch with DecodeWalk<HD>::kThreads threads
-// and kSmem bytes of shared memory.
-template <int HD, typename Rows>
+// The walk of KV head `kvh` of request `b` over the keys of `kv` that `mk`
+// makes valid, all below mk.kend: q and out are [B, h, HD].  Launch with
+// DecodeWalk<HD>::kThreads threads and kSmem bytes of shared memory.
+template <int HD, typename Rows, typename Mask>
 __device__ __forceinline__ void decode_walk(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, const Rows& kv, int kend,
+    const __nv_bfloat16* __restrict__ vp, const Rows& kv, const Mask& mk,
     __nv_bfloat16* __restrict__ out, __nv_bfloat16* sm, int b, int kvh,
     int h, int g, float scale) {
   using W = DecodeWalk<HD>;
@@ -86,6 +104,7 @@ __device__ __forceinline__ void decode_walk(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __nv_bfloat16* ring = sm + warp * S * W::kTile;
 
+  const int kend = mk.kend;
   // the warp's i-th tile: half i % 2 of unit warp + kWarps * (i / 2)
   const int n_tiles = kend > 0 ? (kend + DW_KEYS - 1) / DW_KEYS : 0;
   auto tile_of = [&](int i) {
@@ -103,6 +122,7 @@ __device__ __forceinline__ void decode_walk(
       unit_base = unit_run ? kv.row(k0, kvh) : 0;
     }
     const bool run = unit_run || kv.contiguous(k0, DW_KEYS);
+    if (!mk.any(k0, k0 + DW_KEYS)) return;   // no valid key: no copy
     const size_t base = unit_run ? unit_base + (i & 1) * DW_KEYS * stride
                                  : (run ? kv.row(k0, kvh) : 0);
     for (int e = lane; e < DW_KEYS * CH; e += 32) {
@@ -149,9 +169,10 @@ __device__ __forceinline__ void decode_walk(
     cp_async_commit();
     cp_async_wait<S - 1>();   // tile i has landed (this lane's copies) ...
     __syncwarp();             // ... and every lane's
+    const int k0 = tile_of(i) * DW_KEYS;
+    if (!mk.any(k0, k0 + DW_KEYS)) continue;   // nothing was copied or read
     const __nv_bfloat16* Ks = ring + (i % S) * W::kTile;
     const __nv_bfloat16* Vs = Ks + DW_KEYS * LD;
-    const int k0 = tile_of(i) * DW_KEYS;
 
     // S^T = K Q^T: element e is key k0 + lane / 4 + 8 (e / 2), head
     // 2 (lane % 4) + e % 2; two accumulators for independent mma chains
@@ -166,12 +187,12 @@ __device__ __forceinline__ void decode_walk(
       else
         mma_bf16(sa, a, qf[kc][0], qf[kc][1]);
     }
-    const bool whole = k0 + DW_KEYS <= kend;
+    const bool whole = mk.whole(k0, k0 + DW_KEYS);
     float s[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       s[e] = (sa[e] + sb[e]) * sl2;
-      if (!whole && k0 + (lane >> 2) + 8 * (e >> 1) >= kend) s[e] = -INFINITY;
+      if (!whole && !mk(k0 + (lane >> 2) + 8 * (e >> 1))) s[e] = -INFINITY;
     }
 
     // online softmax of this thread's two heads (columns hc: elements hc

@@ -68,7 +68,8 @@ def test_smlm_plain_matches_pallas_and_ref(T, d, r, n, o, bt):
     assert float(y[:bt].abs().max()) == 0.0
 
 
-@pytest.mark.parametrize("T,d,r,n,o", [(8, 32, 4, 4, 24), (5, 64, 8, 3, 16)])
+@pytest.mark.parametrize("T,d,r,n,o", [(8, 32, 4, 4, 24), (5, 64, 8, 3, 16),
+                                       (40, 64, 8, 4, 48)])   # verify bucket
 def test_bgmv_plain_matches_pallas_and_ref(T, d, r, n, o):
     rng = np.random.default_rng(T * d)
     x, a, b = _lora_inputs(rng, T, d, r, n, o)

@@ -361,3 +361,70 @@ def test_cuda_paged_decode_groups_match_plain(dtype, m, hd):
             cuda(tables), cuda(pos))
     y = paged_decode_attention(*args)
     _close_rows(y, ref.paged_decode_ref(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_dense_decode_groups_match_plain(dtype, m, hd):
+    """Dense-row decode at every group size and head dim the walks split
+    on, linear (window 0) and rolling (the whole row, and an arc that
+    wraps past the row's end), S 40 (a ragged last 16-slot tile), 64 and
+    512: pos 0, 15 / 16 (a tile edge), 31 / 32, S - 1 and past S; each row
+    within its own tolerance, two calls on the same inputs the same bits."""
+    dev = _card()
+    g = 2
+    for S in (40, 64, 512):
+        rng = np.random.default_rng(600 + m + hd + S)
+        pos = np.array([0, 15, 16, 31, 32, S - 1, 3 * S - 1, 5 * S + 3],
+                       np.int32)
+        B = len(pos)
+        q = rng.standard_normal((B, m * g, hd), dtype=np.float32)
+        k = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+        v = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+        cuda = lambda x: t(x).to(dev)
+        args = (cuda(q).to(dtype), cuda(k).to(dtype), cuda(v).to(dtype),
+                cuda(pos))
+        for window in (0, S, S // 2 + 3):
+            y = decode_attention(*args, window=window)
+            _close_rows(y, ref.decode_attention_ref(*args, window=window),
+                        dtype)
+            assert torch.equal(decode_attention(*args, window=window), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,r,d_in,d_out,n", [
+    (1, 4, 512, 300, 4),          # one token, a ragged d_out
+    (8, 8, 4096, 14336, 4),       # the decode tick's widest projection
+    (8, 8, 14336, 4096, 4),       # the down projection
+    (40, 16, 300, 4096, 6),       # the verify bucket, a ragged d_in
+    (40, 8, 4096, 14336, 4),      # the verify bucket's widest projection
+    (64, 64, 1004, 300, 6),       # the widest rank, both edges ragged
+    (64, 64, 512, 14336, 16),     # more adapters than one B batch holds
+    (100, 8, 4096, 1024, 6),      # two token groups
+])
+def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
+    """BGMV against its plain version, each token row within its own
+    tolerance: several tokens naming one adapter, tokens of scale 0 and of
+    ids outside [0, n) (exact zeros), vector and element edges; two calls
+    on the same inputs give the same bits (no atomics)."""
+    dev = _card()
+    rng = np.random.default_rng(700 + T + r + d_in % 97 + d_out % 89)
+    x, a, b = (v.to(dev, dtype)
+               for v in map(t, _lora_inputs(rng, T, d_in, r, n, d_out)))
+    ids = rng.integers(0, n, T).astype(np.int32)
+    ids[::5] = ids[0]                       # one adapter, many tokens
+    scale = rng.choice([0.5, 1.0, 2.0], T).astype(np.float32)
+    if T > 1:
+        scale[1] = 0.0                      # a disabled token
+        ids[-1] = n if T % 2 else -1        # an id outside the bank
+    args = (x, a, b, t(ids).to(dev), t(scale).to(dev))
+    y = bgmv(*args)
+    plain = ref.bgmv_ref(*args)
+    _close_rows(y, plain, dtype)
+    if T > 1:
+        assert float(y[1].abs().max()) == 0.0
+        assert float(y[-1].abs().max()) == 0.0
+    assert torch.equal(bgmv(*args), y)
