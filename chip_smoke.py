@@ -5,6 +5,7 @@
     python3 chip_smoke.py --kernel-timing [--root TREE] [--iters N]
     python3 chip_smoke.py --tune-splits PATH
     python3 chip_smoke.py --bgmv-splits [--root TREE]
+    python3 chip_smoke.py --chunk-routes [--root TREE]
     python3 chip_smoke.py --divergence [--root TREE]
 
 The second form only checks and times the eight kernels of ``PERF.md``
@@ -20,11 +21,15 @@ and long-context buckets, every candidate split timed on the card (decode
 plus verify at that bucket's positions); it writes the table as JSON to
 PATH, the file the model loads at its first call on the card
 (``src/repro_torch/kernels/splits_h100.json``).  The fourth times BGMV at
-the decode and verify ticks' projections as its wrapper ships and for 8,
-16 and 32 slices of d_in beside the slices that wrapper picks.  The fifth serves phase 4's waves
-plain, speculative and on dense rows without timing, with every tick's
-logits kept, and prints each request's first divergence from the plain
-run (the lines phases 5 and 7 print), for the port in ``TREE``.
+the decode and verify ticks' projections as its wrapper ships, beside its
+library call, and for 8, 16 and 32 slices of d_in beside the slices that
+wrapper picks.  The fifth times bf16 paged verify at 20 to 256 query
+columns and paged prefill at 64 to 512 as their wrappers ship and on each
+walk (the split-key walk, the query-tile walk): the data behind the
+crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth serves
+phase 4's waves plain, speculative and on dense rows without timing, with
+every tick's logits kept, and prints each request's first divergence from
+the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -36,7 +41,8 @@ printing its lines; any failure raises and exits non-zero:
 2. kernels — each kernel vs its plain PyTorch version on the card at the
              main path's shapes, bf16 and fp32, with the stated tolerance
              (verify at B=8 Sq=5 with a lens 0 row and an inactive row, both
-             exactly 0; split-K decode and verify, partials and merge at the
+             exactly 0, and verify and prefill past the crossover of their
+             bf16 walks at Sq=33 and 48; split-K decode and verify, partials and merge at the
              long-context shape B=2 nbt=128 for ns in 1, 2, 4, 8 and one
              ns > nbt; flash attention causal and not, ragged lengths with a
              0 and S != T; dense-row decode linear and rolling); then, in
@@ -236,6 +242,16 @@ def lora_case(T, d_in, d_out, dtype, dev, gen, block_t, n=4, r=8):
     return x, a, b, ids, scale
 
 
+def lora_library_ms(x, a, b, ids, bt):
+    """The library yardstick of SMLM (``bt``: its tile) or BGMV (``bt``
+    None): torch.bmm shrink + expand on A/B gathered per tile or per token
+    in advance."""
+    sel = ids.long()
+    xa = x.view(-1, bt or 1, x.shape[1])
+    ag, bg = a[sel], b[sel]
+    return time_ms(lambda: torch.bmm(torch.bmm(xa, ag), bg))
+
+
 def lora_row(K, x, a, b, ids, scale, bt, err):
     """Timing row of one SMLM (``bt``: the planner's tile) or BGMV (``bt``
     None) call: kernel, plain and library device times beside the bound."""
@@ -258,16 +274,11 @@ def lora_row(K, x, a, b, ids, scale, bt, err):
         + used * r * (d_in + d_out) * it
     flops = 2 * t_live * r * (d_in + d_out)
     bms, by = bound(nbytes, flops, x.dtype)
-    # library yardstick: torch.bmm shrink + expand on A/B gathered per tile
-    # (SMLM) or per token (BGMV) in advance
-    sel = ids.long()
-    xa = x.view(-1, bt or 1, d_in)
-    ag, bg = a[sel], b[sel]
-    lib = lambda: torch.bmm(torch.bmm(xa, ag), bg)
     return dict(
         max_abs_err=err, ms=time_ms(run),
         plain_ms=time_ms(plain, eager=True),
-        library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+        library_ms=lora_library_ms(x, a, b, ids, bt), bound_ms=bms,
+        bound_by=by,
         shape=f"T={T} d_in={d_in} d_out={d_out} r={r} n={a.shape[0]}"
               + (f" block_t={bt}" if bt else ""))
 
@@ -288,10 +299,10 @@ BGMV_IDS = (0, 1, 2, 3, 3, -1, 1, 5)
 
 def bgmv_splits(K, dev):
     """BGMV's device time at the decode (T=8) and verify (T=40) ticks' four
-    projections as the wrapper ships and, where its ``n_split(d_in, T)``
-    picks the slices of d_in, for 8, 16 and 32 slices beside its pick: the
-    data behind that choice (``--root`` times another checkout's wrapper
-    as shipped)."""
+    projections as the wrapper ships, beside its library yardstick's, and,
+    where its ``n_split(d_in, T)`` picks the slices of d_in, for 8, 16 and
+    32 slices beside its pick: the data behind that choice (``--root``
+    times another checkout's wrapper as shipped)."""
     import inspect
     mod = sys.modules[K["bgmv"].__module__]
     pick = mod.n_split
@@ -311,7 +322,8 @@ def bgmv_splits(K, dev):
                 plain = K["ref"].bgmv_ref(*args)
                 run = lambda: K["bgmv"](*args)
                 compare(run(), plain, torch.bfloat16)
-                line = f"shipped={time_ms(run):.5f}"
+                line = (f"shipped={time_ms(run):.5f} library="
+                        f"{lora_library_ms(*args[:4], None):.5f}")
                 if sweep:
                     got = {}
                     for ns in (8, 16, 32):
@@ -323,6 +335,93 @@ def bgmv_splits(K, dev):
                 print(f"bgmv-splits: T={T} {d_in}x{d_out} ms {line}")
     finally:
         mod.n_split = pick
+
+
+# Chunk lengths on each side of the bf16 crossover of the chunk kernels
+# (``SW_SPLIT_COLS`` in ``csrc/split_walk.cuh``), at h/g = 4: verify from
+# the serving chunk (Sq 5: 20 query columns) to 256 columns, prefill from
+# the main path's suffix (Sq 16: 64 columns) to 512
+ROUTE_SQ = {"verify": (5, 9, 16, 32, 64), "prefill": (16, 32, 64, 128)}
+
+
+def walk_launcher(K, lib, args):
+    """``walk -> call`` for a bf16 chunk kernel (``lib`` verify_attn or
+    prefill_attn) forced onto one walk (0 split-key, 1 query-tile) through
+    its library's ``*_walk_launch`` entry, or None where the library has
+    none (a parent checkout)."""
+    b = K["build"]
+    P, I, F = b.P, b.I, b.F
+    try:
+        fn = b.function(lib, f"paged_{lib[:-5]}_walk_launch",
+                        [P] * 7 + [I] * 7 + [F, I, P])
+    except AttributeError:
+        return None
+    q, kp, tables = args[0], args[1], args[3]
+    B, Sq, h, hd = q.shape
+    _, bs, g, _ = kp.shape
+    out = torch.empty_like(q)
+
+    def on(walk):
+        def call():
+            b.check(fn(*(t.data_ptr() for t in args), out.data_ptr(), B, Sq,
+                       h, g, hd, bs, tables.shape[1], hd ** -0.5, walk,
+                       b.stream_of(q)), lib)
+            return out
+        return call
+    return on
+
+
+def chunk_routes(K, dev):
+    """The bf16 verify and prefill kernels' device time at ``ROUTE_SQ`` as
+    their wrappers ship and, where the libraries can force a walk, on the
+    split-key walk and on the query-tile walk: the data behind the
+    crossover (``--root`` times another checkout's wrappers as shipped).
+    Each output is first held, with the bf16 limit, to the plain version
+    evaluated in float64 on the same bf16 inputs, since the bf16 plain
+    version rounds its scores to bf16 and at these widths is itself up to
+    2e-2 of a row's max from that; the ``err`` line gives each one's worst
+    row (``worst_row``).  h=32 g=8 hd=128 bs=32.  Verify: 8 requests at
+    positions 0-440, lens Sq.  Prefill as on the main path: three rows over
+    128 cached tokens (seg Sq, 3/4 and 9/16 of it), a cold one and a seg-0
+    padding row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    h, g, hd, bs, dt = 32, 8, 128, 32, torch.bfloat16
+    cached = torch.tensor([128, 128, 128, 0, 0], device=dev,
+                          dtype=torch.int32)
+    for name in ("verify", "prefill"):
+        for Sq in ROUTE_SQ[name]:
+            if name == "verify":
+                pos = [0, 30, 61, 100, 148, 200, 300, 440]
+                args = chunk_case(dev, gen, dt, pos, [Sq] * 8, Sq, 16)
+                shape = "B=8 pos 0-440 nbt=16"
+            else:
+                seg = torch.tensor([Sq, Sq * 3 // 4, Sq * 9 // 16, Sq, 0],
+                                   device=dev, dtype=torch.int32)
+                need = [-(-(int(c) + int(n)) // bs)
+                        for c, n in zip(cached, seg)]
+                kp, vp, tables = paged_case(dev, gen, dt, 5, max(need), need,
+                                            bs=bs, g=g, hd=hd)
+                q = torch.randn(5, Sq, h, hd, generator=gen, device=dev
+                                ).to(dt)
+                args = (q, kp, vp, tables, cached, seg)
+                shape = "B=5 cached=128/0"
+            plain_fn = K["ref"].paged_verify_ref if name == "verify" \
+                else K["ref"].paged_prefill_ref
+            exact = plain_fn(*(a.double() for a in args[:3]), *args[3:])
+            errs = f"plain={worst_row(plain_fn(*args), exact):.3e}"
+            run = lambda: K[name](*args)
+            compare(run(), exact, dt)
+            line = f"shipped={time_ms(run):.5f}"
+            on = walk_launcher(K, f"{name}_attn", args)
+            if on is not None:
+                for walk, label in ((0, "split"), (1, "tile")):
+                    errs += f" {label}={worst_row(on(walk)(), exact):.3e}"
+                    compare(on(walk)(), exact, dt)
+                    line += f" {label}={time_ms(on(walk)):.5f}"
+            print(f"chunk-routes: {name} Sq={Sq} cols={Sq * h // g} {shape} "
+                  f"h=32 g=8 hd=128 bs=32 ms {line}; err (worst row / its "
+                  f"max |float64 plain|) {errs}")
 
 
 def check_lora(K, dtype, dev, gen, timing: bool):
@@ -432,6 +531,21 @@ def check_attention(K, dtype, dev, gen, timing: bool):
     print(f"kernels: paged_prefill {str(dtype)[6:]:<8} max_abs_err={err:.3e}"
           f" tol={TOL[dtype]:g}xmax|plain| per row B=5 Sq=16 cached=128/0 "
           "h=32 g=8 hd=128 all-masked row=0 ok")
+    # a suffix past the crossover of the bf16 chunk kernels (48 x 4 = 192
+    # query columns: the query-tile walk)
+    Sq2 = 48
+    seg2 = torch.tensor([48, 36, 27, 48, 0], device=dev, dtype=torch.int32)
+    need = [(int(c) + Sq2 - 1) // bs + 1 for c in cached]
+    kp2, vp2, tables2 = paged_case(dev, gen, dtype, 5, nbt, need)
+    q2 = torch.randn(5, Sq2, h, hd, generator=gen, device=dev).to(dtype)
+    args2 = (q2, kp2, vp2, tables2, cached, seg2)
+    out2 = K["prefill"](*args2)
+    if float(out2[4].float().abs().max()) != 0.0:
+        raise AssertionError("all-masked prefill row is not 0")
+    err2 = compare(out2, K["ref"].paged_prefill_ref(*args2), dtype)
+    print(f"kernels: paged_prefill {str(dtype)[6:]:<8} max_abs_err={err2:.3e}"
+          f" tol={TOL[dtype]:g}xmax|plain| per row B=5 Sq=48 cached=128/0 "
+          "h=32 g=8 hd=128 (past the crossover) all-masked row=0 ok")
     if timing:
         ar = torch.arange(Sq, device=dev)
         qpos = cached[:, None].long() + ar[None, :]
@@ -500,6 +614,17 @@ def check_verify(K, dtype, dev, gen, timing: bool):
     print(f"kernels: paged_verify  {str(dtype)[6:]:<8} max_abs_err={err:.3e}"
           f" tol={TOL[dtype]:g}xmax|plain| per row B=8 Sq=5 h=32 g=8 hd=128 "
           "bs=32 nbt=16 lens-0 and inactive rows=0, block-edge chunks ok")
+    # a chunk past the crossover of the bf16 chunk kernels (33 x 4 = 132
+    # query columns: the query-tile walk), the inactive row still 0
+    pos2, lens2 = [0, 30, 100, 200, 300, 440], [0, 33, 33, 20, 1, 33]
+    args2 = chunk_case(dev, gen, dtype, pos2, lens2, 33, 16)
+    out2 = K["verify"](*args2)
+    if float(out2[0].float().abs().max()) != 0.0:
+        raise AssertionError("verify rows with no valid key are not 0")
+    err2 = compare(out2, K["ref"].paged_verify_ref(*args2), dtype)
+    print(f"kernels: paged_verify  {str(dtype)[6:]:<8} max_abs_err={err2:.3e}"
+          f" tol={TOL[dtype]:g}xmax|plain| per row B=6 Sq=33 h=32 g=8 hd=128 "
+          "bs=32 nbt=16 (past the crossover) inactive row=0 ok")
     if timing:
         nbytes, flops, qi, kend = chunk_work(q, p, n, g, q.element_size())
         bms, by = bound(nbytes, flops, dtype)
@@ -1528,6 +1653,9 @@ def main() -> int:
     ap.add_argument("--bgmv-splits", action="store_true",
                     help="only time BGMV at its serving shapes for 8, 16 "
                          "and 32 slices of d_in")
+    ap.add_argument("--chunk-routes", action="store_true",
+                    help="only time bf16 paged verify and prefill on each "
+                         "walk on both sides of their crossover")
     ap.add_argument("--divergence", action="store_true",
                     help="only serve the full-width waves plain, "
                          "speculative and on dense rows, untimed, and print "
@@ -1535,7 +1663,8 @@ def main() -> int:
                          "run with the logit margins")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
-                         "--bgmv-splits or --divergence imports")
+                         "--bgmv-splits, --chunk-routes or --divergence "
+                         "imports")
     ap.add_argument("--tune-splits", metavar="PATH",
                     help="time every split at the model's split keys and "
                          "write the table to PATH")
@@ -1548,7 +1677,8 @@ def main() -> int:
         return 2
     ITERS = a.iters
     root = os.path.abspath(a.root) if (a.kernel_timing or a.divergence
-                                       or a.bgmv_splits) else ROOT
+                                       or a.bgmv_splits
+                                       or a.chunk_routes) else ROOT
     K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1564,6 +1694,10 @@ def main() -> int:
         return 0
     if a.bgmv_splits:
         bgmv_splits(K, dev)
+        print(card())
+        return 0
+    if a.chunk_routes:
+        chunk_routes(K, dev)
         print(card())
         return 0
     if a.divergence:

@@ -17,11 +17,12 @@
 // Both are bytes-bound (every valid K/V row read once for ~m FLOPs a byte).
 // The element type and the group size pick the walk at compile time:
 //  * bf16, m <= 8, paged and dense: the split-key walk of
-//    `decode_walk.cuh`: every warp (eight up to hd 128, four above) walks
-//    keys (32-key units dealt in turn), each through its own three-stage
-//    ring of 16-key `cp.async` tiles, with transposed `mma.sync` products
-//    (keys on M, heads on N), and the warps' partials merged in warp order
-//    at the end.  Paged units read the table once; a dense unit is one run
+//    `split_walk.cuh` with one column tile (NT = 1, the m heads of one
+//    position): every warp (eight up to hd 128, four above) walks keys
+//    (32-key units dealt in turn), each through its own three-stage ring
+//    of 16-key `cp.async` tiles, with transposed `mma.sync` products (keys
+//    on M, heads on N), and the warps' partials merged in warp order at
+//    the end.  Paged units read the table once; a dense unit is one run
 //    of rows (`DenseRows`), no slot >= S is read, and the key mask
 //    `RowArc` admits the row's valid slots: a prefix (window 0) or the
 //    rolling arc, whose tiles without a valid slot are skipped;
@@ -30,7 +31,7 @@
 //  * fp32: the CUDA-core walk of `paged_walk.cuh` (the m heads shared among
 //    the block's warps).
 // A row with no valid key finalizes to 0 (l clamped at 1e-30).
-#include "decode_walk.cuh"
+#include "split_walk.cuh"
 #include "paged_walk.cuh"
 
 namespace {
@@ -96,9 +97,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// grid (B, g), bf16, m = h/g <= DW_MAX_M: the split-key walk
+// grid (B, g), bf16, m = h/g <= SW_MAX_M: the split-key walk
 template <int HD>
-__global__ void __launch_bounds__(repro::DecodeWalk<HD>::kThreads)
+__global__ void __launch_bounds__(repro::SplitWalk<HD>::kThreads)
 paged_decode_split_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ kp,
                           const bf16* __restrict__ vp,
@@ -108,10 +109,11 @@ paged_decode_split_kernel(const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const repro::PagedRows kv{tables + static_cast<size_t>(b) * nbt, bs, g, HD};
-  repro::decode_walk<HD>(q, kp, vp, kv,
-                         repro::KeyPrefix{min(pos[b] + 1, nbt * bs)}, out,
-                         reinterpret_cast<bf16*>(smem), b, blockIdx.y, h, g,
-                         scale);
+  repro::split_walk<HD, 1>(q, kp, vp, kv,
+                           repro::KeyPrefix{min(pos[b] + 1, nbt * bs)},
+                           repro::Cols{1, 0, h / g}, out,
+                           reinterpret_cast<bf16*>(smem), b, blockIdx.y, h,
+                           g, scale);
 }
 
 // The valid slots of a dense row for the query at pos, as the split-key
@@ -136,15 +138,15 @@ struct RowArc {
   __device__ __forceinline__ bool whole(int k0, int k1) const {
     return k1 <= a || (k0 >= c && k1 <= kend);
   }
-  __device__ __forceinline__ bool operator()(int j) const {
+  __device__ __forceinline__ bool operator()(int j, int) const {
     return j < a || (j >= c && j < kend);
   }
 };
 
-// grid (B, g), bf16, m = h/g <= DW_MAX_M: the split-key walk over dense
+// grid (B, g), bf16, m = h/g <= SW_MAX_M: the split-key walk over dense
 // rows (every 32-slot unit one run of rows: no table)
 template <int HD>
-__global__ void __launch_bounds__(repro::DecodeWalk<HD>::kThreads)
+__global__ void __launch_bounds__(repro::SplitWalk<HD>::kThreads)
 dense_decode_split_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -153,10 +155,11 @@ dense_decode_split_kernel(const bf16* __restrict__ q,
   extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const repro::DenseRows kv{static_cast<size_t>(b) * S * g * HD, S,
-                            repro::DW_UNIT, g, HD};
-  repro::decode_walk<HD>(q, k, v, kv, RowArc::of(pos[b], S, window), out,
-                         reinterpret_cast<bf16*>(smem), b, blockIdx.y, h, g,
-                         scale);
+                            repro::SW_UNIT, g, HD};
+  repro::split_walk<HD, 1>(q, k, v, kv, RowArc::of(pos[b], S, window),
+                           repro::Cols{1, 0, h / g}, out,
+                           reinterpret_cast<bf16*>(smem), b, blockIdx.y, h,
+                           g, scale);
 }
 
 template <typename T, int HD>
@@ -194,9 +197,9 @@ cudaError_t paged_t(const void* q, const void* kp, const void* vp,
                     int h, int g, int hd, int bs, int nbt, float scale,
                     cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (h / g <= repro::DW_MAX_M) {
+    if (h / g <= repro::SW_MAX_M) {
       return repro::with_hd(hd, [&](auto HD) {
-        using W = repro::DecodeWalk<decltype(HD)::value>;
+        using W = repro::SplitWalk<decltype(HD)::value>;
         auto kern = paged_decode_split_kernel<decltype(HD)::value>;
         cudaError_t e = repro::allow_smem(kern, W::kSmem);
         if (e != cudaSuccess) return e;
@@ -226,9 +229,9 @@ cudaError_t dense_t(const void* q, const void* k, const void* v,
                     const int* pos, void* out, int B, int h, int g, int hd,
                     int S, int window, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    if (h / g <= repro::DW_MAX_M) {
+    if (h / g <= repro::SW_MAX_M) {
       return repro::with_hd(hd, [&](auto HD) {
-        using W = repro::DecodeWalk<decltype(HD)::value>;
+        using W = repro::SplitWalk<decltype(HD)::value>;
         auto kern = dense_decode_split_kernel<decltype(HD)::value>;
         cudaError_t e = repro::allow_smem(kern, W::kSmem);
         if (e != cudaSuccess) return e;

@@ -25,16 +25,17 @@ K/V tile once per query head; here one block per (request, KV head) serves
 all m = h/g query heads of the group from a single read of each K/V row,
 copied by 16-byte ``cp.async`` into rings in shared memory.  bf16 decode
 with m <= 8, paged and dense, runs the split-key walk of
-``csrc/decode_walk.cuh``: every warp of the block (eight up to hd 128, four
-above) walks keys (32-key units dealt in turn) through its own three-stage
-ring of 16-key tiles, so up to 16 tiles are in flight a block instead of
-one; the products are transposed (``mma.sync`` with the 16 keys on M and
-the heads on N: S^T = K Q^T, O^T += V^T P^T, P^T passed on in registers by
-``movmatrix``), and the warps' partials are merged in warp order in exp2
-units at the end.  A paged unit reads the table once; a dense unit is one
-run of rows, and the walk's key mask admits the row's valid slots (a
-prefix, or a rolling row's arc, whose tiles with no valid slot are
-skipped); no slot >= S is read.  bf16 decode with m > 8 runs the
+``csrc/split_walk.cuh`` with one column tile (verify and prefill chunks
+take the same walk with more): every warp of the block (eight up to hd
+128, four above) walks keys (32-key units dealt in turn) through its own
+three-stage ring of 16-key tiles, so up to 16 tiles are in flight a block
+instead of one; the products are transposed (``mma.sync`` with the 16 keys
+on M and the heads on N: S^T = K Q^T, O^T += V^T P^T, P^T passed on in
+registers by ``movmatrix``), and the warps' partials are merged in warp
+order in exp2 units at the end.  A paged unit reads the table once; a
+dense unit is one run of rows, and the walk's key mask admits the row's
+valid slots (a prefix, or a rolling row's arc, whose tiles with no valid
+slot are skipped); no slot >= S is read.  bf16 decode with m > 8 runs the
 tensor-core query-tile walk of ``csrc/tile_walk.cuh`` (the m heads are the
 rows of a one-position tile), fp32 the CUDA-core walk of
 ``csrc/paged_walk.cuh`` (the heads shared among the warps).  The paged

@@ -12,14 +12,17 @@ Bound on an H100 SXM: each request reads its K/V blocks up to
 FLOPs.  At the smoke shapes (16-token suffixes over 128 cached tokens) that
 is ~2 * Sq * h / g FLOPs per byte, under the ridge, so bytes bound it.
 
-Design (``csrc/prefill_attn.cu`` over ``csrc/tile_walk.cuh``, the walk of
-the flash attention kernel): one block per (request, query tile, KV head);
-the tile holds 64 / (h/g) query positions times the h/g query heads of the
-group, so every K/V block is read once per tile and serves them all.
-The walk stops at the last key that the causal and valid limits allow.  In
-bf16 it is the flash kernel's tensor-core walk (``mma.sync``, a ``cp.async``
-ring) over 32-key tiles, one pool block at the engine's block size; in fp32
-the CUDA-core walk, one pool block at a time.
+Design (``csrc/prefill_attn.cu``): a suffix of Sq positions has Sq * h/g
+query columns (a position's h/g query heads of one KV head).  In bf16, up
+to the crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh`` (128
+columns, measured on the card) take that split-key walk: one block of 8
+warps per (KV head, request, group of at most 32 columns), each warp
+walking 32-key units of the keys its group's last position sees through its
+own ring, with the columns on the N side of ``mma.sync``; a request's K/V
+is read once per group.  Longer
+suffixes take the query-tile walk of ``csrc/tile_walk.cuh`` (the flash
+kernel's): one block per 64 / (h/g) positions, K/V read once per tile.  fp32
+runs the CUDA-core query-tile walk, one pool block at a time.
 """
 from __future__ import annotations
 

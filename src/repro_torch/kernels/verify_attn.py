@@ -13,14 +13,21 @@ pos + lens - 1`` (2 * (pos + lens) * g * hd elements) for about 4 * h * Sq *
 
 Design (``csrc/verify_attn.cu``): the TPU grid (B, h, nbt) streams each
 K/V block once per query head; here one thread block per (request, KV head)
-serves all h/g query heads x Sq chunk rows of the group from a single read
-of each block, copied by 16-byte ``cp.async`` into a ring in shared memory.
-bf16 runs the tensor-core query-tile walk of ``csrc/tile_walk.cuh`` (the
-chunk is a tile of Sq positions x h/g heads, at most 64/(h/g) positions a
-tile), fp32 the CUDA-core walk of ``csrc/paged_walk.cuh`` (several rows a
-warp; more than 64 rows take several thread blocks).  The walk stops at the
-block holding key ``pos + lens - 1``; the online softmax runs in fp32; rows
-with no valid key (``pos = lens = 0``) give exact zeros.
+serves all h/g query heads x Sq chunk positions of the group (Sq * h/g
+columns) from a single read of each block.  In bf16 a chunk of up to the
+crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh`` (128 columns,
+measured on the card; the serving chunk is 5 positions x 4 heads) takes
+that split-key walk, one block per group of at most 32 columns: 8 warps
+each walk 32-key units of the keys through their own 16-byte ``cp.async``
+ring, with the keys on the M side of ``mma.sync`` and the columns on N
+(ceil(columns / 8) column tiles), each column masked at its own position,
+and the warps' partials merged at the end; above hd 128 a block holds fewer
+column tiles and the columns take more groups.  Wider bf16 chunks take the tensor-core query-tile walk of
+``csrc/tile_walk.cuh`` (at most 64/(h/g) positions a tile), fp32 the
+CUDA-core walk of ``csrc/paged_walk.cuh`` (several rows a warp; more than 64
+rows take several thread blocks).  The walk stops at the key ``pos + lens -
+1``; the online softmax runs in fp32; rows with no valid key (``pos = lens
+= 0``) give exact zeros.
 """
 from __future__ import annotations
 

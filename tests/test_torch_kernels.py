@@ -10,6 +10,9 @@ The CUDA kernels against these plain versions are in
 ``test_torch_kernels_cuda.py``, which imports no JAX so it runs on the GPU
 machine.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -23,13 +26,21 @@ from repro.kernels.decode_attn import paged_decode_attention as j_decode
 from repro.kernels.prefill_attn import paged_prefill_attention as j_prefill
 from repro.kernels.smlm import smlm as j_smlm
 from repro_torch.core.lora import lora_apply, lora_apply_ref
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bgmv import bgmv
 from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
 from repro_torch.kernels.smlm import smlm
 
 TOL = 1e-5
+# the crossover of the bf16 verify and prefill kernels (query columns)
+SPLIT_COLS = int(re.search(
+    r"SW_SPLIT_COLS = (\d+);",
+    (Path(ref.__file__).parent / "csrc" / "split_walk.cuh").read_text())[1])
+# the CUDA tests' suffixes (Sq, h/g): the longest of the split walk, one
+# position more, and groups of the split walk that begin inside a position
+PREFILL_CASES = [(SPLIT_COLS, 1), (SPLIT_COLS + 1, 1), (SPLIT_COLS // 4, 4),
+                 (SPLIT_COLS // 4 + 1, 4), (25, 4)]
 
 
 def _lora_inputs(rng, T, d, r, n, o):
@@ -125,6 +136,34 @@ def test_paged_prefill_plain_matches_pallas_and_ref(B, h, g, hd, bs, nbt,
     for b in range(B):   # Pallas rows past seg are padding it never reads
         assert max_err(y[b, :seg[b]], y_pl[b, :seg[b]]) < TOL
     assert float(y[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("Sq,m", PREFILL_CASES)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_paged_prefill_plain_matches_pallas_at_the_crossover(Sq, m, hd):
+    """The CUDA tests' prefill shapes on both sides of the bf16 crossover
+    (``SPLIT_COLS`` query columns, and one position more) and at 25 x 4
+    columns: rows whose keys span 1, 2 and 9 16-key tiles, a cold row, a
+    ragged row and a seg-0 row (exact 0); plain vs Pallas on each row's
+    live positions, and vs the oracle."""
+    g, bs = 2, 32
+    rng = np.random.default_rng(800 + m + hd + Sq)
+    cached = np.array([0, 12, 128, 0, 40, 0], np.int32)
+    seg = np.minimum(np.array([min(Sq, 10), 12, 16, Sq, max(1, Sq - 3), 0],
+                              np.int32), Sq)
+    nbt = -(-int((cached + Sq).max()) // bs)
+    B = len(cached)
+    kp, vp, tables = _paged_inputs(rng, B, g, hd, bs, nbt,
+                                   -(-(cached + seg) // bs))
+    q = rng.standard_normal((B, Sq, m * g, hd), dtype=np.float32)
+    args = (j(q), j(kp), j(vp), j(tables), j(cached), j(seg))
+    y_pl = np.asarray(j_prefill(*args, block_q=64, interpret=True))
+    y = paged_prefill_attention(t(q), t(kp), t(vp), t(tables), t(cached),
+                                t(seg))
+    assert max_err(y, j_ref.paged_prefill_ref(*args)) < TOL
+    for b in range(B):
+        assert max_err(y[b, :seg[b]], y_pl[b, :seg[b]]) < TOL
+    assert float(y[-1].abs().max()) == 0.0
 
 
 # ------------------------------------------------ dispatch vs the oracle

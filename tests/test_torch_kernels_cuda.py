@@ -9,6 +9,9 @@ output): bf16 rounds the output once; fp32 sums in another order.  The SMLM
 and paged decode cases hold each row (last axis) to its own max |plain|
 instead, with the same factors (``_close_rows``).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,16 @@ from repro_torch.kernels.verify_attn import paged_verify_attention
 
 def t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# the crossover of the bf16 verify and prefill kernels (query columns)
+SPLIT_COLS = int(re.search(
+    r"SW_SPLIT_COLS = (\d+);",
+    (Path(ref.__file__).parent / "csrc" / "split_walk.cuh").read_text())[1])
+# paged prefill suffixes (Sq, h/g): the longest of the split walk, one
+# position more, and groups of the split walk that begin inside a position
+PREFILL_CASES = [(SPLIT_COLS, 1), (SPLIT_COLS + 1, 1), (SPLIT_COLS // 4, 4),
+                 (SPLIT_COLS // 4 + 1, 4), (25, 4)]
 
 
 def _lora_inputs(rng, T, d, r, n, o):
@@ -278,24 +291,85 @@ def test_cuda_splitk_empty_splits_and_decode_lens(dtype, ns):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,Sq", [(4, 5), (16, 5), (8, 9)])
-def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq):
-    """Groups of m * Sq query rows: 20 (one thread block, several rows a
-    warp), 80 and 72 (more than one block holds: two row groups), through
-    the verify kernel and split-K at ns 1 and 4."""
+@pytest.mark.parametrize("m,Sq", [(4, 2), (8, 2), (4, 5), (4, 8), (4, 9),
+                                  (16, 5), (8, 9), (16, 9)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq, hd):
+    """Groups of m * Sq query columns through the verify kernel and
+    split-K at ns 1 and 4.  bf16: 8, 16, 20 and 32 columns take the
+    split-key walk in one block with 1, 2, 3 and 4 column tiles, 36, 72
+    and 80 in two or three blocks of at most 32 columns (36 cut inside a
+    position; above hd 128 a block holds 16), 144 (past ``SPLIT_COLS``)
+    the query-tile walk; fp32: 8 to 36 rows one thread block, 72 to 144
+    several row groups.  Rows with lens 0 and pos 0 are exact zeros."""
     dev = _card()
-    rng = np.random.default_rng(300 + m * Sq)
+    rng = np.random.default_rng(300 + m * Sq + (hd != 64) * hd)
     g = 2
     pos, lens = np.array([0, 61, 200]), np.array([0, Sq, Sq - 2])
-    args = _chunk_case(rng, dev, dtype, 3, Sq, m * g, g, 64, 32, 8, pos,
+    args = _chunk_case(rng, dev, dtype, 3, Sq, m * g, g, hd, 32, 8, pos,
                        lens)
     plain = ref.paged_verify_ref(*args)
     y = paged_verify_attention(*args)
-    _close(y, plain, dtype)
+    _close_rows(y, plain, dtype)
     assert float(y[0].abs().max()) == 0.0
     for ns in (1, 4):
         _close(paged_verify_attention_splitk(*args, num_splits=ns), plain,
                dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_cuda_verify_chunks_straddle_tile_and_block_edges(dtype, hd):
+    """Serving chunks (Sq 5, 4 heads a KV head) whose keys cross a 16-key
+    tile edge inside a pool block (13..17, 41..45), a pool-block edge
+    (30..34, 62..66), both at the table's end (507..511), a chunk that
+    ends on an edge (11..15) and a lens-0 row whose keys end on one
+    (pos 64); each row within its own tolerance."""
+    dev = _card()
+    rng = np.random.default_rng(350 + hd)
+    pos = np.array([13, 41, 30, 62, 507, 11, 64])
+    lens = np.array([5, 5, 5, 3, 5, 5, 0])
+    args = _chunk_case(rng, dev, dtype, len(pos), 5, 8, 2, hd, 32, 16, pos,
+                       lens)
+    y = paged_verify_attention(*args)
+    _close_rows(y, ref.paged_verify_ref(*args), dtype)
+
+
+def _prefill_case(rng, dev, dtype, Sq, m, hd, g=2, bs=32):
+    """Suffix-prefill rows whose keys span 1, 2 and 9 16-key tiles, a cold
+    row (cached 0) of the whole suffix, a ragged row and a seg-0 padding
+    row (cached 0, must be exact 0)."""
+    cached = np.array([0, 12, 128, 0, 40, 0], np.int32)
+    seg = np.array([min(Sq, 10), 12, 16, Sq, max(1, Sq - 3), 0], np.int32)
+    seg = np.minimum(seg, Sq)
+    nbt = -(-int((cached + Sq).max()) // bs)
+    B = len(cached)
+    kp, vp, tables = _paged_inputs(rng, B, g, hd, bs, nbt,
+                                   -(-(cached + seg) // bs))
+    q = rng.standard_normal((B, Sq, m * g, hd), dtype=np.float32)
+    cuda = lambda x: t(x).to(dev)
+    return (cuda(q).to(dtype), cuda(kp).to(dtype), cuda(vp).to(dtype),
+            cuda(tables), cuda(cached), cuda(seg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,m", PREFILL_CASES)
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_cuda_paged_prefill_walks_match_plain(dtype, Sq, m, hd):
+    """Paged prefill on both sides of the bf16 crossover (``SPLIT_COLS``
+    columns: the longest suffix of the split-key walk, and one position
+    more on the query-tile walk) and at 25 x 4 columns, whose groups of the
+    split walk begin inside a position, each row within its own tolerance,
+    the seg-0 row exact 0, two calls the same bits."""
+    dev = _card()
+    rng = np.random.default_rng(800 + m + hd + Sq)
+    args = _prefill_case(rng, dev, dtype, Sq, m, hd)
+    y = paged_prefill_attention(*args)
+    _close_rows(y, ref.paged_prefill_ref(*args), dtype)
+    assert float(y[-1].abs().max()) == 0.0
+    assert torch.equal(paged_prefill_attention(*args), y)
 
 
 @pytest.mark.cuda

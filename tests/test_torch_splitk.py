@@ -84,6 +84,45 @@ def test_verify_plain_matches_pallas_and_ref(B, Sq, h, g, hd, bs, nbt):
     assert float(y[2].abs().max()) > 0.0           # lens 0 still sees j < pos
 
 
+@pytest.mark.parametrize("m,Sq", [(4, 2), (8, 2), (4, 5), (4, 8), (4, 9),
+                                  (16, 9)])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+def test_verify_plain_matches_pallas_at_split_walk_groups(m, Sq, hd):
+    """The shapes of the CUDA tests' whole groups (8, 16, 20, 32 and 36
+    query columns: the split-key walk's 1-4 column tiles and two groups cut
+    inside a position; 144: past the crossover) at hd 64, 128 and 256: the
+    plain version those tests hold the kernel to vs the Pallas kernel; the
+    lens-0 row at pos 0 is exactly 0."""
+    rng = np.random.default_rng(300 + m * Sq + (hd != 64) * hd)
+    g = 2
+    pos, lens = np.array([0, 61, 200], np.int32), np.array([0, Sq, Sq - 2],
+                                                           np.int32)
+    q, kp, vp, tables = _chunk_inputs(rng, 3, Sq, m * g, g, hd, 32, 8, pos,
+                                      lens)
+    args = (j(q), j(kp), j(vp), j(tables), j(pos), j(lens))
+    y_pl = j_verify(*args, interpret=True)
+    y = paged_verify_attention(t(q), t(kp), t(vp), t(tables), t(pos),
+                               t(lens))
+    assert max_err(y, y_pl) < TOL and max_err(y, j_ref.paged_verify_ref(
+        *args)) < TOL
+    assert float(y[0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_verify_plain_matches_pallas_across_tile_edges(hd):
+    """Chunks across a 16-key tile edge, a pool-block edge and the table's
+    end (the CUDA edge test's shapes): plain vs Pallas."""
+    rng = np.random.default_rng(350 + hd)
+    pos = np.array([13, 41, 30, 62, 507, 11, 64], np.int32)
+    lens = np.array([5, 5, 5, 3, 5, 5, 0], np.int32)
+    q, kp, vp, tables = _chunk_inputs(rng, len(pos), 5, 8, 2, hd, 32, 16,
+                                      pos, lens)
+    args = (j(q), j(kp), j(vp), j(tables), j(pos), j(lens))
+    y = paged_verify_attention(t(q), t(kp), t(vp), t(tables), t(pos),
+                               t(lens))
+    assert max_err(y, j_verify(*args, interpret=True)) < TOL
+
+
 @pytest.mark.parametrize("ns", [1, 2, 3, 4, 7])
 def test_splitk_verify_plain_matches_pallas(ns):
     """Split-K verify (partials + merge) vs the Pallas split-K kernel and
