@@ -34,8 +34,9 @@ the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
 
-1. build   — compile the seven CUDA kernel libraries (eight kernels: the
-             decode library holds the paged and the dense-row decode) from
+1. build   — compile the eight CUDA kernel libraries (nine kernels: the
+             decode library holds the paged and the dense-row decode; the
+             SMLM weight gradient has its own) from
              ``src/repro_torch/kernels/csrc`` (one nvcc per source, in
              parallel).
 2. kernels — each kernel vs its plain PyTorch version on the card at the
@@ -53,7 +54,12 @@ printing its lines; any failure raises and exits non-zero:
              events) and the plain version's eager time, beside the bound;
              and at the serving and long-context decode buckets the time of
              every candidate split beside the model's pick (the split table
-             it loads on the card, else ``autotune.choose``).
+             it loads on the card, else ``autotune.choose``).  SMLM's
+             weight gradient (``smlm_wgrad``) at the mixed tick's ft head
+             (T=1024: two adapters and a base-only tile) for the three
+             projection shapes, timed at 4096->14336 beside ``torch.bmm``
+             over the tokens gathered per adapter; then ``SMLMFunction``'s
+             backward against autograd through the plain SMLM.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -62,7 +68,10 @@ printing its lines; any failure raises and exits non-zero:
              and to the plain run's, drafts accepted, verify kernel used;
              then the dense-row engine (``paged=False``): tokens equal on
              both devices and to the paged run's, the flash and dense-decode
-             kernels used.
+             kernels used; then training: two trainers and four served
+             requests on both devices (lr 1e-3): served tokens equal,
+             per-row losses within 1e-4 relative, optimizer steps equal,
+             the trained slots within 2 * lr * steps + 1e-6.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -92,10 +101,25 @@ printing its lines; any failure raises and exits non-zero:
              request's first divergence from the paged run as in phase 5;
              then both layouts in turns (paged, dense, dense, paged, twice),
              their decode ticks side by side.
+8. train   — two trainers (``alpaca_like`` and ``gsm8k_like`` rows, 16
+             each, lengths 24-96 and 48-160, full vocab; new adapters in the
+             bank's free slots, lr 2e-5) co-run with phase 4's two waves,
+             between two serve-only runs of the same waves: the mixed
+             ticks, decode tick latency (mean, p50) of each run, fine-tune
+             tokens/s, per-step losses, optimizer steps, the share of the
+             trained slots' bf16 elements that the optimizer changed, and
+             ``smlm_wgrad``'s launches (> 0); then one grad step through
+             the kernels against the same step through the plain versions
+             on the card, in fp32 (weights cast on the card), each grad
+             leaf within 1e-4 of its max; the bf16 step's differences are
+             printed, not gated, beside those of a path with the SMLM
+             kernel's forward and the plain backward (the forward's
+             rounding alone); one bf16 grad step is profiled
+             (``profile: grad step`` line).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-7 that launched it), the card's name and power limit, and
+run of phases 4-8 that launched it), the card's name and power limit, and
 the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -138,12 +162,15 @@ def _import_port(root: str = ROOT):
     from repro_torch.kernels.decode_attn import decode_attention
     from repro_torch.kernels.flash_attn import flash_attention
     K.update(dense_decode=decode_attention, flash=flash_attention)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.smlm import SMLMFunction, smlm_wgrad
+    K.update(ops=ops, smlm_wgrad=smlm_wgrad, SMLMFunction=SMLMFunction)
     return K
 
 
 # launch counters of the main path, by wrapper
 COUNTERS = ("smlm", "bgmv", "decode", "prefill", "verify", "partials",
-            "merge", "flash", "dense_decode")
+            "merge", "flash", "dense_decode", "smlm_wgrad")
 
 
 def reset_counts(K):
@@ -463,6 +490,113 @@ def check_lora(K, dtype, dev, gen, timing: bool):
               f"max_abs_err={max(errs):.3e} tol={TOL[dtype]:g}x"
               f"max|plain| per row block_t={bt} shapes(T,d_in,d_out)="
               f"{','.join(f'({a},{b},{c})' for a, b, c in shapes)} ok")
+    return rows
+
+
+# the weight gradient's shapes: the mixed tick's ft head (4 rows of a
+# 256-token bucket: two of one trainer's slot, one of the other's, one
+# base-only padding row of scale 0) at each projection shape
+WGRAD_T = 1024
+WGRAD_SHAPES = ((WGRAD_T, 4096, 4096), (WGRAD_T, 4096, 14336),
+                (WGRAD_T, 14336, 4096))
+
+
+def wgrad_case(T, d_in, d_out, dtype, dev, gen, bt, r=8):
+    x = torch.randn(T, d_in, generator=gen, device=dev).to(dtype)
+    dy = (torch.randn(T, d_out, generator=gen, device=dev) * 0.1).to(dtype)
+    s = torch.randn(T, r, generator=gen, device=dev) * 0.5
+    gs = torch.randn(T, r, generator=gen, device=dev) * 0.05
+    per_row = T // 4 // bt
+    ids = torch.tensor([2, 2, 3, 0], device=dev, dtype=torch.int32
+                       ).repeat_interleave(per_row)
+    scale = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev
+                         ).repeat_interleave(per_row)
+    return x, dy, s, gs, ids, scale
+
+
+def wgrad_library_ms(x, dy, s, gs, ids, scale, bt):
+    """The weight gradient's library yardstick: torch.bmm over the live
+    tokens gathered per adapter in advance (zero-padded to the largest
+    group), one bmm for dA and one for dB."""
+    tok = ids.repeat_interleave(bt)
+    live = scale.repeat_interleave(bt) != 0
+    groups = [torch.nonzero(live & (tok == k)).flatten()
+              for k in torch.unique(tok[live]).tolist()]
+    L = max(len(g) for g in groups)
+
+    def gather(v):
+        out = torch.zeros((len(groups), L, v.shape[1]), dtype=x.dtype,
+                          device=v.device)
+        for i, g in enumerate(groups):
+            out[i, :len(g)] = v[g].to(x.dtype)
+        return out
+
+    xg, dyg, sg, gsg = (gather(v) for v in (x, dy, s, gs))
+    return time_ms(lambda: (torch.bmm(xg.transpose(1, 2), gsg),
+                            torch.bmm(sg.transpose(1, 2), dyg)))
+
+
+def check_wgrad(K, dtype, dev, gen, timing: bool):
+    """SMLM's weight gradient against its plain version at the mixed
+    tick's ft head for the three projection shapes (each dA and dB row
+    within the tolerance; the unused slots exactly 0), then SMLMFunction's
+    backward against autograd through the plain SMLM."""
+    rows, errs, bt = {}, [], K["block_t"]
+    ref = K["ref"]
+    for T, d_in, d_out in WGRAD_SHAPES:
+        x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dtype, dev,
+                                              gen, bt)
+        sb, gb = ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt)
+        args = (x, dy, sb, gb, ids, scale)
+        da, db = K["smlm_wgrad"](*args, r=8, block_t=bt, n_slots=4)
+        pa, pb = ref.smlm_wgrad_ref(x, dy, s, gs, ids, scale, bt, 4)
+        err = max(compare(da, pa, dtype), compare(db, pb, dtype))
+        if float(da[:2].abs().max()) or float(db[:2].abs().max()):
+            raise AssertionError("smlm_wgrad wrote a slot no live tile uses")
+        errs.append(err)
+        if timing and (d_in, d_out) == (4096, 14336):
+            live = int((scale != 0).sum()) * bt
+            it = x.element_size()
+            nbytes = live * (d_in + d_out) * it + 2 * live * 8 * 4 \
+                + 4 * 8 * (d_in + d_out) * it
+            bms, by = bound(nbytes, 2 * live * 8 * (d_in + d_out), dtype)
+            rows["smlm_wgrad"] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: K["smlm_wgrad"](*args, r=8, block_t=bt,
+                                                   n_slots=4)),
+                plain_ms=time_ms(lambda: ref.smlm_wgrad_ref(
+                    x, dy, s, gs, ids, scale, bt, 4), eager=True),
+                library_ms=wgrad_library_ms(x, dy, s, gs, ids, scale, bt),
+                bound_ms=bms, bound_by=by,
+                shape=f"T={T} d_in={d_in} d_out={d_out} r=8 n=4 "
+                      f"block_t={bt} live={live}")
+    print(f"kernels: smlm_wgrad    {str(dtype)[6:]:<8} max_abs_err="
+          f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row shapes("
+          f"T,d_in,d_out)={','.join(str(v) for v in WGRAD_SHAPES)} ok")
+    # SMLMFunction: ft rows (with a base-only tile) then prefill tiles of
+    # zero cotangent, at the widest projection
+    T, n_ft, d_in, d_out = WGRAD_T + 256, WGRAD_T, 4096, 14336
+    x, a, b, _, _ = lora_case(T, d_in, d_out, dtype, dev, gen, bt)
+    ids = torch.tensor([2, 3, 0, 1], device=dev, dtype=torch.int32
+                       ).repeat_interleave(T // 4 // bt)
+    scale = (ids != 0).float() * 1.5
+    g = torch.zeros(T, d_out, device=dev, dtype=dtype)
+    g[:n_ft] = torch.randn(n_ft, d_out, generator=gen, device=dev).to(dtype)
+    kern = [v.clone().requires_grad_() for v in (x, a, b)]
+    plain = [v.clone().requires_grad_() for v in (x, a, b)]
+    n0 = K["smlm_wgrad"].launches
+    (K["SMLMFunction"].apply(*kern, ids, scale, bt, n_ft).float()
+     * g.float()).sum().backward()
+    (ref.smlm_ref(*plain, ids, scale, bt).float() * g.float()
+     ).sum().backward()
+    if K["smlm_wgrad"].launches != n0 + 1:
+        raise AssertionError("SMLMFunction's backward did not launch "
+                             "smlm_wgrad once")
+    errs = [compare(k.grad, p.grad, dtype) for k, p in zip(kern, plain)]
+    print(f"kernels: smlm_backward {str(dtype)[6:]:<8} SMLMFunction vs "
+          f"autograd through the plain SMLM, T={T} n_ft={n_ft} {d_in}->"
+          f"{d_out}: max_abs_err dx={errs[0]:.3e} da={errs[1]:.3e} "
+          f"db={errs[2]:.3e} ok")
     return rows
 
 
@@ -1003,9 +1137,9 @@ def logit_run(cfg, weights, waves, **ecfg):
     pf_rids = []
     assemble = E.flow.assemble
 
-    def recorded_assemble(pf_reqs, *a, **kw):
+    def recorded_assemble(ft_rows, pf_reqs, *a, **kw):
         pf_rids[:] = [p.rid for p in pf_reqs]
-        return assemble(pf_reqs, *a, **kw)
+        return assemble(ft_rows, pf_reqs, *a, **kw)
 
     def tick():
         before = {r.rid: len(r.output) for r in reqs}
@@ -1166,6 +1300,108 @@ def parity(K, devices=("cuda", "cpu")):
     print(f"parity: dense rows (paged=False), cuda==cpu==paged greedy tokens "
           f"for 8 requests, steps={de.metrics.steps}, cuda launches="
           f"{ {k: dl[k] for k in dense_kernels} } ok")
+    parity_train(K, cfg, flat, lcfg, devices)
+
+
+def add_trainers(eng, vocab, n_rows=16, accum=2, sets=None):
+    """Two trainers on the port's synthetic sets (``alpaca_like`` for tr0,
+    ``gsm8k_like`` for tr1), one epoch each, 2 rows a micro-batch."""
+    from repro_torch.data import datasets
+    from repro_torch.training.trainer import MixedLoraTrainer, TrainerConfig
+    sets = sets or (datasets.alpaca_like, datasets.gsm8k_like)
+    for i, make in enumerate(sets):
+        name = f"tr{i}"
+        rows, ev = datasets.split_eval(make(n_rows, vocab=vocab, seed=i))
+        eng.add_trainer(MixedLoraTrainer(
+            name, eng.model.store.slot_of(name), rows, ev,
+            TrainerConfig(rows_per_micro=2, accum_steps=accum, epochs=1)))
+
+
+def trainer_slots(store):
+    return [store.slot_of("tr0"), store.slot_of("tr1")]
+
+
+def slot_leaves(store, slots):
+    """Every bank leaf's ``slots``, flattened in the store's target order."""
+    return torch.cat([layer[t][k][slots].reshape(-1).float()
+                      for layer in store.bank["layers"]
+                      for t in store.targets for k in ("a", "b")])
+
+
+def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3):
+    """Phase 3, training: two trainers and four served requests through the
+    engine on ``cuda`` and on ``cpu`` (virtual clock, fp32): served tokens
+    equal, per-row losses within 1e-4 relative, optimizer steps equal, and
+    the trained slots within 2 * lr * steps + 1e-6 per element (an AdamW
+    step moves an element by at most lr, so a near-zero gradient whose sign
+    differs moves it by at most 2 lr)."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.data import datasets
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.request import Request
+    from repro_torch.training.optimizer import AdamWConfig
+    ad = {name: numpy_adapter(cfg, lcfg, seed=seed)
+          for name, seed in (("lora0", 10), ("tr0", 20), ("tr1", 21))}
+    prompts = datasets.sharegpt_prompts(4, vocab=cfg.vocab, len_lo=6,
+                                        len_hi=16)
+    runs = {}
+    for dev in devices:
+        params = params_from_numpy(flat, device=dev)
+        adapters = {n: {"layers": bank_from_numpy(f, device=dev)["layers"]}
+                    for n, f in ad.items()}
+        eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
+                           torch.float32, EngineConfig(
+                               capacity=4, pf_capacity=2, s_max=96,
+                               virtual_time=True, opt=AdamWConfig(lr=lr)))
+        add_trainers(eng, cfg.vocab)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, adapter="lora0",
+                               max_new_tokens=4, arrival=0.3 * i))
+        reset_counts(K)
+        eng.run(max_ticks=20000)
+        runs[dev] = (eng, read_counts(K))
+    (ge, gl), (ce, _) = runs[devices[0]], runs[devices[1]]
+    gtok = {r.rid: list(r.output) for r in ge.finished}
+    if len(gtok) != 4 or gtok != {r.rid: list(r.output)
+                                  for r in ce.finished}:
+        raise AssertionError("served tokens differ between cuda and cpu")
+    steps, worst = 0, 0.0
+    for name, tr in ge.trainers.items():
+        ctr = ce.trainers[name]
+        if tr.optimizer_steps != ctr.optimizer_steps or \
+                tr.optimizer_steps < 1:
+            raise AssertionError(f"{name}: optimizer steps "
+                                 f"{tr.optimizer_steps} != "
+                                 f"{ctr.optimizer_steps}")
+        steps = max(steps, tr.optimizer_steps)
+        for got, want in ((tr.train_losses, ctr.train_losses),
+                          (tr.eval_losses, ctr.eval_losses)):
+            g_, w_ = np.asarray(got), np.asarray(want)
+            if len(g_) != len(w_) or not len(g_):
+                raise AssertionError(f"{name}: {len(g_)} != {len(w_)} "
+                                     f"losses")
+            worst = max(worst, float(np.max(np.abs(g_ - w_) / np.abs(w_))))
+    if worst > 1e-4:
+        raise AssertionError(f"per-row losses differ by {worst:.3e} "
+                             f"relative")
+    diff = (slot_leaves(ge.model.store, trainer_slots(ge.model.store)).cpu()
+            - slot_leaves(ce.model.store, trainer_slots(ce.model.store)))
+    diff = diff.abs()
+    if float(diff.max()) > 2 * lr * steps + 1e-6:
+        raise AssertionError(f"banks differ by {float(diff.max()):.3e}")
+    if gl["smlm_wgrad"] == 0:
+        raise AssertionError(f"smlm_wgrad never launched: {gl}")
+    m = ge.metrics
+    print(f"parity: training, 2 trainers + 4 served requests, lr={lr:g}, "
+          f"cuda==cpu served tokens, optimizer_steps="
+          f"{[t.optimizer_steps for t in ge.trainers.values()]}, per-row "
+          f"losses max_rel_err={worst:.3e} tol=1e-4 ("
+          f"{sum(len(t.train_losses) + len(t.eval_losses) for t in ge.trainers.values())}"
+          f" rows), bank max_abs_err={float(diff.max()):.3e} tol="
+          f"{2 * lr * steps + 1e-6:.3e} share_over_1e-6="
+          f"{float((diff > 1e-6).float().mean()):.3e}, finetune_tokens="
+          f"{m.finetune_tokens} steps={m.steps}, cuda launches smlm="
+          f"{gl['smlm']} smlm_wgrad={gl['smlm_wgrad']} ok")
 
 
 # ------------------------------------- phases 4-6: full width, one weight set
@@ -1463,6 +1699,233 @@ def layouts_in_turns(cfg, weights, waves, rounds=2):
           f"{wins}/{2 * rounds} ok")
 
 
+def ms_stats(ts):
+    ms = [t * 1e3 for t in ts]
+    return (f"n={len(ms)} mean={np.mean(ms):.3f} p50={np.median(ms):.3f}"
+            if ms else "n=0")
+
+
+def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
+    """Phase 8: two trainers (``tr0`` on ``alpaca_like``, ``tr1`` on
+    ``gsm8k_like`` rows, full vocab) co-run with phase 4's two waves at
+    full width, beside serve-only runs of the same waves (before and
+    after); then one grad step through the kernels against the same step
+    through the plain versions on the card.  Returns the mixed run's
+    launch counts."""
+    from repro_torch.core import flow
+    from repro_torch.core.unified import make_grad_step
+    from repro_torch.core.virtualization import MixedLoraModel
+    from repro_torch.models.stream import UnifiedBatch
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    params, store, _ = weights
+    for i in range(2):
+        g = torch.Generator(device=dev)
+        g.manual_seed(200 + i)
+        store.load_random(f"tr{i}", g, gaussian_b=True)
+    slots = trainer_slots(store)
+    bank0 = slot_leaves(store, slots)
+
+    def run(train):
+        eng = UnifiedEngine(MixedLoraModel(cfg, params, store),
+                            EngineConfig(capacity=8, pf_capacity=4,
+                                         s_max=512))
+        if train:
+            add_trainers(eng, cfg.vocab, n_rows)
+        flags = []
+        for name in ("forward_step", "grad_step"):
+            def wrapped(*a, _step=getattr(eng, name)):
+                out = _step(*a)
+                res = out.out if hasattr(out, "grads") else out
+                flags.append(torch.stack([
+                    torch.isfinite(v).all()
+                    for v in (res.pf_logits, res.dec_logits,
+                              res.ft_loss_sum) if v is not None]).all())
+                return out
+            setattr(eng, name, wrapped)
+        # host time of each grad step and optimizer apply, each ending in
+        # a synchronize (the tick's loss read would sync a moment later)
+        spent = {"grad_step": [], "apply_step": []}
+        for name in spent:
+            def timed(*a, _f=getattr(eng, name), _k=name):
+                t0 = time.perf_counter()
+                out = _f(*a)
+                torch.cuda.synchronize()
+                spent[_k].append(time.perf_counter() - t0)
+                return out
+            setattr(eng, name, timed)
+        m, ticks = eng.metrics, []
+
+        def tick():
+            p0, d0 = m.prefill_tokens, m.decode_tokens
+            f0 = m.finetune_tokens + m.eval_tokens
+            t = time.perf_counter()
+            eng.tick()
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t, m.prefill_tokens - p0,
+                          m.decode_tokens - d0,
+                          m.finetune_tokens + m.eval_tokens - f0))
+
+        run_waves(eng, tick, copies(waves[:2]))
+        while eng.trainers_pending():
+            tick()
+        eng.run(max_ticks=1)      # flushes partial accumulation windows
+        out = check_drained(eng, flags, 8, max_new)
+        return eng, ticks, out, spent
+
+    _, serve_a, _, _ = run(False)
+    reset_counts(K)
+    eng, ticks, out, spent = run(True)
+    counts = read_counts(K)
+    _, serve_b, _, _ = run(False)
+    if counts["smlm_wgrad"] == 0:
+        raise AssertionError(f"smlm_wgrad never launched: {counts}")
+    mixed = [t for t in ticks if t[3] and (t[1] or t[2])]
+    if not mixed:
+        raise AssertionError("no tick carried ft rows beside serving rows")
+    dec = lambda ts: [t for t, p, d, *_ in ts if d and not p]
+    ft_ticks = [t for t in ticks if t[3]]
+    m = eng.metrics
+    changed = float((slot_leaves(store, slots) != bank0).float().mean())
+    same = sum(int(a == b) for rid in out
+               for a, b in zip(out[rid], plain[rid]))
+    lr = eng.ecfg.opt.lr
+    print(f"train: {cfg.name} bf16 2 trainers (alpaca_like, gsm8k_like, "
+          f"{n_rows} rows each, 2 rows a micro-batch, accum 2, 1 epoch, "
+          f"lr={lr:g}) with phase 4's waves: ticks={len(ticks)} "
+          f"mixed_ticks={len(mixed)} ft_only_ticks="
+          f"{sum(1 for t in ticks if t[3] and not (t[1] or t[2]))} "
+          f"decode_tick_ms serve_only_before: {ms_stats(dec(serve_a))}; "
+          f"mixed_run: {ms_stats(dec(ticks))}; its ticks with ft rows: "
+          f"{ms_stats([t for t, p, d, f in ticks if d and not p and f])}; "
+          f"serve_only_after: {ms_stats(dec(serve_b))} "
+          f"mixed_tick_ms: {ms_stats([t[0] for t in mixed])} "
+          f"finetune_tokens={m.finetune_tokens} eval_tokens={m.eval_tokens}"
+          f" ft_tokens_per_s="
+          f"{m.finetune_tokens / sum(t[0] for t in ft_ticks):.3f} "
+          f"(train tokens over the ticks with ft rows) ft_tick_ms: "
+          f"{ms_stats([t[0] for t in ft_ticks])} of which grad_step_ms: "
+          f"{ms_stats(spent['grad_step'])}; optimizer apply_ms: "
+          f"{ms_stats(spent['apply_step'])} optimizer_steps="
+          f"{[t.optimizer_steps for t in eng.trainers.values()]} "
+          f"bank_elements_changed_share={changed:.4f} (trained slots) "
+          f"tokens_equal_to_plain={same}/{8 * max_new} launches="
+          f"{ {k: counts[k] for k in ('smlm', 'bgmv', 'smlm_wgrad')} } "
+          f"finite=True pristine=True ok")
+    for name, tr in eng.trainers.items():
+        print(f"train: {name} train_losses="
+              f"{[round(x, 4) for x in tr.train_losses]} eval_losses="
+              f"{[round(x, 4) for x in tr.eval_losses]}")
+    # one grad step (ft rows only), profiled; then through the kernels and
+    # through the plain versions on the card, in fp32 (params and bank cast
+    # on the card), each grad leaf within TOL[fp32] of the leaf's max.  The
+    # bf16 step's differences are printed beside it, not gated: the two
+    # paths round the forward differently, and a third path (the SMLM
+    # kernel's forward, the plain backward) shows what that rounding alone
+    # does to the grads
+    rows = [flow.FTRow(tokens=tok, labels=lab, slot=tr.slot, trainer=name)
+            for name, tr in eng.trainers.items()
+            for tok, lab in tr.train_data[:2]]
+    del eng
+    batch = UnifiedBatch(ft=flow.plan_ft(rows, flow.FlowConfig(), dev))
+    step = make_grad_step(cfg, block_t=K["block_t"])
+    ref, ops = K["ref"], K["ops"]
+
+    class Plain:
+        @staticmethod
+        def apply(x, a, b, ids, scale, bt, n_ft):
+            return ref.smlm_ref(x, a, b, ids, scale, bt)
+
+    class KernelForward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, a, b, ids, scale, bt, n_ft):
+            ctx.save_for_backward(x, a, b, ids, scale)
+            ctx.bt = bt
+            return K["smlm"](x, a, b, ids, scale, block_t=bt)
+
+        @staticmethod
+        def backward(ctx, dy):
+            x, a, b, ids, scale = ctx.saved_tensors
+            with torch.enable_grad():
+                leaves = [v.detach().requires_grad_() for v in (x, a, b)]
+                got = torch.autograd.grad(
+                    ref.smlm_ref(*leaves, ids, scale, ctx.bt), leaves, dy)
+            return (*got, None, None, None, None)
+
+    def grads(fn, prm, bank):
+        """The step's loss and grads with ``ops.SMLMFunction`` replaced by
+        ``fn`` (None: the kernels'), checking who launched smlm_wgrad."""
+        saved, n0 = ops.SMLMFunction, K["smlm_wgrad"].launches
+        ops.SMLMFunction = fn or saved
+        try:
+            res = step(prm, bank, store.scale, batch, None)
+        finally:
+            ops.SMLMFunction = saved
+        if (K["smlm_wgrad"].launches > n0) != (fn is None):
+            raise AssertionError("smlm_wgrad launched by the wrong path")
+        return res.loss, res.grads
+
+    def diff(g1, g2):
+        """Worst leaf max|g1 - g2| / max|g2| and relative Frobenius."""
+        worst = fro = 0.0
+        for l1, l2 in zip(g1["layers"], g2["layers"]):
+            for t_ in l1:
+                for ab in ("a", "b"):
+                    a_, b_ = l1[t_][ab].float(), l2[t_][ab].float()
+                    if not torch.isfinite(a_).all():
+                        raise AssertionError(f"grad {t_}/{ab} not finite")
+                    worst = max(worst, float((a_ - b_).abs().max())
+                                / max(float(b_.abs().max()), 1e-30))
+                    fro = max(fro, float((a_ - b_).norm())
+                              / max(float(b_.norm()), 1e-30))
+        return worst, fro
+
+    from torch.profiler import ProfilerActivity, profile
+    grads(None, params, store.bank)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lk, gk = grads(None, params, store.bank)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, names, by = device_top(prof)
+    wg = by("smlm_wgrad")
+    print(f"profile: grad step of {len(rows)} ft rows "
+          f"({batch.ft.tokens.numel()} tokens), wall_ms={wall_ms:.3f} "
+          f"device_busy_ms={busy_ms:.3f} busy_share="
+          f"{busy_ms / wall_ms:.4f} smlm_wgrad_ms={wg:.3f} "
+          f"smlm_wgrad_share_of_busy={wg / max(busy_ms, 1e-9):.4f} "
+          f"top: {names}")
+    lp, gp = grads(Plain, params, store.bank)
+    lm, gm = grads(KernelForward, params, store.bank)
+    w16, f16 = diff(gk, gp)
+    wfw, ffw = diff(gm, gp)
+    del gk, gp, gm
+    torch.cuda.empty_cache()
+    from repro_torch.training.optimizer import tree_map
+    f32 = lambda v: v.float()
+    p32, b32 = tree_map(f32, params), tree_map(f32, store.bank)
+    lk32, gk = grads(None, p32, b32)
+    lp32, gp = grads(Plain, p32, b32)
+    worst, fro = diff(gk, gp)
+    del p32, b32, gk, gp
+    torch.cuda.empty_cache()
+    if worst > TOL[torch.float32]:
+        raise AssertionError(f"fp32 grads: worst leaf max_abs_err / leaf "
+                             f"max {worst:.3e} > {TOL[torch.float32]:g}")
+    print(f"train: one grad step ({len(rows)} ft rows, "
+          f"{batch.ft.tokens.numel()} tokens, {cfg.n_layers} layers), "
+          f"kernels vs plain versions on the card: fp32 loss "
+          f"{float(lk32):.6f} vs {float(lp32):.6f}, worst leaf "
+          f"max_abs_err / leaf max {worst:.3e} tol={TOL[torch.float32]:g} "
+          f"(worst relative Frobenius {fro:.3e}); bf16, not gated: loss "
+          f"{float(lk):.5f} vs {float(lp):.5f}, worst leaf max_abs_err / "
+          f"leaf max {w16:.3e} (relative Frobenius {f16:.3e}); bf16 with "
+          f"the SMLM kernel's forward and the plain backward vs plain, the "
+          f"forward's rounding alone: loss {float(lm):.5f}, {wfw:.3e} "
+          f"({ffw:.3e}) ok")
+    return counts
+
+
 def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
     """Phase 6: capacity 2, s_max 4096, two ~3000-token prompts, without
     and with speculation: the shape where ``choose`` splits the walk."""
@@ -1601,6 +2064,9 @@ SOURCES = {
                         "src/repro/kernels/flash_attn.py:67"),
     "dense_decode": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                      "src/repro/kernels/decode_attn.py:67"),
+    # the gradient of kernel 1: the JAX package has no Pallas backward
+    "smlm_wgrad": ("src/repro_torch/kernels/csrc/smlm_grad.cu",
+                   "src/repro/kernels/smlm.py:39"),
 }
 # each kernel's launch counter and the run of its main path: the plain
 # paged serving run for kernels 1-4, speculation for verify, plain long
@@ -1612,7 +2078,8 @@ COUNTER = {"smlm": ("smlm", "full"), "bgmv": ("bgmv", "full"),
            "paged_verify": ("verify", "spec"),
            "paged_splitk": ("partials", "long"),
            "flash_attention": ("flash", "dense"),
-           "dense_decode": ("dense_decode", "dense")}
+           "dense_decode": ("dense_decode", "dense"),
+           "smlm_wgrad": ("smlm_wgrad", "train")}
 
 
 def check_kernels(K, dev):
@@ -1626,6 +2093,7 @@ def check_kernels(K, dev):
     for dtype in (torch.bfloat16, torch.float32):
         timing = dtype == torch.bfloat16
         rows.update(check_lora(K, dtype, dev, gen, timing))
+        rows.update(check_wgrad(K, dtype, dev, gen, timing))
         rows.update(check_attention(K, dtype, dev, gen, timing))
         rows.update(check_verify(K, dtype, dev, gen, timing))
         rows.update(check_splitk(K, dtype, dev, gen, timing))
@@ -1739,6 +2207,7 @@ def main() -> int:
                                   ref_rows)
     del ref_rows
     layouts_in_turns(cfg, weights, waves)
+    by_path["train"] = full_train(K, cfg, weights, dev, waves, plain)
 
     kernels = []
     for name in SOURCES:
@@ -1754,6 +2223,9 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if name == "smlm_wgrad":
+            kernels[-1]["note"] = ("SMLM's weight gradient (dA, dB); the "
+                                   "JAX package has no Pallas backward")
     print(json.dumps({"kernels": kernels}))
     print(card())
     print(json.dumps({"ok": True, "device": {

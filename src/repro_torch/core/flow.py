@@ -1,12 +1,11 @@
 """Unified computation-flow planning (host side of Algorithms 1-2).
 
-Port of the serving half of ``repro.core.flow``: heterogeneous pending work
-(prefill requests, decode slots or verify chunks) becomes ONE
-``UnifiedBatch`` whose shapes snap to bucket grids, with every prefill row
-padded to a multiple of ``block_t`` so that each SMLM token tile is
-adapter-uniform.  Padding rows carry ``adapter = -1`` (base only).
-Tensors are built on the engine's device.  The fine-tune planner
-(``plan_ft``) comes with the training slice.
+Port of ``repro.core.flow``: heterogeneous pending work (fine-tune and
+evaluation rows, prefill requests, decode slots or verify chunks) becomes
+ONE ``UnifiedBatch`` whose shapes snap to bucket grids, with every ft and
+prefill row padded to a multiple of ``block_t`` so that each SMLM token tile
+is adapter-uniform.  Padding rows carry ``adapter = -1`` (base only) and
+zero loss weight.  Tensors are built on the engine's device.
 """
 from __future__ import annotations
 
@@ -16,17 +15,29 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
+    UnifiedBatch
 
 
 @dataclasses.dataclass(frozen=True)
 class FlowConfig:
-    # SMLM token tile: every prefill segment is padded to it, and the
+    # SMLM token tile: every ft/prefill segment is padded to it, and the
     # dispatch runs SMLM at exactly this tile (the CUDA kernel takes any).
     block_t: int = 8
     row_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
     seq_buckets: Tuple[int, ...] = (16, 32, 64, 128, 256, 512, 1024, 2048,
                                     4096, 8192, 16384, 32768)
+
+
+@dataclasses.dataclass
+class FTRow:
+    tokens: np.ndarray               # [L] int
+    labels: np.ndarray               # [L] int (-100 ignore)
+    slot: int                        # adapter slot (-1 = base)
+    weight: float = 1.0              # per-row loss scale (1/accum etc.)
+    trainer: Optional[str] = None    # owning trainer (loss bookkeeping)
+    is_eval: bool = False
+    aux_embed: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass
@@ -53,6 +64,31 @@ def _pad_seq(n: int, fcfg: FlowConfig) -> int:
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def plan_ft(rows: List[FTRow], fcfg: FlowConfig,
+            device: torch.device) -> Optional[FTBatch]:
+    if not rows:
+        return None
+    if rows[0].aux_embed is not None:
+        raise NotImplementedError("modality embeddings are not ported")
+    Bf = bucket(len(rows), fcfg.row_buckets)
+    Sf = _pad_seq(max(len(r.tokens) for r in rows), fcfg)
+    toks = np.zeros((Bf, Sf), np.int32)
+    mask = np.zeros((Bf, Sf), bool)
+    labels = np.full((Bf, Sf), -100, np.int32)
+    adapter = np.full((Bf,), -1, np.int32)
+    weight = np.zeros((Bf,), np.float32)
+    for i, r in enumerate(rows):
+        L = len(r.tokens)
+        toks[i, :L] = r.tokens
+        mask[i, :L] = True
+        labels[i, :L] = r.labels
+        adapter[i] = r.slot
+        weight[i] = 0.0 if r.is_eval else r.weight
+    return FTBatch(tokens=_t(toks, device), mask=_t(mask, device),
+                   labels=_t(labels, device), adapter=_t(adapter, device),
+                   weight=_t(weight, device))
 
 
 def plan_pf(reqs: List[PFReq], fcfg: FlowConfig,
@@ -104,12 +140,13 @@ def plan_dec(tokens: np.ndarray, pos: np.ndarray, slots: np.ndarray,
                     length=as32(lengths) if lengths is not None else None)
 
 
-def assemble(pf_reqs: List[PFReq],
+def assemble(ft_rows: List[FTRow], pf_reqs: List[PFReq],
              dec_tokens: np.ndarray, dec_pos: np.ndarray,
              dec_slots: np.ndarray, fcfg: FlowConfig, device: torch.device,
              dec_tables: Optional[np.ndarray] = None,
              dec_lens: Optional[np.ndarray] = None) -> UnifiedBatch:
-    return UnifiedBatch(pf=plan_pf(pf_reqs, fcfg, device),
+    return UnifiedBatch(ft=plan_ft(ft_rows, fcfg, device),
+                        pf=plan_pf(pf_reqs, fcfg, device),
                         dec=plan_dec(dec_tokens, dec_pos, dec_slots, device,
                                      dec_tables, dec_lens))
 
@@ -117,6 +154,9 @@ def assemble(pf_reqs: List[PFReq],
 def token_adapter_ids(batch: UnifiedBatch) -> np.ndarray:
     """Per-token adapter ids of the flattened stream (mirrors model._Plan)."""
     ids = []
+    if batch.ft is not None:
+        Sf = batch.ft.tokens.shape[1]
+        ids.append(np.repeat(batch.ft.adapter.cpu().numpy(), Sf))
     if batch.pf is not None:
         Sp = batch.pf.tokens.shape[1]
         ids.append(np.repeat(batch.pf.adapter.cpu().numpy(), Sp))
@@ -131,11 +171,15 @@ def smlm_tile_aligned(batch: UnifiedBatch, block_t: int) -> bool:
     """The SMLM contract: within the ft+pf head of the stream, every
     ``block_t`` token tile is adapter-uniform (the decode tail goes through
     the per-token BGMV kernel, so it is exempt)."""
-    if batch.pf is None:
+    ids = []
+    for b in (batch.ft, batch.pf):
+        if b is None:
+            continue
+        S = b.tokens.shape[1]
+        if S % block_t:
+            return False
+        ids.append(np.repeat(b.adapter.cpu().numpy(), S))
+    if not ids:
         return True
-    Bp, Sp = batch.pf.tokens.shape
-    if Sp % block_t:
-        return False
-    tiles = np.repeat(batch.pf.adapter.cpu().numpy(), Sp).reshape(-1,
-                                                                   block_t)
+    tiles = np.concatenate(ids).reshape(-1, block_t)
     return bool((tiles == tiles[:, :1]).all())

@@ -52,10 +52,11 @@ def lora_apply_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                ids: torch.Tensor, scale_t: Optional[torch.Tensor] = None, *,
-               n_head: int, block_t: int) -> torch.Tensor:
+               n_head: int, block_t: int, n_ft: int = 0) -> torch.Tensor:
     """Kernel dispatch: the first ``n_head`` tokens (ft+pf, tile-aligned at
-    the planner's ``block_t``) through SMLM, the rest through BGMV."""
-    rt = ops.route(ids, scale_t, a.shape[0], n_head, block_t)
+    the planner's ``block_t``) through SMLM, the rest through BGMV; with
+    grad mode on, the first ``n_ft`` (ft rows) carry gradient."""
+    rt = ops.route(ids, scale_t, a.shape[0], n_head, block_t, n_ft)
     return ops.lora_apply(x, a, b, rt)
 
 

@@ -1,31 +1,122 @@
 """Step builders: the unit the runtime executes each tick.
 
-PyTorch runs eagerly, so the JAX package's jitted step cache has no
-counterpart: ``make_forward_step`` returns a plain closure over the config
-and the planner's SMLM tile, run under ``torch.inference_mode``.  Nothing
-keys on ``kernels.autotune.table_version()``: the model asks for its split
-choice on every forward.  The grad and optimizer steps come with the
-training slice.
+All steps share the same unified forward (paper Section 3.3); the training
+steps differentiate it with respect to the LoRA bank only. PyTorch runs
+eagerly, so the JAX package's jitted step cache has no counterpart: each
+``make_*_step`` returns a plain closure over the config and the planner's
+SMLM tile. The forward step runs under ``torch.inference_mode``; the grad
+step makes detached copies of the bank's tensors its autograd leaves and
+calls ``torch.autograd.grad``, so nothing it builds outlives the tick. The
+scalar loss reads only fine-tune rows, so the prefill and decode rows'
+gradients are zero, and the model runs their attention and cache writes
+outside the graph (what XLA prunes in the JAX package). Nothing keys on
+``kernels.autotune.table_version()``: the model asks for its split choice on
+every forward.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models.model import unified_forward
 from repro_torch.models.stream import ModelOut, UnifiedBatch
+from repro_torch.training.optimizer import AdamWConfig, AdamWState, \
+    adamw_apply, tree_leaves, tree_map
+
+
+def scalar_loss(out: ModelOut, batch: UnifiedBatch) -> torch.Tensor:
+    """Algorithm 2: per-row mean CE, scaled by the row weight (which encodes
+    1/accumulation-steps per trainer), summed: one shared backward."""
+    loss = out.aux_loss
+    if out.ft_loss_sum is not None:
+        per_row = out.ft_loss_sum / torch.clamp(out.ft_tok_count, min=1.0)
+        loss = loss + torch.sum(per_row * batch.ft.weight)
+    return loss
+
+
+class StepOut(NamedTuple):
+    out: ModelOut
+    loss: torch.Tensor
+    grads: Optional[Any]
 
 
 def make_forward_step(cfg: ModelConfig, *, block_t: int,
-                      attn_chunk: int = 0) -> Callable:
-    """Inference-only unified step (prefill + decode or verify)."""
+                      attn_chunk: int = 0,
+                      return_ft_logits: bool = False) -> Callable:
+    """Inference-only unified step (serve/prefill/decode/eval)."""
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> ModelOut:
         with torch.inference_mode():
             return unified_forward(cfg, base, batch, cache, loras=bank,
                                    lora_scale=scale, block_t=block_t,
-                                   attn_chunk=attn_chunk)
+                                   attn_chunk=attn_chunk,
+                                   return_ft_logits=return_ft_logits)
 
     return step
+
+
+def _detached(out: ModelOut) -> ModelOut:
+    return ModelOut(*(v.detach() if isinstance(v, torch.Tensor) else v
+                      for v in out))
+
+
+def _value_and_grad(cfg: ModelConfig, block_t: int, attn_chunk: int,
+                    base, bank, scale, batch: UnifiedBatch, cache):
+    """Forward under autograd with the bank's tensors as leaves, then the
+    loss's gradient with respect to every leaf (zeros where a leaf is not
+    reached), in the bank's tree shape."""
+    with torch.enable_grad():
+        leaves = tree_map(lambda p: p.detach().requires_grad_(), bank)
+        out = unified_forward(cfg, base, batch, cache, loras=leaves,
+                              lora_scale=scale, block_t=block_t,
+                              attn_chunk=attn_chunk)
+        loss = scalar_loss(out, batch)
+        got = iter(torch.autograd.grad(loss, tree_leaves(leaves),
+                                       allow_unused=True))
+
+    def grad_of(p):
+        g = next(got)
+        return torch.zeros_like(p) if g is None else g
+
+    return _detached(out), loss.detach(), tree_map(grad_of, leaves)
+
+
+def make_grad_step(cfg: ModelConfig, *, block_t: int,
+                   attn_chunk: int = 0) -> Callable:
+    """Unified step with gradients with respect to the LoRA bank (no
+    update): the engine's accumulation loop."""
+
+    def step(base, bank, scale, batch: UnifiedBatch, cache) -> StepOut:
+        out, loss, grads = _value_and_grad(cfg, block_t, attn_chunk, base,
+                                           bank, scale, batch, cache)
+        return StepOut(out=out, loss=loss, grads=grads)
+
+    return step
+
+
+def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, block_t: int,
+                    attn_chunk: int = 0) -> Callable:
+    """Fused fine-tuning step: unified forward + backward + masked AdamW.
+    Returns ``(loss, new_bank, new_state, aux_loss)`` as the JAX step
+    does."""
+
+    def step(base, bank, scale, opt_state: AdamWState, batch: UnifiedBatch,
+             slot_mask, cache=None):
+        out, loss, grads = _value_and_grad(cfg, block_t, attn_chunk, base,
+                                           bank, scale, batch, cache)
+        new_bank, new_state = adamw_apply(opt, grads, opt_state, bank,
+                                          slot_mask)
+        return loss, new_bank, new_state, out.aux_loss
+
+    return step
+
+
+def make_apply_step(opt: AdamWConfig) -> Callable:
+    """Masked optimizer apply for accumulated gradients (engine path)."""
+
+    def apply(grads, opt_state: AdamWState, bank, slot_mask):
+        return adamw_apply(opt, grads, opt_state, bank, slot_mask)
+
+    return apply

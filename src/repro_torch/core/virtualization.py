@@ -10,12 +10,14 @@ Port of the static-bank part of ``repro.core.virtualization``:
   evicted adapter LRU-evicts an idle one (not pinned, not retained) to host
   memory and reloads the requested one, counting the swap-in.
 
-Void/unvoid migration and unified adapter paging (``attach_pager``) come in
-later slices.
+Training writes the bank through ``set_bank`` (the masked optimizer's
+result) and ``slot_mask`` names the slots a step may touch.  Void/unvoid
+migration and unified adapter paging (``attach_pager``) come in later
+slices.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -197,6 +199,25 @@ class AdapterStore:
 
     def unpin(self, name: str):
         self._pinned.discard(name)
+
+    def set_bank(self, bank):
+        """Replace the bank wholesale (after an optimizer update)."""
+        self.bank = bank
+
+    def mark_dirty(self, name: str):
+        """A training step rewrote this adapter's bank slot.  With unified
+        adapter paging the archive and pool copies would be stale until the
+        next sync; that paging is not ported, so there is nothing to mark
+        and this is a no-op."""
+        del name
+
+    def slot_mask(self, names: List[str]) -> torch.Tensor:
+        """[n_slots] float32 on the store's device, 1 at the named
+        adapters' slots."""
+        m = torch.zeros((self.lcfg.n_slots,), dtype=torch.float32)
+        for n in names:
+            m[self._slots[n]] = 1.0
+        return m.to(self.device)
 
     def get_adapter(self, name: str, device: DeviceLike = None):
         slot = self._slots[name]

@@ -10,6 +10,11 @@ tile — the planner's tile is passed down, never a default of the kernel's
 own.  The decode bucket always goes through BGMV, split by bucket rather
 than by ``T % block_t``, so mixed-adapter decode rows keep per-token ids.
 Out-of-range ids (padding rows carry -1) get scale 0 and are clipped.
+With grad mode on and fine-tune rows at the head of the stream (``n_ft``),
+SMLM runs as ``SMLMFunction``, whose backward is the SMLM kernel (dX) and
+``smlm_wgrad`` (dA, dB) over those rows; the BGMV decode tail stays a plain
+launch without gradient, which is exact, since the loss reads only ft rows
+and ft attention sees only ft keys.
 
 This avoids two faults of the JAX dispatch ``repro.kernels.ops.smlm``: its
 default ``block_t=128`` straddles 8-token planner segments of different
@@ -25,28 +30,32 @@ import torch
 
 from repro_torch.kernels import decode_attn, flash_attn
 from repro_torch.kernels.bgmv import bgmv
-from repro_torch.kernels.smlm import smlm
+from repro_torch.kernels.smlm import SMLMFunction, smlm
 
 
 class LoraRoute(NamedTuple):
     """Per-forward routing of the stream, computed once and shared by every
     projection: the ft+pf head's per-tile ids/scales and the decode tail's
-    per-token ids/scales."""
+    per-token ids/scales.  The head's first ``n_ft`` tokens are fine-tune
+    rows, the only ones that carry gradient."""
     n_head: int
     block_t: int
     tile_ids: torch.Tensor       # [n_head / block_t] int32, clipped
     tile_scale: torch.Tensor     # [n_head / block_t] f32, 0 = base only
     tail_ids: torch.Tensor       # [T - n_head] int32, clipped
     tail_scale: torch.Tensor     # [T - n_head] f32
+    n_ft: int = 0
 
 
 def route(ids: torch.Tensor, scale_t: Optional[torch.Tensor], n_slots: int,
-          n_head: int, block_t: int) -> LoraRoute:
-    """``ids``/``scale_t``: per-token [T]; ``n_head``: ft+pf tokens, a
-    multiple of ``block_t`` by the planner's contract."""
-    if n_head % block_t:
-        raise ValueError(f"the ft+pf head ({n_head} tokens) is not a "
-                         f"multiple of the planner tile block_t={block_t}")
+          n_head: int, block_t: int, n_ft: int = 0) -> LoraRoute:
+    """``ids``/``scale_t``: per-token [T]; ``n_head``: ft+pf tokens and
+    ``n_ft``: the ft tokens among them, both multiples of ``block_t`` by the
+    planner's contract."""
+    if n_head % block_t or n_ft % block_t or n_ft > n_head:
+        raise ValueError(f"the ft+pf head ({n_head} tokens, {n_ft} ft) is "
+                         f"not a multiple of the planner tile "
+                         f"block_t={block_t}")
     valid = (ids >= 0) & (ids < n_slots)
     if scale_t is None:
         scale = valid.float()
@@ -59,7 +68,7 @@ def route(ids: torch.Tensor, scale_t: Optional[torch.Tensor], n_slots: int,
         tile_ids=ids_c[:n_head:block_t].contiguous(),
         tile_scale=scale[:n_head:block_t].contiguous(),
         tail_ids=ids_c[n_head:].contiguous(),
-        tail_scale=scale[n_head:].contiguous())
+        tail_scale=scale[n_head:].contiguous(), n_ft=n_ft)
 
 
 def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
@@ -69,10 +78,18 @@ def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     x = x.contiguous()
     parts = []
     if rt.n_head:
-        parts.append(smlm(x[:rt.n_head], a, b, rt.tile_ids, rt.tile_scale,
-                          block_t=rt.block_t))
+        head = x[:rt.n_head]
+        if rt.n_ft and torch.is_grad_enabled() and (
+                head.requires_grad or a.requires_grad or b.requires_grad):
+            parts.append(SMLMFunction.apply(head, a, b, rt.tile_ids,
+                                            rt.tile_scale, rt.block_t,
+                                            rt.n_ft))
+        else:
+            parts.append(smlm(head, a, b, rt.tile_ids, rt.tile_scale,
+                              block_t=rt.block_t))
     if x.shape[0] > rt.n_head:
-        parts.append(bgmv(x[rt.n_head:], a, b, rt.tail_ids, rt.tail_scale))
+        parts.append(bgmv(x[rt.n_head:].detach(), a.detach(), b.detach(),
+                          rt.tail_ids, rt.tail_scale))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the serving kernels, with the signatures and
+"""Plain PyTorch versions of the port's kernels, with the signatures and
 layouts of ``repro.kernels.ref`` (and, for split-K, of the partials and the
-merge of ``repro.kernels.splitk``).  They are the CPU path of the kernel
-wrappers, the CPU tests' subject, and what ``chip_smoke.py`` holds each CUDA
-kernel against on the card; nothing on the CUDA main path calls them."""
+merge of ``repro.kernels.splitk``), plus SMLM's weight gradient, which has
+no Pallas counterpart.  They are the CPU path of the kernel wrappers, the
+CPU tests' subject, and what ``chip_smoke.py`` holds each CUDA kernel
+against on the card; nothing on the CUDA main path calls them."""
 from __future__ import annotations
 
 import torch
@@ -38,6 +39,70 @@ def smlm_ref(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     ids = torch.repeat_interleave(tile_ids, block_t)
     scale = torch.repeat_interleave(tile_scale, block_t)
     return bgmv_ref(x, a, b, ids, scale)
+
+
+def smlm_shrink_ref(x: torch.Tensor, a: torch.Tensor,
+                    tile_ids: torch.Tensor, tile_scale: torch.Tensor,
+                    block_t: int) -> torch.Tensor:
+    """SMLM's scaled shrink ``S[t] = scale[tile] * X[t] @ A[id[tile]]``,
+    fp32 [T, r] (0 on tiles of scale 0)."""
+    n, d_in, r = a.shape
+    ids = torch.repeat_interleave(tile_ids, block_t)
+    scale = torch.repeat_interleave(tile_scale, block_t).float()
+    xa = (x.float() @ a.float().permute(1, 0, 2).reshape(d_in, n * r)
+          ).reshape(-1, n, r)                                     # [T, n, r]
+    onehot = _onehot(ids, n) * scale[:, None]
+    return (xa * onehot[:, :, None]).sum(1)
+
+
+def smlm_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,
+                   gs: torch.Tensor, tile_ids: torch.Tensor,
+                   tile_scale: torch.Tensor, block_t: int, n_slots: int):
+    """The weight gradient of SMLM, segmented per adapter:
+    ``dA[n] = sum_{t in n} X[t]^T Gs[t]`` and ``dB[n] = sum_{t in n}
+    S[t]^T dY[t]`` over the tokens of tiles with id ``n`` and a nonzero
+    scale, with ``S = scale * X A`` (the forward's shrink) and ``Gs = scale
+    * dY B^T`` (the shrink of the dX product).  x: [T, d_in]; dy: [T,
+    d_out]; s/gs: fp32 [T, r]; tile_ids/tile_scale: [T / block_t].  Returns
+    ``(dA [n, d_in, r], dB [n, r, d_out])`` in x's dtype, fp32 sums; a slot
+    no live tile uses gets zeros."""
+    ids = torch.repeat_interleave(tile_ids.long().clamp(0, n_slots - 1),
+                                  block_t)
+    live = torch.repeat_interleave(tile_scale != 0, block_t)
+    zero = torch.zeros((), device=x.device)
+    s = torch.where(live[:, None], s.float(), zero)
+    gs = torch.where(live[:, None], gs.float(), zero)
+    xf, dyf = x.float(), dy.float()
+    da, db = [], []
+    for k in range(n_slots):
+        m = (live & (ids == k)).float()[:, None]
+        da.append((xf * m).T @ gs)
+        db.append((s * m).T @ dyf)
+    return torch.stack(da).to(x.dtype), torch.stack(db).to(x.dtype)
+
+
+def rank_pad(r: int) -> int:
+    """The rank padded to 4, 8, 16, 32 or 64: the shrink buffer's row."""
+    return next(p for p in (4, 8, 16, 32, 64) if p >= r)
+
+
+def pack_shrink(s: torch.Tensor, block_t: int) -> torch.Tensor:
+    """[T, r] fp32 -> the SMLM kernel's shrink buffer: flat fp32 of layout
+    [tiles][ceil(block_t / 8)][rank_pad(r)][8] (token ``8 g + i`` of a tile
+    at ``[tile][g][k][i]``), zeros in the padding."""
+    T, r = s.shape
+    nt, G, rp = T // block_t, -(-block_t // 8), rank_pad(r)
+    buf = torch.zeros((nt, G * 8, rp), dtype=torch.float32, device=s.device)
+    buf[:, :block_t, :r] = s.float().reshape(nt, block_t, r)
+    return buf.reshape(nt, G, 8, rp).transpose(2, 3).contiguous().reshape(-1)
+
+
+def unpack_shrink(buf: torch.Tensor, T: int, r: int,
+                  block_t: int) -> torch.Tensor:
+    """The inverse of ``pack_shrink``: [T, r] fp32."""
+    nt, G, rp = T // block_t, -(-block_t // 8), rank_pad(r)
+    v = buf[:nt * G * rp * 8].reshape(nt, G, rp, 8).transpose(2, 3)
+    return v.reshape(nt, G * 8, rp)[:, :block_t, :r].reshape(T, r)
 
 
 def _gather_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

@@ -31,28 +31,47 @@ bf16 a ``d_in``/``d_out`` that is not a multiple of 8 (or an input off a
 fp32, which only the reduced-size parity runs use, takes element copies
 throughout and a CUDA-core shrink.  Any ``block_t`` works (8 tokens at a
 time).  A tile with scale 0 writes zeros without reading weights.
+
+The gradient (``SMLMFunction``, used when grad mode is on and the stream
+carries fine-tune rows) has no Pallas counterpart: JAX differentiates its
+plain ``lora_apply_ref``.  Per tile of scale ``s``, ``dX = s dY B^T A^T`` is
+SMLM itself with ``a' = B^T`` and ``b' = A^T``, whose kept shrink ``Gs = s
+dY B^T`` feeds the weight gradient ``dA = X^T Gs``, ``dB = S^T dY`` (``S =
+s X A``, the forward's kept shrink), computed by ``smlm_wgrad``
+(``csrc/smlm_grad.cu``), segmented per adapter.
 """
 from __future__ import annotations
 
 import torch
 
+import torch.nn.functional as F
+
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P, require
-from repro_torch.kernels.ref import smlm_ref as smlm_plain
+from repro_torch.kernels.ref import pack_shrink, rank_pad, smlm_ref, \
+    smlm_shrink_ref, smlm_wgrad_ref, unpack_shrink
 
 _ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+_WGRAD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
 MAX_RANK = 64
 
 
 def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
          tile_ids: torch.Tensor, tile_scale: torch.Tensor, *,
-         block_t: int) -> torch.Tensor:
+         block_t: int, keep_shrink: bool = False):
     """x: [T, d_in]; a: [n, d_in, r]; b: [n, r, d_out] (same dtype as x);
     tile_ids: [T / block_t] int32; tile_scale: [T / block_t] float32 (0
-    disables a tile).  Returns [T, d_out] in x's dtype.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    disables a tile).  Returns [T, d_out] in x's dtype, and with
+    ``keep_shrink`` also the scaled shrink ``scale * X A`` as the kernel
+    keeps it (``ref.pack_shrink``'s layout; tiles of scale 0 unwritten on
+    the card).  CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
     if x.device.type == "cpu":
-        return smlm_plain(x, a, b, tile_ids, tile_scale, block_t)
+        y = smlm_ref(x, a, b, tile_ids, tile_scale, block_t)
+        if not keep_shrink:
+            return y
+        return y, pack_shrink(smlm_shrink_ref(x, a, tile_ids, tile_scale,
+                                              block_t), block_t)
     require(x.device.type == "cuda", f"no SMLM kernel for {x.device}")
     T, d_in = x.shape
     n, d_in_a, r = a.shape
@@ -74,9 +93,8 @@ def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     # the scaled shrink between the two launches: [tiles][ceil(block_t /
     # 8)][r padded to a power of two >= 4][8] fp32
-    rp = next(p for p in (4, 8, 16, 32, 64) if p >= r)
-    shrink = torch.empty(nt * -(-block_t // 8) * rp * 8, dtype=torch.float32,
-                         device=x.device)
+    shrink = torch.empty(nt * -(-block_t // 8) * rank_pad(r) * 8,
+                         dtype=torch.float32, device=x.device)
     fn = build.function("smlm", "smlm_launch", _ARGS)
     err = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), tile_ids.data_ptr(),
              tile_scale.data_ptr(), shrink.data_ptr(), out.data_ptr(), T, n,
@@ -84,7 +102,91 @@ def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
              build.stream_of(x))
     build.check(err, "smlm")
     smlm.launches += 1
-    return out
+    return (out, shrink) if keep_shrink else out
 
 
 smlm.launches = 0
+
+
+def smlm_wgrad(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,
+               gs: torch.Tensor, tile_ids: torch.Tensor,
+               tile_scale: torch.Tensor, *, r: int, block_t: int,
+               n_slots: int):
+    """SMLM's weight gradient (``ref.smlm_wgrad_ref``).  x: [T, d_in]; dy:
+    [T, d_out] (x's dtype); s/gs: the forward's and the dX product's kept
+    shrinks (``smlm(..., keep_shrink=True)``), covering at least the T
+    tokens' tiles; tile_ids/tile_scale: [T / block_t].  Returns ``(dA [n,
+    d_in, r], dB [n, r, d_out])`` in x's dtype.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/smlm_grad.cu``."""
+    T, d_in = x.shape
+    d_out = dy.shape[1]
+    if x.device.type == "cpu":
+        return smlm_wgrad_ref(x, dy, unpack_shrink(s, T, r, block_t),
+                              unpack_shrink(gs, T, r, block_t), tile_ids,
+                              tile_scale, block_t, n_slots)
+    require(x.device.type == "cuda", f"no SMLM gradient kernel for "
+                                     f"{x.device}")
+    require(dy.shape[0] == T and dy.dtype == x.dtype,
+            f"smlm_wgrad dy{tuple(dy.shape)} {dy.dtype} against "
+            f"x{tuple(x.shape)} {x.dtype}")
+    require(block_t > 0 and T % block_t == 0,
+            f"T={T} is not a multiple of block_t={block_t}")
+    require(0 < r <= MAX_RANK, f"rank {r} outside [1, {MAX_RANK}]")
+    nt = T // block_t
+    need = nt * -(-block_t // 8) * rank_pad(r) * 8
+    for buf in (s, gs):
+        require(buf.dtype == torch.float32 and buf.numel() >= need,
+                f"shrink buffers must be float32 of at least {need} values")
+    require(tile_ids.dtype == torch.int32 and tile_ids.shape == (nt,),
+            "tile_ids must be int32 [T / block_t]")
+    require(tile_scale.dtype == torch.float32 and tile_scale.shape == (nt,),
+            "tile_scale must be float32 [T / block_t]")
+    build.check_cuda(x, dy, s, gs, tile_ids, tile_scale)
+    da = torch.empty((n_slots, d_in, r), dtype=x.dtype, device=x.device)
+    db = torch.empty((n_slots, r, d_out), dtype=x.dtype, device=x.device)
+    fn = build.function("smlm_grad", "smlm_wgrad_launch", _WGRAD_ARGS)
+    err = fn(x.data_ptr(), dy.data_ptr(), s.data_ptr(), gs.data_ptr(),
+             tile_ids.data_ptr(), tile_scale.data_ptr(), da.data_ptr(),
+             db.data_ptr(), T, n_slots, d_in, r, d_out, block_t,
+             build.dtype_code(x), build.stream_of(x))
+    build.check(err, "smlm_grad")
+    smlm_wgrad.launches += 1
+    return da, db
+
+
+smlm_wgrad.launches = 0
+
+
+class SMLMFunction(torch.autograd.Function):
+    """SMLM over the ft+pf head with its gradient to x, a and b.  Only the
+    first ``n_ft`` tokens (the fine-tune rows, a multiple of ``block_t``)
+    carry gradient: the loss reads only them and ft attention sees only ft
+    keys, so the prefill rows' output gradient is exactly zero, and their
+    dX is returned as zeros without computing it.  The backward runs two
+    kernels on the card, SMLM (dX, keeping ``Gs``) and ``smlm_wgrad`` (dA,
+    dB), and their plain versions on the CPU; it never falls back."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, tile_ids, tile_scale, block_t: int,
+                n_ft: int):
+        y, s = smlm(x, a, b, tile_ids, tile_scale, block_t=block_t,
+                    keep_shrink=True)
+        ctx.save_for_backward(x, a, b, tile_ids, tile_scale, s)
+        ctx.block_t, ctx.n_ft = block_t, n_ft
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, a, b, tile_ids, tile_scale, s = ctx.saved_tensors
+        bt, n_ft = ctx.block_t, ctx.n_ft
+        nt = n_ft // bt
+        ids, scale = tile_ids[:nt], tile_scale[:nt]
+        dy_ft = dy[:n_ft].contiguous()
+        # dX = (scale dY B^T) A^T: SMLM with the transposed bank slices
+        dx_ft, gs = smlm(dy_ft, b.transpose(1, 2).contiguous(),
+                         a.transpose(1, 2).contiguous(), ids, scale,
+                         block_t=bt, keep_shrink=True)
+        da, db = smlm_wgrad(x[:n_ft], dy_ft, s, gs, ids, scale,
+                            r=a.shape[2], block_t=bt, n_slots=a.shape[0])
+        dx = F.pad(dx_ft, (0, 0, 0, x.shape[0] - n_ft))
+        return dx, da, db, None, None, None, None

@@ -3,7 +3,8 @@ the paper's unified computation flow: one joint projection per linear for
 every request bucket (``core.lora.dense``: base product plus one multi-LoRA
 kernel call per bucket), per-bucket attention, and per-bucket logits.
 
-Port of the serving path of ``repro.models.model``.  Differences of form:
+Port of the attention + FFN path of ``repro.models.model``, fine-tune
+bucket included.  Differences of form:
 
 * the JAX ``lax.scan`` over periods becomes a loop over layers;
 * the JAX functions return a new cache; here the cache is written in place
@@ -22,9 +23,17 @@ Port of the serving path of ``repro.models.model``.  Differences of form:
   only for CPU tensors.  There is no backend switch: the paged
   decode/verify bucket takes the split-K kernels whenever
   ``kernels.autotune.choose`` gives more than one split for its shape, as
-  the JAX ``splitk`` kernel modes do.
+  the JAX ``splitk`` kernel modes do;
+* fine-tune/eval rows (the ft bucket, first in the stream) attend causally
+  over their own keys through the plain ``layers.attention`` under
+  autograd, as the JAX model does; the prefill and decode buckets attend on
+  detached inputs (their kernels have no backward), which prunes exactly
+  what XLA prunes: the loss reads only ft rows and ft attention sees only
+  ft keys, so those rows' gradients are zero.  For the same reason the
+  K/V written into the persistent cache is detached, so the pool never
+  joins a graph that would outlive the tick.
 
-The ft bucket, sliding windows, dense-row verify chunks, MLA, Mamba, MoE and
+Sliding windows, dense-row verify chunks, MLA, Mamba, MoE and
 cross-attention belong to later slices and raise here.
 """
 from __future__ import annotations
@@ -54,11 +63,11 @@ from repro_torch.models.stream import ModelOut, UnifiedBatch
 class _Plan:
     def __init__(self, cfg: ModelConfig, batch: UnifiedBatch,
                  lora_scale: Optional[torch.Tensor], block_t: int):
-        if batch.ft is not None:
-            raise NotImplementedError(
-                "fine-tune/eval rows come with the training slice")
-        pf, dec = batch.pf, batch.dec
-        self.pf, self.dec = pf, dec
+        ft, pf, dec = batch.ft, batch.pf, batch.dec
+        if ft is not None and ft.aux_embed is not None:
+            raise NotImplementedError("modality embeddings are not ported")
+        self.ft, self.pf, self.dec = ft, pf, dec
+        self.Bf, self.Sf = tuple(ft.tokens.shape) if ft is not None else (0, 0)
         self.Bp, self.Sp = tuple(pf.tokens.shape) if pf is not None else (0, 0)
         # decode bucket: [Bd] plain decode or [Bd, Sd] verify chunks
         if dec is not None:
@@ -66,9 +75,11 @@ class _Plan:
             self.Sd = dec.tokens.shape[1] if dec.tokens.ndim == 2 else 1
         else:
             self.Bd, self.Sd = 0, 1
-        self.sizes = [self.Bp * self.Sp, self.Bd * self.Sd]
+        self.sizes = [self.Bf * self.Sf, self.Bp * self.Sp, self.Bd * self.Sd]
         self.T = sum(self.sizes)
         ids = []
+        if ft is not None:
+            ids.append(torch.repeat_interleave(ft.adapter, self.Sf))
         if pf is not None:
             ids.append(torch.repeat_interleave(pf.adapter, self.Sp))
         if dec is not None:
@@ -78,8 +89,14 @@ class _Plan:
         if lora_scale is not None and self.ids is not None:
             n = lora_scale.shape[0]
             scale_t = lora_scale[self.ids.long().clamp(0, n - 1)]
-            self.route = ops.route(self.ids, scale_t, n, self.sizes[0],
-                                   block_t)
+            self.route = ops.route(self.ids, scale_t, n,
+                                   self.sizes[0] + self.sizes[1], block_t,
+                                   n_ft=self.sizes[0])
+        if ft is not None:
+            self.ft_pos = torch.arange(
+                self.Sf, dtype=torch.int32,
+                device=ft.tokens.device)[None, :].expand(self.Bf, self.Sf)
+            self.ft_valid = ft.mask
         if pf is not None:
             ar = torch.arange(self.Sp, dtype=torch.int32,
                               device=pf.tokens.device)
@@ -103,20 +120,20 @@ class _Plan:
                             else torch.full_like(dec.pos, self.Sd))
 
     def split(self, x: torch.Tensor):
-        """[T, ...] -> (xp [Bp, Sp, ...], xd [Bd, Sd, ...])"""
-        t0 = self.sizes[0]
+        """[T, ...] -> (xf [Bf, Sf, ...], xp [Bp, Sp, ...], xd [Bd, Sd,
+        ...])"""
+        t0, t1, _ = self.sizes
         rest = x.shape[1:]
-        xp = x[:t0].reshape(self.Bp, self.Sp, *rest) if t0 else None
-        xd = x[t0:].reshape(self.Bd, self.Sd, *rest) if self.Bd else None
-        return xp, xd
+        xf = x[:t0].reshape(self.Bf, self.Sf, *rest) if t0 else None
+        xp = x[t0:t0 + t1].reshape(self.Bp, self.Sp, *rest) if t1 else None
+        xd = (x[t0 + t1:].reshape(self.Bd, self.Sd, *rest) if self.Bd
+              else None)
+        return xf, xp, xd
 
 
-def _merge_flat(plan: _Plan, xp, xd) -> torch.Tensor:
-    parts = []
-    if xp is not None:
-        parts.append(xp.reshape(plan.sizes[0], -1))
-    if xd is not None:
-        parts.append(xd.reshape(plan.sizes[1], -1))
+def _merge_flat(plan: _Plan, xf, xp, xd) -> torch.Tensor:
+    parts = [xb.reshape(n, -1) for xb, n in zip((xf, xp, xd), plan.sizes)
+             if xb is not None]
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
 
@@ -226,7 +243,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 v_pool: torch.Tensor) -> torch.Tensor:
     """``k_pool``/``v_pool``: the layer's paged pool ``[n_blocks, bs, g,
     hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the buckets' tables
-    say."""
+    say (None for an ft-only batch)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
 
@@ -235,10 +252,21 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                      lr.get(name), plan.route)
 
     q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
-    qp, qd = plan.split(q)
-    kp, kd = plan.split(k)
-    vp, vd = plan.split(v)
-    outs = [None, None]
+    qf, qp, qd = plan.split(q)
+    kf, kp, kd = plan.split(k)
+    vf, vp, vd = plan.split(v)
+    # serving rows carry no gradient (the kernels have no backward, and the
+    # cache writes must stay out of the graph)
+    qp, kp, vp, qd, kd, vd = (t if t is None else t.detach()
+                              for t in (qp, kp, vp, qd, kd, vd))
+    outs = [None, None, None]
+    if qf is not None:           # fine-tune / eval: differentiable causal
+        qh = _rope_heads(qf, plan.ft_pos, h, cfg.rope_theta)
+        kh = _rope_heads(kf, plan.ft_pos, kv, cfg.rope_theta)
+        vh = vf.reshape(plan.Bf, plan.Sf, kv, hd)
+        outs[0] = L.attention(qh, kh, vh, q_pos=plan.ft_pos,
+                              k_pos=plan.ft_pos, k_valid=plan.ft_valid,
+                              causal=True)
     if qp is not None:           # prefill: causal + cache write
         pf = plan.pf
         qh = _rope_heads(qp, plan.pf_pos, h, cfg.rope_theta)
@@ -253,13 +281,13 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                                pf.length)
             _paged_write_chunk(v_pool, vh, pf.block_tables, plan.pf_cached,
                                pf.length)
-            outs[0] = paged_prefill_attention(
+            outs[1] = paged_prefill_attention(
                 qh, k_pool, v_pool, pf.block_tables, plan.pf_cached,
                 pf.length)
         else:
             # cold prefill: prompt-local causal attention over the bucket's
             # own K/V (flash attention), then into the blocks or the rows
-            outs[0] = ops.flash_attention(qh, kh, vh, pf.length,
+            outs[1] = ops.flash_attention(qh, kh, vh, pf.length,
                                           causal=True)
             if pf.block_tables is not None:
                 _paged_write_prompt(k_pool, kh, pf.block_tables)
@@ -274,7 +302,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         slot = plan.dec_pos.long() % k_pool.shape[1]
         k_pool[rows, slot] = kh[:, 0].to(k_pool.dtype)
         v_pool[rows, slot] = vd.reshape(plan.Bd, kv, hd).to(v_pool.dtype)
-        outs[1] = ops.decode_attention(qh[:, 0].contiguous(),
+        outs[2] = ops.decode_attention(qh[:, 0].contiguous(),
                                        k_pool[:plan.Bd], v_pool[:plan.Bd],
                                        plan.dec_pos)[:, None]
     elif qd is not None:         # paged decode / verify: (1 + k)-token chunk
@@ -301,7 +329,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
             o = paged_verify_attention_splitk(qh.contiguous(), k_pool,
                                               v_pool, tbl, dpos, dlen,
                                               num_splits=ns)
-        outs[1] = o
+        outs[2] = o
     out = _merge_flat(plan, *outs)
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
 
@@ -322,15 +350,18 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
                     cache: Optional[Dict] = None, *,
                     loras: Optional[Dict] = None,
                     lora_scale: Optional[torch.Tensor] = None,
-                    block_t: int, attn_chunk: int = 0) -> ModelOut:
-    """One joint forward over the prefill and decode buckets.  ``block_t``
-    is the flow planner's SMLM tile (``FlowConfig.block_t``).  The paged
-    ``cache`` is updated in place and returned in ``ModelOut.cache``."""
+                    block_t: int, attn_chunk: int = 0,
+                    return_ft_logits: bool = False) -> ModelOut:
+    """One joint forward over the fine-tune, prefill and decode buckets.
+    ``block_t`` is the flow planner's SMLM tile (``FlowConfig.block_t``).
+    The ``cache`` is updated in place and returned in ``ModelOut.cache``;
+    a batch of ft rows only may pass ``cache=None``.  Fine-tune rows give
+    the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``)."""
     if attn_chunk:
         raise NotImplementedError("attn_chunk > 0 is not ported yet")
     check_supported(cfg)
     plan = _Plan(cfg, batch, lora_scale, block_t)
-    if cache is None:
+    if (batch.pf is not None or batch.dec is not None) and cache is None:
         raise ValueError("prefill/decode buckets require a cache")
     if plan.Bd and batch.dec.block_tables is not None:
         autotune.load_card_table(cache["k"].device)   # once, on a card
@@ -342,6 +373,8 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
             plan.Bd * cfg.n_kv_heads,
             lanes=autotune.effective_lanes(cache["k"].device)).num_splits
     toks = []
+    if batch.ft is not None:
+        toks.append(batch.ft.tokens.reshape(-1))
     if batch.pf is not None:
         toks.append(batch.pf.tokens.reshape(-1))
     if batch.dec is not None:
@@ -351,13 +384,15 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
-        x = _attn_apply(cfg, p, lr, plan, x, cache["k"][li], cache["v"][li])
+        x = _attn_apply(cfg, p, lr, plan, x,
+                        cache["k"][li] if cache is not None else None,
+                        cache["v"][li] if cache is not None else None)
         x = _ffn_apply(cfg, p, lr, plan, x)
 
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    xp, xd = plan.split(x)
-    pf_logits = dec_logits = None
+    xf, xp, xd = plan.split(x)
+    ft_loss = ft_cnt = ft_logits = pf_logits = dec_logits = None
     if xd is not None:
         # [Bd, V] for plain decode; [Bd, Sd, V] for verify chunks (one
         # next-token distribution per chunk position, the acceptance oracle)
@@ -365,6 +400,22 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     if xp is not None:
         last = (batch.pf.length.long() - 1).clamp(min=0)
         pf_logits = xp[torch.arange(plan.Bp, device=x.device), last] @ head
-    return ModelOut(ft_loss_sum=None, ft_tok_count=None, ft_logits=None,
-                    pf_logits=pf_logits, dec_logits=dec_logits, cache=cache,
+    if xf is not None:
+        ft = batch.ft
+        logits = (xf.reshape(-1, cfg.d_model) @ head
+                  ).reshape(plan.Bf, plan.Sf, -1)
+        if return_ft_logits:
+            ft_logits = logits
+        lg = logits[:, :-1].float()
+        lbl = ft.labels[:, 1:].long()
+        valid = (lbl != -100) & ft.mask[:, 1:]
+        lse = torch.logsumexp(lg, dim=-1)
+        picked = lg.gather(-1, lbl.clamp(min=0)[..., None])[..., 0]
+        ce = torch.where(valid, lse - picked,
+                         torch.zeros((), device=x.device))
+        ft_loss = ce.sum(dim=1)
+        ft_cnt = valid.sum(dim=1).float()
+    return ModelOut(ft_loss_sum=ft_loss, ft_tok_count=ft_cnt,
+                    ft_logits=ft_logits, pf_logits=pf_logits,
+                    dec_logits=dec_logits, cache=cache,
                     aux_loss=torch.zeros((), device=x.device))

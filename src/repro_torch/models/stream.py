@@ -1,9 +1,8 @@
 """Unified token-stream batch types (the paper's four request kinds), holding
 torch tensors.  Same fields and layouts as ``repro.models.stream``; any subset
-of (ft, pf, dec) may be present.  The serving path runs the pf and dec
-buckets (dec as plain decode or speculative verify chunks); the ft bucket
-(``FTBatch``) comes with the training slice, and a batch that carries one is
-refused."""
+of (ft, pf, dec) may be present: fine-tune and evaluation rows (``FTBatch``;
+evaluation rows carry weight 0, so they add no gradient), prefill rows, and
+decode rows (plain decode or speculative verify chunks)."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -11,6 +10,15 @@ from typing import NamedTuple, Optional
 import torch
 
 Tensor = torch.Tensor
+
+
+class FTBatch(NamedTuple):
+    tokens: Tensor                   # [Bf, Sf] int32 (right-padded)
+    mask: Tensor                     # [Bf, Sf] bool valid tokens
+    labels: Tensor                   # [Bf, Sf] int32 (-100 = ignore)
+    adapter: Tensor                  # [Bf] int32 (-1 = base only)
+    weight: Tensor                   # [Bf] f32 per-row loss scale (1/accum)
+    aux_embed: Optional[Tensor] = None  # modality stub (not ported)
 
 
 class PFBatch(NamedTuple):
@@ -40,7 +48,7 @@ class DECBatch(NamedTuple):
 
 
 class UnifiedBatch(NamedTuple):
-    ft: Optional[tuple] = None
+    ft: Optional[FTBatch] = None
     pf: Optional[PFBatch] = None
     dec: Optional[DECBatch] = None
 

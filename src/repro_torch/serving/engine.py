@@ -1,8 +1,13 @@
-"""UnifiedEngine — the Loquetier runtime on the serve path.
+"""UnifiedEngine — the Loquetier runtime: serving and fine-tuning in one
+step.
 
-Every tick assembles ONE unified batch (prefill + decode or verify),
-executes ONE forward step, then scatters sampled tokens back to the
-requests.  Port of ``repro.serving.engine`` with its default settings: paged
+Every tick assembles ONE unified batch (fine-tune/eval rows + prefill +
+decode or verify), executes ONE step (forward only, or forward and backward
+with respect to the LoRA bank when the tick carries ft rows), then scatters
+sampled tokens back to the requests, per-row losses to their trainers, and
+accumulated gradients to the masked optimizer on each trainer's
+accumulation boundary.  Port of ``repro.serving.engine`` with its default
+settings: paged
 KV, ``block_size=32``, content-hash dedup on, suffix-only prefill over
 adopted prefixes, and speculative decoding under ``EngineConfig.spec``
 (model-free drafters, ``(1 + k)``-token verify chunks, exact greedy
@@ -13,10 +18,10 @@ prompt prefilled whole, no table growth, no dedup, no suffix or chunked
 prefill and no speculation.  Tensors live on the model's device; the model
 writes the cache in place, so ``cachemgr.update`` swaps nothing.
 
-Fine-tuning rows and trainers (``add_trainer``), the host KV tier
-(``kv_host_blocks``), unified adapter paging (``adapter_paging``) and
-over-admission lending belong to later slices and raise
-``NotImplementedError``.
+Like the JAX step, a tick with ft rows runs its backward before its decode
+tokens are scattered.  The host KV tier (``kv_host_blocks``), unified
+adapter paging (``adapter_paging``) and over-admission lending belong to
+later slices and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import flow
-from repro_torch.core.unified import make_forward_step
+from repro_torch.core.unified import make_apply_step, make_forward_step, \
+    make_grad_step
 from repro_torch.core.virtualization import MixedLoraModel
 from repro_torch.serving.clock import CostModel, VirtualClock, WallClock
 from repro_torch.serving.kvcache import (CacheManager, OutOfBlocksError,
@@ -38,8 +44,10 @@ from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.slo import Metrics, SLOConfig, spread_token_times
 from repro_torch.spec import AdaptiveK, Drafter, accept_greedy_ids, \
     make_drafter
+from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
+    tree_add, tree_mask_slots, tree_zeros_like
+from repro_torch.training.trainer import MixedLoraTrainer
 
-TRAINING_SLICE = "the training slice (ft rows, grad step, AdamW, trainer)"
 FEATURES_SLICE = "a later engine-features slice"
 
 
@@ -51,6 +59,7 @@ class EngineConfig:
     scheduler: SchedulerConfig = dataclasses.field(default_factory=SchedulerConfig)
     slo: SLOConfig = dataclasses.field(default_factory=SLOConfig)
     flow: flow.FlowConfig = dataclasses.field(default_factory=flow.FlowConfig)
+    opt: AdamWConfig = dataclasses.field(default_factory=AdamWConfig)
     attn_chunk: int = 0
     virtual_time: bool = False        # deterministic trace replay
     paged: bool = True                # block-table KV layout (False: dense
@@ -121,10 +130,16 @@ class UnifiedEngine:
         self.forward_step = make_forward_step(self.cfg,
                                               block_t=e.flow.block_t,
                                               attn_chunk=e.attn_chunk)
+        self.grad_step = make_grad_step(self.cfg, block_t=e.flow.block_t,
+                                        attn_chunk=e.attn_chunk)
+        self.apply_step = make_apply_step(e.opt)
+        self.opt_state = adamw_init(st.bank, st.lcfg.n_slots)
+        self.grad_accum = tree_zeros_like(st.bank)
         self.future: List[Request] = []       # arrival-sorted
         self.waiting: List[Request] = []
         self.active: Dict[int, Request] = {}  # decode slot -> request
         self.finished: List[Request] = []
+        self.trainers: Dict[str, MixedLoraTrainer] = {}
         self._last_tokens = np.zeros((e.capacity,), np.int64)
         # speculative decoding: rollback-able K/V (paged blocks) and a
         # positional cache, which the attention-only decoder has
@@ -159,8 +174,15 @@ class UnifiedEngine:
         else:
             self.waiting.append(req)
 
-    def add_trainer(self, tr):
-        raise NotImplementedError(f"trainers come with {TRAINING_SLICE}")
+    def add_trainer(self, tr: MixedLoraTrainer):
+        self.trainers[tr.name] = tr
+        # training adapters must never be evicted: their slot identity is
+        # baked into the trainer mask and optimizer state
+        # reprolint: ownership-transfer — pin lives for the trainer's life
+        self.model.store.pin(tr.name)
+
+    def trainers_pending(self) -> bool:
+        return any(t.pending() for t in self.trainers.values())
 
     def _keys_of(self, r: Request) -> Optional[List[str]]:
         if not self.hash_dedup or r.aux_embed is not None:
@@ -224,7 +246,7 @@ class UnifiedEngine:
                     self.finished.append(r)
             decision = self.sched.decide(
                 self.waiting, len(self.active) + len(self.prefilling),
-                cm.n_free, e.pf_capacity, False,
+                cm.n_free, e.pf_capacity, self.trainers_pending(),
                 free_blocks=cm.free_blocks + cm.reclaimable_blocks,
                 total_blocks=cm.total_blocks, block_size=cm.block_size,
                 s_max=e.s_max,
@@ -242,7 +264,18 @@ class UnifiedEngine:
         else:
             # dense rows: a free slot is the whole admission gate
             decision = self.sched.decide(self.waiting, len(self.active),
-                                         cm.n_free, e.pf_capacity, False)
+                                         cm.n_free, e.pf_capacity,
+                                         self.trainers_pending())
+
+        # fine-tuning rows (round-robin over trainers)
+        ft_rows: List[flow.FTRow] = []
+        budget = decision.ft_rows
+        for tr in self.trainers.values():
+            if budget <= 0:
+                break
+            got = tr.next_rows(budget)
+            ft_rows.extend(got)
+            budget -= len(got)
 
         # prefill admissions: adapters resolved once per tick per name and
         # held until the admission loop ends
@@ -339,20 +372,27 @@ class UnifiedEngine:
             dec_tokens = dec_pos = dec_slots = np.zeros((0,), np.int64)
             dec_tables = None
 
-        if not pf_reqs and not use_dec:
+        if not ft_rows and not pf_reqs and not use_dec:
             if self.future:
                 self.clock.advance_to(self.future[0].arrival)
                 return True
             return False
 
-        batch = flow.assemble(pf_reqs, dec_tokens, dec_pos, dec_slots,
-                              e.flow, self.device, dec_tables=dec_tables,
-                              dec_lens=dec_lens)
+        batch = flow.assemble(ft_rows, pf_reqs, dec_tokens, dec_pos,
+                              dec_slots, e.flow, self.device,
+                              dec_tables=dec_tables, dec_lens=dec_lens)
         if pf_reqs and self.active and batch.dec is None:
             self.metrics.starved_ticks += 1
+        cache = cm.step_cache() if (pf_reqs or use_dec) else None
         store = self.model.store
-        out = self.forward_step(self.model.base, store.bank, store.scale,
-                                batch, cm.step_cache())
+        if ft_rows:
+            res = self.grad_step(self.model.base, store.bank, store.scale,
+                                 batch, cache)
+            out, grads = res.out, res.grads
+        else:
+            out = self.forward_step(self.model.base, store.bank, store.scale,
+                                    batch, cache)
+            grads = None
         # the one step barrier: greedy tokens drive the next tick's inputs
         # (argmax on the device, only token ids cross to the host; [Bd, Sd]
         # of them for verify chunks)
@@ -363,11 +403,12 @@ class UnifiedEngine:
 
         # ---- time accounting (suffix tokens only) ----
         pf_tok = int(sum(take for _, take, _ in chunks))
+        ft_tok = int(sum(len(r.tokens) for r in ft_rows))
         if isinstance(self.clock, VirtualClock):
             swaps = store.swap_ins - self._swaps_seen[0]
             swap_bytes = store.swap_in_bytes - self._swaps_seen[1]
             self._swaps_seen = (store.swap_ins, store.swap_in_bytes)
-            cost = self.clock.step_cost(pf_tok, len(self.active), 0,
+            cost = self.clock.step_cost(pf_tok, len(self.active), ft_tok,
                                         dec_extra_tokens=int(sum(
                                             len(d) for d in drafts.values())),
                                         adapter_swaps=swaps,
@@ -377,7 +418,8 @@ class UnifiedEngine:
         now = self.clock.now()
 
         # ---- scatter results back ----
-        cm.update(out.cache)
+        if out.cache is not None:
+            cm.update(out.cache)
         if pf_reqs:
             assignments, lengths = [], []
             finals: List[Request] = []
@@ -426,6 +468,30 @@ class UnifiedEngine:
                 self._last_tokens[slot] = tok
                 self.metrics.decode_tokens += 1
                 self._maybe_finish(r, now)
+
+        if ft_rows:
+            # per-trainer loss bookkeeping on the host once per step
+            losses = out.ft_loss_sum.cpu().numpy()
+            counts = out.ft_tok_count.cpu().numpy()
+            per_row = losses / np.maximum(counts, 1.0)
+            self.grad_accum = tree_add(self.grad_accum, grads)
+            by_trainer: Dict[str, List] = {}
+            train_tok = eval_tok = 0.0
+            for i, row in enumerate(ft_rows):
+                by_trainer.setdefault(row.trainer, []).append(
+                    (row, float(per_row[i]), float(counts[i])))
+                if row.is_eval:
+                    eval_tok += float(counts[i])
+                else:
+                    train_tok += float(counts[i])
+            for name, items in by_trainer.items():
+                tr = self.trainers[name]
+                if tr.record([it[0] for it in items],
+                             [it[1] for it in items],
+                             [it[2] for it in items]):
+                    self._apply_trainer(tr)
+            self.metrics.finetune_tokens += int(train_tok)
+            self.metrics.eval_tokens += int(eval_tok)
 
         self.metrics.steps += 1
         self.metrics.elapsed = self.clock.now()
@@ -605,6 +671,16 @@ class UnifiedEngine:
             self._spec[slot][1].update(len(draft), n_acc)
         self._maybe_finish(r, now)
 
+    def _apply_trainer(self, tr: MixedLoraTrainer):
+        store = self.model.store
+        mask = store.slot_mask([tr.name])
+        new_bank, self.opt_state = self.apply_step(self.grad_accum,
+                                                   self.opt_state,
+                                                   store.bank, mask)
+        store.set_bank(new_bank)
+        store.mark_dirty(tr.name)
+        self.grad_accum = tree_mask_slots(self.grad_accum, 1.0 - mask)
+
     def _maybe_finish(self, r: Request, now: float):
         done_len = len(r.output) >= r.max_new_tokens
         eos = r.eos_token >= 0 and r.output and r.output[-1] == r.eos_token
@@ -625,14 +701,18 @@ class UnifiedEngine:
 
     # ------------------------------------------------------------------
     def run(self, max_ticks: int = 100000, until_drained: bool = True):
-        """Run until all requests finish."""
+        """Run until all inference requests finish and trainers complete."""
         for _ in range(max_ticks):
             busy = self.tick()
             drained = (not self.waiting and not self.active
-                       and not self.prefilling and not self.future)
+                       and not self.prefilling and not self.future
+                       and not self.trainers_pending())
             if until_drained and drained:
                 break
             if not busy and not until_drained:
                 break
+        for tr in self.trainers.values():
+            if tr.force_apply_pending():
+                self._apply_trainer(tr)
         self.metrics.elapsed = self.clock.now()
         return self.metrics

@@ -187,7 +187,7 @@ def test_dense_planner_matches_jax(seed):
            rng.integers(-1, 4, 4))
     jb = jflow.assemble([], [jflow.PFReq(**r) for r in reqs], *dec,
                         jflow.FlowConfig(block_t=BT))
-    tb = tflow.assemble([tflow.PFReq(**r) for r in reqs], *dec,
+    tb = tflow.assemble([], [tflow.PFReq(**r) for r in reqs], *dec,
                         tflow.FlowConfig(block_t=BT), CPU)
     assert tb.pf.block_tables is None and tb.pf.cached_len is None
     assert tb.dec.block_tables is None and jb.dec.block_tables is None

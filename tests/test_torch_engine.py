@@ -138,5 +138,3 @@ def test_engine_raises_for_later_slices(pair):
                dict(adapter_paging=True), dict(over_admit=2.0)):
         with pytest.raises(NotImplementedError):
             UnifiedEngine(model, EngineConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        UnifiedEngine(model, EngineConfig()).add_trainer(None)

@@ -22,7 +22,7 @@ from repro_torch.kernels.decode_attn import (decode_attention,
                                              paged_decode_attention)
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
-from repro_torch.kernels.smlm import smlm
+from repro_torch.kernels.smlm import SMLMFunction, smlm, smlm_wgrad
 from repro_torch.kernels.splitk import (lse_merge,
                                         paged_decode_attention_splitk,
                                         paged_verify_attention_splitk,
@@ -502,3 +502,74 @@ def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
         assert float(y[1].abs().max()) == 0.0
         assert float(y[-1].abs().max()) == 0.0
     assert torch.equal(bgmv(*args), y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,r,d_in,d_out,n,bt", [
+    (64, 8, 512, 300, 4, 8),        # a ragged d_out
+    (48, 4, 96, 40, 4, 12),         # a tile that is not 8 tokens
+    (256, 8, 4096, 14336, 4, 8),    # the widest projection
+    (96, 64, 300, 1004, 6, 8),      # the widest rank, ragged both sides
+])
+def test_cuda_smlm_wgrad_matches_plain(dtype, T, r, d_in, d_out, n, bt):
+    """The SMLM weight gradient against its plain version: tiles of two
+    adapters, a base-only tile (scale 0, its shrink left as NaN, which the
+    kernel must not read), a slot no tile uses (exact zeros); two calls
+    give the same bits (no atomics)."""
+    dev = _card()
+    rng = np.random.default_rng(900 + T + r)
+    x = t(rng.standard_normal((T, d_in), dtype=np.float32)).to(dev, dtype)
+    dy = t(rng.standard_normal((T, d_out), dtype=np.float32)).to(dev, dtype)
+    s = t(rng.standard_normal((T, r), dtype=np.float32)).to(dev)
+    gs = t(rng.standard_normal((T, r), dtype=np.float32)).to(dev)
+    nt = T // bt
+    tiles = np.resize(np.array([0, 2, 0, -1, 2], np.int32), nt)
+    scale = np.where(tiles >= 0, 1.0, 0.0).astype(np.float32)
+    ids, sc = t(np.clip(tiles, 0, n - 1)).to(dev), t(scale).to(dev)
+    sb, gb = ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt)
+    dead = torch.repeat_interleave(sc == 0, bt)
+    s_dead = s.masked_fill(dead[:, None], float("nan"))
+    g_dead = gs.masked_fill(dead[:, None], float("nan"))
+    sb_dead, gb_dead = ref.pack_shrink(s_dead, bt), ref.pack_shrink(g_dead,
+                                                                     bt)
+    da, db = smlm_wgrad(x, dy, sb_dead, gb_dead, ids, sc, r=r, block_t=bt,
+                        n_slots=n)
+    pa, pb = ref.smlm_wgrad_ref(x, dy, s, gs, ids, sc, bt, n)
+    _close(da, pa, dtype)
+    _close(db, pb, dtype)
+    assert float(da[1].abs().max()) == 0.0 and float(db[1].abs().max()) == 0
+    da2, db2 = smlm_wgrad(x, dy, sb, gb, ids, sc, r=r, block_t=bt,
+                          n_slots=n)
+    assert torch.equal(da, da2) and torch.equal(db, db2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_smlm_function_backward_matches_plain_autograd(dtype):
+    """``SMLMFunction`` on the card (SMLM forward, SMLM for dX and
+    ``smlm_wgrad`` for dA/dB) against autograd through the plain SMLM, with
+    fine-tune rows at the head and prefill tiles (zero cotangent) after
+    them; the weight-gradient kernel launches once."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    T, n_ft, d_in, d_out, n, r, bt = 96, 64, 512, 1024, 4, 8, 8
+    x, a, b = (v.to(dev, dtype) for v in map(t, _lora_inputs(
+        rng, T, d_in, r, n, d_out)))
+    tiles = np.resize(np.array([1, 1, 3, -1, 0], np.int32), T // bt)
+    ids = t(np.clip(tiles, 0, n - 1)).to(dev)
+    sc = t(np.where(tiles >= 0, 1.5, 0.0).astype(np.float32)).to(dev)
+    g = torch.zeros((T, d_out), device=dev, dtype=dtype)
+    g[:n_ft] = t(rng.standard_normal((n_ft, d_out), dtype=np.float32)
+                 ).to(dev, dtype)
+    leaves = [v.clone().requires_grad_() for v in (x, a, b)]
+    plain = [v.clone().requires_grad_() for v in (x, a, b)]
+    n0 = smlm_wgrad.launches
+    y = SMLMFunction.apply(*leaves, ids, sc, bt, n_ft)
+    (y.float() * g.float()).sum().backward()
+    assert smlm_wgrad.launches == n0 + 1
+    y_ref = ref.smlm_ref(*plain, ids, sc, bt)
+    (y_ref.float() * g.float()).sum().backward()
+    _close(y.detach(), y_ref.detach(), dtype)
+    for got, want in zip(leaves, plain):
+        _close(got.grad, want.grad, dtype)

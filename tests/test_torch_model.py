@@ -24,7 +24,8 @@ from repro.models.stream import DECBatch as JDEC, PFBatch as JPF, \
     UnifiedBatch as JUB
 from repro_torch.configs import get_reduced
 from repro_torch.models import model as TM
-from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
+    UnifiedBatch
 
 TOL = 2e-4
 BS, NB, NBT, BT = 8, 24, 6, 8
@@ -135,12 +136,16 @@ def test_unified_forward_matches_jax_over_prefill_decode_and_suffix(setup):
 
 
 def test_unified_forward_rejects_unported_buckets(setup):
-    """The fine-tune bucket comes with the training slice (verify chunks
-    are served since the speculation slice: ``test_torch_spec.py``)."""
+    """Fine-tune rows with modality embeddings are not ported (the ft
+    bucket itself is, since the training slice: ``test_torch_train.py``;
+    verify chunks since the speculation slice: ``test_torch_spec.py``)."""
     s = setup
     _, tb = _batches(dec=dict(tokens=_i32([[1, 2]]), pos=_i32([0]),
                               adapter=_i32([0]), tables=_table()[None]))
-    tb = tb._replace(ft=(torch.zeros((1, 8), dtype=torch.int32),))
+    z = torch.zeros((1, 8), dtype=torch.int32)
+    tb = tb._replace(ft=FTBatch(tokens=z, mask=z > 0, labels=z,
+                                adapter=z[:, 0], weight=torch.ones(1),
+                                aux_embed=torch.zeros((1, 4, 256))))
     cache = TM.init_paged_cache(s["cfg"], NB, BS, torch.device("cpu"),
                                 torch.float32)
     with pytest.raises(NotImplementedError):
@@ -167,7 +172,7 @@ def test_planner_matches_jax_and_keeps_smlm_tiles_aligned(seed):
            rng.integers(-1, 4, 4), rng.integers(0, 30, (4, NBT)))
     jb = jflow.assemble([], [jflow.PFReq(**r) for r in reqs], *dec[:3],
                         jflow.FlowConfig(block_t=BT), dec_tables=dec[3])
-    tb = tflow.assemble([tflow.PFReq(**r) for r in reqs], *dec[:3],
+    tb = tflow.assemble([], [tflow.PFReq(**r) for r in reqs], *dec[:3],
                         tflow.FlowConfig(block_t=BT), torch.device("cpu"),
                         dec_tables=dec[3])
     for f in ("tokens", "length", "adapter", "block_tables", "cached_len"):

@@ -109,7 +109,7 @@ def test_verify_planner_matches_jax():
     tables = rng.integers(0, 30, (4, 6))
     jb = jflow.assemble([], [], toks, pos, slots, jflow.FlowConfig(),
                         dec_tables=tables, dec_lens=lens)
-    tb = tflow.assemble([], toks, pos, slots, tflow.FlowConfig(),
+    tb = tflow.assemble([], [], toks, pos, slots, tflow.FlowConfig(),
                         torch.device("cpu"), dec_tables=tables,
                         dec_lens=lens)
     for f in ("tokens", "pos", "adapter", "block_tables", "length"):
