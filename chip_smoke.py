@@ -6,15 +6,16 @@
     python3 chip_smoke.py --tune-splits PATH
     python3 chip_smoke.py --bgmv-splits [--root TREE]
     python3 chip_smoke.py --chunk-routes [--root TREE]
+    python3 chip_smoke.py --wgrad-clusters [--root TREE]
     python3 chip_smoke.py --divergence [--root TREE]
 
-The second form only checks and times the eight kernels of ``PERF.md``
+The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
-``BGMV_SHAPES``, paged prefill,
-decode, verify, split-K, flash at both of its main-path shapes, dense
-decode) of the port in ``TREE`` (default: this checkout), at the shapes
-below: run it over two checkouts in turns (A, B, B, A) within one call to
-compare a kernel change with its parent.  The
+``BGMV_SHAPES``, paged prefill, decode, verify, split-K, flash at both of
+its main-path shapes, dense decode, SMLM's weight gradient at
+``WGRAD_SHAPES``) of the port in ``TREE`` (default: this checkout), at the
+shapes below: run it over two checkouts in turns (A, B, B, A) within one
+call to compare a kernel change with its parent.  The
 third fills the split table (``kernels/autotune.py``) with
 ``sweep(measure=...)``: for each key the model asks at the smoke's serving
 and long-context buckets, every candidate split timed on the card (decode
@@ -26,7 +27,10 @@ library call, and for 8, 16 and 32 slices of d_in beside the slices that
 wrapper picks.  The fifth times bf16 paged verify at 20 to 256 query
 columns and paged prefill at 64 to 512 as their wrappers ship and on each
 walk (the split-key walk, the query-tile walk): the data behind the
-crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth serves
+crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth times
+the bf16 SMLM weight gradient at ``WGRAD_SHAPES`` as its wrapper ships and
+with 1, 2 and 4 blocks a column chunk (a cluster above 1): the data behind
+``WG_CLUSTER`` of ``csrc/smlm_grad.cu``.  The seventh serves
 phase 4's waves plain, speculative and on dense rows without timing, with
 every tick's logits kept, and prints each request's first divergence from
 the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
@@ -56,10 +60,12 @@ printing its lines; any failure raises and exits non-zero:
              every candidate split beside the model's pick (the split table
              it loads on the card, else ``autotune.choose``).  SMLM's
              weight gradient (``smlm_wgrad``) at the mixed tick's ft head
-             (T=1024: two adapters and a base-only tile) for the three
-             projection shapes, timed at 4096->14336 beside ``torch.bmm``
-             over the tokens gathered per adapter; then ``SMLMFunction``'s
-             backward against autograd through the plain SMLM.
+             (T=1024: two adapters and a base-only tile) for the four
+             projection shapes, timed at each beside ``torch.bmm`` over the
+             tokens gathered per adapter (the JSON row: 4096->14336), with
+             the transposed bank slices of ``SMLMFunction``'s dX; then
+             ``SMLMFunction``'s backward against autograd through the
+             plain SMLM.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -115,7 +121,9 @@ printing its lines; any failure raises and exits non-zero:
              printed, not gated, beside those of a path with the SMLM
              kernel's forward and the plain backward (the forward's
              rounding alone); one bf16 grad step is profiled
-             (``profile: grad step`` line).
+             (``profile: grad step`` line, with its device-to-device copy
+             time beside that of the same step whose dX is padded by a
+             copy, as before dX was written in place).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
@@ -495,10 +503,12 @@ def check_lora(K, dtype, dev, gen, timing: bool):
 
 # the weight gradient's shapes: the mixed tick's ft head (4 rows of a
 # 256-token bucket: two of one trainer's slot, one of the other's, one
-# base-only padding row of scale 0) at each projection shape
+# base-only padding row of scale 0) at each projection shape of a grad step
+# (q/o, k/v, gate/up, down)
 WGRAD_T = 1024
-WGRAD_SHAPES = ((WGRAD_T, 4096, 4096), (WGRAD_T, 4096, 14336),
-                (WGRAD_T, 14336, 4096))
+WGRAD_SHAPES = ((WGRAD_T, 4096, 4096), (WGRAD_T, 4096, 1024),
+                (WGRAD_T, 4096, 14336), (WGRAD_T, 14336, 4096))
+WGRAD_PER_LAYER = (2, 2, 2, 1)     # projections of a layer at each shape
 
 
 def wgrad_case(T, d_in, d_out, dtype, dev, gen, bt, r=8):
@@ -536,13 +546,81 @@ def wgrad_library_ms(x, dy, s, gs, ids, scale, bt):
                             torch.bmm(sg.transpose(1, 2), dyg)))
 
 
+def wgrad_bound(x, dy, scale, bt, r=8, n=4):
+    """(bound ms, by): X and dY of the live tokens, both fp32 shrinks of
+    them, dA and dB written; 2 r FLOPs a live token and column."""
+    live = int((scale != 0).sum()) * bt
+    it, width = x.element_size(), x.shape[1] + dy.shape[1]
+    nbytes = live * width * it + 2 * live * r * 4 + n * r * width * it
+    return bound(nbytes, 2 * live * r * width, x.dtype)
+
+
+def wgrad_launcher(K, args, bt, cl):
+    """A call of the weight gradient with clusters of ``cl`` blocks through
+    its library's ``smlm_wgrad_cluster_launch`` entry (r=8, 4 slots), or
+    None where the library has none (a parent checkout)."""
+    b = K["build"]
+    try:
+        fn = b.function("smlm_grad", "smlm_wgrad_cluster_launch",
+                        [b.P] * 8 + [b.I] * 7 + [b.P, b.I])
+    except AttributeError:
+        return None
+    x, dy = args[:2]
+    T, d_in, d_out = x.shape[0], x.shape[1], dy.shape[1]
+    da = torch.empty((4, d_in, 8), dtype=x.dtype, device=x.device)
+    db = torch.empty((4, 8, d_out), dtype=x.dtype, device=x.device)
+
+    def call():
+        b.check(fn(*(v.data_ptr() for v in args), da.data_ptr(),
+                   db.data_ptr(), T, 4, d_in, 8, d_out, bt,
+                   b.dtype_code(x), b.stream_of(x), cl), "smlm_grad")
+        return da, db
+    return call
+
+
+def wgrad_clusters(K, dev):
+    """The bf16 weight gradient's device time at ``WGRAD_SHAPES`` as its
+    wrapper ships and, where the library has the cluster entry, for 1, 2
+    and 4 blocks a column chunk and slot (a cluster above 1), each output
+    first held to the plain version: the data behind its block count
+    (``--root`` times another checkout's wrapper as shipped)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    bt, ref, dt = K["block_t"], K["ref"], torch.bfloat16
+    for T, d_in, d_out in WGRAD_SHAPES:
+        x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dt, dev, gen,
+                                              bt)
+        args = (x, dy, ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt), ids,
+                scale)
+        plain = ref.smlm_wgrad_ref(x, dy, s, gs, ids, scale, bt, 4)
+        run = lambda: K["smlm_wgrad"](*args, r=8, block_t=bt, n_slots=4)
+        for got, want in zip(run(), plain):
+            compare(got, want, dt)
+        line = (f"shipped={time_ms(run):.5f} library="
+                f"{wgrad_library_ms(x, dy, s, gs, ids, scale, bt):.5f} "
+                f"bound={wgrad_bound(x, dy, scale, bt)[0]:.5f}")
+        for cl in (1, 2, 4):
+            call = wgrad_launcher(K, args, bt, cl)
+            if call is None:
+                break
+            for got, want in zip(call(), plain):
+                compare(got, want, dt)
+            line += f" cl{cl}={time_ms(call):.5f}"
+        print(f"wgrad-clusters: T={T} {d_in}x{d_out} r=8 n=4 block_t={bt} "
+              f"ms {line}")
+
+
 def check_wgrad(K, dtype, dev, gen, timing: bool):
     """SMLM's weight gradient against its plain version at the mixed
-    tick's ft head for the three projection shapes (each dA and dB row
-    within the tolerance; the unused slots exactly 0), then SMLMFunction's
-    backward against autograd through the plain SMLM."""
+    tick's ft head for the four projection shapes (each dA and dB row
+    within the tolerance; the unused slots exactly 0), timed at each (the
+    JSON row: 4096->14336) beside the two copies of transposed bank slices
+    that SMLMFunction's dX makes (the grad step's sum: 32 layers of q, k,
+    v, o, gate, up, down); then SMLMFunction's backward against autograd
+    through the plain SMLM."""
     rows, errs, bt = {}, [], K["block_t"]
     ref = K["ref"]
+    slices = {}
     for T, d_in, d_out in WGRAD_SHAPES:
         x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dtype, dev,
                                               gen, bt)
@@ -554,13 +632,11 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
         if float(da[:2].abs().max()) or float(db[:2].abs().max()):
             raise AssertionError("smlm_wgrad wrote a slot no live tile uses")
         errs.append(err)
-        if timing and (d_in, d_out) == (4096, 14336):
-            live = int((scale != 0).sum()) * bt
-            it = x.element_size()
-            nbytes = live * (d_in + d_out) * it + 2 * live * 8 * 4 \
-                + 4 * 8 * (d_in + d_out) * it
-            bms, by = bound(nbytes, 2 * live * 8 * (d_in + d_out), dtype)
-            rows["smlm_wgrad"] = dict(
+        if timing:
+            main = (d_in, d_out) == (4096, 14336)
+            key = "smlm_wgrad" if main else f"smlm_wgrad T={T} {d_in}x{d_out}"
+            bms, by = wgrad_bound(x, dy, scale, bt)
+            rows[key] = dict(
                 max_abs_err=err,
                 ms=time_ms(lambda: K["smlm_wgrad"](*args, r=8, block_t=bt,
                                                    n_slots=4)),
@@ -569,7 +645,19 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
                 library_ms=wgrad_library_ms(x, dy, s, gs, ids, scale, bt),
                 bound_ms=bms, bound_by=by,
                 shape=f"T={T} d_in={d_in} d_out={d_out} r=8 n=4 "
-                      f"block_t={bt} live={live}")
+                      f"block_t={bt} live={int((scale != 0).sum()) * bt}")
+            a = torch.randn(4, d_in, 8, generator=gen, device=dev).to(dtype)
+            b = torch.randn(4, 8, d_out, generator=gen, device=dev).to(dtype)
+            slices[(T, d_in, d_out)] = time_ms(lambda: (
+                b.transpose(1, 2).contiguous(),
+                a.transpose(1, 2).contiguous()))
+    if timing:
+        per_step = 32 * sum(slices[k] * m
+                            for k, m in zip(WGRAD_SHAPES, WGRAD_PER_LAYER))
+        print("kernels: smlm_backward bf16 transposed bank slices (B^T, "
+              "A^T; n=4 r=8) ms a call: " + " ".join(
+                  f"{i}x{o}={v:.5f}" for (_, i, o), v in slices.items())
+              + f"; a grad step of 32 layers: {per_step:.3f} ms")
     print(f"kernels: smlm_wgrad    {str(dtype)[6:]:<8} max_abs_err="
           f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row shapes("
           f"T,d_in,d_out)={','.join(str(v) for v in WGRAD_SHAPES)} ok")
@@ -1851,6 +1939,18 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
                     ref.smlm_ref(*leaves, ids, scale, ctx.bt), leaves, dy)
             return (*got, None, None, None, None)
 
+    shipped = ops.SMLMFunction
+
+    class PaddedDX(shipped):
+        """SMLMFunction with dX copied into a fresh tensor by ``F.pad``, as
+        the backward made it before it wrote dX in place (``out=``): the
+        before of that repair in the profile."""
+        @staticmethod
+        def backward(ctx, dy):
+            dx, *rest = shipped.backward(ctx, dy)
+            return (torch.nn.functional.pad(
+                dx[:ctx.n_ft], (0, 0, 0, dx.shape[0] - ctx.n_ft)), *rest)
+
     def grads(fn, prm, bank):
         """The step's loss and grads with ``ops.SMLMFunction`` replaced by
         ``fn`` (None: the kernels'), checking who launched smlm_wgrad."""
@@ -1860,7 +1960,7 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
             res = step(prm, bank, store.scale, batch, None)
         finally:
             ops.SMLMFunction = saved
-        if (K["smlm_wgrad"].launches > n0) != (fn is None):
+        if (K["smlm_wgrad"].launches > n0) != (fn in (None, PaddedDX)):
             raise AssertionError("smlm_wgrad launched by the wrong path")
         return res.loss, res.grads
 
@@ -1880,21 +1980,29 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
         return worst, fro
 
     from torch.profiler import ProfilerActivity, profile
-    grads(None, params, store.bank)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        lk, gk = grads(None, params, store.bank)
+
+    def profiled(fn):
+        grads(fn, params, store.bank)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    busy_ms, names, by = device_top(prof)
-    wg = by("smlm_wgrad")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            got = grads(fn, params, store.bank)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        return got, wall_ms, device_top(prof)
+
+    # the step with dX padded by a copy first, then as shipped
+    _, pad_wall, (pad_busy, _, pad_by) = profiled(PaddedDX)
+    (lk, gk), wall_ms, (busy_ms, names, by) = profiled(None)
+    wg, d2d = by("smlm_wgrad"), by("Memcpy DtoD")
     print(f"profile: grad step of {len(rows)} ft rows "
           f"({batch.ft.tokens.numel()} tokens), wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} busy_share="
           f"{busy_ms / wall_ms:.4f} smlm_wgrad_ms={wg:.3f} "
           f"smlm_wgrad_share_of_busy={wg / max(busy_ms, 1e-9):.4f} "
-          f"top: {names}")
+          f"d2d_copy_ms={d2d:.3f} (dX padded by a copy: "
+          f"d2d_copy_ms={pad_by('Memcpy DtoD'):.3f} device_busy_ms="
+          f"{pad_busy:.3f} wall_ms={pad_wall:.3f}) top: {names}")
     lp, gp = grads(Plain, params, store.bank)
     lm, gm = grads(KernelForward, params, store.bank)
     w16, f16 = diff(gk, gp)
@@ -2124,6 +2232,10 @@ def main() -> int:
     ap.add_argument("--chunk-routes", action="store_true",
                     help="only time bf16 paged verify and prefill on each "
                          "walk on both sides of their crossover")
+    ap.add_argument("--wgrad-clusters", action="store_true",
+                    help="only time the bf16 SMLM weight gradient at its "
+                         "four shapes as shipped and for 1, 2 and 4 blocks "
+                         "a column chunk (a cluster above 1)")
     ap.add_argument("--divergence", action="store_true",
                     help="only serve the full-width waves plain, "
                          "speculative and on dense rows, untimed, and print "
@@ -2131,8 +2243,8 @@ def main() -> int:
                          "run with the logit margins")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
-                         "--bgmv-splits, --chunk-routes or --divergence "
-                         "imports")
+                         "--bgmv-splits, --chunk-routes, --wgrad-clusters "
+                         "or --divergence imports")
     ap.add_argument("--tune-splits", metavar="PATH",
                     help="time every split at the model's split keys and "
                          "write the table to PATH")
@@ -2145,8 +2257,8 @@ def main() -> int:
         return 2
     ITERS = a.iters
     root = os.path.abspath(a.root) if (a.kernel_timing or a.divergence
-                                       or a.bgmv_splits
-                                       or a.chunk_routes) else ROOT
+                                       or a.bgmv_splits or a.chunk_routes
+                                       or a.wgrad_clusters) else ROOT
     K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2166,6 +2278,10 @@ def main() -> int:
         return 0
     if a.chunk_routes:
         chunk_routes(K, dev)
+        print(card())
+        return 0
+    if a.wgrad_clusters:
+        wgrad_clusters(K, dev)
         print(card())
         return 0
     if a.divergence:

@@ -35,16 +35,24 @@ time).  A tile with scale 0 writes zeros without reading weights.
 The gradient (``SMLMFunction``, used when grad mode is on and the stream
 carries fine-tune rows) has no Pallas counterpart: JAX differentiates its
 plain ``lora_apply_ref``.  Per tile of scale ``s``, ``dX = s dY B^T A^T`` is
-SMLM itself with ``a' = B^T`` and ``b' = A^T``, whose kept shrink ``Gs = s
-dY B^T`` feeds the weight gradient ``dA = X^T Gs``, ``dB = S^T dY`` (``S =
-s X A``, the forward's kept shrink), computed by ``smlm_wgrad``
-(``csrc/smlm_grad.cu``), segmented per adapter.
+SMLM itself with ``a' = B^T`` and ``b' = A^T``, written straight into the
+fine-tune rows of dX (``out=``), whose kept shrink ``Gs = s dY B^T`` feeds
+the weight gradient ``dA = X^T Gs``, ``dB = S^T dY`` (``S = s X A``, the
+forward's kept shrink), computed by ``smlm_wgrad`` (``csrc/smlm_grad.cu``),
+segmented per adapter.  Its bound is bytes too (X and dY of the live
+tokens read once, r FLOPs a byte at r = 8).  Design: one launch, one block
+of four warps per 128-column chunk of dA or dB and bank slot; the block
+lists its slot's live tiles, each warp takes every fourth 16-token K step
+and streams it through a ``cp.async`` ring of its own, the sums run on the
+tensor cores in bf16 (``mma.sync`` with the columns on M, the rank on N,
+the tokens on K; fp32 on the CUDA cores), and the block sums its warps in
+warp order: no atomics, the same bits on every run.  Splitting a slot's
+tiles over a thread-block cluster measured slower at the grad step's
+widest shapes; the source lists the slower forms.
 """
 from __future__ import annotations
 
 import torch
-
-import torch.nn.functional as F
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P, require
@@ -58,16 +66,27 @@ MAX_RANK = 64
 
 def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
          tile_ids: torch.Tensor, tile_scale: torch.Tensor, *,
-         block_t: int, keep_shrink: bool = False):
+         block_t: int, keep_shrink: bool = False,
+         out: torch.Tensor | None = None):
     """x: [T, d_in]; a: [n, d_in, r]; b: [n, r, d_out] (same dtype as x);
     tile_ids: [T / block_t] int32; tile_scale: [T / block_t] float32 (0
     disables a tile).  Returns [T, d_out] in x's dtype, and with
     ``keep_shrink`` also the scaled shrink ``scale * X A`` as the kernel
     keeps it (``ref.pack_shrink``'s layout; tiles of scale 0 unwritten on
-    the card).  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    the card).  ``out``: a contiguous [T, d_out] tensor of x's dtype and
+    device (a view may do) that receives the result, which is then returned.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if out is not None:
+        require(out.shape == (x.shape[0], b.shape[-1])
+                and out.dtype == x.dtype and out.device == x.device
+                and out.is_contiguous(),
+                f"smlm out{tuple(out.shape)} {out.dtype} {out.device} is not "
+                f"a contiguous [{x.shape[0]}, {b.shape[-1]}] {x.dtype} "
+                f"{x.device} tensor")
     if x.device.type == "cpu":
         y = smlm_ref(x, a, b, tile_ids, tile_scale, block_t)
+        if out is not None:
+            y = out.copy_(y)
         if not keep_shrink:
             return y
         return y, pack_shrink(smlm_shrink_ref(x, a, tile_ids, tile_scale,
@@ -90,7 +109,8 @@ def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     require(tile_scale.dtype == torch.float32 and tile_scale.shape == (nt,),
             "tile_scale must be float32 [T / block_t]")
     build.check_cuda(x, a, b, tile_ids, tile_scale)
-    out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
+    if out is None:
+        out = torch.empty((T, d_out), dtype=x.dtype, device=x.device)
     # the scaled shrink between the two launches: [tiles][ceil(block_t /
     # 8)][r padded to a power of two >= 4][8] fp32
     shrink = torch.empty(nt * -(-block_t // 8) * rank_pad(r) * 8,
@@ -182,11 +202,13 @@ class SMLMFunction(torch.autograd.Function):
         nt = n_ft // bt
         ids, scale = tile_ids[:nt], tile_scale[:nt]
         dy_ft = dy[:n_ft].contiguous()
-        # dX = (scale dY B^T) A^T: SMLM with the transposed bank slices
-        dx_ft, gs = smlm(dy_ft, b.transpose(1, 2).contiguous(),
-                         a.transpose(1, 2).contiguous(), ids, scale,
-                         block_t=bt, keep_shrink=True)
+        # dX = (scale dY B^T) A^T: SMLM with the transposed bank slices,
+        # written into dX's fine-tune rows; the prefill rows' dX is 0
+        dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+        _, gs = smlm(dy_ft, b.transpose(1, 2).contiguous(),
+                     a.transpose(1, 2).contiguous(), ids, scale, block_t=bt,
+                     keep_shrink=True, out=dx[:n_ft])
+        dx[n_ft:].zero_()
         da, db = smlm_wgrad(x[:n_ft], dy_ft, s, gs, ids, scale,
                             r=a.shape[2], block_t=bt, n_slots=a.shape[0])
-        dx = F.pad(dx_ft, (0, 0, 0, x.shape[0] - n_ft))
         return dx, da, db, None, None, None, None

@@ -504,27 +504,69 @@ def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
     assert torch.equal(bgmv(*args), y)
 
 
+# tile patterns of the weight-gradient cases (ids; -1: a base-only tile of
+# scale 0): "mixed" two adapters and a base-only tile; "interleaved" the
+# slots alternate, so a slot's tiles are not contiguous and outnumber the
+# cluster's blocks; "single" one live tile, so blocks of its cluster idle;
+# "dead" no live tile at all ("single": one live tile of slot 2 mid-stream;
+# "offset" and "range" take "mixed")
+WGRAD_TILES = {"mixed": [0, 2, 0, -1, 2],
+               "interleaved": [1, 3, 1, -1, 3, 1, 0], "dead": [-1]}
+
+
+def _wgrad_inputs(rng, dev, dtype, T, r, d_in, d_out, kind):
+    """x, dy (off a 16-byte boundary for "offset": views one element into
+    a flat buffer) and the fp32 shrinks s, gs (for "range" spread over
+    eight decades)."""
+    def rows(w):
+        v = t(rng.standard_normal((T * w + 1,), dtype=np.float32)
+              ).to(dev, dtype)
+        return v[1:].view(T, w) if kind == "offset" else v[1:].clone(
+            ).view(T, w)
+    x, dy = rows(d_in), rows(d_out)
+    s, gs = (t(rng.standard_normal((T, r), dtype=np.float32)) for _ in "ab")
+    if kind == "range":
+        s, gs = (v * t(10.0 ** rng.uniform(-4, 4, (T, r))).float()
+                 for v in (s, gs))
+    return x, dy, s.to(dev), gs.to(dev)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,r,d_in,d_out,n,bt", [
-    (64, 8, 512, 300, 4, 8),        # a ragged d_out
-    (48, 4, 96, 40, 4, 12),         # a tile that is not 8 tokens
-    (256, 8, 4096, 14336, 4, 8),    # the widest projection
-    (96, 64, 300, 1004, 6, 8),      # the widest rank, ragged both sides
+@pytest.mark.parametrize("T,r,d_in,d_out,n,bt,kind", [
+    (64, 8, 512, 300, 4, 8, "mixed"),         # a ragged d_out
+    (48, 4, 96, 40, 4, 12, "mixed"),          # a tile that is not 8 tokens
+    (256, 8, 4096, 14336, 4, 8, "mixed"),     # the widest projection
+    (96, 64, 300, 1004, 6, 8, "mixed"),       # the widest rank, ragged both
+    (512, 8, 512, 1024, 4, 8, "interleaved"),
+    (64, 8, 512, 1024, 4, 8, "single"),
+    (64, 8, 512, 1024, 4, 8, "dead"),
+    (192, 8, 256, 512, 4, 16, "mixed"),       # two groups a tile
+    (144, 8, 264, 520, 4, 12, "interleaved"),  # an odd K step a tile
+    (64, 4, 256, 512, 4, 8, "mixed"),
+    (128, 16, 512, 768, 4, 8, "interleaved"),
+    (128, 64, 512, 1024, 4, 8, "interleaved"),
+    (64, 8, 1000, 2052, 4, 8, "offset"),      # ragged, off 16 bytes
+    (256, 8, 4096, 1024, 4, 8, "offset"),     # off 16 bytes only
+    (256, 8, 512, 1024, 4, 8, "range"),
+    (8256, 8, 64, 136, 4, 8, "interleaved"),  # 1032 tiles: two windows
 ])
-def test_cuda_smlm_wgrad_matches_plain(dtype, T, r, d_in, d_out, n, bt):
-    """The SMLM weight gradient against its plain version: tiles of two
-    adapters, a base-only tile (scale 0, its shrink left as NaN, which the
-    kernel must not read), a slot no tile uses (exact zeros); two calls
-    give the same bits (no atomics)."""
+def test_cuda_smlm_wgrad_matches_plain(dtype, T, r, d_in, d_out, n, bt,
+                                       kind):
+    """The SMLM weight gradient against its plain version over the tile
+    patterns of ``WGRAD_TILES``: dead tiles' shrinks (scale 0) left as NaN,
+    which the kernel must not read; slot 1 ("mixed") or every slot
+    ("dead") that no live tile uses comes out exactly 0; the "range"
+    shrinks also row by row; two calls give the same bits (no atomics)."""
     dev = _card()
     rng = np.random.default_rng(900 + T + r)
-    x = t(rng.standard_normal((T, d_in), dtype=np.float32)).to(dev, dtype)
-    dy = t(rng.standard_normal((T, d_out), dtype=np.float32)).to(dev, dtype)
-    s = t(rng.standard_normal((T, r), dtype=np.float32)).to(dev)
-    gs = t(rng.standard_normal((T, r), dtype=np.float32)).to(dev)
+    x, dy, s, gs = _wgrad_inputs(rng, dev, dtype, T, r, d_in, d_out, kind)
     nt = T // bt
-    tiles = np.resize(np.array([0, 2, 0, -1, 2], np.int32), nt)
+    tiles = np.resize(np.array(WGRAD_TILES.get(kind, WGRAD_TILES["mixed"]),
+                               np.int32), nt)
+    if kind == "single":
+        tiles[:] = -1
+        tiles[nt // 2] = 2
     scale = np.where(tiles >= 0, 1.0, 0.0).astype(np.float32)
     ids, sc = t(np.clip(tiles, 0, n - 1)).to(dev), t(scale).to(dev)
     sb, gb = ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt)
@@ -538,7 +580,13 @@ def test_cuda_smlm_wgrad_matches_plain(dtype, T, r, d_in, d_out, n, bt):
     pa, pb = ref.smlm_wgrad_ref(x, dy, s, gs, ids, sc, bt, n)
     _close(da, pa, dtype)
     _close(db, pb, dtype)
-    assert float(da[1].abs().max()) == 0.0 and float(db[1].abs().max()) == 0
+    if kind == "range":
+        _close_rows(da, pa, dtype)
+        _close_rows(db, pb, dtype)
+    unused = [k for k in range(n) if not ((tiles == k).any())]
+    assert unused and all(float(da[k].abs().max()) == 0.0
+                          and float(db[k].abs().max()) == 0.0
+                          for k in unused)
     da2, db2 = smlm_wgrad(x, dy, sb, gb, ids, sc, r=r, block_t=bt,
                           n_slots=n)
     assert torch.equal(da, da2) and torch.equal(db, db2)

@@ -132,6 +132,31 @@ def test_smlm_wgrad_plain_matches_autograd_and_packs_shrinks():
     assert float(da[3].abs().max()) == 0.0      # slot 3: no tile
 
 
+@pytest.mark.parametrize("n_ft", [48, 24])
+def test_smlm_function_dx_in_place_matches_plain(n_ft):
+    """SMLMFunction's dX, written into the fine-tune rows of one [T, d_in]
+    result (``smlm(..., out=)``) with the rows after them zeroed, against
+    autograd through the plain SMLM with the same cotangent (0 after
+    ``n_ft``), for n_ft == T and n_ft < T; dA and dB beside it.  ``smlm``'s
+    ``out`` receives the result and is what it returns."""
+    x, a, b, ids, scale_t, g = _smlm_case(2)
+    g[n_ft:] = 0.0
+    tile_ids, tile_scale = t(np.clip(ids[::BT], 0, 3)), t(scale_t[::BT])
+    got = [t(v).requires_grad_() for v in (x, a, b)]
+    want = [t(v).requires_grad_() for v in (x, a, b)]
+    (SMLMFunction.apply(*got, tile_ids, tile_scale, BT, n_ft) * t(g)
+     ).sum().backward()
+    (ref.smlm_ref(*want, tile_ids, tile_scale, BT) * t(g)).sum().backward()
+    for k, p in zip(got, want):
+        assert max_err(k.grad, p.grad) <= 1e-5 * float(p.grad.abs().max())
+    assert int(torch.count_nonzero(got[0].grad[n_ft:])) == 0
+    buf = torch.full((x.shape[0], b.shape[-1]), float("nan"))
+    y = smlm(t(x), t(a), t(b), tile_ids, tile_scale, block_t=BT, out=buf)
+    assert y.data_ptr() == buf.data_ptr()
+    assert torch.equal(y, ref.smlm_ref(t(x), t(a), t(b), tile_ids,
+                                       tile_scale, BT))
+
+
 # ------------------------------------------------------------ model buckets
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
