@@ -6,7 +6,6 @@
     python3 chip_smoke.py --tune-splits PATH
     python3 chip_smoke.py --bgmv-splits [--root TREE]
     python3 chip_smoke.py --chunk-routes [--root TREE]
-    python3 chip_smoke.py --wgrad-clusters [--root TREE]
     python3 chip_smoke.py --divergence [--root TREE]
 
 The second form only checks and times the nine kernels of ``PERF.md``
@@ -27,10 +26,7 @@ library call, and for 8, 16 and 32 slices of d_in beside the slices that
 wrapper picks.  The fifth times bf16 paged verify at 20 to 256 query
 columns and paged prefill at 64 to 512 as their wrappers ship and on each
 walk (the split-key walk, the query-tile walk): the data behind the
-crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth times
-the bf16 SMLM weight gradient at ``WGRAD_SHAPES`` as its wrapper ships and
-with 1, 2 and 4 blocks a column chunk (a cluster above 1): the data behind
-``WG_CLUSTER`` of ``csrc/smlm_grad.cu``.  The seventh serves
+crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth serves
 phase 4's waves plain, speculative and on dense rows without timing, with
 every tick's logits kept, and prints each request's first divergence from
 the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
@@ -122,8 +118,7 @@ printing its lines; any failure raises and exits non-zero:
              kernel's forward and the plain backward (the forward's
              rounding alone); one bf16 grad step is profiled
              (``profile: grad step`` line, with its device-to-device copy
-             time beside that of the same step whose dX is padded by a
-             copy, as before dX was written in place).
+             time).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
@@ -553,61 +548,6 @@ def wgrad_bound(x, dy, scale, bt, r=8, n=4):
     it, width = x.element_size(), x.shape[1] + dy.shape[1]
     nbytes = live * width * it + 2 * live * r * 4 + n * r * width * it
     return bound(nbytes, 2 * live * r * width, x.dtype)
-
-
-def wgrad_launcher(K, args, bt, cl):
-    """A call of the weight gradient with clusters of ``cl`` blocks through
-    its library's ``smlm_wgrad_cluster_launch`` entry (r=8, 4 slots), or
-    None where the library has none (a parent checkout)."""
-    b = K["build"]
-    try:
-        fn = b.function("smlm_grad", "smlm_wgrad_cluster_launch",
-                        [b.P] * 8 + [b.I] * 7 + [b.P, b.I])
-    except AttributeError:
-        return None
-    x, dy = args[:2]
-    T, d_in, d_out = x.shape[0], x.shape[1], dy.shape[1]
-    da = torch.empty((4, d_in, 8), dtype=x.dtype, device=x.device)
-    db = torch.empty((4, 8, d_out), dtype=x.dtype, device=x.device)
-
-    def call():
-        b.check(fn(*(v.data_ptr() for v in args), da.data_ptr(),
-                   db.data_ptr(), T, 4, d_in, 8, d_out, bt,
-                   b.dtype_code(x), b.stream_of(x), cl), "smlm_grad")
-        return da, db
-    return call
-
-
-def wgrad_clusters(K, dev):
-    """The bf16 weight gradient's device time at ``WGRAD_SHAPES`` as its
-    wrapper ships and, where the library has the cluster entry, for 1, 2
-    and 4 blocks a column chunk and slot (a cluster above 1), each output
-    first held to the plain version: the data behind its block count
-    (``--root`` times another checkout's wrapper as shipped)."""
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(0)
-    bt, ref, dt = K["block_t"], K["ref"], torch.bfloat16
-    for T, d_in, d_out in WGRAD_SHAPES:
-        x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dt, dev, gen,
-                                              bt)
-        args = (x, dy, ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt), ids,
-                scale)
-        plain = ref.smlm_wgrad_ref(x, dy, s, gs, ids, scale, bt, 4)
-        run = lambda: K["smlm_wgrad"](*args, r=8, block_t=bt, n_slots=4)
-        for got, want in zip(run(), plain):
-            compare(got, want, dt)
-        line = (f"shipped={time_ms(run):.5f} library="
-                f"{wgrad_library_ms(x, dy, s, gs, ids, scale, bt):.5f} "
-                f"bound={wgrad_bound(x, dy, scale, bt)[0]:.5f}")
-        for cl in (1, 2, 4):
-            call = wgrad_launcher(K, args, bt, cl)
-            if call is None:
-                break
-            for got, want in zip(call(), plain):
-                compare(got, want, dt)
-            line += f" cl{cl}={time_ms(call):.5f}"
-        print(f"wgrad-clusters: T={T} {d_in}x{d_out} r=8 n=4 block_t={bt} "
-              f"ms {line}")
 
 
 def check_wgrad(K, dtype, dev, gen, timing: bool):
@@ -1939,18 +1879,6 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
                     ref.smlm_ref(*leaves, ids, scale, ctx.bt), leaves, dy)
             return (*got, None, None, None, None)
 
-    shipped = ops.SMLMFunction
-
-    class PaddedDX(shipped):
-        """SMLMFunction with dX copied into a fresh tensor by ``F.pad``, as
-        the backward made it before it wrote dX in place (``out=``): the
-        before of that repair in the profile."""
-        @staticmethod
-        def backward(ctx, dy):
-            dx, *rest = shipped.backward(ctx, dy)
-            return (torch.nn.functional.pad(
-                dx[:ctx.n_ft], (0, 0, 0, dx.shape[0] - ctx.n_ft)), *rest)
-
     def grads(fn, prm, bank):
         """The step's loss and grads with ``ops.SMLMFunction`` replaced by
         ``fn`` (None: the kernels'), checking who launched smlm_wgrad."""
@@ -1960,7 +1888,7 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
             res = step(prm, bank, store.scale, batch, None)
         finally:
             ops.SMLMFunction = saved
-        if (K["smlm_wgrad"].launches > n0) != (fn in (None, PaddedDX)):
+        if (K["smlm_wgrad"].launches > n0) != (fn is None):
             raise AssertionError("smlm_wgrad launched by the wrong path")
         return res.loss, res.grads
 
@@ -1980,29 +1908,21 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
         return worst, fro
 
     from torch.profiler import ProfilerActivity, profile
-
-    def profiled(fn):
-        grads(fn, params, store.bank)
+    grads(None, params, store.bank)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lk, gk = grads(None, params, store.bank)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            got = grads(fn, params, store.bank)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        return got, wall_ms, device_top(prof)
-
-    # the step with dX padded by a copy first, then as shipped
-    _, pad_wall, (pad_busy, _, pad_by) = profiled(PaddedDX)
-    (lk, gk), wall_ms, (busy_ms, names, by) = profiled(None)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms, names, by = device_top(prof)
     wg, d2d = by("smlm_wgrad"), by("Memcpy DtoD")
     print(f"profile: grad step of {len(rows)} ft rows "
           f"({batch.ft.tokens.numel()} tokens), wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} busy_share="
           f"{busy_ms / wall_ms:.4f} smlm_wgrad_ms={wg:.3f} "
           f"smlm_wgrad_share_of_busy={wg / max(busy_ms, 1e-9):.4f} "
-          f"d2d_copy_ms={d2d:.3f} (dX padded by a copy: "
-          f"d2d_copy_ms={pad_by('Memcpy DtoD'):.3f} device_busy_ms="
-          f"{pad_busy:.3f} wall_ms={pad_wall:.3f}) top: {names}")
+          f"d2d_copy_ms={d2d:.3f} top: {names}")
     lp, gp = grads(Plain, params, store.bank)
     lm, gm = grads(KernelForward, params, store.bank)
     w16, f16 = diff(gk, gp)
@@ -2232,10 +2152,6 @@ def main() -> int:
     ap.add_argument("--chunk-routes", action="store_true",
                     help="only time bf16 paged verify and prefill on each "
                          "walk on both sides of their crossover")
-    ap.add_argument("--wgrad-clusters", action="store_true",
-                    help="only time the bf16 SMLM weight gradient at its "
-                         "four shapes as shipped and for 1, 2 and 4 blocks "
-                         "a column chunk (a cluster above 1)")
     ap.add_argument("--divergence", action="store_true",
                     help="only serve the full-width waves plain, "
                          "speculative and on dense rows, untimed, and print "
@@ -2243,8 +2159,8 @@ def main() -> int:
                          "run with the logit margins")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
-                         "--bgmv-splits, --chunk-routes, --wgrad-clusters "
-                         "or --divergence imports")
+                         "--bgmv-splits, --chunk-routes or --divergence "
+                         "imports")
     ap.add_argument("--tune-splits", metavar="PATH",
                     help="time every split at the model's split keys and "
                          "write the table to PATH")
@@ -2257,8 +2173,8 @@ def main() -> int:
         return 2
     ITERS = a.iters
     root = os.path.abspath(a.root) if (a.kernel_timing or a.divergence
-                                       or a.bgmv_splits or a.chunk_routes
-                                       or a.wgrad_clusters) else ROOT
+                                       or a.bgmv_splits
+                                       or a.chunk_routes) else ROOT
     K = _import_port(root)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2278,10 +2194,6 @@ def main() -> int:
         return 0
     if a.chunk_routes:
         chunk_routes(K, dev)
-        print(card())
-        return 0
-    if a.wgrad_clusters:
-        wgrad_clusters(K, dev)
         print(card())
         return 0
     if a.divergence:

@@ -18,22 +18,20 @@
 // flight on every SM, and spend few instructions on each of them.
 //
 // Design, one launch: grid (column chunks of COLS columns of d_in, then of
-// d_out; bank slots), CL blocks a (chunk, slot), a thread-block cluster when
-// CL > 1.  COLS is 128 up to RP = 8 and 1024 / RP above, so that a warp's
-// sums stay at 32 fp32 registers.
+// d_out; bank slots), one block a (chunk, slot).  COLS is 128 up to RP = 8
+// and 1024 / RP above, so that a warp's sums stay at 32 fp32 registers.
 //  * Each block reads tile_ids / tile_scale once, coalesced, and lists its
 //    slot's live tiles in order in shared memory (warp ballots plus a
 //    prefix; WG_WINDOW tiles at a time).  A slot with no live tile writes
-//    its zeros and leaves without any barrier: the count is the same in
-//    every block of the slot.
-//  * Block `rank` takes every CL-th tile of the list.  Its 8-token groups,
-//    two at a time, make K steps of 16 tokens, and warp w of the block takes
-//    K steps w, w + WG_WARPS, ...  Each warp streams its K steps through a
-//    ring of its own, WG_STAGES stages of [16 tokens x COLS columns] of X
-//    (dA) or dY (dB) with the 16 tokens' fp32 shrink [2][RP][8] beside
-//    them, by 16-byte `cp.async` copies (COLS / 16 a lane a K step, at
-//    constant offsets), synchronised by `__syncwarp` alone, so the next
-//    stages are in flight while one is summed.  Rows past a tile's end and
+//    its zeros and leaves.
+//  * The listed tiles' 8-token groups, two at a time, make K steps of 16
+//    tokens, and warp w of the block takes K steps w, w + WG_WARPS, ...
+//    Each warp streams its K steps through a ring of its own, WG_STAGES
+//    stages of [16 tokens x COLS columns] of X (dA) or dY (dB) with the 16
+//    tokens' fp32 shrink [2][RP][8] beside them, by 16-byte `cp.async`
+//    copies (COLS / 16 a lane a K step, at constant offsets), synchronised
+//    by `__syncwarp` alone, so the next stages are in flight while one is
+//    summed.  Rows past a tile's end and
 //    an odd last group are zero-filled.
 //  * bf16: `mma.sync.m16n8k16` with the columns on M (the staged tile read
 //    by `ldmatrix.trans`), the rank on N (RP / 8 n-tiles; ranks past RP = 4
@@ -43,13 +41,10 @@
 //    tf32 would miss): CUDA-core FMAs, a lane COLS / 32 columns.
 //  * After the walk each warp writes its sums into the ring's bytes in the
 //    output's layout ([COLS][RP] for dA, [RP][COLS + 4] for dB); the block
-//    sums its warps in warp order, and with CL > 1, after one cluster
-//    barrier, the ranks sum the CL block sums in rank order through
-//    distributed shared memory, each a 1/CL share of the chunk.  A thread
-//    writes 8 outputs (one 16-byte store in bf16 where the width, the rank
-//    and the alignment allow; else masked scalars).  A rank or a warp with
-//    no tile adds zeros.  No workspace, no memset, no atomics: two runs
-//    give the same bits.
+//    sums its warps in warp order.  A thread writes 8 outputs (one 16-byte
+//    store in bf16 where the width, the rank and the alignment allow; else
+//    masked scalars).  A warp with no K step adds zeros.  No workspace, no
+//    memset, no atomics: two runs give the same bits.
 // In bf16 a width that is not a multiple of 8 or an input off a 16-byte
 // boundary takes element copies on that side, masked at the edge (as SMLM
 // and BGMV do); fp32 copies 16 bytes where its width is a multiple of 4.
@@ -61,14 +56,12 @@
 // through one ring of the block, synchronised by the block: one 16-byte
 // copy a thread a group, so the walk was bound by the instructions around
 // each copy, and each doubling of the cluster cost more in its barriers;
-// and this kernel with its bf16 sums on the CUDA cores.
-#include <cooperative_groups.h>
-
+// this kernel with its slot's tiles split over clusters of 2 or 4 blocks
+// (slower at three of the four projection shapes of a grad step); and this
+// kernel with its bf16 sums on the CUDA cores.
 #include <type_traits>
 
 #include "tile_walk.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,19 +69,9 @@ constexpr int WG_WARPS = 4;
 constexpr int WG_THREADS = WG_WARPS * 32;
 constexpr int WG_STAGES = 4;       // K steps of 16 tokens in a warp's ring
 constexpr int WG_WINDOW = 1024;    // tiles listed at a time
-// blocks a (column chunk, slot): the pick of `chip_smoke.py
-// --wgrad-clusters` at the grad step's shapes (`PERF.md` section 6)
-constexpr int WG_CLUSTER = 1;
 
 // which sides move as 16-byte vectors (bit flags of the launch)
 enum { VEC_X = 1, VEC_DY = 2, VEC_SHRINK = 4, VST_A = 8, VST_B = 16 };
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
 
 // Shape of a block at rank pad RP: COLS columns; each warp's ring of
 // WG_STAGES stages, a stage the 16 tokens' fp32 shrink [2][RP][8] then their
@@ -118,7 +101,7 @@ struct Wg {
   static constexpr size_t BYTES = WG_WARPS * WSTRIDE * sizeof(float);
 };
 
-template <typename T, int RP, int CL>
+template <typename T, int RP>
 __global__ void __launch_bounds__(WG_THREADS)
 smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
            const float* __restrict__ s, const float* __restrict__ gs,
@@ -133,8 +116,7 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
   __shared__ int list[WG_WINDOW];
   __shared__ int wcnt[WG_WARPS];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rank = blockIdx.x % CL, chunk = blockIdx.x / CL;
-  const int slot = blockIdx.y;
+  const int chunk = blockIdx.x, slot = blockIdx.y;
   const int n_a = (d_in + COLS - 1) / COLS;
   const bool is_a = chunk < n_a;
   const int c0 = (is_a ? chunk : chunk - n_a) * COLS;
@@ -176,10 +158,9 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
   int total = cnt;
   for (int c = WG_WINDOW; c < tiles; c += WG_THREADS)
     total += __syncthreads_count(c + tid < tiles && live(c + tid));
-  if (total == 0) {   // uniform over the slot's blocks: nobody waits
+  if (total == 0) {
     const int nc = min(COLS, width - c0);
-    for (int e = rank * WG_THREADS + tid; e < nc * r;
-         e += CL * WG_THREADS) {
+    for (int e = tid; e < nc * r; e += WG_THREADS) {
       if (is_a) {
         da[(static_cast<size_t>(slot) * d_in + c0) * r + e] =
             repro::from_f<T>(0.f);
@@ -195,14 +176,11 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
   unsigned char* ring = smem + warp * L::WSTRIDE * sizeof(float);
   float acc[BF16 ? L::MT : 1][BF16 ? L::NT : 1][4] = {};   // bf16
   float facc[BF16 ? 1 : L::CPL][BF16 ? 1 : L::RPL] = {};     // fp32
-  int ord0 = 0;   // the window's first live tile, counted in the slot's list
   for (int w0 = 0;;) {
-    const int j0 = ((rank - ord0) % CL + CL) % CL;   // this rank's first
-    const int mine = cnt > j0 ? (cnt - j0 + CL - 1) / CL : 0;
-    const int groups = mine * G, ksteps = (groups + 1) / 2;
+    const int groups = cnt * G, ksteps = (groups + 1) / 2;
     const int my_ks =
         ksteps > warp ? (ksteps - warp + WG_WARPS - 1) / WG_WARPS : 0;
-    // this warp's j-th K step (groups 2 ks and 2 ks + 1 of the rank's, ks =
+    // this warp's j-th K step (groups 2 ks and 2 ks + 1 of the window's, ks =
     // warp + j WG_WARPS) into stage st of its ring
     auto stage = [&](int j, int st) {
       float* sh = reinterpret_cast<float*>(ring + st * L::STAGE);
@@ -216,7 +194,7 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
         const float* sg = shrink;
         if (real) {
           const int i = G == 1 ? q : q / G, g = G == 1 ? 0 : q - i * G;
-          const int tile = list[j0 + i * CL];
+          const int tile = list[i];
           nt = min(8, block_t - g * 8);
           rows = src + (static_cast<size_t>(tile) * block_t + g * 8) * width +
                  c0;
@@ -310,7 +288,6 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
       }
     }
     repro::cp_async_wait<0>();
-    ord0 += cnt;
     w0 += WG_WINDOW;
     if (w0 >= tiles) break;
     __syncthreads();   // every stage is summed: the list is the next's
@@ -415,37 +392,13 @@ smlm_wgrad(const T* __restrict__ x, const T* __restrict__ dy,
         if (c0 + cc + i < width) o[i] = repro::from_f<T>(v[i]);
     }
   };
-  // the block's sum of its warps, in warp order: written out (CL == 1) or
-  // kept in warp 0's bytes for the cluster
+  // the block's sum of its warps, in warp order
   for (int e = tid; e < items; e += WG_THREADS) {
     const int off = offset(e);
     float v[8] = {};
 #pragma unroll
     for (int w = 0; w < WG_WARPS; ++w) add8(part + w * L::WSTRIDE + off, v);
-    if constexpr (CL == 1) {
-      put(e, v);
-    } else {
-      *reinterpret_cast<float4*>(part + off) =
-          make_float4(v[0], v[1], v[2], v[3]);
-      if (!is_a || RP >= 8)
-        *reinterpret_cast<float4*>(part + off + 4) =
-            make_float4(v[4], v[5], v[6], v[7]);
-    }
-  }
-  if constexpr (CL > 1) {
-    cluster_arrive();   // every block sum is written ...
-    cluster_wait();     // ... and visible to the cluster
-    cg::cluster_group cluster = cg::this_cluster();
-    for (int e = rank * WG_THREADS + tid; e < items; e += CL * WG_THREADS) {
-      const int off = offset(e);
-      float v[8] = {};
-#pragma unroll
-      for (int c = 0; c < CL; ++c)
-        add8(cluster.map_shared_rank(part + off, c), v);
-      put(e, v);
-    }
-    cluster_arrive();   // this block is done reading its peers ...
-    cluster_wait();     // ... and they are done reading it
+    put(e, v);
   }
 }
 
@@ -463,8 +416,8 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename T, int RP, int CL>
-cudaError_t launch_cl(const Args& a) {
+template <typename T, int RP>
+cudaError_t launch_rp(const Args& a) {
   using L = Wg<T, RP>;
   constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   unsigned flags = 0;
@@ -475,72 +428,24 @@ cudaError_t launch_cl(const Args& a) {
   if (BF16 && a.d_out % 8 == 0 && aligned16(a.db)) flags |= VST_B;
   const int chunks =
       (a.d_in + L::COLS - 1) / L::COLS + (a.d_out + L::COLS - 1) / L::COLS;
-  auto kern = smlm_wgrad<T, RP, CL>;
+  auto kern = smlm_wgrad<T, RP>;
   cudaError_t e = repro::allow_smem(kern, L::BYTES);
   if (e != cudaSuccess) return e;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(chunks * CL, a.n);
-  cfg.blockDim = dim3(WG_THREADS);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = a.st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(a.x),
-                         static_cast<const T*>(a.dy), a.s, a.gs, a.ids,
-                         a.scale, static_cast<T*>(a.da), static_cast<T*>(a.db),
-                         a.T_, a.n, a.d_in, a.r, a.d_out, a.block_t, flags);
-  if (e != cudaSuccess) return e;
+  kern<<<dim3(chunks, a.n), WG_THREADS, L::BYTES, a.st>>>(
+      static_cast<const T*>(a.x), static_cast<const T*>(a.dy), a.s, a.gs,
+      a.ids, a.scale, static_cast<T*>(a.da), static_cast<T*>(a.db), a.T_,
+      a.n, a.d_in, a.r, a.d_out, a.block_t, flags);
   return cudaGetLastError();
 }
 
-// bf16 is built for every block count `--wgrad-clusters` compares; fp32,
-// the parity runs' type, for the shipped one only
-template <typename T, int RP>
-cudaError_t launch_rp(const Args& a, int cl) {
-  if (cl == WG_CLUSTER) return launch_cl<T, RP, WG_CLUSTER>(a);
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (cl == 1) return launch_cl<T, RP, 1>(a);
-    if (cl == 2) return launch_cl<T, RP, 2>(a);
-    if (cl == 4) return launch_cl<T, RP, 4>(a);
-  }
-  return cudaErrorInvalidValue;
-}
-
 template <typename T>
-cudaError_t launch_t(const Args& a, int cl) {
-  if (a.r <= 4) return launch_rp<T, 4>(a, cl);
-  if (a.r <= 8) return launch_rp<T, 8>(a, cl);
-  if (a.r <= 16) return launch_rp<T, 16>(a, cl);
-  if (a.r <= 32) return launch_rp<T, 32>(a, cl);
-  if (a.r <= 64) return launch_rp<T, 64>(a, cl);
+cudaError_t launch_t(const Args& a) {
+  if (a.r <= 4) return launch_rp<T, 4>(a);
+  if (a.r <= 8) return launch_rp<T, 8>(a);
+  if (a.r <= 16) return launch_rp<T, 16>(a);
+  if (a.r <= 32) return launch_rp<T, 32>(a);
+  if (a.r <= 64) return launch_rp<T, 64>(a);
   return cudaErrorInvalidValue;
-}
-
-int launch(const void* x, const void* dy, const void* s, const void* gs,
-           const void* tile_ids, const void* tile_scale, void* da, void* db,
-           int T_, int n, int d_in, int r, int d_out, int block_t, int dtype,
-           void* stream, int cl) {
-  if (n <= 0 || d_in <= 0 || d_out <= 0) return 0;
-  if (T_ < 0 || block_t <= 0 || T_ % block_t != 0 || r <= 0 || n > 65535)
-    return cudaErrorInvalidValue;
-  const Args a{x, dy, static_cast<const float*>(s),
-               static_cast<const float*>(gs),
-               static_cast<const int*>(tile_ids),
-               static_cast<const float*>(tile_scale), da, db, T_, n, d_in, r,
-               d_out, block_t, static_cast<cudaStream_t>(stream)};
-  cudaError_t e;
-  if (dtype == DT_F32)
-    e = launch_t<float>(a, cl);
-  else if (dtype == DT_BF16)
-    e = launch_t<__nv_bfloat16>(a, cl);
-  else
-    e = cudaErrorInvalidValue;
-  return static_cast<int>(e);
 }
 
 }  // namespace
@@ -554,18 +459,20 @@ extern "C" int smlm_wgrad_launch(const void* x, const void* dy, const void* s,
                                  const void* tile_scale, void* da, void* db,
                                  int T_, int n, int d_in, int r, int d_out,
                                  int block_t, int dtype, void* stream) {
-  return launch(x, dy, s, gs, tile_ids, tile_scale, da, db, T_, n, d_in, r,
-                d_out, block_t, dtype, stream, WG_CLUSTER);
-}
-
-// The same with `cl` blocks a (column chunk, slot), a cluster when cl > 1
-// (1, 2 or 4 in bf16; fp32 only the shipped count): the entry
-// `chip_smoke.py --wgrad-clusters` times.
-extern "C" int smlm_wgrad_cluster_launch(
-    const void* x, const void* dy, const void* s, const void* gs,
-    const void* tile_ids, const void* tile_scale, void* da, void* db, int T_,
-    int n, int d_in, int r, int d_out, int block_t, int dtype, void* stream,
-    int cl) {
-  return launch(x, dy, s, gs, tile_ids, tile_scale, da, db, T_, n, d_in, r,
-                d_out, block_t, dtype, stream, cl);
+  if (n <= 0 || d_in <= 0 || d_out <= 0) return 0;
+  if (T_ < 0 || block_t <= 0 || T_ % block_t != 0 || r <= 0 || n > 65535)
+    return cudaErrorInvalidValue;
+  const Args a{x, dy, static_cast<const float*>(s),
+               static_cast<const float*>(gs),
+               static_cast<const int*>(tile_ids),
+               static_cast<const float*>(tile_scale), da, db, T_, n, d_in, r,
+               d_out, block_t, static_cast<cudaStream_t>(stream)};
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = launch_t<float>(a);
+  else if (dtype == DT_BF16)
+    e = launch_t<__nv_bfloat16>(a);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
 }

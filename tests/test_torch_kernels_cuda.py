@@ -507,7 +507,7 @@ def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
 # tile patterns of the weight-gradient cases (ids; -1: a base-only tile of
 # scale 0): "mixed" two adapters and a base-only tile; "interleaved" the
 # slots alternate, so a slot's tiles are not contiguous and outnumber the
-# cluster's blocks; "single" one live tile, so blocks of its cluster idle;
+# block's warps; "single" one live tile, so three warps of its block idle;
 # "dead" no live tile at all ("single": one live tile of slot 2 mid-stream;
 # "offset" and "range" take "mixed")
 WGRAD_TILES = {"mixed": [0, 2, 0, -1, 2],
