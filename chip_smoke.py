@@ -7,6 +7,7 @@
     python3 chip_smoke.py --bgmv-splits [--root TREE]
     python3 chip_smoke.py --chunk-routes [--root TREE]
     python3 chip_smoke.py --divergence [--root TREE]
+    python3 chip_smoke.py --memory
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -30,6 +31,8 @@ crossover ``SW_SPLIT_COLS`` of ``csrc/split_walk.cuh``.  The sixth serves
 phase 4's waves plain, speculative and on dense rows without timing, with
 every tick's logits kept, and prints each request's first divergence from
 the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
+The seventh runs only the memory features: phase 3's lending, paging and
+chunked-training parity, then phases 9 and 10.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -73,7 +76,14 @@ printing its lines; any failure raises and exits non-zero:
              kernels used; then training: two trainers and four served
              requests on both devices (lr 1e-3): served tokens equal,
              per-row losses within 1e-4 relative, optimizer steps equal,
-             the trained slots within 2 * lr * steps + 1e-6.
+             the trained slots within 2 * lr * steps + 1e-6; then the memory
+             features on both devices: (a) lending (``over_admit=2.0``) in
+             a 7-block pool with a host tier, (b) adapter paging, 6
+             adapters of true ranks 4 and 8 on a 4-slot bank, each with
+             tokens, ``swap_decisions``, preemptions, ``kv_*`` counters,
+             adapter swap-ins and steps equal; (c) training again with
+             ``attn_chunk=16`` (chunked ft attention), losses within 1e-4
+             relative.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -119,11 +129,35 @@ printing its lines; any failure raises and exits non-zero:
              rounding alone); one bf16 grad step is profiled
              (``profile: grad step`` line, with its device-to-device copy
              time).
+9. tiers   — 8 requests of distinct 128-token prompts, 96 new tokens each,
+             at t=0 (virtual clock): (A) the default pool; (B) 49 blocks
+             with ``over_admit=2.0`` (recompute preemption); (C) as B with a
+             32-block host tier; (D) as C in int8.  C and D take a
+             ``CostModel`` of this card's pinned copy rates for one block
+             and A's prefill seconds per token, and print what the default
+             constants would have decided.  Each run: admitted peak, lent
+             peak, preemptions, swap decisions, swap-outs, restores, bytes,
+             host peak, decode ticks, tokens equal to A (first divergences
+             with their logit margins); ``transfer:`` lines time each swap
+             set beside a pinned copy of its bytes.  A restored block is
+             bit-equal to the victim's original (raw) or within half a
+             step and equal to the plain dequant of the stored payload
+             (int8).  A demote trace (two shared heads, an 11-block pool)
+             demotes and rehydrates.  Kernels 1-4 and 7 launch.
+10. paging — 24 requests over 12 adapters (true ranks 8 and 4, weights
+             1/(i+1), 3 waves) on a 4-slot bank and a 65-block pool, with
+             ``adapter_paging`` off and on: swap-ins (> 0 when on), bytes,
+             reloads, sheds, adapter blocks at peak, decode ticks, each
+             swap-in beside a pinned copy, tokens off vs on; the bf16 byte
+             image round trip at ranks 8 and 4 (bit-exact); one adapter
+             voided and unvoided into a fresh store on the card serves 4
+             requests with bit-identical tokens.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-8 that launched it), the card's name and power limit, and
-the last line ``{"ok": true, "device": {...}}``.
+run of phases 4-10 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging), the card's name and power limit, and the last line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1329,6 +1363,8 @@ def parity(K, devices=("cuda", "cpu")):
           f"for 8 requests, steps={de.metrics.steps}, cuda launches="
           f"{ {k: dl[k] for k in dense_kernels} } ok")
     parity_train(K, cfg, flat, lcfg, devices)
+    parity_memory(K, cfg, flat, lcfg, devices)
+    parity_train(K, cfg, flat, lcfg, devices, attn_chunk=16)
 
 
 def add_trainers(eng, vocab, n_rows=16, accum=2, sets=None):
@@ -1356,13 +1392,15 @@ def slot_leaves(store, slots):
                       for t in store.targets for k in ("a", "b")])
 
 
-def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3):
+def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3, attn_chunk=0):
     """Phase 3, training: two trainers and four served requests through the
     engine on ``cuda`` and on ``cpu`` (virtual clock, fp32): served tokens
     equal, per-row losses within 1e-4 relative, optimizer steps equal, and
     the trained slots within 2 * lr * steps + 1e-6 per element (an AdamW
     step moves an element by at most lr, so a near-zero gradient whose sign
-    differs moves it by at most 2 lr)."""
+    differs moves it by at most 2 lr).  ``attn_chunk`` > 0 runs the ft
+    attention chunked (online softmax, query blocks recomputed in the
+    backward)."""
     from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
     from repro_torch.data import datasets
     from repro_torch.serving.engine import EngineConfig
@@ -1380,7 +1418,8 @@ def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3):
         eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
                            torch.float32, EngineConfig(
                                capacity=4, pf_capacity=2, s_max=96,
-                               virtual_time=True, opt=AdamWConfig(lr=lr)))
+                               virtual_time=True, opt=AdamWConfig(lr=lr),
+                               attn_chunk=attn_chunk))
         add_trainers(eng, cfg.vocab)
         for i, p in enumerate(prompts):
             eng.submit(Request(rid=i, prompt=p, adapter="lora0",
@@ -1421,6 +1460,7 @@ def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3):
         raise AssertionError(f"smlm_wgrad never launched: {gl}")
     m = ge.metrics
     print(f"parity: training, 2 trainers + 4 served requests, lr={lr:g}, "
+          f"attn_chunk={attn_chunk}, "
           f"cuda==cpu served tokens, optimizer_steps="
           f"{[t.optimizer_steps for t in ge.trainers.values()]}, per-row "
           f"losses max_rel_err={worst:.3e} tol=1e-4 ("
@@ -1430,6 +1470,92 @@ def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3):
           f"{float((diff > 1e-6).float().mean()):.3e}, finetune_tokens="
           f"{m.finetune_tokens} steps={m.steps}, cuda launches smlm="
           f"{gl['smlm']} smlm_wgrad={gl['smlm_wgrad']} ok")
+
+
+MEMORY_COUNTERS = ("smlm", "bgmv", "decode", "prefill", "flash")
+KV_COUNTERS = ("kv_swap_outs", "kv_swap_out_bytes", "kv_restores",
+               "kv_restore_bytes", "kv_swap_drops", "kv_demotions",
+               "kv_demote_bytes", "kv_rehydrations", "kv_rehydrate_bytes")
+
+
+def parity_memory(K, cfg, flat, lcfg, devices):
+    """Phase 3, the memory features, on ``cuda`` and on ``cpu`` (virtual
+    clock, fp32): (a) lending (``over_admit=2.0``) in a 7-block pool with a
+    host tier, (b) adapter paging, 6 adapters of true ranks 4 and 8 on a
+    4-slot bank.  Tokens, ``swap_decisions``, preemptions, the ``kv_*``
+    counters, adapter swap-ins and steps must be equal on the two
+    devices."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    from repro_torch.serving.request import Request
+    ad = {f"ad{i}": numpy_adapter(cfg, lcfg, seed=30 + i) for i in range(6)}
+    rng = np.random.default_rng(11)
+    lend_prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
+                    for _ in range(3)]
+    page_prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
+                    for _ in range(12)]
+    arms = {
+        "lending": (dict(capacity=4, pf_capacity=2, s_max=64,
+                         block_size=16, n_blocks=8, over_admit=2.0,
+                         kv_host_blocks=8),
+                    [("ad0", p, 40, 0.1 * i)
+                     for i, p in enumerate(lend_prompts)], 1),
+        "paging": (dict(capacity=4, pf_capacity=2, s_max=64, block_size=16,
+                        n_blocks=48, adapter_paging=True),
+                   [(f"ad{i % 6}", p, 6, 0.02 * i)
+                    for i, p in enumerate(page_prompts)], 6)}
+    for arm, (ecfg, trace, n_ad) in arms.items():
+        runs = {}
+        for dev in devices:
+            params = params_from_numpy(flat, device=dev)
+            store = AdapterStore(cfg, lcfg, device=dev, dtype=torch.float32)
+            eng = UnifiedEngine(MixedLoraModel(cfg, params, store),
+                                EngineConfig(virtual_time=True, **ecfg))
+            for i in range(n_ad):
+                name = f"ad{i}"
+                store.load(name, {"layers": bank_from_numpy(
+                    ad[name], device=dev)["layers"]}, evict=True,
+                    rank=(4, 8)[i % 2])
+            for rid, (name, p, max_new, at) in enumerate(trace):
+                eng.submit(Request(rid=rid, prompt=p, adapter=name,
+                                   max_new_tokens=max_new, arrival=at))
+            reset_counts(K)
+            eng.run(max_ticks=10000)
+            m = eng.metrics
+            runs[dev] = dict(
+                tokens={r.rid: list(r.output) for r in eng.finished},
+                swap_decisions=eng.swap_decisions, steps=m.steps,
+                preemptions=m.preemptions, swap_ins=m.adapter_swap_ins,
+                kv={k: getattr(eng.cachemgr, k) for k in KV_COUNTERS},
+                pristine=eng.cachemgr.pristine,
+                launches=read_counts(K, MEMORY_COUNTERS))
+        got, want = runs[devices[0]], runs[devices[1]]
+        for key in ("tokens", "swap_decisions", "steps", "preemptions",
+                    "swap_ins", "kv", "pristine"):
+            if got[key] != want[key]:
+                raise AssertionError(f"parity {arm}: {key} differs: cuda "
+                                     f"{got[key]} cpu {want[key]}")
+        if len(got["tokens"]) != len(trace) or not got["pristine"]:
+            raise AssertionError(f"parity {arm}: not every request finished"
+                                 f" or the pool is not pristine")
+        if arm == "lending" and not (got["preemptions"]
+                                     and got["kv"]["kv_swap_outs"]
+                                     and got["kv"]["kv_restores"]):
+            raise AssertionError(f"parity lending: no preemption, swap-out "
+                                 f"or restore: {got}")
+        if arm == "paging" and not got["swap_ins"]:
+            raise AssertionError("parity paging: no adapter swap-in")
+        if devices[0] == "cuda" and min(
+                got["launches"][k] for k in ("smlm", "bgmv", "decode")) == 0:
+            raise AssertionError(f"parity {arm}: kernels not launched: "
+                                 f"{got['launches']}")
+        print(f"parity: {arm} {ecfg}, cuda==cpu tokens for "
+              f"{len(trace)} requests, steps={got['steps']} preemptions="
+              f"{got['preemptions']} swap_decisions="
+              f"{len(got['swap_decisions'])} kv={got['kv']} "
+              f"adapter_swap_ins={got['swap_ins']} cuda launches="
+              f"{got['launches']} ok")
 
 
 # ------------------------------------- phases 4-6: full width, one weight set
@@ -2075,6 +2201,425 @@ def profile_prefill(eng, tick, req, label):
         tick()
 
 
+# ------------------------------------------- phases 9-10: memory features
+def pinned_copy_ms(nbytes, dev, iters=5):
+    """Host-clock ms of a pinned copy of ``nbytes`` each way, D2H and H2D,
+    ending in a synchronize (mean of ``iters`` after a warm-up)."""
+    host = torch.empty((nbytes,), dtype=torch.uint8, pin_memory=True)
+    card = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    out = []
+    for src, dst in ((card, host), (host, card)):
+        dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            dst.copy_(src, non_blocking=True)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / iters * 1e3)
+    return tuple(out)
+
+
+def watch_tiers(eng, log):
+    """Wrap the manager's swap-out and restore: each transfer's host-clock
+    ms (synchronized before and after) and bytes go into ``log``, the
+    victim's blocks are kept on the card at the swap-out, and the restore
+    is checked against them: bit-equal for the raw tier; for the int8
+    tier within half a step of each element's scale before the cast and
+    equal to the plain dequant of the stored payload."""
+    cm = eng.cachemgr
+    swap_out, restore = cm.swap_out, cm.restore_swap
+    kept = {}
+
+    def timed_swap_out(slot):
+        nb = cm.swap_payload_blocks(slot)
+        idx = torch.tensor(cm.tables[slot][:nb], device=cm.device)
+        orig = {k: cm.cache[k].index_select(1, idx) for k in ("k", "v")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sid = swap_out(slot)
+        torch.cuda.synchronize()
+        if sid is not None:
+            log["d2h"].append(((time.perf_counter() - t0) * 1e3,
+                               nb * cm.host_block_bytes, nb))
+            entry = cm.host_pool._swap_sets[sid]
+            kept[sid] = (orig, cm.host_payload(entry) if cm.host_quant
+                         else None)
+        return sid
+
+    def timed_restore(slot, sid):
+        orig, stored = kept.pop(sid)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b0 = cm.kv_restore_bytes
+        covered = restore(slot, sid)
+        torch.cuda.synchronize()
+        nbytes = cm.kv_restore_bytes - b0
+        if not nbytes:
+            return covered
+        nw = nbytes // cm.host_block_bytes
+        shared = min(cm.shared_count.get(slot, 0), len(cm.tables[slot]))
+        log["h2d"].append(((time.perf_counter() - t0) * 1e3, nbytes, nw))
+        idx = torch.tensor(cm.tables[slot][shared:shared + nw],
+                           device=cm.device)
+        for k in ("k", "v"):
+            got = cm.cache[k].index_select(1, idx)
+            want = orig[k][:, shared:shared + nw]
+            if not cm.host_quant:
+                if not torch.equal(got, want):
+                    raise AssertionError("a restored block differs from "
+                                         "the victim's original")
+                continue
+            q = stored[k]["_q8"][:, shared:shared + nw].to(cm.device)
+            sc = stored[k]["_qs"][:, shared:shared + nw].to(cm.device)
+            deq = q.float() * sc
+            # half a step, plus the fp32 rounding of x / s and q * s
+            err = (deq - want.float()).abs() - sc * (0.5 + 2e-5)
+            if float(err.max()) > 0:
+                raise AssertionError("int8 round trip beyond half a step")
+            if not torch.equal(got, deq.to(got.dtype)):
+                raise AssertionError("restore differs from the plain "
+                                     "dequant of the stored payload")
+            log["q8_err_steps"] = max(log.get("q8_err_steps", 0.0), float(
+                ((deq - want.float()).abs() / sc).max()))
+        log["checked"] += nw
+        return covered
+
+    cm.swap_out, cm.restore_swap = timed_swap_out, timed_restore
+
+
+def tier_requests(cfg, rng, n=8, prompt=128, max_new=96):
+    from repro_torch.serving.request import Request
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab, prompt)
+                    .astype(np.int32), adapter=f"lora{i % 2}",
+                    max_new_tokens=max_new) for i in range(n)]
+
+
+def measured_cost(dev, block_bytes, prefill_per_tok):
+    """``CostModel`` with this card's pinned copy rates for one block and
+    the reference run's prefill seconds per token."""
+    from repro_torch.serving.clock import CostModel
+    d2h, h2d = pinned_copy_ms(block_bytes, dev)
+    return CostModel(d2h_per_byte=d2h * 1e-3 / block_bytes,
+                     h2d_per_byte=h2d * 1e-3 / block_bytes,
+                     prefill_per_tok=prefill_per_tok), (d2h, h2d)
+
+
+def full_tiers(K, cfg, weights, dev, n_blocks=49, max_new=96, seed=2):
+    """Phase 9: 8 requests of distinct 128-token prompts and 96 new tokens
+    at t=0 through (A) the default pool, (B) ``n_blocks`` with
+    ``over_admit=2.0`` (recompute preemption), (C) as B with a 32-block host
+    tier and (D) as C in int8; C and D with a cost model of this card's
+    copy rates and A's prefill time; then a demote/rehydrate trace with
+    C's tier.  Returns the launch counts of the phase and A's outputs."""
+    from repro_torch.serving.clock import CostModel
+    from repro_torch.serving.kvcache import swap_beats_recompute
+    from repro_torch.serving.request import Request, State
+    base = dict(capacity=8, pf_capacity=4, s_max=512, virtual_time=True)
+    lend = dict(base, n_blocks=n_blocks, over_admit=2.0)
+    arms = {"A": dict(base), "B": dict(lend),
+            "C": dict(lend, kv_host_blocks=32),
+            "D": dict(lend, kv_host_blocks=32, kv_host_quant=True)}
+    rng = np.random.default_rng(seed)
+    reqs = tier_requests(cfg, rng, max_new=max_new)
+    outs, counts, engs = {}, {k: 0 for k in COUNTERS}, {}
+    cost = None
+    for arm, ecfg in arms.items():
+        if arm in ("C", "D"):
+            ecfg = dict(ecfg, cost=cost)
+        eng, seen, ticks, tick = timed_engine(cfg, weights, **ecfg)
+        log = {"d2h": [], "h2d": [], "checked": 0}
+        if arm in ("C", "D"):
+            watch_tiers(eng, log)
+        peak = [0]
+        fresh = copies([reqs])
+
+        def watched():
+            tick()
+            peak[0] = max(peak[0], len(eng.active) + len(eng.prefilling))
+
+        reset_counts(K)
+        run_waves(eng, watched, fresh)
+        for k, v in read_counts(K).items():
+            counts[k] += v
+        outs[arm] = check_drained(eng, seen, 8, max_new)
+        m, cm = eng.metrics, eng.cachemgr
+        if arm == "A":
+            pf = ([(t, p) for t, p, d, *_ in ticks if p and not d]
+                  or [(t, p) for t, p, *_ in ticks if p])
+            per_tok = sum(t for t, _ in pf) / sum(p for _, p in pf)
+            cost, rates = measured_cost(dev, cm.adapter_block_bytes, per_tok)
+            print(f"tiers: cost model from this run: prefill_per_tok="
+                  f"{per_tok:.6e} s ({len(pf)} prefill ticks), "
+                  f"pinned copy of one {cm.adapter_block_bytes}-byte block "
+                  f"d2h_ms={rates[0]:.4f} h2d_ms={rates[1]:.4f} -> "
+                  f"d2h_per_byte={cost.d2h_per_byte:.4e} h2d_per_byte="
+                  f"{cost.h2d_per_byte:.4e} (default: d2h "
+                  f"{CostModel().d2h_per_byte:.1e} h2d "
+                  f"{CostModel().h2d_per_byte:.1e} prefill_per_tok "
+                  f"{CostModel().prefill_per_tok:.1e})")
+        elif m.preemptions == 0:
+            raise AssertionError(f"tiers {arm}: no preemption")
+        dec = eng.swap_decisions
+        default = sum(int(d["blocks"] > 0 and swap_beats_recompute(
+            d["stored_bytes"], d["recompute_tokens"], CostModel()))
+            for d in dec)
+        if arm in ("C", "D") and not (m.kv_swap_outs and m.kv_restores
+                                      and log["checked"]):
+            raise AssertionError(f"tiers {arm}: no swap-out or restore "
+                                 f"checked ({m.kv_swap_outs}, "
+                                 f"{m.kv_restores}, {log['checked']})")
+        same, same_b = (sum(int(a == b) for rid in outs[arm]
+                            for a, b in zip(outs[arm][rid], outs[ref][rid]))
+                        for ref in ("A", "B" if "B" in outs else "A"))
+        print(f"tiers: {arm} {cfg.name} bf16 n_blocks={cm.allocator.n_blocks}"
+              f" over_admit={cm.over_admit} host_blocks="
+              f"{ecfg.get('kv_host_blocks', 0)} quant={cm.host_quant} "
+              f"host_block_bytes={cm.host_block_bytes} requests=8 "
+              f"tokens_each={max_new} steps={m.steps} admitted_peak="
+              f"{peak[0]} lent_blocks_peak={m.lent_blocks_peak} "
+              f"preemptions={m.preemptions} recomputed_tokens="
+              f"{m.preempted_tokens_recomputed} swap_decisions taken="
+              f"{sum(int(d['chose_swap']) for d in dec)} skipped="
+              f"{sum(int(not d['chose_swap']) for d in dec)} "
+              f"default_constants_would_take={default}/{len(dec)} "
+              f"swap_outs={m.kv_swap_outs} swap_out_bytes="
+              f"{m.kv_swap_out_bytes} restores={m.kv_restores} "
+              f"restore_bytes={m.kv_restore_bytes} restored_tokens="
+              f"{m.kv_restored_tokens} host_bytes_peak={m.host_bytes_peak} "
+              f"blocks_checked={log['checked']} "
+              f"{tick_stats(ticks)} tokens_equal_to_A={same}/{8 * max_new} "
+              f"tokens_equal_to_B={same_b}/{8 * max_new} "
+              f"finite=True pristine=True ok")
+        for way in ("d2h", "h2d"):
+            for ms, nbytes, nb in log[way]:
+                ref = pinned_copy_ms(nbytes, dev)[way == "h2d"]
+                print(f"transfer: {arm} {way} blocks={nb} bytes={nbytes} "
+                      f"ms={ms:.4f} GB/s={nbytes / ms / 1e6:.3f} "
+                      f"pinned_copy_ms={ref:.4f} pinned_GB/s="
+                      f"{nbytes / ref / 1e6:.3f}")
+        if "q8_err_steps" in log:
+            print(f"tiers: {arm} int8 round trip max |err| = "
+                  f"{log['q8_err_steps']:.4f} steps (<= 0.5) over "
+                  f"{log['checked']} blocks, restore == plain dequant ok")
+        engs[arm] = ecfg
+        del eng
+    # demote/rehydrate: two shared heads under pool pressure with C's tier
+    eng, seen, ticks, tick = timed_engine(
+        cfg, weights, **dict(base, n_blocks=11, over_admit=2.0,
+                             kv_host_blocks=32, cost=cost))
+    heads = [rng.integers(0, cfg.vocab, 128).astype(np.int32)
+             for _ in range(2)]
+    waves = [[Request(rid=100 + 2 * w + i, prompt=np.concatenate(
+        [heads[w % 2], rng.integers(0, cfg.vocab, 16).astype(np.int32)]),
+        adapter="lora0", max_new_tokens=16) for i in range(2)]
+        for w in range(4)]
+    reset_counts(K)
+    for wave in waves:
+        run_waves(eng, tick, [wave])
+    for k, v in read_counts(K).items():
+        counts[k] += v
+    check_drained(eng, seen, 8, 16)
+    m = eng.metrics
+    if not (m.kv_demotions and m.kv_rehydrated_blocks):
+        raise AssertionError(f"demote trace: demotions={m.kv_demotions} "
+                             f"rehydrated={m.kv_rehydrated_blocks}")
+    print(f"tiers: demote trace, two 128-token heads in 4 waves of 2 "
+          f"(n_blocks=11, host_blocks=32): demotions={m.kv_demotions} "
+          f"rehydrated_blocks={m.kv_rehydrated_blocks} hash_hits="
+          f"{m.hash_hits} reused_prefix_tokens={m.reused_prefix_tokens} "
+          f"steps={m.steps} pristine=True ok")
+    del eng
+    need = ("smlm", "bgmv", "prefill", "decode", "flash")
+    if min(counts[k] for k in need) == 0:
+        raise AssertionError(f"tiers: a kernel never launched: {counts}")
+    differ = [a for a in "BCD" if outs[a] != outs["A"]]
+    if differ:
+        ref = logged_copy("tiers", cfg, weights, copies([reqs]), outs["A"],
+                          **arms["A"])
+        for a in differ:
+            rows = logged_copy(f"tiers {a}", cfg, weights, copies([reqs]),
+                               outs[a], **engs[a])
+            divergences(f"tiers {a}", "A", ref, a, rows, 8 * max_new)
+    return counts
+
+
+def paging_store(cfg, dev, dtype, n=12):
+    """A 4-slot r=8 bank with ``n`` gaussian-B adapters of alternating true
+    ranks 8 and 4, made on the card from seeds (8 of them evicted to host
+    by the bank's LRU)."""
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.virtualization import AdapterStore
+    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8), device=dev,
+                         dtype=dtype)
+    for i in range(n):
+        g = torch.Generator(device=dev)
+        g.manual_seed(300 + i)
+        store.load_random(f"pg{i}", g, gaussian_b=True, evict=True,
+                          rank=(8, 4)[i % 2])
+    return store
+
+
+def paging_waves(cfg, rng, n=24, n_ad=12, prompt=64, max_new=32):
+    from repro_torch.serving.request import Request
+    w = 1.0 / np.arange(1, n_ad + 1)
+    pick = rng.choice(n_ad, size=n, p=w / w.sum())
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, prompt)
+                    .astype(np.int32), adapter=f"pg{pick[i]}",
+                    max_new_tokens=max_new) for i in range(n)]
+    return [reqs[i:i + n // 3] for i in range(0, n, n // 3)]
+
+
+def check_image_round_trip(store, cm):
+    """bank slot -> byte image -> pool -> gather -> another bank slot, in
+    bf16 at true ranks 4 and 8: bit-exact, columns beyond the rank zero."""
+    done = []
+    for rank in (8, 4):
+        name = f"pg{(8, 4).index(rank)}"
+        slot = store.acquire(name)
+        if len(store.resident) == store.lcfg.n_slots:
+            store.unload(next(n for n in store.resident if n != name))
+        image = store._flatten(slot, rank)
+        key = f"roundtrip{rank}"
+        if not cm.adapter_admit(key, image):
+            raise AssertionError("no pool room for the round-trip check")
+        got = cm.adapter_gather(key)
+        free = next(i for i in range(store.lcfg.n_slots)
+                    if i not in store._slots.values())
+        store._write_image(free, got, rank)
+        for layer in store.bank["layers"]:
+            for ab in layer.values():
+                if not (torch.equal(ab["a"][free], ab["a"][slot])
+                        and torch.equal(ab["b"][free], ab["b"][slot])
+                        and not ab["a"][free][:, rank:].any()
+                        and not ab["b"][free][rank:].any()):
+                    raise AssertionError(f"rank {rank} image round trip "
+                                         f"is not bit-exact")
+        with torch.no_grad():
+            for layer in store.bank["layers"]:
+                for ab in layer.values():
+                    ab["a"][free].zero_()
+                    ab["b"][free].zero_()
+        cm.adapter_free(key)
+        done.append(f"r{rank}:{image.numel()}B/"
+                    f"{cm.adapter_blocks_of(image.numel())}blocks")
+    return done
+
+
+def full_paging(K, cfg, weights, dev, seed=3, max_new=32):
+    """Phase 10: 24 requests over 12 adapters (weights 1/(i+1)) in 3 waves
+    on a 4-slot bank, with ``adapter_paging`` off (the bank's LRU voids to
+    host) and on (adapters page through the KV pool); then the byte-image
+    round trip and void/unvoid on the card.  Returns the launch counts."""
+    from repro_torch.core.virtualization import MixedLoraModel, VirtualModel
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    params = weights[0]
+    dtype = params["embed"].dtype
+    ecfg = dict(capacity=8, pf_capacity=4, s_max=512, n_blocks=65,
+                virtual_time=True)
+    waves = paging_waves(cfg, np.random.default_rng(seed), max_new=max_new)
+    outs, counts, stores = {}, {k: 0 for k in COUNTERS}, {}
+    for paging in (False, True):
+        store = paging_store(cfg, dev, dtype)
+        eng, seen, ticks, tick = timed_engine(
+            cfg, (params, store, 0), adapter_paging=paging, **ecfg)
+        cm = eng.cachemgr
+        admits, peak = [], [0]
+        if paging:
+            admit = cm.adapter_admit
+
+            def timed_admit(name, payload, shed=True):
+                fresh = name not in cm.adapter_tables
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ok = admit(name, payload, shed=shed)
+                torch.cuda.synchronize()
+                if ok and fresh:
+                    admits.append(((time.perf_counter() - t0) * 1e3,
+                                   int(payload.numel())))
+                return ok
+
+            cm.adapter_admit = timed_admit
+
+        def watched():
+            tick()
+            peak[0] = max(peak[0], cm.adapter_blocks_resident)
+
+        reset_counts(K)
+        run_waves(eng, watched, copies(waves))
+        for k, v in read_counts(K).items():
+            counts[k] += v
+        outs[paging] = check_drained(eng, seen, 24, max_new)
+        m = eng.metrics
+        if paging and not m.adapter_swap_ins:
+            raise AssertionError("paging: no adapter swap-in")
+        print(f"paging: {'on' if paging else 'off'} {cfg.name} bf16 "
+              f"adapters=12 (ranks 8/4) bank_slots=4 n_blocks=65 "
+              f"requests=24 tokens_each={max_new} steps={m.steps} "
+              f"swap_ins={m.adapter_swap_ins} swap_in_bytes="
+              f"{m.adapter_swap_in_bytes} bank_reloads={store.reloads} "
+              f"bank_evictions={store.evictions} pool_admits="
+              f"{cm.adapter_swap_ins} pool_sheds={cm.adapter_sheds} "
+              f"adapter_blocks_resident_peak={peak[0]} resident_hits="
+              f"{m.adapter_resident_hits} peak_coresident="
+              f"{m.adapter_peak_coresident} {tick_stats(ticks)} "
+              f"finite=True pristine=True ok")
+        for ms, nbytes in admits:
+            ref = pinned_copy_ms(nbytes, dev)[1]
+            print(f"transfer: paging swap-in bytes={nbytes} ms={ms:.4f} "
+                  f"GB/s={nbytes / ms / 1e6:.3f} pinned_copy_ms={ref:.4f} "
+                  f"pinned_GB/s={nbytes / ref / 1e6:.3f}")
+        if paging:
+            print(f"paging: image round trip bit-exact in bf16 "
+                  f"{check_image_round_trip(store, cm)} ok")
+        stores[paging] = store
+        del eng
+    same = sum(int(a == b) for rid in outs[True]
+               for a, b in zip(outs[True][rid], outs[False][rid]))
+    print(f"paging: tokens_equal_off_vs_on={same}/{24 * max_new}")
+    if outs[True] != outs[False]:
+        rows = {}
+        for paging in (False, True):
+            store = paging_store(cfg, dev, dtype)
+            rows[paging] = logged_copy(
+                f"paging {'on' if paging else 'off'}", cfg,
+                (params, store, 0), copies(waves), outs[paging],
+                adapter_paging=paging, **ecfg)
+        divergences("paging", "off", rows[False], "on", rows[True],
+                    24 * max_new)
+    # void/unvoid: an adapter voided from the paged run's store and bound
+    # into a fresh store on the card serves 4 requests in one batch with
+    # bit-identical tokens
+    src = stores[False]
+    name = src.resident[0]
+    voided = MixedLoraModel(cfg, params, src).virtual(name).void()
+    fresh = paging_store(cfg, dev, dtype, n=0)
+    VirtualModel.unvoid(voided, params, fresh, dev)
+    rng = np.random.default_rng(seed + 1)
+    prompts = [rng.integers(0, cfg.vocab, 64).astype(np.int32)
+               for _ in range(4)]
+    toks = []
+    reset_counts(K)
+    for st in (src, fresh):
+        eng = UnifiedEngine(MixedLoraModel(cfg, params, st),
+                            EngineConfig(**ecfg))
+        from repro_torch.serving.request import Request
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, adapter=name,
+                               max_new_tokens=16))
+        eng.run(max_ticks=10000)
+        toks.append({r.rid: list(r.output) for r in eng.finished})
+    for k, v in read_counts(K).items():
+        counts[k] += v
+    if toks[0] != toks[1] or len(toks[0]) != 4:
+        raise AssertionError(f"void/unvoid tokens differ: {toks}")
+    print(f"paging: void/unvoid {name} (rank {src._ranks[name]}) into a "
+          f"fresh store on {dev}: 4 requests in one batch, 64 tokens "
+          f"bit-identical ok")
+    if counts["smlm"] == 0 or counts["bgmv"] == 0:
+        raise AssertionError(f"paging: SMLM or BGMV never launched: {counts}")
+    return counts
+
+
 SOURCES = {
     "smlm": ("src/repro_torch/kernels/csrc/smlm.cu",
              "src/repro/kernels/smlm.py:39"),
@@ -2157,6 +2702,9 @@ def main() -> int:
                          "speculative and on dense rows, untimed, and print "
                          "each request's first divergence from the plain "
                          "run with the logit margins")
+    ap.add_argument("--memory", action="store_true",
+                    help="only the memory features: phase 3's lending, "
+                         "paging and chunked-training parity, phases 9-10")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -2209,6 +2757,20 @@ def main() -> int:
         print(f"divergence: root={os.path.relpath(root, ROOT)}")
         print(card())
         return 0
+    if a.memory:
+        from repro_torch.configs import get_config, get_reduced
+        from repro_torch.core.lora import LoRAConfig
+        small = get_reduced("llama3-8b")
+        lcfg = LoRAConfig(n_slots=4, r=8)
+        flat = numpy_weights(small, seed=0)
+        parity_memory(K, small, flat, lcfg, ("cuda", "cpu"))
+        parity_train(K, small, flat, lcfg, ("cuda", "cpu"), attn_chunk=16)
+        cfg = get_config("llama3-8b")
+        weights = full_weights(cfg, dev, torch.bfloat16)
+        full_tiers(K, cfg, weights, dev)
+        full_paging(K, cfg, weights, dev)
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -2236,6 +2798,8 @@ def main() -> int:
     del ref_rows
     layouts_in_turns(cfg, weights, waves)
     by_path["train"] = full_train(K, cfg, weights, dev, waves, plain)
+    by_path["tiers"] = full_tiers(K, cfg, weights, dev)
+    by_path["paging"] = full_paging(K, cfg, weights, dev)
 
     kernels = []
     for name in SOURCES:

@@ -1,6 +1,7 @@
-"""Virtualized adapters: a shared base model plus a slotted LoRA bank.
+"""Virtualized adapters: a shared base model, a slotted LoRA bank, unified
+adapter paging and void/unvoid migration.
 
-Port of the static-bank part of ``repro.core.virtualization``:
+Port of ``repro.core.virtualization``:
 
 * the **base model** is one set of parameter tensors shared by every
   virtual model (no extra weight memory);
@@ -8,23 +9,56 @@ Port of the static-bank part of ``repro.core.virtualization``:
   resident adapters), the name -> slot map and the per-slot scale.  Loading
   writes one slot in place; when every slot is taken, ``acquire`` of an
   evicted adapter LRU-evicts an idle one (not pinned, not retained) to host
-  memory and reloads the requested one, counting the swap-in.
+  memory and reloads the requested one, counting the swap-in;
+* a **VirtualModel** is a named view ``(base, store, name, mode)``; ``void``
+  detaches its adapter to host memory (base excluded) and ``unvoid`` binds
+  it into a store on a given device (the paper's migration).
 
-Training writes the bank through ``set_bank`` (the masked optimizer's
-result) and ``slot_mask`` names the slots a step may touch.  Void/unvoid
-migration and unified adapter paging (``attach_pager``) come in later
-slices.
+Unified adapter paging (``attach_pager``): the store is bound to a
+``PagedCacheManager`` and adapter weights page through its block pool.  An
+adapter is then bank-materialized (a slot of the bank the SMLM/BGMV kernels
+read), pool-resident (its byte image at its true rank in pool blocks on the
+device; materializing it is a gather) or host-archived (the next ``acquire``
+is a counted, clock-charged swap-in).  The byte image (``_flatten``) is the
+bank slot's leaves viewed as bytes, per layer and target ``a[:, :rank]``
+then ``b[:rank]``: as many bytes as the JAX package's image, in its own
+order.  The archive is a host copy of it, written at ``load`` and kept
+current lazily: a training update marks the adapter dirty (``mark_dirty``)
+and the image is re-taken from the bank at the next sync point (bank
+eviction or pool shed).  Bank slots are always written in place, so the
+bank leaves the grad step and the optimizer hold keep their storage.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import dataclasses
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from repro_torch.core.lora import LoRAConfig, init_lora_bank
 from repro_torch.device import DeviceLike, resolve_device, resolve_dtype
+from repro_torch.errors import ConfigInvariantError, MigrationInvariantError
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models.schema import lora_targets
+
+
+@dataclasses.dataclass
+class VoidedModel:
+    """A voided virtual model: adapter weights detached to host tensors,
+    ready for serialization or migration to another device.  The base
+    model is not included."""
+    name: str
+    cfg_name: str
+    adapter: Any                     # {"layers": [{t: {"a", "b"}}]} on cpu
+    scale: float
+
+
+def _host(x: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A host copy of ``x``, in pinned memory when ``pin`` (a store on the
+    card: its swap-ins are then asynchronous copies)."""
+    h = torch.empty(x.shape, dtype=x.dtype, pin_memory=pin)
+    h.copy_(x)
+    return h
 
 
 class AdapterStore:
@@ -51,34 +85,205 @@ class AdapterStore:
             for _ in range(cfg.n_layers)]}
         self.scale = torch.ones((n,), dtype=torch.float32, device=self.device)
         self._slots: Dict[str, int] = {}
-        self._voided: Dict[str, tuple] = {}   # evicted: (host adapter, scale)
-        self._ranks: Dict[str, int] = {}
+        self._voided: Dict[str, VoidedModel] = {}   # evicted, host-resident
+        self._ranks: Dict[str, int] = {}             # name -> true rank
         self._pinned: set = set()
         self._refs: Dict[str, int] = {}
         self._lru: Dict[str, int] = {}
         self._tick = 0
         self.evictions = 0
         self.reloads = 0
+        # unified paging (attach_pager): host archive of byte images,
+        # adapters whose bank slot is newer than the archive, the pager
+        self._archive: Dict[str, tuple] = {}         # name -> (bytes, scale)
+        self._dirty: set = set()
+        self.pager = None                            # PagedCacheManager
         self.swap_ins = 0
         self.swap_in_bytes = 0
-        self.resident_hits = 0
-        self.peak_coresident = 0
+        self.resident_hits = 0       # acquires served without host traffic
+        self.peak_coresident = 0     # max adapters simultaneously on device
 
     # -- slot management ---------------------------------------------------
     def slot_of(self, name: str) -> int:
         return self._slots[name]
 
+    @property
+    def resident(self) -> List[str]:
+        return list(self._slots)
+
+    @property
+    def voided(self) -> List[str]:
+        """Adapters whose only copy is host memory."""
+        out = list(self._voided)
+        if self.pager is not None:
+            out += [n for n in self._archive
+                    if n not in self._slots
+                    and not self.pager.adapter_resident(n)]
+        return out
+
     def _touch(self, name: str):
         self._tick += 1
         self._lru[name] = self._tick
 
-    def adapter_nbytes(self, name: str) -> int:
-        """Bytes of an adapter at its true rank (what a swap-in moves)."""
-        rk = self._ranks.get(name, self.lcfg.r)
-        it = torch.empty((), dtype=self.dtype).element_size()
+    @property
+    def _pin(self) -> bool:
+        return self.device.type == "cuda"
+
+    @property
+    def _itemsize(self) -> int:
+        return torch.empty((), dtype=self.dtype).element_size()
+
+    def adapter_nbytes(self, name: Optional[str] = None,
+                       rank: Optional[int] = None) -> int:
+        """Bytes of an adapter at its true rank (what the pool stores and a
+        swap-in moves)."""
+        rk = (int(rank) if rank is not None
+              else self._ranks.get(name, self.lcfg.r))
         per_layer = sum(rk * (t.d_in + t.d_out)
                         for t in self.targets.values())
-        return self.cfg.n_layers * per_layer * it
+        return self.cfg.n_layers * per_layer * self._itemsize
+
+    # -- unified paging: byte images + pager binding ------------------------
+    def _flatten(self, slot: int, rank: int) -> torch.Tensor:
+        """The byte image of bank slot ``slot`` at its true rank, a flat
+        uint8 tensor on the store's device: per layer and target,
+        ``a[:, :rank]`` then ``b[:rank]``.  Columns beyond the rank are
+        dropped (``_write_image`` zero-fills them)."""
+        parts = []
+        for layer in self.bank["layers"]:
+            for t in self.targets:
+                a, b = layer[t]["a"][slot], layer[t]["b"][slot]
+                parts.append(a[:, :rank].contiguous().view(torch.uint8)
+                             .reshape(-1))
+                parts.append(b[:rank].contiguous().view(torch.uint8)
+                             .reshape(-1))
+        return torch.cat(parts)
+
+    def _write_image(self, slot: int, image: torch.Tensor, rank: int):
+        """In place: bank slot ``slot`` gets the byte image (the inverse of
+        ``_flatten``), columns beyond ``rank`` zero."""
+        flat = image.to(self.device, non_blocking=True)
+        if flat.numel() != self.adapter_nbytes(rank=rank):
+            raise ValueError("adapter byte image does not match the LoRA "
+                             "target schema")
+        it, off = self._itemsize, 0
+        with torch.no_grad():
+            for layer in self.bank["layers"]:
+                for name, t in self.targets.items():
+                    da, db = layer[name]["a"][slot], layer[name]["b"][slot]
+                    na, nb = t.d_in * rank * it, rank * t.d_out * it
+                    da.zero_()
+                    db.zero_()
+                    da[:, :rank] = flat[off:off + na].view(
+                        self.dtype).view(t.d_in, rank)
+                    off += na
+                    db[:rank] = flat[off:off + nb].view(
+                        self.dtype).view(rank, t.d_out)
+                    off += nb
+
+    def attach_pager(self, pager):
+        """Bind to a ``PagedCacheManager``: from here on adapter weights
+        page through its block pool.  Loaded adapters are archived and
+        preloaded into the pool where free capacity allows (no shedding);
+        evicted ones move their host copies into the archive.  Existing
+        pins and retains are forwarded to the pool."""
+        if self.pager is not None:
+            raise RuntimeError("a pager is already attached to this store")
+        self.pager = pager
+        pager.on_adapter_shed = self._on_pool_shed
+        pager.adapter_redundant_fn = (
+            lambda n: n in self._slots and n not in self._dirty)
+        for n in self._pinned:
+            # reprolint: ownership-transfer — mirrors an existing store
+            # pin; unpin happens when that pin is dropped
+            pager.adapter_pin(n)
+        for n, c in self._refs.items():
+            for _ in range(c):
+                # reprolint: ownership-transfer — mirrors existing retains
+                pager.adapter_pin(n)
+        for n in list(self._slots):
+            self._ranks.setdefault(n, self.lcfg.r)
+            self._sync_from_bank(n)
+            pager.adapter_admit(n, self._archive[n][0], shed=False)
+        for n, v in list(self._voided.items()):
+            rk = self._ranks.setdefault(n, self.lcfg.r)
+            self._archive[n] = (self._image_of(v.adapter, rk), v.scale)
+            del self._voided[n]
+            pager.adapter_admit(n, self._archive[n][0], shed=False)
+        self._note_coresident()
+
+    def _image_of(self, adapter, rank: int) -> torch.Tensor:
+        """Host byte image of an adapter given as tensors (the layout of
+        ``_flatten``)."""
+        parts = []
+        for src in adapter["layers"]:
+            for t in self.targets:
+                for k, cut in (("a", (slice(None), slice(0, rank))),
+                               ("b", (slice(0, rank),))):
+                    x = torch.as_tensor(src[t][k])[cut].to(
+                        "cpu", self.dtype).contiguous()
+                    parts.append(x.view(torch.uint8).reshape(-1))
+        return _host(torch.cat(parts), self._pin)
+
+    def _materialize(self, name: str, image: torch.Tensor, rank: int,
+                     scale: float) -> int:
+        """Write a byte image into a bank slot (LRU-evicting if full)."""
+        slot = self._alloc(evict=True)
+        self._write_image(slot, image, rank)
+        with torch.no_grad():
+            self.scale[slot] = scale
+        self._slots[name] = slot
+        self._touch(name)
+        return slot
+
+    def _sync_from_bank(self, name: str, refresh: bool = True):
+        """Re-take ``name``'s byte image from its bank slot into the host
+        archive (and rewrite its pool payload while pool-resident): the
+        write-back that makes a trained adapter durable before its slot is
+        reused."""
+        slot = self._slots[name]
+        flat = self._flatten(slot, self._ranks.get(name, self.lcfg.r))
+        self._archive[name] = (_host(flat, self._pin),
+                               float(self.scale[slot]))
+        if (refresh and self.pager is not None
+                and self.pager.adapter_resident(name)):
+            self.pager.adapter_refresh(name, flat)
+        self._dirty.discard(name)
+
+    def _on_pool_shed(self, name: str):
+        """Pool shed callback (before the victim's blocks are freed): keep
+        the host archive current."""
+        if name in self._dirty:
+            if name in self._slots:
+                self._sync_from_bank(name, refresh=False)
+            else:
+                self._dirty.discard(name)
+
+    def mark_dirty(self, name: str):
+        """A training step rewrote this adapter's bank slot: archive and
+        pool copies are stale until the next sync point."""
+        if self.pager is not None and name in self._archive:
+            self._dirty.add(name)
+
+    def is_resident(self, name: str) -> bool:
+        """Usable without a host swap-in: bank-materialized or
+        pool-resident (the scheduler's residency probe)."""
+        if name in self._slots:
+            return True
+        if self.pager is not None:
+            return self.pager.adapter_resident(name)
+        return False
+
+    @property
+    def coresident(self) -> int:
+        """Adapters on the device at once (bank + pool, deduplicated)."""
+        names = set(self._slots)
+        if self.pager is not None:
+            names |= set(self.pager.adapter_tables)
+        return len(names)
+
+    def _note_coresident(self):
+        self.peak_coresident = max(self.peak_coresident, self.coresident)
 
     def _alloc(self, evict: bool = False) -> int:
         used = set(self._slots.values())
@@ -94,14 +299,23 @@ class AdapterStore:
         raise RuntimeError("no free adapter slot; unload one first")
 
     def _evict_lru(self) -> Optional[int]:
+        """Retire the least-recently-used idle adapter's bank slot.  Under
+        paging no ``VoidedModel`` is written: the archive (synced here if
+        the victim is dirty) already holds it."""
         candidates = [n for n in self._slots
                       if n not in self._pinned and not self._refs.get(n, 0)]
         if not candidates:
             return None
         victim = min(candidates, key=lambda n: self._lru.get(n, 0))
         slot = self._slots[victim]
-        host = self.get_adapter(victim, device="cpu")
-        self._voided[victim] = (host, float(self.scale[slot]))
+        if self.pager is not None:
+            if victim in self._dirty:
+                self._sync_from_bank(victim)
+        else:
+            self._voided[victim] = VoidedModel(
+                name=victim, cfg_name=self.cfg.name,
+                adapter=self.get_adapter(victim, device="cpu"),
+                scale=float(self.scale[slot]))
         self.unload(victim)
         self.evictions += 1
         return slot
@@ -122,14 +336,24 @@ class AdapterStore:
     def load(self, name: str, adapter, scale: float = 1.0,
              evict: bool = False, rank: Optional[int] = None) -> int:
         """Load an adapter into a free slot (LRU-evicting an idle one with
-        ``evict=True``) — no base-model copy.  ``rank`` is its true rank
-        (<= the bank rank): columns beyond it are zero."""
+        ``evict=True``, always under paging): no base-model copy.  ``rank``
+        is its true rank (<= the bank rank): columns beyond it are zero, and
+        under paging its pool and transfer footprint is proportional to
+        it."""
         if name in self._slots:
             raise ValueError(f"adapter {name!r} already resident")
         rk = int(rank) if rank is not None else self.lcfg.r
         if not 1 <= rk <= self.lcfg.r:
             raise ValueError(f"rank {rk} outside [1, {self.lcfg.r}]")
         self._ranks[name] = rk
+        if self.pager is not None:
+            image = self._image_of(adapter, rk)
+            self._archive[name] = (image, float(scale))
+            self._dirty.discard(name)
+            self.pager.adapter_admit(name, image)     # best effort
+            slot = self._materialize(name, image, rk, scale)
+            self._note_coresident()
+            return slot
         slot = self._alloc(evict=evict)
         with torch.no_grad():
             self._write(slot, adapter, rk)
@@ -137,7 +361,7 @@ class AdapterStore:
         self._slots[name] = slot
         self._voided.pop(name, None)
         self._touch(name)
-        self.peak_coresident = max(self.peak_coresident, len(self._slots))
+        self._note_coresident()
         return slot
 
     def load_random(self, name: str, generator: torch.Generator,
@@ -165,16 +389,35 @@ class AdapterStore:
 
     # -- eviction pool ------------------------------------------------------
     def acquire(self, name: str) -> int:
-        """Resolve an adapter to a bank slot, reloading an evicted one
-        (counted as a swap-in).  Raises ``KeyError`` for an unknown adapter
-        and ``RuntimeError`` when no slot can be freed this tick."""
+        """Resolve an adapter to a bank slot, re-materializing it.  Under
+        paging a bank hit or a pool gather costs no host traffic
+        (``resident_hits``); a host-archived adapter is first swapped into
+        the pool (counted) and then gathered.  Raises ``KeyError`` for an
+        unknown adapter and ``RuntimeError`` when neither the bank nor the
+        pool can take it this tick."""
         if name in self._slots:
             self._touch(name)
             self.resident_hits += 1
             return self._slots[name]
+        if self.pager is not None and name in self._archive:
+            image, scale = self._archive[name]
+            if self.pager.adapter_resident(name):
+                self.resident_hits += 1
+            else:
+                if not self.pager.adapter_admit(name, image):
+                    raise RuntimeError(
+                        f"no pool capacity to swap in adapter {name!r}")
+                self.swap_ins += 1
+                self.swap_in_bytes += int(image.numel())
+            # gather from the pool, the production read path
+            slot = self._materialize(name, self.pager.adapter_gather(name),
+                                     self._ranks[name], scale)
+            self.reloads += 1
+            self._note_coresident()
+            return slot
         if name in self._voided:
-            host, scale = self._voided[name]
-            slot = self.load(name, host, scale, evict=True,
+            v = self._voided[name]
+            slot = self.load(name, v.adapter, v.scale, evict=True,
                              rank=self._ranks.get(name))
             self.reloads += 1
             self.swap_ins += 1
@@ -183,8 +426,11 @@ class AdapterStore:
         raise KeyError(f"unknown adapter {name!r}")
 
     def retain(self, name: str):
-        """Mark the adapter as backing in-flight work (eviction-exempt)."""
+        """Mark the adapter as backing in-flight work (eviction-exempt;
+        under paging its pool blocks are pinned too)."""
         self._refs[name] = self._refs.get(name, 0) + 1
+        if self.pager is not None:
+            self.pager.adapter_pin(name)
 
     def release(self, name: str):
         n = self._refs.get(name, 0) - 1
@@ -192,24 +438,23 @@ class AdapterStore:
             self._refs.pop(name, None)
         else:
             self._refs[name] = n
+        if self.pager is not None:
+            self.pager.adapter_unpin(name)
 
     def pin(self, name: str):
         """Exempt from eviction permanently."""
+        if name not in self._pinned and self.pager is not None:
+            self.pager.adapter_pin(name)
         self._pinned.add(name)
 
     def unpin(self, name: str):
+        if name in self._pinned and self.pager is not None:
+            self.pager.adapter_unpin(name)
         self._pinned.discard(name)
 
     def set_bank(self, bank):
         """Replace the bank wholesale (after an optimizer update)."""
         self.bank = bank
-
-    def mark_dirty(self, name: str):
-        """A training step rewrote this adapter's bank slot.  With unified
-        adapter paging the archive and pool copies would be stale until the
-        next sync; that paging is not ported, so there is nothing to mark
-        and this is a no-op."""
-        del name
 
     def slot_mask(self, names: List[str]) -> torch.Tensor:
         """[n_slots] float32 on the store's device, 1 at the named
@@ -228,9 +473,55 @@ class AdapterStore:
                            for layer in self.bank["layers"]]}
 
 
+class VirtualModel:
+    """An isolated adapter view over a shared base model (one per tenant or
+    fine-tuning job)."""
+
+    def __init__(self, name: str, base_params, store: AdapterStore,
+                 mode: str = "infer"):
+        if mode not in ("infer", "train"):
+            raise ConfigInvariantError(f"unknown VirtualModel mode {mode!r}")
+        self.name, self.base, self.store, self.mode = (name, base_params,
+                                                       store, mode)
+
+    @property
+    def slot(self) -> int:
+        return self.store.slot_of(self.name)
+
+    # -- migration (the paper's void / unvoid) ------------------------------
+    def void(self) -> VoidedModel:
+        return VoidedModel(name=self.name, cfg_name=self.store.cfg.name,
+                           adapter=self.store.get_adapter(self.name,
+                                                          device="cpu"),
+                           scale=float(self.store.scale[self.slot]))
+
+    @staticmethod
+    def unvoid(voided: VoidedModel, base_params, store: AdapterStore,
+               device: DeviceLike, mode: str = "infer") -> "VirtualModel":
+        """Bind a voided adapter into ``store`` on ``device``, which must
+        be the store's device."""
+        if store.cfg.name != voided.cfg_name:
+            raise MigrationInvariantError(
+                f"config mismatch on migration: store={store.cfg.name!r} "
+                f"voided={voided.cfg_name!r}")
+        dev = torch.device(device)
+        if dev.type != store.device.type:
+            raise ValueError(f"unvoid onto {dev} but the store lives on "
+                             f"{store.device}")
+        adapter = {"layers": [
+            {t: {k: torch.as_tensor(x).to(store.device)
+                 for k, x in ab.items()} for t, ab in layer.items()}
+            for layer in voided.adapter["layers"]]}
+        store.load(voided.name, adapter, voided.scale)
+        return VirtualModel(voided.name, base_params, store, mode)
+
+
 class MixedLoraModel:
     """The executable unit of the unified flow: shared base + resident
     adapter bank (paper Section 3.3)."""
 
     def __init__(self, cfg: ModelConfig, base_params, store: AdapterStore):
         self.cfg, self.base, self.store = cfg, base_params, store
+
+    def virtual(self, name: str, mode: str = "infer") -> VirtualModel:
+        return VirtualModel(name, self.base, self.store, mode)

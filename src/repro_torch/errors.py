@@ -32,3 +32,9 @@ class MigrationInvariantError(InvariantError):
     """A void/unvoid migration was attempted across incompatible model
     configs — the adapter bytes would be reinterpreted under the wrong
     schema."""
+
+
+class MigrationInvariantError(InvariantError):
+    """A void/unvoid migration was attempted across incompatible model
+    configs: the adapter bytes would be reinterpreted under the wrong
+    schema."""

@@ -2,7 +2,8 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       [--reduced] [--device cuda|cpu] [--dtype bfloat16|float32] \\
-      [--spec K] --rps 2 --requests 40 --adapters 2
+      [--spec K] [--over-admit F] [--kv-host-blocks N [--kv-host-quant]] \
+      [--adapter-paging] --rps 2 --requests 40 --adapters 2
 
 Runs on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
 random, drawn from ``--seed``.  Prints what the JAX CLI prints for the
@@ -48,6 +49,25 @@ def main(argv=None):
     ap.add_argument("--spec", type=int, default=0, metavar="K",
                     help="speculative decoding with up to K drafted tokens "
                          "(n-gram prompt-lookup drafter)")
+    ap.add_argument("--over-admit", type=float, default=1.0, metavar="F",
+                    help="KV reservation lending factor >= 1.0: the gate "
+                         "charges 1/F of the outstanding reservation debt "
+                         "and preempts when a lent reservation comes due "
+                         "(1.0 = conservative gate)")
+    ap.add_argument("--kv-host-blocks", type=int, default=0, metavar="N",
+                    help="host KV tier of N device blocks' worth of host "
+                         "RAM: preemption victims swap out and restore "
+                         "when the modeled transfer beats recompute, and "
+                         "shed index blocks demote to host (0 = "
+                         "recompute-only preemption)")
+    ap.add_argument("--kv-host-quant", action="store_true",
+                    help="int8 host-tier residency (not bit-exact: "
+                         "restored K/V is dequantized)")
+    ap.add_argument("--adapter-paging", default=False,
+                    action=argparse.BooleanOptionalAction,
+                    help="page adapter weights through the KV block pool "
+                         "(a small LRU bank, heterogeneous true ranks; "
+                         "default off = static bank partition)")
     ap.add_argument("--priority", default="standard",
                     choices=["interactive", "standard", "batch", "mixed"])
     ap.add_argument("--seed", type=int, default=0)
@@ -57,19 +77,28 @@ def main(argv=None):
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     dtype = resolve_dtype(args.dtype, cfg.dtype)
     params = init_params(cfg, device=device, dtype=dtype, seed=args.seed)
-    lcfg = LoRAConfig(n_slots=max(4, args.adapters), r=8)
+    # under paging the bank is a small staging tier and adapters have
+    # heterogeneous true ranks; the static baseline holds every adapter
+    n_slots = (max(4, min(args.adapters, 16)) if args.adapter_paging
+               else max(4, args.adapters))
+    lcfg = LoRAConfig(n_slots=n_slots, r=8)
     store = AdapterStore(cfg, lcfg, device=device, dtype=dtype)
     names = []
+    ranks = [2, 4, 8]
     for i in range(args.adapters):
         gen = torch.Generator(device=device)
         gen.manual_seed(100 + i)
-        store.load_random(f"lora{i}", gen)
+        store.load_random(f"lora{i}", gen, evict=args.adapter_paging,
+                          rank=ranks[i % 3] if args.adapter_paging else None)
         names.append(f"lora{i}")
     model = MixedLoraModel(cfg, params, store)
     eng = UnifiedEngine(model, EngineConfig(
         capacity=8, pf_capacity=4, s_max=256,
         virtual_time=not args.wall_clock, prefill_chunk=args.prefill_chunk,
-        hash_dedup=not args.no_hash_dedup,
+        hash_dedup=not args.no_hash_dedup, over_admit=args.over_admit,
+        adapter_paging=args.adapter_paging,
+        kv_host_blocks=args.kv_host_blocks,
+        kv_host_quant=args.kv_host_quant,
         spec=(SpecConfig(k_max=args.spec, drafter="ngram") if args.spec > 0
               else None)))
 
@@ -89,18 +118,28 @@ def main(argv=None):
           f"requests={args.requests} rps={args.rps} "
           f"finished={len(eng.finished)} SLO={att:.3f}")
     print(f"rates={m.rates()}")
-    if m.preemptions:
-        print(f"preemptions={m.preemptions} "
-              f"recomputed={m.preempted_tokens_recomputed}")
+    if args.over_admit > 1.0 or m.preemptions:
+        print(f"over-admit: factor={args.over_admit} "
+              f"preemptions={m.preemptions} "
+              f"recomputed={m.preempted_tokens_recomputed} "
+              f"lent_peak={m.lent_blocks_peak}")
     if m.reused_prefix_tokens or args.prefill_chunk:
         print(f"prefix: reused={m.reused_prefix_tokens} "
               f"computed={m.prefill_tokens} "
               f"max_pf_step={m.max_pf_tokens_step}")
-    if m.adapter_swap_ins:
+    if args.adapter_paging or m.adapter_swap_ins:
         print(f"adapters: swap_ins={m.adapter_swap_ins} "
               f"swap_in_bytes={m.adapter_swap_in_bytes} "
               f"resident_hits={m.adapter_resident_hits} "
+              f"blocks_resident={m.adapter_blocks_resident} "
               f"peak_coresident={m.adapter_peak_coresident}")
+    if args.kv_host_blocks > 0:
+        print(f"kv-tiers: host_blocks={args.kv_host_blocks} "
+              f"quant={args.kv_host_quant} swap_outs={m.kv_swap_outs} "
+              f"restores={m.kv_restores} skips={m.kv_swap_skips} "
+              f"demotions={m.kv_demotions} "
+              f"rehydrated={m.kv_rehydrated_blocks} "
+              f"host_peak_bytes={m.host_bytes_peak}")
     if args.spec > 0:
         print(f"spec: drafted={m.spec_drafted} accepted={m.spec_accepted} "
               f"acceptance={m.spec_accepted / max(m.spec_drafted, 1):.2f} "

@@ -6,7 +6,11 @@ as 0 (``layers.py:97-105`` of the JAX package).  The attention is the plain
 full-scores form; it is the CPU path of the paged kernels' plain versions and
 the cold-prefill prompt-local attention, which the JAX package also computes
 outside any kernel.  ``scaled_dot_product_attention`` is not used: it gives
-NaN on fully masked rows, and it is a library kernel.
+NaN on fully masked rows, and it is a library kernel.  With ``chunk > 0``
+the attention streams the key axis in chunks with an online softmax, and a
+query longer than the chunk is cut into query blocks, each recomputed in
+the backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
+package): the memory-bounded form of ft attention under autograd.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -76,16 +81,34 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               k_valid: torch.Tensor, causal: bool = True, window: int = 0,
               chunk: int = 0, scale: Optional[float] = None) -> torch.Tensor:
     """Generic GQA attention.  q: [B, S, h, hd]; k/v: [B, T, g, hd] with
-    h % g == 0; q_pos: [B, S]; k_pos/k_valid: [B, T].  The chunked online-
-    softmax path (``chunk > 0``) belongs to a later slice."""
-    if chunk:
-        raise NotImplementedError(
-            "chunked attention (attn_chunk > 0) is not ported yet")
+    h % g == 0; q_pos: [B, S]; k_pos/k_valid: [B, T].  ``chunk > 0`` (below
+    T) streams the key axis in blocks with an online softmax, and a query
+    longer than ``chunk`` in query blocks recomputed in the backward."""
     B, S, h, hd = q.shape
     T, g = k.shape[1], k.shape[2]
     m = h // g
     scale = scale if scale is not None else hd ** -0.5
     qg = q.reshape(B, S, g, m, hd)
+    if chunk and chunk < T:
+        if S <= chunk:
+            return _attention_chunked(qg, k, v, q_pos, k_pos, k_valid,
+                                      causal, window, chunk,
+                                      scale).reshape(B, S, h, hd)
+        pad = (-S) % chunk
+        if pad:
+            qg = F.pad(qg, (0, 0, 0, 0, 0, 0, 0, pad))
+            q_pos = F.pad(q_pos, (0, pad))
+        outs = []
+        for i in range(0, S + pad, chunk):
+            args = (qg[:, i:i + chunk], k, v, q_pos[:, i:i + chunk], k_pos,
+                    k_valid, causal, window, chunk, scale)
+            # rematerialise per query block: the backward recomputes the
+            # block instead of keeping its score tiles
+            outs.append(checkpoint(_attention_chunked, *args,
+                                   use_reentrant=False)
+                        if torch.is_grad_enabled()
+                        else _attention_chunked(*args))
+        return torch.cat(outs, dim=1)[:, :S].reshape(B, S, h, hd)
     mask = _build_mask(q_pos, k_pos, k_valid, causal, window)     # [B, S, T]
     scores = torch.einsum("bsgmd,btgd->bgmst", qg, k).float() * scale
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
@@ -97,3 +120,42 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.where(live, out, torch.zeros((), dtype=out.dtype,
                                              device=out.device))
     return out.reshape(B, S, h, hd)
+
+
+def _attention_chunked(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       q_pos: torch.Tensor, k_pos: torch.Tensor,
+                       k_valid: torch.Tensor, causal: bool, window: int,
+                       chunk: int, scale: float) -> torch.Tensor:
+    """Online-softmax attention over key chunks of ``chunk``: qg [B, S, g,
+    m, hd] -> [B, S, g, m, hd].  A query with no valid key gives 0."""
+    B, S, g, m, hd = qg.shape
+    T = k.shape[1]
+    pad = (-T) % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+        k_pos = F.pad(k_pos, (0, pad))
+        k_valid = F.pad(k_valid, (0, pad))
+    acc = torch.zeros((B, g, m, S, hd), dtype=torch.float32,
+                      device=qg.device)
+    m_run = torch.full((B, g, m, S), NEG_INF, dtype=torch.float32,
+                       device=qg.device)
+    l_run = torch.zeros((B, g, m, S), dtype=torch.float32, device=qg.device)
+    for c in range(0, T + pad, chunk):
+        kb, vb = k[:, c:c + chunk], v[:, c:c + chunk]
+        mask = _build_mask(q_pos, k_pos[:, c:c + chunk],
+                           k_valid[:, c:c + chunk], causal, window)
+        s = torch.einsum("bsgmd,bcgd->bgmsc", qg, kb).float() * scale
+        s = s.masked_fill(~mask[:, None, None], NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        # mask p explicitly: on a fully masked row m_new = NEG_INF and
+        # exp(s - m_new) would be 1 on masked entries
+        p = torch.where(mask[:, None, None], torch.exp(s - m_new[..., None]),
+                        torch.zeros((), device=s.device))
+        corr = torch.exp(torch.clamp(m_run - m_new, max=0.0))
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bgmsc,bcgd->bgmsd", p.to(qg.dtype), vb).float()
+        m_run = m_new
+    out = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(qg.dtype)

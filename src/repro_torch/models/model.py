@@ -31,7 +31,10 @@ bucket included.  Differences of form:
   what XLA prunes: the loss reads only ft rows and ft attention sees only
   ft keys, so those rows' gradients are zero.  For the same reason the
   K/V written into the persistent cache is detached, so the pool never
-  joins a graph that would outlive the tick.
+  joins a graph that would outlive the tick.  ``attn_chunk`` reaches the
+  ft attention (the chunked online softmax of ``layers.attention``); the
+  kernels of the other buckets already stream their keys, compute the same
+  function and ignore it.
 
 Sliding windows, dense-row verify chunks, MLA, Mamba, MoE and
 cross-attention belong to later slices and raise here.
@@ -240,7 +243,7 @@ def _rope_heads(x: torch.Tensor, pos: torch.Tensor, n: int,
 
 def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 x: torch.Tensor, k_pool: torch.Tensor,
-                v_pool: torch.Tensor) -> torch.Tensor:
+                v_pool: torch.Tensor, attn_chunk: int = 0) -> torch.Tensor:
     """``k_pool``/``v_pool``: the layer's paged pool ``[n_blocks, bs, g,
     hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the buckets' tables
     say (None for an ft-only batch)."""
@@ -266,7 +269,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         vh = vf.reshape(plan.Bf, plan.Sf, kv, hd)
         outs[0] = L.attention(qh, kh, vh, q_pos=plan.ft_pos,
                               k_pos=plan.ft_pos, k_valid=plan.ft_valid,
-                              causal=True)
+                              causal=True, chunk=attn_chunk)
     if qp is not None:           # prefill: causal + cache write
         pf = plan.pf
         qh = _rope_heads(qp, plan.pf_pos, h, cfg.rope_theta)
@@ -357,8 +360,6 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     The ``cache`` is updated in place and returned in ``ModelOut.cache``;
     a batch of ft rows only may pass ``cache=None``.  Fine-tune rows give
     the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``)."""
-    if attn_chunk:
-        raise NotImplementedError("attn_chunk > 0 is not ported yet")
     check_supported(cfg)
     plan = _Plan(cfg, batch, lora_scale, block_t)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
@@ -386,7 +387,8 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
         x = _attn_apply(cfg, p, lr, plan, x,
                         cache["k"][li] if cache is not None else None,
-                        cache["v"][li] if cache is not None else None)
+                        cache["v"][li] if cache is not None else None,
+                        attn_chunk)
         x = _ffn_apply(cfg, p, lr, plan, x)
 
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)

@@ -19,9 +19,23 @@ prefill and no speculation.  Tensors live on the model's device; the model
 writes the cache in place, so ``cachemgr.update`` swaps nothing.
 
 Like the JAX step, a tick with ft rows runs its backward before its decode
-tokens are scattered.  The host KV tier (``kv_host_blocks``), unified
-adapter paging (``adapter_paging``) and over-admission lending belong to
-later slices and raise ``NotImplementedError``.
+tokens are scattered.
+
+The memory features are the JAX engine's:
+
+* ``over_admit > 1`` lends reservation debt to new admissions; a decode
+  row whose block growth comes up short preempts the lowest-priority
+  resident (``_pick_victim``: class, then arrival, then speculative
+  acceptance), which rolls its output into its prompt and waits at the
+  head of the queue;
+* ``kv_host_blocks > 0`` adds the host tier: a victim's blocks swap out to
+  pinned host memory when ``swap_beats_recompute`` says the transfer wins
+  (every decision is logged in ``swap_decisions``) and are restored at its
+  re-admission; shed index blocks demote to host and rehydrate.  The bytes
+  moved are charged to the virtual clock;
+* ``adapter_paging`` binds the adapter store to the KV pool
+  (``AdapterStore.attach_pager``), so adapters page through the same
+  blocks and the scheduler prefers requests whose adapter is resident.
 """
 from __future__ import annotations
 
@@ -38,7 +52,8 @@ from repro_torch.core.virtualization import MixedLoraModel
 from repro_torch.serving.clock import CostModel, VirtualClock, WallClock
 from repro_torch.serving.kvcache import (CacheManager, OutOfBlocksError,
                                          PagedCacheManager,
-                                         request_chain_keys)
+                                         request_chain_keys,
+                                         swap_beats_recompute)
 from repro_torch.serving.request import Request, State
 from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serving.slo import Metrics, SLOConfig, spread_token_times
@@ -47,8 +62,6 @@ from repro_torch.spec import AdaptiveK, Drafter, accept_greedy_ids, \
 from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
     tree_add, tree_mask_slots, tree_zeros_like
 from repro_torch.training.trainer import MixedLoraTrainer
-
-FEATURES_SLICE = "a later engine-features slice"
 
 
 @dataclasses.dataclass
@@ -67,13 +80,14 @@ class EngineConfig:
     #                                   bucket there, see UnifiedEngine)
     block_size: int = 32              # KV tokens per block
     n_blocks: int = 0                 # pool size; 0 = match dense capacity
-    over_admit: float = 1.0           # reservation lending (later slice)
+    over_admit: float = 1.0           # reservation lending factor (>= 1)
     spec: Optional[object] = None     # spec.SpecConfig (speculation)
     prefill_chunk: int = 0            # per-tick prefill-token budget
     hash_dedup: bool = True           # content-hash block dedup
-    adapter_paging: bool = False      # unified adapter paging (later slice)
+    adapter_paging: bool = False      # adapters page through the KV pool
     cost: Optional[CostModel] = None  # virtual-clock cost model override
-    kv_host_blocks: int = 0           # host KV tier (later slice)
+    kv_host_blocks: int = 0           # host KV tier, in device blocks' worth
+    kv_host_quant: bool = False       # int8 host residency (not bit-exact)
 
 
 class UnifiedEngine:
@@ -83,21 +97,20 @@ class UnifiedEngine:
         self.ecfg = ecfg or EngineConfig()
         self.cfg = model.cfg
         e = self.ecfg
-        if e.adapter_paging:
-            raise NotImplementedError(f"adapter_paging comes with "
-                                      f"{FEATURES_SLICE}")
         self.device = model.store.device
         dtype = model.base["embed"].dtype
         if model.base["embed"].device.type != self.device.type:
             raise ValueError("base params and adapter bank live on "
                              "different devices")
         self.paged = e.paged and self.cfg.sliding_window == 0
+        self._cost = e.cost or CostModel()
         if self.paged:
             self.cachemgr = PagedCacheManager(
                 self.cfg, e.capacity, e.pf_capacity, e.s_max,
                 device=self.device, dtype=dtype, block_size=e.block_size,
                 n_blocks=e.n_blocks, over_admit=e.over_admit,
-                hash_dedup=e.hash_dedup, host_blocks=e.kv_host_blocks)
+                hash_dedup=e.hash_dedup, host_blocks=e.kv_host_blocks,
+                host_quant=e.kv_host_quant, cost=self._cost)
         else:
             self.cachemgr = CacheManager(self.cfg, e.capacity,
                                          e.pf_capacity, e.s_max,
@@ -113,6 +126,10 @@ class UnifiedEngine:
                     f"overwritten by the bucket's padding; choose an s_max "
                     f"that is a padded prompt bucket", RuntimeWarning,
                     stacklevel=2)
+        # unified adapter paging: adapter weights share the KV block pool
+        self.adapter_paging = self.paged and e.adapter_paging
+        if self.adapter_paging:
+            model.store.attach_pager(self.cachemgr)
         st = model.store
         self._swaps_base = (st.swap_ins, st.swap_in_bytes, st.resident_hits)
         self._swaps_seen = self._swaps_base[:2]
@@ -127,6 +144,11 @@ class UnifiedEngine:
                              if e.prefill_chunk > 0 and self.paged else 0)
         self.prefilling: Dict[int, Request] = {}  # slot -> partial prefill
         self.hash_dedup = self.paged and e.hash_dedup
+        # host tier: swap-outs pay off through suffix prefill, which every
+        # paged row of the attention-only decoder takes
+        self.kv_tiering = self.paged and e.kv_host_blocks > 0
+        self._kv_seen = (0, 0)                 # (d2h, h2d) bytes charged
+        self.swap_decisions: List[dict] = []   # every swap-vs-recompute
         self.forward_step = make_forward_step(self.cfg,
                                               block_t=e.flow.block_t,
                                               attn_chunk=e.attn_chunk)
@@ -242,6 +264,7 @@ class UnifiedEngine:
                     r.state = State.FAILED
                     r.t_finish = self.clock.now()
                     self._drop_retain(r)
+                    self._drop_swap(r)
                     self.waiting.remove(r)
                     self.finished.append(r)
             decision = self.sched.decide(
@@ -258,8 +281,12 @@ class UnifiedEngine:
                 pf_rows_used=len(pf_reqs), pf_token_budget=budget_left,
                 suffix_fn=lambda r: r.prompt_len - self._resident_tokens(r),
                 chunked=bool(self.chunk_budget),
-                lent_frac=0.0,      # no lending: over_admit is 1.0
+                # the lent fraction makes fine-tuning yield before
+                # inference is preempted
+                lent_frac=cm.lent_blocks / max(cm.reserved_debt, 1),
                 probe_fn=self._resident_tokens if self.hash_dedup else None,
+                adapter_fn=((lambda r: self.model.store.is_resident(
+                    r.adapter)) if self.adapter_paging else None),
                 now=self.clock.now())
         else:
             # dense rows: a free slot is the whole admission gate
@@ -408,11 +435,18 @@ class UnifiedEngine:
             swaps = store.swap_ins - self._swaps_seen[0]
             swap_bytes = store.swap_in_bytes - self._swaps_seen[1]
             self._swaps_seen = (store.swap_ins, store.swap_in_bytes)
+            # host-tier bytes since the last charge
+            kvd = kvh = 0
+            if self.paged:
+                kvd = cm.kv_d2h_bytes - self._kv_seen[0]
+                kvh = cm.kv_h2d_bytes - self._kv_seen[1]
+                self._kv_seen = (cm.kv_d2h_bytes, cm.kv_h2d_bytes)
             cost = self.clock.step_cost(pf_tok, len(self.active), ft_tok,
                                         dec_extra_tokens=int(sum(
                                             len(d) for d in drafts.values())),
                                         adapter_swaps=swaps,
-                                        adapter_swap_bytes=swap_bytes)
+                                        adapter_swap_bytes=swap_bytes,
+                                        kv_d2h_bytes=kvd, kv_h2d_bytes=kvh)
             self.clock.charge(cost)
             self.metrics.busy_time += cost
         now = self.clock.now()
@@ -503,8 +537,22 @@ class UnifiedEngine:
                                               - self._swaps_base[2])
         self.metrics.adapter_peak_coresident = store.peak_coresident
         if self.paged:
+            self.metrics.lent_blocks_peak = cm.lent_blocks_peak
             self.metrics.hash_hits = cm.hash_hits
             self.metrics.hash_blocks_resident = cm.hash_blocks_resident
+            if cm.host_pool is not None:
+                hp = cm.host_pool
+                self.metrics.kv_swap_outs = cm.kv_swap_outs
+                self.metrics.kv_swap_out_bytes = cm.kv_swap_out_bytes
+                self.metrics.kv_restores = cm.kv_restores
+                self.metrics.kv_restore_bytes = cm.kv_restore_bytes
+                self.metrics.kv_demotions = cm.kv_demotions
+                self.metrics.kv_rehydrated_blocks = cm.kv_rehydrations
+                self.metrics.host_bytes_used = hp.used_bytes
+                self.metrics.host_bytes_peak = hp.peak_used_bytes
+            if self.adapter_paging:
+                self.metrics.adapter_blocks_resident = \
+                    cm.adapter_blocks_resident
         return True
 
     # ------------------------------------------------------- admission body
@@ -525,6 +573,7 @@ class UnifiedEngine:
                     r.state = State.FAILED
                     r.t_finish = self.clock.now()
                     self._drop_retain(r)
+                    self._drop_swap(r)
                     self.waiting.remove(r)
                     self.finished.append(r)
                     continue
@@ -544,6 +593,15 @@ class UnifiedEngine:
                 slot = cm.alloc()
             if slot is None:
                 break
+            if r.swap_sid is not None:
+                # re-admission of a swapped-out victim: the restore covers
+                # its rolled context but one live token, so suffix prefill
+                # recomputes exactly that token
+                restored = cm.restore_swap(slot, r.swap_sid)
+                r.swap_sid = None
+                if restored > reused:
+                    self.metrics.kv_restored_tokens += restored - reused
+                    reused = restored
             if r.adapter and not r.adapter_retained:
                 # reprolint: ownership-transfer — the hold moves onto the
                 # request; _drop_retain releases it at finish/failure
@@ -592,9 +650,11 @@ class UnifiedEngine:
     def _grow_or_preempt(self, slot: int, r: Request, L: int, n: int,
                          pinned: frozenset) -> int:
         """``prepare_write`` of the ``n`` chunk tokens from ``L``; when not
-        even the committed token at ``L`` can be written (a copy-on-write
-        found the pool dry), preempt the lowest-priority resident (possibly
-        this one) and retry.  Returns the writable token count."""
+        even the committed token at ``L`` can be written (a lent reservation
+        came due, or a copy-on-write found the pool dry), preempt the
+        lowest-priority resident (possibly this one) and retry.  ``pinned``
+        slots hold prefill rows of this tick.  Returns the writable token
+        count."""
         while True:
             try:
                 writable = self.cachemgr.prepare_write(slot, L, n)
@@ -609,17 +669,27 @@ class UnifiedEngine:
             self._preempt(victim)
 
     def _pick_victim(self, exclude: frozenset) -> Optional[int]:
+        """Lowest-priority resident: batch class before standard,
+        interactive last; within a class the latest arrival, then the
+        lowest speculative acceptance rate, then the latest rid."""
         cands = [(s, r) for s, r in list(self.active.items())
                  + list(self.prefilling.items()) if s not in exclude]
         if not cands:
             return None
-        return max(cands,
-                   key=lambda it: (it[1].class_rank, it[1].arrival,
-                                   0.0, it[1].rid))[0]
+
+        def badness(item):
+            s, r = item
+            ctl = self._spec.get(s)
+            acc = ctl[1].rate if ctl is not None else 0.0
+            return (r.class_rank, r.arrival, -acc, r.rid)
+
+        return max(cands, key=badness)[0]
 
     def _preempt(self, slot: int):
-        """Recompute preemption: roll the victim's emitted tokens into its
-        prompt, free its blocks, requeue it at the head of ``waiting``."""
+        """Preemption: roll the victim's emitted tokens into its prompt,
+        swap its blocks to host when that wins (else they are recomputed),
+        free them and requeue it at the head of ``waiting``.  It keeps its
+        arrival, first-token time and adapter hold."""
         r = self.active.pop(slot, None)
         if r is None:
             r = self.prefilling.pop(slot)
@@ -635,9 +705,40 @@ class UnifiedEngine:
         r.preemptions += 1
         r.recount_pending = True
         self._spec.pop(slot, None)
+        if self.kv_tiering:
+            # before free(): the gather reads the table
+            r.swap_sid = self._maybe_swap_out(slot, r)
         self.cachemgr.free(slot)
         self.waiting.insert(0, r)
         self.metrics.preemptions += 1
+
+    def _maybe_swap_out(self, slot: int, r: Request) -> Optional[int]:
+        """Price one victim's swap with the cost model and take it only when
+        it wins; every decision goes into ``swap_decisions``.  The
+        recompute side counts the committed tokens minus the blocks other
+        holders keep on the device through the free."""
+        m = self.cachemgr
+        nb = m.swap_payload_blocks(slot)
+        tokens = int(m.lens[slot])
+        surviving = m.surviving_blocks(slot, nb)
+        recompute = max(tokens - surviving * m.block_size, 0)
+        stored = nb * m.host_block_bytes
+        chose = nb > 0 and swap_beats_recompute(stored, recompute,
+                                                self._cost)
+        sid = m.swap_out(slot) if chose else None
+        self.swap_decisions.append({
+            "rid": r.rid, "tokens": tokens, "blocks": nb,
+            "stored_bytes": stored, "recompute_tokens": recompute,
+            "chose_swap": bool(chose), "swapped": sid is not None})
+        if sid is None:
+            self.metrics.kv_swap_skips += 1
+        return sid
+
+    def _drop_swap(self, r: Request):
+        """Release the request's host swap set, if any, exactly once."""
+        if r.swap_sid is not None and self.paged:
+            self.cachemgr.drop_swap(r.swap_sid)
+            r.swap_sid = None
 
     def _scatter_verify(self, slot: int, r: Request, arg: np.ndarray,
                         draft: np.ndarray, now: float):

@@ -132,9 +132,55 @@ def test_default_planner_pads_like_jax():
 
 
 def test_engine_raises_for_later_slices(pair):
-    cfg, params, store = pair[3:]
-    model = MixedLoraModel(cfg, params, store)
-    for kw in (dict(kv_host_blocks=4),
+    """The memory features construct now (lending, the host tier with and
+    without int8, adapter paging); modality embeddings, which no port
+    slice has taken yet, still raise where the flow planner meets them."""
+    cfg, params, _ = pair[3:]
+    for kw in (dict(kv_host_blocks=4), dict(kv_host_blocks=4,
+                                            kv_host_quant=True),
                dict(adapter_paging=True), dict(over_admit=2.0)):
-        with pytest.raises(NotImplementedError):
-            UnifiedEngine(model, EngineConfig(**kw))
+        store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=4), device="cpu")
+        eng = UnifiedEngine(MixedLoraModel(cfg, params, store),
+                            EngineConfig(**kw))
+        assert eng.paged
+    aux = np.zeros((4, cfg.d_model), np.float32)
+    toks = np.arange(8, dtype=np.int32)
+    with pytest.raises(NotImplementedError):
+        tflow.plan_ft([tflow.FTRow(tokens=toks, labels=toks, slot=0,
+                                   aux_embed=aux)], tflow.FlowConfig(),
+                      torch.device("cpu"))
+    with pytest.raises(NotImplementedError):
+        tflow.plan_pf([tflow.PFReq(tokens=toks, slot=0, aux_embed=aux)],
+                      tflow.FlowConfig(), torch.device("cpu"))
+
+
+LEND = dict(over_admit=2.0, n_blocks=6, block_size=16)
+
+
+@pytest.mark.parametrize("ecfg", [
+    LEND, dict(kv_host_blocks=4, **LEND),
+    dict(kv_host_blocks=4, kv_host_quant=True, **LEND),
+    dict(adapter_paging=True), dict(attn_chunk=16)],
+    ids=["over_admit", "host", "host_int8", "paging", "attn_chunk"])
+def test_engine_memory_features_match_jax(pair, ecfg):
+    """Each memory feature on the runtime trace (a tight pool for the
+    lending ones): the port's tokens, steps, preemptions, swap decisions
+    and swap-ins equal the JAX engine's, and the pool drains pristine."""
+    cfg = pair[3]
+    prompts = datasets.sharegpt_prompts(8, vocab=cfg.vocab, len_lo=6,
+                                        len_hi=20)
+    arr = workload.poisson_arrivals(4.0, 8, seed=1)
+    trace = [(i, p, ADAPTERS[i % 2], 24, float(a))
+             for i, (p, a) in enumerate(zip(prompts, arr))]
+    jeng, eng = _run(pair, trace, **ecfg)
+    assert len(eng.finished) == 8
+    assert {r.rid: list(r.output) for r in eng.finished} \
+        == {r.rid: list(r.output) for r in jeng.finished}
+    for f in ("steps", "preemptions", "kv_swap_outs", "kv_restores",
+              "adapter_swap_ins", "adapter_resident_hits",
+              "lent_blocks_peak"):
+        assert getattr(eng.metrics, f) == getattr(jeng.metrics, f), f
+    assert eng.swap_decisions == jeng.swap_decisions
+    assert eng.cachemgr.pristine and jeng.cachemgr.pristine
+    if "n_blocks" in ecfg:
+        assert eng.metrics.preemptions > 0

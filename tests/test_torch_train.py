@@ -462,7 +462,7 @@ def engines(tmp_path_factory):
     params = to_port_params(jparams, tmp / "params.npz")
     names = {"serve": 2, "tr0": 10, "tr1": 11}
 
-    def make(lr=None):
+    def make(lr=None, **extra):
         jstore = JAdapterStore(jcfg, JLoRAConfig(**LCFG),
                                jax.random.PRNGKey(1))
         store = AdapterStore(cfg, LoRAConfig(**LCFG), device="cpu")
@@ -470,7 +470,8 @@ def engines(tmp_path_factory):
             jstore.load_random(name, jax.random.PRNGKey(seed))
             store.load(name, to_port_bank(jstore.get_adapter(name),
                                           tmp / f"{name}.npz"))
-        ecfg = dict(capacity=4, pf_capacity=2, s_max=96, virtual_time=True)
+        ecfg = dict(capacity=4, pf_capacity=2, s_max=96, virtual_time=True,
+                    **extra)
         jeng = JUnifiedEngine(JMixedLoraModel(jcfg, jparams, jstore),
                               JEngineConfig(**ecfg, **(
                                   {} if lr is None
@@ -577,6 +578,32 @@ def test_engine_trace_matches_jax(engines):
     frozen = [st.slot_of("serve"), 3]
     assert torch.equal(_bank_flat(st, frozen),
                        _bank_flat(st, frozen, before))
+
+
+def test_engine_trains_with_attn_chunk_like_jax(engines):
+    """Two trainers and four served requests with ``attn_chunk=16``: the
+    ft attention takes the chunked online softmax (query blocks recomputed
+    in the backward).  Served tokens, steps and optimizer steps equal the
+    JAX engine's at the same chunk, per-row losses within 1e-4
+    relative."""
+    cfg, make, _ = engines
+    jeng, eng = make(lr=1e-3, attn_chunk=16)
+    _add_trainers(eng, cfg.vocab, jeng)
+    prompts = datasets.sharegpt_prompts(4, vocab=cfg.vocab, len_lo=6,
+                                        len_hi=16)
+    _submit(jeng, JRequest, prompts)
+    _submit(eng, Request, prompts)
+    jm, m = jeng.run(max_ticks=20000), eng.run(max_ticks=20000)
+    assert {r.rid: list(r.output) for r in eng.finished} \
+        == {r.rid: list(r.output) for r in jeng.finished}
+    assert m.steps == jm.steps and m.finetune_tokens == jm.finetune_tokens
+    for name, tr in eng.trainers.items():
+        jtr = jeng.trainers[name]
+        assert tr.optimizer_steps == jtr.optimizer_steps >= 1
+        for got, want in ((tr.train_losses, jtr.train_losses),
+                          (tr.eval_losses, jtr.eval_losses)):
+            assert len(got) == len(want) > 0
+            np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
 def tree_clone(bank):
