@@ -8,6 +8,7 @@
     python3 chip_smoke.py --chunk-routes [--root TREE]
     python3 chip_smoke.py --divergence [--root TREE]
     python3 chip_smoke.py --memory
+    python3 chip_smoke.py --fleet
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -32,7 +33,8 @@ phase 4's waves plain, speculative and on dense rows without timing, with
 every tick's logits kept, and prints each request's first divergence from
 the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 The seventh runs only the memory features: phase 3's lending, paging and
-chunked-training parity, then phases 9 and 10.
+chunked-training parity, then phases 9 and 10.  The eighth runs only the
+fleet: phase 3's fleet case, then phase 11.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -83,7 +85,14 @@ printing its lines; any failure raises and exits non-zero:
              tokens, ``swap_decisions``, preemptions, ``kv_*`` counters,
              adapter swap-ins and steps equal; (c) training again with
              ``attn_chunk=16`` (chunked ft attention), losses within 1e-4
-             relative.
+             relative; then the fleet: ``tests/test_fleet.py``'s trace
+             (6 requests on a 48-token shared head, ``CostModel(fixed=1e-3,
+             prefill_per_tok=1e-4)``) through one engine and 3 replicas
+             under ``affinity`` and ``round-robin`` on both devices:
+             tokens equal to the single engine's on each device and across
+             devices, ``routed``, ``remote_fetch_blocks``, ``hash_hits``
+             and steps equal across devices, round-robin fetches, the
+             fleet index a bijection and every pool pristine.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -152,11 +161,32 @@ printing its lines; any failure raises and exits non-zero:
              image round trip at ranks 8 and 4 (bit-exact); one adapter
              voided and unvoided into a fresh store on the card serves 4
              requests with bit-identical tokens.
+11. fleet  — ``benchmarks/bench_fleet.py``'s trace (3 templates with
+             adapters lora0..2 picked by Zipf s=1.1; 18 requests of 1024
+             tokens, an 832-token head plus a random tail; seeders at t=0,
+             the burst at t=0.2) with 16 new tokens, over phase 4's base
+             weights shared by every replica, virtual clock
+             ``CostModel(fixed=1e-3, prefill_per_tok=1e-4)``: one engine,
+             then 3 replicas round-robin without fetch, affinity, and
+             round-robin with fetch (``rr_fetch``).  Each arm: host-clock
+             wall seconds, prefill and decode tick ms, computed, reused
+             and fetched blocks, ``hash_hits``, ``routed``, tokens equal to
+             the single engine (bf16: printed, with each first divergence's
+             logit margins, not gated).  Gates: every request finishes,
+             logits finite, bijection, every pool pristine, ``rr_fetch``
+             fetches exactly the analytic count, SMLM, BGMV, paged prefill,
+             paged decode and flash launch in the fleet arms, and one
+             ``import_block`` between two replicas copies the block
+             ``torch.equal`` in K and V; that copy is timed between CUDA
+             events beside a contiguous ``copy_`` of its bytes and its
+             bound, and the fetch rule is evaluated at the measured copy
+             and prefill times.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-10 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging), the card's name and power limit, and the last line
+run of phases 4-11 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging, fleet), the card's name and power limit, and the last
+line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -1151,13 +1181,18 @@ def numpy_adapter(cfg, lcfg, seed):
     return flat
 
 
-def build_engine(cfg, params, adapters, lcfg, dev, dtype, ecfg):
+def mixed_model(cfg, params, adapters, lcfg, dev, dtype):
     from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
-    from repro_torch.serving.engine import UnifiedEngine
     store = AdapterStore(cfg, lcfg, device=dev, dtype=dtype)
     for name, adapter in adapters.items():
         store.load(name, adapter)
-    return UnifiedEngine(MixedLoraModel(cfg, params, store), ecfg)
+    return MixedLoraModel(cfg, params, store)
+
+
+def build_engine(cfg, params, adapters, lcfg, dev, dtype, ecfg):
+    from repro_torch.serving.engine import UnifiedEngine
+    return UnifiedEngine(mixed_model(cfg, params, adapters, lcfg, dev,
+                                     dtype), ecfg)
 
 
 def record_logits(eng, keep: bool):
@@ -1180,21 +1215,16 @@ def record_logits(eng, keep: bool):
     return seen
 
 
-def logit_run(cfg, weights, waves, **ecfg):
-    """An untimed copy of a run: the requests of ``waves`` on a fresh
-    engine over the shared weights, every tick's logits kept on the host
-    (``record_logits(keep=True)``), and each emitted token matched to the
+def logit_rows(engines, reqs):
+    """Keep every tick's logits of ``engines`` on the host
+    (``record_logits(keep=True)``) and match each token of ``reqs`` to the
     logits row that chose it (a prefill row by the tick's prefill order, a
     decode or verify row by the request's slot and the token's place in
-    the tick's emission).  Returns {rid: [(token, fp32 logits [V]), ...]}
-    and how many of the tokens are their row's argmax."""
-    from repro_torch.core.virtualization import MixedLoraModel
+    the tick's emission).  Each engine's ``tick`` is wrapped in place, so
+    a fleet that ticks its replicas records them too.  Returns {rid:
+    [(token, fp32 logits [V]), ...]} (filled as the engines tick) and a
+    function that undoes the patch of ``flow.assemble``."""
     from repro_torch.serving import engine as E
-    params, store, _ = weights
-    eng = E.UnifiedEngine(MixedLoraModel(cfg, params, store),
-                          E.EngineConfig(**ecfg))
-    seen = record_logits(eng, keep=True)
-    reqs = [r for wave in waves for r in wave]
     rows = {r.rid: [] for r in reqs}
     pf_rids = []
     assemble = E.flow.assemble
@@ -1203,33 +1233,63 @@ def logit_run(cfg, weights, waves, **ecfg):
         pf_rids[:] = [p.rid for p in pf_reqs]
         return assemble(ft_rows, pf_reqs, *a, **kw)
 
-    def tick():
-        before = {r.rid: len(r.output) for r in reqs}
-        n_seen = len(seen)
-        pf_rids.clear()
-        eng.tick()
-        if len(seen) == n_seen:
-            return
-        got = seen[-1]
-        for r in reqs:
-            n0, new = before[r.rid], len(r.output) - before[r.rid]
-            if not new:
-                continue
-            if n0 == 0 and r.rid in pf_rids:
-                emitted = [got["pf_logits"][pf_rids.index(r.rid)]]
-            else:
-                d = got["dec_logits"][r.dec_slot]
-                emitted = [d] if d.dim() == 1 else list(d[:new])
-            rows[r.rid] += list(zip(r.output[n0:], emitted))
+    def wrap(eng):
+        seen = record_logits(eng, keep=True)
+        step = eng.tick
 
+        def tick():
+            before = {r.rid: len(r.output) for r in reqs}
+            n_seen = len(seen)
+            pf_rids.clear()
+            busy = step()
+            if len(seen) == n_seen:
+                return busy
+            got = seen.pop()
+            for r in reqs:
+                n0, new = before[r.rid], len(r.output) - before[r.rid]
+                if not new:
+                    continue
+                if n0 == 0 and r.rid in pf_rids:
+                    emitted = [got["pf_logits"][pf_rids.index(r.rid)]]
+                else:
+                    d = got["dec_logits"][r.dec_slot]
+                    emitted = [d] if d.dim() == 1 else list(d[:new])
+                rows[r.rid] += list(zip(r.output[n0:], emitted))
+            return busy
+
+        eng.tick = tick
+
+    for eng in engines:
+        wrap(eng)
     E.flow.assemble = recorded_assemble
-    try:
-        run_waves(eng, tick, waves)
-    finally:
+
+    def restore():
         E.flow.assemble = assemble
-    argmax_ok = sum(int(int(row.argmax()) == tok)
-                    for got in rows.values() for tok, row in got)
-    return rows, argmax_ok
+
+    return rows, restore
+
+
+def argmax_share(rows):
+    return sum(int(int(row.argmax()) == tok)
+               for got in rows.values() for tok, row in got)
+
+
+def logit_run(cfg, weights, waves, **ecfg):
+    """An untimed copy of a run: the requests of ``waves`` on a fresh
+    engine over the shared weights, with ``logit_rows``.  Returns {rid:
+    [(token, fp32 logits [V]), ...]} and how many of the tokens are their
+    row's argmax."""
+    from repro_torch.core.virtualization import MixedLoraModel
+    from repro_torch.serving import engine as E
+    params, store, _ = weights
+    eng = E.UnifiedEngine(MixedLoraModel(cfg, params, store),
+                          E.EngineConfig(**ecfg))
+    rows, restore = logit_rows([eng], [r for wave in waves for r in wave])
+    try:
+        run_waves(eng, eng.tick, waves)
+    finally:
+        restore()
+    return rows, argmax_share(rows)
 
 
 def bf16_ulp(x: float) -> float:
@@ -1365,6 +1425,7 @@ def parity(K, devices=("cuda", "cpu")):
     parity_train(K, cfg, flat, lcfg, devices)
     parity_memory(K, cfg, flat, lcfg, devices)
     parity_train(K, cfg, flat, lcfg, devices, attn_chunk=16)
+    parity_fleet(K, cfg, flat, lcfg, devices)
 
 
 def add_trainers(eng, vocab, n_rows=16, accum=2, sets=None):
@@ -1555,6 +1616,107 @@ def parity_memory(K, cfg, flat, lcfg, devices):
               f"{got['preemptions']} swap_decisions="
               f"{len(got['swap_decisions'])} kv={got['kv']} "
               f"adapter_swap_ins={got['swap_ins']} cuda launches="
+              f"{got['launches']} ok")
+
+
+FLEET_COST = dict(fixed=1e-3, prefill_per_tok=1e-4)   # prefill-bound regime
+
+
+def check_fleet(fleet):
+    """The fleet index is a bijection with the replicas' local indexes and
+    every replica's pool drained pristine."""
+    fleet.index.check_bijection()
+    if not all(e.cachemgr.pristine for e in fleet.engines):
+        raise AssertionError("fleet: a replica's pool did not drain "
+                             "pristine")
+
+
+def parity_fleet(K, cfg, flat, lcfg, devices):
+    """Phase 3, the fleet, on ``cuda`` and on ``cpu`` (virtual clock,
+    fp32): ``tests/test_fleet.py``'s trace (6 requests on a 48-token shared
+    head, ``CostModel(fixed=1e-3, prefill_per_tok=1e-4)``) through one
+    engine and through 3 replicas under ``affinity`` and ``round-robin``.
+    Tokens equal the single engine's on each device and are equal across
+    devices, as are ``routed``, ``remote_fetch_blocks``, ``hash_hits`` and
+    steps; round-robin fetches; the fleet index is a bijection and every
+    pool drains pristine."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
+    from repro_torch.serving.clock import CostModel
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    from repro_torch.serving.request import Request
+    ad = numpy_adapter(cfg, lcfg, seed=40)
+    head = np.arange(48, dtype=np.int32) % cfg.vocab
+
+    def trace():
+        rng = np.random.default_rng(0)
+        return [Request(rid=i, prompt=np.concatenate([head, rng.integers(
+            0, cfg.vocab, rng.integers(4, 12)).astype(np.int32)]),
+            adapter="serve", max_new_tokens=6, arrival=0.05 * i)
+            for i in range(6)]
+
+    ecfg = EngineConfig(capacity=4, pf_capacity=2, s_max=96, block_size=16,
+                        virtual_time=True, cost=CostModel(**FLEET_COST))
+    runs = {}
+    for dev in devices:
+        params = params_from_numpy(flat, device=dev)
+        adapters = {"serve": {"layers": bank_from_numpy(
+            ad, device=dev)["layers"]}}
+
+        def model():
+            return mixed_model(cfg, params, adapters, lcfg,
+                               torch.device(dev), torch.float32)
+
+        eng = UnifiedEngine(model(), ecfg)
+        for r in trace():
+            eng.submit(r)
+        eng.run(max_ticks=8000)
+        single = {r.rid: list(r.output) for r in eng.finished}
+        if len(single) != 6 or not eng.cachemgr.pristine:
+            raise AssertionError(f"parity fleet {dev}: the single engine "
+                                 f"did not finish pristine")
+        for policy in ("affinity", "round-robin"):
+            fleet = build_fleet(model(), ecfg, FleetConfig(
+                replicas=3, router=RouterConfig(policy=policy)))
+            for r in trace():
+                fleet.submit(r)
+            reset_counts(K)
+            fm = fleet.run()
+            launches = read_counts(K, MEMORY_COUNTERS)
+            check_fleet(fleet)
+            tokens = {r.rid: list(r.output) for e in fleet.engines
+                      for r in e.finished}
+            if tokens != single:
+                raise AssertionError(f"parity fleet {policy} {dev}: tokens "
+                                     f"differ from one engine's: {tokens} "
+                                     f"vs {single}")
+            runs[dev, policy] = dict(
+                tokens=tokens, routed=dict(fleet.routed),
+                remote_fetch_blocks=fm.remote_fetch_blocks,
+                hash_hits=fm.hash_hits, steps=fm.steps,
+                remote_fetch_time=fm.remote_fetch_time, launches=launches)
+    for policy in ("affinity", "round-robin"):
+        got, want = runs[devices[0], policy], runs[devices[1], policy]
+        for key in ("tokens", "routed", "remote_fetch_blocks", "hash_hits",
+                    "steps"):
+            if got[key] != want[key]:
+                raise AssertionError(f"parity fleet {policy}: {key} "
+                                     f"differs: {devices[0]} {got[key]} "
+                                     f"{devices[1]} {want[key]}")
+        if policy == "round-robin" and not got["remote_fetch_blocks"]:
+            raise AssertionError("parity fleet round-robin: no block was "
+                                 "fetched")
+        if devices[0] == "cuda" and min(
+                got["launches"][k] for k in ("smlm", "bgmv", "decode")) == 0:
+            raise AssertionError(f"parity fleet {policy}: kernels not "
+                                 f"launched: {got['launches']}")
+        print(f"parity: fleet {policy} replicas=3 (6 requests, 48-token "
+              f"shared head, CostModel fixed=1e-3 prefill_per_tok=1e-4), "
+              f"cuda==cpu==single-engine tokens, routed={got['routed']} "
+              f"remote_fetch_blocks={got['remote_fetch_blocks']} "
+              f"hash_hits={got['hash_hits']} steps={got['steps']} "
+              f"remote_fetch_time_virtual_s={got['remote_fetch_time']:.6g} "
+              f"bijection=True pristine=True cuda launches="
               f"{got['launches']} ok")
 
 
@@ -2620,6 +2782,341 @@ def full_paging(K, cfg, weights, dev, seed=3, max_new=32):
     return counts
 
 
+# ------------------------------------------------------ phase 11: the fleet
+# the smoke's copy of benchmarks/bench_fleet.py's trace (the port imports
+# nothing of ``benchmarks``), with 16 new tokens in place of 1
+FLEET_REPLICAS = 3
+FLEET_TEMPLATES = 3
+FLEET_HEAD = 832                    # 26 blocks of 32
+FLEET_PROMPT = 1024
+FLEET_BLOCK = 32
+FLEET_REQUESTS = 18
+FLEET_ZIPF = 1.1
+FLEET_BURST_AT = 0.2                # seeders publish, then the burst
+FLEET_LOAD_PENALTY = 0.25
+# arm -> (router policy, remote fetch); "single" is one engine
+FLEET_ARMS = {"single": None, "round_robin": ("round-robin", False),
+              "affinity": ("affinity", True),
+              "rr_fetch": ("round-robin", True)}
+
+
+def fleet_trace(vocab, seed=0, max_new=16):
+    """A seeder per template at t=0 (the router's depth penalty spreads
+    them one per replica), then Zipf-drawn template picks arriving at once
+    at ``FLEET_BURST_AT``.  Returns the requests and the rid-ordered
+    templates."""
+    from repro_torch.serving.request import Request
+    rng = np.random.default_rng(seed)
+    heads = [rng.integers(0, vocab, FLEET_HEAD).astype(np.int32)
+             for _ in range(FLEET_TEMPLATES)]
+    w = 1.0 / np.arange(1, FLEET_TEMPLATES + 1) ** FLEET_ZIPF
+    picks = rng.choice(FLEET_TEMPLATES, size=FLEET_REQUESTS - FLEET_TEMPLATES,
+                       p=w / w.sum())
+    templates = list(range(FLEET_TEMPLATES)) + picks.tolist()
+    reqs = []
+    for rid, t in enumerate(templates):
+        tail = rng.integers(0, vocab, FLEET_PROMPT - FLEET_HEAD).astype(
+            np.int32)
+        reqs.append(Request(rid=rid, prompt=np.concatenate([heads[t], tail]),
+                            adapter=f"lora{t}", max_new_tokens=max_new,
+                            arrival=0.0 if rid < FLEET_TEMPLATES
+                            else FLEET_BURST_AT))
+    return reqs, templates
+
+
+def expected_rr_fetches(templates) -> int:
+    """Round-robin with fetch: the first time a replica meets a template
+    whose head an earlier request published anywhere, it imports all the
+    head's blocks; later meetings adopt locally."""
+    seen, seen_on = set(), [set() for _ in range(FLEET_REPLICAS)]
+    n = 0
+    for rid, t in enumerate(templates):
+        rep = rid % FLEET_REPLICAS
+        if t in seen and t not in seen_on[rep]:
+            n += FLEET_HEAD // FLEET_BLOCK
+        seen.add(t)
+        seen_on[rep].add(t)
+    return n
+
+
+def fleet_front(cfg, params, dev, dtype, arm):
+    """One engine (arm "single") or a fleet of ``FLEET_REPLICAS`` over
+    ``params``, with a fresh store of adapters lora0..2 (gaussian B, seeds
+    100-102: phase 4's lora0 and lora1 and one more): (front, engines)."""
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
+    from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
+    from repro_torch.serving.clock import CostModel
+    from repro_torch.serving.engine import EngineConfig, UnifiedEngine
+    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8), device=dev,
+                         dtype=dtype)
+    for i in range(FLEET_TEMPLATES):
+        g = torch.Generator(device=dev)
+        g.manual_seed(100 + i)
+        store.load_random(f"lora{i}", g, gaussian_b=True)
+    model = MixedLoraModel(cfg, params, store)
+    ecfg = EngineConfig(capacity=6, pf_capacity=4,
+                        s_max=FLEET_PROMPT + FLEET_BLOCK,
+                        block_size=FLEET_BLOCK, virtual_time=True,
+                        cost=CostModel(**FLEET_COST))
+    if FLEET_ARMS[arm] is None:
+        eng = UnifiedEngine(model, ecfg)
+        return eng, [eng]
+    policy, fetch = FLEET_ARMS[arm]
+    fleet = build_fleet(model, ecfg, FleetConfig(
+        replicas=FLEET_REPLICAS,
+        router=RouterConfig(policy=policy, load_penalty=FLEET_LOAD_PENALTY),
+        remote_fetch=fetch))
+    return fleet, fleet.engines
+
+
+def fleet_run(K, cfg, params, dev, dtype, arm, max_new=16):
+    """One arm: every engine's ticks timed on the host clock (a tick ends
+    in the host reading its sampled tokens) and its logits' finiteness
+    recorded on the device.  Gates: every request finishes with
+    ``max_new`` tokens, every logit is finite, every pool drains pristine,
+    the fleet index is a bijection."""
+    front, engines = fleet_front(cfg, params, dev, dtype, arm)
+    reqs, templates = fleet_trace(cfg.vocab, max_new=max_new)
+    seen, ticks = [], []
+    for eng in engines:
+        seen += [record_logits(eng, keep=False)]
+        step, m = eng.tick, eng.metrics
+
+        def tick(step=step, m=m):
+            p0, d0 = m.prefill_tokens, m.decode_tokens
+            t = time.perf_counter()
+            busy = step()
+            ticks.append((time.perf_counter() - t, m.prefill_tokens - p0,
+                          m.decode_tokens - d0))
+            return busy
+
+        eng.tick = tick
+    for r in reqs:
+        front.submit(r)
+    reset_counts(K)
+    t0 = time.perf_counter()
+    fm = front.run(max_ticks=200000)
+    wall = time.perf_counter() - t0
+    counts = read_counts(K)
+    done = [r for e in engines for r in e.finished]
+    if len(done) != FLEET_REQUESTS or any(len(r.output) != max_new
+                                          for r in done):
+        raise AssertionError(f"fleet {arm}: not every request finished "
+                             f"with {max_new} tokens")
+    if not bool(torch.stack([f for s in seen for f in s]).all()):
+        raise AssertionError(f"fleet {arm}: non-finite logits")
+    if front is engines[0]:
+        if not front.cachemgr.pristine:
+            raise AssertionError("fleet single: the pool did not drain "
+                                 "pristine")
+    else:
+        check_fleet(front)
+    return dict(front=front, metrics=fm, wall=wall, ticks=ticks,
+                counts=counts, templates=templates,
+                out={r.rid: list(r.output) for r in done})
+
+
+def cross_pool_copy(fleet, dev, iters=200):
+    """One ``import_block`` between two replicas of ``fleet`` (a head block
+    of replica 0 that replica 1 does not hold; replica 1's index is flushed
+    if it holds them all) must leave the target block ``torch.equal`` to
+    the source block in K and V and the index a bijection.  Then the copy
+    of that block (``_copy_block_from``, rewriting the same bytes) timed
+    eagerly between CUDA events over ``iters`` calls, beside a ``copy_``
+    of a contiguous tensor of the same bytes and the bound (bytes read and
+    written over HBM's rate); and the same copy's device time with the
+    host's issue cost removed (``time_ms``: the calls captured in a CUDA
+    graph).  Returns (per-copy device ms in the graph, per-copy host ms of
+    the eager loop, block bytes)."""
+    a, b = fleet.engines[0].cachemgr, fleet.engines[1].cachemgr
+    missing = [k for k in a._index if k not in b._index]
+    if not missing:
+        b.flush_index()
+        missing = list(a._index)
+    key = missing[0]
+    src = a._index[key]
+    dst = b.import_block(key, a, src)
+    if dst is None:
+        raise AssertionError("fleet: import_block found no room")
+    for name in ("k", "v"):
+        if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
+            raise AssertionError(f"fleet: imported block differs from its "
+                                 f"source in {name}")
+    fleet.index.check_bijection()
+    nbytes = sum(a.cache[n][:, src].numel() * a.cache[n].element_size()
+                 for n in ("k", "v"))
+
+    def timed(fn):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0 = time.perf_counter()
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return (e0.elapsed_time(e1) / iters,
+                (time.perf_counter() - t0) * 1e3 / iters)
+
+    ms, host_ms = timed(lambda: b._copy_block_from(a, src, dst))
+    graph_ms = time_ms(lambda: b._copy_block_from(a, src, dst), iters)
+    x = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    y = torch.empty_like(x)
+    flat_ms, _ = timed(lambda: y.copy_(x))
+    flat_graph_ms = time_ms(lambda: y.copy_(x), iters)
+    for name in ("k", "v"):
+        if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
+            raise AssertionError("fleet: the timed copies changed the block")
+    bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
+    layers = a.cache["k"].shape[0]
+    print(f"fleet: import_block engine 0 block {src} -> engine 1 block {dst}"
+          f" K and V torch.equal to the source, bijection=True ok; "
+          f"cross-pool copy of one block ({nbytes} bytes: K and V, "
+          f"{layers} layers x {nbytes // 2 // layers} bytes a side) eager "
+          f"between CUDA events over {iters} calls: "
+          f"ms={ms:.5f} host_ms={host_ms:.5f} contiguous copy_ of the same "
+          f"bytes ms={flat_ms:.5f}; in a CUDA graph (device time, no host "
+          f"issue cost) ms={graph_ms:.5f} contiguous {flat_graph_ms:.5f}; "
+          f"bound_ms={bound_ms:.5f} (bytes read and written / "
+          f"{HBM_BYTES_PER_S:.3g} B/s) bound_share eager="
+          f"{bound_ms / ms:.4f} graph={bound_ms / graph_ms:.4f}")
+    return graph_ms, host_ms, nbytes
+
+
+def full_fleet(K, cfg, weights, dev, max_new=16):
+    """Phase 11: ``bench_fleet.py``'s trace (3 templates with adapters
+    lora0..2 picked by Zipf s=1.1, 18 requests of 1024 tokens: an 832-token
+    head plus a random tail, seeders at t=0, the burst at t=0.2) with 16
+    new tokens, through one engine and three arms of 3 replicas over
+    phase 4's base weights: round_robin without fetch, affinity and
+    rr_fetch (round-robin with fetch).  Virtual clock with
+    ``CostModel(fixed=1e-3, prefill_per_tok=1e-4)``: at the default
+    ``fixed`` of 35 ms fetching needs n >= 187 blocks, so no fetch would
+    happen.  Returns the fleet arms' summed launch counts."""
+    import gc
+    from repro_torch.serving.clock import CostModel
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = weights[0]
+    dtype = params["embed"].dtype
+    print(f"fleet: {cfg.name} bf16 replicas={FLEET_REPLICAS} requests="
+          f"{FLEET_REQUESTS} prompt={FLEET_PROMPT} (head {FLEET_HEAD}) "
+          f"templates={FLEET_TEMPLATES} zipf_s={FLEET_ZIPF} tokens_each="
+          f"{max_new} capacity=6 pf_capacity=4 block_size={FLEET_BLOCK} "
+          f"load_penalty={FLEET_LOAD_PENALTY}; the virtual clock is "
+          f"CostModel(fixed=1e-3, prefill_per_tok=1e-4), modeled seconds, "
+          f"not the card's (the default fixed=0.035 would fetch only from "
+          f"n >= 187 blocks)")
+    runs, counts = {}, {k: 0 for k in COUNTERS}
+    copy = None
+    for arm in FLEET_ARMS:
+        run = fleet_run(K, cfg, params, dev, dtype, arm, max_new)
+        fm, front = run["metrics"], run["front"]
+        if arm != "single":
+            for k, v in run["counts"].items():
+                counts[k] += v
+        pf = [t for t, p, d in run["ticks"] if p]
+        dec = [t for t, p, d in run["ticks"] if d and not p]
+        routed = getattr(front, "routed", {0: FLEET_REQUESTS})
+        same = (sum(int(a == b) for rid in run["out"] for a, b in zip(
+            run["out"][rid], runs["single"]["out"][rid]))
+            if runs else FLEET_REQUESTS * max_new)
+        fetched = fm.remote_fetch_blocks
+        if arm == "rr_fetch":
+            want = expected_rr_fetches(run["templates"])
+            if fetched != want:
+                raise AssertionError(f"fleet rr_fetch fetched {fetched} "
+                                     f"blocks, the analytic count is {want}")
+        elif arm == "round_robin" and fetched:
+            raise AssertionError("fleet round_robin fetched with fetch off")
+        print(f"fleet: {arm} wall_s={run['wall']:.4f} (host clock) "
+              f"prefill_ticks {ms_stats(pf)} ms decode_ticks {ms_stats(dec)}"
+              f" ms "
+              f"computed_tokens={fm.prefill_tokens} (blocks "
+              f"{fm.prefill_tokens / FLEET_BLOCK:.2f}) reused_blocks="
+              f"{fm.reused_prefix_tokens // FLEET_BLOCK} fetched_blocks="
+              f"{fetched}"
+              + (f" (analytic {expected_rr_fetches(run['templates'])})"
+                 if arm == "rr_fetch" else "")
+              + f" hash_hits={fm.hash_hits} routed={routed} steps={fm.steps}"
+              f" virtual_elapsed_s={fm.elapsed:.6g} (modeled) "
+              f"tokens_equal_to_single={same}/{FLEET_REQUESTS * max_new} "
+              f"launches={ {k: run['counts'][k] for k in MEMORY_COUNTERS} } "
+              f"finite=True pristine=True"
+              + (" bijection=True" if arm != "single" else "") + " ok")
+        if arm == "rr_fetch":
+            copy = cross_pool_copy(front, dev)
+        run.pop("front")
+        runs[arm] = run
+        del front, fm
+        gc.collect()
+        torch.cuda.empty_cache()
+    # paged decode runs as itself or, where the split table picks ns > 1
+    # at the fleet's table width (nbt 33), as its split-K form: partials
+    # and the merge
+    need = ("smlm", "bgmv", "prefill", "flash")
+    decode = counts["decode"] + counts["partials"]
+    if min(counts[k] for k in need) == 0 or decode == 0 \
+            or counts["partials"] != counts["merge"]:
+        raise AssertionError(f"fleet: a kernel never launched on the fleet "
+                             f"path: {counts}")
+    print(f"fleet: launches over the three fleet arms "
+          f"{ {k: counts[k] for k in need} } paged decode "
+          f"{counts['decode']} + its split-K form {counts['partials']} "
+          f"(partials, each with a merge) ok")
+    # the fetch rule at this card's numbers: the single engine's prefill
+    # seconds per token against the measured copy of one block
+    pf = [(t, p) for t, p, d in runs["single"]["ticks"] if p and not d]
+    per_tok = sum(t for t, _ in pf) / sum(p for _, p in pf)
+    n = FLEET_HEAD // FLEET_BLOCK
+    for label, per_block in (("device (graph)", copy[0] * 1e-3),
+                             ("eager host", copy[1] * 1e-3)):
+        recompute = n * FLEET_BLOCK * per_tok
+        picks = " ".join(
+            f"fixed={fixed:g}: {fixed + n * per_block:.6g} s -> "
+            f"{'fetch' if fixed + n * per_block < recompute else 'recompute'};"
+            for fixed in (CostModel().fixed, FLEET_COST["fixed"], 0.0))
+        print(f"fleet: fetch rule at this card's numbers ({label} copy ms "
+              f"per block {per_block * 1e3:.5f}, prefill_per_tok "
+              f"{per_tok:.6e} s from {len(pf)} prefill ticks) for the "
+              f"head's {n} blocks: recompute {recompute:.6g} s against a "
+              f"fetch at {picks}")
+    differ = [a for a in FLEET_ARMS if a != "single"
+              and runs[a]["out"] != runs["single"]["out"]]
+    if differ:
+        ref = fleet_logits(K, cfg, params, dev, dtype, "single", max_new)
+        for a in differ:
+            rows = fleet_logits(K, cfg, params, dev, dtype, a, max_new)
+            divergences(f"fleet {a}", "single", ref, a, rows,
+                        FLEET_REQUESTS * max_new)
+    return counts
+
+
+def fleet_logits(K, cfg, params, dev, dtype, arm, max_new):
+    """An untimed copy of an arm with every tick's logits on the host
+    (``logit_rows``)."""
+    import gc
+    front, engines = fleet_front(cfg, params, dev, dtype, arm)
+    reqs, _ = fleet_trace(cfg.vocab, max_new=max_new)
+    rows, restore = logit_rows(engines, reqs)
+    try:
+        for r in reqs:
+            front.submit(r)
+        front.run(max_ticks=200000)
+    finally:
+        restore()
+    n = sum(len(v) for v in rows.values())
+    print(f"fleet {arm}: untimed copy with logits kept: tokens_that_are_"
+          f"their_row's_argmax={argmax_share(rows)}/{n}")
+    del front, engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 SOURCES = {
     "smlm": ("src/repro_torch/kernels/csrc/smlm.cu",
              "src/repro/kernels/smlm.py:39"),
@@ -2705,6 +3202,8 @@ def main() -> int:
     ap.add_argument("--memory", action="store_true",
                     help="only the memory features: phase 3's lending, "
                          "paging and chunked-training parity, phases 9-10")
+    ap.add_argument("--fleet", action="store_true",
+                    help="only the fleet: phase 3's fleet case, phase 11")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -2771,6 +3270,16 @@ def main() -> int:
         full_paging(K, cfg, weights, dev)
         print(card())
         return 0
+    if a.fleet:
+        from repro_torch.configs import get_config, get_reduced
+        from repro_torch.core.lora import LoRAConfig
+        small = get_reduced("llama3-8b")
+        parity_fleet(K, small, numpy_weights(small, seed=0),
+                     LoRAConfig(n_slots=4, r=8), ("cuda", "cpu"))
+        cfg = get_config("llama3-8b")
+        full_fleet(K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -2800,6 +3309,7 @@ def main() -> int:
     by_path["train"] = full_train(K, cfg, weights, dev, waves, plain)
     by_path["tiers"] = full_tiers(K, cfg, weights, dev)
     by_path["paging"] = full_paging(K, cfg, weights, dev)
+    by_path["fleet"] = full_fleet(K, cfg, weights, dev)
 
     kernels = []
     for name in SOURCES:

@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       [--reduced] [--device cuda|cpu] [--dtype bfloat16|float32] \\
       [--spec K] [--over-admit F] [--kv-host-blocks N [--kv-host-quant]] \
-      [--adapter-paging] --rps 2 --requests 40 --adapters 2
+      [--adapter-paging] [--replicas N [--router POLICY] \
+      [--no-remote-fetch]] [--finetune] [--attn-tune-file PATH] \
+      --rps 2 --requests 40 --adapters 2
 
 Runs on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
 random, drawn from ``--seed``.  Prints what the JAX CLI prints for the
-features this slice has.
+features the port has; with ``--replicas`` > 1 every summary line adds up
+the replicas.
 """
 from __future__ import annotations
 
@@ -20,11 +23,13 @@ from repro_torch.core.lora import LoRAConfig
 from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
 from repro_torch.data import datasets, workload
 from repro_torch.device import resolve_device, resolve_dtype
+from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
 from repro_torch.models.schema import init_params
 from repro_torch.serving.engine import EngineConfig, UnifiedEngine
 from repro_torch.serving.request import PRIORITY_CLASSES, Request
 from repro_torch.serving.slo import SLOConfig, slo_attainment
 from repro_torch.spec import SpecConfig
+from repro_torch.training.trainer import MixedLoraTrainer, TrainerConfig
 
 
 def main(argv=None):
@@ -70,10 +75,34 @@ def main(argv=None):
                          "default off = static bank partition)")
     ap.add_argument("--priority", default="standard",
                     choices=["interactive", "standard", "batch", "mixed"])
+    ap.add_argument("--finetune", action="store_true",
+                    help="co-run an alpaca_like fine-tune of lora0 with the "
+                         "served traffic (on engine 0 of a fleet)")
+    ap.add_argument("--attn-tune-file", default=None, metavar="PATH",
+                    help="JSON split table for the split-K attention "
+                         "kernels (kernels/autotune.py); shapes it misses "
+                         "take the heuristic")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="in-process engine replicas behind one router "
+                         "(shared base weights, per-replica KV pools and "
+                         "adapter banks, fleet-wide block index with "
+                         "remote prefix fetch); 1 = single engine")
+    ap.add_argument("--router", default="affinity",
+                    choices=["affinity", "round-robin", "least-loaded"],
+                    help="replica placement policy (--replicas > 1)")
+    ap.add_argument("--no-remote-fetch", action="store_true",
+                    help="never copy prefix blocks between replica pools")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.attn_tune_file:
+        from repro_torch.kernels import autotune
+        # the card's own table first (the model merges it at its first
+        # call otherwise), so the file's entries win
+        autotune.load_card_table(device)
+        n = autotune.load_table(args.attn_tune_file)
+        print(f"attn autotune: loaded {n} entries from {args.attn_tune_file}")
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     dtype = resolve_dtype(args.dtype, cfg.dtype)
     params = init_params(cfg, device=device, dtype=dtype, seed=args.seed)
@@ -92,7 +121,7 @@ def main(argv=None):
                           rank=ranks[i % 3] if args.adapter_paging else None)
         names.append(f"lora{i}")
     model = MixedLoraModel(cfg, params, store)
-    eng = UnifiedEngine(model, EngineConfig(
+    ecfg = EngineConfig(
         capacity=8, pf_capacity=4, s_max=256,
         virtual_time=not args.wall_clock, prefill_chunk=args.prefill_chunk,
         hash_dedup=not args.no_hash_dedup, over_admit=args.over_admit,
@@ -100,7 +129,18 @@ def main(argv=None):
         kv_host_blocks=args.kv_host_blocks,
         kv_host_quant=args.kv_host_quant,
         spec=(SpecConfig(k_max=args.spec, drafter="ngram") if args.spec > 0
-              else None)))
+              else None))
+    fleet = None
+    if args.replicas > 1:
+        fleet = build_fleet(model, ecfg, FleetConfig(
+            replicas=args.replicas,
+            router=RouterConfig(policy=args.router),
+            remote_fetch=not args.no_remote_fetch))
+        engines = fleet.engines
+    else:
+        engines = [UnifiedEngine(model, ecfg)]
+    eng = engines[0]
+    front = fleet if fleet is not None else eng
 
     prompts = datasets.sharegpt_prompts(args.requests, vocab=cfg.vocab,
                                         seed=args.seed)
@@ -108,46 +148,76 @@ def main(argv=None):
     classes = (PRIORITY_CLASSES if args.priority == "mixed"
                else (args.priority,))
     for i, (p, t) in enumerate(zip(prompts, arrivals)):
-        eng.submit(Request(rid=i, prompt=p, adapter=names[i % len(names)],
-                           max_new_tokens=args.max_new, arrival=float(t),
-                           priority_class=classes[i % len(classes)]))
+        front.submit(Request(rid=i, prompt=p,
+                             adapter=names[i % len(names)],
+                             max_new_tokens=args.max_new, arrival=float(t),
+                             priority_class=classes[i % len(classes)]))
 
-    m = eng.run(max_ticks=500000)
-    att = slo_attainment(eng.finished, SLOConfig())
+    if args.finetune:
+        rows = datasets.alpaca_like(32, vocab=cfg.vocab, seed=args.seed)
+        tr_rows, ev_rows = datasets.split_eval(rows)
+        eng.add_trainer(MixedLoraTrainer(
+            names[0], eng.model.store.slot_of(names[0]), tr_rows, ev_rows,
+            TrainerConfig(rows_per_micro=2, accum_steps=4, epochs=1)))
+
+    m = front.run(max_ticks=500000)
+    finished = [r for e in engines for r in e.finished]
+    att = slo_attainment(finished, SLOConfig())
     print(f"arch={cfg.name} device={device.type} dtype={str(dtype)[6:]} "
           f"requests={args.requests} rps={args.rps} "
-          f"finished={len(eng.finished)} SLO={att:.3f}")
+          f"finished={len(finished)} SLO={att:.3f}")
     print(f"rates={m.rates()}")
-    if args.over_admit > 1.0 or m.preemptions:
+
+    def tot(field, agg=sum):
+        # the fleet rollup carries the headline counters; the per-engine
+        # metrics hold the rest
+        if fleet is not None:
+            return agg(getattr(e, field) for e in m.per_engine)
+        return getattr(m, field)
+
+    if fleet is not None:
+        print(f"fleet: replicas={args.replicas} router={args.router} "
+              f"routed={fleet.routed} "
+              f"remote_fetch_blocks={m.remote_fetch_blocks} "
+              f"remote_fetch_time={m.remote_fetch_time:.4f} "
+              f"fleet_index_keys={len(fleet.index)}")
+    if args.over_admit > 1.0 or tot("preemptions"):
         print(f"over-admit: factor={args.over_admit} "
-              f"preemptions={m.preemptions} "
-              f"recomputed={m.preempted_tokens_recomputed} "
-              f"lent_peak={m.lent_blocks_peak}")
+              f"preemptions={tot('preemptions')} "
+              f"recomputed={tot('preempted_tokens_recomputed')} "
+              f"lent_peak={tot('lent_blocks_peak', max)}")
     if m.reused_prefix_tokens or args.prefill_chunk:
         print(f"prefix: reused={m.reused_prefix_tokens} "
               f"computed={m.prefill_tokens} "
-              f"max_pf_step={m.max_pf_tokens_step}")
-    if args.adapter_paging or m.adapter_swap_ins:
-        print(f"adapters: swap_ins={m.adapter_swap_ins} "
-              f"swap_in_bytes={m.adapter_swap_in_bytes} "
-              f"resident_hits={m.adapter_resident_hits} "
-              f"blocks_resident={m.adapter_blocks_resident} "
-              f"peak_coresident={m.adapter_peak_coresident}")
+              f"max_pf_step={tot('max_pf_tokens_step', max)}")
+    if args.adapter_paging or tot("adapter_swap_ins"):
+        print(f"adapters: swap_ins={tot('adapter_swap_ins')} "
+              f"swap_in_bytes={tot('adapter_swap_in_bytes')} "
+              f"resident_hits={tot('adapter_resident_hits')} "
+              f"blocks_resident={tot('adapter_blocks_resident')} "
+              f"peak_coresident={tot('adapter_peak_coresident', max)}")
     if args.kv_host_blocks > 0:
         print(f"kv-tiers: host_blocks={args.kv_host_blocks} "
-              f"quant={args.kv_host_quant} swap_outs={m.kv_swap_outs} "
-              f"restores={m.kv_restores} skips={m.kv_swap_skips} "
-              f"demotions={m.kv_demotions} "
-              f"rehydrated={m.kv_rehydrated_blocks} "
-              f"host_peak_bytes={m.host_bytes_peak}")
+              f"quant={args.kv_host_quant} "
+              f"swap_outs={tot('kv_swap_outs')} "
+              f"restores={tot('kv_restores')} "
+              f"skips={tot('kv_swap_skips')} "
+              f"demotions={tot('kv_demotions')} "
+              f"rehydrated={tot('kv_rehydrated_blocks')} "
+              f"host_peak_bytes={tot('host_bytes_peak', max)}")
     if args.spec > 0:
-        print(f"spec: drafted={m.spec_drafted} accepted={m.spec_accepted} "
-              f"acceptance={m.spec_accepted / max(m.spec_drafted, 1):.2f} "
+        drafted, accepted = tot("spec_drafted"), tot("spec_accepted")
+        print(f"spec: drafted={drafted} accepted={accepted} "
+              f"acceptance={accepted / max(drafted, 1):.2f} "
               f"steps={m.steps}")
     if eng.hash_dedup:
         print(f"dedup: hash_hits={m.hash_hits} "
-              f"resident_blocks={m.hash_blocks_resident} "
-              f"probe_admissions={m.probe_admissions}")
+              f"resident_blocks={tot('hash_blocks_resident')} "
+              f"probe_admissions={tot('probe_admissions')}")
+    if args.finetune:
+        tr = eng.trainers[names[0]]
+        print(f"finetune: tokens={tr.tokens_trained} "
+              f"opt_steps={tr.optimizer_steps}")
 
 
 if __name__ == "__main__":

@@ -540,6 +540,7 @@ class UnifiedEngine:
             self.metrics.lent_blocks_peak = cm.lent_blocks_peak
             self.metrics.hash_hits = cm.hash_hits
             self.metrics.hash_blocks_resident = cm.hash_blocks_resident
+            self.metrics.remote_fetch_blocks = cm.remote_imports
             if cm.host_pool is not None:
                 hp = cm.host_pool
                 self.metrics.kv_swap_outs = cm.kv_swap_outs
@@ -817,3 +818,8 @@ class UnifiedEngine:
                 self._apply_trainer(tr)
         self.metrics.elapsed = self.clock.now()
         return self.metrics
+
+    @property
+    def all_requests(self) -> List[Request]:
+        return self.finished + list(self.active.values()) \
+            + list(self.prefilling.values()) + self.waiting + self.future

@@ -52,7 +52,12 @@ true rank into a byte payload that ``adapter_admit`` scatters into an
 adapter pool ``[n_blocks, adapter_block_bytes]`` uint8 on the engine's
 device (two same-shaped pools under one allocator, as in the JAX package).
 Unpinned adapters are shed cold-LRU under pressure, redundant copies first.
-Fleet block import (``import_block``) comes with the fleet.
+
+The fleet (``repro_torch.fleet``): ``on_publish`` / ``on_depublish`` are
+told of every change to the local index (publication, rehydration, import;
+de-publication before its decref), which is what keeps a ``FleetIndex``
+exact, and ``import_block`` copies one published block from a sibling
+manager's pool into this one, on the card, and publishes it here.
 """
 from __future__ import annotations
 
@@ -422,6 +427,13 @@ class PagedCacheManager:
         self.hash_dedup = bool(hash_dedup)
         self.lent_blocks_peak = 0
         self.hash_hits = 0                # blocks adopted via the index
+        self.remote_imports = 0           # blocks fetched from sibling pools
+        # fleet wiring: a FleetIndex is told of every local index change,
+        # so its key -> (engine, block) map is exactly as fresh as the
+        # local index (retraction fires from _depublish, the one local
+        # removal path)
+        self.on_publish: Optional[Callable[[str, int], None]] = None
+        self.on_depublish: Optional[Callable[[str, int], None]] = None
         self.capacity = capacity
         self.pf_capacity = pf_capacity
         self.s_max = s_max
@@ -843,11 +855,15 @@ class PagedCacheManager:
             if self.host_pool is not None:
                 # two-tier disjointness: a key lives in one tier
                 self.host_pool.drop_demoted(key)
+            if self.on_publish is not None:
+                self.on_publish(key, bid)
 
     def _depublish(self, key: str):
         bid = self._index.pop(key)
         del self._hashed[bid]
         self._hits.pop(key, None)
+        if self.on_depublish is not None:
+            self.on_depublish(key, bid)
         self.allocator.decref(bid)
 
     def _shed_one(self, protect: frozenset = frozenset()) -> bool:
@@ -1285,6 +1301,8 @@ class PagedCacheManager:
         self._hits.setdefault(key, 0)
         self.kv_rehydrations += 1
         self.kv_rehydrate_bytes += self.host_block_bytes
+        if self.on_publish is not None:
+            self.on_publish(key, bid)
         return bid
 
     def flush_host(self) -> int:
@@ -1292,6 +1310,64 @@ class PagedCacheManager:
         if self.host_pool is None:
             return 0
         return self.host_pool.flush_demoted()
+
+    # -- fleet import --------------------------------------------------------
+    def import_block(self, key: str, src: "PagedCacheManager",
+                     src_bid: int) -> Optional[int]:
+        """Fetch one content-addressed block from a sibling manager's pool
+        (the fleet's remote fetch): allocate a local block, copy the K/V
+        payload across pools and publish it in the local index under the
+        same key, as an index-only block (ref 1) like a locally published
+        idle one.  The key is the content, and published blocks are
+        copy-on-write immutable, so the copy is what local recompute would
+        write.  Spends only spendable capacity, shedding idle index entries
+        first; None when the pool cannot take the block (the caller then
+        recomputes).  Returns the local block id."""
+        if not self.hash_dedup:
+            return None
+        got = self._index.get(key)
+        if got is not None:
+            return got                       # already resident locally
+        while self._index and self.free_blocks <= 0:
+            if not self._shed_one():
+                break
+        if self.free_blocks <= 0:
+            return None
+        bid = self.allocator.alloc()
+        if bid is None:                      # free_blocks > 0 => n_free > 0
+            raise KVAccountingError(
+                "spendable budget positive but the pool has no free block")
+        self._copy_block_from(src, src_bid, bid)
+        # alloc's ref of 1 is the index's hold
+        self._index[key] = bid
+        self._hashed[bid] = key
+        self._hits.setdefault(key, 0)
+        self.remote_imports += 1
+        if self.host_pool is not None:
+            # the remote copy supersedes a demoted host copy (one tier per
+            # key)
+            self.host_pool.drop_demoted(key)
+        if self.on_publish is not None:
+            self.on_publish(key, bid)
+        return bid
+
+    def _copy_block_from(self, src: "PagedCacheManager", src_bid: int,
+                         dst_bid: int):
+        """In place: block ``dst_bid`` of every layer's pool gets block
+        ``src_bid`` of ``src``'s, a copy on the card (the JAX package
+        returns a new cache instead).  Both pools must have one shape, dtype
+        and device: a block never moves through the host here.  (Once SSM
+        state leaves exist they are per-request rows, not blocks, and the
+        copy must skip them as the JAX package skips ``STATE_KEYS``.)"""
+        for name in ("k", "v"):
+            dst, got = self.cache[name], src.cache[name]
+            if (dst.shape[0] != got.shape[0] or dst.shape[2:] != got.shape[2:]
+                    or dst.dtype != got.dtype or dst.device != got.device):
+                raise ValueError(
+                    f"cross-pool copy between unlike pools: {name} "
+                    f"{tuple(got.shape)} {got.dtype} {got.device} -> "
+                    f"{tuple(dst.shape)} {dst.dtype} {dst.device}")
+            dst[:, dst_bid] = got[:, src_bid]
 
     # -- copy-on-write -------------------------------------------------------
     def _copy_block(self, src: int, dst: int):

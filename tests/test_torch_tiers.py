@@ -330,6 +330,37 @@ def test_demote_rehydrate_byte_identical_like_jax():
     assert tm.pristine and tm.allocator.n_free == tm.allocator.usable
 
 
+def test_import_block_drops_stale_demoted_twin():
+    """A key arriving on the device through any publish path evicts its
+    demoted host copy (one key, one tier): a fleet import here, with the
+    imported payload the source's and the state the JAX managers'."""
+    (jsrc, tsrc), (jdst, tdst) = _mgrs(), _mgrs(host_blocks=8)
+    prompt = np.arange(20, dtype=np.int32)
+    for m in (jsrc, tsrc, jdst, tdst):
+        s, _ = m.try_admit(prompt, max_new=4)
+        m.commit_prefill([(0, s)], [m._seq_len[s]])
+        m.free(s)
+    payload = _scribble(jsrc, tsrc, [tsrc._index[k]
+                                     for k in tsrc.chain_keys(prompt)][:1],
+                        seed=9)
+    for m in (jdst, tdst):
+        while m._shed_any():
+            pass
+    key = tsrc.chain_keys(prompt)[0]
+    assert tdst.host_pool.has_demoted(key)
+    bids = [d.import_block(key, s, s._index[key])
+            for d, s in ((jdst, jsrc), (tdst, tsrc))]
+    assert bids[0] == bids[1] is not None
+    assert not tdst.host_pool.has_demoted(key)
+    assert not (set(tdst._index) & tdst.host_pool.demoted_keys())
+    _same_state(jdst, tdst)
+    assert tdst.remote_imports == jdst.remote_imports == 1
+    jraw, traw = _raw(jdst, tdst, [bids[1]])
+    for k in ("k", "v"):
+        np.testing.assert_array_equal(traw[k], payload[k])
+        np.testing.assert_array_equal(traw[k], jraw[k])
+
+
 # ------------------------------------------------------------ int8 tier
 def test_int8_leaf_equals_jax_quantize_leaf():
     """``quantize_leaf`` gives JAX's int8 payload and f32 scales exactly
