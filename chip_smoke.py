@@ -9,13 +9,15 @@
     python3 chip_smoke.py --divergence [--root TREE]
     python3 chip_smoke.py --memory
     python3 chip_smoke.py --fleet
+    python3 chip_smoke.py --archs
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
 ``BGMV_SHAPES``, paged prefill, decode, verify, split-K, flash at both of
 its main-path shapes, dense decode, SMLM's weight gradient at
-``WGRAD_SHAPES``) of the port in ``TREE`` (default: this checkout), at the
-shapes below: run it over two checkouts in turns (A, B, B, A) within one
+``WGRAD_SHAPES``, and each at the other configs' shapes of
+``check_arch_shapes``) of the port in ``TREE`` (default: this checkout), at
+the shapes below: run it over two checkouts in turns (A, B, B, A) within one
 call to compare a kernel change with its parent.  The
 third fills the split table (``kernels/autotune.py``) with
 ``sweep(measure=...)``: for each key the model asks at the smoke's serving
@@ -34,7 +36,8 @@ every tick's logits kept, and prints each request's first divergence from
 the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 The seventh runs only the memory features: phase 3's lending, paging and
 chunked-training parity, then phases 9 and 10.  The eighth runs only the
-fleet: phase 3's fleet case, then phase 11.
+fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
+configs: phase 3's arch parity, then phase 12.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -66,7 +69,13 @@ printing its lines; any failure raises and exits non-zero:
              tokens gathered per adapter (the JSON row: 4096->14336), with
              the transposed bank slices of ``SMLMFunction``'s dX; then
              ``SMLMFunction``'s backward against autograd through the
-             plain SMLM.
+             plain SMLM.  Then the other configs' shapes
+             (``check_arch_shapes``): paged and dense decode at m = h/g =
+             1 (32 KV heads), verify, split-K and decode at m = 1 and 5,
+             flash and paged prefill (16- and 48-token suffixes) at m = 5
+             and 8 (and prefill's 48 at m = 4), SMLM (T=576) and BGMV
+             (T=8) at 5120->17920, 8192->22528 and 4096->11008; timed in
+             bf16 like the rest.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -92,7 +101,13 @@ printing its lines; any failure raises and exits non-zero:
              tokens equal to the single engine's on each device and across
              devices, ``routed``, ``remote_fetch_blocks``, ``hash_hits``
              and steps equal across devices, round-robin fetches, the
-             fleet index a bijection and every pool pristine.
+             fleet index a bijection and every pool pristine.  Then
+             the other configs (``ARCH_PARITY``): each new reduced config
+             (phi3-medium-14b, deepseek-7b, command-r-35b with its tied
+             head, qwen1.5-110b with QKV bias, llama4-maverick with a MoE
+             layer) and int8 llama3-8b and maverick (quantized on the
+             host) through the engine on both devices: greedy tokens and
+             steps equal, every serving kernel launched.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -182,10 +197,27 @@ printing its lines; any failure raises and exits non-zero:
              bound, and the fetch rule is evaluated at the measured copy
              and prefill times.
 
+12. archs  — each arm of ``ARCH_ARMS`` at full width, built on the card
+             leaf by leaf from a seed (int8: each leaf drawn in bf16,
+             quantized, freed) and freed before the next: deepseek-7b
+             bf16 (30 layers), phi3-medium-14b bf16 and int8 (40),
+             command-r-35b int8 (40), qwen1.5-110b int8 (40 of 80),
+             llama4-maverick bf16 (2 layers: one dense, one 128-expert
+             MoE) and int8 (4), each serving phase 4's two waves with two
+             gaussian-B adapters: ``archs:`` lines with prefill and decode
+             tick latency (enqueue / device wait), resident weight bytes,
+             ``max_memory_allocated``, tokens/s and, for maverick, the
+             experts routed per tick and the entries dropped.  Gates:
+             every request finishes, logits finite, the pool pristine,
+             SMLM, BGMV, flash, paged prefill and paged decode (either
+             form) launched; bf16 maverick also takes one fused train
+             step on ft rows (loss finite, aux loss > 0, only lora0's slot
+             changed, ``smlm_wgrad`` launched).
+
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-11 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet), the card's name and power limit, and the last
+run of phases 4-12 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging, fleet, archs; ``shapes`` its other timed rows), the card's name and power limit, and the last
 line
 ``{"ok": true, "device": {...}}``.
 """
@@ -1138,6 +1170,174 @@ def check_dense_kernels(K, dtype, dev, gen, timing: bool):
     return rows
 
 
+# the shapes of the other configs the port serves (phase 12), timed beside
+# the main path's: the group sizes m = h/g the walks had not run at (1:
+# deepseek-7b's 32 KV heads; 5: llama4-maverick's 40 heads over 8; 8:
+# command-r-35b and qwen1.5-110b) and the up projections (d_in, d_out) of
+# phi3-medium-14b, command-r-35b and deepseek-7b, SMLM at a serving wave's
+# 576 tokens and BGMV at a decode tick's 8
+ARCH_LORA = ((5120, 17920), (8192, 22528), (4096, 11008))
+
+
+def attn_row(run, plain, lib, nbytes, flops, dtype, err, shape):
+    bms, by = bound(nbytes, flops, dtype)
+    return dict(max_abs_err=err, ms=time_ms(run),
+                plain_ms=time_ms(plain, iters=5, eager=True),
+                library_ms=time_ms(lib), bound_ms=bms, bound_by=by,
+                shape=shape)
+
+
+def supports_m5(K) -> bool:
+    """Whether the port in use runs a group size that does not divide the
+    query tile's 64 rows (the parent of that change refuses it)."""
+    import inspect
+    return "TILE_ROWS % (h // g)" not in inspect.getsource(K["flash"])
+
+
+def check_arch_shapes(K, dtype, dev, gen, timing: bool):
+    """Each attention kernel at the new group sizes against its plain
+    version (paged and dense decode, verify and split-K at m = 1 and 5;
+    flash and paged prefill at m = 5 and 8, prefill on both walks), SMLM
+    and BGMV at the new widths; in bf16 the timing rows.  A port that
+    refuses m = 5 (``--root`` at the parent) skips those rows."""
+    rows, ref = {}, K["ref"]
+    it = torch.empty((), dtype=dtype).element_size()
+    m5 = supports_m5(K)
+    hd, bs, nbt = 128, 32, 16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    # m = 1 (h = g = 32): paged and dense decode at the serving positions
+    pos = torch.tensor([0, 143, 150, 200, 37, 255, 300, 511], device=dev,
+                       dtype=torch.int32)
+    need = [0] + [int(p) // bs + 1 for p in pos[1:]]
+    kp, vp, tables = paged_case(dev, gen, dtype, 8, nbt, need, g=32)
+    q = torch.randn(8, 32, hd, generator=gen, device=dev).to(dtype)
+    args = (q, kp, vp, tables, pos)
+    err = compare(K["decode"](*args), ref.paged_decode_ref(*args), dtype)
+    keys = sum(int(p) + 1 for p in pos)
+    work = ((2 * q.numel() + 2 * keys * 32 * hd) * it, 4 * 32 * hd * keys)
+    if timing:
+        rows["paged_decode m=1"] = attn_row(
+            lambda: K["decode"](*args), lambda: ref.paged_decode_ref(*args),
+            sdpa_yardstick(q[:, None], kp, vp, tables,
+                           q_pos=pos[:, None].long(), kend=pos.long() + 1),
+            *work, dtype, err,
+            "B=8 h=32 g=32 hd=128 bs=32 pos up to 511 (deepseek-7b)")
+    kd, vd = (torch.randn(8, 512, 32, hd, generator=gen, device=dev
+                          ).to(dtype) for _ in range(2))
+    dargs = (q, kd, vd, pos)
+    derr = compare(K["dense_decode"](*dargs),
+                   ref.decode_attention_ref(*dargs), dtype)
+    if timing:
+        mask = (torch.arange(512, device=dev)[None, :]
+                <= pos.long()[:, None])[:, None, None, :]
+        qt = q[:, :, None].contiguous()
+        kt, vt = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+        rows["dense_decode m=1"] = attn_row(
+            lambda: K["dense_decode"](*dargs),
+            lambda: ref.decode_attention_ref(*dargs),
+            lambda: sdpa(qt, kt, vt, attn_mask=mask), *work, dtype, derr,
+            "B=8 S=512 h=32 g=32 hd=128 window=0 pos up to 511 "
+            "(deepseek-7b)")
+    checked = [f"paged_decode m=1 {err:.3e}", f"dense_decode m=1 {derr:.3e}"]
+    # verify and split-K (chunks of 5 positions) and decode at m = 1 and 5
+    vpos, vlens = [0, 30, 61, 200, 300, 506], [0, 5, 5, 2, 1, 5]
+    for m, h in ((1, 32), (5, 40)):
+        if m == 5 and not m5:
+            continue
+        cargs = chunk_case(dev, gen, dtype, vpos, vlens, 5, nbt, h=h,
+                           g=h // m)
+        plain = ref.paged_verify_ref(*cargs)
+        e1 = compare(K["verify"](*cargs), plain, dtype)
+        e2 = compare(K["verify_splitk"](*cargs, num_splits=4), plain, dtype)
+        qc, kc, vc, tc, pc, _ = cargs
+        e3 = compare(K["decode"](qc[:, 0].contiguous(), kc, vc, tc, pc),
+                     ref.paged_decode_ref(qc[:, 0], kc, vc, tc, pc), dtype)
+        checked.append(f"m={m}: verify {e1:.3e} split-K(4) {e2:.3e} "
+                       f"decode {e3:.3e}")
+    # flash at the serving wave's shape, m = 5 and 8
+    c = FLASH_SERVE
+    for m, h, g in ((5, 40, 8), (8, 64, 8)):
+        if m == 5 and not m5:
+            continue
+        q, k, v = flash_case(dev, gen, dtype, c["B"], c["S"], c["S"], h=h,
+                             g=g)
+        ln = torch.full((c["B"],), c["length"], device=dev,
+                        dtype=torch.int32)
+        exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), ln,
+                                        True)
+        err = compare(K["flash"](q, k, v, ln, True), exact, dtype)
+        checked.append(f"flash m={m} {err:.3e}")
+        del exact
+        if timing:
+            j = torch.arange(c["S"], device=dev)
+            mask = (j[None, :] <= j[:, None]) & (j[None, :] < c["length"])
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            rows[f"flash_attention m={m}"] = attn_row(
+                lambda: K["flash"](q, k, v, ln, True),
+                lambda: ref.flash_attention_ref(q, k, v, ln, True),
+                lambda: sdpa(qt, kt, vt, attn_mask=mask, enable_gqa=True),
+                *flash_work(c["S"], ln.tolist(), h, g, hd, it), dtype, err,
+                f"causal B=4 S=T=256 length=144 h={h} g={g} hd=128")
+    # paged prefill over 128 cached tokens: 16-token suffixes (the split
+    # walk at these m) and 48-token ones (the query-tile walk)
+    cached = torch.tensor([128, 128, 128, 0, 0], device=dev,
+                          dtype=torch.int32)
+    for m, h, g, Sq in ((5, 40, 8, 16), (5, 40, 8, 48), (4, 32, 8, 48),
+                        (8, 64, 8, 48)):
+        if m == 5 and not m5:
+            continue
+        seg = torch.tensor([Sq, Sq * 3 // 4, Sq // 2, Sq, 0], device=dev,
+                           dtype=torch.int32)
+        need = [(int(cl) + Sq - 1) // bs + 1 for cl in cached]
+        kp, vp, tables = paged_case(dev, gen, dtype, 5, nbt, need, g=g)
+        qp = torch.randn(5, Sq, h, hd, generator=gen, device=dev).to(dtype)
+        pargs = (qp, kp, vp, tables, cached, seg)
+        out = K["prefill"](*pargs)
+        if float(out[4].float().abs().max()) != 0.0:
+            raise AssertionError("all-masked prefill row is not 0")
+        err = compare(out, ref.paged_prefill_ref(*pargs), dtype)
+        checked.append(f"prefill m={m} Sq={Sq} {err:.3e}")
+        if timing:
+            qpos = cached[:, None].long() + torch.arange(Sq, device=dev)
+            kend = (cached + seg).long()
+            live = (seg > 0).long()[:, None]
+            vk = torch.minimum(qpos + 1, kend[:, None]).clamp(min=0) * live
+            rows[f"paged_prefill m={m} Sq={Sq}"] = attn_row(
+                lambda: K["prefill"](*pargs),
+                lambda: ref.paged_prefill_ref(*pargs),
+                sdpa_yardstick(qp, kp, vp, tables, q_pos=qpos, kend=kend),
+                (2 * qp.numel() + 2 * int(vk[:, -1].sum()) * g * hd) * it,
+                int(4 * h * hd * vk.sum()), dtype, err,
+                f"B=5 Sq={Sq} cached 128 h={h} g={g} hd=128 bs=32 "
+                f"({Sq * m} columns)")
+    # SMLM and BGMV at the new widths
+    bt = K["block_t"]
+    for d_in, d_out in ARCH_LORA:
+        for name, T in (("smlm", 576), ("bgmv", 8)):
+            x, a, b, ids, scale = lora_case(T, d_in, d_out, dtype, dev, gen,
+                                            bt)
+            if name == "bgmv":
+                ids = torch.tensor(BGMV_IDS, device=dev, dtype=torch.int32)
+            rt = K["route"](ids, scale[ids.long().clamp(0, 3)], 4,
+                            T if name == "smlm" else 0, bt)
+            if name == "smlm":
+                largs = (x, a, b, rt.tile_ids, rt.tile_scale)
+                err = compare(K["smlm"](*largs, block_t=bt),
+                              ref.smlm_ref(*largs, bt), dtype)
+            else:
+                largs = (x, a, b, rt.tail_ids, rt.tail_scale)
+                err = compare(K["bgmv"](*largs), ref.bgmv_ref(*largs), dtype)
+            checked.append(f"{name} {d_in}x{d_out} {err:.3e}")
+            if timing:
+                rows[f"{name} T={T} {d_in}x{d_out}"] = lora_row(
+                    K, *largs, bt if name == "smlm" else None, err)
+    print(f"kernels: arch shapes   {str(dtype)[6:]:<8} max_abs_err: "
+          f"{'; '.join(checked)} tol={TOL[dtype]:g}xmax|plain| per row"
+          + ("" if m5 else " (m=5 skipped: this port refuses h/g=5)")
+          + " ok")
+    return rows
+
+
 def sdpa_yardstick(q, kp, vp, tables, q_pos, kend):
     """One ``scaled_dot_product_attention`` call on the gathered K/V view
     (gathered in advance): the library yardstick, timed only."""
@@ -1156,6 +1356,9 @@ def sdpa_yardstick(q, kp, vp, tables, q_pos, kend):
 
 # ------------------------------------------------- phase 3: reduced parity
 def numpy_weights(cfg, seed):
+    """Weights in the JAX package's layout from a numpy seed: norms ones,
+    every other leaf normal(0, min(scale, fan_in^-1/2)) (the router's scale
+    0.006, 0.02 otherwise; biases too, so the bias path carries values)."""
     from repro_torch.models.schema import param_shapes
     rng = np.random.default_rng(seed)
     flat = {}
@@ -1163,21 +1366,27 @@ def numpy_weights(cfg, seed):
         if key.endswith(("ln1", "ln2", "final_norm")):
             flat[key] = np.ones(shape, np.float32)
         else:
-            std = min(0.02, shape[-2] ** -0.5 if len(shape) > 1 else 1.0)
+            cap = 0.006 if key.endswith("router") else 0.02
+            std = min(cap, shape[-2] ** -0.5 if len(shape) > 1 else 1.0)
             flat[key] = (rng.standard_normal(shape) * std).astype(np.float32)
     return flat
 
 
 def numpy_adapter(cfg, lcfg, seed):
-    from repro_torch.models.schema import lora_targets
+    """One adapter in the JAX package's layout (``blocks/{pos}/<t>/a``,
+    periods axis first) from a numpy seed, gaussian B."""
+    from repro_torch.models.schema import jax_key, lora_targets
     rng = np.random.default_rng(seed)
-    flat = {}
-    for name, tg in lora_targets(cfg, lcfg.targets).items():
-        L = cfg.n_layers
-        flat[f"blocks/0/{name}/a"] = (rng.standard_normal(
-            (L, tg.d_in, lcfg.r)) / tg.d_in ** 0.5).astype(np.float32)
-        flat[f"blocks/0/{name}/b"] = (rng.standard_normal(
-            (L, lcfg.r, tg.d_out)) * 0.02 * lcfg.scaling).astype(np.float32)
+    flat, P = {}, len(cfg.pattern)
+    for pos, targets in enumerate(lora_targets(cfg, lcfg.targets)[:P]):
+        for name, tg in targets.items():
+            key = jax_key(cfg, pos, name)
+            flat[f"{key}/a"] = (rng.standard_normal(
+                (cfg.n_periods, tg.d_in, lcfg.r)) / tg.d_in ** 0.5
+                                ).astype(np.float32)
+            flat[f"{key}/b"] = (rng.standard_normal(
+                (cfg.n_periods, lcfg.r, tg.d_out)) * 0.02 * lcfg.scaling
+                                ).astype(np.float32)
     return flat
 
 
@@ -1426,6 +1635,7 @@ def parity(K, devices=("cuda", "cpu")):
     parity_memory(K, cfg, flat, lcfg, devices)
     parity_train(K, cfg, flat, lcfg, devices, attn_chunk=16)
     parity_fleet(K, cfg, flat, lcfg, devices)
+    parity_archs(K, devices)
 
 
 def add_trainers(eng, vocab, n_rows=16, accum=2, sets=None):
@@ -1449,8 +1659,9 @@ def trainer_slots(store):
 def slot_leaves(store, slots):
     """Every bank leaf's ``slots``, flattened in the store's target order."""
     return torch.cat([layer[t][k][slots].reshape(-1).float()
-                      for layer in store.bank["layers"]
-                      for t in store.targets for k in ("a", "b")])
+                      for layer, targets in zip(store.bank["layers"],
+                                                store.layer_targets)
+                      for t in targets for k in ("a", "b")])
 
 
 def parity_train(K, cfg, flat, lcfg, devices, lr=1e-3, attn_chunk=0):
@@ -3117,6 +3328,253 @@ def fleet_logits(K, cfg, params, dev, dtype, arm, max_new):
     return rows
 
 
+# the reduced configs of phase 3's arch parity: (arch, int8 weights)
+ARCH_PARITY = (("phi3-medium-14b", False), ("deepseek-7b", False),
+               ("command-r-35b", False), ("qwen1.5-110b", False),
+               ("llama4-maverick-400b-a17b", False), ("llama3-8b", True),
+               ("llama4-maverick-400b-a17b", True))
+ARCH_KERNELS = ("smlm", "bgmv", "decode", "prefill", "flash")
+
+
+def parity_archs(K, devices=("cuda", "cpu")):
+    """Phase 3, the other configs: each reduced config of ``ARCH_PARITY``
+    (numpy-seeded fp32 weights, int8 where named, quantized on the host so
+    both devices hold the same payloads) serves ``shared_prefix_trace``
+    through the engine on ``cuda`` (kernels) and ``cpu`` (plain versions):
+    greedy tokens and steps equal, and every kernel of the serving path
+    launched on the card."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.models import moe
+    from repro_torch.models.quant import quantize_params
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.training.optimizer import tree_map
+    lcfg = LoRAConfig(n_slots=4, r=8)
+    for arch, int8 in ARCH_PARITY:
+        cfg = get_reduced(arch)
+        flat = numpy_weights(cfg, seed=0)
+        ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
+              for i in range(2)}
+        host = params_from_numpy(flat, device="cpu")
+        if int8:
+            host = quantize_params(cfg, host)
+        got = {}
+        for dev in devices:
+            params = tree_map(lambda v: v.to(dev), host)
+            adapters = {n: bank_from_numpy(f, device=dev)
+                        for n, f in ad.items()}
+            eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
+                               torch.float32, EngineConfig(
+                                   capacity=4, pf_capacity=2, s_max=128,
+                                   virtual_time=True))
+            reset_counts(K)
+            moe.moe_apply.calls = 0
+            for r in shared_prefix_trace(cfg.vocab, list(ad), seed=3):
+                eng.submit(r)
+            eng.run(max_ticks=10000)
+            got[dev] = ({r.rid: list(r.output) for r in eng.finished},
+                        eng.metrics.steps, read_counts(K),
+                        moe.moe_apply.calls)
+        (gtok, gsteps, gl, gmoe), (ctok, csteps, _, _) = \
+            got[devices[0]], got[devices[1]]
+        if len(gtok) != 8 or gtok != ctok or gsteps != csteps:
+            raise AssertionError(f"{arch} int8={int8}: tokens or steps "
+                                 f"differ: cuda {gtok} cpu {ctok}")
+        if min(gl[k] for k in ARCH_KERNELS) == 0 or \
+                (cfg.moe is not None) != (gmoe > 0):
+            raise AssertionError(f"{arch}: a kernel did not launch: {gl}, "
+                                 f"moe calls {gmoe}")
+        print(f"parity: {arch} reduced {'int8' if int8 else 'fp32'} "
+              f"(L={cfg.n_layers} d={cfg.d_model} h={cfg.n_heads} "
+              f"g={cfg.n_kv_heads} bias={cfg.qkv_bias} "
+              f"tied={cfg.tie_embeddings} moe={cfg.moe is not None}) "
+              f"cuda==cpu greedy tokens for 8 requests (48 tokens), "
+              f"steps={gsteps}, cuda launches="
+              f"{ {k: gl[k] for k in ARCH_KERNELS} } moe_calls={gmoe} ok")
+
+
+# ---------------------------------------------- phase 12: the other configs
+# (arch, layers kept (None: all), int8 weights)
+ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
+             ("phi3-medium-14b", None, True), ("command-r-35b", None, True),
+             ("qwen1.5-110b", 40, True),
+             ("llama4-maverick-400b-a17b", 2, False),
+             ("llama4-maverick-400b-a17b", 4, True))
+
+
+def arch_weights(cfg, dev, int8, seed=0):
+    """Random full-width bf16 weights made on the card from a seed, leaf by
+    leaf; with ``int8`` each eligible leaf is drawn in bf16, quantized and
+    freed before the next is drawn (a bf16 copy of a whole model, or an fp32
+    one of a whole leaf stack, would not fit), then two gaussian-B
+    adapters.  Returns (params, store, setup seconds)."""
+    import gc
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.virtualization import AdapterStore
+    from repro_torch.models.quant import _eligible, quantize_weight
+    from repro_torch.models.schema import init_leaf, layer_shapes, top_leaves
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def make(leaf, shape):
+        w = init_leaf(leaf, gen, dev, torch.bfloat16)
+        if int8 and _eligible(leaf, shape):
+            w = quantize_weight(w)
+        return w
+
+    top = top_leaves(cfg)
+    params = {"embed": make(top["embed"], top["embed"].shape), "layers": []}
+    for li in range(cfg.n_layers):
+        params["layers"].append(
+            {k: make(leaf, (cfg.n_periods, *leaf.shape))
+             for k, leaf in layer_shapes(cfg, li).items()})
+        gc.collect()
+    params["final_norm"] = torch.ones(cfg.d_model, device=dev,
+                                      dtype=torch.bfloat16)
+    if "lm_head" in top:
+        params["lm_head"] = make(top["lm_head"], top["lm_head"].shape)
+    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8), device=dev,
+                         dtype=torch.bfloat16)
+    for i in range(2):
+        g = torch.Generator(device=dev)
+        g.manual_seed(100 + i)
+        store.load_random(f"lora{i}", g, gaussian_b=True)
+    torch.cuda.synchronize()
+    return params, store, time.perf_counter() - t0
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch.training.optimizer import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def prefill_stats(ticks) -> str:
+    pf = [(t, e, w) for t, p, _, e, w in ticks if p]
+    return (f"prefill_ticks={len(pf)} prefill_tick_ms_mean="
+            f"{np.mean([t for t, _, _ in pf]) * 1e3:.3f} (forward enqueue "
+            f"{np.mean([e for _, e, _ in pf]) * 1e3:.3f} + device wait "
+            f"{np.mean([w for *_, w in pf]) * 1e3:.3f})")
+
+
+def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
+    """Maverick's fine-tuning path on the card: one fused train step
+    (forward over ft rows, the router aux loss, backward through the
+    kernels, masked AdamW) for lora0's slot; loss finite, aux loss > 0,
+    the slot's bank elements changed and no other slot's."""
+    from repro_torch.core.unified import make_train_step
+    from repro_torch.models.stream import FTBatch, UnifiedBatch
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    params, store, _ = weights
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n_rows, seq))
+                            .astype(np.int32)).to(dev)
+    slot = store.slot_of("lora0")
+    ft = FTBatch(tokens=toks, mask=torch.ones_like(toks, dtype=torch.bool),
+                 labels=toks, adapter=torch.full((n_rows,), slot,
+                                                 dtype=torch.int32,
+                                                 device=dev),
+                 weight=torch.ones(n_rows, device=dev))
+    step = make_train_step(cfg, AdamWConfig(lr=lr), block_t=K["block_t"])
+    n0 = K["smlm_wgrad"].launches
+    t0 = time.perf_counter()
+    loss, bank, _, aux = step(params, store.bank, store.scale,
+                              adamw_init(store.bank, store.lcfg.n_slots),
+                              UnifiedBatch(ft=ft),
+                              store.slot_mask(["lora0"]))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    others = [s for s in range(store.lcfg.n_slots) if s != slot]
+    changed = torch.cat([(nb[ab][slot] != ob[ab][slot]).reshape(-1)
+                         for nl, ol in zip(bank["layers"],
+                                           store.bank["layers"])
+                         for (nb, ob) in ((nl[t], ol[t]) for t in nl)
+                         for ab in ("a", "b")]).float().mean()
+    still = all(torch.equal(nl[t][ab][others], ol[t][ab][others])
+                for nl, ol in zip(bank["layers"], store.bank["layers"])
+                for t in nl for ab in ("a", "b"))
+    if not (torch.isfinite(loss) and float(aux) > 0 and float(changed) > 0
+            and still and K["smlm_wgrad"].launches > n0):
+        raise AssertionError(f"maverick grad step: loss {float(loss)} aux "
+                             f"{float(aux)} changed {float(changed)} "
+                             f"others unchanged {still}")
+    print(f"archs: {cfg.name} grad step of {n_rows} ft rows x {seq} "
+          f"tokens on the card: wall_ms={wall:.3f} loss={float(loss):.5f} "
+          f"aux_loss={float(aux):.6f} share_of_slot_elements_changed="
+          f"{float(changed):.4f} other slots unchanged, smlm_wgrad "
+          f"launches={K['smlm_wgrad'].launches - n0} ok")
+
+
+def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
+    """One arm of phase 12: build, serve phase 4's two waves timed, print
+    the ``archs:`` line; returns the run's launch counts."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    full = get_config(arch)
+    cfg = full if layers is None else full.replace(n_layers=layers)
+    torch.cuda.empty_cache()
+    weights = arch_weights(cfg, dev, int8)
+    w_bytes = tree_bytes(weights[0])
+    torch.cuda.reset_peak_memory_stats()
+    eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=8,
+                                          pf_capacity=4, s_max=512)
+    waves = request_waves(cfg, np.random.default_rng(seed), 128,
+                          max_new=max_new)
+    reset_counts(K)
+    mo = moe.moe_apply
+    mo.calls = mo.entries = mo.routed = mo.dropped = 0
+    run_waves(eng, tick, waves[:2])
+    counts = read_counts(K)
+    check_drained(eng, seen, 8, max_new)
+    peak = torch.cuda.max_memory_allocated()
+    need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
+                flash=counts["flash"], prefill=counts["prefill"],
+                decode=counts["decode"] + counts["partials"])
+    if min(need.values()) == 0:
+        raise AssertionError(f"{arch}: a kernel never launched: {need}")
+    moe_note = ""
+    if cfg.moe is not None:
+        n_moe = sum(cfg.is_moe_layer(li % len(cfg.pattern))
+                    for li in range(cfg.n_layers))
+        if mo.calls != n_moe * len(ticks):
+            raise AssertionError(f"{mo.calls} MoE calls for {len(ticks)} "
+                                 f"ticks of {n_moe} MoE layers")
+        moe_note = (f" moe: {n_moe} MoE layer(s) of {cfg.moe.num_experts} "
+                    f"experts top-{cfg.moe.top_k}, experts_routed_per_tick="
+                    f"{mo.routed / len(ticks):.2f} (per MoE layer call "
+                    f"{mo.routed / mo.calls:.2f}), entries_dropped="
+                    f"{mo.dropped} of {mo.entries} (padding rows included)")
+    dec = [(t, d) for t, p, d, *_ in ticks if not p]
+    print(f"archs: {arch} {'int8' if int8 else 'bf16'} L={cfg.n_layers}/"
+          f"{full.n_layers} d={cfg.d_model} h={cfg.n_heads} g="
+          f"{cfg.n_kv_heads} V={cfg.vocab} setup_s={weights[2]:.3f} "
+          f"resident_weight_gb={w_bytes / 1e9:.3f} "
+          f"max_memory_allocated_gb={peak / 1e9:.3f} requests=8 "
+          f"tokens_each={max_new} ticks={len(ticks)} "
+          f"run_s={sum(t for t, *_ in ticks):.4f} {prefill_stats(ticks)} "
+          f"{tick_stats(ticks)} decode_ticks_tok_per_s_incl_padding="
+          f"{8 * len(dec) / sum(t for t, _ in dec):.3f} launches={need}"
+          f"{moe_note} finite=True pristine=True ok")
+    if cfg.moe is not None and not int8:
+        moe_grad_step(K, cfg, weights, dev)
+    del eng, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def full_archs(K, dev):
+    """Phase 12: each arm of ``ARCH_ARMS`` in turn, each model freed before
+    the next is built; returns the launch counts summed over the arms."""
+    total = {k: 0 for k in COUNTERS}
+    for arch, layers, int8 in ARCH_ARMS:
+        for k, v in arch_arm(K, arch, layers, int8, dev).items():
+            total[k] += v
+    return total
+
+
 SOURCES = {
     "smlm": ("src/repro_torch/kernels/csrc/smlm.cu",
              "src/repro/kernels/smlm.py:39"),
@@ -3168,6 +3626,7 @@ def check_kernels(K, dev):
         rows.update(check_verify(K, dtype, dev, gen, timing))
         rows.update(check_splitk(K, dtype, dev, gen, timing))
         rows.update(check_dense_kernels(K, dtype, dev, gen, timing))
+        rows.update(check_arch_shapes(K, dtype, dev, gen, timing))
     for name, r in rows.items():
         print(f"timing: {name:<15} bf16 {r['shape']}: ms={r['ms']:.5f} "
               f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
@@ -3204,6 +3663,9 @@ def main() -> int:
                          "paging and chunked-training parity, phases 9-10")
     ap.add_argument("--fleet", action="store_true",
                     help="only the fleet: phase 3's fleet case, phase 11")
+    ap.add_argument("--archs", action="store_true",
+                    help="only the other configs: phase 3's arch parity, "
+                         "phase 12")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -3280,6 +3742,11 @@ def main() -> int:
         full_fleet(K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
         print(card())
         return 0
+    if a.archs:
+        parity_archs(K)
+        full_archs(K, dev)
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -3310,6 +3777,8 @@ def main() -> int:
     by_path["tiers"] = full_tiers(K, cfg, weights, dev)
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
+    del weights
+    by_path["archs"] = full_archs(K, dev)
 
     kernels = []
     for name in SOURCES:
@@ -3324,7 +3793,13 @@ def main() -> int:
                                  if c[counter]},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            # the kernel's other timed shapes (phase 2), by row name
+            "shapes": {k: {f: v[f] for f in ("shape", "max_abs_err", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")}
+                       for k, v in rows.items()
+                       if k.startswith(f"{name} ")}})
         if name == "smlm_wgrad":
             kernels[-1]["note"] = ("SMLM's weight gradient (dA, dB); the "
                                    "JAX package has no Pallas backward")

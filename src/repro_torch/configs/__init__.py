@@ -1,18 +1,31 @@
-"""Architecture registry of the port: ``llama3-8b`` only (the serving
-slice's model).  ``get_config`` returns the full published config,
-``get_reduced`` the small same-family variant used by the CPU tests."""
+"""Architecture registry of the port: the paper's ``llama3-8b``, the four
+dense decoders (``phi3-medium-14b``, ``qwen1.5-110b`` with QKV bias,
+``deepseek-7b`` with 32 KV heads, ``command-r-35b`` with a tied head) and
+the MoE ``llama4-maverick-400b-a17b``.  ``get_config`` returns the full
+published config, ``get_reduced`` the small same-family variant used by the
+CPU tests.  The families with MLA, Mamba, cross-attention or an encoder are
+not ported."""
 from __future__ import annotations
 
-from repro_torch.configs import llama3_8b
+import importlib
 
-ARCH_IDS = ["llama3-8b"]
-_MOD = {"llama3-8b": llama3_8b}
+ARCH_IDS = [
+    "phi3-medium-14b",
+    "qwen1.5-110b",
+    "deepseek-7b",
+    "llama4-maverick-400b-a17b",
+    "command-r-35b",
+    # the paper's own base model
+    "llama3-8b",
+]
+
+_MOD = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def _load(name: str):
     if name not in _MOD:
         raise KeyError(f"unknown arch {name!r}; available: {ARCH_IDS}")
-    return _MOD[name]
+    return importlib.import_module(f"repro_torch.configs.{_MOD[name]}")
 
 
 def get_config(name: str):

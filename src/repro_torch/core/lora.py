@@ -74,14 +74,15 @@ def dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     return y
 
 
-def init_lora_bank(targets, lcfg: LoRAConfig, n_layers: int,
+def init_lora_bank(layer_targets, lcfg: LoRAConfig,
                    generator: torch.Generator, device: torch.device,
                    dtype: torch.dtype, gaussian_b: bool = False) -> Dict:
-    """Random bank for per-layer ``targets`` (name -> LoraTarget): ``a`` is
-    normal / sqrt(d_in); ``b`` is zeros, or normal * 0.02 * alpha/r with
-    ``gaussian_b`` (the paper's fully gaussian adapters)."""
+    """Random bank for ``layer_targets`` (one name -> LoraTarget dict per
+    layer, ``models.schema.lora_targets``): ``a`` is normal / sqrt(d_in);
+    ``b`` is zeros, or normal * 0.02 * alpha/r with ``gaussian_b`` (the
+    paper's fully gaussian adapters)."""
     layers = []
-    for _ in range(n_layers):
+    for targets in layer_targets:
         d = {}
         for name, t in targets.items():
             a = torch.randn((lcfg.n_slots, t.d_in, lcfg.r),

@@ -74,15 +74,16 @@ class AdapterStore:
         self.cfg, self.lcfg = cfg, lcfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype, cfg.dtype)
-        self.targets = lora_targets(cfg, lcfg.targets)
+        # per layer: a MoE layer has shared_w* where a dense one has w*
+        self.layer_targets = lora_targets(cfg, lcfg.targets)
         n, r = lcfg.n_slots, lcfg.r
         self.bank = {"layers": [
             {name: {"a": torch.zeros((n, t.d_in, r), device=self.device,
                                      dtype=self.dtype),
                     "b": torch.zeros((n, r, t.d_out), device=self.device,
                                      dtype=self.dtype)}
-             for name, t in self.targets.items()}
-            for _ in range(cfg.n_layers)]}
+             for name, t in lt.items()}
+            for lt in self.layer_targets]}
         self.scale = torch.ones((n,), dtype=torch.float32, device=self.device)
         self._slots: Dict[str, int] = {}
         self._voided: Dict[str, VoidedModel] = {}   # evicted, host-resident
@@ -139,9 +140,9 @@ class AdapterStore:
         swap-in moves)."""
         rk = (int(rank) if rank is not None
               else self._ranks.get(name, self.lcfg.r))
-        per_layer = sum(rk * (t.d_in + t.d_out)
-                        for t in self.targets.values())
-        return self.cfg.n_layers * per_layer * self._itemsize
+        return self._itemsize * sum(rk * (t.d_in + t.d_out)
+                                    for lt in self.layer_targets
+                                    for t in lt.values())
 
     # -- unified paging: byte images + pager binding ------------------------
     def _flatten(self, slot: int, rank: int) -> torch.Tensor:
@@ -150,8 +151,8 @@ class AdapterStore:
         ``a[:, :rank]`` then ``b[:rank]``.  Columns beyond the rank are
         dropped (``_write_image`` zero-fills them)."""
         parts = []
-        for layer in self.bank["layers"]:
-            for t in self.targets:
+        for layer, lt in zip(self.bank["layers"], self.layer_targets):
+            for t in lt:
                 a, b = layer[t]["a"][slot], layer[t]["b"][slot]
                 parts.append(a[:, :rank].contiguous().view(torch.uint8)
                              .reshape(-1))
@@ -168,8 +169,8 @@ class AdapterStore:
                              "target schema")
         it, off = self._itemsize, 0
         with torch.no_grad():
-            for layer in self.bank["layers"]:
-                for name, t in self.targets.items():
+            for layer, lt in zip(self.bank["layers"], self.layer_targets):
+                for name, t in lt.items():
                     da, db = layer[name]["a"][slot], layer[name]["b"][slot]
                     na, nb = t.d_in * rank * it, rank * t.d_out * it
                     da.zero_()
@@ -216,8 +217,8 @@ class AdapterStore:
         """Host byte image of an adapter given as tensors (the layout of
         ``_flatten``)."""
         parts = []
-        for src in adapter["layers"]:
-            for t in self.targets:
+        for src, lt in zip(adapter["layers"], self.layer_targets):
+            for t in lt:
                 for k, cut in (("a", (slice(None), slice(0, rank))),
                                ("b", (slice(0, rank),))):
                     x = torch.as_tensor(src[t][k])[cut].to(
@@ -324,7 +325,7 @@ class AdapterStore:
         """Write ``adapter`` into ``slot``, zeroing columns beyond
         ``rank`` (how a true-rank adapter is defined)."""
         for dst, src in zip(self.bank["layers"], adapter["layers"]):
-            for name in self.targets:
+            for name in dst:
                 a = torch.as_tensor(src[name]["a"])
                 b = torch.as_tensor(src[name]["b"])
                 da, db = dst[name]["a"][slot], dst[name]["b"][slot]
@@ -368,11 +369,11 @@ class AdapterStore:
                     scale: float = 1.0, gaussian_b: bool = True,
                     evict: bool = False, rank: Optional[int] = None) -> int:
         """A random adapter from ``generator`` (on the store's device)."""
-        one = init_lora_bank(self.targets,
+        one = init_lora_bank(self.layer_targets,
                              LoRAConfig(n_slots=1, r=self.lcfg.r,
                                         alpha=self.lcfg.alpha),
-                             self.cfg.n_layers, generator, self.device,
-                             self.dtype, gaussian_b=gaussian_b)
+                             generator, self.device, self.dtype,
+                             gaussian_b=gaussian_b)
         adapter = {"layers": [{t: {"a": ab["a"][0], "b": ab["b"][0]}
                                for t, ab in layer.items()}
                               for layer in one["layers"]]}

@@ -110,7 +110,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int g, int hd, int causal, float scale,
                                       int dtype, void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (g <= 0 || h % g != 0 || repro::TW_ROWS % (h / g) != 0 ||
+  if (g <= 0 || h % g != 0 || h / g > repro::TW_ROWS ||
       hd % 32 != 0 || hd > 32 * repro::TW_MAX_NI || T_ < 0 || g > 65535 ||
       B > 65535 ||
       (S + repro::TW_ROWS / (h / g) - 1) / (repro::TW_ROWS / (h / g)) > 65535)

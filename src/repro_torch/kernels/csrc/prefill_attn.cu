@@ -142,7 +142,7 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
            int B, int Sq, int h, int g, int hd, int bs, int nbt, float scale,
            int dtype, int walk, void* stream) {
   if (B <= 0 || Sq <= 0) return 0;
-  if (g <= 0 || h % g != 0 || repro::TW_ROWS % (h / g) != 0 ||
+  if (g <= 0 || h % g != 0 || h / g > repro::TW_ROWS ||
       hd % 32 != 0 || hd > 32 * repro::TW_MAX_NI || bs <= 0 || nbt <= 0 ||
       g > 65535 || B > 65535 ||
       (Sq + repro::TW_ROWS / (h / g) - 1) / (repro::TW_ROWS / (h / g)) >

@@ -3,9 +3,10 @@
 // are query tiles of one or a few positions).
 //
 // One thread block serves query tile `iq` of request `b` for KV head `kvh`:
-// bq = 64 / m query positions times the m = h/g query heads of the group,
-// 64 query rows in all (row rr is position qi = rr / m, head qh = rr % m),
-// so each tile of keys (a pool block through the table, or a run of
+// bq = 64 / m query positions (rounded down) times the m = h/g query heads
+// of the group, bq * m <= 64 query rows (row rr is position qi = rr / m,
+// head qh = rr % m; when m does not divide 64, as at m = 5, rows bq * m ..
+// 63 are padding: staged as zeros and never written), so each tile of keys (a pool block through the table, or a run of
 // contiguous rows: `kv_rows.cuh`) is read once per query tile for the whole
 // group.  Query row si sits at position c0 + si; which keys it sees is the
 // mask's (`PosMask`: keys below a limit and, if causal, at most the row's
@@ -96,7 +97,7 @@ __device__ __forceinline__ void tile_walk(
     const int si = iq * bq + qi;
     const int col = (rr % TW_WARPS) * TW_RPW + rr / TW_WARPS;
     Qs[d * TW_ROWS + col] =
-        si < Sq ? to_f(q[((static_cast<size_t>(b) * Sq + si) * h + kvh * m +
+        qi < bq && si < Sq ? to_f(q[((static_cast<size_t>(b) * Sq + si) * h + kvh * m +
                           qh) * hd + d])
                 : 0.f;
   }
@@ -182,7 +183,7 @@ __device__ __forceinline__ void tile_walk(
     const int rr = warp + TW_WARPS * r;
     const int qi = rr / m, qh = rr - qi * m;
     const int si = iq * bq + qi;
-    if (si >= Sq) continue;
+    if (qi >= bq || si >= Sq) continue;   // padding row
     const float l = fmaxf(l_run[r], 1e-30f);
     float* ob = out + ((static_cast<size_t>(b) * Sq + si) * h + kvh * m + qh) *
                       hd + lane;

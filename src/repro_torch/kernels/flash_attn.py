@@ -14,10 +14,11 @@ not the bytes.
 
 Design (``csrc/flash_attn.cu`` over ``csrc/tile_walk.cuh``, the walk of the
 paged prefill kernel): one thread block per (KV head, request, query tile)
-serves the group's h/g query heads x 64/(h/g) positions from one read of
-each K/V tile.  The element type picks the walk at compile time.  bf16 runs
-on the tensor cores: four warps of 16 query rows, S = Q K^T and O += P V as
-``mma.sync.m16n8k16`` products with fp32 accumulators fed by ``ldmatrix``,
+serves the group's h/g query heads x 64/(h/g) positions (rounded down;
+rows past them are padding) from one read of each K/V tile.  The element
+type picks the walk at compile time.  bf16 runs on the tensor cores: four
+warps of 16 query rows, S = Q K^T and O += P V as ``mma.sync.m16n8k16``
+products with fp32 accumulators fed by ``ldmatrix``,
 64-key tiles (32 above hd 128) through a two-stage ring of 16-byte
 ``cp.async`` copies so that the copy of the next tile overlaps the math of
 this one; the online softmax stays in fp32 registers and P is rounded to
@@ -54,8 +55,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "k/v must be [B, T, g, hd]")
     require(k.dtype == q.dtype and v.dtype == q.dtype,
             "q, k and v must share a dtype")
-    require(h % g == 0 and TILE_ROWS % (h // g) == 0,
-            f"h / g must divide {TILE_ROWS}")
+    require(h % g == 0 and h // g <= TILE_ROWS,
+            f"need h % g == 0 and h / g <= {TILE_ROWS}")
     require(hd % 32 == 0 and hd <= 256, "head dim must be 32k <= 256")
     require(lengths.dtype == torch.int32 and lengths.shape == (B,),
             "lengths must be int32 [B]")

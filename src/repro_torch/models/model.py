@@ -1,10 +1,11 @@
-"""The attention+FFN decoder on the paged and the dense-row KV layouts, with
-the paper's unified computation flow: one joint projection per linear for
-every request bucket (``core.lora.dense``: base product plus one multi-LoRA
-kernel call per bucket), per-bucket attention, and per-bucket logits.
+"""The attention decoder (dense or MoE FFN) on the paged and the dense-row KV
+layouts, with the paper's unified computation flow: one joint projection
+per linear for every request bucket (``core.lora.dense``: base product plus
+one multi-LoRA kernel call per bucket), per-bucket attention, and
+per-bucket logits.
 
-Port of the attention + FFN path of ``repro.models.model``, fine-tune
-bucket included.  Differences of form:
+Port of the attention + FFN / MoE path of ``repro.models.model``, fine-tune
+bucket and int8 weight-only serving included.  Differences of form:
 
 * the JAX ``lax.scan`` over periods becomes a loop over layers;
 * the JAX functions return a new cache; here the cache is written in place
@@ -34,10 +35,20 @@ bucket included.  Differences of form:
   joins a graph that would outlive the tick.  ``attn_chunk`` reaches the
   ft attention (the chunked online softmax of ``layers.attention``); the
   kernels of the other buckets already stream their keys, compute the same
-  function and ignore it.
+  function and ignore it;
+* a MoE layer's FFN is ``moe.moe_apply`` (only the routed experts'
+  products) plus the shared expert through ``dense``; the router aux loss
+  of every MoE layer over the whole stream is summed into
+  ``ModelOut.aux_loss``, as in the JAX model.  Its value is the JAX
+  model's; its gradient reaches the bank through the ft rows only, since
+  the serving rows carry none here (in the JAX model the serving rows'
+  router probabilities also feed it back);
+* int8 weights (``models.quant``) dequantize to the dtype of
+  ``final_norm``, the params' float dtype (the JAX model takes
+  ``cfg.dtype``).
 
-Sliding windows, dense-row verify chunks, MLA, Mamba, MoE and
-cross-attention belong to later slices and raise here.
+Sliding windows, dense-row verify chunks, MLA, Mamba and cross-attention
+belong to later slices and raise here.
 """
 from __future__ import annotations
 
@@ -55,7 +66,9 @@ from repro_torch.kernels.splitk import (paged_decode_attention_splitk,
 from repro_torch.kernels.verify_attn import paged_verify_attention
 from repro_torch.models import layers as L
 from repro_torch.models.configs import ModelConfig
-from repro_torch.models.schema import check_supported
+from repro_torch.models import quant
+from repro_torch.models.moe import EXPERT_STACKS, moe_apply
+from repro_torch.models.schema import check_supported, is_moe
 from repro_torch.models.stream import ModelOut, UnifiedBatch
 
 
@@ -337,12 +350,24 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
 
 
-def _ffn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
-               x: torch.Tensor) -> torch.Tensor:
+def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
+               x: torch.Tensor):
+    """The dense SwiGLU, or on a MoE layer the routed experts
+    (``moe.moe_apply``) plus the shared expert through ``dense`` with its
+    LoRA.  Returns (x + y, the layer's router aux loss)."""
     xn = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    g = dense(xn, p["wg"], None, lr.get("wg"), plan.route)
-    u = dense(xn, p["wu"], None, lr.get("wu"), plan.route)
-    return x + dense(F.silu(g) * u, p["wd"], None, lr.get("wd"), plan.route)
+    if not is_moe(cfg, li):
+        g = dense(xn, p["wg"], None, lr.get("wg"), plan.route)
+        u = dense(xn, p["wu"], None, lr.get("wu"), plan.route)
+        y = dense(F.silu(g) * u, p["wd"], None, lr.get("wd"), plan.route)
+        return x + y, None
+    y, aux = moe_apply(xn, p, cfg.moe)
+    if "shared_wg" in p:
+        g = dense(xn, p["shared_wg"], None, lr.get("shared_wg"), plan.route)
+        u = dense(xn, p["shared_wu"], None, lr.get("shared_wu"), plan.route)
+        y = y + dense(F.silu(g) * u, p["shared_wd"], None,
+                      lr.get("shared_wd"), plan.route)
+    return x + y, aux
 
 
 # ---------------------------------------------------------------------------
@@ -373,6 +398,17 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
             cfg.hd, cache["k"].shape[2], batch.dec.block_tables.shape[1],
             plan.Bd * cfg.n_kv_heads,
             lanes=autotune.effective_lanes(cache["k"].device)).num_splits
+    # int8 weight-only serving: embed and the head dequantize here; block
+    # leaves dequantize per layer inside the loop (a MoE layer's expert
+    # stacks only at the routed experts), so device memory holds int8 and
+    # at most one layer's dequantized weights at a time
+    dtype = params["final_norm"].dtype
+    quantized = quant.has_q8(params)
+    if quantized:
+        params = dict(params)
+        for key in ("embed", "lm_head"):
+            if key in params:
+                params[key] = quant.dequant_tree(params[key], dtype)
     toks = []
     if batch.ft is not None:
         toks.append(batch.ft.tokens.reshape(-1))
@@ -384,12 +420,19 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
 
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
+        if quantized:
+            p = {k: (quant.dequant_leaf(v, dtype)
+                     if quant.is_q8(v) and k not in EXPERT_STACKS else v)
+                 for k, v in p.items()}
         x = _attn_apply(cfg, p, lr, plan, x,
                         cache["k"][li] if cache is not None else None,
                         cache["v"][li] if cache is not None else None,
                         attn_chunk)
-        x = _ffn_apply(cfg, p, lr, plan, x)
+        x, aux = _ffn_apply(cfg, li, p, lr, plan, x)
+        if aux is not None:
+            aux_loss = aux_loss + aux
 
     x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
@@ -419,5 +462,4 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
         ft_cnt = valid.sum(dim=1).float()
     return ModelOut(ft_loss_sum=ft_loss, ft_tok_count=ft_cnt,
                     ft_logits=ft_logits, pf_logits=pf_logits,
-                    dec_logits=dec_logits, cache=cache,
-                    aux_loss=torch.zeros((), device=x.device))
+                    dec_logits=dec_logits, cache=cache, aux_loss=aux_loss)

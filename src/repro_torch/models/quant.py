@@ -1,19 +1,38 @@
-"""Symmetric int8 quantization of one tensor: the host KV tier's int8
-residency (``PagedCacheManager(host_quant=True)``).
+"""Symmetric int8 quantization: the host KV tier's int8 residency
+(``PagedCacheManager(host_quant=True)``) and int8 weight-only serving.
 
-Port of ``quantize_leaf``, ``dequant_leaf`` and ``is_q8`` of
-``repro.models.quant``, on tensors.  A quantized leaf is ``{"_q8": int8,
-"_qs": float32}``, the scale taken over axis ``-2`` (kept as a size-1 axis):
-in the paged pool ``[L, n_blocks, bs, g, hd]`` that is the KV-head axis, the
-axis the JAX package reduces.  Rounding is half to even (``torch.round``, as
-``jnp.round``).  Int8 weight-only serving (``quantize_params``) is not
-ported.
+Port of ``repro.models.quant``, on tensors.  A quantized leaf is ``{"_q8":
+int8, "_qs": float32}``, the scale taken over axis ``-2`` (kept as a size-1
+axis): for a weight ``[..., d_in, d_out]`` one scale per output channel; in
+the paged pool ``[L, n_blocks, bs, g, hd]`` the KV-head axis, the axis the
+JAX package reduces.  Rounding is half to even (``torch.round``, as
+``jnp.round``).
+
+Weight-only serving quantizes the big matmul weights (``_eligible``, the
+JAX package's rule on the JAX layout's shapes, periods axis included):
+norms, biases and small matrices stay in their dtype, and the LoRA bank is
+never quantized.  The forward dequantizes ``embed`` and ``lm_head`` at its
+top and each layer's leaves inside the layer loop, so device memory holds
+int8 and at most one layer's dequantized weights at a time; a MoE layer's
+expert stacks dequantize only the routed experts' slices
+(``repro_torch.models.moe``).  Dequant is elementwise PyTorch, as the JAX
+package leaves it to XLA.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
+
+from repro_torch.models.configs import ModelConfig
+from repro_torch.models.schema import Leaf, layer_shapes, top_leaves
+
+
+def _eligible(leaf: Leaf, shape: Tuple[int, ...]) -> bool:
+    """Quantize big matmul weights only (gaussian-init, >=2D, wide); the
+    shape is the JAX layout's (a block leaf's periods axis first)."""
+    return (leaf.init == "normal" and len(shape) >= 2
+            and shape[-1] >= 64 and shape[-2] >= 64)
 
 
 def is_q8(node) -> bool:
@@ -27,6 +46,83 @@ def quantize_leaf(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"_q8": q, "_qs": s}
 
 
+# elements of the largest matrix quantized at once: a larger one (a
+# full-width embedding or head) is quantized in blocks of whole columns,
+# which hold their own scales, so the fp32 transients stay near 1 GiB
+_CHUNK = 1 << 28
+
+
+def _columns(shape) -> range:
+    """Starts of the column blocks of a 2D leaf of ``shape``."""
+    return range(0, shape[-1], max(1, _CHUNK // shape[-2]))
+
+
+def quantize_weight(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """``quantize_leaf`` one matrix at a time along the leading axes, and a
+    large matrix one column block at a time, into preallocated outputs: the
+    same values with a bounded fp32 transient (an expert stack or a
+    full-width head in fp32 would be 4x its int8 payload)."""
+    if w.dim() <= 2 and w.numel() <= _CHUNK:
+        return quantize_leaf(w)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    s = torch.empty((*w.shape[:-2], 1, w.shape[-1]), dtype=torch.float32,
+                    device=w.device)
+    if w.dim() == 2:
+        cols = _columns(w.shape)
+        for c in cols:
+            node = quantize_leaf(w[:, c:c + cols.step])
+            q[:, c:c + cols.step] = node["_q8"]
+            s[:, c:c + cols.step] = node["_qs"]
+        return {"_q8": q, "_qs": s}
+    for i in range(w.shape[0]):
+        node = quantize_weight(w[i])
+        q[i], s[i] = node["_q8"], node["_qs"]
+    return {"_q8": q, "_qs": s}
+
+
 def dequant_leaf(node: Dict[str, torch.Tensor],
                  dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return (node["_q8"].float() * node["_qs"]).to(dtype)
+    """``(q8 as f32) * scale``, rounded to ``dtype``: one elementwise pass
+    (the product is taken in fp32, the common type, and rounded as it is
+    written), so a weight costs 1 byte read and 2 written, with no fp32
+    copy of the leaf."""
+    q, s = node["_q8"], node["_qs"]
+    return torch.mul(q, s, out=torch.empty(q.shape, dtype=dtype,
+                                           device=q.device))
+
+
+def quantize_params(cfg: ModelConfig, params: Dict) -> Dict:
+    """Quantize the eligible leaves of a materialised param tree (the
+    port's per-layer layout)."""
+    out = dict(params)
+    for name, leaf in top_leaves(cfg).items():
+        if _eligible(leaf, leaf.shape):
+            out[name] = quantize_weight(params[name])
+    out["layers"] = [
+        {k: (quantize_weight(layer[k])
+             if _eligible(leaf, (cfg.n_periods, *leaf.shape)) else layer[k])
+         for k, leaf in layer_shapes(cfg, li).items()}
+        for li, layer in enumerate(params["layers"])]
+    return out
+
+
+def dequant_tree(node, dtype: torch.dtype = torch.bfloat16):
+    """Dequantize every ``_q8`` leaf of a (sub)tree; identity on a tree
+    without one."""
+    if is_q8(node):
+        return dequant_leaf(node, dtype)
+    if isinstance(node, dict):
+        return {k: dequant_tree(v, dtype) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return type(node)(dequant_tree(v, dtype) for v in node)
+    return node
+
+
+def has_q8(tree) -> bool:
+    if is_q8(tree):
+        return True
+    if isinstance(tree, dict):
+        return any(has_q8(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return any(has_q8(v) for v in tree)
+    return False

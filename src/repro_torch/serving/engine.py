@@ -98,8 +98,9 @@ class UnifiedEngine:
         self.cfg = model.cfg
         e = self.ecfg
         self.device = model.store.device
-        dtype = model.base["embed"].dtype
-        if model.base["embed"].device.type != self.device.type:
+        # final_norm is never quantized: the params' float dtype and device
+        dtype = model.base["final_norm"].dtype
+        if model.base["final_norm"].device.type != self.device.type:
             raise ValueError("base params and adapter bank live on "
                              "different devices")
         self.paged = e.paged and self.cfg.sliding_window == 0

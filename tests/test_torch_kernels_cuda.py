@@ -39,9 +39,12 @@ SPLIT_COLS = int(re.search(
     r"SW_SPLIT_COLS = (\d+);",
     (Path(ref.__file__).parent / "csrc" / "split_walk.cuh").read_text())[1])
 # paged prefill suffixes (Sq, h/g): the longest of the split walk, one
-# position more, and groups of the split walk that begin inside a position
+# position more, and groups of the split walk that begin inside a position;
+# at h/g = 5 (llama4-maverick: 12 positions and 4 padding rows a query
+# tile) the same crossover and a suffix of several ragged tiles
 PREFILL_CASES = [(SPLIT_COLS, 1), (SPLIT_COLS + 1, 1), (SPLIT_COLS // 4, 4),
-                 (SPLIT_COLS // 4 + 1, 4), (25, 4)]
+                 (SPLIT_COLS // 4 + 1, 4), (25, 4), (SPLIT_COLS // 5, 5),
+                 (SPLIT_COLS // 5 + 1, 5), (97, 5)]
 
 
 def _lora_inputs(rng, T, d, r, n, o):
@@ -239,12 +242,13 @@ def test_cuda_dense_decode_matches_plain(dtype, window, S):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("m,hd", [(1, 64), (2, 128), (4, 64), (4, 128),
-                                  (8, 64), (8, 128), (64, 64)])
+@pytest.mark.parametrize("m,hd", [(1, 64), (1, 128), (2, 128), (4, 64),
+                                  (4, 128), (5, 64), (5, 128), (8, 64),
+                                  (8, 128), (64, 64)])
 def test_cuda_flash_attention_tiles(dtype, causal, m, hd):
-    """The query tile (64 / m positions x m heads of a group) at every
-    group size, hd 64 and 128: lengths that end inside a key tile (of 32 or
-    64 keys), a length 0 (exact zeros), S != T and a ragged last tile of
+    """The query tile (64 / m positions x m heads of a group, rounded down:
+    at m = 5 rows 60-63 are padding) at every group size, hd 64 and 128:
+    lengths that end inside a key tile (of 32 or 64 keys), a length 0 (exact zeros), S != T and a ragged last tile of
     both queries and keys."""
     dev = _card()
     rng = np.random.default_rng(100 + m + hd)
@@ -292,7 +296,8 @@ def test_cuda_splitk_empty_splits_and_decode_lens(dtype, ns):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,Sq", [(4, 2), (8, 2), (4, 5), (4, 8), (4, 9),
-                                  (16, 5), (8, 9), (16, 9)])
+                                  (16, 5), (8, 9), (16, 9), (1, 5), (5, 5),
+                                  (5, 9), (5, 30), (1, 130)])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq, hd):
     """Groups of m * Sq query columns through the verify kernel and
@@ -301,12 +306,15 @@ def test_cuda_verify_and_splitk_whole_groups(dtype, m, Sq, hd):
     and 80 in two or three blocks of at most 32 columns (36 cut inside a
     position; above hd 128 a block holds 16), 144 (past ``SPLIT_COLS``)
     the query-tile walk; fp32: 8 to 36 rows one thread block, 72 to 144
-    several row groups.  Rows with lens 0 and pos 0 are exact zeros."""
+    several row groups; m = 1 and 5 (deepseek-7b, llama4-maverick) at 5,
+    25, 45, 130 and 150 columns, the last two on the query-tile walk.
+    Rows with lens 0 and pos 0 are exact zeros."""
     dev = _card()
     rng = np.random.default_rng(300 + m * Sq + (hd != 64) * hd)
     g = 2
     pos, lens = np.array([0, 61, 200]), np.array([0, Sq, Sq - 2])
-    args = _chunk_case(rng, dev, dtype, 3, Sq, m * g, g, hd, 32, 8, pos,
+    nbt = max(8, -(-int((pos + lens).max()) // 32))
+    args = _chunk_case(rng, dev, dtype, 3, Sq, m * g, g, hd, 32, nbt, pos,
                        lens)
     plain = ref.paged_verify_ref(*args)
     y = paged_verify_attention(*args)
@@ -383,6 +391,9 @@ def test_cuda_paged_prefill_walks_match_plain(dtype, Sq, m, hd):
     (64, 1004, 4096, 64, 16),     # a ragged d_in, two tokens a warp
     (5, 512, 512, 48, 4),         # a rank that is no vector width
     (8, 4096, 4096, 72, 24),      # three token groups per tile
+    (8, 5120, 17920, 64, 8),      # phi3-medium-14b's up projection
+    (8, 8192, 22528, 64, 8),      # command-r-35b's up projection
+    (8, 4096, 11008, 64, 8),      # deepseek-7b's up projection
 ])
 def test_cuda_smlm_shapes_match_plain(dtype, r, d_in, d_out, T, bt):
     """SMLM against its plain version, each token row within its own
@@ -415,7 +426,7 @@ def test_cuda_smlm_shapes_match_plain(dtype, r, d_in, d_out, T, bt):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 32])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 def test_cuda_paged_decode_groups_match_plain(dtype, m, hd):
     """Paged decode at every group size and head dim the walks split on:
@@ -439,7 +450,7 @@ def test_cuda_paged_decode_groups_match_plain(dtype, m, hd):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m", [1, 4, 8, 32])
+@pytest.mark.parametrize("m", [1, 4, 5, 8, 32])
 @pytest.mark.parametrize("hd", [64, 128, 256])
 def test_cuda_dense_decode_groups_match_plain(dtype, m, hd):
     """Dense-row decode at every group size and head dim the walks split
@@ -478,6 +489,9 @@ def test_cuda_dense_decode_groups_match_plain(dtype, m, hd):
     (64, 64, 1004, 300, 6),       # the widest rank, both edges ragged
     (64, 64, 512, 14336, 16),     # more adapters than one B batch holds
     (100, 8, 4096, 1024, 6),      # two token groups
+    (8, 8, 5120, 17920, 4),       # phi3-medium-14b's up projection
+    (8, 8, 8192, 22528, 4),       # command-r-35b's up projection
+    (8, 8, 4096, 11008, 4),       # deepseek-7b's up projection
 ])
 def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
     """BGMV against its plain version, each token row within its own

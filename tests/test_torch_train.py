@@ -530,8 +530,9 @@ def _bank_flat(store, slots, bank=None):
     the store's target order."""
     bank = store.bank if bank is None else bank
     return torch.cat([layer[name][k][slots].reshape(-1)
-                      for layer in bank["layers"]
-                      for name in store.targets for k in ("a", "b")])
+                      for layer, targets in zip(bank["layers"],
+                                                store.layer_targets)
+                      for name in targets for k in ("a", "b")])
 
 
 def test_engine_trace_matches_jax(engines):
