@@ -37,7 +37,8 @@ the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 The seventh runs only the memory features: phase 3's lending, paging and
 chunked-training parity, then phases 9 and 10.  The eighth runs only the
 fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
-configs: phase 3's arch parity, then phase 12.
+configs: the ``mla:`` lines, phase 3's arch and MLA parity, then phase
+12.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -74,8 +75,16 @@ printing its lines; any failure raises and exits non-zero:
              1 (32 KV heads), verify, split-K and decode at m = 1 and 5,
              flash and paged prefill (16- and 48-token suffixes) at m = 5
              and 8 (and prefill's 48 at m = 4), SMLM (T=576) and BGMV
-             (T=8) at 5120->17920, 8192->22528 and 4096->11008; timed in
-             bf16 like the rest.
+             (T=8) at 5120->17920, 8192->22528 and 4096->11008 and at
+             deepseek-v2-236b's 5120->24576, 5120->576, 16384->5120,
+             5120->3072 and 3072->5120 (``smlm_wgrad`` at the last five
+             too, ``MLA_WGRAD_SHAPES``); timed in bf16 like the rest.
+             Then the ``mla:`` lines (``mla_record``): the plain MLA
+             attention sublayer at full width in bf16 at decode (B=8,
+             pos <= 511) and at wave 2's suffix prefill (B=4, Sq=16),
+             timed in a CUDA graph and eagerly beside its bound and an
+             SDPA call on the equivalent MQA form: a record, since MLA
+             has no Pallas kernel.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -107,7 +116,13 @@ printing its lines; any failure raises and exits non-zero:
              head, qwen1.5-110b with QKV bias, llama4-maverick with a MoE
              layer) and int8 llama3-8b and maverick (quantized on the
              host) through the engine on both devices: greedy tokens and
-             steps equal, every serving kernel launched.
+             steps equal, every serving kernel launched.  Then MLA
+             (``parity_mla``): reduced deepseek-v2-236b through the paged
+             engine with dedup and with speculation (verify chunks over
+             the latent pool), lending with a raw host tier (latent
+             blocks restored bit-equal) and 2 replicas round-robin with
+             one more ``import_block``: tokens equal on both devices,
+             SMLM and BGMV launched and no GQA attention kernel.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -203,22 +218,27 @@ printing its lines; any failure raises and exits non-zero:
              bf16 (30 layers), phi3-medium-14b bf16 and int8 (40),
              command-r-35b int8 (40), qwen1.5-110b int8 (40 of 80),
              llama4-maverick bf16 (2 layers: one dense, one 128-expert
-             MoE) and int8 (4), each serving phase 4's two waves with two
-             gaussian-B adapters: ``archs:`` lines with prefill and decode
-             tick latency (enqueue / device wait), resident weight bytes,
-             ``max_memory_allocated``, tokens/s and, for maverick, the
-             experts routed per tick and the entries dropped.  Gates:
-             every request finishes, logits finite, the pool pristine,
+             MoE) and int8 (4), deepseek-v2-236b (MLA + MoE) bf16 (4 of
+             60 layers) and int8 (8), each serving phase 4's two waves
+             with two gaussian-B adapters: ``archs:`` lines with prefill
+             and decode tick latency (enqueue / device wait), resident
+             weight bytes, ``max_memory_allocated``, tokens/s and, for
+             MoE, the experts routed per tick and the entries dropped;
+             for MLA the latent pool's bytes a token and layer.  Gates:
+             every request finishes, logits finite, the pool pristine;
              SMLM, BGMV, flash, paged prefill and paged decode (either
-             form) launched; bf16 maverick also takes one fused train
-             step on ft rows (loss finite, aux loss > 0, only lora0's slot
-             changed, ``smlm_wgrad`` launched).
+             form) launched, and for MLA SMLM and BGMV launched and every
+             GQA attention kernel at 0 (``check_routes``); each bf16 MoE
+             arm also takes one fused train step on ft rows (loss finite,
+             aux loss > 0, only lora0's slot changed, ``smlm_wgrad``
+             launched).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-12 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, archs; ``shapes`` its other timed rows), the card's name and power limit, and the last
-line
+train, tiers, paging, fleet, archs and archs_mla, the MLA arms with their
+grad step; ``shapes`` its other timed rows), the card's name and power
+limit, and the last line
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -280,6 +300,27 @@ def reset_counts(K):
 
 def read_counts(K, names=COUNTERS):
     return {k: K[k].launches for k in names}
+
+
+# the GQA attention kernels' counters: an MLA run launches none of them (its
+# attention is plain PyTorch, as in the JAX package)
+GQA_COUNTERS = ("decode", "prefill", "verify", "partials", "merge", "flash",
+                "dense_decode")
+
+
+def check_routes(label, cfg, launches, need):
+    """A run's launches (``read_counts``) against its route: an MLA config
+    must launch SMLM and BGMV and no GQA attention kernel (a GQA route taken
+    by mistake); any other must launch every kernel of ``need``."""
+    if cfg.mla is not None:
+        wrong = {k: launches[k] for k in GQA_COUNTERS if launches[k]}
+        if wrong or not (launches["smlm"] and launches["bgmv"]):
+            raise AssertionError(f"{label}: the MLA run launched GQA "
+                                 f"kernels {wrong} or not SMLM and BGMV: "
+                                 f"{launches}")
+    elif min(launches[k] for k in need) == 0:
+        raise AssertionError(f"{label}: a kernel did not launch: "
+                             f"{launches}")
 
 
 # ---------------------------------------------------------------- helpers
@@ -600,6 +641,11 @@ WGRAD_T = 1024
 WGRAD_SHAPES = ((WGRAD_T, 4096, 4096), (WGRAD_T, 4096, 1024),
                 (WGRAD_T, 4096, 14336), (WGRAD_T, 14336, 4096))
 WGRAD_PER_LAYER = (2, 2, 2, 1)     # projections of a layer at each shape
+# deepseek-v2-236b's LoRA projections (wq, wdkv, wo, the shared expert's up
+# and down), checked and timed beside them
+MLA_WGRAD_SHAPES = ((WGRAD_T, 5120, 24576), (WGRAD_T, 5120, 576),
+                    (WGRAD_T, 16384, 5120), (WGRAD_T, 5120, 3072),
+                    (WGRAD_T, 3072, 5120))
 
 
 def wgrad_case(T, d_in, d_out, dtype, dev, gen, bt, r=8):
@@ -657,7 +703,7 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
     rows, errs, bt = {}, [], K["block_t"]
     ref = K["ref"]
     slices = {}
-    for T, d_in, d_out in WGRAD_SHAPES:
+    for T, d_in, d_out in WGRAD_SHAPES + MLA_WGRAD_SHAPES:
         x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dtype, dev,
                                               gen, bt)
         sb, gb = ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt)
@@ -682,6 +728,7 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
                 bound_ms=bms, bound_by=by,
                 shape=f"T={T} d_in={d_in} d_out={d_out} r=8 n=4 "
                       f"block_t={bt} live={int((scale != 0).sum()) * bt}")
+        if timing and (T, d_in, d_out) in WGRAD_SHAPES:
             a = torch.randn(4, d_in, 8, generator=gen, device=dev).to(dtype)
             b = torch.randn(4, 8, d_out, generator=gen, device=dev).to(dtype)
             slices[(T, d_in, d_out)] = time_ms(lambda: (
@@ -696,7 +743,8 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
               + f"; a grad step of 32 layers: {per_step:.3f} ms")
     print(f"kernels: smlm_wgrad    {str(dtype)[6:]:<8} max_abs_err="
           f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row shapes("
-          f"T,d_in,d_out)={','.join(str(v) for v in WGRAD_SHAPES)} ok")
+          f"T,d_in,d_out)="
+          f"{','.join(str(v) for v in WGRAD_SHAPES + MLA_WGRAD_SHAPES)} ok")
     # SMLMFunction: ft rows (with a base-only tile) then prefill tiles of
     # zero cotangent, at the widest projection
     T, n_ft, d_in, d_out = WGRAD_T + 256, WGRAD_T, 4096, 14336
@@ -1176,7 +1224,11 @@ def check_dense_kernels(K, dtype, dev, gen, timing: bool):
 # command-r-35b and qwen1.5-110b) and the up projections (d_in, d_out) of
 # phi3-medium-14b, command-r-35b and deepseek-7b, SMLM at a serving wave's
 # 576 tokens and BGMV at a decode tick's 8
-ARCH_LORA = ((5120, 17920), (8192, 22528), (4096, 11008))
+ARCH_LORA = ((5120, 17920), (8192, 22528), (4096, 11008),
+             # deepseek-v2-236b: wq, wdkv (576 columns: 4.5 x 128), wo
+             # (the widest d_in), the shared expert's up and down
+             (5120, 24576), (5120, 576), (16384, 5120), (5120, 3072),
+             (3072, 5120))
 
 
 def attn_row(run, plain, lib, nbytes, flops, dtype, err, shape):
@@ -1352,6 +1404,107 @@ def sdpa_yardstick(q, kp, vp, tables, q_pos, kend):
     qt = q.transpose(1, 2).contiguous()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     return lambda: sdpa(qt, k, v, attn_mask=mask[:, None], enable_gqa=True)
+
+
+# MLA's attention sublayer at full width (deepseek-v2-236b: h=128, c=512,
+# dr=64, dn=dv=128; 16-entry tables of 32-token blocks): the decode bucket
+# of phase 12 (B=8 at DENSE_POS) and wave 2's suffix prefill (B=4, 16
+# tokens over a 128-token cached head)
+MLA_CASES = {"decode": dict(pos=DENSE_POS, Sq=1),
+             "suffix_prefill": dict(pos=[128] * 4, Sq=16)}
+
+
+def mla_record(dev, gen):
+    """The ``mla:`` lines: the plain MLA attention sublayer of the port
+    (``_paged_write_chunk`` of the new latent, ``_paged_view`` gathers and
+    ``_paged_chunk_mask``, ``layers.mla_attention`` in the absorbed form)
+    at ``MLA_CASES``, in bf16: device time in a CUDA graph (``time_ms``)
+    and eager, beside its bound (``wuk``/``wuv`` read once, the latent of
+    the keys each row can see, q in, out; the four absorbed products'
+    operations) and a yardstick, one ``scaled_dot_product_attention`` call
+    on the equivalent MQA form over views gathered in advance (query
+    ``q_lat || q_pe``, one key head ``ckv || kpe`` of c + dr, one value
+    head ``ckv``: no absorption products).  A record, not a kernel: the
+    JAX package computes MLA in jnp, outside Pallas, and the port keeps it
+    plain PyTorch; its output is held finite and printed against the same
+    function in fp32 on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L, model as TM
+    cfg = get_config("deepseek-v2-236b")
+    m, h, dtype = cfg.mla, cfg.n_heads, torch.bfloat16
+    c, dr, dn, dv = m.kv_lora_rank, m.qk_rope_dim, m.qk_nope_dim, \
+        m.v_head_dim
+    bs, nbt = 32, 16
+    it = torch.empty((), dtype=dtype).element_size()
+    # the up projections drawn as the schema draws them: fan-in h
+    wuk, wuv = ((torch.randn(c, h, d, generator=gen, device=dev)
+                 * min(0.02, h ** -0.5)).to(dtype) for d in (dn, dv))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for label, case in MLA_CASES.items():
+        B, Sq = len(case["pos"]), case["Sq"]
+        pos = torch.tensor(case["pos"], device=dev, dtype=torch.int32)
+        length = torch.full((B,), Sq, device=dev, dtype=torch.int32)
+        tables = (1 + torch.arange(B * nbt, device=dev, dtype=torch.int32)
+                  ).view(B, nbt)
+        ckv_pool, kpe_pool = (torch.randn(1 + B * nbt, bs, w, generator=gen,
+                                          device=dev).to(dtype)
+                              for w in (c, dr))
+        qn = torch.randn(B, Sq, h, dn, generator=gen, device=dev).to(dtype)
+        qp = torch.randn(B, Sq, h, dr, generator=gen, device=dev).to(dtype)
+        ckv, kpe = (torch.randn(B, Sq, w, generator=gen, device=dev
+                                ).to(dtype) for w in (c, dr))
+        q_pos = pos[:, None].long() + torch.arange(Sq, device=dev)
+
+        def run(t=lambda x: x):
+            cp, kp = t(ckv_pool), t(kpe_pool)
+            TM._paged_write_chunk(cp, t(ckv), tables, pos, length)
+            TM._paged_write_chunk(kp, t(kpe), tables, pos, length)
+            k_pos, k_valid = TM._paged_chunk_mask(tables, bs, pos, length)
+            return L.mla_attention(
+                t(qn), t(qp), TM._paged_view(cp, tables),
+                TM._paged_view(kp, tables), t(wuk), t(wuv), q_pos=q_pos,
+                k_pos=k_pos, k_valid=k_valid, causal=True)
+
+        out = run()
+        exact = run(lambda x: x.float())
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"mla {label}: non-finite output")
+        err, ratio = float((out.float() - exact).abs().max()), \
+            worst_row(out, exact)
+        ms, eager_ms = time_ms(run), time_ms(run, eager=True)
+        # the yardstick: the MQA form over views gathered in advance
+        k_pos, k_valid = TM._paged_chunk_mask(tables, bs, pos + Sq - 1,
+                                              torch.ones_like(length))
+        mask = ((k_pos[:, None, :] <= q_pos[:, :, None])
+                & k_valid[:, None, :])[:, None]
+        q_lat = torch.einsum("bshd,chd->bshc", qn, wuk)
+        qm = torch.cat([q_lat, qp], -1).transpose(1, 2).contiguous()
+        view = torch.cat([TM._paged_view(ckv_pool, tables),
+                          TM._paged_view(kpe_pool, tables)], -1)
+        km, vm = view[:, None].contiguous(), view[:, None, :, :c].contiguous()
+        yard_ms = time_ms(lambda: sdpa(qm, km, vm, attn_mask=mask,
+                                       scale=(dn + dr) ** -0.5,
+                                       enable_gqa=True))
+        keys = int((q_pos + 1).sum())           # keys each query can see
+        seen = int((pos.long() + Sq).sum())     # latent rows read
+        nbytes = (c * h * (dn + dv) + seen * (c + dr)
+                  + B * Sq * (h * (dn + dr) + c + dr + h * dv)) * it
+        flops = 2 * h * (B * Sq * dn * c + keys * (c + dr) + keys * c
+                         + B * Sq * c * dv)
+        bms, by = bound(nbytes, flops, dtype)
+        rows[label] = dict(ms=ms, bound_ms=bms)
+        print(f"mla: {label} {cfg.name} bf16 B={B} Sq={Sq} h={h} c={c} "
+              f"dr={dr} dn={dn} dv={dv} bs={bs} nbt={nbt} positions "
+              f"{case['pos'][0]}..{max(case['pos'])} (plain PyTorch, no "
+              f"Pallas counterpart): ms={ms:.5f} (CUDA graph) eager_ms="
+              f"{eager_ms:.5f} sdpa_mqa_yardstick_ms={yard_ms:.5f} bound_ms="
+              f"{bms:.5f} ({by}: {nbytes} bytes, {flops} operations) "
+              f"bound_share={bms / ms:.4f}; a {cfg.n_layers}-layer tick "
+              f"{ms * cfg.n_layers:.4f} ms vs bound "
+              f"{bms * cfg.n_layers:.4f} ms; vs fp32 max_abs_err={err:.3e} "
+              f"worst_row_ratio={ratio:.3e} finite=True")
+    return rows
 
 
 # ------------------------------------------------- phase 3: reduced parity
@@ -1750,13 +1903,51 @@ KV_COUNTERS = ("kv_swap_outs", "kv_swap_out_bytes", "kv_restores",
                "kv_demote_bytes", "kv_rehydrations", "kv_rehydrate_bytes")
 
 
-def parity_memory(K, cfg, flat, lcfg, devices):
+def watch_restores(cm):
+    """Wrap a manager's ``swap_out`` / ``restore_swap`` (raw host tier) so
+    every restored block is checked ``torch.equal`` to the victim's
+    original in every cache leaf (the restore skips blocks adopted from a
+    sibling, as ``watch_tiers`` does).  Returns a list that gains the count
+    of blocks checked at each restore."""
+    swap_out, restore, kept, checked = cm.swap_out, cm.restore_swap, {}, []
+
+    def watched_swap_out(slot):
+        idx = torch.tensor(cm.tables[slot][:cm.swap_payload_blocks(slot)],
+                           dtype=torch.long, device=cm.device)
+        orig = {k: v.index_select(1, idx) for k, v in cm.cache.items()}
+        sid = swap_out(slot)
+        if sid is not None:
+            kept[sid] = orig
+        return sid
+
+    def watched_restore(slot, sid):
+        orig = kept.pop(sid)
+        b0 = cm.kv_restore_bytes
+        covered = restore(slot, sid)
+        nw = (cm.kv_restore_bytes - b0) // cm.host_block_bytes
+        shared = min(cm.shared_count.get(slot, 0), len(cm.tables[slot]))
+        idx = torch.tensor(cm.tables[slot][shared:shared + nw],
+                           dtype=torch.long, device=cm.device)
+        for k, v in cm.cache.items():
+            if not torch.equal(v.index_select(1, idx),
+                               orig[k][:, shared:shared + nw]):
+                raise AssertionError(f"a restored block differs from the "
+                                     f"victim's original in {k}")
+        checked.append(nw)
+        return covered
+
+    cm.swap_out, cm.restore_swap = watched_swap_out, watched_restore
+    return checked
+
+
+def parity_memory(K, cfg, flat, lcfg, devices, arms=("lending", "paging")):
     """Phase 3, the memory features, on ``cuda`` and on ``cpu`` (virtual
-    clock, fp32): (a) lending (``over_admit=2.0``) in a 7-block pool with a
-    host tier, (b) adapter paging, 6 adapters of true ranks 4 and 8 on a
-    4-slot bank.  Tokens, ``swap_decisions``, preemptions, the ``kv_*``
-    counters, adapter swap-ins and steps must be equal on the two
-    devices."""
+    clock, fp32), the ``arms`` of: (a) lending (``over_admit=2.0``) in a
+    7-block pool with a raw host tier, every restored block checked
+    bit-equal to the victim's (``watch_restores``), (b) adapter paging, 6
+    adapters of true ranks 4 and 8 on a 4-slot bank.  Tokens,
+    ``swap_decisions``, preemptions, the ``kv_*`` counters, adapter
+    swap-ins and steps must be equal on the two devices."""
     from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
     from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
     from repro_torch.serving.engine import EngineConfig, UnifiedEngine
@@ -1767,7 +1958,7 @@ def parity_memory(K, cfg, flat, lcfg, devices):
                     for _ in range(3)]
     page_prompts = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
                     for _ in range(12)]
-    arms = {
+    arms = {arm: setup for arm, setup in {
         "lending": (dict(capacity=4, pf_capacity=2, s_max=64,
                          block_size=16, n_blocks=8, over_admit=2.0,
                          kv_host_blocks=8),
@@ -1776,7 +1967,8 @@ def parity_memory(K, cfg, flat, lcfg, devices):
         "paging": (dict(capacity=4, pf_capacity=2, s_max=64, block_size=16,
                         n_blocks=48, adapter_paging=True),
                    [(f"ad{i % 6}", p, 6, 0.02 * i)
-                    for i, p in enumerate(page_prompts)], 6)}
+                    for i, p in enumerate(page_prompts)], 6)}.items()
+        if arm in arms}
     for arm, (ecfg, trace, n_ad) in arms.items():
         runs = {}
         for dev in devices:
@@ -1792,6 +1984,7 @@ def parity_memory(K, cfg, flat, lcfg, devices):
             for rid, (name, p, max_new, at) in enumerate(trace):
                 eng.submit(Request(rid=rid, prompt=p, adapter=name,
                                    max_new_tokens=max_new, arrival=at))
+            restored = watch_restores(eng.cachemgr)
             reset_counts(K)
             eng.run(max_ticks=10000)
             m = eng.metrics
@@ -1800,8 +1993,8 @@ def parity_memory(K, cfg, flat, lcfg, devices):
                 swap_decisions=eng.swap_decisions, steps=m.steps,
                 preemptions=m.preemptions, swap_ins=m.adapter_swap_ins,
                 kv={k: getattr(eng.cachemgr, k) for k in KV_COUNTERS},
-                pristine=eng.cachemgr.pristine,
-                launches=read_counts(K, MEMORY_COUNTERS))
+                pristine=eng.cachemgr.pristine, launches=read_counts(K),
+                restored=sum(restored))
         got, want = runs[devices[0]], runs[devices[1]]
         for key in ("tokens", "swap_decisions", "steps", "preemptions",
                     "swap_ins", "kv", "pristine"):
@@ -1813,21 +2006,22 @@ def parity_memory(K, cfg, flat, lcfg, devices):
                                  f" or the pool is not pristine")
         if arm == "lending" and not (got["preemptions"]
                                      and got["kv"]["kv_swap_outs"]
-                                     and got["kv"]["kv_restores"]):
+                                     and got["kv"]["kv_restores"]
+                                     and got["restored"]):
             raise AssertionError(f"parity lending: no preemption, swap-out "
                                  f"or restore: {got}")
         if arm == "paging" and not got["swap_ins"]:
             raise AssertionError("parity paging: no adapter swap-in")
-        if devices[0] == "cuda" and min(
-                got["launches"][k] for k in ("smlm", "bgmv", "decode")) == 0:
-            raise AssertionError(f"parity {arm}: kernels not launched: "
-                                 f"{got['launches']}")
-        print(f"parity: {arm} {ecfg}, cuda==cpu tokens for "
+        if devices[0] == "cuda":
+            check_routes(f"parity {arm} {cfg.name}", cfg, got["launches"],
+                         ("smlm", "bgmv", "decode"))
+        print(f"parity: {arm} {cfg.name} {ecfg}, cuda==cpu tokens for "
               f"{len(trace)} requests, steps={got['steps']} preemptions="
               f"{got['preemptions']} swap_decisions="
               f"{len(got['swap_decisions'])} kv={got['kv']} "
+              f"blocks_restored_bit_equal={got['restored']} "
               f"adapter_swap_ins={got['swap_ins']} cuda launches="
-              f"{got['launches']} ok")
+              f"{ {k: got['launches'][k] for k in MEMORY_COUNTERS} } ok")
 
 
 FLEET_COST = dict(fixed=1e-3, prefill_per_tok=1e-4)   # prefill-bound regime
@@ -1842,17 +2036,21 @@ def check_fleet(fleet):
                              "pristine")
 
 
-def parity_fleet(K, cfg, flat, lcfg, devices):
+def parity_fleet(K, cfg, flat, lcfg, devices, replicas=3,
+                 policies=("affinity", "round-robin")):
     """Phase 3, the fleet, on ``cuda`` and on ``cpu`` (virtual clock,
     fp32): ``tests/test_fleet.py``'s trace (6 requests on a 48-token shared
     head, ``CostModel(fixed=1e-3, prefill_per_tok=1e-4)``) through one
-    engine and through 3 replicas under ``affinity`` and ``round-robin``.
+    engine and through ``replicas`` replicas under each of ``policies``.
     Tokens equal the single engine's on each device and are equal across
     devices, as are ``routed``, ``remote_fetch_blocks``, ``hash_hits`` and
     steps; round-robin fetches; the fleet index is a bijection and every
-    pool drains pristine."""
+    pool drains pristine; then one more block imported between two
+    replicas is equal to its source in every leaf
+    (``import_one_block``)."""
     from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
     from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
+    from repro_torch.models.model import cache_leaves
     from repro_torch.serving.clock import CostModel
     from repro_torch.serving.engine import EngineConfig, UnifiedEngine
     from repro_torch.serving.request import Request
@@ -1886,14 +2084,14 @@ def parity_fleet(K, cfg, flat, lcfg, devices):
         if len(single) != 6 or not eng.cachemgr.pristine:
             raise AssertionError(f"parity fleet {dev}: the single engine "
                                  f"did not finish pristine")
-        for policy in ("affinity", "round-robin"):
+        for policy in policies:
             fleet = build_fleet(model(), ecfg, FleetConfig(
-                replicas=3, router=RouterConfig(policy=policy)))
+                replicas=replicas, router=RouterConfig(policy=policy)))
             for r in trace():
                 fleet.submit(r)
             reset_counts(K)
             fm = fleet.run()
-            launches = read_counts(K, MEMORY_COUNTERS)
+            launches = read_counts(K)
             check_fleet(fleet)
             tokens = {r.rid: list(r.output) for e in fleet.engines
                       for r in e.finished}
@@ -1905,8 +2103,9 @@ def parity_fleet(K, cfg, flat, lcfg, devices):
                 tokens=tokens, routed=dict(fleet.routed),
                 remote_fetch_blocks=fm.remote_fetch_blocks,
                 hash_hits=fm.hash_hits, steps=fm.steps,
-                remote_fetch_time=fm.remote_fetch_time, launches=launches)
-    for policy in ("affinity", "round-robin"):
+                remote_fetch_time=fm.remote_fetch_time, launches=launches,
+                imported=import_one_block(fleet))
+    for policy in policies:
         got, want = runs[devices[0], policy], runs[devices[1], policy]
         for key in ("tokens", "routed", "remote_fetch_blocks", "hash_hits",
                     "steps"):
@@ -1917,18 +2116,19 @@ def parity_fleet(K, cfg, flat, lcfg, devices):
         if policy == "round-robin" and not got["remote_fetch_blocks"]:
             raise AssertionError("parity fleet round-robin: no block was "
                                  "fetched")
-        if devices[0] == "cuda" and min(
-                got["launches"][k] for k in ("smlm", "bgmv", "decode")) == 0:
-            raise AssertionError(f"parity fleet {policy}: kernels not "
-                                 f"launched: {got['launches']}")
-        print(f"parity: fleet {policy} replicas=3 (6 requests, 48-token "
-              f"shared head, CostModel fixed=1e-3 prefill_per_tok=1e-4), "
+        if devices[0] == "cuda":
+            check_routes(f"parity fleet {policy} {cfg.name}", cfg,
+                         got["launches"], ("smlm", "bgmv", "decode"))
+        print(f"parity: fleet {cfg.name} {policy} replicas={replicas} (6 "
+              f"requests, 48-token shared head, CostModel fixed=1e-3 "
+              f"prefill_per_tok=1e-4), "
               f"cuda==cpu==single-engine tokens, routed={got['routed']} "
               f"remote_fetch_blocks={got['remote_fetch_blocks']} "
               f"hash_hits={got['hash_hits']} steps={got['steps']} "
               f"remote_fetch_time_virtual_s={got['remote_fetch_time']:.6g} "
-              f"bijection=True pristine=True cuda launches="
-              f"{got['launches']} ok")
+              f"bijection=True pristine=True, import_block {got['imported']}"
+              f" equal in {'/'.join(cache_leaves(cfg))}, cuda launches="
+              f"{ {k: got['launches'][k] for k in MEMORY_COUNTERS} } ok")
 
 
 # ------------------------------------- phases 4-6: full width, one weight set
@@ -2606,7 +2806,7 @@ def watch_tiers(eng, log):
     def timed_swap_out(slot):
         nb = cm.swap_payload_blocks(slot)
         idx = torch.tensor(cm.tables[slot][:nb], device=cm.device)
-        orig = {k: cm.cache[k].index_select(1, idx) for k in ("k", "v")}
+        orig = {k: v.index_select(1, idx) for k, v in cm.cache.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         sid = swap_out(slot)
@@ -2634,7 +2834,7 @@ def watch_tiers(eng, log):
         log["h2d"].append(((time.perf_counter() - t0) * 1e3, nbytes, nw))
         idx = torch.tensor(cm.tables[slot][shared:shared + nw],
                            device=cm.device)
-        for k in ("k", "v"):
+        for k in cm.cache:
             got = cm.cache[k].index_select(1, idx)
             want = orig[k][:, shared:shared + nw]
             if not cm.host_quant:
@@ -3128,6 +3328,30 @@ def fleet_run(K, cfg, params, dev, dtype, arm, max_new=16):
                 out={r.rid: list(r.output) for r in done})
 
 
+def import_one_block(fleet):
+    """One ``import_block`` from replica 0 into replica 1 of ``fleet`` (a
+    block of replica 0's index that replica 1 does not hold; replica 1's
+    index is flushed if it holds them all): every cache leaf of the target
+    block must equal the source block's (``torch.equal``) and the fleet
+    index stay a bijection.  Returns (source block, target block)."""
+    a, b = fleet.engines[0].cachemgr, fleet.engines[1].cachemgr
+    missing = [k for k in a._index if k not in b._index]
+    if not missing:
+        b.flush_index()
+        missing = list(a._index)
+    key = missing[0]
+    src = a._index[key]
+    dst = b.import_block(key, a, src)
+    if dst is None:
+        raise AssertionError("fleet: import_block found no room")
+    for name in a.cache:
+        if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
+            raise AssertionError(f"fleet: imported block differs from its "
+                                 f"source in {name}")
+    fleet.index.check_bijection()
+    return src, dst
+
+
 def cross_pool_copy(fleet, dev, iters=200):
     """One ``import_block`` between two replicas of ``fleet`` (a head block
     of replica 0 that replica 1 does not hold; replica 1's index is flushed
@@ -3141,22 +3365,9 @@ def cross_pool_copy(fleet, dev, iters=200):
     graph).  Returns (per-copy device ms in the graph, per-copy host ms of
     the eager loop, block bytes)."""
     a, b = fleet.engines[0].cachemgr, fleet.engines[1].cachemgr
-    missing = [k for k in a._index if k not in b._index]
-    if not missing:
-        b.flush_index()
-        missing = list(a._index)
-    key = missing[0]
-    src = a._index[key]
-    dst = b.import_block(key, a, src)
-    if dst is None:
-        raise AssertionError("fleet: import_block found no room")
-    for name in ("k", "v"):
-        if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
-            raise AssertionError(f"fleet: imported block differs from its "
-                                 f"source in {name}")
-    fleet.index.check_bijection()
-    nbytes = sum(a.cache[n][:, src].numel() * a.cache[n].element_size()
-                 for n in ("k", "v"))
+    src, dst = import_one_block(fleet)
+    nbytes = sum(v[:, src].numel() * v.element_size()
+                 for v in a.cache.values())
 
     def timed(fn):
         for _ in range(3):
@@ -3178,15 +3389,17 @@ def cross_pool_copy(fleet, dev, iters=200):
     y = torch.empty_like(x)
     flat_ms, _ = timed(lambda: y.copy_(x))
     flat_graph_ms = time_ms(lambda: y.copy_(x), iters)
-    for name in ("k", "v"):
+    for name in a.cache:
         if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
             raise AssertionError("fleet: the timed copies changed the block")
     bound_ms = 2 * nbytes / HBM_BYTES_PER_S * 1e3
-    layers = a.cache["k"].shape[0]
+    names = "/".join(a.cache)
+    layers = next(iter(a.cache.values())).shape[0]
     print(f"fleet: import_block engine 0 block {src} -> engine 1 block {dst}"
-          f" K and V torch.equal to the source, bijection=True ok; "
-          f"cross-pool copy of one block ({nbytes} bytes: K and V, "
-          f"{layers} layers x {nbytes // 2 // layers} bytes a side) eager "
+          f" {names} torch.equal to the source, bijection=True ok; "
+          f"cross-pool copy of one block ({nbytes} bytes: {names}, "
+          f"{layers} layers x {nbytes // len(a.cache) // layers} bytes a "
+          f"leaf) eager "
           f"between CUDA events over {iters} calls: "
           f"ms={ms:.5f} host_ms={host_ms:.5f} contiguous copy_ of the same "
           f"bytes ms={flat_ms:.5f}; in a CUDA graph (device time, no host "
@@ -3392,6 +3605,82 @@ def parity_archs(K, devices=("cuda", "cpu")):
               f"cuda==cpu greedy tokens for 8 requests (48 tokens), "
               f"steps={gsteps}, cuda launches="
               f"{ {k: gl[k] for k in ARCH_KERNELS} } moe_calls={gmoe} ok")
+    parity_mla(K, devices)
+
+
+def parity_mla(K, devices=("cuda", "cpu")):
+    """Phase 3, MLA: reduced deepseek-v2-236b (latent c = 64, rope dr = 16,
+    4 experts top-2 and a shared one; numpy-seeded fp32 weights and two
+    adapters) on ``cuda`` and ``cpu``: (a) the paged engine with dedup on
+    ``shared_prefix_trace``, then with speculation (the suffix drafter fed
+    the plain outputs, so verify chunks run over the latent pool): tokens
+    equal on both devices and to the plain run's, prefix tokens reused,
+    drafts accepted; (b) lending with a raw host tier (``parity_memory``'s
+    lending arm: latent blocks swapped out and restored bit-exact); (c) one
+    engine and 2 replicas round-robin with remote fetch (``parity_fleet``,
+    one explicit ``import_block``).  On the card every run launches SMLM
+    and BGMV and no GQA attention kernel (``check_routes``)."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.spec import SpecConfig
+    cfg = get_reduced("deepseek-v2-236b")
+    lcfg = LoRAConfig(n_slots=4, r=8)
+    flat = numpy_weights(cfg, seed=0)
+    ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
+          for i in range(2)}
+
+    def run(dev, spec=None, suffix=None):
+        params = params_from_numpy(flat, device=dev)
+        adapters = {n: bank_from_numpy(f, device=dev) for n, f in ad.items()}
+        eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
+                           torch.float32, EngineConfig(
+                               capacity=4, pf_capacity=2, s_max=128,
+                               virtual_time=True, spec=spec))
+        for r in shared_prefix_trace(cfg.vocab, list(ad), seed=3):
+            if suffix is not None:
+                r.draft_suffix = np.concatenate(
+                    [r.prompt, np.asarray(suffix[r.rid], np.int64)])
+            eng.submit(r)
+        reset_counts(K)
+        eng.run(max_ticks=10000)
+        if not eng.cachemgr.pristine:
+            raise AssertionError(f"parity mla {dev}: pool not pristine")
+        return eng, read_counts(K), {r.rid: list(r.output)
+                                     for r in eng.finished}
+
+    (ge, gl, gtok), (ce, _, ctok) = (run(d) for d in devices)
+    if len(gtok) != 8 or gtok != ctok or ge.metrics.steps != ce.metrics.steps:
+        raise AssertionError(f"parity mla: tokens or steps differ: "
+                             f"{devices[0]} {gtok} {devices[1]} {ctok}")
+    if not ge.metrics.reused_prefix_tokens:
+        raise AssertionError("parity mla: no prefix block was adopted")
+    spec = SpecConfig(k_max=4, drafter="suffix")
+    (se, sl, stok), (_, _, sctok) = (run(d, spec, gtok) for d in devices)
+    if stok != sctok or stok != gtok:
+        raise AssertionError(f"parity mla spec: tokens differ: {devices[0]} "
+                             f"{stok} {devices[1]} {sctok} plain {gtok}")
+    if not se.metrics.spec_accepted:
+        raise AssertionError("parity mla spec: no draft accepted")
+    if devices[0] == "cuda":
+        for label, launches in (("plain", gl), ("spec", sl)):
+            check_routes(f"parity mla {label}", cfg, launches, ())
+    m = se.metrics
+    print(f"parity: {cfg.name} reduced fp32 MLA (L={cfg.n_layers} d="
+          f"{cfg.d_model} h={cfg.n_heads} c={cfg.mla.kv_lora_rank} dr="
+          f"{cfg.mla.qk_rope_dim} moe={cfg.moe.num_experts}e top-"
+          f"{cfg.moe.top_k}) paged with dedup, cuda==cpu greedy tokens for 8"
+          f" requests (48 tokens), steps={ge.metrics.steps}, "
+          f"reused_prefix_tokens={ge.metrics.reused_prefix_tokens}; spec "
+          f"k_max=4 suffix drafter cuda==cpu==plain, drafted="
+          f"{m.spec_drafted} accepted={m.spec_accepted} steps={m.steps}; "
+          f"cuda launches plain={ {k: gl[k] for k in ARCH_KERNELS} } spec="
+          f"{ {k: sl[k] for k in ARCH_KERNELS + ('verify',)} } (GQA "
+          f"attention kernels 0: MLA attends in plain PyTorch) ok")
+    parity_memory(K, cfg, flat, lcfg, devices, arms=("lending",))
+    parity_fleet(K, cfg, flat, lcfg, devices, replicas=2,
+                 policies=("round-robin",))
 
 
 # ---------------------------------------------- phase 12: the other configs
@@ -3400,7 +3689,8 @@ ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
              ("phi3-medium-14b", None, True), ("command-r-35b", None, True),
              ("qwen1.5-110b", 40, True),
              ("llama4-maverick-400b-a17b", 2, False),
-             ("llama4-maverick-400b-a17b", 4, True))
+             ("llama4-maverick-400b-a17b", 4, True),
+             ("deepseek-v2-236b", 4, False), ("deepseek-v2-236b", 8, True))
 
 
 def arch_weights(cfg, dev, int8, seed=0):
@@ -3459,7 +3749,7 @@ def prefill_stats(ticks) -> str:
 
 
 def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
-    """Maverick's fine-tuning path on the card: one fused train step
+    """A MoE config's fine-tuning path on the card: one fused train step
     (forward over ft rows, the router aux loss, backward through the
     kernels, masked AdamW) for lora0's slot; loss finite, aux loss > 0,
     the slot's bank elements changed and no other slot's."""
@@ -3496,7 +3786,7 @@ def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
                 for t in nl for ab in ("a", "b"))
     if not (torch.isfinite(loss) and float(aux) > 0 and float(changed) > 0
             and still and K["smlm_wgrad"].launches > n0):
-        raise AssertionError(f"maverick grad step: loss {float(loss)} aux "
+        raise AssertionError(f"{cfg.name} grad step: loss {float(loss)} aux "
                              f"{float(aux)} changed {float(changed)} "
                              f"others unchanged {still}")
     print(f"archs: {cfg.name} grad step of {n_rows} ft rows x {seq} "
@@ -3508,7 +3798,9 @@ def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
 
 def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
     """One arm of phase 12: build, serve phase 4's two waves timed, print
-    the ``archs:`` line; returns the run's launch counts."""
+    the ``archs:`` line (for MLA with the latent pool's bytes a token and
+    layer beside expanded K/V's), and for a bf16 MoE config take one grad
+    step; returns the launch counts of the serving run and the step."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -3529,11 +3821,13 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
     counts = read_counts(K)
     check_drained(eng, seen, 8, max_new)
     peak = torch.cuda.max_memory_allocated()
-    need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
-                flash=counts["flash"], prefill=counts["prefill"],
-                decode=counts["decode"] + counts["partials"])
-    if min(need.values()) == 0:
-        raise AssertionError(f"{arch}: a kernel never launched: {need}")
+    if cfg.mla is not None:
+        need = {k: counts[k] for k in ("smlm", "bgmv") + GQA_COUNTERS}
+    else:
+        need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
+                    flash=counts["flash"], prefill=counts["prefill"],
+                    decode=counts["decode"] + counts["partials"])
+    check_routes(f"archs {arch}", cfg, dict(counts, **need), need)
     moe_note = ""
     if cfg.moe is not None:
         n_moe = sum(cfg.is_moe_layer(li % len(cfg.pattern))
@@ -3546,6 +3840,17 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
                     f"{mo.routed / len(ticks):.2f} (per MoE layer call "
                     f"{mo.routed / mo.calls:.2f}), entries_dropped="
                     f"{mo.dropped} of {mo.entries} (padding rows included)")
+    if cfg.mla is not None:
+        cm, m = eng.cachemgr, cfg.mla
+        per_tok = cm.adapter_block_bytes // (cm.block_size * cfg.n_layers)
+        expanded = cfg.n_heads * (m.qk_nope_dim + m.qk_rope_dim
+                                  + m.v_head_dim) * 2
+        moe_note += (f" mla: latent pool (ckv c={m.kv_lora_rank} + kpe dr="
+                     f"{m.qk_rope_dim}) bytes_per_block="
+                     f"{cm.adapter_block_bytes} ({cm.block_size} tokens x "
+                     f"{cfg.n_layers} layers) = {per_tok} B a token and "
+                     f"layer vs expanded K/V of {cfg.n_heads} heads "
+                     f"{expanded} B ({expanded / per_tok:.2f}x)")
     dec = [(t, d) for t, p, d, *_ in ticks if not p]
     print(f"archs: {arch} {'int8' if int8 else 'bf16'} L={cfg.n_layers}/"
           f"{full.n_layers} d={cfg.d_model} h={cfg.n_heads} g="
@@ -3559,6 +3864,7 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
           f"{moe_note} finite=True pristine=True ok")
     if cfg.moe is not None and not int8:
         moe_grad_step(K, cfg, weights, dev)
+        counts["smlm_wgrad"] = K["smlm_wgrad"].launches
     del eng, weights
     gc.collect()
     torch.cuda.empty_cache()
@@ -3567,11 +3873,14 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
 
 def full_archs(K, dev):
     """Phase 12: each arm of ``ARCH_ARMS`` in turn, each model freed before
-    the next is built; returns the launch counts summed over the arms."""
-    total = {k: 0 for k in COUNTERS}
+    the next is built; returns the launch counts summed over the GQA arms
+    (``archs``) and over the MLA arms (``archs_mla``)."""
+    from repro_torch.configs import get_config
+    total = {p: {k: 0 for k in COUNTERS} for p in ("archs", "archs_mla")}
     for arch, layers, int8 in ARCH_ARMS:
+        path = "archs_mla" if get_config(arch).mla is not None else "archs"
         for k, v in arch_arm(K, arch, layers, int8, dev).items():
-            total[k] += v
+            total[path][k] += v
     return total
 
 
@@ -3742,7 +4051,10 @@ def main() -> int:
         full_fleet(K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
         print(card())
         return 0
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
     if a.archs:
+        mla_record(dev, gen)
         parity_archs(K)
         full_archs(K, dev)
         print(card())
@@ -3755,6 +4067,7 @@ def main() -> int:
                                          for k, r in rows.items()}}))
         print(card())
         return 0
+    mla_record(dev, gen)
 
     parity(K)
 
@@ -3778,7 +4091,7 @@ def main() -> int:
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     del weights
-    by_path["archs"] = full_archs(K, dev)
+    by_path.update(full_archs(K, dev))
 
     kernels = []
     for name in SOURCES:

@@ -3,7 +3,8 @@
 The JAX package writes pytrees as npz archives whose keys are the pytree
 paths joined by ``/`` (``repro.checkpoint.io.save_pytree``): ``embed``,
 ``blocks/{pos}/wq`` (leading ``n_periods`` axis, then the leaf's own
-shape; one stack per position of the block pattern), ``final_norm``,
+shape, e.g. MLA's 4-D ``blocks/0/wuk`` [P, c, h, dn]; one stack per
+position of the block pattern), ``final_norm``,
 ``lm_head``; a LoRA bank adds ``/a`` and ``/b`` with ``n_slots`` after the
 periods axis, and an int8 weight ``/_q8`` and ``/_qs``.  The functions here
 split the periods axis into the port's per-layer lists: ``blocks/{pos}/

@@ -1,10 +1,11 @@
 """Architecture registry of the port: the paper's ``llama3-8b``, the four
 dense decoders (``phi3-medium-14b``, ``qwen1.5-110b`` with QKV bias,
-``deepseek-7b`` with 32 KV heads, ``command-r-35b`` with a tied head) and
-the MoE ``llama4-maverick-400b-a17b``.  ``get_config`` returns the full
+``deepseek-7b`` with 32 KV heads, ``command-r-35b`` with a tied head), the
+MoE ``llama4-maverick-400b-a17b`` and ``deepseek-v2-236b`` (MLA attention
+over a compressed latent cache, and MoE).  ``get_config`` returns the full
 published config, ``get_reduced`` the small same-family variant used by the
-CPU tests.  The families with MLA, Mamba, cross-attention or an encoder are
-not ported."""
+CPU tests.  The families with Mamba, cross-attention or an encoder are not
+ported."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,7 @@ ARCH_IDS = [
     "qwen1.5-110b",
     "deepseek-7b",
     "llama4-maverick-400b-a17b",
+    "deepseek-v2-236b",
     "command-r-35b",
     # the paper's own base model
     "llama3-8b",

@@ -11,6 +11,13 @@ the attention streams the key axis in chunks with an online softmax, and a
 query longer than the chunk is cut into query blocks, each recomputed in
 the backward (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
 package): the memory-bounded form of ft attention under autograd.
+
+MLA (DeepSeek-V2) attends in the absorbed form of the JAX package
+(``mla_attention``): scores and outputs against the compressed latent, K/V
+never expanded; a long call (``chunk``) takes ``mla_attention_chunked``,
+which expands K/V one key block at a time inside an online softmax.  Both
+are plain PyTorch by design: the JAX package computes them in jnp, outside
+any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -159,3 +166,103 @@ def _attention_chunked(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m_run = m_new
     out = acc / torch.clamp(l_run[..., None], min=1e-30)
     return out.permute(0, 3, 1, 2, 4).to(qg.dtype)
+
+
+def _mla_chunk(qn: torch.Tensor, qp: torch.Tensor, qpos: torch.Tensor,
+               ckv: torch.Tensor, kpe: torch.Tensor, k_pos: torch.Tensor,
+               k_valid: torch.Tensor, w_uk: torch.Tensor, w_uv: torch.Tensor,
+               causal: bool, window: int, chunk: int, scale: float
+               ) -> torch.Tensor:
+    """One query block of ``mla_attention_chunked``: qn [B, c, h, dn], qp
+    [B, c, h, dr] over key blocks of ``chunk`` (already padded) ->
+    [B, c, h, dv]."""
+    B, S, h, _ = qn.shape
+    acc = torch.zeros((B, h, S, w_uv.shape[-1]), dtype=torch.float32,
+                      device=qn.device)
+    m_run = torch.full((B, h, S), NEG_INF, dtype=torch.float32,
+                       device=qn.device)
+    l_run = torch.zeros((B, h, S), dtype=torch.float32, device=qn.device)
+    for c in range(0, ckv.shape[1], chunk):
+        cb, pb = ckv[:, c:c + chunk], kpe[:, c:c + chunk]
+        kn = torch.einsum("btc,chd->bthd", cb, w_uk.to(cb.dtype))
+        vv = torch.einsum("btc,chd->bthd", cb, w_uv.to(cb.dtype))
+        s = torch.einsum("bshd,bthd->bhst", qn, kn).float()
+        s = (s + torch.einsum("bshd,btd->bhst", qp, pb).float()) * scale
+        mask = _build_mask(qpos, k_pos[:, c:c + chunk],
+                           k_valid[:, c:c + chunk], causal, window)
+        s = s.masked_fill(~mask[:, None], NEG_INF)
+        m_new = torch.maximum(m_run, s.amax(dim=-1))
+        p = torch.where(mask[:, None], torch.exp(s - m_new[..., None]),
+                        torch.zeros((), device=s.device))
+        corr = torch.exp(torch.clamp(m_run - m_new, max=0.0))
+        l_run = l_run * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhst,bthd->bhsd", p.to(vv.dtype), vv).float()
+        m_run = m_new
+    out = acc / torch.clamp(l_run[..., None], min=1e-30)
+    return out.transpose(1, 2).to(qn.dtype)
+
+
+def mla_attention_chunked(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                          ckv: torch.Tensor, kpe: torch.Tensor,
+                          w_uk: torch.Tensor, w_uv: torch.Tensor, *,
+                          q_pos: torch.Tensor, k_pos: torch.Tensor,
+                          k_valid: torch.Tensor, causal: bool = True,
+                          window: int = 0, chunk: int = 1024
+                          ) -> torch.Tensor:
+    """Memory-bounded MLA for long prefill and training: K/V expanded from
+    the latent one key block of ``chunk`` at a time inside an online
+    softmax, query blocks of ``chunk`` each recomputed in the backward.
+    Shapes as ``mla_attention``."""
+    B, S, h, dn = q_nope.shape
+    scale = (dn + q_pe.shape[-1]) ** -0.5
+    padk = (-ckv.shape[1]) % chunk
+    if padk:
+        ckv = F.pad(ckv, (0, 0, 0, padk))
+        kpe = F.pad(kpe, (0, 0, 0, padk))
+        k_pos = F.pad(k_pos, (0, padk))
+        k_valid = F.pad(k_valid, (0, padk))
+    padq = (-S) % chunk
+    if padq:
+        q_nope = F.pad(q_nope, (0, 0, 0, 0, 0, padq))
+        q_pe = F.pad(q_pe, (0, 0, 0, 0, 0, padq))
+        q_pos = F.pad(q_pos, (0, padq))
+    outs = []
+    for i in range(0, S + padq, chunk):
+        args = (q_nope[:, i:i + chunk], q_pe[:, i:i + chunk],
+                q_pos[:, i:i + chunk], ckv, kpe, k_pos, k_valid, w_uk, w_uv,
+                causal, window, chunk, scale)
+        outs.append(checkpoint(_mla_chunk, *args, use_reentrant=False)
+                    if torch.is_grad_enabled() else _mla_chunk(*args))
+    return torch.cat(outs, dim=1)[:, :S]
+
+
+def mla_attention(q_nope: torch.Tensor, q_pe: torch.Tensor,
+                  ckv: torch.Tensor, kpe: torch.Tensor, w_uk: torch.Tensor,
+                  w_uv: torch.Tensor, *, q_pos: torch.Tensor,
+                  k_pos: torch.Tensor, k_valid: torch.Tensor,
+                  causal: bool = True, window: int = 0, chunk: int = 0
+                  ) -> torch.Tensor:
+    """Absorbed-form MLA attention (DeepSeek-V2), the JAX package's
+    ``layers.mla_attention``: q_nope [B, S, h, dn], q_pe [B, S, h, dr]
+    (roped), ckv [B, T, c], kpe [B, T, dr] (roped), w_uk [c, h, dn], w_uv
+    [c, h, dv] -> [B, S, h, dv], scale ``(dn + dr)^-1/2``.  ``q_lat`` and
+    the score products are rounded to the input dtype before the fp32
+    softmax, in the JAX order.  Unlike ``attention``, a query with no valid
+    key is not zeroed (the JAX function does not either)."""
+    B, S, h, dn = q_nope.shape
+    T = ckv.shape[1]
+    if chunk and (S > chunk or T > chunk):
+        return mla_attention_chunked(q_nope, q_pe, ckv, kpe, w_uk, w_uv,
+                                     q_pos=q_pos, k_pos=k_pos,
+                                     k_valid=k_valid, causal=causal,
+                                     window=window, chunk=chunk)
+    scale = (dn + q_pe.shape[-1]) ** -0.5
+    q_lat = torch.einsum("bshd,chd->bshc", q_nope, w_uk.to(q_nope.dtype))
+    s = torch.einsum("bshc,btc->bhst", q_lat, ckv).float()
+    s = (s + torch.einsum("bshd,btd->bhst", q_pe, kpe).float()) * scale
+    mask = _build_mask(q_pos, k_pos, k_valid, causal, window)
+    s = s.masked_fill(~mask[:, None], NEG_INF)
+    p = torch.softmax(s, dim=-1).to(q_nope.dtype)
+    o_lat = torch.einsum("bhst,btc->bshc", p, ckv)
+    return torch.einsum("bshc,chd->bshd", o_lat, w_uv.to(q_nope.dtype))

@@ -45,10 +45,22 @@ bucket and int8 weight-only serving included.  Differences of form:
   router probabilities also feed it back);
 * int8 weights (``models.quant``) dequantize to the dtype of
   ``final_norm``, the params' float dtype (the JAX model takes
-  ``cfg.dtype``).
+  ``cfg.dtype``);
+* an MLA layer (``cfg.mla``, ``_mla_apply``) caches the compressed latent
+  ``ckv`` [.., c] and the shared roped key ``kpe`` [.., dr] in place of
+  per-head K/V, and attends in the absorbed form of the JAX model
+  (``layers.mla_attention``, plain PyTorch on every device: the JAX model
+  has no Pallas kernel for it), over the bucket's own latent at a cold
+  prefill and over the gathered view of its blocks (``_paged_view``,
+  ``_paged_chunk_mask``) or its dense row otherwise.  ``attn_chunk``
+  reaches its ft and prefill buckets, as in the JAX model; it never takes
+  split-K.
 
-Sliding windows, dense-row verify chunks, MLA, Mamba and cross-attention
-belong to later slices and raise here.
+The cache is a dict of named leaves, each ``[L, ...]`` with layer ``l`` at
+``leaf[l]`` (``cache_leaves``): ``k``/``v`` for GQA, ``ckv``/``kpe`` for
+MLA.  Each layer gets its own dict of leaves.  Sliding windows, dense-row
+verify chunks, Mamba and cross-attention belong to later slices and raise
+here.
 """
 from __future__ import annotations
 
@@ -117,6 +129,7 @@ class _Plan:
             ar = torch.arange(self.Sp, dtype=torch.int32,
                               device=pf.tokens.device)
             self.pf_cached = pf.cached_len
+            self.pf_valid = ar[None, :] < pf.length[:, None]
             if pf.cached_len is not None:
                 self.pf_pos = pf.cached_len[:, None] + ar[None, :]
             else:
@@ -154,8 +167,9 @@ def _merge_flat(plan: _Plan, xf, xp, xd) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# dense rows: per layer [n_rows, sc, g, hd], one row per resident request.
-# Prefill writes rows [Bd, Bd + Bp) (Bd: this tick's decode-bucket size);
+# the cache: named leaves, each [L, n_rows, sc, ...] (dense rows, one row per
+# resident request) or [L, n_blocks, bs, ...] (the paged pool).  Dense
+# prefill writes rows [Bd, Bd + Bp) (Bd: this tick's decode-bucket size);
 # decode updates rows [0, Bd) in place
 # ---------------------------------------------------------------------------
 
@@ -164,16 +178,31 @@ def cache_seq_len(cfg: ModelConfig, s_max: int) -> int:
     return min(s_max, w) if w > 0 else s_max
 
 
+def cache_leaves(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each cache leaf's trailing shape, in the JAX cache's key order: the
+    MLA latent ``ckv`` [c] and shared rope key ``kpe`` [dr], or ``k`` /
+    ``v`` [g, hd].  Every leaf is block-addressed; per-request state rows
+    (the JAX model's ``STATE_KEYS``: Mamba state, cross-attention K/V) are
+    not ported."""
+    check_supported(cfg)
+    if cfg.mla is not None:
+        return {"ckv": (cfg.mla.kv_lora_rank,), "kpe": (cfg.mla.qk_rope_dim,)}
+    return {"k": (cfg.n_kv_heads, cfg.hd), "v": (cfg.n_kv_heads, cfg.hd)}
+
+
+def _alloc(cfg: ModelConfig, lead: tuple, device, dtype) -> Dict:
+    return {name: torch.zeros((cfg.n_layers, *lead, *dims), device=device,
+                              dtype=dtype)
+            for name, dims in cache_leaves(cfg).items()}
+
+
 def init_cache(cfg: ModelConfig, n_rows: int, s_max: int,
                device: torch.device, dtype: torch.dtype) -> Dict:
-    """``{"k": [L, n_rows, sc, g, hd], "v": ...}``; ``cache["k"][l]`` is
-    layer ``l``'s rows (the JAX layout ``[n_periods, n_rows, sc, g, hd]``
-    of an attention-only pattern, period axis unrolled)."""
-    check_supported(cfg)
-    shape = (cfg.n_layers, n_rows, cache_seq_len(cfg, s_max),
-             cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, device=device, dtype=dtype),
-            "v": torch.zeros(shape, device=device, dtype=dtype)}
+    """Dense rows: ``{leaf: [L, n_rows, sc, ...]}`` (``{"k": [L, n_rows,
+    sc, g, hd], "v": ...}``, or MLA's ``ckv`` / ``kpe``), the JAX layout
+    ``[n_periods, n_rows, sc, ...]`` of an attention-only pattern with the
+    period axis unrolled."""
+    return _alloc(cfg, (n_rows, cache_seq_len(cfg, s_max)), device, dtype)
 
 
 def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
@@ -199,12 +228,9 @@ def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
                      device: torch.device, dtype: torch.dtype) -> Dict:
-    """``{"k": [L, n_blocks, bs, g, hd], "v": ...}``; ``cache["k"][l]`` is
-    layer ``l``'s contiguous pool."""
-    check_supported(cfg)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, device=device, dtype=dtype),
-            "v": torch.zeros(shape, device=device, dtype=dtype)}
+    """The paged pool: ``{leaf: [L, n_blocks, bs, ...]}``; ``cache[leaf][l]``
+    is layer ``l``'s contiguous pool."""
+    return _alloc(cfg, (n_blocks, block_size), device, dtype)
 
 
 def _paged_write_prompt(pool: torch.Tensor, xh: torch.Tensor,
@@ -243,6 +269,26 @@ def _paged_write_chunk(pool: torch.Tensor, xh: torch.Tensor,
     pool[bid.reshape(-1), (p % bs).reshape(-1)] = flat.to(pool.dtype)
 
 
+def _paged_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Each row's blocks gathered into one contiguous view ``[B, nbt * bs,
+    ...]`` (the JAX model's ``_paged_view``): what MLA attends over."""
+    B, nbt = tables.shape
+    v = pool[tables.long().clamp(min=0)]
+    return v.reshape(B, nbt * pool.shape[1], *pool.shape[2:])
+
+
+def _paged_chunk_mask(tables: torch.Tensor, block_size: int,
+                      pos: torch.Tensor, length: torch.Tensor):
+    """``(k_pos, k_valid)`` over the gathered view once a chunk of
+    ``length`` tokens was written at ``pos``: positions ``0 .. pos + length
+    - 1`` are valid; causality within the chunk comes from the mask's
+    position comparison."""
+    B, nbt = tables.shape
+    j = torch.arange(nbt * block_size, device=tables.device)[None, :]
+    k_valid = j < (pos.long() + length.long())[:, None]
+    return j.expand(B, nbt * block_size), k_valid
+
+
 # ---------------------------------------------------------------------------
 # attention and FFN sublayers
 # ---------------------------------------------------------------------------
@@ -255,13 +301,17 @@ def _rope_heads(x: torch.Tensor, pos: torch.Tensor, n: int,
 
 
 def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
-                x: torch.Tensor, k_pool: torch.Tensor,
-                v_pool: torch.Tensor, attn_chunk: int = 0) -> torch.Tensor:
-    """``k_pool``/``v_pool``: the layer's paged pool ``[n_blocks, bs, g,
-    hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the buckets' tables
-    say (None for an ft-only batch)."""
+                x: torch.Tensor, cache: Optional[Dict],
+                attn_chunk: int = 0) -> torch.Tensor:
+    """``cache``: the layer's leaves, ``k``/``v`` of its paged pool
+    ``[n_blocks, bs, g, hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the
+    buckets' tables say (None for an ft-only batch)."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    if cfg.mla is not None:
+        out = _mla_apply(cfg, p, lr, plan, xn, cache, attn_chunk)
+        return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
+    k_pool, v_pool = (cache["k"], cache["v"]) if cache else (None, None)
 
     def dn(name, bias=None):
         return dense(xn, p[name], p.get(bias) if bias else None,
@@ -350,6 +400,103 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
 
 
+def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
+               xn: torch.Tensor, cache: Optional[Dict],
+               attn_chunk: int = 0) -> torch.Tensor:
+    """Absorbed-form MLA over every bucket (``_mla_apply`` of the JAX model);
+    ``cache``: the layer's ``ckv`` [.., c] and ``kpe`` [.., dr] leaves, a
+    paged pool or dense rows.  Returns the attention output ``[T, h*dv]``,
+    before ``wo``."""
+    m, h = cfg.mla, cfg.n_heads
+    dnp, dr, c_rank = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank
+    q = dense(xn, p["wq"], None, lr.get("wq"), plan.route)   # [T, h*(dn+dr)]
+    lat = dense(xn, p["wdkv"], None, lr.get("wdkv"), plan.route)  # [T, c+dr]
+    qf, qp, qd = plan.split(q)
+    cf, cp, cd = plan.split(lat)
+    # serving rows carry no gradient, and the cache writes stay out of the
+    # graph
+    qp, cp, qd, cd = (t if t is None else t.detach()
+                      for t in (qp, cp, qd, cd))
+    wuk, wuv = p["wuk"], p["wuv"]
+    theta = cfg.rope_theta
+
+    def heads(qb, pos):
+        """[B, S, h*(dn+dr)] -> (q_nope, roped q_pe)"""
+        qb = qb.reshape(*qb.shape[:2], h, dnp + dr)
+        return qb[..., :dnp], L.rope(qb[..., dnp:], pos, theta)
+
+    def latent(cb, pos):
+        """[B, S, c+dr] -> (ckv, kpe roped as one shared head)"""
+        return cb[..., :c_rank], L.rope(cb[..., None, c_rank:], pos,
+                                        theta)[..., 0, :]
+
+    outs = [None, None, None]
+    if qf is not None:           # fine-tune / eval: differentiable causal
+        qn, qr = heads(qf, plan.ft_pos)
+        ckv, kpe = latent(cf, plan.ft_pos)
+        outs[0] = L.mla_attention(qn, qr, ckv, kpe, wuk, wuv,
+                                  q_pos=plan.ft_pos, k_pos=plan.ft_pos,
+                                  k_valid=plan.ft_valid, causal=True,
+                                  chunk=attn_chunk)
+    if qp is not None:           # prefill: causal + cache write
+        pf = plan.pf
+        qn, qr = heads(qp, plan.pf_pos)
+        ckv, kpe = latent(cp, plan.pf_pos)
+        tbl = pf.block_tables
+        if tbl is not None and plan.pf_cached is not None:
+            # suffix-only prefill: write the suffix latent at its offset,
+            # then attend over the gathered view, so the cached prefix
+            # latent is read, not recomputed
+            _paged_write_chunk(cache["ckv"], ckv, tbl, plan.pf_cached,
+                               pf.length)
+            _paged_write_chunk(cache["kpe"], kpe, tbl, plan.pf_cached,
+                               pf.length)
+            k_pos, k_valid = _paged_chunk_mask(
+                tbl, cache["ckv"].shape[1], plan.pf_cached, pf.length)
+            outs[1] = L.mla_attention(
+                qn, qr, _paged_view(cache["ckv"], tbl),
+                _paged_view(cache["kpe"], tbl), wuk, wuv, q_pos=plan.pf_pos,
+                k_pos=k_pos, k_valid=k_valid, causal=True, chunk=attn_chunk)
+        else:
+            # cold prefill: over the bucket's own latent, then into the
+            # blocks or the rows
+            outs[1] = L.mla_attention(qn, qr, ckv, kpe, wuk, wuv,
+                                      q_pos=plan.pf_pos, k_pos=plan.pf_pos,
+                                      k_valid=plan.pf_valid, causal=True,
+                                      chunk=attn_chunk)
+            for name, xh in (("ckv", ckv), ("kpe", kpe)):
+                if tbl is not None:
+                    _paged_write_prompt(cache[name], xh, tbl)
+                else:
+                    _dense_write_prompt(cache[name], xh, plan.Bd)
+    if qd is not None:           # decode / verify: (1 + k)-token chunk
+        dec, dpos = plan.dec, plan.dec_qpos
+        qn, qr = heads(qd, dpos)
+        ckv, kpe = latent(cd, dpos)
+        tbl = dec.block_tables
+        if tbl is not None:      # paged: chunk write, gathered view
+            _paged_write_chunk(cache["ckv"], ckv, tbl, plan.dec_pos,
+                               plan.dec_len)
+            _paged_write_chunk(cache["kpe"], kpe, tbl, plan.dec_pos,
+                               plan.dec_len)
+            k_pos, k_valid = _paged_chunk_mask(
+                tbl, cache["ckv"].shape[1], plan.dec_pos, plan.dec_len)
+            cc = _paged_view(cache["ckv"], tbl)
+            ce = _paged_view(cache["kpe"], tbl)
+        else:                    # dense rows: one token into its slot
+            rows = torch.arange(plan.Bd, device=xn.device)
+            sc = cache["ckv"].shape[1]
+            slot = plan.dec_pos.long() % sc
+            cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
+            cache["kpe"][rows, slot] = kpe[:, 0].to(cache["kpe"].dtype)
+            k_pos, k_valid = L.dec_cache_pos(
+                plan.dec_pos + plan.dec_len - 1, sc)
+            cc, ce = cache["ckv"][:plan.Bd], cache["kpe"][:plan.Bd]
+        outs[2] = L.mla_attention(qn, qr, cc, ce, wuk, wuv, q_pos=dpos,
+                                  k_pos=k_pos, k_valid=k_valid, causal=True)
+    return _merge_flat(plan, *outs)
+
+
 def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
                x: torch.Tensor):
     """The dense SwiGLU, or on a MoE layer the routed experts
@@ -389,7 +536,7 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     plan = _Plan(cfg, batch, lora_scale, block_t)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
         raise ValueError("prefill/decode buckets require a cache")
-    if plan.Bd and batch.dec.block_tables is not None:
+    if plan.Bd and batch.dec.block_tables is not None and cfg.mla is None:
         autotune.load_card_table(cache["k"].device)   # once, on a card
         # one split choice per forward, keyed on the kernels' own grid: one
         # thread block per (request, KV head), where the JAX model counts a
@@ -427,8 +574,8 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
                      if quant.is_q8(v) and k not in EXPERT_STACKS else v)
                  for k, v in p.items()}
         x = _attn_apply(cfg, p, lr, plan, x,
-                        cache["k"][li] if cache is not None else None,
-                        cache["v"][li] if cache is not None else None,
+                        None if cache is None
+                        else {name: leaf[li] for name, leaf in cache.items()},
                         attn_chunk)
         x, aux = _ffn_apply(cfg, li, p, lr, plan, x)
         if aux is not None:

@@ -11,7 +11,9 @@ JAX package reduces.  Rounding is half to even (``torch.round``, as
 Weight-only serving quantizes the big matmul weights (``_eligible``, the
 JAX package's rule on the JAX layout's shapes, periods axis included):
 norms, biases and small matrices stay in their dtype, and the LoRA bank is
-never quantized.  The forward dequantizes ``embed`` and ``lm_head`` at its
+never quantized.  An MLA up projection ``wuk`` / ``wuv`` [c, h, d] (JAX
+layout ``[P, c, h, d]``) is eligible when ``h`` and ``d`` are at least 64:
+its scales group over ``h`` for each row of ``c``, as the JAX package's.  The forward dequantizes ``embed`` and ``lm_head`` at its
 top and each layer's leaves inside the layer loop, so device memory holds
 int8 and at most one layer's dequantized weights at a time; a MoE layer's
 expert stacks dequantize only the routed experts' slices

@@ -19,9 +19,15 @@ collides with a dense layer's ``wg``).  Otherwise it is the dense SwiGLU
 
 ``param_shapes`` gives the JAX package's flat, path-keyed layout (``blocks/
 {pos}/wq`` with the periods axis first, ``blocks/1/shared/wg``), which is
-what the weight bridge in ``repro_torch.checkpoint.io`` reads.  The port
-covers attention decoders with dense or MoE FFNs; MLA, Mamba,
-cross-attention, encoders and sliding windows raise here.
+what the weight bridge in ``repro_torch.checkpoint.io`` reads.
+
+An MLA layer (``cfg.mla``, DeepSeek-V2) has in place of ``wq``/``wk``/
+``wv``/``wo`` the JAX schema's ``wq`` [d, h*(dn+dr)], the down projection
+``wdkv`` [d, c+dr] (LoRA key ``wdkv``), the up projections ``wuk`` [c, h,
+dn] and ``wuv`` [c, h, dv] (no LoRA; fan-in ``shape[-2] = h``, as the JAX
+schema draws them) and ``wo`` [h*dv, d].  The port covers attention
+decoders (GQA or MLA) with dense or MoE FFNs; Mamba, cross-attention,
+encoders and sliding windows raise here.
 """
 from __future__ import annotations
 
@@ -50,16 +56,16 @@ class Leaf:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Attention decoders with dense or MoE FFNs: any block pattern of
-    ``"attn"`` positions."""
-    if (any(k != "attn" for k in cfg.pattern) or cfg.mla is not None
+    """Attention decoders (GQA or MLA) with dense or MoE FFNs: any block
+    pattern of ``"attn"`` positions."""
+    if (any(k != "attn" for k in cfg.pattern)
             or cfg.ssm is not None or cfg.encoder is not None
             or cfg.cross_attn_every or cfg.sliding_window
             or any(not cfg.has_ffn(p) for p in range(len(cfg.pattern)))):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers attention decoders with dense or "
-            "MoE FFNs; MLA, Mamba, cross-attention, encoders and sliding "
-            "windows are not ported")
+            f"{cfg.name}: the port covers attention decoders (GQA or MLA) "
+            "with dense or MoE FFNs; Mamba, cross-attention, encoders and "
+            "sliding windows are not ported")
 
 
 def is_moe(cfg: ModelConfig, li: int) -> bool:
@@ -71,12 +77,21 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
     """Layer ``li``'s leaves, in the JAX schema's order."""
     check_supported(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    out = {"ln1": Leaf((d,), "ones"),
-           "wq": Leaf((d, h * hd), lora="wq"),
-           "wk": Leaf((d, kv * hd), lora="wk"),
-           "wv": Leaf((d, kv * hd), lora="wv"),
-           "wo": Leaf((h * hd, d), lora="wo")}
-    if cfg.qkv_bias:
+    out = {"ln1": Leaf((d,), "ones")}
+    if cfg.mla is not None:
+        m = cfg.mla
+        out.update(
+            wq=Leaf((d, h * (m.qk_nope_dim + m.qk_rope_dim)), lora="wq"),
+            wdkv=Leaf((d, m.kv_lora_rank + m.qk_rope_dim), lora="wdkv"),
+            wuk=Leaf((m.kv_lora_rank, h, m.qk_nope_dim)),
+            wuv=Leaf((m.kv_lora_rank, h, m.v_head_dim)),
+            wo=Leaf((h * m.v_head_dim, d), lora="wo"))
+    else:
+        out.update(wq=Leaf((d, h * hd), lora="wq"),
+                   wk=Leaf((d, kv * hd), lora="wk"),
+                   wv=Leaf((d, kv * hd), lora="wv"),
+                   wo=Leaf((h * hd, d), lora="wo"))
+    if cfg.qkv_bias and cfg.mla is None:
         out.update(bq=Leaf((h * hd,), "zeros"), bk=Leaf((kv * hd,), "zeros"),
                    bv=Leaf((kv * hd,), "zeros"))
     out["ln2"] = Leaf((d,), "ones")

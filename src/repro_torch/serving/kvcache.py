@@ -10,8 +10,9 @@ decode-bucket size).  After the step ``commit_prefill`` copies the freshly
 prefilled rows into their decode slots.  Every resident request pays
 ``s_max`` slots whether it uses them or not.
 
-**Paged** (``PagedCacheManager``, the default): attention K/V lives in a flat pool of fixed-size blocks (``init_paged_cache``:
-``[L, n_blocks, block_size, g, hd]`` on the engine's device); each request
+**Paged** (``PagedCacheManager``, the default): attention K/V lives in a
+flat pool of fixed-size blocks (``init_paged_cache``: ``[L, n_blocks,
+block_size, ...]`` per named leaf on the engine's device); each request
 owns a *block table*.  Admission is a block budget: a request is admitted
 only when its projected life ``ceil(min(prompt + max_new, s_max) /
 block_size)`` fits, but blocks are allocated on demand — the remainder is a
@@ -30,6 +31,14 @@ shed on demand, zero-hit first.
 The device side is in place: the model writes K/V straight into the pool,
 ``update`` has nothing to swap in, and a copy-on-write fork copies one block
 of the pool tensors.
+
+The cache is a dict of named leaves (``models.model.cache_leaves``: ``k``
+and ``v`` [.., g, hd], or MLA's latent ``ckv`` [.., c] and rope key ``kpe``
+[.., dr]), all block-addressed; every place that touches a block (commit,
+copy, host layout, byte footprints) walks them in the JAX cache's key
+order.  Per-request state leaves that are not blocks (the JAX package's
+``STATE_KEYS``: Mamba state, cross-attention K/V) would be skipped there,
+as the JAX manager skips them; none is ported yet.
 
 Over-admission (``over_admit > 1``): the gate charges only a ``1 /
 over_admit`` slice of the outstanding reservation debt (``charged_debt``,
@@ -338,11 +347,10 @@ class CacheManager:
         if not assignments:
             return
         base = self.capacity if src_base is None else src_base
-        dev = self.cache["k"].device
+        dev = next(iter(self.cache.values())).device
         src = torch.tensor([base + i for i, _ in assignments], device=dev)
         dst = torch.tensor([s for _, s in assignments], device=dev)
-        for name in ("k", "v"):
-            rows = self.cache[name]
+        for rows in self.cache.values():
             rows[:, dst] = rows[:, src]       # the gather copies first
         for (_, slot), ln in zip(assignments, lengths):
             self.lens[slot] = ln
@@ -445,7 +453,7 @@ class PagedCacheManager:
         self.allocator = BlockAllocator(n_blocks)
         self.cache = init_paged_cache(cfg, n_blocks, block_size, device,
                                       dtype)
-        self.device = self.cache["k"].device
+        self.device = next(iter(self.cache.values())).device
         self._free_slots: Deque[int] = deque(range(capacity))
         self.lens = np.zeros((capacity,), np.int64)
         self.tables: Dict[int, List[int]] = {}      # slot -> block ids
@@ -466,11 +474,12 @@ class PagedCacheManager:
         self._adapters: Dict[int, str] = {}
         self._share: Dict[int, bool] = {}
         # static per-block footprints: one allocator unit is one HBM unit
-        # for both block classes (raw K/V bytes of a block over every
+        # for both block classes (raw bytes of a block over every leaf and
         # layer), and the int8 host footprint is a 1-byte payload plus an
-        # f32 scale per quantize_leaf group (axis -2, the g KV heads)
+        # f32 scale per quantize_leaf group (axis -2: the g KV heads of
+        # k/v, the block's positions of ckv/kpe), the JAX formula
         bb = qb = 0
-        for pool in (self.cache["k"], self.cache["v"]):
+        for pool in self.cache.values():
             e = pool.numel() // pool.shape[1]         # elements per block
             bb += e * pool.element_size()
             qb += e + (e // pool.shape[-2]) * 4
@@ -1045,16 +1054,15 @@ class PagedCacheManager:
     def _layout(self) -> List[Tuple[str, torch.dtype, Tuple[int, ...], int,
                                     int]]:
         """Where a stored block's leaves sit in its ``host_block_bytes``
-        unit: ``(name, dtype, shape, byte offset, bytes)`` for K then V, one
-        leaf each raw (``[L, bs, g, hd]``), int8 payload and f32 scales
-        (``[L, bs, 1, hd]``) with ``host_quant``."""
-        pool = self.cache["k"]
-        shape = (pool.shape[0],) + tuple(pool.shape[2:])
-        parts = ([(torch.int8, shape),
-                  (torch.float32, shape[:-2] + (1, shape[-1]))]
-                 if self.host_quant else [(pool.dtype, shape)])
+        unit: ``(name, dtype, shape, byte offset, bytes)`` for each cache
+        leaf in order, raw (``[L, bs, g, hd]`` of k) or int8 payload and
+        f32 scales (``[L, bs, 1, hd]``) with ``host_quant``."""
         out, off = [], 0
-        for name in ("k", "v"):
+        for name, pool in self.cache.items():
+            shape = (pool.shape[0],) + tuple(pool.shape[2:])
+            parts = ([(torch.int8, shape),
+                      (torch.float32, shape[:-2] + (1, shape[-1]))]
+                     if self.host_quant else [(pool.dtype, shape)])
             for dt, shp in parts:
                 nb = math.prod(shp) * torch.empty((), dtype=dt).element_size()
                 out.append((name, dt, shp, off, nb))
@@ -1065,7 +1073,7 @@ class PagedCacheManager:
         """Stored blocks' leaves as views ``[L, n, ...]`` of their units
         ``rows`` ``[n, host_block_bytes]`` uint8 (on any device)."""
         n = rows.shape[0]
-        out: Dict[str, List[torch.Tensor]] = {"k": [], "v": []}
+        out: Dict[str, List[torch.Tensor]] = {k: [] for k in self.cache}
         for name, dt, shp, off, nb in self._layout():
             out[name].append(rows[:, off:off + nb].view(dt)
                              .view((n,) + shp).transpose(0, 1))
@@ -1101,14 +1109,14 @@ class PagedCacheManager:
         self._free_units.extend(entry.get("units", ()))
 
     def _encode_blocks(self, bids: Sequence[int]) -> List[int]:
-        """Gather ``bids``'s K/V (int8-quantized with ``host_quant``) into
+        """Gather ``bids``'s leaves (int8-quantized with ``host_quant``) into
         free arena units, one a block; returns the units.  The copies are
         complete when this returns.  The caller has made byte room in the
         host pool, which leaves at least ``len(bids)`` units free."""
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
         parts = []
-        for name in ("k", "v"):
-            blk = self.cache[name].index_select(1, idx)    # [L, n, ...]
+        for pool in self.cache.values():
+            blk = pool.index_select(1, idx)                # [L, n, ...]
             if self.host_quant:
                 q = quantize_leaf(blk)
                 leaves = (q["_q8"], q["_qs"])
@@ -1122,16 +1130,16 @@ class PagedCacheManager:
         return units
 
     def _decode_payload(self, rows: torch.Tensor) -> Dict:
-        """Stored blocks (their units' bytes on the device) as tensors
-        ``[L, n, bs, g, hd]`` of the pool's dtype (int8 leaves dequantized
-        on the device)."""
+        """Stored blocks (their units' bytes on the device) as leaves
+        ``[L, n, bs, ...]`` of the pool's dtype (int8 leaves dequantized on
+        the device)."""
         return {name: (dequant_leaf({"_q8": lv[0], "_qs": lv[1]},
                                     self.cache[name].dtype)
                        if self.host_quant else lv[0])
                 for name, lv in self._leaves(rows).items()}
 
     def host_payload(self, entry: dict) -> Dict:
-        """A stored entry's leaves as host tensors ``[L, n, bs, g, hd]``
+        """A stored entry's leaves as host tensors ``[L, n, bs, ...]``
         (``{"_q8", "_qs"}`` pairs with ``host_quant``): what the host tier
         holds, for checks."""
         lv = self._leaves(self._arena[entry["units"]])
@@ -1142,8 +1150,8 @@ class PagedCacheManager:
     def _blocks_write(self, bids: Sequence[int], payload: Dict):
         """In place: pool blocks ``bids`` get ``payload``'s blocks."""
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        for name in ("k", "v"):
-            self.cache[name].index_copy_(1, idx, payload[name])
+        for name, pool in self.cache.items():
+            pool.index_copy_(1, idx, payload[name])
 
     def swap_payload_blocks(self, slot: int) -> int:
         """Blocks a swap-out of ``slot`` would store: the leading table
@@ -1359,8 +1367,11 @@ class PagedCacheManager:
         and device: a block never moves through the host here.  (Once SSM
         state leaves exist they are per-request rows, not blocks, and the
         copy must skip them as the JAX package skips ``STATE_KEYS``.)"""
-        for name in ("k", "v"):
-            dst, got = self.cache[name], src.cache[name]
+        if self.cache.keys() != src.cache.keys():
+            raise ValueError(f"cross-pool copy between unlike caches: "
+                             f"{list(src.cache)} -> {list(self.cache)}")
+        for name, dst in self.cache.items():
+            got = src.cache[name]
             if (dst.shape[0] != got.shape[0] or dst.shape[2:] != got.shape[2:]
                     or dst.dtype != got.dtype or dst.device != got.device):
                 raise ValueError(
@@ -1373,7 +1384,7 @@ class PagedCacheManager:
     def _copy_block(self, src: int, dst: int):
         """In place: block ``dst`` of every layer's pool gets ``src``'s
         payload (the JAX package returns a new cache instead)."""
-        for pool in (self.cache["k"], self.cache["v"]):
+        for pool in self.cache.values():
             pool[:, dst] = pool[:, src]
 
     def ensure_writable(self, slot: int, pos: Optional[int] = None) -> int:

@@ -60,15 +60,16 @@ CPU = torch.device("cpu")
 
 
 def test_registry_matches_jax():
-    """The six port ids, full and reduced, equal the JAX configs; the
+    """The seven port ids (``deepseek-v2-236b``'s MLA is held to JAX in
+    ``test_torch_mla.py``), full and reduced, equal the JAX configs; the
     families the port lacks are not registered."""
-    assert set(ARCH_IDS) == set(NEW) | {"llama3-8b"}
+    assert set(ARCH_IDS) == set(NEW) | {"llama3-8b", "deepseek-v2-236b"}
     for arch in ARCH_IDS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     with pytest.raises(KeyError):
-        get_config("deepseek-v2-236b")
+        get_config("mamba2-1.3b")
 
 
 _SETUPS = {}

@@ -394,6 +394,8 @@ def test_cuda_paged_prefill_walks_match_plain(dtype, Sq, m, hd):
     (8, 5120, 17920, 64, 8),      # phi3-medium-14b's up projection
     (8, 8192, 22528, 64, 8),      # command-r-35b's up projection
     (8, 4096, 11008, 64, 8),      # deepseek-7b's up projection
+    (8, 5120, 576, 64, 8),        # deepseek-v2's wdkv (576: 4.5 x 128)
+    (8, 16384, 5120, 64, 8),      # deepseek-v2's wo, the widest d_in
 ])
 def test_cuda_smlm_shapes_match_plain(dtype, r, d_in, d_out, T, bt):
     """SMLM against its plain version, each token row within its own
@@ -492,6 +494,8 @@ def test_cuda_dense_decode_groups_match_plain(dtype, m, hd):
     (8, 8, 5120, 17920, 4),       # phi3-medium-14b's up projection
     (8, 8, 8192, 22528, 4),       # command-r-35b's up projection
     (8, 8, 4096, 11008, 4),       # deepseek-7b's up projection
+    (8, 8, 5120, 576, 4),         # deepseek-v2's wdkv
+    (8, 8, 16384, 5120, 4),       # deepseek-v2's wo
 ])
 def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
     """BGMV against its plain version, each token row within its own
@@ -564,6 +568,9 @@ def _wgrad_inputs(rng, dev, dtype, T, r, d_in, d_out, kind):
     (256, 8, 4096, 1024, 4, 8, "offset"),     # off 16 bytes only
     (256, 8, 512, 1024, 4, 8, "range"),
     (8256, 8, 64, 136, 4, 8, "interleaved"),  # 1032 tiles: two windows
+    (256, 8, 5120, 576, 4, 8, "mixed"),       # deepseek-v2's wdkv: an
+                                              # edge chunk of 64 columns
+    (256, 8, 16384, 5120, 4, 8, "mixed"),     # deepseek-v2's wo
 ])
 def test_cuda_smlm_wgrad_matches_plain(dtype, T, r, d_in, d_out, n, bt,
                                        kind):

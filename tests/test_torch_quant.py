@@ -108,6 +108,12 @@ def test_eligibility_matches_jax_at_full_and_reduced_width(arch):
         assert "blocks/1/router" in _port_eligible(get_config(arch))
         assert "blocks/1/router" not in _port_eligible(get_reduced(arch))
         assert "blocks/1/w_gate" in _port_eligible(get_reduced(arch))
+    if arch == "deepseek-v2-236b":
+        # MLA's up projections [P, c, h, dn]: eligible at full width (h =
+        # dn = 128), not at reduced (h = 8)
+        full = _port_eligible(get_config(arch))
+        assert {"blocks/0/wuk", "blocks/0/wuv", "blocks/0/wdkv"} <= full
+        assert "blocks/0/wuk" not in _port_eligible(get_reduced(arch))
 
 
 # ------------------------------------------------ twins of test_quant.py
