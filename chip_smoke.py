@@ -37,8 +37,8 @@ the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 The seventh runs only the memory features: phase 3's lending, paging and
 chunked-training parity, then phases 9 and 10.  The eighth runs only the
 fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
-configs: the ``mla:`` lines, phase 3's arch and MLA parity, then phase
-12.
+configs: the ``mla:`` and ``ssd:`` lines, phase 3's arch, MLA and Mamba
+parity, then phase 12.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -84,7 +84,14 @@ printing its lines; any failure raises and exits non-zero:
              pos <= 511) and at wave 2's suffix prefill (B=4, Sq=16),
              timed in a CUDA graph and eagerly beside its bound and an
              SDPA call on the equivalent MQA form: a record, since MLA
-             has no Pallas kernel.
+             has no Pallas kernel.  Then the ``ssd:`` lines
+             (``ssd_record``): the plain Mamba2 mixer between its
+             projections at mamba2-1.3b's width in bf16, at decode (B=8:
+             the convs over the conv state, ``ssd_step`` over 16.8 MB of
+             state ``h``, the gated norm, the state written back) and at a
+             prefill of B=4 x 144 tokens (two SSD chunks of 128), timed
+             in a CUDA graph and eagerly beside its bound: a record, as
+             the JAX package computes the mixer in jnp, outside Pallas.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -122,7 +129,16 @@ printing its lines; any failure raises and exits non-zero:
              the latent pool), lending with a raw host tier (latent
              blocks restored bit-equal) and 2 replicas round-robin with
              one more ``import_block``: tokens equal on both devices,
-             SMLM and BGMV launched and no GQA attention kernel.
+             SMLM and BGMV launched and no GQA attention kernel.  Then
+             Mamba2 (``parity_mamba``): reduced mamba2-1.3b and jamba
+             through the paged engine with dedup (blocks adopted, prompts
+             recomputed whole), an engine built with speculation (which a
+             Mamba pattern turns off: the plain tokens), lending with a
+             preemption (recompute; the host tier takes no swap-out), and
+             for jamba 2 replicas round-robin with one more
+             ``import_block`` (K/V equal, state rows untouched): tokens
+             equal on both devices; mamba2 launches no attention kernel,
+             jamba flash and paged decode but no paged prefill or verify.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -219,25 +235,30 @@ printing its lines; any failure raises and exits non-zero:
              command-r-35b int8 (40), qwen1.5-110b int8 (40 of 80),
              llama4-maverick bf16 (2 layers: one dense, one 128-expert
              MoE) and int8 (4), deepseek-v2-236b (MLA + MoE) bf16 (4 of
-             60 layers) and int8 (8), each serving phase 4's two waves
-             with two gaussian-B adapters: ``archs:`` lines with prefill
-             and decode tick latency (enqueue / device wait), resident
-             weight bytes, ``max_memory_allocated``, tokens/s and, for
-             MoE, the experts routed per tick and the entries dropped;
-             for MLA the latent pool's bytes a token and layer.  Gates:
+             60 layers) and int8 (8), mamba2-1.3b bf16 (all 48 layers)
+             and jamba-1.5-large-398b int8 (8 of 72 layers: one period,
+             attention at position 4, MoE at 1, 3, 5 and 7), each serving
+             phase 4's two waves with two gaussian-B adapters: ``archs:``
+             lines with prefill and decode tick latency (enqueue / device
+             wait), resident weight bytes, ``max_memory_allocated``,
+             tokens/s and, for MoE, the experts routed per tick and the
+             entries dropped; for MLA the latent pool's bytes a token and
+             layer; for Mamba the state bytes a request row.  Gates:
              every request finishes, logits finite, the pool pristine;
              SMLM, BGMV, flash, paged prefill and paged decode (either
-             form) launched, and for MLA SMLM and BGMV launched and every
-             GQA attention kernel at 0 (``check_routes``); each bf16 MoE
-             arm also takes one fused train step on ft rows (loss finite,
-             aux loss > 0, only lora0's slot changed, ``smlm_wgrad``
-             launched).
+             form) launched; for MLA and mamba2 SMLM and BGMV launched and
+             every GQA attention kernel at 0, for jamba paged prefill and
+             verify at 0 (``check_routes``); each bf16 MoE arm and each
+             Mamba arm also takes one fused train step on ft rows (loss
+             finite, aux loss > 0 for MoE, only lora0's slot changed,
+             ``smlm_wgrad`` launched).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-12 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, archs and archs_mla, the MLA arms with their
-grad step; ``shapes`` its other timed rows), the card's name and power
+train, tiers, paging, fleet, archs, archs_mla and archs_mamba, the MLA and
+Mamba arms with their grad steps; ``shapes`` its other timed rows), the
+card's name and power
 limit, and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -303,24 +324,35 @@ def read_counts(K, names=COUNTERS):
 
 
 # the GQA attention kernels' counters: an MLA run launches none of them (its
-# attention is plain PyTorch, as in the JAX package)
+# attention is plain PyTorch, as in the JAX package), nor does an
+# attention-free Mamba2 run
 GQA_COUNTERS = ("decode", "prefill", "verify", "partials", "merge", "flash",
                 "dense_decode")
+# what a hybrid Mamba pattern never takes: suffix prefill and speculation
+MAMBA_NEVER = ("prefill", "verify")
 
 
 def check_routes(label, cfg, launches, need):
-    """A run's launches (``read_counts``) against its route: an MLA config
-    must launch SMLM and BGMV and no GQA attention kernel (a GQA route taken
-    by mistake); any other must launch every kernel of ``need``."""
-    if cfg.mla is not None:
+    """A run's launches (``read_counts``) against its route: an MLA config,
+    or one with no attention layer (``mamba2-1.3b``), must launch SMLM and
+    BGMV and no GQA attention kernel (a GQA route taken by mistake); any
+    other must launch every kernel of ``need``, and a hybrid with Mamba
+    layers (``jamba``) no paged prefill and no verify kernel (its engine
+    recomputes whole prompts and never speculates)."""
+    if cfg.mla is not None or "attn" not in cfg.pattern:
         wrong = {k: launches[k] for k in GQA_COUNTERS if launches[k]}
         if wrong or not (launches["smlm"] and launches["bgmv"]):
-            raise AssertionError(f"{label}: the MLA run launched GQA "
-                                 f"kernels {wrong} or not SMLM and BGMV: "
+            raise AssertionError(f"{label}: the {cfg.name} run launched GQA"
+                                 f" kernels {wrong} or not SMLM and BGMV: "
                                  f"{launches}")
-    elif min(launches[k] for k in need) == 0:
+        return
+    if min(launches[k] for k in need) == 0:
         raise AssertionError(f"{label}: a kernel did not launch: "
                              f"{launches}")
+    wrong = {k: launches[k] for k in MAMBA_NEVER if launches[k]}
+    if "mamba" in cfg.pattern and wrong:
+        raise AssertionError(f"{label}: the hybrid run launched {wrong}, "
+                             f"which a Mamba pattern never takes")
 
 
 # ---------------------------------------------------------------- helpers
@@ -1507,6 +1539,92 @@ def mla_record(dev, gen):
     return rows
 
 
+# the Mamba2 mixer at mamba2-1.3b's width: phase 12's decode bucket (B=8)
+# and a prefill of 4 rows of 144 tokens (two SSD chunks of 128)
+SSD_CASES = {"decode": dict(B=8, S=1), "prefill": dict(B=4, S=144)}
+
+
+def ssd_record(dev, gen):
+    """The ``ssd:`` lines: the plain Mamba2 mixer of the port between its
+    projections, at ``SSD_CASES`` in bf16: at decode ``model.mamba_step``
+    (the causal convs over the conv state rows, ``ssd_step`` over the
+    state ``h``, the gated norm, the state rows written back in place), at
+    prefill ``model.mamba_seq`` (the convs, the chunked SSD, the gated
+    norm).  Device time in a CUDA graph (``time_ms``) and eager, beside
+    its bound: each input and state row read once and each output and
+    state row written once (the mixer's weights too), and the operations
+    of the recurrence (about 6 a state element a token: decay, the rank-1
+    update, the read-out; the conv's 2 a tap), the least the tokens need
+    (the chunked form does more).  A record, not a kernel: the JAX package
+    computes the mixer in jnp, outside Pallas, and the port keeps it plain
+    PyTorch.  The output is held finite and printed against the same
+    function in fp32 on the same inputs.  Returns {case: (ms, bound_ms)}."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import init_leaf, layer_shapes
+    cfg = get_config("mamba2-1.3b")
+    s, dtype = cfg.ssm, torch.bfloat16
+    di, nh, hd, ds, K = (cfg.d_inner, cfg.n_ssm_heads, s.head_dim,
+                         s.d_state, s.conv_width)
+    gbc = 2 * s.n_groups * ds
+    it = torch.empty((), dtype=dtype).element_size()
+    p = {k: init_leaf(leaf, gen, dev, dtype)
+         for k, leaf in layer_shapes(cfg, 0).items()
+         if k in ("conv_x", "conv_bx", "conv_bc", "conv_bbc", "a_log",
+                  "dt_bias", "d_skip", "mnorm")}
+    p_bytes = sum(v.numel() for v in p.values()) * it
+    rows = {}
+    for label, case in SSD_CASES.items():
+        B, S = case["B"], case["S"]
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+
+        xb, zb, bcb, dtb = (rnd(B, S, di), rnd(B, S, di), rnd(B, S, gbc),
+                            rnd(B, S, nh))
+        state = {"h": rnd(B, nh, hd, ds, scale=0.1),
+                 "conv_x": rnd(B, K - 1, di), "conv_bc": rnd(B, K - 1, gbc)}
+        valid = torch.ones((B, S), dtype=torch.bool, device=dev)
+        p32 = {k: v.float() for k, v in p.items()}
+
+        def run(prm=p, cast=lambda x: x, st=state):
+            if S == 1:
+                return TM.mamba_step(cfg, prm, cast(xb), cast(bcb),
+                                     cast(dtb), cast(zb), st)
+            return TM.mamba_seq(cfg, prm, cast(xb), cast(bcb), cast(dtb),
+                                cast(zb), valid)[0]
+
+        out = run(st={k: v.clone() for k, v in state.items()})
+        exact = run(p32, lambda x: x.float(),
+                    {k: v.float() for k, v in state.items()})
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"ssd {label}: non-finite output")
+        err, ratio = float((out.float() - exact).abs().max()), \
+            worst_row(out, exact)
+        ms, eager_ms = time_ms(run), time_ms(run, eager=True)
+        h_bytes = B * nh * hd * ds * it
+        conv_bytes = B * (K - 1) * (di + gbc) * it
+        io_bytes = B * S * (3 * di + gbc + nh) * it      # x, z, bc, dt; out
+        # decode reads and writes the state rows; prefill writes them
+        nbytes = (p_bytes + io_bytes + (2 if S == 1 else 1)
+                  * (h_bytes + conv_bytes))
+        flops = B * S * (6 * nh * hd * ds + 2 * K * (di + gbc) + 10 * di)
+        bms, by = bound(nbytes, flops, dtype)
+        h_rw = h_bytes * (2 if S == 1 else 1)
+        rows[label] = (ms, bms)
+        print(f"ssd: {label} {cfg.name} bf16 B={B} S={S} nh={nh} hd={hd} "
+              f"ds={ds} di={di} chunk={s.chunk} (plain PyTorch mixer between "
+              f"the projections, no Pallas counterpart): ms={ms:.5f} (CUDA "
+              f"graph) eager_ms={eager_ms:.5f} bound_ms={bms:.5f} ({by}: "
+              f"{nbytes} bytes of which state h {h_rw}, {flops} "
+              f"operations) bound_share={bms / ms:.4f}; a "
+              f"{cfg.n_layers}-layer tick {ms * cfg.n_layers:.4f} ms vs "
+              f"bound {bms * cfg.n_layers:.4f} ms; vs fp32 max_abs_err="
+              f"{err:.3e} worst_row_ratio={ratio:.3e} finite=True")
+    return rows
+
+
 # ------------------------------------------------- phase 3: reduced parity
 def numpy_weights(cfg, seed):
     """Weights in the JAX package's layout from a numpy seed: norms ones,
@@ -1516,8 +1634,15 @@ def numpy_weights(cfg, seed):
     rng = np.random.default_rng(seed)
     flat = {}
     for key, shape in param_shapes(cfg).items():
-        if key.endswith(("ln1", "ln2", "final_norm")):
+        if key.endswith(("ln1", "ln2", "final_norm", "mnorm", "d_skip")):
             flat[key] = np.ones(shape, np.float32)
+        elif key.endswith("a_log"):            # Mamba's schema initialisers
+            flat[key] = np.broadcast_to(np.log(np.linspace(
+                1.0, 16.0, shape[-1])), shape).astype(np.float32)
+        elif key.endswith("dt_bias"):
+            dt = np.exp(np.linspace(np.log(1e-3), np.log(0.1), shape[-1]))
+            flat[key] = np.broadcast_to(np.log(np.expm1(dt)),
+                                        shape).astype(np.float32)
         else:
             cap = 0.006 if key.endswith("router") else 0.02
             std = min(cap, shape[-2] ** -0.5 if len(shape) > 1 else 1.0)
@@ -1914,7 +2039,8 @@ def watch_restores(cm):
     def watched_swap_out(slot):
         idx = torch.tensor(cm.tables[slot][:cm.swap_payload_blocks(slot)],
                            dtype=torch.long, device=cm.device)
-        orig = {k: v.index_select(1, idx) for k, v in cm.cache.items()}
+        orig = {k: v.index_select(1, idx)
+                for k, v in cm.block_leaves.items()}
         sid = swap_out(slot)
         if sid is not None:
             kept[sid] = orig
@@ -1928,7 +2054,7 @@ def watch_restores(cm):
         shared = min(cm.shared_count.get(slot, 0), len(cm.tables[slot]))
         idx = torch.tensor(cm.tables[slot][shared:shared + nw],
                            dtype=torch.long, device=cm.device)
-        for k, v in cm.cache.items():
+        for k, v in cm.block_leaves.items():
             if not torch.equal(v.index_select(1, idx),
                                orig[k][:, shared:shared + nw]):
                 raise AssertionError(f"a restored block differs from the "
@@ -1994,7 +2120,7 @@ def parity_memory(K, cfg, flat, lcfg, devices, arms=("lending", "paging")):
                 preemptions=m.preemptions, swap_ins=m.adapter_swap_ins,
                 kv={k: getattr(eng.cachemgr, k) for k in KV_COUNTERS},
                 pristine=eng.cachemgr.pristine, launches=read_counts(K),
-                restored=sum(restored))
+                restored=sum(restored), tiering=eng.kv_tiering)
         got, want = runs[devices[0]], runs[devices[1]]
         for key in ("tokens", "swap_decisions", "steps", "preemptions",
                     "swap_ins", "kv", "pristine"):
@@ -2004,12 +2130,15 @@ def parity_memory(K, cfg, flat, lcfg, devices, arms=("lending", "paging")):
         if len(got["tokens"]) != len(trace) or not got["pristine"]:
             raise AssertionError(f"parity {arm}: not every request finished"
                                  f" or the pool is not pristine")
-        if arm == "lending" and not (got["preemptions"]
-                                     and got["kv"]["kv_swap_outs"]
-                                     and got["kv"]["kv_restores"]
-                                     and got["restored"]):
-            raise AssertionError(f"parity lending: no preemption, swap-out "
-                                 f"or restore: {got}")
+        # a Mamba pattern's engine keeps recompute-only preemption: its
+        # host tier takes no swap-out
+        swapped = (got["kv"]["kv_swap_outs"] and got["kv"]["kv_restores"]
+                   and got["restored"]) if got["tiering"] \
+            else not got["kv"]["kv_swap_outs"]
+        if arm == "lending" and not (got["preemptions"] and swapped):
+            raise AssertionError(f"parity lending: no preemption, or the "
+                                 f"swap-outs and restores are not as the "
+                                 f"host tier's gate says: {got}")
         if arm == "paging" and not got["swap_ins"]:
             raise AssertionError("parity paging: no adapter swap-in")
         if devices[0] == "cuda":
@@ -2019,6 +2148,7 @@ def parity_memory(K, cfg, flat, lcfg, devices, arms=("lending", "paging")):
               f"{len(trace)} requests, steps={got['steps']} preemptions="
               f"{got['preemptions']} swap_decisions="
               f"{len(got['swap_decisions'])} kv={got['kv']} "
+              f"host_tier_swaps={got['tiering']} "
               f"blocks_restored_bit_equal={got['restored']} "
               f"adapter_swap_ins={got['swap_ins']} cuda launches="
               f"{ {k: got['launches'][k] for k in MEMORY_COUNTERS} } ok")
@@ -2050,7 +2180,7 @@ def parity_fleet(K, cfg, flat, lcfg, devices, replicas=3,
     (``import_one_block``)."""
     from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
     from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
-    from repro_torch.models.model import cache_leaves
+    from repro_torch.models.model import STATE_KEYS, cache_leaves
     from repro_torch.serving.clock import CostModel
     from repro_torch.serving.engine import EngineConfig, UnifiedEngine
     from repro_torch.serving.request import Request
@@ -2105,6 +2235,9 @@ def parity_fleet(K, cfg, flat, lcfg, devices, replicas=3,
                 hash_hits=fm.hash_hits, steps=fm.steps,
                 remote_fetch_time=fm.remote_fetch_time, launches=launches,
                 imported=import_one_block(fleet))
+    blocks = "/".join(k for k in cache_leaves(cfg) if k not in STATE_KEYS)
+    state = "/".join(k for k in cache_leaves(cfg) if k in STATE_KEYS)
+    kept = f" (state rows {state} untouched)" if state else ""
     for policy in policies:
         got, want = runs[devices[0], policy], runs[devices[1], policy]
         for key in ("tokens", "routed", "remote_fetch_blocks", "hash_hits",
@@ -2127,7 +2260,7 @@ def parity_fleet(K, cfg, flat, lcfg, devices, replicas=3,
               f"hash_hits={got['hash_hits']} steps={got['steps']} "
               f"remote_fetch_time_virtual_s={got['remote_fetch_time']:.6g} "
               f"bijection=True pristine=True, import_block {got['imported']}"
-              f" equal in {'/'.join(cache_leaves(cfg))}, cuda launches="
+              f" equal in {blocks}{kept}, cuda launches="
               f"{ {k: got['launches'][k] for k in MEMORY_COUNTERS} } ok")
 
 
@@ -3341,13 +3474,19 @@ def import_one_block(fleet):
         missing = list(a._index)
     key = missing[0]
     src = a._index[key]
+    rows = {k: v.clone() for k, v in b.cache.items()
+            if k not in b.block_leaves}
     dst = b.import_block(key, a, src)
     if dst is None:
         raise AssertionError("fleet: import_block found no room")
-    for name in a.cache:
+    for name in a.block_leaves:
         if not torch.equal(b.cache[name][:, dst], a.cache[name][:, src]):
             raise AssertionError(f"fleet: imported block differs from its "
                                  f"source in {name}")
+    for name, before in rows.items():
+        if not torch.equal(b.cache[name], before):
+            raise AssertionError(f"fleet: import_block wrote the state "
+                                 f"rows {name}")
     fleet.index.check_bijection()
     return src, dst
 
@@ -3606,6 +3745,8 @@ def parity_archs(K, devices=("cuda", "cpu")):
               f"steps={gsteps}, cuda launches="
               f"{ {k: gl[k] for k in ARCH_KERNELS} } moe_calls={gmoe} ok")
     parity_mla(K, devices)
+    for arch in MAMBA_ARCHS:
+        parity_mamba(K, arch, devices)
 
 
 def parity_mla(K, devices=("cuda", "cpu")):
@@ -3683,6 +3824,85 @@ def parity_mla(K, devices=("cuda", "cpu")):
                  policies=("round-robin",))
 
 
+MAMBA_ARCHS = ("mamba2-1.3b", "jamba-1.5-large-398b")
+
+
+def parity_mamba(K, arch, devices=("cuda", "cpu")):
+    """Phase 3, the Mamba2 family: reduced ``arch`` (numpy-seeded fp32
+    weights and two adapters) on ``cuda`` and ``cpu``: (a) the paged
+    engine with dedup on ``shared_prefix_trace`` (blocks adopted and
+    counted, every prompt recomputed whole: no reused prefix tokens), then
+    an engine built with speculation, which a Mamba pattern turns off, so
+    it decodes plainly and emits the plain tokens; (b) lending with one
+    preemption or more (recompute: the host tier takes no swap-out for a
+    Mamba pattern); (c) for a hybrid, 2 replicas round-robin with one more
+    ``import_block`` (K/V equal, the state rows untouched).  Tokens and
+    steps equal on both devices; on the card SMLM and BGMV launch, and no
+    GQA attention kernel for mamba2, flash and paged decode and no paged
+    prefill or verify for jamba (``check_routes``)."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.spec import SpecConfig
+    cfg = get_reduced(arch)
+    lcfg = LoRAConfig(n_slots=4, r=8)
+    flat = numpy_weights(cfg, seed=0)
+    ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
+          for i in range(2)}
+
+    def run(dev, spec=None):
+        params = params_from_numpy(flat, device=dev)
+        adapters = {n: bank_from_numpy(f, device=dev) for n, f in ad.items()}
+        eng = build_engine(cfg, params, adapters, lcfg, torch.device(dev),
+                           torch.float32, EngineConfig(
+                               capacity=4, pf_capacity=2, s_max=128,
+                               virtual_time=True, spec=spec))
+        for r in shared_prefix_trace(cfg.vocab, list(ad), seed=3):
+            eng.submit(r)
+        reset_counts(K)
+        eng.run(max_ticks=10000)
+        if not eng.cachemgr.pristine:
+            raise AssertionError(f"parity {arch} {dev}: pool not pristine")
+        return eng, read_counts(K), {r.rid: list(r.output)
+                                     for r in eng.finished}
+
+    (ge, gl, gtok), (ce, _, ctok) = (run(d) for d in devices)
+    if len(gtok) != 8 or gtok != ctok or ge.metrics.steps != ce.metrics.steps:
+        raise AssertionError(f"parity {arch}: tokens or steps differ: "
+                             f"{devices[0]} {gtok} {devices[1]} {ctok}")
+    m = ge.metrics
+    if not m.hash_hits or m.reused_prefix_tokens or ge.suffix_prefill:
+        raise AssertionError(f"parity {arch}: dedup should adopt blocks "
+                             f"and recompute whole prompts: hash_hits="
+                             f"{m.hash_hits} reused="
+                             f"{m.reused_prefix_tokens}")
+    spec = SpecConfig(k_max=4, drafter="ngram")
+    (se, sl, stok), (_, _, sctok) = (run(d, spec) for d in devices)
+    if se.spec is not None or stok != sctok or stok != gtok \
+            or se.metrics.spec_drafted:
+        raise AssertionError(f"parity {arch} spec requested: the engine "
+                             f"should decode plainly: {devices[0]} {stok} "
+                             f"{devices[1]} {sctok} plain {gtok}")
+    need = ("smlm", "bgmv", "flash", "decode")
+    if devices[0] == "cuda":
+        for label, launches in (("plain", gl), ("spec", sl)):
+            check_routes(f"parity {arch} {label}", cfg, launches, need)
+    print(f"parity: {cfg.name} reduced fp32 (L={cfg.n_layers} d="
+          f"{cfg.d_model} pattern={'/'.join(cfg.pattern)} ssm heads="
+          f"{cfg.n_ssm_heads}x{cfg.ssm.head_dim} d_state={cfg.ssm.d_state} "
+          f"chunk={cfg.ssm.chunk} moe={cfg.moe is not None}) paged with "
+          f"dedup, cuda==cpu greedy tokens for 8 requests (48 tokens), "
+          f"steps={m.steps} hash_hits={m.hash_hits} reused_prefix_tokens="
+          f"{m.reused_prefix_tokens} (whole prompts recomputed); spec "
+          f"requested and off: tokens == plain on both devices; cuda "
+          f"launches={ {k: gl[k] for k in ARCH_KERNELS + ('verify',)} } ok")
+    parity_memory(K, cfg, flat, lcfg, devices, arms=("lending",))
+    if "attn" in cfg.pattern:
+        parity_fleet(K, cfg, flat, lcfg, devices, replicas=2,
+                     policies=("round-robin",))
+
+
 # ---------------------------------------------- phase 12: the other configs
 # (arch, layers kept (None: all), int8 weights)
 ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
@@ -3690,7 +3910,9 @@ ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
              ("qwen1.5-110b", 40, True),
              ("llama4-maverick-400b-a17b", 2, False),
              ("llama4-maverick-400b-a17b", 4, True),
-             ("deepseek-v2-236b", 4, False), ("deepseek-v2-236b", 8, True))
+             ("deepseek-v2-236b", 4, False), ("deepseek-v2-236b", 8, True),
+             ("mamba2-1.3b", None, False),
+             ("jamba-1.5-large-398b", 8, True))
 
 
 def arch_weights(cfg, dev, int8, seed=0):
@@ -3748,11 +3970,12 @@ def prefill_stats(ticks) -> str:
             f"{np.mean([w for *_, w in pf]) * 1e3:.3f})")
 
 
-def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
-    """A MoE config's fine-tuning path on the card: one fused train step
-    (forward over ft rows, the router aux loss, backward through the
-    kernels, masked AdamW) for lora0's slot; loss finite, aux loss > 0,
-    the slot's bank elements changed and no other slot's."""
+def arch_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
+    """A config's fine-tuning path on the card: one fused train step
+    (forward over ft rows, a MoE config's router aux loss, backward through
+    the kernels and a Mamba layer's chunked SSD, masked AdamW) for lora0's
+    slot; loss finite, aux loss > 0 for MoE, the slot's bank elements
+    changed and no other slot's."""
     from repro_torch.core.unified import make_train_step
     from repro_torch.models.stream import FTBatch, UnifiedBatch
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
@@ -3768,13 +3991,23 @@ def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
                  weight=torch.ones(n_rows, device=dev))
     step = make_train_step(cfg, AdamWConfig(lr=lr), block_t=K["block_t"])
     n0 = K["smlm_wgrad"].launches
+    mask = store.slot_mask(["lora0"])
     t0 = time.perf_counter()
-    loss, bank, _, aux = step(params, store.bank, store.scale,
-                              adamw_init(store.bank, store.lcfg.n_slots),
-                              UnifiedBatch(ft=ft),
-                              store.slot_mask(["lora0"]))
+    loss, bank, state, aux = step(params, store.bank, store.scale,
+                                  adamw_init(store.bank, store.lcfg.n_slots),
+                                  UnifiedBatch(ft=ft), mask)
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
+    launched = K["smlm_wgrad"].launches - n0
+    # a second step from the first one's bank, warm and profiled (device
+    # activity only): its wall and device busy time
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, bank, store.scale, state, UnifiedBatch(ft=ft), mask)
+        torch.cuda.synchronize()
+        warm = (time.perf_counter() - t1) * 1e3
+    busy, top, _ = device_top(prof, n=6)
     others = [s for s in range(store.lcfg.n_slots) if s != slot]
     changed = torch.cat([(nb[ab][slot] != ob[ab][slot]).reshape(-1)
                          for nl, ol in zip(bank["layers"],
@@ -3784,23 +4017,26 @@ def moe_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
     still = all(torch.equal(nl[t][ab][others], ol[t][ab][others])
                 for nl, ol in zip(bank["layers"], store.bank["layers"])
                 for t in nl for ab in ("a", "b"))
-    if not (torch.isfinite(loss) and float(aux) > 0 and float(changed) > 0
-            and still and K["smlm_wgrad"].launches > n0):
+    if not (torch.isfinite(loss) and (float(aux) > 0 or cfg.moe is None)
+            and float(changed) > 0 and still and launched):
         raise AssertionError(f"{cfg.name} grad step: loss {float(loss)} aux "
                              f"{float(aux)} changed {float(changed)} "
                              f"others unchanged {still}")
     print(f"archs: {cfg.name} grad step of {n_rows} ft rows x {seq} "
-          f"tokens on the card: wall_ms={wall:.3f} loss={float(loss):.5f} "
+          f"tokens on the card: wall_ms={wall:.3f} (a second, warm step "
+          f"{warm:.3f}, device busy {busy:.3f} ms; top: {top}) "
+          f"loss={float(loss):.5f} "
           f"aux_loss={float(aux):.6f} share_of_slot_elements_changed="
           f"{float(changed):.4f} other slots unchanged, smlm_wgrad "
-          f"launches={K['smlm_wgrad'].launches - n0} ok")
+          f"launches={launched} (a step) ok")
 
 
 def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
     """One arm of phase 12: build, serve phase 4's two waves timed, print
     the ``archs:`` line (for MLA with the latent pool's bytes a token and
-    layer beside expanded K/V's), and for a bf16 MoE config take one grad
-    step; returns the launch counts of the serving run and the step."""
+    layer beside expanded K/V's; for Mamba the state bytes a request row),
+    and for a bf16 MoE config or a Mamba config take one grad step;
+    returns the launch counts of the serving run and the step."""
     import gc
     from repro_torch.configs import get_config
     from repro_torch.models import moe
@@ -3821,8 +4057,12 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
     counts = read_counts(K)
     check_drained(eng, seen, 8, max_new)
     peak = torch.cuda.max_memory_allocated()
-    if cfg.mla is not None:
+    if cfg.mla is not None or "attn" not in cfg.pattern:
         need = {k: counts[k] for k in ("smlm", "bgmv") + GQA_COUNTERS}
+    elif "mamba" in cfg.pattern:       # whole prompts: no suffix prefill
+        need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
+                    flash=counts["flash"],
+                    decode=counts["decode"] + counts["partials"])
     else:
         need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
                     flash=counts["flash"], prefill=counts["prefill"],
@@ -3851,6 +4091,21 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
                      f"{cfg.n_layers} layers) = {per_tok} B a token and "
                      f"layer vs expanded K/V of {cfg.n_heads} heads "
                      f"{expanded} B ({expanded / per_tok:.2f}x)")
+    if cfg.ssm is not None:
+        from repro_torch.models.model import STATE_KEYS
+        cm = eng.cachemgr
+        rows = cm.capacity + cm.pf_capacity
+        state = sum(v.numel() // v.shape[1] * v.element_size()
+                    for k, v in cm.cache.items() if k in STATE_KEYS)
+        n_m = sum(k == "mamba" for k in cfg.pattern) * cfg.n_periods
+        moe_note += (f" mamba: {n_m} Mamba layer(s) of {cfg.n_ssm_heads} "
+                     f"heads x {cfg.ssm.head_dim} x d_state "
+                     f"{cfg.ssm.d_state}, state_bytes_per_row={state} "
+                     f"({state / 2 ** 20:.3f} MiB: h, conv_x, conv_bc over "
+                     f"every Mamba layer; {rows} rows resident "
+                     f"{state * rows / 1e9:.3f} GB) block_leaves="
+                     f"{list(cm.block_leaves)} bytes_per_block="
+                     f"{cm.adapter_block_bytes}")
     dec = [(t, d) for t, p, d, *_ in ticks if not p]
     print(f"archs: {arch} {'int8' if int8 else 'bf16'} L={cfg.n_layers}/"
           f"{full.n_layers} d={cfg.d_model} h={cfg.n_heads} g="
@@ -3862,8 +4117,8 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
           f"{tick_stats(ticks)} decode_ticks_tok_per_s_incl_padding="
           f"{8 * len(dec) / sum(t for t, _ in dec):.3f} launches={need}"
           f"{moe_note} finite=True pristine=True ok")
-    if cfg.moe is not None and not int8:
-        moe_grad_step(K, cfg, weights, dev)
+    if (cfg.moe is not None and not int8) or cfg.ssm is not None:
+        arch_grad_step(K, cfg, weights, dev)
         counts["smlm_wgrad"] = K["smlm_wgrad"].launches
     del eng, weights
     gc.collect()
@@ -3874,11 +4129,15 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
 def full_archs(K, dev):
     """Phase 12: each arm of ``ARCH_ARMS`` in turn, each model freed before
     the next is built; returns the launch counts summed over the GQA arms
-    (``archs``) and over the MLA arms (``archs_mla``)."""
+    (``archs``), the MLA arms (``archs_mla``) and the Mamba arms
+    (``archs_mamba``)."""
     from repro_torch.configs import get_config
-    total = {p: {k: 0 for k in COUNTERS} for p in ("archs", "archs_mla")}
+    total = {p: {k: 0 for k in COUNTERS}
+             for p in ("archs", "archs_mla", "archs_mamba")}
     for arch, layers, int8 in ARCH_ARMS:
-        path = "archs_mla" if get_config(arch).mla is not None else "archs"
+        cfg = get_config(arch)
+        path = ("archs_mla" if cfg.mla is not None
+                else "archs_mamba" if cfg.ssm is not None else "archs")
         for k, v in arch_arm(K, arch, layers, int8, dev).items():
             total[path][k] += v
     return total
@@ -4055,6 +4314,7 @@ def main() -> int:
     gen.manual_seed(1)
     if a.archs:
         mla_record(dev, gen)
+        ssd_record(dev, gen)
         parity_archs(K)
         full_archs(K, dev)
         print(card())
@@ -4068,6 +4328,7 @@ def main() -> int:
         print(card())
         return 0
     mla_record(dev, gen)
+    ssd_record(dev, gen)
 
     parity(K)
 

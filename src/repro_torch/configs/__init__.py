@@ -1,22 +1,26 @@
 """Architecture registry of the port: the paper's ``llama3-8b``, the four
 dense decoders (``phi3-medium-14b``, ``qwen1.5-110b`` with QKV bias,
 ``deepseek-7b`` with 32 KV heads, ``command-r-35b`` with a tied head), the
-MoE ``llama4-maverick-400b-a17b`` and ``deepseek-v2-236b`` (MLA attention
-over a compressed latent cache, and MoE).  ``get_config`` returns the full
-published config, ``get_reduced`` the small same-family variant used by the
-CPU tests.  The families with Mamba, cross-attention or an encoder are not
-ported."""
+MoE ``llama4-maverick-400b-a17b``, ``deepseek-v2-236b`` (MLA attention
+over a compressed latent cache, and MoE), the attention-free Mamba2
+``mamba2-1.3b`` and the hybrid ``jamba-1.5-large-398b`` (one attention
+layer in eight, the rest Mamba2; MoE on every other layer).  ``get_config``
+returns the full published config, ``get_reduced`` the small same-family
+variant used by the CPU tests.  The families with cross-attention or an
+encoder are not ported."""
 from __future__ import annotations
 
 import importlib
 
 ARCH_IDS = [
+    "mamba2-1.3b",
     "phi3-medium-14b",
     "qwen1.5-110b",
     "deepseek-7b",
     "llama4-maverick-400b-a17b",
     "deepseek-v2-236b",
     "command-r-35b",
+    "jamba-1.5-large-398b",
     # the paper's own base model
     "llama3-8b",
 ]

@@ -141,6 +141,16 @@ def main(argv=None):
         engines = [UnifiedEngine(model, ecfg)]
     eng = engines[0]
     front = fleet if fleet is not None else eng
+    if args.prefill_chunk and not eng.chunk_budget:
+        print("note: --prefill-chunk is inactive for this model "
+              "(needs the paged cache and an attention-only pattern)")
+    if eng.hash_dedup and not eng.suffix_prefill:
+        print("note: hash dedup shares block storage for this model but "
+              "suffix-only prefill is inactive (needs the paged cache and "
+              "an attention-only pattern)")
+    if args.spec > 0 and eng.spec is None:
+        print("note: --spec is inactive for this model (Mamba state "
+              "cannot roll back drafts)")
 
     prompts = datasets.sharegpt_prompts(args.requests, vocab=cfg.vocab,
                                         seed=args.seed)

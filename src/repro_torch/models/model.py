@@ -1,11 +1,11 @@
-"""The attention decoder (dense or MoE FFN) on the paged and the dense-row KV
-layouts, with the paper's unified computation flow: one joint projection
-per linear for every request bucket (``core.lora.dense``: base product plus
-one multi-LoRA kernel call per bucket), per-bucket attention, and
-per-bucket logits.
+"""The decoder (GQA, MLA or Mamba2 mixers; dense, MoE or no FFN) on the paged
+and the dense-row KV layouts, with the paper's unified computation flow:
+one joint projection per linear for every request bucket
+(``core.lora.dense``: base product plus one multi-LoRA kernel call per
+bucket), per-bucket attention, and per-bucket logits.
 
-Port of the attention + FFN / MoE path of ``repro.models.model``, fine-tune
-bucket and int8 weight-only serving included.  Differences of form:
+Port of the attention, Mamba2 and FFN / MoE paths of ``repro.models.model``,
+fine-tune bucket and int8 weight-only serving included.  Differences of form:
 
 * the JAX ``lax.scan`` over periods becomes a loop over layers;
 * the JAX functions return a new cache; here the cache is written in place
@@ -54,13 +54,20 @@ bucket and int8 weight-only serving included.  Differences of form:
   prefill and over the gathered view of its blocks (``_paged_view``,
   ``_paged_chunk_mask``) or its dense row otherwise.  ``attn_chunk``
   reaches its ft and prefill buckets, as in the JAX model; it never takes
-  split-K.
+  split-K;
+* a Mamba2 layer (``_mamba_apply``) runs the SSD mixer of
+  ``models.mamba`` (plain PyTorch on every device: the JAX model computes
+  it in jnp, outside Pallas) between its LoRA projections ``in_z`` /
+  ``in_x`` / ``out_proj`` (SMLM and BGMV through ``dense``), and keeps
+  per-request state rows, not blocks.
 
-The cache is a dict of named leaves, each ``[L, ...]`` with layer ``l`` at
-``leaf[l]`` (``cache_leaves``): ``k``/``v`` for GQA, ``ckv``/``kpe`` for
-MLA.  Each layer gets its own dict of leaves.  Sliding windows, dense-row
-verify chunks, Mamba and cross-attention belong to later slices and raise
-here.
+The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
+GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
+layers, and the Mamba state rows ``h`` / ``conv_x`` / ``conv_bc``
+(``STATE_KEYS``), each ``[L_mamba, n_rows, ...]`` over the Mamba layers;
+``layer_cache`` gives each layer its dict of views.  Sliding windows,
+dense-row verify chunks and cross-attention belong to later slices and
+raise here.
 """
 from __future__ import annotations
 
@@ -77,6 +84,7 @@ from repro_torch.kernels.splitk import (paged_decode_attention_splitk,
                                         paged_verify_attention_splitk)
 from repro_torch.kernels.verify_attn import paged_verify_attention
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.moe import EXPERT_STACKS, moe_apply
@@ -178,31 +186,76 @@ def cache_seq_len(cfg: ModelConfig, s_max: int) -> int:
     return min(s_max, w) if w > 0 else s_max
 
 
-def cache_leaves(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Each cache leaf's trailing shape, in the JAX cache's key order: the
-    MLA latent ``ckv`` [c] and shared rope key ``kpe`` [dr], or ``k`` /
-    ``v`` [g, hd].  Every leaf is block-addressed; per-request state rows
-    (the JAX model's ``STATE_KEYS``: Mamba state, cross-attention K/V) are
-    not ported."""
-    check_supported(cfg)
+# cache leaves that stay per-request rows in the paged layout too (the JAX
+# model's STATE_KEYS; cross-attention's xk/xv are not ported)
+STATE_KEYS = frozenset({"h", "conv_x", "conv_bc"})
+
+
+def _kind_leaves(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
+    """The trailing shapes of the cache leaves a layer of ``kind`` carries,
+    in the JAX cache's key order."""
+    if kind == "mamba":
+        s = cfg.ssm
+        return {"h": (cfg.n_ssm_heads, s.head_dim, s.d_state),
+                "conv_x": (s.conv_width - 1, cfg.d_inner),
+                "conv_bc": (s.conv_width - 1, 2 * s.n_groups * s.d_state)}
     if cfg.mla is not None:
         return {"ckv": (cfg.mla.kv_lora_rank,), "kpe": (cfg.mla.qk_rope_dim,)}
     return {"k": (cfg.n_kv_heads, cfg.hd), "v": (cfg.n_kv_heads, cfg.hd)}
 
 
-def _alloc(cfg: ModelConfig, lead: tuple, device, dtype) -> Dict:
-    return {name: torch.zeros((cfg.n_layers, *lead, *dims), device=device,
-                              dtype=dtype)
+def cache_leaves(cfg: ModelConfig) -> Dict[str, tuple]:
+    """Each cache leaf's trailing shape, in the JAX cache's key order
+    (position-major, then key): ``k`` / ``v`` [g, hd] or MLA's ``ckv`` [c]
+    and ``kpe`` [dr] on attention layers, and on Mamba layers the state
+    rows ``h`` [nh, hd, ds], ``conv_x`` [K-1, di] and ``conv_bc`` [K-1,
+    2*g*ds] (``STATE_KEYS``)."""
+    check_supported(cfg)
+    out: Dict[str, tuple] = {}
+    for kind in cfg.pattern:
+        for name, dims in _kind_leaves(cfg, kind).items():
+            out.setdefault(name, dims)
+    return out
+
+
+def layer_index(cfg: ModelConfig) -> list:
+    """Layer ``li``'s (kind, index into its kind's leaves): a leaf holds
+    only the layers that carry it, in layer order."""
+    seen: Dict[str, int] = {}
+    out = []
+    for li in range(cfg.n_layers):
+        kind = cfg.layer_kind(li % len(cfg.pattern))
+        out.append((kind, seen.get(kind, 0)))
+        seen[kind] = seen.get(kind, 0) + 1
+    return out
+
+
+def layer_cache(cfg: ModelConfig, cache: Dict, li: int,
+                index: Optional[list] = None) -> Dict:
+    """Layer ``li``'s dict of views into the cache's leaves."""
+    kind, i = (index or layer_index(cfg))[li]
+    return {name: cache[name][i] for name in _kind_leaves(cfg, kind)}
+
+
+def _alloc(cfg: ModelConfig, lead: tuple, n_rows: int, device,
+           dtype) -> Dict:
+    """Block leaves ``[L_kind, *lead, ...]``, state leaves ``[L_kind,
+    n_rows, ...]``; ``L_kind`` counts the layers that carry the leaf."""
+    n = {k: cfg.pattern.count(k) * cfg.n_periods for k in ("attn", "mamba")}
+    return {name: torch.zeros(((n["mamba"], n_rows) if name in STATE_KEYS
+                               else (n["attn"], *lead)) + dims,
+                              device=device, dtype=dtype)
             for name, dims in cache_leaves(cfg).items()}
 
 
 def init_cache(cfg: ModelConfig, n_rows: int, s_max: int,
                device: torch.device, dtype: torch.dtype) -> Dict:
-    """Dense rows: ``{leaf: [L, n_rows, sc, ...]}`` (``{"k": [L, n_rows,
-    sc, g, hd], "v": ...}``, or MLA's ``ckv`` / ``kpe``), the JAX layout
-    ``[n_periods, n_rows, sc, ...]`` of an attention-only pattern with the
-    period axis unrolled."""
-    return _alloc(cfg, (n_rows, cache_seq_len(cfg, s_max)), device, dtype)
+    """Dense rows: ``{leaf: [L_kind, n_rows, sc, ...]}`` (``k`` / ``v`` or
+    MLA's ``ckv`` / ``kpe``) and ``{state leaf: [L_kind, n_rows, ...]}``:
+    the JAX layout ``[n_periods, n_rows, ...]`` per pattern position with
+    the periods of each kind's positions stacked in layer order."""
+    return _alloc(cfg, (n_rows, cache_seq_len(cfg, s_max)), n_rows, device,
+                  dtype)
 
 
 def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
@@ -227,10 +280,13 @@ def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_paged_cache(cfg: ModelConfig, n_blocks: int, block_size: int,
-                     device: torch.device, dtype: torch.dtype) -> Dict:
-    """The paged pool: ``{leaf: [L, n_blocks, bs, ...]}``; ``cache[leaf][l]``
-    is layer ``l``'s contiguous pool."""
-    return _alloc(cfg, (n_blocks, block_size), device, dtype)
+                     device: torch.device, dtype: torch.dtype,
+                     n_rows: int = 0) -> Dict:
+    """The paged pool: ``{leaf: [L_kind, n_blocks, bs, ...]}``, with
+    ``n_rows`` dense rows ``[L_kind, n_rows, ...]`` for the state leaves
+    (the manager passes ``capacity + pf_capacity``, as the JAX one does);
+    ``layer_cache`` gives each layer its views."""
+    return _alloc(cfg, (n_blocks, block_size), n_rows, device, dtype)
 
 
 def _paged_write_prompt(pool: torch.Tensor, xh: torch.Tensor,
@@ -497,11 +553,123 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     return _merge_flat(plan, *outs)
 
 
+def _expand_bc(cfg: ModelConfig, y_bc: torch.Tensor, lead: tuple):
+    """[.., 2*g*ds] -> (B, C) [.., nh, ds], groups expanded over heads."""
+    s = cfg.ssm
+    gds = s.n_groups * s.d_state
+    b2 = y_bc[..., :gds].reshape(*lead, s.n_groups, s.d_state)
+    c2 = y_bc[..., gds:].reshape(*lead, s.n_groups, s.d_state)
+    return (M.expand_groups(b2, cfg.n_ssm_heads),
+            M.expand_groups(c2, cfg.n_ssm_heads))
+
+
+def mamba_seq(cfg: ModelConfig, p: Dict, xb: torch.Tensor, bcb: torch.Tensor,
+              dtb: torch.Tensor, zb: torch.Tensor, valid: torch.Tensor,
+              remat: bool = False):
+    """The Mamba2 mixer between its projections over whole rows from zero
+    state (the JAX model's ``_seq`` and ``_gated_out``): the causal convs,
+    the chunked SSD and the gated norm.  xb / zb: [B, S, di]; bcb: [B, S,
+    2*g*ds]; dtb: [B, S, nh]; ``valid`` [B, S] (``dt = 0`` elsewhere).
+    Returns (out [B, S, di], h [B, nh, hd, ds], conv_x, conv_bc states)."""
+    s = cfg.ssm
+    B, S = xb.shape[:2]
+    y_x, cx = M.causal_conv(xb, p["conv_x"], p["conv_bx"], None)
+    y_bc, cbc = M.causal_conv(bcb, p["conv_bc"], p["conv_bbc"], None)
+    y_x, y_bc = F.silu(y_x), F.silu(y_bc)
+    xs = y_x.reshape(B, S, cfg.n_ssm_heads, s.head_dim)
+    b2, c2 = _expand_bc(cfg, y_bc, (B, S))
+    dtv = F.softplus(dtb.float() + p["dt_bias"].float())
+    dtv = dtv * valid[..., None].float()                     # pad -> no-op
+    A = -torch.exp(p["a_log"].float())
+    y, h = M.ssd_chunked(xs, dtv, A, b2, c2, s.chunk, remat=remat)
+    y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xs
+    return _gated_out(y.reshape(B, S, cfg.d_inner), zb, p), h, cx, cbc
+
+
+def mamba_step(cfg: ModelConfig, p: Dict, xd: torch.Tensor,
+               bcd: torch.Tensor, dtd: torch.Tensor, zd: torch.Tensor,
+               cache: Dict) -> torch.Tensor:
+    """One decode step of the Mamba2 mixer between its projections, in
+    place on the state rows ``[0, B)`` of ``cache`` (``h``, ``conv_x``,
+    ``conv_bc``).  xd / zd: [B, 1, di]; bcd: [B, 1, 2*g*ds]; dtd: [B, 1,
+    nh].  ``dt`` rounds to the activation dtype before the decay, as in
+    the JAX model.  Returns out [B, 1, di]."""
+    s = cfg.ssm
+    B = xd.shape[0]
+    y_x, cx = M.causal_conv(xd, p["conv_x"], p["conv_bx"],
+                            cache["conv_x"][:B])
+    y_bc, cbc = M.causal_conv(bcd, p["conv_bc"], p["conv_bbc"],
+                              cache["conv_bc"][:B])
+    y_x, y_bc = F.silu(y_x[:, 0]), F.silu(y_bc[:, 0])
+    xs = y_x.reshape(B, cfg.n_ssm_heads, s.head_dim)
+    b2, c2 = _expand_bc(cfg, y_bc, (B,))
+    dtv = F.softplus(dtd[:, 0].float() + p["dt_bias"].float())
+    A = -torch.exp(p["a_log"].float())
+    y, h = M.ssd_step(cache["h"][:B], xs, dtv.to(xs.dtype), A, b2, c2)
+    y = y + p["d_skip"].to(y.dtype)[None, :, None] * xs
+    for name, v in (("h", h), ("conv_x", cx), ("conv_bc", cbc)):
+        cache[name][:B] = v.to(cache[name].dtype)
+    return _gated_out(y.reshape(B, 1, cfg.d_inner), zd, p)
+
+
+def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
+                 x: torch.Tensor, cache: Optional[Dict]) -> torch.Tensor:
+    """The Mamba2 layer over every bucket (``_mamba_apply`` of the JAX
+    model); ``cache``: the layer's state rows ``h`` [rows, nh, hd, ds],
+    ``conv_x`` [rows, K-1, di] and ``conv_bc`` [rows, K-1, 2*g*ds] (None
+    for an ft-only batch).  The ft bucket runs from zero state; prefill
+    runs from zero state too and writes its final state at rows ``[Bd, Bd
+    + Bp)``; decode reads and writes rows ``[0, Bd)``.  A prefill row's
+    conv state is the last ``K-1`` inputs of its padded bucket row, pad
+    tokens included, as in the JAX model (ROADMAP Queue 3); its SSM state
+    is exact, since ``dt = 0`` on pad tokens."""
+    xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    z_all = dense(xn, p["in_z"], None, lr.get("in_z"), plan.route)  # [T, di]
+    x_all = dense(xn, p["in_x"], None, lr.get("in_x"), plan.route)  # [T, di]
+    bc_all = xn @ p["in_bc"].to(xn.dtype)                           # [T, 2gds]
+    dt_all = xn @ p["in_dt"].to(xn.dtype)                           # [T, nh]
+    zf, zp, zd = plan.split(z_all)
+    xf, xp, xd = plan.split(x_all)
+    bf, bp, bd = plan.split(bc_all)
+    df, dp, dd = plan.split(dt_all)
+    # serving rows carry no gradient, and the state writes stay out of the
+    # graph
+    zp, xp, bp, dp, zd, xd, bd, dd = (
+        t if t is None else t.detach() for t in (zp, xp, bp, dp, zd, xd,
+                                                 bd, dd))
+    outs = [None, None, None]
+    if zf is not None:           # fine-tune / eval: from zero state
+        outs[0] = mamba_seq(cfg, p, xf, bf, df, zf, plan.ft_valid,
+                            remat=True)[0]
+    if zp is not None:           # prefill: from zero state, rows [Bd, Bd+Bp)
+        outs[1], h, cx, cbc = mamba_seq(cfg, p, xp, bp, dp, zp,
+                                        plan.pf_valid)
+        rows = slice(plan.Bd, plan.Bd + plan.Bp)
+        for name, v in (("h", h), ("conv_x", cx), ("conv_bc", cbc)):
+            cache[name][rows] = v.to(cache[name].dtype)
+    if zd is not None:           # decode: rows [0, Bd) in place
+        if plan.Sd > 1:
+            raise NotImplementedError(
+                "mamba decode state cannot roll back rejected drafts; "
+                "speculative verify chunks are attention-only")
+        outs[2] = mamba_step(cfg, p, xd, bd, dd, zd, cache)
+    y = _merge_flat(plan, *outs)
+    return x + dense(y, p["out_proj"], None, lr.get("out_proj"), plan.route)
+
+
+def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Dict) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(y * silu(z))."""
+    return L.rms_norm(y * F.silu(z), p["mnorm"])
+
+
 def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
                x: torch.Tensor):
     """The dense SwiGLU, or on a MoE layer the routed experts
     (``moe.moe_apply``) plus the shared expert through ``dense`` with its
-    LoRA.  Returns (x + y, the layer's router aux loss)."""
+    LoRA; a layer with no FFN (no ``ln2``: ``mamba2-1.3b``) returns ``x``.
+    Returns (x + y, the layer's router aux loss)."""
+    if "ln2" not in p:
+        return x, None
     xn = L.rms_norm(x, p["ln2"], cfg.rms_eps)
     if not is_moe(cfg, li):
         g = dense(xn, p["wg"], None, lr.get("wg"), plan.route)
@@ -536,7 +704,7 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     plan = _Plan(cfg, batch, lora_scale, block_t)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
         raise ValueError("prefill/decode buckets require a cache")
-    if plan.Bd and batch.dec.block_tables is not None and cfg.mla is None:
+    if plan.Bd and batch.dec.block_tables is not None and "k" in cache:
         autotune.load_card_table(cache["k"].device)   # once, on a card
         # one split choice per forward, keyed on the kernels' own grid: one
         # thread block per (request, KV head), where the JAX model counts a
@@ -568,15 +736,17 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    index = layer_index(cfg)
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
         if quantized:
             p = {k: (quant.dequant_leaf(v, dtype)
                      if quant.is_q8(v) and k not in EXPERT_STACKS else v)
                  for k, v in p.items()}
-        x = _attn_apply(cfg, p, lr, plan, x,
-                        None if cache is None
-                        else {name: leaf[li] for name, leaf in cache.items()},
-                        attn_chunk)
+        lc = None if cache is None else layer_cache(cfg, cache, li, index)
+        if index[li][0] == "mamba":
+            x = _mamba_apply(cfg, p, lr, plan, x, lc)
+        else:
+            x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk)
         x, aux = _ffn_apply(cfg, li, p, lr, plan, x)
         if aux is not None:
             aux_loss = aux_loss + aux

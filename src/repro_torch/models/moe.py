@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.configs import MoEConfig
 from repro_torch.models.quant import dequant_leaf, is_q8
@@ -111,6 +112,14 @@ def _expert(w, e: int, dtype: torch.dtype) -> torch.Tensor:
     return w[e].to(dtype)
 
 
+def _expert_ffn(xe: torch.Tensor, params: Dict, e: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Expert ``e``'s SwiGLU over its entries ``xe`` [n, d]."""
+    h = F.silu(xe @ _expert(params["w_gate"], e, dtype)) \
+        * (xe @ _expert(params["w_up"], e, dtype))
+    return h @ _expert(params["w_down"], e, dtype)
+
+
 def _stack(w, dtype: torch.dtype) -> torch.Tensor:
     return dequant_leaf(w, dtype) if is_q8(w) else w.to(dtype)
 
@@ -142,9 +151,15 @@ def moe_apply(x: torch.Tensor, params: Dict, mcfg: MoEConfig
         rows = entry[start:start + n]
         start += n
         xe = x[rows // k]
-        h = F.silu(xe @ _expert(params["w_gate"], e, x.dtype)) \
-            * (xe @ _expert(params["w_up"], e, x.dtype))
-        y_tok.index_copy_(0, rows, h @ _expert(params["w_down"], e, x.dtype))
+        if xe.requires_grad and is_q8(params["w_gate"]):
+            # under autograd an int8 expert's matrices are dequantized
+            # again in the backward instead of held until it: every routed
+            # expert's dequantized copy at once would not fit at full width
+            ye = checkpoint(_expert_ffn, xe, params, e, x.dtype,
+                            use_reentrant=False)
+        else:
+            ye = _expert_ffn(xe, params, e, x.dtype)
+        y_tok.index_copy_(0, rows, ye)
     moe_apply.calls += 1
     moe_apply.entries += T * k
     moe_apply.routed += sum(1 for n in counts if n)

@@ -25,13 +25,23 @@ An MLA layer (``cfg.mla``, DeepSeek-V2) has in place of ``wq``/``wk``/
 ``wv``/``wo`` the JAX schema's ``wq`` [d, h*(dn+dr)], the down projection
 ``wdkv`` [d, c+dr] (LoRA key ``wdkv``), the up projections ``wuk`` [c, h,
 dn] and ``wuv`` [c, h, dv] (no LoRA; fan-in ``shape[-2] = h``, as the JAX
-schema draws them) and ``wo`` [h*dv, d].  The port covers attention
-decoders (GQA or MLA) with dense or MoE FFNs; Mamba, cross-attention,
-encoders and sliding windows raise here.
+schema draws them) and ``wo`` [h*dv, d].
+
+A Mamba2 layer (``cfg.layer_kind(li % P) == "mamba"``) has the JAX schema's
+head-aligned component projections: ``in_z`` / ``in_x`` [d, di] and
+``out_proj`` [di, d] (LoRA targets), ``in_bc`` [d, 2*g*ds] and ``in_dt``
+[d, nh], the depthwise conv weights ``conv_x`` [K, di] / ``conv_bc`` [K,
+2*g*ds] and biases ``conv_bx`` / ``conv_bbc``, ``a_log`` and ``dt_bias``
+[nh] (their own deterministic initialisers), ``d_skip`` [nh] and the gated
+norm ``mnorm`` [di].  A layer of a model with ``d_ff = 0`` and no MoE there
+(``mamba2-1.3b``) has no FFN and no ``ln2``.  The port covers GQA, MLA and
+Mamba2 mixers with dense or MoE FFNs; cross-attention, encoders and sliding
+windows raise here.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -46,7 +56,8 @@ SHARED = {"shared_wg": "shared/wg", "shared_wu": "shared/wu",
 
 @dataclasses.dataclass(frozen=True)
 class Leaf:
-    """One per-layer leaf: ``init`` normal | ones | zeros; ``scale`` caps
+    """One per-layer leaf: ``init`` normal | ones | zeros | a_log |
+    dt_bias; ``scale`` caps
     the normal's std (min(scale, fan_in^-1/2), as the JAX schema draws);
     ``lora``: an eligible LoRA target, by the key name ``name``."""
     shape: Tuple[int, ...]
@@ -56,16 +67,18 @@ class Leaf:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Attention decoders (GQA or MLA) with dense or MoE FFNs: any block
-    pattern of ``"attn"`` positions."""
-    if (any(k != "attn" for k in cfg.pattern)
-            or cfg.ssm is not None or cfg.encoder is not None
-            or cfg.cross_attn_every or cfg.sliding_window
-            or any(not cfg.has_ffn(p) for p in range(len(cfg.pattern)))):
+    """GQA or MLA attention and Mamba2 mixers with dense or MoE FFNs (or
+    none): any block pattern of ``"attn"`` and ``"mamba"`` positions, the
+    latter with ``cfg.ssm``."""
+    kinds = set(cfg.pattern)
+    if (not kinds <= {"attn", "mamba"}
+            or ("mamba" in kinds and cfg.ssm is None)
+            or cfg.encoder is not None
+            or cfg.cross_attn_every or cfg.sliding_window):
         raise NotImplementedError(
-            f"{cfg.name}: the port covers attention decoders (GQA or MLA) "
-            "with dense or MoE FFNs; Mamba, cross-attention, encoders and "
-            "sliding windows are not ported")
+            f"{cfg.name}: the port covers GQA, MLA and Mamba2 mixers with "
+            "dense or MoE FFNs; cross-attention, encoders and sliding "
+            "windows are not ported")
 
 
 def is_moe(cfg: ModelConfig, li: int) -> bool:
@@ -73,12 +86,33 @@ def is_moe(cfg: ModelConfig, li: int) -> bool:
     return cfg.is_moe_layer(li % len(cfg.pattern))
 
 
+def _mamba_leaves(cfg: ModelConfig) -> Dict[str, Leaf]:
+    """The Mamba2 mixer's leaves (the JAX ``_mamba_block``), after
+    ``ln1``."""
+    d, s = cfg.d_model, cfg.ssm
+    di, nh = cfg.d_inner, cfg.n_ssm_heads
+    gds = s.n_groups * s.d_state
+    return dict(in_z=Leaf((d, di), lora="in_z"),
+                in_x=Leaf((d, di), lora="in_x"),
+                in_bc=Leaf((d, 2 * gds)), in_dt=Leaf((d, nh)),
+                conv_x=Leaf((s.conv_width, di)),
+                conv_bx=Leaf((di,), "zeros"),
+                conv_bc=Leaf((s.conv_width, 2 * gds)),
+                conv_bbc=Leaf((2 * gds,), "zeros"),
+                a_log=Leaf((nh,), "a_log"), d_skip=Leaf((nh,), "ones"),
+                dt_bias=Leaf((nh,), "dt_bias"), mnorm=Leaf((di,), "ones"),
+                out_proj=Leaf((di, d), lora="out_proj"))
+
+
 def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
-    """Layer ``li``'s leaves, in the JAX schema's order."""
+    """Layer ``li``'s leaves, in the JAX schema's order: the mixer of its
+    kind (``cfg.layer_kind(li % P)``), then its FFN if it has one."""
     check_supported(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out = {"ln1": Leaf((d,), "ones")}
-    if cfg.mla is not None:
+    if cfg.layer_kind(li % len(cfg.pattern)) == "mamba":
+        out.update(_mamba_leaves(cfg))
+    elif cfg.mla is not None:
         m = cfg.mla
         out.update(
             wq=Leaf((d, h * (m.qk_nope_dim + m.qk_rope_dim)), lora="wq"),
@@ -91,13 +125,14 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
                    wk=Leaf((d, kv * hd), lora="wk"),
                    wv=Leaf((d, kv * hd), lora="wv"),
                    wo=Leaf((h * hd, d), lora="wo"))
-    if cfg.qkv_bias and cfg.mla is None:
-        out.update(bq=Leaf((h * hd,), "zeros"), bk=Leaf((kv * hd,), "zeros"),
-                   bv=Leaf((kv * hd,), "zeros"))
-    out["ln2"] = Leaf((d,), "ones")
+        if cfg.qkv_bias:
+            out.update(bq=Leaf((h * hd,), "zeros"),
+                       bk=Leaf((kv * hd,), "zeros"),
+                       bv=Leaf((kv * hd,), "zeros"))
     if is_moe(cfg, li):
         e = cfg.moe
         E, f = e.num_experts, e.d_ff_expert
+        out["ln2"] = Leaf((d,), "ones")
         out.update(router=Leaf((d, E), scale=0.006),
                    w_gate=Leaf((E, d, f)), w_up=Leaf((E, d, f)),
                    w_down=Leaf((E, f, d)))
@@ -106,8 +141,9 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
             out.update(shared_wg=Leaf((d, fs), lora="wg"),
                        shared_wu=Leaf((d, fs), lora="wu"),
                        shared_wd=Leaf((fs, d), lora="wd"))
-    else:
+    elif cfg.d_ff > 0:
         f = cfg.d_ff
+        out["ln2"] = Leaf((d,), "ones")
         out.update(wg=Leaf((d, f), lora="wg"), wu=Leaf((d, f), lora="wu"),
                    wd=Leaf((f, d), lora="wd"))
     return out
@@ -138,6 +174,18 @@ def init_leaf(leaf: Leaf, gen: torch.Generator, device, dtype
         return torch.ones(leaf.shape, device=device, dtype=dtype)
     if leaf.init == "zeros":
         return torch.zeros(leaf.shape, device=device, dtype=dtype)
+    if leaf.init == "a_log":
+        # A = -exp(a_log) spans [-16, -1] over the heads
+        nh = leaf.shape[-1]
+        base = torch.log(torch.linspace(1.0, 16.0, nh, device=device))
+        return base.expand(leaf.shape).to(dtype).contiguous()
+    if leaf.init == "dt_bias":
+        # inverse softplus of dt spread log-uniformly over [1e-3, 0.1]
+        nh = leaf.shape[-1]
+        dt = torch.exp(torch.linspace(math.log(1e-3), math.log(0.1), nh,
+                                      device=device))
+        base = torch.log(torch.expm1(dt))
+        return base.expand(leaf.shape).to(dtype).contiguous()
     shape = leaf.shape
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = min(leaf.scale, fan_in ** -0.5)

@@ -15,7 +15,12 @@ acceptance, rollback through ``PagedCacheManager.truncate``).  With
 ``EngineConfig(paged=False)`` (or a sliding-window model) it serves on dense
 rows (``CacheManager``) as the JAX engine does: a slot per request, every
 prompt prefilled whole, no table growth, no dedup, no suffix or chunked
-prefill and no speculation.  Tensors live on the model's device; the model
+prefill and no speculation.  A model with a Mamba layer in its pattern
+keeps the paged pool and dedup (adopted blocks are shared storage) but,
+as in the JAX engine, recomputes every prompt whole through
+``write_table_of`` (its state must see every prompt token), takes no
+chunked prefill, no host-tier swap-out (recompute-only preemption;
+demotion of index blocks stays on) and no speculation.  Tensors live on the model's device; the model
 writes the cache in place, so ``cachemgr.update`` swaps nothing.
 
 Like the JAX step, a tick with ft rows runs its backward before its decode
@@ -138,16 +143,22 @@ class UnifiedEngine:
         self.clock = VirtualClock(e.cost) if e.virtual_time else WallClock()
         self.metrics = Metrics()
         # paged rows prefill suffix-only: shared-prefix K/V is read through
-        # the block tables instead of recomputed (attention-only decoder),
-        # and long prompts may prefill in chunks; dense rows recompute every
-        # prompt whole
+        # the block tables instead of recomputed, and long prompts may
+        # prefill in chunks.  Both need a positional cache: a Mamba layer's
+        # state cannot resume mid-prompt from blocks, so a pattern with one
+        # recomputes every prompt whole, as dense rows do
+        self.suffix_prefill = self.paged and "mamba" not in self.cfg.pattern
         self.chunk_budget = (e.prefill_chunk
-                             if e.prefill_chunk > 0 and self.paged else 0)
+                             if e.prefill_chunk > 0 and self.suffix_prefill
+                             else 0)
         self.prefilling: Dict[int, Request] = {}  # slot -> partial prefill
         self.hash_dedup = self.paged and e.hash_dedup
-        # host tier: swap-outs pay off through suffix prefill, which every
-        # paged row of the attention-only decoder takes
-        self.kv_tiering = self.paged and e.kv_host_blocks > 0
+        # host tier: swap-outs pay off only through suffix prefill, so a
+        # model that recomputes whole prompts keeps recompute-only
+        # preemption; demotion of index blocks rides the adoption path and
+        # stays on
+        self.kv_tiering = (self.paged and e.kv_host_blocks > 0
+                           and self.suffix_prefill)
         self._kv_seen = (0, 0)                 # (d2h, h2d) bytes charged
         self.swap_decisions: List[dict] = []   # every swap-vs-recompute
         self.forward_step = make_forward_step(self.cfg,
@@ -165,9 +176,10 @@ class UnifiedEngine:
         self.trainers: Dict[str, MixedLoraTrainer] = {}
         self._last_tokens = np.zeros((e.capacity,), np.int64)
         # speculative decoding: rollback-able K/V (paged blocks) and a
-        # positional cache, which the attention-only decoder has
+        # positional cache; Mamba state cannot un-consume drafts
         self.spec = e.spec if (e.spec is not None and e.spec.enabled
-                               and self.paged) else None
+                               and self.paged
+                               and "mamba" not in self.cfg.pattern) else None
         self._spec: Dict[int, Tuple[Drafter, AdaptiveK]] = {}
 
     @property
@@ -280,7 +292,9 @@ class UnifiedEngine:
                     shareable=r.aux_embed is None),
                 spec_headroom=self.spec_headroom,
                 pf_rows_used=len(pf_reqs), pf_token_budget=budget_left,
-                suffix_fn=lambda r: r.prompt_len - self._resident_tokens(r),
+                suffix_fn=((lambda r: r.prompt_len
+                            - self._resident_tokens(r))
+                           if self.suffix_prefill else None),
                 chunked=bool(self.chunk_budget),
                 # the lent fraction makes fine-tuning yield before
                 # inference is preempted
@@ -620,11 +634,17 @@ class UnifiedEngine:
                                  suffix=r.draft_suffix),
                     AdaptiveK(self.spec))
             self.waiting.remove(r)
-            if not self.paged:
-                # dense rows: full-prompt recompute into the bucket's rows
+            if not self.suffix_prefill:
+                # full-prompt recompute (dense rows, or a Mamba pattern
+                # whose state must see every prompt token): a paged row
+                # writes through write_table_of, so adopted prefix entries
+                # are nulled and prefill never rewrites a block it does not
+                # own
                 r.prefilled = 0
-                pf_reqs.append(flow.PFReq(tokens=r.prompt, rid=r.rid,
-                                          slot=aslot))
+                pf_reqs.append(flow.PFReq(
+                    tokens=r.prompt, rid=r.rid, slot=aslot,
+                    block_table=(cm.write_table_of(slot) if self.paged
+                                 else None)))
                 chunks.append((r, r.prompt_len, True))
                 continue
             # suffix-only prefill: the shared prefix is read through the

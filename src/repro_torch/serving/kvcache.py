@@ -32,13 +32,17 @@ The device side is in place: the model writes K/V straight into the pool,
 ``update`` has nothing to swap in, and a copy-on-write fork copies one block
 of the pool tensors.
 
-The cache is a dict of named leaves (``models.model.cache_leaves``: ``k``
-and ``v`` [.., g, hd], or MLA's latent ``ckv`` [.., c] and rope key ``kpe``
-[.., dr]), all block-addressed; every place that touches a block (commit,
-copy, host layout, byte footprints) walks them in the JAX cache's key
-order.  Per-request state leaves that are not blocks (the JAX package's
-``STATE_KEYS``: Mamba state, cross-attention K/V) would be skipped there,
-as the JAX manager skips them; none is ported yet.
+The cache is a dict of named leaves (``models.model.cache_leaves``): the
+block-addressed ``k`` and ``v`` [.., g, hd], or MLA's latent ``ckv`` [..,
+c] and rope key ``kpe`` [.., dr], and a Mamba model's per-request state
+rows ``h`` / ``conv_x`` / ``conv_bc`` (``STATE_KEYS``, ``capacity +
+pf_capacity`` rows each).  Every place that touches a block (copy, host
+layout, byte footprints) walks the block leaves (``block_leaves``) in the
+JAX cache's key order and skips the state rows, as the JAX manager does;
+``commit_prefill`` copies the state rows from the prefill bucket's rows
+into the decode slots.  A model with no block leaf (``mamba2-1.3b``) still
+keeps the block accounting, and its footprint is ``max(0, 1) = 1`` byte a
+block, as in the JAX package.
 
 Over-admission (``over_admit > 1``): the gate charges only a ``1 /
 over_admit`` slice of the outstanding reservation debt (``charged_debt``,
@@ -80,7 +84,8 @@ import torch
 
 from repro_torch.errors import ConfigInvariantError, InvariantError
 from repro_torch.models.configs import ModelConfig
-from repro_torch.models.model import init_cache, init_paged_cache
+from repro_torch.models.model import STATE_KEYS, init_cache, \
+    init_paged_cache
 from repro_torch.models.quant import dequant_leaf, quantize_leaf
 from repro_torch.serving.clock import CostModel
 from repro_torch.serving.request import priority_rank
@@ -452,7 +457,7 @@ class PagedCacheManager:
             n_blocks = 1 + capacity * self.nbt
         self.allocator = BlockAllocator(n_blocks)
         self.cache = init_paged_cache(cfg, n_blocks, block_size, device,
-                                      dtype)
+                                      dtype, n_rows=capacity + pf_capacity)
         self.device = next(iter(self.cache.values())).device
         self._free_slots: Deque[int] = deque(range(capacity))
         self.lens = np.zeros((capacity,), np.int64)
@@ -477,9 +482,10 @@ class PagedCacheManager:
         # for both block classes (raw bytes of a block over every leaf and
         # layer), and the int8 host footprint is a 1-byte payload plus an
         # f32 scale per quantize_leaf group (axis -2: the g KV heads of
-        # k/v, the block's positions of ckv/kpe), the JAX formula
+        # k/v, the block's positions of ckv/kpe), the JAX formula; state
+        # rows are not blocks
         bb = qb = 0
-        for pool in self.cache.values():
+        for pool in self.block_leaves.values():
             e = pool.numel() // pool.shape[1]         # elements per block
             bb += e * pool.element_size()
             qb += e + (e // pool.shape[-2]) * 4
@@ -532,6 +538,12 @@ class PagedCacheManager:
         # blocks are freed, and asked which pool copies are redundant
         self.on_adapter_shed: Optional[Callable[[str], None]] = None
         self.adapter_redundant_fn: Optional[Callable[[str], bool]] = None
+
+    @property
+    def block_leaves(self) -> Dict[str, torch.Tensor]:
+        """The block-addressed cache leaves ``[L_kind, n_blocks, bs,
+        ...]``, in order (the state rows left out)."""
+        return {k: v for k, v in self.cache.items() if k not in STATE_KEYS}
 
     # -- budget --------------------------------------------------------------
     @property
@@ -1058,7 +1070,7 @@ class PagedCacheManager:
         leaf in order, raw (``[L, bs, g, hd]`` of k) or int8 payload and
         f32 scales (``[L, bs, 1, hd]``) with ``host_quant``."""
         out, off = [], 0
-        for name, pool in self.cache.items():
+        for name, pool in self.block_leaves.items():
             shape = (pool.shape[0],) + tuple(pool.shape[2:])
             parts = ([(torch.int8, shape),
                       (torch.float32, shape[:-2] + (1, shape[-1]))]
@@ -1073,7 +1085,8 @@ class PagedCacheManager:
         """Stored blocks' leaves as views ``[L, n, ...]`` of their units
         ``rows`` ``[n, host_block_bytes]`` uint8 (on any device)."""
         n = rows.shape[0]
-        out: Dict[str, List[torch.Tensor]] = {k: [] for k in self.cache}
+        out: Dict[str, List[torch.Tensor]] = {k: [] for k in
+                                              self.block_leaves}
         for name, dt, shp, off, nb in self._layout():
             out[name].append(rows[:, off:off + nb].view(dt)
                              .view((n,) + shp).transpose(0, 1))
@@ -1115,7 +1128,7 @@ class PagedCacheManager:
         host pool, which leaves at least ``len(bids)`` units free."""
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
         parts = []
-        for pool in self.cache.values():
+        for pool in self.block_leaves.values():
             blk = pool.index_select(1, idx)                # [L, n, ...]
             if self.host_quant:
                 q = quantize_leaf(blk)
@@ -1126,7 +1139,11 @@ class PagedCacheManager:
             parts += [x.transpose(0, 1).reshape(len(bids), -1)
                       .view(torch.uint8) for x in leaves]
         units = [self._free_units.popleft() for _ in bids]
-        self._to_arena(torch.cat(parts, dim=1), units)
+        # a model with no block leaf (mamba2) stores its 1-byte footprint
+        rows = (torch.cat(parts, dim=1) if parts else torch.zeros(
+            (len(bids), self.host_block_bytes), dtype=torch.uint8,
+            device=self.device))
+        self._to_arena(rows, units)
         return units
 
     def _decode_payload(self, rows: torch.Tensor) -> Dict:
@@ -1150,7 +1167,7 @@ class PagedCacheManager:
     def _blocks_write(self, bids: Sequence[int], payload: Dict):
         """In place: pool blocks ``bids`` get ``payload``'s blocks."""
         idx = torch.tensor(list(bids), dtype=torch.long, device=self.device)
-        for name, pool in self.cache.items():
+        for name, pool in self.block_leaves.items():
             pool.index_copy_(1, idx, payload[name])
 
     def swap_payload_blocks(self, slot: int) -> int:
@@ -1364,13 +1381,12 @@ class PagedCacheManager:
         """In place: block ``dst_bid`` of every layer's pool gets block
         ``src_bid`` of ``src``'s, a copy on the card (the JAX package
         returns a new cache instead).  Both pools must have one shape, dtype
-        and device: a block never moves through the host here.  (Once SSM
-        state leaves exist they are per-request rows, not blocks, and the
-        copy must skip them as the JAX package skips ``STATE_KEYS``.)"""
+        and device: a block never moves through the host here.  The state
+        rows are per-request, not blocks, and never cross pools."""
         if self.cache.keys() != src.cache.keys():
             raise ValueError(f"cross-pool copy between unlike caches: "
                              f"{list(src.cache)} -> {list(self.cache)}")
-        for name, dst in self.cache.items():
+        for name, dst in self.block_leaves.items():
             got = src.cache[name]
             if (dst.shape[0] != got.shape[0] or dst.shape[2:] != got.shape[2:]
                     or dst.dtype != got.dtype or dst.device != got.device):
@@ -1383,8 +1399,9 @@ class PagedCacheManager:
     # -- copy-on-write -------------------------------------------------------
     def _copy_block(self, src: int, dst: int):
         """In place: block ``dst`` of every layer's pool gets ``src``'s
-        payload (the JAX package returns a new cache instead)."""
-        for pool in self.cache.values():
+        payload (the JAX package returns a new cache instead); the state
+        rows stay as they are."""
+        for pool in self.block_leaves.values():
             pool[:, dst] = pool[:, src]
 
     def ensure_writable(self, slot: int, pos: Optional[int] = None) -> int:
@@ -1456,9 +1473,22 @@ class PagedCacheManager:
     def commit_prefill(self, assignments: List[Tuple[int, int]],
                        lengths: List[int], src_base: Optional[int] = None):
         """Prefill K/V went straight into the request's blocks: commit is
-        the length assignment plus the publication point for the prompt
-        blocks the chunk filled.  ``src_base`` names the state rows of
-        models that have them; the attention-only decoder has none."""
+        the per-request state row copy (a Mamba model's ``STATE_KEYS``:
+        prefill row ``i`` at ``src_base + i``, ``src_base`` defaulting to
+        ``capacity``, into its decode slot; every source is gathered before
+        any destination is written), the length assignment and the
+        publication point for the prompt blocks the chunk filled."""
+        if not assignments:
+            return
+        state = [v for k, v in self.cache.items() if k in STATE_KEYS]
+        if state:
+            base = self.capacity if src_base is None else src_base
+            src = torch.tensor([base + i for i, _ in assignments],
+                               device=self.device)
+            dst = torch.tensor([s for _, s in assignments],
+                               device=self.device)
+            for rows in state:
+                rows[:, dst] = rows[:, src]       # the gather copies first
         for (_, slot), ln in zip(assignments, lengths):
             self.lens[slot] = ln
             self._publish_upto(slot)

@@ -60,16 +60,19 @@ CPU = torch.device("cpu")
 
 
 def test_registry_matches_jax():
-    """The seven port ids (``deepseek-v2-236b``'s MLA is held to JAX in
-    ``test_torch_mla.py``), full and reduced, equal the JAX configs; the
-    families the port lacks are not registered."""
-    assert set(ARCH_IDS) == set(NEW) | {"llama3-8b", "deepseek-v2-236b"}
+    """The nine port ids (``deepseek-v2-236b``'s MLA is held to JAX in
+    ``test_torch_mla.py``, the Mamba2 family in ``test_torch_mamba.py``),
+    full and reduced, equal the JAX configs; the families the port lacks
+    are not registered."""
+    assert set(ARCH_IDS) == set(NEW) | {"llama3-8b", "deepseek-v2-236b",
+                                        "mamba2-1.3b",
+                                        "jamba-1.5-large-398b"}
     for arch in ARCH_IDS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
     with pytest.raises(KeyError):
-        get_config("mamba2-1.3b")
+        get_config("llama-3.2-vision-90b")
 
 
 _SETUPS = {}

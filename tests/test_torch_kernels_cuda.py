@@ -642,3 +642,95 @@ def test_cuda_smlm_function_backward_matches_plain_autograd(dtype):
     _close(y.detach(), y_ref.detach(), dtype)
     for got, want in zip(leaves, plain):
         _close(got.grad, want.grad, dtype)
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_cuda_mamba_layers_match_cpu(arch):
+    """Reduced ``arch`` in fp32 with two adapters on the card (SMLM, BGMV,
+    and jamba's flash and paged decode kernels; the Mamba mixer in plain
+    PyTorch) against the same forward on the CPU: a cold paged prefill of
+    two ragged rows, then two decode steps beside an inactive row; logits
+    and every cache leaf (state rows and K/V blocks), then the ft grad
+    step's loss and bank gradients."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.unified import make_grad_step
+    from repro_torch.core.virtualization import AdapterStore
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import init_params
+    from repro_torch.models.stream import (DECBatch, FTBatch, PFBatch,
+                                           UnifiedBatch)
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, device="cpu", dtype=torch.float32, seed=0)
+    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8), device=cpu,
+                         dtype=torch.float32)
+    for i in range(2):
+        gen = torch.Generator().manual_seed(100 + i)
+        store.load_random(f"a{i}", gen, gaussian_b=True)
+    rng = np.random.default_rng(4)
+    toks = t(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
+    tables = t(np.array([[1, 2, 0], [3, 4, 5]], np.int32))
+    dtables = t(np.array([[1, 2, 0], [3, 4, 5], [0, 0, 0]], np.int32))
+    ids = t(np.array([0, 1], np.int32))
+    runs = {}
+    for d in (dev, cpu):
+        p, bank, scale = (_tree_to(v, d) for v in (params, store.bank,
+                                                   store.scale))
+        cache = TM.init_paged_cache(cfg, 6, 8, d, torch.float32, n_rows=3)
+        kw = dict(loras=bank, lora_scale=scale, block_t=8)
+        n0 = (smlm.launches, bgmv.launches)
+        with torch.no_grad():
+            pf = PFBatch(tokens=toks.to(d), length=t(np.array(
+                [12, 16], np.int32)).to(d), adapter=ids.to(d),
+                block_tables=tables.to(d))
+            out = TM.unified_forward(cfg, p, UnifiedBatch(pf=pf), cache,
+                                     **kw)
+            logits = [out.pf_logits.cpu()]
+            nxt = out.pf_logits.argmax(-1).to(torch.int32)
+            for step in range(2):
+                dec = DECBatch(
+                    tokens=torch.cat([nxt, nxt.new_zeros(1)]),
+                    pos=t(np.array([12 + step, 16 + step, 0],
+                                   np.int32)).to(d),
+                    adapter=t(np.array([0, 1, -1], np.int32)).to(d),
+                    block_tables=dtables.to(d))
+                out = TM.unified_forward(cfg, p, UnifiedBatch(dec=dec),
+                                         cache, **kw)
+                logits.append(out.dec_logits.cpu())
+                nxt = out.dec_logits[:2].argmax(-1).to(torch.int32)
+        mask = torch.ones((2, 16), dtype=torch.bool)
+        ft = FTBatch(tokens=toks.to(d), mask=mask.to(d),
+                     labels=toks.to(d), adapter=ids.to(d),
+                     weight=torch.ones(2, device=d))
+        res = make_grad_step(cfg, block_t=8)(p, bank, scale,
+                                             UnifiedBatch(ft=ft), None)
+        runs[d.type] = (logits, {k: v.cpu() for k, v in cache.items()},
+                        res.loss.cpu(), _tree_to(res.grads, cpu))
+        if d.type == "cuda":
+            assert smlm.launches > n0[0] and bgmv.launches > n0[1]
+    (gl, gc, gloss, gg), (cl, cc, closs, cg) = runs["cuda"], runs["cpu"]
+    for a, b in zip(gl, cl):
+        _close(a, b, torch.float32)
+    assert list(gc) == list(cc) == list(TM.cache_leaves(cfg))
+    for name in gc:
+        lo = 0 if name in TM.STATE_KEYS else 1      # block 0: the null block
+        _close(gc[name][:, lo:], cc[name][:, lo:], torch.float32)
+    assert abs(float(gloss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for lg, lc in zip(gg["layers"], cg["layers"]):
+        for name in lg:
+            for ab in ("a", "b"):
+                g, w = lg[name][ab], lc[name][ab]
+                assert float((g - w).abs().max()) \
+                    <= 1e-4 * max(float(w.abs().max()), 1e-12)

@@ -114,6 +114,15 @@ def test_eligibility_matches_jax_at_full_and_reduced_width(arch):
         full = _port_eligible(get_config(arch))
         assert {"blocks/0/wuk", "blocks/0/wuv", "blocks/0/wdkv"} <= full
         assert "blocks/0/wuk" not in _port_eligible(get_reduced(arch))
+    if get_config(arch).ssm is not None:
+        # Mamba's in_dt [P, d, nh] is eligible at nh >= 64 (64 heads for
+        # mamba2, 256 for jamba), in_bc [P, d, 256] too; the depthwise conv
+        # weights [P, 4, C] never are
+        full = _port_eligible(get_config(arch))
+        assert {"blocks/0/in_dt", "blocks/0/in_bc", "blocks/0/in_z",
+                "blocks/0/in_x", "blocks/0/out_proj"} <= full
+        assert not any("/conv_" in k for k in full)
+        assert "blocks/0/in_dt" not in _port_eligible(get_reduced(arch))
 
 
 # ------------------------------------------------ twins of test_quant.py
