@@ -37,8 +37,8 @@ the plain run (the lines phases 5 and 7 print), for the port in ``TREE``.
 The seventh runs only the memory features: phase 3's lending, paging and
 chunked-training parity, then phases 9 and 10.  The eighth runs only the
 fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
-configs: the ``mla:`` and ``ssd:`` lines, phase 3's arch, MLA and Mamba
-parity, then phase 12.
+configs: the ``mla:``, ``ssd:`` and ``xattn:`` lines, phase 3's arch, MLA,
+Mamba and cross-attention parity, then phase 12.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -92,6 +92,20 @@ printing its lines; any failure raises and exits non-zero:
              prefill of B=4 x 144 tokens (two SSD chunks of 128), timed
              in a CUDA graph and eagerly beside its bound: a record, as
              the JAX package computes the mixer in jnp, outside Pallas.
+             Phase 2's arch shapes include the cross configs': paged
+             decode, verify and split-K at m = 8 (llama-3.2-vision-90b,
+             h 64 g 8 hd 128), every attention kernel at hd 64 and m = 1
+             (whisper-base, h = g = 8), SMLM and BGMV at 8192->8192,
+             8192->1024, 8192->28672, 28672->8192, 512->512, 512->2048
+             and 2048->512.  Then the ``xattn:`` lines (``xattn_record``):
+             the plain cross-attention sublayer at the VLM's width in bf16
+             at decode (B=8, each over F=1600 cached ``xk``/``xv`` rows)
+             and at a prefill of B=4 x 144 tokens that projects its 1600
+             fp32 sources through ``xwk``/``xwv``, and whisper-base's
+             encoder over 4 x 1500 frames, timed in a CUDA graph and
+             eagerly beside the bound (and for the sublayer SDPA on its
+             attention alone): a record, as the JAX package computes both
+             in jnp, outside Pallas.
 3. parity  — reduced llama3-8b in fp32 (TF32 off), the same numpy-seeded
              weights and trace through the engine on ``cuda`` (kernels) and
              on ``cpu`` (plain versions): greedy tokens equal, first-step
@@ -139,6 +153,13 @@ printing its lines; any failure raises and exits non-zero:
              ``import_block`` (K/V equal, state rows untouched): tokens
              equal on both devices; mamba2 launches no attention kernel,
              jamba flash and paged decode but no paged prefill or verify.
+             Then cross-attention (``parity_cross``): reduced
+             llama-3.2-vision-90b and whisper-base with ``xgate`` open
+             (``XGATE``), adapters over ``xwq``/``xwo`` too and a seeded
+             source per request, with dedup (0 hash hits), speculation,
+             chunked prefill, lending with a raw host tier (swap-out and
+             restore) and 2 replicas (0 blocks fetched): tokens equal on
+             both devices and to the plain run's.
 4. full    — full-width llama3-8b in bf16 (32 layers, d_model 4096, vocab
              128256, random weights), 2 gaussian-B adapters, two waves of 4
              requests (wave 2 reuses wave 1's 128-token heads, so its
@@ -237,27 +258,37 @@ printing its lines; any failure raises and exits non-zero:
              MoE) and int8 (4), deepseek-v2-236b (MLA + MoE) bf16 (4 of
              60 layers) and int8 (8), mamba2-1.3b bf16 (all 48 layers)
              and jamba-1.5-large-398b int8 (8 of 72 layers: one period,
-             attention at position 4, MoE at 1, 3, 5 and 7), each serving
+             attention at position 4, MoE at 1, 3, 5 and 7),
+             llama-3.2-vision-90b bf16 (10 of 100 layers: 2 cross layers)
+             and int8 (20), whisper-base bf16 (6 + 6 layers; the cross
+             arms with a seeded source per request and ``xgate``
+             ``XGATE``), each serving
              phase 4's two waves with two gaussian-B adapters: ``archs:``
              lines with prefill and decode tick latency (enqueue / device
              wait), resident weight bytes, ``max_memory_allocated``,
              tokens/s and, for MoE, the experts routed per tick and the
              entries dropped; for MLA the latent pool's bytes a token and
-             layer; for Mamba the state bytes a request row.  Gates:
+             layer; for Mamba the state bytes a request row; for
+             cross-attention the ``xk``/``xv`` bytes a request row and
+             the sources' host-to-card copy inside the prefill ticks.
+             Gates:
              every request finishes, logits finite, the pool pristine;
              SMLM, BGMV, flash, paged prefill and paged decode (either
              form) launched; for MLA and mamba2 SMLM and BGMV launched and
              every GQA attention kernel at 0, for jamba paged prefill and
-             verify at 0 (``check_routes``); each bf16 MoE arm and each
-             Mamba arm also takes one fused train step on ft rows (loss
-             finite, aux loss > 0 for MoE, only lora0's slot changed,
-             ``smlm_wgrad`` launched).
+             verify at 0 (``check_routes``), for a cross arm SMLM, BGMV,
+             flash and paged decode launched and paged prefill and verify
+             at 0 (no aux request shares a prefix); each bf16 MoE, Mamba
+             and cross arm also takes one fused train step on ft rows
+             (loss finite, aux loss > 0 for MoE, only lora0's slot
+             changed, for cross rows with sources and lora0's ``xwq``
+             changed, ``smlm_wgrad`` launched).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-12 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, archs, archs_mla and archs_mamba, the MLA and
-Mamba arms with their grad steps; ``shapes`` its other timed rows), the
+train, tiers, paging, fleet, archs, archs_mla, archs_mamba and archs_cross,
+the MLA, Mamba and cross arms with their grad steps; ``shapes`` its other timed rows), the
 card's name and power
 limit, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1260,7 +1291,11 @@ ARCH_LORA = ((5120, 17920), (8192, 22528), (4096, 11008),
              # deepseek-v2-236b: wq, wdkv (576 columns: 4.5 x 128), wo
              # (the widest d_in), the shared expert's up and down
              (5120, 24576), (5120, 576), (16384, 5120), (5120, 3072),
-             (3072, 5120))
+             (3072, 5120),
+             # llama-3.2-vision-90b: wq / wo / xwq / xwo, wk / wv, wg / wu,
+             # wd; whisper-base: wq, wg / wu, wd
+             (8192, 8192), (8192, 1024), (8192, 28672), (28672, 8192),
+             (512, 512), (512, 2048), (2048, 512))
 
 
 def attn_row(run, plain, lib, nbytes, flops, dtype, err, shape):
@@ -1394,6 +1429,83 @@ def check_arch_shapes(K, dtype, dev, gen, timing: bool):
                 int(4 * h * hd * vk.sum()), dtype, err,
                 f"B=5 Sq={Sq} cached 128 h={h} g={g} hd=128 bs=32 "
                 f"({Sq * m} columns)")
+    # the cross configs' attention: llama-3.2-vision-90b at m = 8 (h 64,
+    # g 8, hd 128) in decode and verify (flash and prefill at m = 8 are
+    # above), whisper-base at m = 1 and hd 64 (h = g = 8) in every kernel
+    dneed = [0] + [int(p) // bs + 1 for p in pos[1:]]
+    for m, h, g, hdx, tag in ((8, 64, 8, 128, "m=8"),
+                              (1, 8, 8, 64, "hd=64 m=1")):
+        kp, vp, tables = paged_case(dev, gen, dtype, 8, nbt, dneed, g=g,
+                                    hd=hdx)
+        q = torch.randn(8, h, hdx, generator=gen, device=dev).to(dtype)
+        args = (q, kp, vp, tables, pos)
+        err = compare(K["decode"](*args), ref.paged_decode_ref(*args), dtype)
+        work = ((2 * q.numel() + 2 * keys * g * hdx) * it,
+                4 * h * hdx * keys)
+        if timing:
+            rows[f"paged_decode {tag}"] = attn_row(
+                lambda: K["decode"](*args),
+                lambda: ref.paged_decode_ref(*args),
+                sdpa_yardstick(q[:, None], kp, vp, tables,
+                               q_pos=pos[:, None].long(),
+                               kend=pos.long() + 1),
+                *work, dtype, err, f"B=8 h={h} g={g} hd={hdx} bs=32 pos up "
+                f"to 511 ({'llama-3.2-vision-90b' if m == 8 else 'whisper-base'})")
+        cargs = chunk_case(dev, gen, dtype, vpos, vlens, 5, nbt, h=h, g=g,
+                           hd=hdx)
+        plain = ref.paged_verify_ref(*cargs)
+        e1 = compare(K["verify"](*cargs), plain, dtype)
+        e2 = compare(K["verify_splitk"](*cargs, num_splits=4), plain, dtype)
+        checked.append(f"{tag}: decode {err:.3e} verify {e1:.3e} split-K(4)"
+                       f" {e2:.3e}")
+        if m != 1:
+            continue
+        kd, vd = (torch.randn(8, 512, g, hdx, generator=gen, device=dev
+                              ).to(dtype) for _ in range(2))
+        dargs = (q, kd, vd, pos)
+        derr = compare(K["dense_decode"](*dargs),
+                       ref.decode_attention_ref(*dargs), dtype)
+        c = FLASH_SERVE
+        fq, fk, fv = flash_case(dev, gen, dtype, c["B"], c["S"], c["S"],
+                                h=h, g=g, hd=hdx)
+        ln = torch.full((c["B"],), c["length"], device=dev,
+                        dtype=torch.int32)
+        exact = ref.flash_attention_ref(fq.float(), fk.float(), fv.float(),
+                                        ln, True)
+        ferr = compare(K["flash"](fq, fk, fv, ln, True), exact, dtype)
+        Sq = 16
+        seg = torch.tensor([Sq, 12, 8, Sq, 0], device=dev, dtype=torch.int32)
+        pneed = [(int(cl) + Sq - 1) // bs + 1 for cl in cached]
+        pk, pv, ptab = paged_case(dev, gen, dtype, 5, nbt, pneed, g=g,
+                                  hd=hdx)
+        qp = torch.randn(5, Sq, h, hdx, generator=gen, device=dev).to(dtype)
+        pargs = (qp, pk, pv, ptab, cached, seg)
+        perr = compare(K["prefill"](*pargs), ref.paged_prefill_ref(*pargs),
+                       dtype)
+        checked.append(f"{tag}: dense_decode {derr:.3e} flash {ferr:.3e} "
+                       f"prefill Sq=16 {perr:.3e}")
+        if timing:
+            dmask = (torch.arange(512, device=dev)[None, :]
+                     <= pos.long()[:, None])[:, None, None, :]
+            dq = q[:, :, None].contiguous()
+            dk, dv = (x.transpose(1, 2).contiguous() for x in (kd, vd))
+            rows[f"dense_decode {tag}"] = attn_row(
+                lambda: K["dense_decode"](*dargs),
+                lambda: ref.decode_attention_ref(*dargs),
+                lambda: sdpa(dq, dk, dv, attn_mask=dmask), *work, dtype,
+                derr, f"B=8 S=512 h={h} g={g} hd={hdx} window=0 pos up to "
+                f"511 (whisper-base)")
+            j = torch.arange(c["S"], device=dev)
+            fmask = (j[None, :] <= j[:, None]) & (j[None, :] < c["length"])
+            qt, kt, vt = (x.transpose(1, 2).contiguous()
+                          for x in (fq, fk, fv))
+            rows[f"flash_attention {tag}"] = attn_row(
+                lambda: K["flash"](fq, fk, fv, ln, True),
+                lambda: ref.flash_attention_ref(fq, fk, fv, ln, True),
+                lambda: sdpa(qt, kt, vt, attn_mask=fmask, enable_gqa=True),
+                *flash_work(c["S"], ln.tolist(), h, g, hdx, it), dtype,
+                ferr, f"causal B=4 S=T=256 length=144 h={h} g={g} hd={hdx} "
+                f"(whisper-base)")
     # SMLM and BGMV at the new widths
     bt = K["block_t"]
     for d_in, d_out in ARCH_LORA:
@@ -1625,17 +1737,156 @@ def ssd_record(dev, gen):
     return rows
 
 
+# the cross sublayer at llama-3.2-vision-90b's width: phase 12's decode
+# bucket (B=8, each over its request's F=1600 cached rows) and a prefill
+# bucket of 4 x 144 tokens that projects its 1600 image tokens through
+# xwk / xwv; then whisper-base's encoder over 4 x 1500 frames
+XATTN_CASES = {"decode": dict(B=8, S=1), "prefill": dict(B=4, S=144)}
+ENCODER_CASE = dict(B=4)
+
+
+def xattn_record(dev, gen):
+    """The ``xattn:`` lines: the plain cross-attention sublayer of the port
+    (``model._cross_apply``: the norm, ``xwq``, at prefill the projection
+    of the bucket's fp32 sources through ``xwk`` / ``xwv`` and the row
+    write, non-causal ``layers.attention`` over the F keys, ``xwo`` and
+    the gate; no adapter) at ``XATTN_CASES`` in bf16, and whisper-base's
+    ``model.encoder_forward`` over ``ENCODER_CASE``: device time in a CUDA
+    graph (``time_ms``) and eager, beside the bound (weights, sources and
+    rows read once, outputs and rows written once; the products' and the
+    attention's operations) and, for the sublayer, one
+    ``scaled_dot_product_attention`` call on its attention alone (the
+    library call the port does not make).  A record, not a kernel: the JAX
+    package computes both in jnp, outside Pallas.  Outputs are held finite
+    and printed against the same function in fp32 on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import cross_len, encoder_shapes, \
+        init_leaf, layer_shapes
+    from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+    cfg = get_config("llama-3.2-vision-90b")
+    h, g, hd, d, nf = (cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model,
+                       cross_len(cfg))
+    dtype = torch.bfloat16
+    it = torch.empty((), dtype=dtype).element_size()
+    li = next(i for i in range(cfg.n_layers) if cfg.is_cross_layer(i))
+    n_cross = cfg.n_layers // cfg.cross_attn_every
+    p = {k: init_leaf(leaf, gen, dev, dtype)
+         for k, leaf in layer_shapes(cfg, li).items() if k.startswith("x")}
+    p["xgate"].fill_(XGATE)
+    p32 = {k: v.float() for k, v in p.items()}
+    w_bytes = sum(p[k].numel() for k in ("xwq", "xwk", "xwv", "xwo")) * it
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for label, case in XATTN_CASES.items():
+        B, S = case["B"], case["S"]
+        i32 = lambda *shape, v=0: torch.full(shape, v, device=dev,
+                                             dtype=torch.int32)
+        x = torch.randn(B * S, d, generator=gen, device=dev).to(dtype)
+        cache = {k: torch.randn(B, nf, g, hd, generator=gen, device=dev
+                                ).to(dtype) for k in ("xk", "xv")}
+        if S == 1:
+            batch = UnifiedBatch(dec=DECBatch(tokens=i32(B), pos=i32(B, v=200),
+                                              adapter=i32(B, v=-1)))
+        else:
+            src = torch.randn(B, nf, d, generator=gen, device=dev)
+            batch = UnifiedBatch(pf=PFBatch(
+                tokens=i32(B, S), length=i32(B, v=S), adapter=i32(B, v=-1),
+                aux_embed=src))
+        plan = TM._Plan(cfg, batch, None, 8)
+
+        def run(prm=p, xx=x, rw=cache):
+            return TM._cross_apply(cfg, prm, {}, plan, xx, rw)
+
+        with torch.no_grad():
+            out = run(rw={k: v.clone() for k, v in cache.items()})
+            exact = run(p32, x.float(), {k: v.float()
+                                         for k, v in cache.items()})
+            if not torch.isfinite(out).all():
+                raise AssertionError(f"xattn {label}: non-finite output")
+            err, ratio = float((out.float() - exact).abs().max()), \
+                worst_row(out, exact)
+            ms, eager_ms = time_ms(run), time_ms(run, eager=True)
+            qt = torch.randn(B, h, S, hd, generator=gen, device=dev
+                             ).to(dtype)
+            kt, vt = (v.transpose(1, 2).contiguous()
+                      for v in cache.values())
+            sdpa_ms = time_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+        kv_rows = 2 * B * nf * g * hd * it
+        if S == 1:     # xwq, xwo; the rows read
+            nbytes = 2 * d * h * hd * it + kv_rows + 2 * B * d * it
+            flops = 4 * B * d * h * hd + 4 * B * h * hd * nf
+        else:          # every weight; the fp32 sources read, the rows written
+            nbytes = w_bytes + B * nf * d * 4 + kv_rows + 2 * B * S * d * it
+            flops = (4 * B * nf * d * g * hd + 4 * B * S * d * h * hd
+                     + 4 * B * S * h * hd * nf)
+        bms, by = bound(nbytes, flops, dtype)
+        rows[label] = (ms, bms)
+        print(f"xattn: {label} {cfg.name} bf16 B={B} S={S} F={nf} h={h} "
+              f"g={g} hd={hd} d={d} (plain PyTorch cross sublayer, no Pallas"
+              f" counterpart): ms={ms:.5f} (CUDA graph) eager_ms="
+              f"{eager_ms:.5f} sdpa_attention_only_ms={sdpa_ms:.5f} "
+              f"bound_ms={bms:.5f} ({by}: {nbytes} bytes, {flops} "
+              f"operations) bound_share={bms / ms:.4f}; "
+              f"{n_cross} cross layers a full-depth tick {ms * n_cross:.4f} ms;"
+              f" vs fp32 max_abs_err={err:.3e} worst_row_ratio="
+              f"{ratio:.3e} finite=True")
+    wcfg = get_config("whisper-base")
+    ne, d, B = wcfg.encoder.n_layers, wcfg.d_model, ENCODER_CASE["B"]
+    nf, h, f = wcfg.encoder.n_frames, wcfg.n_heads, wcfg.d_ff
+    enc = {"layers": [{k: init_leaf(leaf, gen, dev, dtype)
+                       for k, leaf in encoder_shapes(wcfg).items()}
+                      for _ in range(ne)],
+           "final_norm": torch.ones(d, device=dev, dtype=dtype)}
+    enc32 = {"layers": [{k: v.float() for k, v in layer.items()}
+                        for layer in enc["layers"]],
+             "final_norm": enc["final_norm"].float()}
+    frames = torch.randn(B, nf, d, generator=gen, device=dev).to(dtype)
+    with torch.no_grad():
+        out = TM.encoder_forward(wcfg, enc, frames)
+        exact = TM.encoder_forward(wcfg, enc32, frames.float())
+        if not torch.isfinite(out).all():
+            raise AssertionError("xattn encoder: non-finite output")
+        err, ratio = float((out.float() - exact).abs().max()), \
+            worst_row(out, exact)
+        del exact
+        run = lambda: TM.encoder_forward(wcfg, enc, frames)
+        ms, eager_ms = time_ms(run), time_ms(run, eager=True)
+    w = sum(v.numel() for layer in enc["layers"] for v in layer.values())
+    nbytes = (w + d + 2 * B * nf * d) * it
+    flops = ne * (2 * B * nf * d * (4 * d + 3 * f)
+                  + 4 * B * h * wcfg.hd * nf * nf)
+    bms, by = bound(nbytes, flops, dtype)
+    rows["encoder"] = (ms, bms)
+    print(f"xattn: encoder {wcfg.name} bf16 B={B} frames={nf} layers={ne} "
+          f"d={d} h={h} hd={wcfg.hd} d_ff={f} (plain PyTorch, "
+          f"bidirectional, no Pallas counterpart): ms={ms:.5f} (CUDA graph) "
+          f"eager_ms={eager_ms:.5f} bound_ms={bms:.5f} ({by}: {nbytes} "
+          f"bytes, {flops} operations) bound_share={bms / ms:.4f}; vs fp32 "
+          f"max_abs_err={err:.3e} worst_row_ratio={ratio:.3e} finite=True")
+    return rows
+
+
 # ------------------------------------------------- phase 3: reduced parity
+# a cross layer's gate: the schema draws it as zeros (tanh(0) = 0, so a
+# fresh cross layer adds nothing); every cross run here opens it
+XGATE = 0.5
+
+
 def numpy_weights(cfg, seed):
     """Weights in the JAX package's layout from a numpy seed: norms ones,
-    every other leaf normal(0, min(scale, fan_in^-1/2)) (the router's scale
-    0.006, 0.02 otherwise; biases too, so the bias path carries values)."""
+    a cross layer's ``xgate`` ``XGATE``, every other leaf normal(0,
+    min(scale, fan_in^-1/2)) (the router's scale 0.006, 0.02 otherwise;
+    biases too, so the bias path carries values)."""
     from repro_torch.models.schema import param_shapes
     rng = np.random.default_rng(seed)
     flat = {}
     for key, shape in param_shapes(cfg).items():
-        if key.endswith(("ln1", "ln2", "final_norm", "mnorm", "d_skip")):
+        if key.endswith(("ln1", "ln2", "final_norm", "mnorm", "d_skip",
+                         "xln")):
             flat[key] = np.ones(shape, np.float32)
+        elif key.endswith("xgate"):            # open: tanh(0.5) = 0.46
+            flat[key] = np.full(shape, XGATE, np.float32)
         elif key.endswith("a_log"):            # Mamba's schema initialisers
             flat[key] = np.broadcast_to(np.log(np.linspace(
                 1.0, 16.0, shape[-1])), shape).astype(np.float32)
@@ -3747,6 +3998,7 @@ def parity_archs(K, devices=("cuda", "cpu")):
     parity_mla(K, devices)
     for arch in MAMBA_ARCHS:
         parity_mamba(K, arch, devices)
+    parity_cross(K, devices)
 
 
 def parity_mla(K, devices=("cuda", "cpu")):
@@ -3903,6 +4155,190 @@ def parity_mamba(K, arch, devices=("cuda", "cpu")):
                      policies=("round-robin",))
 
 
+CROSS_ARCHS = ("llama-3.2-vision-90b", "whisper-base")
+
+
+def is_cross(cfg) -> bool:
+    return cfg.encoder is not None or cfg.cross_attn_every > 0
+
+
+def cross_targets():
+    """The default LoRA targets and a cross layer's ``xwq`` / ``xwo``."""
+    from repro_torch.core.lora import LoRAConfig
+    return LoRAConfig().targets + ("xwq", "xwo")
+
+
+def add_aux(reqs, cfg, seed, scale=1.0):
+    """Give each request its own cross source ``aux_embed`` [F, d] float32
+    (image patches or audio frames: ``scale`` times a standard normal from
+    ``seed``); returns the requests."""
+    from repro_torch.models.schema import cross_len
+    rng = np.random.default_rng(seed)
+    for r in reqs:
+        r.aux_embed = rng.standard_normal((cross_len(cfg), cfg.d_model),
+                                          dtype=np.float32) * scale
+    return reqs
+
+
+def parity_cross(K, devices=("cuda", "cpu")):
+    """Phase 3, cross-attention: reduced llama-3.2-vision-90b (5 layers, a
+    cross layer at position 4, 16 image tokens) and whisper-base (2 + 2
+    layers, 32 frames) with numpy-seeded fp32 weights, ``xgate`` open
+    (``XGATE``), two adapters over the default targets and ``xwq`` /
+    ``xwo``, and a seeded source per request, on ``cuda`` and ``cpu``: (a)
+    the paged engine with dedup on ``shared_prefix_trace`` (aux requests
+    never share: 0 hash hits, 0 reused tokens); (b) speculation, the suffix
+    drafter fed the plain outputs (verify chunks over the ``xk`` / ``xv``
+    rows): the plain tokens; (c) chunked prefill of 16 tokens a tick (every
+    chunk projects the source again): the plain tokens, paged prefill
+    launched; (d) lending in an 8-block pool with a raw host tier:
+    preemptions swap out and restore (restored blocks bit-equal, the
+    suffix prefill rewrites the row); (e) 2 replicas round-robin with
+    remote fetch: 0 blocks fetched, the plain tokens.  Tokens and steps
+    equal on both devices; on the card SMLM, BGMV, flash and paged decode
+    launch, and paged prefill and verify only where (b)-(d) take them."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
+    from repro_torch.models.schema import cross_len
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.request import Request
+    from repro_torch.spec import SpecConfig
+    for arch in CROSS_ARCHS:
+        cfg = get_reduced(arch)
+        lcfg = LoRAConfig(n_slots=4, r=8, targets=cross_targets())
+        flat = numpy_weights(cfg, seed=0)
+        ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
+              for i in range(2)}
+        rng = np.random.default_rng(11)
+        lend = [rng.integers(0, cfg.vocab, 8).astype(np.int32)
+                for _ in range(3)]
+
+        def shared():
+            return add_aux(shared_prefix_trace(cfg.vocab, list(ad), seed=3),
+                           cfg, seed=21)
+
+        def lending():
+            return add_aux([Request(rid=i, prompt=p, adapter="lora0",
+                                    max_new_tokens=40, arrival=0.1 * i)
+                            for i, p in enumerate(lend)], cfg, seed=22)
+
+        def run(dev, trace, replicas=1, suffix=None, **kw):
+            params = params_from_numpy(flat, device=dev)
+            adapters = {n: bank_from_numpy(f, device=dev)
+                        for n, f in ad.items()}
+            ecfg = EngineConfig(**{**dict(capacity=4, pf_capacity=2,
+                                          s_max=128, virtual_time=True),
+                                   **kw})
+            model = mixed_model(cfg, params, adapters, lcfg,
+                                torch.device(dev), torch.float32)
+            front = (build_fleet(model, ecfg, FleetConfig(
+                replicas=replicas, router=RouterConfig(
+                    policy="round-robin"))) if replicas > 1
+                else build_engine(cfg, params, adapters, lcfg,
+                                  torch.device(dev), torch.float32, ecfg))
+            engines = front.engines if replicas > 1 else [front]
+            restored = [watch_restores(e.cachemgr) for e in engines]
+            for r in trace():
+                if suffix is not None:
+                    r.draft_suffix = np.concatenate(
+                        [r.prompt, np.asarray(suffix[r.rid], np.int64)])
+                front.submit(r)
+            reset_counts(K)
+            m = front.run(max_ticks=10000)
+            if not all(e.cachemgr.pristine for e in engines):
+                raise AssertionError(f"parity {arch} {dev}: a pool is not "
+                                     f"pristine")
+            return dict(tokens={r.rid: list(r.output) for e in engines
+                                for r in e.finished},
+                        steps=m.steps, m=m, launches=read_counts(K),
+                        restored=sum(sum(x) for x in restored))
+
+        arms = {"dedup": (shared, {}), "lending": (lending, dict(
+            block_size=16, n_blocks=8, s_max=64, over_admit=2.0,
+            kv_host_blocks=8))}
+        got = {}
+        for arm, (trace, kw) in arms.items():
+            got[arm] = [run(d, trace, **kw) for d in devices]
+        plain = got["dedup"][0]["tokens"]
+        got["spec"] = [run(d, shared, suffix=plain, spec=SpecConfig(
+            k_max=4, drafter="suffix")) for d in devices]
+        got["chunked"] = [run(d, shared, prefill_chunk=16) for d in devices]
+        got["fleet"] = [run(d, shared, replicas=2, block_size=16)
+                        for d in devices]
+        single = [run(d, shared, block_size=16)["tokens"] for d in devices]
+        notes = []
+        for arm, (a, b) in got.items():
+            if a["tokens"] != b["tokens"] or a["steps"] != b["steps"]:
+                raise AssertionError(f"parity {arch} {arm}: tokens or steps "
+                                     f"differ: {devices[0]} {a['tokens']} "
+                                     f"{devices[1]} {b['tokens']}")
+            m, n = a["m"], len(a["tokens"])
+            if n != (3 if arm == "lending" else 8):
+                raise AssertionError(f"parity {arch} {arm}: {n} finished")
+            if arm in ("spec", "chunked") and a["tokens"] != plain:
+                raise AssertionError(f"parity {arch} {arm}: tokens differ "
+                                     f"from the plain run's")
+            if arm == "fleet" and (a["tokens"] != single[0]
+                                   or m.remote_fetch_blocks):
+                raise AssertionError(f"parity {arch} fleet: tokens differ "
+                                     f"from one engine's, or "
+                                     f"{m.remote_fetch_blocks} blocks were "
+                                     f"fetched for aux requests")
+            if arm == "dedup" and (m.hash_hits or m.reused_prefix_tokens):
+                raise AssertionError(f"parity {arch}: aux requests shared "
+                                     f"blocks: hash_hits={m.hash_hits}")
+            if arm == "spec" and not m.spec_accepted:
+                raise AssertionError(f"parity {arch} spec: no draft "
+                                     f"accepted")
+            if arm == "lending":
+                cm_kv = (m.preemptions, m.kv_swap_outs, m.kv_restores)
+                if not (all(cm_kv) and a["restored"]):
+                    raise AssertionError(f"parity {arch} lending: no "
+                                         f"preemption, swap-out or restore:"
+                                         f" {cm_kv}")
+            if devices[0] == "cuda":
+                # a split-K walk counts as the decode (or, under
+                # speculation, the verify) it replaces
+                launches = dict(a["launches"])
+                walk = "verify" if arm == "spec" else "decode"
+                launches[walk] += launches["partials"]
+                # speculation verifies every decode step: no plain decode
+                need = {"dedup": ("decode",), "lending": ("decode",
+                                                          "prefill"),
+                        "spec": ("verify",), "chunked": ("decode",
+                                                         "prefill"),
+                        "fleet": ("decode",)}[arm]
+                check_routes(f"parity {arch} {arm}", cfg, launches,
+                             ("smlm", "bgmv", "flash") + need)
+                if arm == "dedup" and (launches["prefill"]
+                                       or launches["verify"]):
+                    raise AssertionError(f"parity {arch} dedup: paged "
+                                         f"prefill or verify launched: "
+                                         f"{launches}")
+            notes.append(
+                f"{arm}: steps={a['steps']}"
+                + (f" drafted={m.spec_drafted} accepted={m.spec_accepted}"
+                   if arm == "spec" else "")
+                + (f" max_pf_tokens_step={m.max_pf_tokens_step}"
+                   if arm == "chunked" else "")
+                + (f" preemptions={m.preemptions} swap_outs="
+                   f"{m.kv_swap_outs} restores={m.kv_restores} "
+                   f"blocks_restored_bit_equal={a['restored']}"
+                   if arm == "lending" else "")
+                + (f" remote_fetch_blocks={m.remote_fetch_blocks}"
+                   if arm == "fleet" else "")
+                + (f" hash_hits={m.hash_hits}" if arm == "dedup" else "")
+                + f" launches={ {k: a['launches'][k] for k in ARCH_KERNELS + ('verify',)} }")
+        print(f"parity: {cfg.name} reduced fp32 cross-attention (L="
+              f"{cfg.n_layers} d={cfg.d_model} h={cfg.n_heads} g="
+              f"{cfg.n_kv_heads} F={cross_len(cfg)} encoder="
+              f"{cfg.encoder.n_layers if cfg.encoder else 0} xgate={XGATE}, "
+              f"a source per request, xwq/xwo adapters), cuda==cpu tokens "
+              f"and steps: " + "; ".join(notes) + " ok")
+
+
 # ---------------------------------------------- phase 12: the other configs
 # (arch, layers kept (None: all), int8 weights)
 ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
@@ -3912,7 +4348,10 @@ ARCH_ARMS = (("deepseek-7b", None, False), ("phi3-medium-14b", None, False),
              ("llama4-maverick-400b-a17b", 4, True),
              ("deepseek-v2-236b", 4, False), ("deepseek-v2-236b", 8, True),
              ("mamba2-1.3b", None, False),
-             ("jamba-1.5-large-398b", 8, True))
+             ("jamba-1.5-large-398b", 8, True),
+             ("llama-3.2-vision-90b", 10, False),
+             ("llama-3.2-vision-90b", 20, True),
+             ("whisper-base", None, False))
 
 
 def arch_weights(cfg, dev, int8, seed=0):
@@ -3920,12 +4359,15 @@ def arch_weights(cfg, dev, int8, seed=0):
     leaf; with ``int8`` each eligible leaf is drawn in bf16, quantized and
     freed before the next is drawn (a bf16 copy of a whole model, or an fp32
     one of a whole leaf stack, would not fit), then two gaussian-B
-    adapters.  Returns (params, store, setup seconds)."""
+    adapters (for a cross config over ``xwq`` / ``xwo`` too, its gates
+    ``XGATE`` and its encoder drawn as the rest).  Returns (params, store,
+    setup seconds)."""
     import gc
     from repro_torch.core.lora import LoRAConfig
     from repro_torch.core.virtualization import AdapterStore
     from repro_torch.models.quant import _eligible, quantize_weight
-    from repro_torch.models.schema import init_leaf, layer_shapes, top_leaves
+    from repro_torch.models.schema import encoder_shapes, init_leaf, \
+        layer_shapes, top_leaves
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -3942,13 +4384,24 @@ def arch_weights(cfg, dev, int8, seed=0):
         params["layers"].append(
             {k: make(leaf, (cfg.n_periods, *leaf.shape))
              for k, leaf in layer_shapes(cfg, li).items()})
+        if "xgate" in params["layers"][-1]:
+            params["layers"][-1]["xgate"].fill_(XGATE)
         gc.collect()
     params["final_norm"] = torch.ones(cfg.d_model, device=dev,
                                       dtype=torch.bfloat16)
     if "lm_head" in top:
         params["lm_head"] = make(top["lm_head"], top["lm_head"].shape)
-    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8), device=dev,
-                         dtype=torch.bfloat16)
+    if cfg.encoder is not None:
+        ne = cfg.encoder.n_layers
+        params["encoder"] = {
+            "layers": [{k: make(leaf, (ne, *leaf.shape))
+                        for k, leaf in encoder_shapes(cfg).items()}
+                       for _ in range(ne)],
+            "final_norm": torch.ones(cfg.d_model, device=dev,
+                                     dtype=torch.bfloat16)}
+    targets = cross_targets() if is_cross(cfg) else LoRAConfig().targets
+    store = AdapterStore(cfg, LoRAConfig(n_slots=4, r=8, targets=targets),
+                         device=dev, dtype=torch.bfloat16)
     for i in range(2):
         g = torch.Generator(device=dev)
         g.manual_seed(100 + i)
@@ -3975,7 +4428,8 @@ def arch_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
     (forward over ft rows, a MoE config's router aux loss, backward through
     the kernels and a Mamba layer's chunked SSD, masked AdamW) for lora0's
     slot; loss finite, aux loss > 0 for MoE, the slot's bank elements
-    changed and no other slot's."""
+    changed and no other slot's.  A cross config's rows carry a seeded
+    source each, and lora0's ``xwq`` factors must change."""
     from repro_torch.core.unified import make_train_step
     from repro_torch.models.stream import FTBatch, UnifiedBatch
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
@@ -3989,6 +4443,11 @@ def arch_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
                                                  dtype=torch.int32,
                                                  device=dev),
                  weight=torch.ones(n_rows, device=dev))
+    if is_cross(cfg):
+        from repro_torch.models.schema import cross_len
+        ft = ft._replace(aux_embed=torch.from_numpy(rng.standard_normal(
+            (n_rows, cross_len(cfg), cfg.d_model), dtype=np.float32)
+        ).to(dev))
     step = make_train_step(cfg, AdamWConfig(lr=lr), block_t=K["block_t"])
     n0 = K["smlm_wgrad"].launches
     mask = store.slot_mask(["lora0"])
@@ -4017,28 +4476,38 @@ def arch_grad_step(K, cfg, weights, dev, n_rows=2, seq=64, lr=1e-3):
     still = all(torch.equal(nl[t][ab][others], ol[t][ab][others])
                 for nl, ol in zip(bank["layers"], store.bank["layers"])
                 for t in nl for ab in ("a", "b"))
+    xwq = [not torch.equal(nl["xwq"][ab][slot], ol["xwq"][ab][slot])
+           for nl, ol in zip(bank["layers"], store.bank["layers"])
+           if "xwq" in nl for ab in ("a", "b")]
     if not (torch.isfinite(loss) and (float(aux) > 0 or cfg.moe is None)
-            and float(changed) > 0 and still and launched):
+            and float(changed) > 0 and still and launched
+            and (any(xwq) or not is_cross(cfg))):
         raise AssertionError(f"{cfg.name} grad step: loss {float(loss)} aux "
                              f"{float(aux)} changed {float(changed)} "
-                             f"others unchanged {still}")
+                             f"others unchanged {still} xwq changed {xwq}")
     print(f"archs: {cfg.name} grad step of {n_rows} ft rows x {seq} "
           f"tokens on the card: wall_ms={wall:.3f} (a second, warm step "
           f"{warm:.3f}, device busy {busy:.3f} ms; top: {top}) "
           f"loss={float(loss):.5f} "
           f"aux_loss={float(aux):.6f} share_of_slot_elements_changed="
           f"{float(changed):.4f} other slots unchanged, smlm_wgrad "
-          f"launches={launched} (a step) ok")
+          f"launches={launched} (a step)"
+          + (f", rows with sources, lora0's xwq factors changed on "
+             f"{sum(xwq)} of {len(xwq)} (layer, a|b)" if xwq else "")
+          + " ok")
 
 
 def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
     """One arm of phase 12: build, serve phase 4's two waves timed, print
     the ``archs:`` line (for MLA with the latent pool's bytes a token and
-    layer beside expanded K/V's; for Mamba the state bytes a request row),
-    and for a bf16 MoE config or a Mamba config take one grad step;
-    returns the launch counts of the serving run and the step."""
+    layer beside expanded K/V's; for Mamba the state bytes a request row;
+    for cross-attention the ``xk`` / ``xv`` bytes a request row and the
+    host-to-card copy of the sources inside each prefill tick), and for a
+    bf16 MoE, Mamba or cross config take one grad step; returns the launch
+    counts of the serving run and the step."""
     import gc
     from repro_torch.configs import get_config
+    from repro_torch.core import flow
     from repro_torch.models import moe
     full = get_config(arch)
     cfg = full if layers is None else full.replace(n_layers=layers)
@@ -4050,14 +4519,45 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
                                           pf_capacity=4, s_max=512)
     waves = request_waves(cfg, np.random.default_rng(seed), 128,
                           max_new=max_new)
+    copies_s = []
+    if is_cross(cfg):
+        for i, wave in enumerate(waves[:2]):
+            add_aux(wave, cfg, seed=50 + i)
+        plan_pf = flow.plan_pf
+
+        def timed_plan_pf(reqs, *a, **kw):
+            # the bucket's host-to-card copy, sources included (a pageable
+            # copy: the host waits for it)
+            t0 = time.perf_counter()
+            out = plan_pf(reqs, *a, **kw)
+            torch.cuda.synchronize()
+            if out is not None:
+                copies_s.append((time.perf_counter() - t0,
+                                 out.aux_embed.numel() * 4))
+            return out
+
+        flow.plan_pf = timed_plan_pf
     reset_counts(K)
     mo = moe.moe_apply
     mo.calls = mo.entries = mo.routed = mo.dropped = 0
-    run_waves(eng, tick, waves[:2])
+    try:
+        run_waves(eng, tick, waves[:2])
+    finally:
+        if is_cross(cfg):
+            flow.plan_pf = plan_pf
     counts = read_counts(K)
     check_drained(eng, seen, 8, max_new)
     peak = torch.cuda.max_memory_allocated()
-    if cfg.mla is not None or "attn" not in cfg.pattern:
+    if is_cross(cfg):
+        # no aux request shares a prefix: every prompt is a cold prefill
+        # (flash), and the plain waves never speculate
+        need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
+                    flash=counts["flash"],
+                    decode=counts["decode"] + counts["partials"])
+        if counts["prefill"] or counts["verify"]:
+            raise AssertionError(f"archs {arch}: paged prefill or verify "
+                                 f"launched in the plain waves: {counts}")
+    elif cfg.mla is not None or "attn" not in cfg.pattern:
         need = {k: counts[k] for k in ("smlm", "bgmv") + GQA_COUNTERS}
     elif "mamba" in cfg.pattern:       # whole prompts: no suffix prefill
         need = dict(smlm=counts["smlm"], bgmv=counts["bgmv"],
@@ -4106,6 +4606,25 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
                      f"{state * rows / 1e9:.3f} GB) block_leaves="
                      f"{list(cm.block_leaves)} bytes_per_block="
                      f"{cm.adapter_block_bytes}")
+    if is_cross(cfg):
+        from repro_torch.models.schema import cross_len
+        cm = eng.cachemgr
+        row = sum(v[:, 0].numel() * v.element_size()
+                  for k, v in cm.cache.items() if k in ("xk", "xv"))
+        n_x = cm.cache["xk"].shape[0]
+        ms = [c * 1e3 for c, _ in copies_s]
+        moe_note += (f" cross: {n_x} cross layer(s) F={cross_len(cfg)} "
+                     f"encoder_layers="
+                     f"{cfg.encoder.n_layers if cfg.encoder else 0} xgate="
+                     f"{XGATE}, xk_xv_bytes_per_row={row} "
+                     f"({row / 2 ** 20:.3f} MiB; "
+                     f"{cm.capacity + cm.pf_capacity} rows resident) "
+                     f"block_leaves={list(cm.block_leaves)} bytes_per_block="
+                     f"{cm.adapter_block_bytes}; sources copied to the card "
+                     f"in the prefill buckets: {len(ms)} buckets, "
+                     f"{sum(b for _, b in copies_s)} bytes, plan_pf_ms_mean="
+                     f"{np.mean(ms):.3f} (host-to-card, inside the prefill "
+                     f"tick) max={max(ms):.3f}")
     dec = [(t, d) for t, p, d, *_ in ticks if not p]
     print(f"archs: {arch} {'int8' if int8 else 'bf16'} L={cfg.n_layers}/"
           f"{full.n_layers} d={cfg.d_model} h={cfg.n_heads} g="
@@ -4117,7 +4636,8 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
           f"{tick_stats(ticks)} decode_ticks_tok_per_s_incl_padding="
           f"{8 * len(dec) / sum(t for t, _ in dec):.3f} launches={need}"
           f"{moe_note} finite=True pristine=True ok")
-    if (cfg.moe is not None and not int8) or cfg.ssm is not None:
+    if ((cfg.moe is not None or is_cross(cfg)) and not int8) \
+            or cfg.ssm is not None:
         arch_grad_step(K, cfg, weights, dev)
         counts["smlm_wgrad"] = K["smlm_wgrad"].launches
     del eng, weights
@@ -4129,15 +4649,16 @@ def arch_arm(K, arch, layers, int8, dev, max_new=16, seed=0):
 def full_archs(K, dev):
     """Phase 12: each arm of ``ARCH_ARMS`` in turn, each model freed before
     the next is built; returns the launch counts summed over the GQA arms
-    (``archs``), the MLA arms (``archs_mla``) and the Mamba arms
-    (``archs_mamba``)."""
+    (``archs``), the MLA arms (``archs_mla``), the Mamba arms
+    (``archs_mamba``) and the cross-attention arms (``archs_cross``)."""
     from repro_torch.configs import get_config
     total = {p: {k: 0 for k in COUNTERS}
-             for p in ("archs", "archs_mla", "archs_mamba")}
+             for p in ("archs", "archs_mla", "archs_mamba", "archs_cross")}
     for arch, layers, int8 in ARCH_ARMS:
         cfg = get_config(arch)
         path = ("archs_mla" if cfg.mla is not None
-                else "archs_mamba" if cfg.ssm is not None else "archs")
+                else "archs_mamba" if cfg.ssm is not None
+                else "archs_cross" if is_cross(cfg) else "archs")
         for k, v in arch_arm(K, arch, layers, int8, dev).items():
             total[path][k] += v
     return total
@@ -4232,8 +4753,8 @@ def main() -> int:
     ap.add_argument("--fleet", action="store_true",
                     help="only the fleet: phase 3's fleet case, phase 11")
     ap.add_argument("--archs", action="store_true",
-                    help="only the other configs: phase 3's arch parity, "
-                         "phase 12")
+                    help="only the other configs: the mla/ssd/xattn "
+                         "records, phase 3's arch parity, phase 12")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -4315,6 +4836,7 @@ def main() -> int:
     if a.archs:
         mla_record(dev, gen)
         ssd_record(dev, gen)
+        xattn_record(dev, gen)
         parity_archs(K)
         full_archs(K, dev)
         print(card())
@@ -4329,6 +4851,7 @@ def main() -> int:
         return 0
     mla_record(dev, gen)
     ssd_record(dev, gen)
+    xattn_record(dev, gen)
 
     parity(K)
 

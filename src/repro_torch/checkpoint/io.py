@@ -9,8 +9,11 @@ position of the block pattern), ``final_norm``,
 periods axis, and an int8 weight ``/_q8`` and ``/_qs``.  The functions here
 split the periods axis into the port's per-layer lists: ``blocks/{pos}/
 ...[period]`` is port layer ``period * P + pos`` (``P`` positions), and a
-nested leaf ``blocks/1/shared/wg`` is the layer's ``shared_wg``.  int8
-payloads and their fp32 scales keep their dtypes.
+nested leaf ``blocks/1/shared/wg`` is the layer's ``shared_wg``.  An
+encoder's ``encoder/blocks/<leaf>`` ``[ne, ...]`` (int8 ``/_q8`` and
+``/_qs`` too) becomes ``params["encoder"]["layers"][i][leaf]``, and
+``encoder/final_norm`` its ``final_norm``.  int8 payloads and their fp32
+scales keep their dtypes.
 """
 from __future__ import annotations
 
@@ -34,8 +37,10 @@ def _tensor(arr: np.ndarray, device, dtype,
             sub: Optional[str] = None) -> torch.Tensor:
     """An int8 payload stays int8 and its scale fp32."""
     dtype = {"_q8": torch.int8, "_qs": torch.float32}.get(sub, dtype)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device,
-                                                          dtype=dtype)
+    arr = np.asarray(arr)                 # a 0-d leaf (xgate) stays 0-d
+    if not arr.flags.c_contiguous:
+        arr = np.ascontiguousarray(arr)
+    return torch.from_numpy(arr).to(device=device, dtype=dtype)
 
 
 def _leaf(rest: str) -> Tuple[str, Optional[str]]:
@@ -92,6 +97,14 @@ def params_from_numpy(flat: Flat, device: DeviceLike = None,
               "final_norm": _tensor(flat["final_norm"], dev, dt)}
     if "lm_head" in flat or "lm_head/_q8" in flat:
         params["lm_head"] = _top(flat, "lm_head", dev, dt)
+    if "encoder/final_norm" in flat:
+        # encoder layer i is period i of a one-position pattern
+        pre = "encoder/blocks/"
+        layers = _per_layer({f"blocks/0/{k[len(pre):]}": v
+                             for k, v in flat.items() if k.startswith(pre)},
+                            dev, dt)
+        params["encoder"] = {"layers": layers, "final_norm": _tensor(
+            flat["encoder/final_norm"], dev, dt)}
     return params
 
 

@@ -4,10 +4,12 @@ dense decoders (``phi3-medium-14b``, ``qwen1.5-110b`` with QKV bias,
 MoE ``llama4-maverick-400b-a17b``, ``deepseek-v2-236b`` (MLA attention
 over a compressed latent cache, and MoE), the attention-free Mamba2
 ``mamba2-1.3b`` and the hybrid ``jamba-1.5-large-398b`` (one attention
-layer in eight, the rest Mamba2; MoE on every other layer).  ``get_config``
-returns the full published config, ``get_reduced`` the small same-family
-variant used by the CPU tests.  The families with cross-attention or an
-encoder are not ported."""
+layer in eight, the rest Mamba2; MoE on every other layer), the VLM
+``llama-3.2-vision-90b`` (a cross-attention layer every fifth) and the
+encoder-decoder ``whisper-base`` (every decoder layer cross-attends to a
+bidirectional encoder's output): the JAX package's eleven ids.
+``get_config`` returns the full published config, ``get_reduced`` the small
+same-family variant used by the CPU tests."""
 from __future__ import annotations
 
 import importlib
@@ -19,8 +21,10 @@ ARCH_IDS = [
     "deepseek-7b",
     "llama4-maverick-400b-a17b",
     "deepseek-v2-236b",
+    "whisper-base",
     "command-r-35b",
     "jamba-1.5-large-398b",
+    "llama-3.2-vision-90b",
     # the paper's own base model
     "llama3-8b",
 ]

@@ -5,7 +5,9 @@ evaluation rows, prefill requests, decode slots or verify chunks) becomes
 ONE ``UnifiedBatch`` whose shapes snap to bucket grids, with every ft and
 prefill row padded to a multiple of ``block_t`` so that each SMLM token tile
 is adapter-uniform.  Padding rows carry ``adapter = -1`` (base only) and
-zero loss weight.  Tensors are built on the engine's device.
+zero loss weight.  A bucket whose first row carries ``aux_embed`` (the
+cross-attention source) carries one ``[B, F, d]`` float32 tensor, zeros on
+padding rows.  Tensors are built on the engine's device.
 """
 from __future__ import annotations
 
@@ -66,12 +68,18 @@ def _t(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _aux(rows, B: int) -> Optional[np.ndarray]:
+    """The bucket's ``[B, F, d]`` float32 cross source, zeros on padding
+    rows, when its first row carries one (the JAX planner's rule)."""
+    if rows[0].aux_embed is None:
+        return None
+    return np.zeros((B, *rows[0].aux_embed.shape), np.float32)
+
+
 def plan_ft(rows: List[FTRow], fcfg: FlowConfig,
             device: torch.device) -> Optional[FTBatch]:
     if not rows:
         return None
-    if rows[0].aux_embed is not None:
-        raise NotImplementedError("modality embeddings are not ported")
     Bf = bucket(len(rows), fcfg.row_buckets)
     Sf = _pad_seq(max(len(r.tokens) for r in rows), fcfg)
     toks = np.zeros((Bf, Sf), np.int32)
@@ -79,6 +87,7 @@ def plan_ft(rows: List[FTRow], fcfg: FlowConfig,
     labels = np.full((Bf, Sf), -100, np.int32)
     adapter = np.full((Bf,), -1, np.int32)
     weight = np.zeros((Bf,), np.float32)
+    aux = _aux(rows, Bf)
     for i, r in enumerate(rows):
         L = len(r.tokens)
         toks[i, :L] = r.tokens
@@ -86,22 +95,24 @@ def plan_ft(rows: List[FTRow], fcfg: FlowConfig,
         labels[i, :L] = r.labels
         adapter[i] = r.slot
         weight[i] = 0.0 if r.is_eval else r.weight
+        if aux is not None:
+            aux[i] = r.aux_embed
     return FTBatch(tokens=_t(toks, device), mask=_t(mask, device),
                    labels=_t(labels, device), adapter=_t(adapter, device),
-                   weight=_t(weight, device))
+                   weight=_t(weight, device),
+                   aux_embed=_t(aux, device) if aux is not None else None)
 
 
 def plan_pf(reqs: List[PFReq], fcfg: FlowConfig,
             device: torch.device) -> Optional[PFBatch]:
     if not reqs:
         return None
-    if reqs[0].aux_embed is not None:
-        raise NotImplementedError("modality embeddings are not ported")
     Bp = bucket(len(reqs), fcfg.row_buckets)
     Sp = _pad_seq(max(len(r.tokens) for r in reqs), fcfg)
     toks = np.zeros((Bp, Sp), np.int32)
     length = np.zeros((Bp,), np.int32)
     adapter = np.full((Bp,), -1, np.int32)
+    aux = _aux(reqs, Bp)
     tables = None
     if reqs[0].block_table is not None:
         tables = np.zeros((Bp, len(reqs[0].block_table)), np.int32)
@@ -115,12 +126,15 @@ def plan_pf(reqs: List[PFReq], fcfg: FlowConfig,
         toks[i, :L] = r.tokens
         length[i] = L
         adapter[i] = r.slot
+        if aux is not None:
+            aux[i] = r.aux_embed
         if tables is not None:
             tables[i] = r.block_table
         if cached is not None:
             cached[i] = r.cached_len or 0
     return PFBatch(tokens=_t(toks, device), length=_t(length, device),
                    adapter=_t(adapter, device),
+                   aux_embed=_t(aux, device) if aux is not None else None,
                    block_tables=(_t(tables, device) if tables is not None
                                  else None),
                    cached_len=(_t(cached, device) if cached is not None

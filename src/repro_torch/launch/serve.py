@@ -7,15 +7,20 @@
       [--no-remote-fetch]] [--finetune] [--attn-tune-file PATH] \
       --rps 2 --requests 40 --adapters 2
 
-Runs on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
-random, drawn from ``--seed``.  Prints what the JAX CLI prints for the
-features the port has; with ``--replicas`` > 1 every summary line adds up
-the replicas.
+``--arch`` takes the eleven ids of ``repro_torch.configs.ARCH_IDS``.  Runs
+on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
+random, drawn from ``--seed``, and a cross-attention model's requests carry
+one ``aux_embed`` (the image patches or audio frames, ``0.1 *`` a standard
+normal) drawn from a numpy generator of ``--seed``, as the JAX CLI draws
+it.  Prints what the JAX CLI prints for the features the port has; with
+``--replicas`` > 1 every summary line adds up the replicas.  Returns the
+engines.
 """
 from __future__ import annotations
 
 import argparse
 
+import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
@@ -24,6 +29,7 @@ from repro_torch.core.virtualization import AdapterStore, MixedLoraModel
 from repro_torch.data import datasets, workload
 from repro_torch.device import resolve_device, resolve_dtype
 from repro_torch.fleet import FleetConfig, RouterConfig, build_fleet
+from repro_torch.launch.train import make_aux
 from repro_torch.models.schema import init_params
 from repro_torch.serving.engine import EngineConfig, UnifiedEngine
 from repro_torch.serving.request import PRIORITY_CLASSES, Request
@@ -34,7 +40,9 @@ from repro_torch.training.trainer import MixedLoraTrainer, TrainerConfig
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b",
+                    help="one of the eleven model ids: "
+                         + ", ".join(ARCH_IDS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default=None,
@@ -152,6 +160,7 @@ def main(argv=None):
         print("note: --spec is inactive for this model (Mamba state "
               "cannot roll back drafts)")
 
+    aux = make_aux(cfg, np.random.default_rng(args.seed))
     prompts = datasets.sharegpt_prompts(args.requests, vocab=cfg.vocab,
                                         seed=args.seed)
     arrivals = workload.poisson_arrivals(args.rps, args.requests, args.seed)
@@ -161,6 +170,7 @@ def main(argv=None):
         front.submit(Request(rid=i, prompt=p,
                              adapter=names[i % len(names)],
                              max_new_tokens=args.max_new, arrival=float(t),
+                             aux_embed=aux,
                              priority_class=classes[i % len(classes)]))
 
     if args.finetune:
@@ -168,7 +178,8 @@ def main(argv=None):
         tr_rows, ev_rows = datasets.split_eval(rows)
         eng.add_trainer(MixedLoraTrainer(
             names[0], eng.model.store.slot_of(names[0]), tr_rows, ev_rows,
-            TrainerConfig(rows_per_micro=2, accum_steps=4, epochs=1)))
+            TrainerConfig(rows_per_micro=2, accum_steps=4, epochs=1),
+            aux_embed=aux))
 
     m = front.run(max_ticks=500000)
     finished = [r for e in engines for r in e.finished]
@@ -228,6 +239,7 @@ def main(argv=None):
         tr = eng.trainers[names[0]]
         print(f"finetune: tokens={tr.tokens_trained} "
               f"opt_steps={tr.optimizer_steps}")
+    return engines
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ unified engine.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; weights and adapters are
 random, drawn from ``--seed``, and the rows are the synthetic
-``alpaca_like`` / ``gsm8k_like`` sets.  Prints what the JAX CLI prints.
+``alpaca_like`` / ``gsm8k_like`` sets; a cross-attention model's rows carry
+one ``aux_embed`` (``make_aux``, drawn as the JAX CLI draws it).  Prints
+what the JAX CLI prints.
 """
 from __future__ import annotations
 
@@ -27,9 +29,23 @@ from repro_torch.serving.engine import EngineConfig, UnifiedEngine
 from repro_torch.training.trainer import MixedLoraTrainer, TrainerConfig
 
 
+def make_aux(cfg, rng: np.random.Generator):
+    """A cross model's ``aux_embed`` [F, d] float32 (``0.1 *`` a standard
+    normal from ``rng``, the JAX CLI's ``make_aux``); None otherwise."""
+    if cfg.encoder is not None:
+        return rng.standard_normal((cfg.encoder.n_frames, cfg.d_model),
+                                   dtype=np.float32) * 0.1
+    if cfg.cross_attn_every:
+        return rng.standard_normal((cfg.n_img_tokens, cfg.d_model),
+                                   dtype=np.float32) * 0.1
+    return None
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b")
+    ap.add_argument("--arch", choices=ARCH_IDS, default="llama3-8b",
+                    help="one of the eleven model ids: "
+                         + ", ".join(ARCH_IDS))
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--dtype", default=None,
@@ -52,6 +68,7 @@ def main(argv=None):
     model = MixedLoraModel(cfg, params, store)
     eng = UnifiedEngine(model, EngineConfig(capacity=2, pf_capacity=2,
                                             s_max=256))
+    aux = make_aux(cfg, np.random.default_rng(args.seed))
 
     gens = [datasets.alpaca_like, datasets.gsm8k_like]
     for i in range(args.adapters):
@@ -64,7 +81,7 @@ def main(argv=None):
         eng.add_trainer(MixedLoraTrainer(
             name, store.slot_of(name), tr_rows, ev_rows,
             TrainerConfig(rows_per_micro=2, accum_steps=args.accum,
-                          epochs=args.epochs)))
+                          epochs=args.epochs), aux_embed=aux))
 
     t0 = time.time()
     metrics = eng.run(max_ticks=100000)

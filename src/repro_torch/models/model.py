@@ -59,15 +59,26 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   ``models.mamba`` (plain PyTorch on every device: the JAX model computes
   it in jnp, outside Pallas) between its LoRA projections ``in_z`` /
   ``in_x`` / ``out_proj`` (SMLM and BGMV through ``dense``), and keeps
-  per-request state rows, not blocks.
+  per-request state rows, not blocks;
+* a cross-attention layer (``_cross_apply``, after the self-attention
+  sublayer as in the JAX model) attends non-causally over its bucket's
+  ``aux_embed`` projected through ``xwk`` / ``xwv`` (ft and prefill) or
+  over the request's cached ``xk`` / ``xv`` row (decode and verify), in
+  plain PyTorch on every device: the JAX model computes it in jnp, outside
+  Pallas.  Its output is gated by ``tanh(xgate)``.  A model with an
+  encoder (``whisper-base``) first replaces the ft and prefill buckets'
+  ``aux_embed`` by ``encoder_forward``'s output (bidirectional, LoRA-free,
+  plain PyTorch).  A cross model given an ft or prefill bucket without
+  ``aux_embed`` raises a ``ValueError`` (the JAX model fails on ``None``).
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
-layers, and the Mamba state rows ``h`` / ``conv_x`` / ``conv_bc``
-(``STATE_KEYS``), each ``[L_mamba, n_rows, ...]`` over the Mamba layers;
-``layer_cache`` gives each layer its dict of views.  Sliding windows,
-dense-row verify chunks and cross-attention belong to later slices and
-raise here.
+layers, the Mamba state rows ``h`` / ``conv_x`` / ``conv_bc`` (``STATE_KEYS``),
+each ``[L_mamba, n_rows, ...]`` over the Mamba layers, and the
+cross-attention rows ``xk`` / ``xv`` (``STATE_KEYS`` too), each
+``[L_cross, n_rows, F, g, hd]`` over the cross layers; ``layer_cache``
+gives each layer its dict of views.  Sliding windows and dense-row verify
+chunks raise here.
 """
 from __future__ import annotations
 
@@ -88,7 +99,7 @@ from repro_torch.models import mamba as M
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.moe import EXPERT_STACKS, moe_apply
-from repro_torch.models.schema import check_supported, is_moe
+from repro_torch.models.schema import check_supported, cross_len, is_moe
 from repro_torch.models.stream import ModelOut, UnifiedBatch
 
 
@@ -100,8 +111,6 @@ class _Plan:
     def __init__(self, cfg: ModelConfig, batch: UnifiedBatch,
                  lora_scale: Optional[torch.Tensor], block_t: int):
         ft, pf, dec = batch.ft, batch.pf, batch.dec
-        if ft is not None and ft.aux_embed is not None:
-            raise NotImplementedError("modality embeddings are not ported")
         self.ft, self.pf, self.dec = ft, pf, dec
         self.Bf, self.Sf = tuple(ft.tokens.shape) if ft is not None else (0, 0)
         self.Bp, self.Sp = tuple(pf.tokens.shape) if pf is not None else (0, 0)
@@ -187,13 +196,17 @@ def cache_seq_len(cfg: ModelConfig, s_max: int) -> int:
 
 
 # cache leaves that stay per-request rows in the paged layout too (the JAX
-# model's STATE_KEYS; cross-attention's xk/xv are not ported)
-STATE_KEYS = frozenset({"h", "conv_x", "conv_bc"})
+# model's STATE_KEYS)
+STATE_KEYS = frozenset({"h", "conv_x", "conv_bc", "xk", "xv"})
 
 
 def _kind_leaves(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
-    """The trailing shapes of the cache leaves a layer of ``kind`` carries,
-    in the JAX cache's key order."""
+    """The trailing shapes of the cache leaves a layer of ``kind`` carries
+    (``"cross"``: a cross layer's rows, beside its attention leaves), in
+    the JAX cache's key order."""
+    if kind == "cross":
+        xd = (cross_len(cfg), cfg.n_kv_heads, cfg.hd)
+        return {"xk": xd, "xv": xd}
     if kind == "mamba":
         s = cfg.ssm
         return {"h": (cfg.n_ssm_heads, s.head_dim, s.d_state),
@@ -204,47 +217,67 @@ def _kind_leaves(cfg: ModelConfig, kind: str) -> Dict[str, tuple]:
     return {"k": (cfg.n_kv_heads, cfg.hd), "v": (cfg.n_kv_heads, cfg.hd)}
 
 
+def _pos_kinds(cfg: ModelConfig, pos: int) -> tuple:
+    """The leaf kinds pattern position ``pos`` carries: its mixer's, and
+    ``"cross"`` on a cross layer."""
+    kind = cfg.layer_kind(pos)
+    return (kind, "cross") if cfg.is_cross_layer(pos) else (kind,)
+
+
 def cache_leaves(cfg: ModelConfig) -> Dict[str, tuple]:
     """Each cache leaf's trailing shape, in the JAX cache's key order
     (position-major, then key): ``k`` / ``v`` [g, hd] or MLA's ``ckv`` [c]
-    and ``kpe`` [dr] on attention layers, and on Mamba layers the state
-    rows ``h`` [nh, hd, ds], ``conv_x`` [K-1, di] and ``conv_bc`` [K-1,
-    2*g*ds] (``STATE_KEYS``)."""
+    and ``kpe`` [dr] on attention layers, then on cross layers ``xk`` /
+    ``xv`` [F, g, hd], and on Mamba layers the state rows ``h`` [nh, hd,
+    ds], ``conv_x`` [K-1, di] and ``conv_bc`` [K-1, 2*g*ds]
+    (``STATE_KEYS``, with ``xk`` / ``xv``)."""
     check_supported(cfg)
     out: Dict[str, tuple] = {}
-    for kind in cfg.pattern:
-        for name, dims in _kind_leaves(cfg, kind).items():
-            out.setdefault(name, dims)
+    for pos in range(len(cfg.pattern)):
+        for kind in _pos_kinds(cfg, pos):
+            for name, dims in _kind_leaves(cfg, kind).items():
+                out.setdefault(name, dims)
     return out
 
 
 def layer_index(cfg: ModelConfig) -> list:
-    """Layer ``li``'s (kind, index into its kind's leaves): a leaf holds
-    only the layers that carry it, in layer order."""
+    """Layer ``li``'s (kind, index into its kind's leaves, index into the
+    cross rows or None): a leaf holds only the layers that carry it, in
+    layer order."""
     seen: Dict[str, int] = {}
     out = []
     for li in range(cfg.n_layers):
-        kind = cfg.layer_kind(li % len(cfg.pattern))
-        out.append((kind, seen.get(kind, 0)))
-        seen[kind] = seen.get(kind, 0) + 1
+        kinds = _pos_kinds(cfg, li % len(cfg.pattern))
+        idx = [seen.get(k, 0) for k in kinds]
+        for k in kinds:
+            seen[k] = seen.get(k, 0) + 1
+        out.append((kinds[0], idx[0], idx[1] if len(kinds) > 1 else None))
     return out
 
 
 def layer_cache(cfg: ModelConfig, cache: Dict, li: int,
                 index: Optional[list] = None) -> Dict:
     """Layer ``li``'s dict of views into the cache's leaves."""
-    kind, i = (index or layer_index(cfg))[li]
-    return {name: cache[name][i] for name in _kind_leaves(cfg, kind)}
+    kind, i, xi = (index or layer_index(cfg))[li]
+    out = {name: cache[name][i] for name in _kind_leaves(cfg, kind)}
+    if xi is not None:
+        out.update({name: cache[name][xi]
+                    for name in _kind_leaves(cfg, "cross")})
+    return out
 
 
 def _alloc(cfg: ModelConfig, lead: tuple, n_rows: int, device,
            dtype) -> Dict:
     """Block leaves ``[L_kind, *lead, ...]``, state leaves ``[L_kind,
     n_rows, ...]``; ``L_kind`` counts the layers that carry the leaf."""
-    n = {k: cfg.pattern.count(k) * cfg.n_periods for k in ("attn", "mamba")}
-    return {name: torch.zeros(((n["mamba"], n_rows) if name in STATE_KEYS
-                               else (n["attn"], *lead)) + dims,
-                              device=device, dtype=dtype)
+    count: Dict[str, int] = {}
+    for pos in range(len(cfg.pattern)):
+        for kind in _pos_kinds(cfg, pos):
+            for name in _kind_leaves(cfg, kind):
+                count[name] = count.get(name, 0) + cfg.n_periods
+    return {name: torch.zeros((count[name],)
+                              + ((n_rows,) if name in STATE_KEYS else lead)
+                              + dims, device=device, dtype=dtype)
             for name, dims in cache_leaves(cfg).items()}
 
 
@@ -553,6 +586,102 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     return _merge_flat(plan, *outs)
 
 
+def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
+                 x: torch.Tensor, cache: Optional[Dict],
+                 attn_chunk: int = 0) -> torch.Tensor:
+    """The cross-attention sublayer (``_cross_apply`` of the JAX model): a
+    query ``xwq`` through ``dense`` (LoRA when targeted), non-causal
+    attention over the cross source's keys, ``xwo`` through ``dense``, the
+    output gated by ``tanh(xgate)`` and added to the residual.  The ft and
+    prefill buckets project their ``aux_embed`` [B, F, d] through ``xwk`` /
+    ``xwv`` (plain products); prefill writes the projections into the
+    layer's ``xk`` / ``xv`` rows ``[Bd, Bd + Bp)`` and decode (plain or
+    verify chunks) reads rows ``[0, Bd)``.  ``cache``: the layer's views
+    (None for an ft-only batch)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    xn = L.rms_norm(x, p["xln"], cfg.rms_eps)
+    q = dense(xn, p["xwq"], None, lr.get("xwq"), plan.route)
+    qf, qp, qd = plan.split(q)
+    # serving rows carry no gradient, and the row writes stay out of the
+    # graph
+    qp, qd = (t if t is None else t.detach() for t in (qp, qd))
+
+    def kv_from(src):            # [B, F, d] -> K, V [B, F, g, hd]
+        B, F = src.shape[:2]
+        flat = src.reshape(B * F, -1)
+        return ((flat @ p["xwk"].to(src.dtype)).reshape(B, F, kv, hd),
+                (flat @ p["xwv"].to(src.dtype)).reshape(B, F, kv, hd))
+
+    def xattn(qb, kx, vx, qpos):
+        B, S = qb.shape[:2]
+        F = kx.shape[1]
+        kpos = torch.zeros((B, F), dtype=torch.int32, device=kx.device)
+        valid = torch.ones((B, F), dtype=torch.bool, device=kx.device)
+        return L.attention(qb.reshape(B, S, h, hd), kx, vx, q_pos=qpos,
+                           k_pos=kpos, k_valid=valid, causal=False,
+                           chunk=attn_chunk)
+
+    outs = [None, None, None]
+    if qf is not None:           # fine-tune / eval: under autograd
+        kx, vx = kv_from(plan.ft.aux_embed.to(x.dtype))
+        outs[0] = xattn(qf, kx, vx, plan.ft_pos)
+    if qp is not None:           # prefill: rows [Bd, Bd + Bp)
+        kx, vx = kv_from(plan.pf.aux_embed.to(x.dtype))
+        outs[1] = xattn(qp, kx, vx, plan.pf_pos)
+        rows = slice(plan.Bd, plan.Bd + plan.Bp)
+        cache["xk"][rows] = kx.to(cache["xk"].dtype)
+        cache["xv"][rows] = vx.to(cache["xv"].dtype)
+    if qd is not None:           # decode / verify: rows [0, Bd)
+        outs[2] = xattn(qd, cache["xk"][:plan.Bd], cache["xv"][:plan.Bd],
+                        plan.dec_qpos)
+    o = dense(_merge_flat(plan, *outs), p["xwo"], None, lr.get("xwo"),
+              plan.route)
+    return x + torch.tanh(p["xgate"]).to(o.dtype) * o
+
+
+def encoder_forward(cfg: ModelConfig, enc: Dict,
+                    frames: torch.Tensor) -> torch.Tensor:
+    """The Whisper encoder (``encoder_forward`` of the JAX model) over
+    ``frames`` [B, F, d]: per layer rms_norm, plain q/k/v/o products,
+    bidirectional attention and a SwiGLU, no LoRA; then the final norm."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    B, F, d = frames.shape
+    kpos = torch.zeros((B, F), dtype=torch.int32, device=frames.device)
+    valid = torch.ones((B, F), dtype=torch.bool, device=frames.device)
+    x = frames
+    for p in enc["layers"]:
+        flat = L.rms_norm(x, p["ln1"], cfg.rms_eps).reshape(B * F, d)
+        q = (flat @ p["wq"].to(x.dtype)).reshape(B, F, h, hd)
+        k = (flat @ p["wk"].to(x.dtype)).reshape(B, F, kv, hd)
+        v = (flat @ p["wv"].to(x.dtype)).reshape(B, F, kv, hd)
+        o = L.attention(q, k, v, q_pos=kpos, k_pos=kpos, k_valid=valid,
+                        causal=False)
+        x = x + (o.reshape(B * F, h * hd) @ p["wo"].to(x.dtype)
+                 ).reshape(B, F, d)
+        xn = L.rms_norm(x, p["ln2"], cfg.rms_eps).reshape(B * F, d)
+        x = x + L.swiglu(xn, p["wg"], p["wu"], p["wd"]).reshape(B, F, d)
+    return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
+
+
+def _cross_sources(cfg: ModelConfig, params: Dict, plan: _Plan,
+                   dtype: torch.dtype) -> None:
+    """A cross model's ft and prefill buckets must carry ``aux_embed``;
+    with an encoder it is replaced by the encoder's output, as in the JAX
+    model (no graph: neither the encoder nor the sources are trained)."""
+    for name in ("ft", "pf"):
+        b = getattr(plan, name)
+        if b is None:
+            continue
+        if b.aux_embed is None:
+            raise ValueError(
+                f"{cfg.name} has cross-attention layers: its {name} bucket "
+                "needs aux_embed, the [B, F, d] cross source embeddings")
+        if cfg.encoder is not None:
+            enc = encoder_forward(cfg, params["encoder"],
+                                  b.aux_embed.to(dtype))
+            setattr(plan, name, b._replace(aux_embed=enc))
+
+
 def _expand_bc(cfg: ModelConfig, y_bc: torch.Tensor, lead: tuple):
     """[.., 2*g*ds] -> (B, C) [.., nh, ds], groups expanded over heads."""
     s = cfg.ssm
@@ -702,6 +831,7 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``)."""
     check_supported(cfg)
     plan = _Plan(cfg, batch, lora_scale, block_t)
+    index = layer_index(cfg)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
         raise ValueError("prefill/decode buckets require a cache")
     if plan.Bd and batch.dec.block_tables is not None and "k" in cache:
@@ -721,9 +851,11 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     quantized = quant.has_q8(params)
     if quantized:
         params = dict(params)
-        for key in ("embed", "lm_head"):
+        for key in ("embed", "lm_head", "encoder"):
             if key in params:
                 params[key] = quant.dequant_tree(params[key], dtype)
+    if any(i[2] is not None for i in index):
+        _cross_sources(cfg, params, plan, dtype)
     toks = []
     if batch.ft is not None:
         toks.append(batch.ft.tokens.reshape(-1))
@@ -736,7 +868,6 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
     aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    index = layer_index(cfg)
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
         if quantized:
             p = {k: (quant.dequant_leaf(v, dtype)
@@ -747,6 +878,8 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
             x = _mamba_apply(cfg, p, lr, plan, x, lc)
         else:
             x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk)
+        if index[li][2] is not None:
+            x = _cross_apply(cfg, p, lr, plan, x, lc, attn_chunk)
         x, aux = _ffn_apply(cfg, li, p, lr, plan, x)
         if aux is not None:
             aux_loss = aux_loss + aux

@@ -13,8 +13,12 @@ JAX package's rule on the JAX layout's shapes, periods axis included):
 norms, biases and small matrices stay in their dtype, and the LoRA bank is
 never quantized.  An MLA up projection ``wuk`` / ``wuv`` [c, h, d] (JAX
 layout ``[P, c, h, d]``) is eligible when ``h`` and ``d`` are at least 64:
-its scales group over ``h`` for each row of ``c``, as the JAX package's.  The forward dequantizes ``embed`` and ``lm_head`` at its
-top and each layer's leaves inside the layer loop, so device memory holds
+its scales group over ``h`` for each row of ``c``, as the JAX package's.
+A cross layer's ``xwq`` / ``xwk`` / ``xwv`` / ``xwo`` are eligible by the
+same rule (``xln`` and the scalar ``xgate`` never), and so are an
+encoder's matrices (JAX layout ``[ne, d_in, d_out]``).  The forward
+dequantizes ``embed``, ``lm_head`` and the encoder at its top and each
+layer's leaves inside the layer loop, so device memory holds
 int8 and at most one layer's dequantized weights at a time; a MoE layer's
 expert stacks dequantize only the routed experts' slices
 (``repro_torch.models.moe``).  Dequant is elementwise PyTorch, as the JAX
@@ -27,7 +31,8 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.models.configs import ModelConfig
-from repro_torch.models.schema import Leaf, layer_shapes, top_leaves
+from repro_torch.models.schema import Leaf, encoder_shapes, layer_shapes, \
+    top_leaves
 
 
 def _eligible(leaf: Leaf, shape: Tuple[int, ...]) -> bool:
@@ -105,6 +110,13 @@ def quantize_params(cfg: ModelConfig, params: Dict) -> Dict:
              if _eligible(leaf, (cfg.n_periods, *leaf.shape)) else layer[k])
          for k, leaf in layer_shapes(cfg, li).items()}
         for li, layer in enumerate(params["layers"])]
+    if cfg.encoder is not None:
+        ne = cfg.encoder.n_layers
+        out["encoder"] = dict(params["encoder"], layers=[
+            {k: (quantize_weight(layer[k])
+                 if _eligible(leaf, (ne, *leaf.shape)) else layer[k])
+             for k, leaf in encoder_shapes(cfg).items()}
+            for layer in params["encoder"]["layers"]])
     return out
 
 

@@ -34,9 +34,18 @@ head-aligned component projections: ``in_z`` / ``in_x`` [d, di] and
 2*g*ds] and biases ``conv_bx`` / ``conv_bbc``, ``a_log`` and ``dt_bias``
 [nh] (their own deterministic initialisers), ``d_skip`` [nh] and the gated
 norm ``mnorm`` [di].  A layer of a model with ``d_ff = 0`` and no MoE there
-(``mamba2-1.3b``) has no FFN and no ``ln2``.  The port covers GQA, MLA and
-Mamba2 mixers with dense or MoE FFNs; cross-attention, encoders and sliding
-windows raise here.
+(``mamba2-1.3b``) has no FFN and no ``ln2``.
+
+A cross-attention layer (``cfg.is_cross_layer(li % P)``: position 4 of each
+period of 5 for ``llama-3.2-vision-90b``, every decoder layer for
+``whisper-base``) adds after its mixer the JAX schema's ``xln`` [d] (ones),
+``xwq`` [d, h*hd] and ``xwo`` [h*hd, d] (LoRA keys ``xwq`` / ``xwo``, which
+the default targets leave out), ``xwk`` / ``xwv`` [d, g*hd] (no LoRA) and
+the scalar gate ``xgate`` [] (zeros, so a freshly drawn cross layer adds
+nothing).  An encoder (``cfg.encoder``) is ``params["encoder"] = {"layers":
+[{ln1, wq, wk, wv, wo, ln2, wg, wu, wd} per encoder layer], "final_norm":
+[d]}`` (``encoder_shapes``; the JAX package's ``encoder/blocks/<leaf>``
+stacked ``[ne, ...]``), with no LoRA.  Sliding windows raise here.
 """
 from __future__ import annotations
 
@@ -69,16 +78,21 @@ class Leaf:
 def check_supported(cfg: ModelConfig) -> None:
     """GQA or MLA attention and Mamba2 mixers with dense or MoE FFNs (or
     none): any block pattern of ``"attn"`` and ``"mamba"`` positions, the
-    latter with ``cfg.ssm``."""
+    latter with ``cfg.ssm``; cross-attention layers and an encoder too."""
     kinds = set(cfg.pattern)
     if (not kinds <= {"attn", "mamba"}
             or ("mamba" in kinds and cfg.ssm is None)
-            or cfg.encoder is not None
-            or cfg.cross_attn_every or cfg.sliding_window):
+            or cfg.sliding_window):
         raise NotImplementedError(
             f"{cfg.name}: the port covers GQA, MLA and Mamba2 mixers with "
-            "dense or MoE FFNs; cross-attention, encoders and sliding "
+            "dense or MoE FFNs, cross-attention and encoders; sliding "
             "windows are not ported")
+
+
+def cross_len(cfg: ModelConfig) -> int:
+    """F, the cross source's length: the encoder's frames or the VLM's
+    image tokens."""
+    return cfg.encoder.n_frames if cfg.encoder else cfg.n_img_tokens
 
 
 def is_moe(cfg: ModelConfig, li: int) -> bool:
@@ -106,7 +120,8 @@ def _mamba_leaves(cfg: ModelConfig) -> Dict[str, Leaf]:
 
 def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
     """Layer ``li``'s leaves, in the JAX schema's order: the mixer of its
-    kind (``cfg.layer_kind(li % P)``), then its FFN if it has one."""
+    kind (``cfg.layer_kind(li % P)``), the cross-attention sublayer on a
+    cross layer, then its FFN if it has one."""
     check_supported(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
     out = {"ln1": Leaf((d,), "ones")}
@@ -129,6 +144,12 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
             out.update(bq=Leaf((h * hd,), "zeros"),
                        bk=Leaf((kv * hd,), "zeros"),
                        bv=Leaf((kv * hd,), "zeros"))
+    if cfg.is_cross_layer(li % len(cfg.pattern)):
+        out.update(xln=Leaf((d,), "ones"),
+                   xwq=Leaf((d, h * hd), lora="xwq"),
+                   xwk=Leaf((d, kv * hd)), xwv=Leaf((d, kv * hd)),
+                   xwo=Leaf((h * hd, d), lora="xwo"),
+                   xgate=Leaf((), "zeros"))
     if is_moe(cfg, li):
         e = cfg.moe
         E, f = e.num_experts, e.d_ff_expert
@@ -149,6 +170,17 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
     return out
 
 
+def encoder_shapes(cfg: ModelConfig) -> Dict[str, Leaf]:
+    """One encoder layer's leaves (the JAX schema's ``encoder/blocks``, the
+    ``[ne]`` axis dropped): plain products, no LoRA."""
+    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
+        cfg.d_ff
+    return dict(ln1=Leaf((d,), "ones"), wq=Leaf((d, h * hd)),
+                wk=Leaf((d, kv * hd)), wv=Leaf((d, kv * hd)),
+                wo=Leaf((h * hd, d)), ln2=Leaf((d,), "ones"),
+                wg=Leaf((d, f)), wu=Leaf((d, f)), wd=Leaf((f, d)))
+
+
 def jax_key(cfg: ModelConfig, li: int, name: str) -> str:
     """The JAX package's path of layer ``li``'s leaf ``name``, periods axis
     dropped (``blocks/1/shared/wg``)."""
@@ -165,6 +197,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     out["final_norm"] = (cfg.d_model,)
     if not cfg.tie_embeddings:
         out["lm_head"] = (cfg.d_model, cfg.vocab)
+    if cfg.encoder is not None:
+        for k, leaf in encoder_shapes(cfg).items():
+            out[f"encoder/blocks/{k}"] = (cfg.encoder.n_layers, *leaf.shape)
+        out["encoder/final_norm"] = (cfg.d_model,)
     return out
 
 
@@ -221,6 +257,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
               "final_norm": torch.ones(cfg.d_model, device=dev, dtype=dt)}
     if "lm_head" in top:
         params["lm_head"] = init_leaf(top["lm_head"], gen, dev, dt)
+    if cfg.encoder is not None:
+        params["encoder"] = {
+            "layers": [{k: init_leaf(leaf, gen, dev, dt)
+                        for k, leaf in encoder_shapes(cfg).items()}
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": torch.ones(cfg.d_model, device=dev, dtype=dt)}
     return params
 
 

@@ -2,7 +2,10 @@
 torch tensors.  Same fields and layouts as ``repro.models.stream``; any subset
 of (ft, pf, dec) may be present: fine-tune and evaluation rows (``FTBatch``;
 evaluation rows carry weight 0, so they add no gradient), prefill rows, and
-decode rows (plain decode or speculative verify chunks)."""
+decode rows (plain decode or speculative verify chunks).  ``aux_embed`` is
+the cross-attention source of a row (precomputed image-patch or audio-frame
+embeddings, zeros on padding rows); a model without cross layers ignores
+it."""
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
@@ -18,7 +21,7 @@ class FTBatch(NamedTuple):
     labels: Tensor                   # [Bf, Sf] int32 (-100 = ignore)
     adapter: Tensor                  # [Bf] int32 (-1 = base only)
     weight: Tensor                   # [Bf] f32 per-row loss scale (1/accum)
-    aux_embed: Optional[Tensor] = None  # modality stub (not ported)
+    aux_embed: Optional[Tensor] = None  # [Bf, F, d] f32 cross source
 
 
 class PFBatch(NamedTuple):
@@ -28,7 +31,7 @@ class PFBatch(NamedTuple):
     tokens: Tensor                   # [Bp, Sp] int32 (right-padded)
     length: Tensor                   # [Bp] int32 true (suffix) lengths
     adapter: Tensor                  # [Bp] int32
-    aux_embed: Optional[Tensor] = None
+    aux_embed: Optional[Tensor] = None  # [Bp, F, d] f32 cross source
     block_tables: Optional[Tensor] = None  # [Bp, nbt] int32, null-padded
     cached_len: Optional[Tensor] = None    # [Bp] int32; None = cold prefill
 

@@ -261,6 +261,7 @@ class UnifiedEngine:
                     rid=r.rid,
                     slot=(self.model.store.slot_of(r.adapter)
                           if r.adapter else -1),
+                    aux_embed=r.aux_embed,
                     block_table=cm.table_of(slot), cached_len=r.prefilled))
                 chunks.append((r, take, r.prefilled + take >= r.prompt_len))
             # a request is unservable only when its FRESH block need can
@@ -643,6 +644,7 @@ class UnifiedEngine:
                 r.prefilled = 0
                 pf_reqs.append(flow.PFReq(
                     tokens=r.prompt, rid=r.rid, slot=aslot,
+                    aux_embed=r.aux_embed,
                     block_table=(cm.write_table_of(slot) if self.paged
                                  else None)))
                 chunks.append((r, r.prompt_len, True))
@@ -662,7 +664,7 @@ class UnifiedEngine:
                 budget_left -= take
             pf_reqs.append(flow.PFReq(
                 tokens=r.prompt[r.prefilled:r.prefilled + take], rid=r.rid,
-                slot=aslot,
+                slot=aslot, aux_embed=r.aux_embed,
                 block_table=(cm.table_of(slot) if reused
                              else cm.write_table_of(slot)),
                 cached_len=r.prefilled if reused else None))

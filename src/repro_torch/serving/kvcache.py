@@ -34,15 +34,19 @@ of the pool tensors.
 
 The cache is a dict of named leaves (``models.model.cache_leaves``): the
 block-addressed ``k`` and ``v`` [.., g, hd], or MLA's latent ``ckv`` [..,
-c] and rope key ``kpe`` [.., dr], and a Mamba model's per-request state
-rows ``h`` / ``conv_x`` / ``conv_bc`` (``STATE_KEYS``, ``capacity +
-pf_capacity`` rows each).  Every place that touches a block (copy, host
-layout, byte footprints) walks the block leaves (``block_leaves``) in the
-JAX cache's key order and skips the state rows, as the JAX manager does;
-``commit_prefill`` copies the state rows from the prefill bucket's rows
-into the decode slots.  A model with no block leaf (``mamba2-1.3b``) still
-keeps the block accounting, and its footprint is ``max(0, 1) = 1`` byte a
-block, as in the JAX package.
+c] and rope key ``kpe`` [.., dr], and the per-request state rows
+(``STATE_KEYS``, ``capacity + pf_capacity`` rows each): a Mamba model's
+``h`` / ``conv_x`` / ``conv_bc``, and a cross-attention model's projected
+cross source ``xk`` / ``xv`` [F, g, hd].  Every place that touches a block
+(copy, host layout, byte footprints) walks the block leaves
+(``block_leaves``) in the JAX cache's key order and skips the state rows,
+as the JAX manager does; ``commit_prefill`` copies the state rows from the
+prefill bucket's rows into the decode slots.  A swap-out, restore, demote,
+rehydrate or import moves blocks only: a restored cross request's suffix
+prefill projects its ``aux_embed`` again and rewrites its row, as every
+chunk of a chunked prefill does.  A model with no block leaf
+(``mamba2-1.3b``) still keeps the block accounting, and its footprint is
+``max(0, 1) = 1`` byte a block, as in the JAX package.
 
 Over-admission (``over_admit > 1``): the gate charges only a ``1 /
 over_admit`` slice of the outstanding reservation debt (``charged_debt``,
@@ -1473,7 +1477,8 @@ class PagedCacheManager:
     def commit_prefill(self, assignments: List[Tuple[int, int]],
                        lengths: List[int], src_base: Optional[int] = None):
         """Prefill K/V went straight into the request's blocks: commit is
-        the per-request state row copy (a Mamba model's ``STATE_KEYS``:
+        the per-request state row copy (``STATE_KEYS``: a Mamba model's
+        state, a cross model's ``xk`` / ``xv``;
         prefill row ``i`` at ``src_base + i``, ``src_base`` defaulting to
         ``capacity``, into its decode slot; every source is gathered before
         any destination is written), the length assignment and the

@@ -28,8 +28,8 @@ import pytest
 import torch
 
 from _torch_bridge import j, max_err, t, to_port_bank, to_port_params
-from repro.configs import get_config as j_get_config, \
-    get_reduced as j_get_reduced
+from repro.configs import ARCH_IDS as J_ARCH_IDS, \
+    get_config as j_get_config, get_reduced as j_get_reduced
 from repro.core.lora import LoRAConfig as JLoRAConfig
 from repro.core.unified import make_grad_step as j_make_grad_step
 from repro.core.virtualization import AdapterStore as JAdapterStore, \
@@ -60,19 +60,23 @@ CPU = torch.device("cpu")
 
 
 def test_registry_matches_jax():
-    """The nine port ids (``deepseek-v2-236b``'s MLA is held to JAX in
-    ``test_torch_mla.py``, the Mamba2 family in ``test_torch_mamba.py``),
-    full and reduced, equal the JAX configs; the families the port lacks
-    are not registered."""
-    assert set(ARCH_IDS) == set(NEW) | {"llama3-8b", "deepseek-v2-236b",
-                                        "mamba2-1.3b",
-                                        "jamba-1.5-large-398b"}
+    """The port's ids are the JAX registry's eleven, in its order
+    (``deepseek-v2-236b``'s MLA is held to JAX in ``test_torch_mla.py``,
+    the Mamba2 family in ``test_torch_mamba.py``, the cross-attention
+    family in ``test_torch_cross.py``), and each, full and reduced, equals
+    the JAX config; ``llama-3.2-vision-90b`` resolves, and an unknown id
+    still raises."""
+    assert ARCH_IDS == J_ARCH_IDS and len(ARCH_IDS) == 11
+    assert set(ARCH_IDS) == set(NEW) | {
+        "llama3-8b", "deepseek-v2-236b", "mamba2-1.3b",
+        "jamba-1.5-large-398b", "llama-3.2-vision-90b", "whisper-base"}
     for arch in ARCH_IDS:
         for mine, theirs in ((get_config(arch), j_get_config(arch)),
                              (get_reduced(arch), j_get_reduced(arch))):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert get_config("llama-3.2-vision-90b").cross_attn_every == 5
     with pytest.raises(KeyError):
-        get_config("llama-3.2-vision-90b")
+        get_config("llama-3.2-vision-9b")
 
 
 _SETUPS = {}

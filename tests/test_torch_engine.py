@@ -132,9 +132,12 @@ def test_default_planner_pads_like_jax():
 
 
 def test_engine_raises_for_later_slices(pair):
-    """The memory features construct now (lending, the host tier with and
-    without int8, adapter paging); modality embeddings, which no port
-    slice has taken yet, still raise where the flow planner meets them."""
+    """The memory features construct (lending, the host tier with and
+    without int8, adapter paging), and modality embeddings, which raised
+    here before cross-attention was ported, now ride the flow planner: a
+    bucket whose first row carries ``aux_embed`` gets JAX's ``[B, F, d]``
+    float32 tensor (zeros on padding rows), and one whose first row has
+    none gets none."""
     cfg, params, _ = pair[3:]
     for kw in (dict(kv_host_blocks=4), dict(kv_host_blocks=4,
                                             kv_host_quant=True),
@@ -143,15 +146,35 @@ def test_engine_raises_for_later_slices(pair):
         eng = UnifiedEngine(MixedLoraModel(cfg, params, store),
                             EngineConfig(**kw))
         assert eng.paged
-    aux = np.zeros((4, cfg.d_model), np.float32)
-    toks = np.arange(8, dtype=np.int32)
-    with pytest.raises(NotImplementedError):
-        tflow.plan_ft([tflow.FTRow(tokens=toks, labels=toks, slot=0,
-                                   aux_embed=aux)], tflow.FlowConfig(),
-                      torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        tflow.plan_pf([tflow.PFReq(tokens=toks, slot=0, aux_embed=aux)],
-                      tflow.FlowConfig(), torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    aux = [rng.standard_normal((4, cfg.d_model)).astype(np.float32)
+           for _ in range(3)]
+    toks = [np.arange(n, dtype=np.int32) for n in (8, 5, 11)]
+    fc, cpu = tflow.FlowConfig(), torch.device("cpu")
+    for first in (aux[0], None):
+        a = [first] + aux[1:]
+        jft = jflow.plan_ft([jflow.FTRow(tokens=x, labels=x, slot=0,
+                                         aux_embed=e)
+                             for x, e in zip(toks, a)], jflow.FlowConfig())
+        tft = tflow.plan_ft([tflow.FTRow(tokens=x, labels=x, slot=0,
+                                         aux_embed=e)
+                             for x, e in zip(toks, a)], fc, cpu)
+        jpf = jflow.plan_pf([jflow.PFReq(tokens=x, slot=0, aux_embed=e)
+                             for x, e in zip(toks, a)], jflow.FlowConfig())
+        tpf = tflow.plan_pf([tflow.PFReq(tokens=x, slot=0, aux_embed=e)
+                             for x, e in zip(toks, a)], fc, cpu)
+        for mine, theirs in ((tft, jft), (tpf, jpf)):
+            assert (mine.aux_embed is None) == (first is None)
+            assert (theirs.aux_embed is None) == (first is None)
+            for f in mine._fields:
+                x, y = getattr(mine, f), getattr(theirs, f)
+                assert (x is None) == (y is None), f
+                if x is not None:
+                    assert x.dtype == torch.from_numpy(np.array(y)).dtype
+                    np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+        if first is not None:
+            assert tuple(tpf.aux_embed.shape) == (4, 4, cfg.d_model)
+            assert not tpf.aux_embed[3].any()
 
 
 LEND = dict(over_admit=2.0, n_blocks=6, block_size=16)

@@ -396,6 +396,11 @@ def test_cuda_paged_prefill_walks_match_plain(dtype, Sq, m, hd):
     (8, 4096, 11008, 64, 8),      # deepseek-7b's up projection
     (8, 5120, 576, 64, 8),        # deepseek-v2's wdkv (576: 4.5 x 128)
     (8, 16384, 5120, 64, 8),      # deepseek-v2's wo, the widest d_in
+    (8, 8192, 28672, 64, 8),      # llama-3.2-vision-90b's up projection
+    (8, 28672, 8192, 64, 8),      # its down projection
+    (8, 8192, 8192, 64, 8),       # its xwq / xwo (and wq / wo)
+    (8, 512, 2048, 64, 8),        # whisper-base's up projection
+    (8, 2048, 512, 64, 8),        # whisper-base's down projection
 ])
 def test_cuda_smlm_shapes_match_plain(dtype, r, d_in, d_out, T, bt):
     """SMLM against its plain version, each token row within its own
@@ -496,6 +501,11 @@ def test_cuda_dense_decode_groups_match_plain(dtype, m, hd):
     (8, 8, 4096, 11008, 4),       # deepseek-7b's up projection
     (8, 8, 5120, 576, 4),         # deepseek-v2's wdkv
     (8, 8, 16384, 5120, 4),       # deepseek-v2's wo
+    (8, 8, 8192, 28672, 4),       # llama-3.2-vision-90b's up projection
+    (8, 8, 28672, 8192, 4),       # its down projection
+    (40, 8, 8192, 8192, 4),       # its xwq / xwo in a verify bucket
+    (8, 8, 512, 2048, 4),         # whisper-base's up projection
+    (8, 8, 2048, 512, 4),         # whisper-base's down projection
 ])
 def test_cuda_bgmv_shapes_match_plain(dtype, T, r, d_in, d_out, n):
     """BGMV against its plain version, each token row within its own
@@ -734,3 +744,95 @@ def test_cuda_mamba_layers_match_cpu(arch):
                 g, w = lg[name][ab], lc[name][ab]
                 assert float((g - w).abs().max()) \
                     <= 1e-4 * max(float(w.abs().max()), 1e-12)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-base"])
+def test_cuda_cross_layers_match_cpu(arch):
+    """Reduced ``arch`` in fp32 with its gates open (0.5) and two adapters
+    over the default targets and ``xwq`` / ``xwo``, on the card (SMLM,
+    BGMV, flash and paged decode; the cross sublayer and Whisper's encoder
+    in plain PyTorch) against the same forward on the CPU: a cold paged
+    prefill of two ragged rows with a source each, then two decode steps
+    reading the ``xk`` / ``xv`` rows beside an inactive row; logits and
+    every cache leaf, then the ft grad step's loss and bank gradients."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.unified import make_grad_step
+    from repro_torch.core.virtualization import AdapterStore
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import cross_len, init_params
+    from repro_torch.models.stream import (DECBatch, FTBatch, PFBatch,
+                                           UnifiedBatch)
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced(arch)
+    cpu = torch.device("cpu")
+    params = init_params(cfg, device="cpu", dtype=torch.float32, seed=0)
+    for layer in params["layers"]:
+        if "xgate" in layer:
+            layer["xgate"].fill_(0.5)
+    lcfg = LoRAConfig(n_slots=4, r=8,
+                      targets=LoRAConfig().targets + ("xwq", "xwo"))
+    store = AdapterStore(cfg, lcfg, device=cpu, dtype=torch.float32)
+    for i in range(2):
+        gen = torch.Generator().manual_seed(100 + i)
+        store.load_random(f"a{i}", gen, gaussian_b=True)
+    rng = np.random.default_rng(4)
+    toks = t(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))
+    aux = t(rng.standard_normal((2, cross_len(cfg), cfg.d_model),
+                                dtype=np.float32))
+    tables = t(np.array([[1, 2, 0], [3, 4, 5]], np.int32))
+    dtables = t(np.array([[1, 2, 0], [3, 4, 5], [0, 0, 0]], np.int32))
+    ids = t(np.array([0, 1], np.int32))
+    runs = {}
+    for d in (dev, cpu):
+        p, bank, scale = (_tree_to(v, d) for v in (params, store.bank,
+                                                   store.scale))
+        cache = TM.init_paged_cache(cfg, 6, 8, d, torch.float32, n_rows=3)
+        kw = dict(loras=bank, lora_scale=scale, block_t=8)
+        n0 = (smlm.launches, bgmv.launches)
+        with torch.no_grad():
+            pf = PFBatch(tokens=toks.to(d), length=t(np.array(
+                [12, 16], np.int32)).to(d), adapter=ids.to(d),
+                aux_embed=aux.to(d), block_tables=tables.to(d))
+            out = TM.unified_forward(cfg, p, UnifiedBatch(pf=pf), cache,
+                                     **kw)
+            logits = [out.pf_logits.cpu()]
+            nxt = out.pf_logits.argmax(-1).to(torch.int32)
+            for step in range(2):
+                dec = DECBatch(
+                    tokens=torch.cat([nxt, nxt.new_zeros(1)]),
+                    pos=t(np.array([12 + step, 16 + step, 0],
+                                   np.int32)).to(d),
+                    adapter=t(np.array([0, 1, -1], np.int32)).to(d),
+                    block_tables=dtables.to(d))
+                out = TM.unified_forward(cfg, p, UnifiedBatch(dec=dec),
+                                         cache, **kw)
+                logits.append(out.dec_logits[:2].cpu())
+                nxt = out.dec_logits[:2].argmax(-1).to(torch.int32)
+        mask = torch.ones((2, 16), dtype=torch.bool)
+        ft = FTBatch(tokens=toks.to(d), mask=mask.to(d),
+                     labels=toks.to(d), adapter=ids.to(d),
+                     weight=torch.ones(2, device=d), aux_embed=aux.to(d))
+        res = make_grad_step(cfg, block_t=8)(p, bank, scale,
+                                             UnifiedBatch(ft=ft), None)
+        runs[d.type] = (logits, {k: v.cpu() for k, v in cache.items()},
+                        res.loss.cpu(), _tree_to(res.grads, cpu))
+        if d.type == "cuda":
+            assert smlm.launches > n0[0] and bgmv.launches > n0[1]
+    (gl, gc, gloss, gg), (cl, cc, closs, cg) = runs["cuda"], runs["cpu"]
+    for a, b in zip(gl, cl):
+        _close(a, b, torch.float32)
+    assert list(gc) == list(cc) == list(TM.cache_leaves(cfg))
+    for name in gc:
+        lo = 0 if name in TM.STATE_KEYS else 1      # block 0: the null block
+        _close(gc[name][:, lo:], cc[name][:, lo:], torch.float32)
+    assert abs(float(gloss) - float(closs)) <= 1e-5 * abs(float(closs))
+    for lg, lc in zip(gg["layers"], cg["layers"]):
+        for name in lg:
+            for ab in ("a", "b"):
+                g, w = lg[name][ab], lc[name][ab]
+                assert float((g - w).abs().max()) \
+                    <= 1e-4 * max(float(w.abs().max()), 1e-12)
+    assert float(gg["layers"][cfg.n_layers - 1]["xwq"]["b"].abs().max()) > 0

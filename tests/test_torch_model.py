@@ -20,8 +20,8 @@ from repro.core.lora import LoRAConfig as JLoRAConfig
 from repro.core.virtualization import AdapterStore as JAdapterStore
 from repro.models import model as JM
 from repro.models.schema import init_params as j_init_params
-from repro.models.stream import DECBatch as JDEC, PFBatch as JPF, \
-    UnifiedBatch as JUB
+from repro.models.stream import DECBatch as JDEC, FTBatch as JFT, \
+    PFBatch as JPF, UnifiedBatch as JUB
 from repro_torch.configs import get_reduced
 from repro_torch.models import model as TM
 from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
@@ -136,20 +136,35 @@ def test_unified_forward_matches_jax_over_prefill_decode_and_suffix(setup):
 
 
 def test_unified_forward_rejects_unported_buckets(setup):
-    """Fine-tune rows with modality embeddings are not ported (the ft
-    bucket itself is, since the training slice: ``test_torch_train.py``;
-    verify chunks since the speculation slice: ``test_torch_spec.py``)."""
+    """Fine-tune rows with modality embeddings run (cross-attention is held
+    to JAX in ``test_torch_cross.py``): a model without cross layers ignores
+    ``aux_embed``, as the JAX model does, so ft rows carrying one beside a
+    verify chunk give the ft losses and chunk logits of the same batch
+    without it, and JAX's ft losses (2e-4)."""
     s = setup
     _, tb = _batches(dec=dict(tokens=_i32([[1, 2]]), pos=_i32([0]),
                               adapter=_i32([0]), tables=_table()[None]))
-    z = torch.zeros((1, 8), dtype=torch.int32)
-    tb = tb._replace(ft=FTBatch(tokens=z, mask=z > 0, labels=z,
-                                adapter=z[:, 0], weight=torch.ones(1),
-                                aux_embed=torch.zeros((1, 4, 256))))
-    cache = TM.init_paged_cache(s["cfg"], NB, BS, torch.device("cpu"),
-                                torch.float32)
-    with pytest.raises(NotImplementedError):
-        TM.unified_forward(s["cfg"], s["params"], tb, cache, block_t=BT)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, s["cfg"].vocab, (1, 8)).astype(np.int32)
+    aux = rng.standard_normal((1, 4, 256)).astype(np.float32)
+    ft = dict(tokens=toks, mask=np.ones((1, 8), bool), labels=toks,
+              adapter=_i32([0]), weight=np.ones(1, np.float32))
+    outs = []
+    for a in (aux, None):
+        fb = FTBatch(**{k: t(v) for k, v in ft.items()},
+                     aux_embed=None if a is None else t(a))
+        cache = TM.init_paged_cache(s["cfg"], NB, BS, torch.device("cpu"),
+                                    torch.float32)
+        with torch.no_grad():
+            outs.append(TM.unified_forward(
+                s["cfg"], s["params"], tb._replace(ft=fb), cache,
+                loras=s["bank"], lora_scale=s["scale"], block_t=BT))
+    assert torch.equal(outs[0].ft_loss_sum, outs[1].ft_loss_sum)
+    assert torch.equal(outs[0].dec_logits, outs[1].dec_logits)
+    jft = JFT(**{k: j(v) for k, v in ft.items()}, aux_embed=j(aux))
+    jout = JM.unified_forward(s["jcfg"], s["jparams"], JUB(ft=jft),
+                              loras=s["jbank"], lora_scale=s["jscale"])
+    assert max_err(outs[0].ft_loss_sum, jout.ft_loss_sum) < TOL
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -32,7 +32,8 @@ from repro.models.stream import FTBatch as JFT, PFBatch as JPF, \
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.core.unified import make_grad_step
 from repro_torch.models import model as TM, quant
-from repro_torch.models.schema import jax_key, layer_shapes, top_leaves
+from repro_torch.models.schema import encoder_shapes, jax_key, layer_shapes, \
+    top_leaves
 from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
     UnifiedBatch
 
@@ -96,6 +97,10 @@ def _port_eligible(cfg):
         for k, leaf in layer_shapes(cfg, pos).items():
             if quant._eligible(leaf, (cfg.n_periods, *leaf.shape)):
                 paths.add(jax_key(cfg, pos, k))
+    if cfg.encoder is not None:     # whisper-base: encoder/blocks [ne, ...]
+        for k, leaf in encoder_shapes(cfg).items():
+            if quant._eligible(leaf, (cfg.encoder.n_layers, *leaf.shape)):
+                paths.add(f"encoder/blocks/{k}")
     return paths
 
 
