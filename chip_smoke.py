@@ -10,6 +10,7 @@
     python3 chip_smoke.py --memory
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --archs
+    python3 chip_smoke.py --window
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -38,7 +39,8 @@ The seventh runs only the memory features: phase 3's lending, paging and
 chunked-training parity, then phases 9 and 10.  The eighth runs only the
 fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
 configs: the ``mla:``, ``ssd:`` and ``xattn:`` lines, phase 3's arch, MLA,
-Mamba and cross-attention parity, then phase 12.
+Mamba and cross-attention parity, then phase 12.  The tenth runs only
+sliding windows: phase 2's windowed flash rows, then phase 13.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -283,12 +285,35 @@ printing its lines; any failure raises and exits non-zero:
              (loss finite, aux loss > 0 for MoE, only lora0's slot
              changed, for cross rows with sources and lora0's ``xwq``
              changed, ``smlm_wgrad`` launched).
+13. window — sliding windows (phase 2 adds the windowed flash rows:
+             S = 256 at W = 0, 64, 256 and 300 in bf16 and fp32 against the
+             full plain version, rows with no key in their window exact
+             zeros; in bf16 the long_500k shape B = 1, S = 16384, W = 8192
+             against the chunked fp32 plain version, timed beside the
+             chunked plain and SDPA with the same boolean mask).  Then
+             ``parity_window``: reduced llama3-8b, deepseek-v2-236b,
+             jamba-1.5-large-398b and llama-3.2-vision-90b with
+             ``sliding_window`` 16 on ``cuda`` and ``cpu``, the dense engine
+             (decode past the window) and a grad step over a mixed tick
+             with ft rows longer than the window: tokens equal, logits,
+             loss and gradients within the stated limits.  Then full-width
+             llama3-8b under ``adapt_config(..., SHAPES["long_500k"])``
+             (window 8192, bf16; phase 4's weights) through the engine
+             (capacity 2, pf_capacity 2, s_max 32768: dense rows of 8192
+             slots): a 16384-token prompt, then a 4096-token one, 32 new
+             tokens each (``window:`` line: prefill ticks, decode ticks with
+             their spread, peak memory, launches; gates: windowed flash and
+             dense decode launched, no paged kernel).  Then the window's
+             identity at full width: 16384 tokens prefilled into a rolling
+             row and token 16384 decoded, against a cold prefill of 16385:
+             equal argmax, logits within ``WINDOW_LOGIT_TOL``.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-12 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, archs, archs_mla, archs_mamba and archs_cross,
-the MLA, Mamba and cross arms with their grad steps; ``shapes`` its other timed rows), the
+run of phases 4-13 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging, fleet, window, archs, archs_mla, archs_mamba and
+archs_cross, the MLA, Mamba and cross arms with their grad steps;
+``shapes`` its other timed rows, flash's windowed ones among them), the
 card's name and power
 limit, and the last line
 ``{"ok": true, "device": {...}}``.
@@ -1164,14 +1189,22 @@ def flash_case(dev, gen, dtype, B, S, T, h=32, g=8, hd=128):
     return qkv
 
 
-def flash_work(S, lengths, h, g, hd, it):
+def visible_keys(n: int, window: int = 0) -> int:
+    """Keys the n live rows of a causal prompt score: row i sees i + 1, or
+    min(i + 1, window) with a window."""
+    if window <= 0 or window >= n:
+        return n * (n + 1) // 2
+    return window * (window + 1) // 2 + (n - window) * window
+
+
+def flash_work(S, lengths, h, g, hd, it, window=0):
     """Bytes and FLOPs causal flash attention needs: q read and the output
     written once (all S rows), the K/V rows < length read once; FLOPs of the
-    live query rows (row i < length scores i + 1 keys), as the rows past the
-    length are padding of the prompt bucket."""
+    live query rows (row i < length scores i + 1 keys, at most ``window``),
+    as the rows past the length are padding of the prompt bucket."""
     keys = sum(int(n) for n in lengths)
     nbytes = (2 * len(lengths) * S * h * hd + 2 * keys * g * hd) * it
-    flops = sum(4 * h * hd * int(n) * (int(n) + 1) // 2 for n in lengths)
+    flops = sum(4 * h * hd * visible_keys(int(n), window) for n in lengths)
     return nbytes, flops
 
 
@@ -4664,6 +4697,384 @@ def full_archs(K, dev):
     return total
 
 
+# ------------------------------------------ phase 13: sliding windows
+WINDOW_SMALL = dict(S=256, lengths=[200, 90], windows=(0, 64, 256, 300))
+WINDOW_LONG = dict(S=16384, window=8192)     # long_500k's window, a 16k bucket
+WINDOW_ARCHS = ("llama3-8b", "deepseek-v2-236b", "jamba-1.5-large-398b",
+                "llama-3.2-vision-90b")
+WINDOW_REDUCED = 16                 # the reduced configs' window (phase 13)
+WINDOW_LOGIT_TOL = 5e-2             # bf16 identity: x max |path B| logit
+
+
+def takes_window(K) -> bool:
+    """Whether the checkout's flash wrapper has a window (a ``--root``
+    from before it does not)."""
+    import inspect
+    return "window" in inspect.signature(K["flash"]).parameters
+
+
+def check_window_kernels(K, dtype, dev, gen, timing: bool):
+    """Windowed flash: S = 256 (lengths 200 and 90) at W = 0, 64, 256 and
+    300 against the full plain version, row 1's positions from 90 + W - 1
+    on (no key in their window) exact zeros; in bf16 also the long_500k
+    shape, B = 1, S = length = 16384, W = 8192, against the plain version
+    in its chunked form in fp32 (full scores would take 34 GB), timed
+    beside the chunked plain and SDPA with the same boolean mask."""
+    rows = {}
+    if not takes_window(K):
+        return rows
+    ref, h, g, hd = K["ref"], 32, 8, 128
+    it = torch.empty((), dtype=dtype).element_size()
+    c = WINDOW_SMALL
+    q, k, v = flash_case(dev, gen, dtype, 2, c["S"], c["S"])
+    ln = torch.tensor(c["lengths"], device=dev, dtype=torch.int32)
+    errs = []
+    for w in c["windows"]:
+        out = K["flash"](q, k, v, ln, True, w)
+        errs.append(compare(out, ref.flash_attention_ref(q, k, v, ln, True,
+                                                         w), dtype))
+        edge = c["lengths"][1] + w - 1
+        if w and float(out[1, edge:].float().abs().sum()) != 0.0:
+            raise AssertionError(f"flash W={w}: rows past the window are "
+                                 f"not 0")
+    print(f"kernels: flash_window  {str(dtype)[6:]:<8} max_abs_err="
+          f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row h=32 g=8 "
+          f"hd=128 causal B=2 S=T={c['S']} lengths={c['lengths']} W="
+          f"{'/'.join(map(str, c['windows']))}, empty-window rows=0 ok")
+    del q, k, v
+    if dtype != torch.bfloat16:
+        return rows
+    S, w = WINDOW_LONG["S"], WINDOW_LONG["window"]
+    q, k, v = flash_case(dev, gen, dtype, 1, S, S)
+    ln = torch.full((1,), S, device=dev, dtype=torch.int32)
+    shape = (f"causal window={w} B=1 S=T={S} length={S} h=32 g=8 hd=128 "
+             f"(plain: chunked, chunk 2048)")
+    out = K["flash"](q, k, v, ln, True, w)
+    exact = ref.flash_attention_ref(q.float(), k.float(), v.float(), ln,
+                                    True, w, chunk=1024)
+    err = compare(out, exact, dtype)
+    print(f"kernels: flash_window  {str(dtype)[6:]:<8} max_abs_err={err:.3e}"
+          f" tol={TOL[dtype]:g}xmax|plain| per row against the chunked fp32"
+          f" plain, long_500k shape {shape}; worst row err/max|plain| "
+          f"{worst_row(out, exact):.4f} ok")
+    del out, exact
+    if not timing:
+        return rows
+    nbytes, flops = flash_work(S, [S], h, g, hd, it, w)
+    bms, by = bound(nbytes, flops, dtype)
+    j = torch.arange(S, device=dev)
+    mask = (j[None, :] <= j[:, None]) & (j[:, None] - j[None, :] < w)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    try:
+        lib = time_ms(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                   enable_gqa=True), warmup=1)
+    except torch.OutOfMemoryError:
+        lib = None          # no SDPA backend held the masked 16k call
+    rows[f"flash_attention window={w}"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: K["flash"](q, k, v, ln, True, w)),
+        plain_ms=time_ms(lambda: ref.flash_attention_ref(
+            q, k, v, ln, True, w, chunk=2048), iters=2, warmup=1,
+            eager=True),
+        library_ms=lib, bound_ms=bms, bound_by=by, shape=shape)
+    print(f"window: flash_attention bf16 {shape}: visible keys a head "
+          f"{visible_keys(S, w)} of {visible_keys(S)} without the window, "
+          f"flops={flops} bytes={nbytes}")
+    del q, k, v, qt, kt, vt, mask
+    return rows
+
+
+def window_batches(cfg, dev, seed=7):
+    """Phase 13's mixed tick, from numpy seeds: a cold prefill of two
+    24-token prompts (rows 0-1), then ft rows of 40 and 29 tokens (past
+    the window), a cold 13-token prompt in a 16-token bucket (row 2) and
+    decode of rows 0-1 at position 24; a cross model's ft and prefill
+    rows carry sources."""
+    from repro_torch.models.schema import cross_len
+    from repro_torch.models.stream import DECBatch, FTBatch, PFBatch
+    rng = np.random.default_rng(seed)
+    on = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    i32 = lambda x: on(np.asarray(x, np.int32))
+
+    def aux(B):
+        if not is_cross(cfg):
+            return None
+        return on(rng.standard_normal((B, cross_len(cfg), cfg.d_model),
+                                      dtype=np.float32))
+
+    pf1 = PFBatch(tokens=i32(rng.integers(0, cfg.vocab, (2, 24))),
+                  length=i32([24, 24]), adapter=i32([0, 1]), aux_embed=aux(2))
+    Sf, lens = 40, (40, 29)
+    toks = np.zeros((2, Sf), np.int32)
+    mask = np.zeros((2, Sf), bool)
+    labels = np.full((2, Sf), -100, np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(0, cfg.vocab, n)
+        mask[i, :n], labels[i, :n] = True, toks[i, :n]
+    ft = FTBatch(tokens=i32(toks), mask=on(mask), labels=i32(labels),
+                 adapter=i32([0, 1]), weight=on(np.array([0.5, 1.0],
+                                                         np.float32)),
+                 aux_embed=aux(2))
+    ptoks = np.zeros((1, 16), np.int32)
+    ptoks[0, :13] = rng.integers(0, cfg.vocab, 13)
+    pf2 = PFBatch(tokens=i32(ptoks), length=i32([13]), adapter=i32([0]),
+                  aux_embed=aux(1))
+    dec = DECBatch(tokens=i32(rng.integers(0, cfg.vocab, 2)),
+                   pos=i32([24, 24]), adapter=i32([1, 0]))
+    return pf1, ft, pf2, dec
+
+
+def parity_window(K, devices=("cuda", "cpu")):
+    """Phase 13 at reduced size: each of ``WINDOW_ARCHS`` (numpy-seeded
+    fp32 weights, two adapters) with ``sliding_window`` 16, on ``cuda``
+    and ``cpu``: (a) the dense engine (a windowed model never pages) on
+    prompts of 9, 14, 16 and 32 tokens (each fills or fits its bucket),
+    24 new tokens each, so decode runs past the window: greedy tokens and
+    steps equal; (b) ``window_batches``' prefill, then one grad step over
+    its mixed tick (ft rows longer than the window): pf and dec logits
+    within 1e-3 of max(1, max |cpu|), the loss within 1e-4 relative, every
+    bank gradient within 1e-3 of its leaf's max |cpu|.  On the card a GQA
+    config launches SMLM, BGMV, flash and dense decode and no paged
+    kernel; MLA no GQA attention kernel."""
+    from repro_torch.checkpoint.io import bank_from_numpy, params_from_numpy
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    from repro_torch.core.unified import make_grad_step
+    from repro_torch.models.model import init_cache, unified_forward
+    from repro_torch.models.stream import UnifiedBatch
+    from repro_torch.serving.engine import EngineConfig
+    from repro_torch.serving.kvcache import CacheManager
+    from repro_torch.serving.request import Request
+    for arch in WINDOW_ARCHS:
+        cfg = get_reduced(arch).replace(sliding_window=WINDOW_REDUCED)
+        lcfg = LoRAConfig(n_slots=4, r=8, **(
+            dict(targets=cross_targets()) if is_cross(cfg) else {}))
+        flat = numpy_weights(cfg, seed=0)
+        ad = {f"lora{i}": numpy_adapter(cfg, lcfg, seed=10 + i)
+              for i in range(2)}
+        rng = np.random.default_rng(12)
+        prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+                   for n in (9, 14, 16, 32)]
+        got = {}
+        for dev in devices:
+            d = torch.device(dev)
+            params = params_from_numpy(flat, device=dev)
+            adapters = {n: bank_from_numpy(f, device=dev)
+                        for n, f in ad.items()}
+            eng = build_engine(cfg, params, adapters, lcfg, d,
+                               torch.float32, EngineConfig(
+                                   capacity=4, pf_capacity=2, s_max=64,
+                                   virtual_time=True))
+            if eng.paged or not isinstance(eng.cachemgr, CacheManager):
+                raise AssertionError(f"{arch}: a windowed model paged")
+            reqs = [Request(rid=i, prompt=p, adapter=f"lora{i % 2}",
+                            max_new_tokens=24, arrival=0.1 * i)
+                    for i, p in enumerate(prompts)]
+            if is_cross(cfg):
+                add_aux(reqs, cfg, seed=23)
+            reset_counts(K)
+            for r in reqs:
+                eng.submit(r)
+            eng.run(max_ticks=10000)
+            served = read_counts(K)
+            if not eng.cachemgr.pristine:
+                raise AssertionError(f"{arch} {dev}: rows not pristine")
+            store = eng.model.store
+            pf1, ft, pf2, dec = window_batches(cfg, d)
+            cache = init_cache(cfg, 3, 64, d, torch.float32)
+            kw = dict(loras=store.bank, lora_scale=store.scale, block_t=8)
+            with torch.inference_mode():
+                unified_forward(cfg, params, UnifiedBatch(pf=pf1), cache,
+                                **kw)
+            reset_counts(K)
+            res = make_grad_step(cfg, block_t=8)(
+                params, store.bank, store.scale,
+                UnifiedBatch(ft=ft, pf=pf2, dec=dec), cache)
+            got[dev] = dict(
+                tokens={r.rid: list(r.output) for r in eng.finished},
+                steps=eng.metrics.steps, served=served,
+                stepped=read_counts(K), loss=float(res.loss),
+                pf=res.out.pf_logits.float().cpu(),
+                dec=res.out.dec_logits.float().cpu(),
+                grads=[{t: {ab: x.float().cpu() for ab, x in g.items()}
+                        for t, g in layer.items()}
+                       for layer in res.grads["layers"]])
+            del eng, store, cache, res
+        a, b = got[devices[0]], got[devices[1]]
+        if a["tokens"] != b["tokens"] or a["steps"] != b["steps"] \
+                or len(a["tokens"]) != 4:
+            raise AssertionError(f"parity window {arch}: tokens or steps "
+                                 f"differ: {a['tokens']} {b['tokens']}")
+        errs = {k: float((a[k] - b[k]).abs().max())
+                / max(1.0, float(b[k].abs().max())) for k in ("pf", "dec")}
+        loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        grad_rel = max(float((la[t][ab] - lb[t][ab]).abs().max())
+                       / max(float(lb[t][ab].abs().max()), 1e-12)
+                       for la, lb in zip(a["grads"], b["grads"])
+                       for t in la for ab in ("a", "b"))
+        if max(errs.values()) > 1e-3 or loss_rel > 1e-4 or grad_rel > 1e-3:
+            raise AssertionError(f"parity window {arch}: logits {errs}, "
+                                 f"loss {loss_rel:.3e}, grads "
+                                 f"{grad_rel:.3e}")
+        if devices[0] == "cuda":
+            check_routes(f"parity window {arch} served", cfg, a["served"],
+                         ("smlm", "bgmv", "flash", "dense_decode"))
+            check_routes(f"parity window {arch} grad step", cfg,
+                         a["stepped"], ("smlm", "bgmv", "flash",
+                                        "dense_decode", "smlm_wgrad"))
+            paged = {k: a["served"][k] + a["stepped"][k]
+                     for k in ("decode", "prefill", "verify", "partials")}
+            if any(paged.values()) or not a["stepped"]["smlm_wgrad"]:
+                raise AssertionError(f"parity window {arch}: paged kernels "
+                                     f"{paged} or no smlm_wgrad")
+        print(f"parity: window {arch} reduced fp32 sliding_window="
+              f"{WINDOW_REDUCED} dense rows of {WINDOW_REDUCED} slots "
+              f"(L={cfg.n_layers} d={cfg.d_model} mla={cfg.mla is not None}"
+              f" mamba={'mamba' in cfg.pattern} cross={is_cross(cfg)}), "
+              f"cuda==cpu greedy tokens for 4 requests (96 tokens, decode "
+              f"past the window), steps={a['steps']}; mixed-tick grad step "
+              f"(ft rows of 40 and 29 tokens): pf/dec logits max_rel_err="
+              f"{errs['pf']:.3e}/{errs['dec']:.3e} tol=1e-3, loss "
+              f"max_rel_err={loss_rel:.3e} tol=1e-4, grads max_rel_err="
+              f"{grad_rel:.3e} tol=1e-3, cuda launches served="
+              f"{ {k: v for k, v in a['served'].items() if v} } grad step="
+              f"{ {k: v for k, v in a['stepped'].items() if v} } ok")
+
+
+def window_config():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.shapes import SHAPES, adapt_config
+    return adapt_config(get_config("llama3-8b"), SHAPES["long_500k"])
+
+
+def full_window(K, cfg, weights, dev, prompts=(16384, 4096), max_new=32,
+                seed=5):
+    """Phase 13 at full width: llama3-8b under ``adapt_config(...,
+    SHAPES["long_500k"])`` (window 8192, bf16) through the engine with
+    capacity 2, pf_capacity 2 and s_max 32768, which serves it on dense
+    rolling rows of 8192 slots: a 16384-token prompt (exactly its bucket),
+    then, once it decodes, a 4096-token prompt (its own bucket: in one
+    bucket with the first it would pad to 16384, past the row, and take the
+    mirrored rolling write), 32 new tokens each.  Windowed flash and dense
+    decode must launch, and no paged kernel."""
+    from repro_torch.serving.kvcache import CacheManager
+    from repro_torch.serving.request import Request
+    W = cfg.sliding_window
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=2,
+                                          pf_capacity=2, s_max=32768)
+    slots = eng.cachemgr.cache["k"].shape[2]
+    if eng.paged or not isinstance(eng.cachemgr, CacheManager) \
+            or slots != W:
+        raise AssertionError(f"the windowed engine is not on dense rows of "
+                             f"{W} slots: paged={eng.paged} slots={slots}")
+    rows_bytes = sum(x.numel() * x.element_size()
+                     for x in eng.cachemgr.cache.values())
+    rng = np.random.default_rng(seed)
+    reqs = [Request(rid=i, prompt=rng.integers(0, cfg.vocab, n).astype(
+        np.int32), adapter=f"lora{i}", max_new_tokens=max_new)
+        for i, n in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    # the caching allocator's state as the arm finds it (earlier phases
+    # leave their segments cached) and what the arm asks of the device
+    reserved = torch.cuda.memory_reserved()
+    stats0 = torch.cuda.memory_stats()
+    reset_counts(K)
+    run_waves(eng, tick, [[r] for r in reqs])
+    counts = read_counts(K)
+    peak = torch.cuda.max_memory_allocated()
+    stats1 = torch.cuda.memory_stats()
+    alloc = {k: stats1.get(k, 0) - stats0.get(k, 0)
+             for k in ("num_alloc_retries", "num_device_alloc",
+                       "num_device_free")}
+    check_drained(eng, seen, len(reqs), max_new)
+    never = ("decode", "prefill", "verify", "partials", "merge")
+    if min(counts[k] for k in ("smlm", "bgmv", "flash", "dense_decode")) \
+            == 0 or any(counts[k] for k in never):
+        raise AssertionError(f"the windowed arm did not run windowed flash "
+                             f"and dense decode alone: {counts}")
+    dec = [t * 1e3 for t, p, *_ in ticks if not p]
+    q = np.percentile(dec, [0, 10, 50, 90, 100])
+    split = [(round(e * 1e3, 3), round(w * 1e3, 3))
+             for _, p, _, e, w in ticks if p]
+    print(f"window: {cfg.name} bf16 sliding_window={W} (adapt_config "
+          f"long_500k) paged=False dense rows of {slots} slots capacity=2 "
+          f"pf_capacity=2 s_max=32768 prompts={list(prompts)} (the second "
+          f"submitted once the first decodes) tokens_each={max_new} steps="
+          f"{len(ticks)} prefill_tick_ms="
+          f"{[round(t * 1e3, 3) for t, p, *_ in ticks if p]} (forward "
+          f"enqueue + device wait {split}; prefill tokens "
+          f"{[p for _, p, *_ in ticks if p]}) "
+          f"{tick_stats(ticks)} "
+          f"decode_tick_ms min/p10/p50/p90/max="
+          f"{'/'.join(f'{x:.3f}' for x in q)} rows_bytes={rows_bytes} "
+          f"weights_and_rows_gb={base / 1e9 + rows_bytes / 1e9:.3f} "
+          f"peak_gb={peak / 1e9:.3f} reserved_before_gb={reserved / 1e9:.3f}"
+          f" allocator={alloc} launches="
+          f"{ {k: v for k, v in counts.items() if v} } finite=True "
+          f"pristine=True ok")
+    del eng
+    return counts
+
+
+def window_identity(cfg, weights, dev, n=16384, seed=6):
+    """Phase 13, the window's identity at full width (the JAX package's
+    ``test_cache_equivalence.py`` windowed test): path A prefills n tokens
+    into a rolling row of W slots and decodes token n through
+    ``unified_forward``; path B prefills all n + 1 tokens cold (a bucket
+    of n + 8, the rows past n + 1 padding) and reads no cache, so the
+    padded-bucket write cannot reach its logits.  bf16, adapter lora0:
+    equal argmax, and max |A - B| within ``WINDOW_LOGIT_TOL`` x max
+    |B|."""
+    from repro_torch.models.model import init_cache, unified_forward
+    from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+    params, store, _ = weights
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, n + 8).astype(
+        np.int32)).to(dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    adapter = i32([store.slot_of("lora0")])
+    kw = dict(loras=store.bank, lora_scale=store.scale, block_t=8)
+    dt = params["final_norm"].dtype
+    with torch.inference_mode():
+        cache = init_cache(cfg, 1, n + 8, dev, dt)
+        unified_forward(cfg, params, UnifiedBatch(pf=PFBatch(
+            tokens=toks[None, :n], length=i32([n]), adapter=adapter)),
+            cache, **kw)
+        a = unified_forward(cfg, params, UnifiedBatch(dec=DECBatch(
+            tokens=toks[n:n + 1], pos=i32([n]), adapter=adapter)), cache,
+            **kw).dec_logits.float()
+        cache = init_cache(cfg, 1, n + 8, dev, dt)
+        b = unified_forward(cfg, params, UnifiedBatch(pf=PFBatch(
+            tokens=toks[None], length=i32([n + 1]), adapter=adapter)),
+            cache, **kw).pf_logits.float()
+        del cache
+    err = float((a - b).abs().max())
+    lim = WINDOW_LOGIT_TOL * float(b.abs().max())
+    top = torch.topk(b[0], 2).values
+    if int(a.argmax()) != int(b.argmax()) or err > lim:
+        raise AssertionError(f"window identity: argmax A {int(a.argmax())} "
+                             f"B {int(b.argmax())}, max err {err:.4f} > "
+                             f"{lim:.4f}?")
+    print(f"window: identity at full width, W={cfg.sliding_window}: path A "
+          f"(prefill {n} into a rolling row, decode token {n}) vs path B "
+          f"(cold prefill of {n + 1}): argmax equal ({int(b.argmax())}), "
+          f"max_abs_err={err:.4f} tol={WINDOW_LOGIT_TOL:g}xmax|B|="
+          f"{lim:.4f}, B's top1-top2 gap={float(top[0] - top[1]):.4f} ok")
+
+
+def window_phase(K, weights, dev):
+    """Phase 13: the reduced parity, the full-width arm and the identity;
+    returns the arm's counts."""
+    parity_window(K)
+    cfg = window_config()
+    counts = full_window(K, cfg, weights, dev)
+    window_identity(cfg, weights, dev)
+    return counts
+
+
 SOURCES = {
     "smlm": ("src/repro_torch/kernels/csrc/smlm.cu",
              "src/repro/kernels/smlm.py:39"),
@@ -4716,9 +5127,12 @@ def check_kernels(K, dev):
         rows.update(check_splitk(K, dtype, dev, gen, timing))
         rows.update(check_dense_kernels(K, dtype, dev, gen, timing))
         rows.update(check_arch_shapes(K, dtype, dev, gen, timing))
+        rows.update(check_window_kernels(K, dtype, dev, gen, timing))
     for name, r in rows.items():
+        lib = r["library_ms"]
         print(f"timing: {name:<15} bf16 {r['shape']}: ms={r['ms']:.5f} "
-              f"plain_ms={r['plain_ms']:.5f} library_ms={r['library_ms']:.5f}"
+              f"plain_ms={r['plain_ms']:.5f} library_ms="
+              f"{'none' if lib is None else f'{lib:.5f}'}"
               f" bound_ms={r['bound_ms']:.5f} ({r['bound_by']}) "
               f"bound_share={r['bound_ms'] / r['ms']:.4f}")
     return rows
@@ -4755,6 +5169,9 @@ def main() -> int:
     ap.add_argument("--archs", action="store_true",
                     help="only the other configs: the mla/ssd/xattn "
                          "records, phase 3's arch parity, phase 12")
+    ap.add_argument("--window", action="store_true",
+                    help="only sliding windows: the windowed flash rows and "
+                         "phase 13")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -4841,6 +5258,21 @@ def main() -> int:
         full_archs(K, dev)
         print(card())
         return 0
+    if a.window:
+        rows = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.update(check_window_kernels(K, dtype, dev, gen,
+                                             dtype == torch.bfloat16))
+        for name, r in rows.items():
+            print(f"timing: {name} bf16 {r['shape']}: ms={r['ms']:.5f} "
+                  f"plain_ms={r['plain_ms']:.5f} library_ms="
+                  f"{r['library_ms']} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) bound_share="
+                  f"{r['bound_ms'] / r['ms']:.4f}")
+        cfg = window_config()
+        window_phase(K, full_weights(cfg, dev, torch.bfloat16), dev)
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -4874,6 +5306,7 @@ def main() -> int:
     by_path["tiers"] = full_tiers(K, cfg, weights, dev)
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
+    by_path["window"] = window_phase(K, weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
 

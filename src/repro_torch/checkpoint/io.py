@@ -1,4 +1,4 @@
-"""The weight bridge: path-keyed numpy archives into port tensors.
+"""The weight bridge: path-keyed numpy archives to and from port tensors.
 
 The JAX package writes pytrees as npz archives whose keys are the pytree
 paths joined by ``/`` (``repro.checkpoint.io.save_pytree``): ``embed``,
@@ -14,33 +14,91 @@ encoder's ``encoder/blocks/<leaf>`` ``[ne, ...]`` (int8 ``/_q8`` and
 ``/_qs`` too) becomes ``params["encoder"]["layers"][i][leaf]``, and
 ``encoder/final_norm`` its ``final_norm``.  int8 payloads and their fp32
 scales keep their dtypes.
+
+The writer inverts the reader (``params_to_numpy``, ``bank_to_numpy``:
+layer ``period * P + pos`` restacked into ``blocks/{pos}[period]``,
+``shared_wg`` back to ``shared/wg``) and writes what JAX's ``save_pytree`` /
+``serialize_pytree`` write for the same tree (``save_npz``,
+``serialize_npz``): the same keys in the same order (JAX flattens a dict in
+sorted key order and the ``blocks`` tuple by position), shapes and dtypes.
+A bf16 leaf is written as its raw 2-byte words (``|V2``, what numpy saves
+for a JAX bf16 array) and read back as bf16; JAX's own ``load_pytree``
+cannot cast such a leaf, so bf16 archives cross only into the port.  So a
+bank or an adapter fine-tuned on the card, or a voided adapter
+(``VirtualModel.void``), can be saved and migrated to a JAX runtime and
+back.
 """
 from __future__ import annotations
 
+import io
+import os
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, resolve_dtype
+from repro_torch.models.configs import ModelConfig
+from repro_torch.models.schema import SHARED
 
 Flat = Dict[str, np.ndarray]
 _SUB = ("_q8", "_qs", "a", "b")      # sub-leaves of a quantized / LoRA leaf
+_BF16 = np.dtype("V2")               # how numpy holds a bf16 leaf
 
 
-def load_npz(path: str) -> Flat:
+def load_npz(path) -> Flat:
+    """The arrays of an npz archive (a path or a file object)."""
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
 
 
+def deserialize_npz(blob: bytes) -> Flat:
+    """The arrays of an in-memory npz blob (``serialize_npz``, or JAX's
+    ``serialize_pytree``)."""
+    return load_npz(io.BytesIO(blob))
+
+
+def save_npz(path: str, flat: Flat) -> int:
+    """Write ``flat`` to ``path`` as JAX's ``save_pytree`` does.  Returns
+    the bytes written."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
+    return os.path.getsize(path)
+
+
+def serialize_npz(flat: Flat) -> bytes:
+    """``flat`` as an in-memory npz blob (a migration payload), as JAX's
+    ``serialize_pytree`` writes it."""
+    buf = io.BytesIO()
+    np.savez(buf, **flat)
+    return buf.getvalue()
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16 else str(arr.dtype)
+
+
 def _tensor(arr: np.ndarray, device, dtype,
             sub: Optional[str] = None) -> torch.Tensor:
-    """An int8 payload stays int8 and its scale fp32."""
+    """An int8 payload stays int8 and its scale fp32; raw 2-byte words are
+    bf16."""
     dtype = {"_q8": torch.int8, "_qs": torch.float32}.get(sub, dtype)
     arr = np.asarray(arr)                 # a 0-d leaf (xgate) stays 0-d
     if not arr.flags.c_contiguous:
         arr = np.ascontiguousarray(arr)
+    if arr.dtype == _BF16:
+        return torch.from_numpy(arr.view(np.int16)).view(
+            torch.bfloat16).to(device=device, dtype=dtype)
     return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
+def _array(x: torch.Tensor) -> np.ndarray:
+    """A host copy of ``x`` as JAX's ``np.asarray`` gives it: bf16 as its
+    raw 2-byte words."""
+    x = x.detach().to("cpu", copy=True)
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(_BF16)
+    return x.numpy()
 
 
 def _leaf(rest: str) -> Tuple[str, Optional[str]]:
@@ -91,7 +149,7 @@ def params_from_numpy(flat: Flat, device: DeviceLike = None,
     """Base parameters in the port's per-layer layout; int8 leaves stay
     ``{"_q8", "_qs"}``.  The float dtype defaults to ``final_norm``'s."""
     dev = resolve_device(device)
-    dt = resolve_dtype(dtype, str(flat["final_norm"].dtype))
+    dt = resolve_dtype(dtype, _dtype_name(flat["final_norm"]))
     params = {"embed": _top(flat, "embed", dev, dt),
               "layers": _per_layer(flat, dev, dt),
               "final_norm": _tensor(flat["final_norm"], dev, dt)}
@@ -114,5 +172,64 @@ def bank_from_numpy(flat: Flat, device: DeviceLike = None,
     adapter (``[P, d_in, r]``) as ``{"layers": [{t: {"a", "b"}}]}``."""
     dev = resolve_device(device)
     any_leaf = next(iter(flat.values()))
-    dt = resolve_dtype(dtype, str(any_leaf.dtype))
+    dt = resolve_dtype(dtype, _dtype_name(any_leaf))
     return {"layers": _per_layer(flat, dev, dt)}
+
+
+def _stacked(layers: List[Dict], P: int, prefix) -> List[Tuple[tuple,
+                                                                np.ndarray]]:
+    """Per-layer ``{leaf: tensor | {sub: tensor}}`` -> ``(path, array)``
+    with layer ``period * P + pos`` at ``[period]`` of the stack of
+    position ``pos``; ``prefix(pos)`` gives the path's head."""
+    if len(layers) % P:
+        raise ValueError(f"{len(layers)} layers are not periods of {P}")
+    out = []
+    for pos in range(P):
+        group = layers[pos::P]
+        for name, leaf in group[0].items():
+            path = prefix(pos) + tuple(SHARED.get(name, name).split("/"))
+            subs = sorted(leaf) if isinstance(leaf, dict) else [None]
+            for sub in subs:
+                arrs = [_array(layer[name] if sub is None
+                               else layer[name][sub]) for layer in group]
+                out.append((path if sub is None else path + (sub,),
+                            np.stack(arrs)))
+    return out
+
+
+def _flat(items) -> Flat:
+    """``(path, array)`` pairs in JAX's flattening order (dict keys sorted
+    at every level, block positions in order) as ``{"a/b": array}``."""
+    return {"/".join(str(c) for c in path): arr
+            for path, arr in sorted(items, key=lambda kv: kv[0])}
+
+
+def _top_items(x, path: tuple):
+    if isinstance(x, dict):
+        return [(path + (s,), _array(x[s])) for s in sorted(x)]
+    return [(path, _array(x))]
+
+
+def params_to_numpy(cfg: ModelConfig, params: Dict) -> Flat:
+    """Port base parameters (int8 leaves as ``{"_q8", "_qs"}``) -> the flat
+    arrays JAX's ``save_pytree`` writes for the same parameters; the
+    inverse of ``params_from_numpy``."""
+    items = _stacked(params["layers"], len(cfg.pattern),
+                     lambda pos: ("blocks", pos))
+    for key in ("embed", "final_norm", "lm_head"):
+        if key in params:
+            items += _top_items(params[key], (key,))
+    if "encoder" in params:
+        enc = params["encoder"]
+        items += _stacked(enc["layers"], 1, lambda _: ("encoder", "blocks"))
+        items += _top_items(enc["final_norm"], ("encoder", "final_norm"))
+    return _flat(items)
+
+
+def bank_to_numpy(cfg: ModelConfig, bank: Dict) -> Flat:
+    """A LoRA bank (``[n, d_in, r]`` a layer: the ``n_slots`` axis lands
+    after the periods axis) or one adapter (``[d_in, r]``) -> the flat
+    arrays JAX's ``save_pytree`` writes for it; the inverse of
+    ``bank_from_numpy``."""
+    return _flat(_stacked(bank["layers"], len(cfg.pattern),
+                          lambda pos: ("blocks", pos)))

@@ -49,7 +49,10 @@ struct SlotMask {
   __device__ __forceinline__ bool operator()(int j, int) const {
     return j < hi && roll(j, 0);
   }
-  __device__ __forceinline__ bool whole(int, int, int) const { return false; }
+  __device__ __forceinline__ int begin(int) const { return lo; }
+  __device__ __forceinline__ bool whole(int, int, int, int) const {
+    return false;
+  }
 };
 
 // Each warp of the fp32 walk writes its rows (query heads: the chunk is

@@ -10,13 +10,16 @@
 // contiguous rows: `kv_rows.cuh`) is read once per query tile for the whole
 // group.  Query row si sits at position c0 + si; which keys it sees is the
 // mask's (`PosMask`: keys below a limit and, if causal, at most the row's
-// position; a decode chunk of dense rows brings its own rolling mask).  The
-// walk stops at the last tile that the mask allows and masks only the tiles
-// that straddle a limit.  The finalize divides by l clamped at 1e-30, so a
-// row with no valid key gives exact zeros; a split-K run writes its
-// un-normalized partial instead (`PartialOut`).  Addressing, mask and
-// output are template parameters: no kernel pays a runtime branch for
-// another's case.
+// position; a sliding window (`WinMask`, flash only) adds that the row sees
+// only keys less than `window` positions back; a decode chunk of dense rows
+// brings its own rolling mask).  The walk starts at the tile of the oldest
+// key the tile's first position sees, stops at the last tile that the mask
+// allows, and masks only the tiles that straddle a limit.  The finalize
+// divides by l clamped at 1e-30, so a row with no valid key gives exact
+// zeros (its running max stays -inf, its sum 0 and its output 0); a
+// split-K run writes its un-normalized partial instead (`PartialOut`).
+// Addressing, mask and output are template parameters: no kernel pays a
+// runtime branch for another's case.
 //
 // The element type picks the walk at compile time:
 //  * bf16, the tensor-core walk (`tile_walk` over `__nv_bfloat16`): four
@@ -67,15 +70,16 @@ inline size_t tile_walk_smem_bytes(int bs, int hd) {
 }
 
 // The fp32 walk.  q and out are [B, Sq, h, hd]; `n_tiles` caps the walk
-// (the table width, or the row's tile count).  Launch with TW_WARPS * 32
-// threads.
+// (the table width, or the row's tile count); `window` > 0 limits each row
+// to the keys less than `window` positions back (0: no window).  Launch with
+// TW_WARPS * 32 threads.
 template <typename Rows, bool CAUSAL>
 __device__ __forceinline__ void tile_walk(
     const float* __restrict__ q, const float* __restrict__ kp,
     const float* __restrict__ vp, const Rows& kv, float* __restrict__ out,
     float* sm,
     int b, int iq, int kvh, int Sq, int h, int g, int c0, int kend,
-    int n_tiles, float scale) {
+    int n_tiles, float scale, int window = 0) {
   const int hd = kv.hd, bs = kv.bs;
   const int ldk = hd + 1;
   float* Ks = sm;                  // [bs][hd + 1]
@@ -105,6 +109,8 @@ __device__ __forceinline__ void tile_walk(
   const int qpos_max = c0 + min((iq + 1) * bq, Sq) - 1;
   const int klimit = CAUSAL ? min(kend, qpos_max + 1) : kend;
   const int nblk = klimit <= 0 ? 0 : min(n_tiles, (klimit + bs - 1) / bs);
+  // the first tile that holds a key inside the first position's window
+  const int blk0 = window > 0 ? max(0, c0 + iq * bq - window + 1) / bs : 0;
 
   float acc[TW_RPW][TW_MAX_NI];
   float m_run[TW_RPW], l_run[TW_RPW];
@@ -119,7 +125,7 @@ __device__ __forceinline__ void tile_walk(
     for (int i = 0; i < TW_MAX_NI; ++i) acc[r][i] = 0.f;
   }
 
-  for (int ib = 0; ib < nblk; ++ib) {
+  for (int ib = blk0; ib < nblk; ++ib) {
     __syncthreads();  // previous tile's reads (and the Q staging) are done
     stage_tile<float>(kp, vp, kv, ib, kvh, Ks, Vs, ldk);
     __syncthreads();
@@ -150,7 +156,8 @@ __device__ __forceinline__ void tile_walk(
 #pragma unroll
       for (int r = 0; r < TW_RPW; ++r) {
         const bool valid =
-            j < bs && jpos < kend && (!CAUSAL || jpos <= qpos[r]);
+            j < bs && jpos < kend && (!CAUSAL || jpos <= qpos[r]) &&
+            (window <= 0 || qpos[r] - jpos < window);
         const float sv = valid ? s[r] * scale : NEG_INF;
         const float m_new = fmaxf(m_run[r], warp_max(sv));
         pr[r] = valid ? expf(sv - m_new) : 0.f;
@@ -252,20 +259,46 @@ __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
 }
 
 // Which keys a query row sees, for the bf16 walk: keys lo <= j < hi and,
-// if CAUSAL, j <= the row's position.  `end` bounds the walk for a tile
-// whose last position is qpos_max; `whole` says every key of [k0, k1) is
-// valid for every row at or past qpos_lo (no mask needed).
+// if CAUSAL, j <= the row's position.  `begin` and `end` bound the walk for
+// a tile whose positions run from qpos_lo to qpos_max; `whole` says every
+// key of [k0, k1) is valid for every row of positions qpos_lo .. qpos_hi
+// (no mask needed).
 template <bool CAUSAL>
 struct PosMask {
   int lo, hi;
+  __device__ __forceinline__ int begin(int) const { return lo; }
   __device__ __forceinline__ int end(int qpos_max) const {
     return CAUSAL ? min(hi, qpos_max + 1) : hi;
   }
   __device__ __forceinline__ bool operator()(int j, int qpos) const {
     return j >= lo && j < hi && (!CAUSAL || j <= qpos);
   }
-  __device__ __forceinline__ bool whole(int k0, int k1, int qpos_lo) const {
+  __device__ __forceinline__ bool whole(int k0, int k1, int qpos_lo,
+                                        int) const {
     return k0 >= lo && k1 <= hi && (!CAUSAL || k1 - 1 <= qpos_lo);
+  }
+};
+
+// PosMask with a sliding window: the row at qpos also needs qpos - j <
+// window (window > 0), so the walk of a tile begins at its first
+// position's oldest key, and a tile is whole only if its oldest key is
+// inside the last position's window.
+template <bool CAUSAL>
+struct WinMask {
+  PosMask<CAUSAL> pos;
+  int window;
+  __device__ __forceinline__ int begin(int qpos_lo) const {
+    return max(pos.lo, qpos_lo - window + 1);
+  }
+  __device__ __forceinline__ int end(int qpos_max) const {
+    return pos.end(qpos_max);
+  }
+  __device__ __forceinline__ bool operator()(int j, int qpos) const {
+    return pos(j, qpos) && qpos - j < window;
+  }
+  __device__ __forceinline__ bool whole(int k0, int k1, int qpos_lo,
+                                        int qpos_hi) const {
+    return pos.whole(k0, k1, qpos_lo, qpos_hi) && qpos_hi - k0 < window;
   }
 };
 
@@ -318,7 +351,8 @@ struct PartialOut {
 // The bf16 walk.  q is [B, Sq, h, hd = HD]; tile `iq` holds positions
 // iq * bq .. iq * bq + bq - 1 (bq = 64 / m, rounded down: rows past bq * m
 // are padding) at absolute positions c0 + si.  The keys walked are those
-// `mask` allows, in tiles of BK keys, never past `mask.hi`; `out` receives
+// `mask` allows, in tiles of BK keys, from the tile of `mask.begin` (the
+// tile's first position) to that of `mask.end` (its last); `out` receives
 // each row.  Launch with TcWalk<HD, BK>::kThreads threads and kSmem bytes of
 // shared memory.  Thread (warp w, lane) holds, in the m16n8 accumulator
 // layout, rows 16w + lane/4 and 16w + lane/4 + 8 of the tile, columns
@@ -344,9 +378,11 @@ __device__ __forceinline__ void tile_walk(
   const int n_pos = min(bq, Sq - iq * bq);       // positions of this tile
   const int live = n_pos * m;                    // rows 0 .. live - 1
   const int qpos_lo = c0 + iq * bq;              // the tile's first position
-  const int k_end = mask.end(qpos_lo + n_pos - 1);
-  const int t_lo = mask.lo / BK;
-  const int t_hi = k_end > mask.lo ? (k_end + BK - 1) / BK : t_lo;
+  const int qpos_hi = qpos_lo + n_pos - 1;       // and its last
+  const int k_beg = mask.begin(qpos_lo);
+  const int k_end = mask.end(qpos_hi);
+  const int t_lo = k_beg / BK;
+  const int t_hi = k_end > k_beg ? (k_end + BK - 1) / BK : t_lo;
 
   // the query tile (padding rows are zeros); the group's m heads of one
   // position are adjacent in q, so row rr starts at head kvh * m + rr % m
@@ -370,7 +406,7 @@ __device__ __forceinline__ void tile_walk(
     for (int e = tid; e < BK * CH; e += W::kThreads) {
       const int j = e / CH, c = e - j * CH;
       const int key = t * BK + j;
-      const bool ok = key >= mask.lo && key < k_end;
+      const bool ok = key >= k_beg && key < k_end;
       const size_t off =
           ok ? (run ? base + j * stride : kv.row(key, kvh)) + c * 8 : 0;
       cp_async16(Ks + j * LD + c * 8, kp + off, ok);
@@ -440,7 +476,7 @@ __device__ __forceinline__ void tile_walk(
       }
 
       // scale, and mask the tiles that straddle a limit
-      const bool whole = mask.whole(t * BK, (t + 1) * BK, qpos_lo);
+      const bool whole = mask.whole(t * BK, (t + 1) * BK, qpos_lo, qpos_hi);
 #pragma unroll
       for (int i = 0; i < NT; ++i)
 #pragma unroll

@@ -95,13 +95,15 @@ def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor, *, causal: bool = True,
-                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
+                    window: int = 0, block_q: int = 128,
+                    block_k: int = 128) -> torch.Tensor:
     """Flash attention (every cold prefill): q [B, S, h, hd] over k/v
-    [B, T, g, hd], keys ``j < lengths[b]`` (and ``j <= i`` when causal).
-    ``block_q``/``block_k`` are the Pallas kernel's tiles; the CUDA kernel
-    picks its own, and the result does not depend on them."""
+    [B, T, g, hd], keys ``j < lengths[b]`` (and ``j <= i`` when causal, and
+    ``i - j < window`` when ``window > 0``).  ``block_q``/``block_k`` are
+    the Pallas kernel's tiles; the CUDA kernel picks its own, and the
+    result does not depend on them."""
     del block_q, block_k
-    return flash_attn.flash_attention(q, k, v, lengths, causal)
+    return flash_attn.flash_attention(q, k, v, lengths, causal, window)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

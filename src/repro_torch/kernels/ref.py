@@ -114,19 +114,22 @@ def _gather_view(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        lengths: torch.Tensor, causal: bool = True
-                        ) -> torch.Tensor:
+                        lengths: torch.Tensor, causal: bool = True,
+                        window: int = 0, chunk: int = 0) -> torch.Tensor:
     """Masked GQA attention, full-scores form: query ``i`` of request ``b``
-    sees keys ``j < lengths[b]`` (and ``j <= i`` when ``causal``); a row
-    with no valid key gives 0.  q: [B, S, h, hd]; k/v: [B, T, g, hd];
-    lengths: [B].  Returns [B, S, h, hd]."""
+    sees keys ``j < lengths[b]`` (and ``j <= i`` when ``causal``, and ``i -
+    j < window`` when ``window > 0``: the JAX model's ``_build_mask``); a
+    row with no valid key gives 0.  q: [B, S, h, hd]; k/v: [B, T, g, hd];
+    lengths: [B].  ``chunk > 0`` takes the chunked online-softmax form of
+    ``layers.attention`` (the same function in bounded memory).  Returns
+    [B, S, h, hd]."""
     B, S = q.shape[:2]
     T = k.shape[1]
     q_pos = torch.arange(S, device=q.device)[None, :].expand(B, S)
     k_pos = torch.arange(T, device=q.device)[None, :].expand(B, T)
     k_valid = k_pos < lengths.long()[:, None]
     return attention(q, k, v, q_pos=q_pos, k_pos=k_pos, k_valid=k_valid,
-                     causal=causal)
+                     causal=causal, window=window, chunk=chunk)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -77,8 +77,16 @@ layers, the Mamba state rows ``h`` / ``conv_x`` / ``conv_bc`` (``STATE_KEYS``),
 each ``[L_mamba, n_rows, ...]`` over the Mamba layers, and the
 cross-attention rows ``xk`` / ``xv`` (``STATE_KEYS`` too), each
 ``[L_cross, n_rows, F, g, hd]`` over the cross layers; ``layer_cache``
-gives each layer its dict of views.  Sliding windows and dense-row verify
-chunks raise here.
+gives each layer its dict of views.  Dense-row verify chunks raise here.
+
+A sliding window (``cfg.sliding_window`` = W > 0, dense rows only: the paged
+pool refuses it, as in the JAX model) reaches the self-attention of every
+family as in the JAX model: ft rows and cold prefill attend with ``window=W``
+(GQA's cold prefill through the windowed flash kernel, MLA's through
+``layers.mla_attention``), and the row has ``cache_seq_len`` = min(s_max, W)
+slots, so decode attends with ``window=0`` over the rolling row, where the
+slot positions alone keep each query to its last W keys.  Suffix prefill
+(paged only), cross attention and the encoder stay unwindowed.
 """
 from __future__ import annotations
 
@@ -421,7 +429,8 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         vh = vf.reshape(plan.Bf, plan.Sf, kv, hd)
         outs[0] = L.attention(qh, kh, vh, q_pos=plan.ft_pos,
                               k_pos=plan.ft_pos, k_valid=plan.ft_valid,
-                              causal=True, chunk=attn_chunk)
+                              causal=True, window=cfg.sliding_window,
+                              chunk=attn_chunk)
     if qp is not None:           # prefill: causal + cache write
         pf = plan.pf
         qh = _rope_heads(qp, plan.pf_pos, h, cfg.rope_theta)
@@ -443,7 +452,8 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
             # cold prefill: prompt-local causal attention over the bucket's
             # own K/V (flash attention), then into the blocks or the rows
             outs[1] = ops.flash_attention(qh, kh, vh, pf.length,
-                                          causal=True)
+                                          causal=True,
+                                          window=cfg.sliding_window)
             if pf.block_tables is not None:
                 _paged_write_prompt(k_pool, kh, pf.block_tables)
                 _paged_write_prompt(v_pool, vh, pf.block_tables)
@@ -526,6 +536,7 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         outs[0] = L.mla_attention(qn, qr, ckv, kpe, wuk, wuv,
                                   q_pos=plan.ft_pos, k_pos=plan.ft_pos,
                                   k_valid=plan.ft_valid, causal=True,
+                                  window=cfg.sliding_window,
                                   chunk=attn_chunk)
     if qp is not None:           # prefill: causal + cache write
         pf = plan.pf
@@ -552,6 +563,7 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
             outs[1] = L.mla_attention(qn, qr, ckv, kpe, wuk, wuv,
                                       q_pos=plan.pf_pos, k_pos=plan.pf_pos,
                                       k_valid=plan.pf_valid, causal=True,
+                                      window=cfg.sliding_window,
                                       chunk=attn_chunk)
             for name, xh in (("ckv", ckv), ("kpe", kpe)):
                 if tbl is not None:

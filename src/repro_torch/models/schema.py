@@ -45,7 +45,7 @@ the scalar gate ``xgate`` [] (zeros, so a freshly drawn cross layer adds
 nothing).  An encoder (``cfg.encoder``) is ``params["encoder"] = {"layers":
 [{ln1, wq, wk, wv, wo, ln2, wg, wu, wd} per encoder layer], "final_norm":
 [d]}`` (``encoder_shapes``; the JAX package's ``encoder/blocks/<leaf>``
-stacked ``[ne, ...]``), with no LoRA.  Sliding windows raise here.
+stacked ``[ne, ...]``), with no LoRA.  A sliding window adds no leaf.
 """
 from __future__ import annotations
 
@@ -78,15 +78,16 @@ class Leaf:
 def check_supported(cfg: ModelConfig) -> None:
     """GQA or MLA attention and Mamba2 mixers with dense or MoE FFNs (or
     none): any block pattern of ``"attn"`` and ``"mamba"`` positions, the
-    latter with ``cfg.ssm``; cross-attention layers and an encoder too."""
+    latter with ``cfg.ssm``; cross-attention layers, an encoder and a
+    sliding window (``cfg.sliding_window > 0``, on the self-attention of
+    every family) too."""
     kinds = set(cfg.pattern)
     if (not kinds <= {"attn", "mamba"}
-            or ("mamba" in kinds and cfg.ssm is None)
-            or cfg.sliding_window):
+            or ("mamba" in kinds and cfg.ssm is None)):
         raise NotImplementedError(
             f"{cfg.name}: the port covers GQA, MLA and Mamba2 mixers with "
-            "dense or MoE FFNs, cross-attention and encoders; sliding "
-            "windows are not ported")
+            "dense or MoE FFNs, cross-attention, encoders and sliding "
+            f"windows; not the block pattern {cfg.pattern}")
 
 
 def cross_len(cfg: ModelConfig) -> int:

@@ -54,6 +54,7 @@ from repro_torch.core import flow
 from repro_torch.core.unified import make_apply_step, make_forward_step, \
     make_grad_step
 from repro_torch.core.virtualization import MixedLoraModel
+from repro_torch.models.model import cache_seq_len
 from repro_torch.serving.clock import CostModel, VirtualClock, WallClock
 from repro_torch.serving.kvcache import (CacheManager, OutOfBlocksError,
                                          PagedCacheManager,
@@ -121,17 +122,26 @@ class UnifiedEngine:
             self.cachemgr = CacheManager(self.cfg, e.capacity,
                                          e.pf_capacity, e.s_max,
                                          device=self.device, dtype=dtype)
+            sc = cache_seq_len(self.cfg, e.s_max)
             over = flow._pad_seq(e.s_max, e.flow)
-            if over > e.s_max:
+            if over > sc:
                 # as in the JAX model, a prompt bucket longer than the row
-                # is written rolling, so its padding overwrites the
-                # prompt's first slots (ROADMAP Queue 3)
-                warnings.warn(
-                    f"dense rows of {e.s_max} slots: a prompt that pads to "
-                    f"the {over}-token bucket has its first slots "
-                    f"overwritten by the bucket's padding; choose an s_max "
-                    f"that is a padded prompt bucket", RuntimeWarning,
-                    stacklevel=2)
+                # is written rolling: the bucket's last sc positions land
+                # at slots p % sc, so a prompt that does not fill its
+                # bucket has padding where decode reads keys (ROADMAP
+                # Queue 3)
+                W = self.cfg.sliding_window
+                msg = (f"dense rows of {sc} slots (sliding window {W}): a "
+                       f"prompt whose padded prompt bucket is longer than "
+                       f"{sc} tokens and which does not fill that bucket "
+                       f"takes the JAX model's rolling write, so the "
+                       f"bucket's padding lands on slots that decode reads "
+                       f"as keys" if sc < e.s_max else
+                       f"dense rows of {sc} slots: a prompt that pads to "
+                       f"the {over}-token bucket has its first slots "
+                       f"overwritten by the bucket's padding; choose an "
+                       f"s_max that is a padded prompt bucket")
+                warnings.warn(msg, RuntimeWarning, stacklevel=2)
         # unified adapter paging: adapter weights share the KV block pool
         self.adapter_paging = self.paged and e.adapter_paging
         if self.adapter_paging:

@@ -204,14 +204,11 @@ def test_dense_planner_matches_jax(seed):
 def test_init_cache_layout_matches_jax(window, s_max):
     """JAX ``[n_periods, rows, sc, g, hd]`` per pattern position is the
     port's ``[L, rows, sc, g, hd]`` (attention-only pattern, period axis
-    unrolled); ``cache_seq_len`` clips rolling rows to the window."""
+    unrolled); ``cache_seq_len`` clips rolling rows to the window, in both
+    packages."""
     jcfg = j_get_reduced("llama3-8b").replace(sliding_window=window)
     cfg = get_reduced("llama3-8b").replace(sliding_window=window)
     assert TM.cache_seq_len(cfg, s_max) == JM.cache_seq_len(jcfg, s_max)
-    if window:
-        with pytest.raises(NotImplementedError):
-            TM.init_cache(cfg, 3, s_max, CPU, torch.float32)
-        return
     jc = JM.init_cache(jcfg, 3, s_max)["layers"]
     tc = TM.init_cache(cfg, 3, s_max, CPU, torch.float32)
     assert len(jc) == 1 and jcfg.n_periods == cfg.n_layers
@@ -411,7 +408,8 @@ def test_mixed_tick_on_dense_rows_matches_jax(weights):
 
 def test_dense_buckets_the_port_does_not_serve(weights):
     """Verify chunks on dense rows (the JAX engine runs speculation on the
-    paged layout only) raise; so does a sliding-window model."""
+    paged layout only) raise; so does a windowed verify chunk, as the JAX
+    model's does (rolled-back drafts would alias live window slots)."""
     w = weights
     cache = TM.init_cache(w["cfg"], 2, 16, CPU, torch.float32)
     batch = UnifiedBatch(dec=DECBatch(tokens=torch.zeros((2, 3),

@@ -220,6 +220,57 @@ def test_cuda_flash_attention_matches_plain(dtype, causal):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 50, 200, 260])
+@pytest.mark.parametrize("m,hd", [(1, 64), (1, 128), (4, 64), (4, 128),
+                                  (8, 64), (8, 128)])
+def test_cuda_windowed_flash_matches_plain(dtype, window, m, hd):
+    """Sliding-window flash (causal, g = 2, h = 2m) against its plain
+    version over S = T = 200, W = 0, < S, = S and > S: lengths 200, 77
+    and 0; row 1's positions from 77 + W - 1 on see no key in their
+    window and must be exact zeros, as the length-0 row is; with W = 50
+    whole key tiles below a query tile's window are skipped."""
+    dev = _card()
+    rng = np.random.default_rng(200 + window + m + hd)
+    B, S, g = 3, 200, 2
+    h = m * g
+    q = rng.standard_normal((B, S, h, hd), dtype=np.float32)
+    k = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+    v = rng.standard_normal((B, S, g, hd), dtype=np.float32)
+    lens = np.array([200, 77, 0], np.int32)
+    cuda = lambda x: t(x).to(dev)
+    args = (cuda(q).to(dtype), cuda(k).to(dtype), cuda(v).to(dtype),
+            cuda(lens))
+    y = flash_attention(*args, causal=True, window=window)
+    _close(y, ref.flash_attention_ref(*args, causal=True, window=window),
+           dtype)
+    assert float(y[2].abs().max()) == 0.0
+    if window:
+        assert float(y[1, 77 + window - 1:].abs().sum()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_windowed_flash_long_prompt(dtype):
+    """One 1700-token prompt in a 2048 bucket at h = 32 over g = 8, hd =
+    128, window 300: most query tiles start their walk past key tile 0,
+    and the padding rows from 1999 on give exact zeros."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    S, h, g, hd, window = 2048, 32, 8, 128, 300
+    q = rng.standard_normal((1, S, h, hd), dtype=np.float32)
+    k = rng.standard_normal((1, S, g, hd), dtype=np.float32)
+    v = rng.standard_normal((1, S, g, hd), dtype=np.float32)
+    cuda = lambda x: t(x).to(dev).to(dtype)
+    args = (cuda(q), cuda(k), cuda(v),
+            torch.tensor([1700], dtype=torch.int32, device=dev))
+    y = flash_attention(*args, causal=True, window=window)
+    _close(y, ref.flash_attention_ref(*args, causal=True, window=window,
+                                      chunk=256), dtype)
+    assert float(y[0, 1700 + window - 1:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window,S", [(0, 512), (64, 64), (0, 40), (40, 40)])
 def test_cuda_dense_decode_matches_plain(dtype, window, S):
     """Dense rows, linear (pos 0, tile edges, the last slot, and past the
