@@ -11,6 +11,7 @@
     python3 chip_smoke.py --fleet
     python3 chip_smoke.py --archs
     python3 chip_smoke.py --window
+    python3 chip_smoke.py --examples
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -40,7 +41,9 @@ chunked-training parity, then phases 9 and 10.  The eighth runs only the
 fleet: phase 3's fleet case, then phase 11.  The ninth runs only the other
 configs: the ``mla:``, ``ssd:`` and ``xattn:`` lines, phase 3's arch, MLA,
 Mamba and cross-attention parity, then phase 12.  The tenth runs only
-sliding windows: phase 2's windowed flash rows, then phase 13.
+sliding windows: phase 2's windowed flash rows, then phase 13.  The
+eleventh runs only the example twins: phase 14, whose ``costs:`` lines
+then have no measured ticks beside them.
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -307,12 +310,35 @@ printing its lines; any failure raises and exits non-zero:
              identity at full width: 16384 tokens prefilled into a rolling
              row and token 16384 decoded, against a cold prefill of 16385:
              equal argmax, logits within ``WINDOW_LOGIT_TOL``.
+14. examples — the four example twins ``examples/*_torch.py``
+             (quickstart, migration, multi_finetune, unified_serving),
+             each through its ``run``: (a) on the reduced llama3-8b in
+             fp32 on ``cuda`` and on ``cpu`` with the same numpy weights:
+             tokens, slots, resident lists, counts and the payload's bytes
+             equal, losses within ``EXAMPLE_LOSS_RTOL`` relative; (b) at
+             full width (llama3-8b bf16, ``EXAMPLE_LAYERS`` deep, weights
+             drawn on the card from phase 4's seeds), its engine's ticks
+             timed (``examples:`` lines: depth, ticks, wall, tick mean and
+             p50 with the step's enqueue and device wait, tokens trained,
+             optimizer steps, losses, the payload's bytes, SLO attainment,
+             peak allocated memory).  Gates: every request finishes with
+             its tokens, every trainer takes optimizer steps with finite
+             losses, every pool drains pristine, and the kernels of
+             ``EXAMPLE_KERNELS`` launch (``check_routes``; paged prefill
+             and split-K are counted, not gated); (c) ``costs:`` lines:
+             the port's ``step_cost`` (dp 1, tp 1, ``strategy="tp"``) and
+             ``Roofline`` bound on the H100's constants for phase 4's
+             decode tick (4 rows over 512 slots) and cold prefill tick (4
+             x 144 tokens), phase 6's profiled 3000-token prefill and
+             phase 8's profiled grad step, beside the ticks measured in
+             this run and the share bound / measured.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-13 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, window, archs, archs_mla, archs_mamba and
-archs_cross, the MLA, Mamba and cross arms with their grad steps;
+run of phases 4-14 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging, fleet, window, archs, archs_mla, archs_mamba,
+archs_cross (the MLA, Mamba and cross arms with their grad steps) and
+examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
 card's name and power
 limit, and the last line
@@ -321,6 +347,8 @@ limit, and the last line
 from __future__ import annotations
 
 import argparse
+import gc
+import importlib.util
 import json
 import os
 import subprocess
@@ -331,8 +359,26 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def _load_file(name: str, *parts):
+    """The module at ``ROOT/<parts>`` under ``name``, imported by path: the
+    port's H100 constants and the example twins, whichever tree ``--root``
+    imports the kernels from."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, *parts))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod         # dataclasses resolve their module
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the H100 SXM's peaks and memory rate (NVIDIA data sheet), as the port's
+# roofline states them
+RA = _load_file("_smoke_roofline", "src", "repro_torch", "roofline",
+                "analysis.py")
+HBM_BYTES_PER_S = RA.HBM_BW
+PEAK_FLOPS = {torch.bfloat16: RA.PEAK_FLOPS, torch.float32: RA.PEAK_FLOPS_FP32}
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}   # x max|plain| per row
 
 
@@ -2678,8 +2724,12 @@ def with_suffix(waves, outputs):
              for r in wave] for wave in waves]
 
 
-def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
-    """Phase 4: the plain serving path; returns its counts and outputs."""
+def full_width(K, cfg, weights, dev, measured, head=128, max_new=16,
+               seed=0):
+    """Phase 4: the plain serving path; returns its counts and outputs.
+    Keeps wave 1's cold prefill tick and the decode-only ticks by their
+    rows in ``measured`` (phase 14's ``costs:`` lines): (seconds, enqueue
+    seconds, device wait seconds) each."""
     eng, seen, ticks, tick = timed_engine(cfg, weights, capacity=8,
                                           pf_capacity=4, s_max=512)
     waves = request_waves(cfg, np.random.default_rng(seed), head,
@@ -2699,6 +2749,13 @@ def full_width(K, cfg, weights, dev, head=128, max_new=16, seed=0):
     done = {r.rid: r for r in eng.finished}
     ttft = {i: r.t_first_token - r.arrival for i, r in done.items()}
     pf_ms = [t * 1e3 for t, p, *_ in ticks if p]
+    cold = sum(len(r.prompt) for r in waves[0])
+    measured["prefill"] = [(t, e, w) for t, p, _, e, w in ticks
+                           if p == cold]
+    measured["decode"] = {}
+    for t, p, d, e, w in ticks:
+        if d and not p:
+            measured["decode"].setdefault(d, []).append((t, e, w))
     print(f"full: {cfg.name} bf16 L={cfg.n_layers} d={cfg.d_model} "
           f"V={cfg.vocab} setup_s={weights[2]:.3f} requests=8 "
           f"tokens_each={max_new} steps={len(ticks)} "
@@ -2849,13 +2906,15 @@ def ms_stats(ts):
             if ms else "n=0")
 
 
-def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
+def full_train(K, cfg, weights, dev, waves, plain, measured, n_rows=16,
+               max_new=16, repeats=3):
     """Phase 8: two trainers (``tr0`` on ``alpaca_like``, ``tr1`` on
     ``gsm8k_like`` rows, full vocab) co-run with phase 4's two waves at
     full width, beside serve-only runs of the same waves (before and
     after); then one grad step through the kernels against the same step
     through the plain versions on the card.  Returns the mixed run's
-    launch counts."""
+    launch counts; the profiled grad step and ``repeats`` more, timed, go
+    into ``measured["grad_step"]``."""
     from repro_torch.core import flow
     from repro_torch.core.unified import make_grad_step
     from repro_torch.core.virtualization import MixedLoraModel
@@ -3033,6 +3092,16 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
         wall_ms = (time.perf_counter() - t0) * 1e3
     busy_ms, names, by = device_top(prof)
     wg, d2d = by("smlm_wgrad"), by("Memcpy DtoD")
+    again = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        grads(None, params, store.bank)
+        torch.cuda.synchronize()
+        again.append(time.perf_counter() - t0)
+    measured["grad_step"] = dict(rows=len(rows),
+                                 tokens=int(batch.ft.mask.sum()),
+                                 wall_ms=wall_ms, busy_ms=busy_ms,
+                                 again=again)
     print(f"profile: grad step of {len(rows)} ft rows "
           f"({batch.ft.tokens.numel()} tokens), wall_ms={wall_ms:.3f} "
           f"device_busy_ms={busy_ms:.3f} busy_share="
@@ -3070,9 +3139,12 @@ def full_train(K, cfg, weights, dev, waves, plain, n_rows=16, max_new=16):
     return counts
 
 
-def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
+def long_context(K, cfg, weights, dev, measured, prompt=3000, max_new=16,
+                 seed=1):
     """Phase 6: capacity 2, s_max 4096, two ~3000-token prompts, without
-    and with speculation: the shape where ``choose`` splits the walk."""
+    and with speculation: the shape where ``choose`` splits the walk.  The
+    profiled prefill of one more ``prompt``-token request goes into
+    ``measured["long_prefill"]``."""
     from repro_torch.serving.request import Request
     from repro_torch.spec import SpecConfig
     rng = np.random.default_rng(seed)
@@ -3115,9 +3187,11 @@ def long_context(K, cfg, weights, dev, prompt=3000, max_new=16, seed=1):
               f"splitk_by_sq_ns={shapes} "
               f"finite=True pristine=True ok")
         if spec is None:
-            profile_prefill(eng, tick, Request(
-                rid=9, prompt=rng.integers(0, cfg.vocab, prompt).astype(
-                    np.int32), adapter="lora0", max_new_tokens=2), "long")
+            extra = Request(rid=9, prompt=rng.integers(
+                0, cfg.vocab, prompt).astype(np.int32), adapter="lora0",
+                max_new_tokens=2)
+            measured["long_prefill"] = profile_prefill(eng, tick, ticks,
+                                                       extra, "long")
         del eng
     return counts
 
@@ -3162,17 +3236,18 @@ def profile_wave(eng, reqs, dev, label):
           f"busy_share={busy_ms / wall_ms:.4f} top: {names}")
 
 
-def profile_prefill(eng, tick, req, label):
+def profile_prefill(eng, tick, ticks, req, label):
     """Profile the prefill tick(s) of one more request (after the main
     path's counters were read), then drain it unprofiled: the tick's wall
     time, the device's busy time in it, SMLM's share of that, and the top
-    device operations."""
+    device operations.  Returns (wall ms, device busy ms, the prefill
+    ticks' records of ``timed_engine``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.request import State
     torch.cuda.synchronize()
     req.arrival = eng.clock.now()
     eng.submit(req)
-    n = 0
+    n, first = 0, len(ticks)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         while req.state not in (State.DECODE, State.DONE):
@@ -3187,8 +3262,10 @@ def profile_prefill(eng, tick, req, label):
           f"busy_share={busy_ms / wall_ms:.4f} smlm_ms={smlm_ms:.3f} "
           f"smlm_share_of_busy={smlm_ms / max(busy_ms, 1e-9):.4f} "
           f"top: {names}")
+    recs = [(t, e, w) for t, _, _, e, w in ticks[first:first + n]]
     while eng.waiting or eng.active or eng.prefilling or eng.future:
         tick()
+    return wall_ms, busy_ms, recs
 
 
 # ------------------------------------------- phases 9-10: memory features
@@ -5075,6 +5152,301 @@ def window_phase(K, weights, dev):
     return counts
 
 
+# ------------------------------------------------- phase 14: the examples
+EXAMPLES = ("quickstart", "migration", "multi_finetune", "unified_serving")
+# the kernels each twin's path must launch at full width (PERF.md's table);
+# paged prefill (dedup hits) and split-K (the split chooser) are counted,
+# not gated
+EXAMPLE_KERNELS = {"quickstart": ("smlm", "flash"),
+                   "migration": ("smlm", "smlm_wgrad"),
+                   "multi_finetune": ("smlm", "smlm_wgrad"),
+                   "unified_serving": ("smlm", "bgmv", "decode", "flash",
+                                       "smlm_wgrad")}
+# full-width depth of each twin (llama3-8b has 32 layers): the two longest
+# runs at 16 keep phase 14 near 90 s (at 32, on an H100, their runs took
+# 21.7 and 35.6 s)
+EXAMPLE_LAYERS = {"quickstart": 32, "migration": 32, "multi_finetune": 16,
+                  "unified_serving": 16}
+EXAMPLE_LOSS_RTOL = 1e-5        # fp32 CUDA vs CPU losses, relative
+
+
+def twin(name):
+    """The example twin ``examples/<name>_torch.py``."""
+    return _load_file(f"_smoke_{name}_torch", "examples", f"{name}_torch.py")
+
+
+def same_outputs(label, got, want, key=""):
+    """A twin's ``run`` on ``cuda`` against ``cpu``: floats (losses, SLO
+    attainment) within ``EXAMPLE_LOSS_RTOL`` relative, everything else
+    (tokens, slots, resident lists, counts, payload bytes) equal; the
+    wall-clock rates are skipped.  Returns the worst relative float
+    difference."""
+    if isinstance(want, dict):
+        if got.keys() != want.keys():
+            raise AssertionError(f"{label}{key}: keys {sorted(got)} != "
+                                 f"{sorted(want)}")
+        return max([same_outputs(label, got[k], want[k], f"{key}/{k}")
+                    for k in want if not str(k).startswith("rates")],
+                   default=0.0)
+    if isinstance(want, float) or (isinstance(want, list) and want
+                                   and isinstance(want[0], float)):
+        g, w = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        if g.shape != w.shape:
+            raise AssertionError(f"{label}{key}: {g.shape} != {w.shape}")
+        rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w), 1e-30),
+                           initial=0.0))
+        if not rel <= EXAMPLE_LOSS_RTOL:
+            raise AssertionError(f"{label}{key}: cuda {got} vs cpu {want}, "
+                                 f"{rel:.3e} relative > "
+                                 f"{EXAMPLE_LOSS_RTOL:g}")
+        return rel
+    equal = (np.array_equal(got, want) if isinstance(want, np.ndarray)
+             else got == want)
+    if not equal:
+        raise AssertionError(f"{label}{key}: cuda {got} != cpu {want}")
+    return 0.0
+
+
+def parity_examples():
+    """Phase 14, part 1: each twin's ``run`` on the reduced llama3-8b in
+    fp32 on ``cuda`` and on ``cpu`` with the same numpy weights."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.core.lora import LoRAConfig
+    small = get_reduced("llama3-8b")
+    lcfg = LoRAConfig(n_slots=4, r=8)
+    flat = numpy_weights(small, seed=0)
+    for name in EXAMPLES:
+        mod = twin(name)
+        weights = {"params": flat, "adapters": {
+            a: numpy_adapter(small, lcfg, seed=10 + i)
+            for i, a in enumerate(mod.ADAPTERS)}}
+        secs, outs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            outs[dev] = mod.run(small, dev, torch.float32, weights=weights)
+            secs[dev] = time.perf_counter() - t0
+        worst = same_outputs(f"parity {name}", outs["cuda"], outs["cpu"])
+        print(f"examples: parity {name} {small.name} fp32 cuda==cpu "
+              f"(tokens, slots, resident lists, counts and payload bytes "
+              f"equal; losses max_rel_err={worst:.3e} "
+              f"tol={EXAMPLE_LOSS_RTOL:g}) cuda_s={secs['cuda']:.3f} "
+              f"cpu_s={secs['cpu']:.3f} ok")
+
+
+def timed_engine_class(engines, ticks):
+    """A ``UnifiedEngine`` that keeps itself in ``engines`` and times its
+    ticks into ``ticks``: (seconds, forward or grad step enqueue seconds,
+    device wait seconds, prefill tokens, decode tokens, ft and eval tokens)
+    of each tick that ran a step, the wait being a synchronize right after
+    the step (the tick's token or loss read would wait a moment later
+    anyway)."""
+    from repro_torch.serving.engine import UnifiedEngine
+
+    class TimedEngine(UnifiedEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            engines.append(self)
+            self.split = []
+            for name in ("forward_step", "grad_step"):
+                def timed(*args, _step=getattr(self, name)):
+                    t0 = time.perf_counter()
+                    out = _step(*args)
+                    t1 = time.perf_counter()
+                    torch.cuda.synchronize()
+                    self.split.append((t1 - t0, time.perf_counter() - t1))
+                    return out
+                setattr(self, name, timed)
+
+        def tick(self):
+            m = self.metrics
+            self.split.clear()
+            before = (m.prefill_tokens, m.decode_tokens,
+                      m.finetune_tokens + m.eval_tokens)
+            t0 = time.perf_counter()
+            busy = super().tick()
+            torch.cuda.synchronize()
+            if self.split:
+                after = (m.prefill_tokens, m.decode_tokens,
+                         m.finetune_tokens + m.eval_tokens)
+                ticks.append((time.perf_counter() - t0,
+                              sum(e for e, _ in self.split),
+                              sum(w for _, w in self.split),
+                              *(b - a for a, b in zip(before, after))))
+            return busy
+
+    return TimedEngine
+
+
+def example_summary(name, out) -> str:
+    """A twin's results for its ``examples:`` line, after its gates: every
+    request finished with its tokens, every trainer took optimizer steps
+    with finite losses."""
+    if name == "quickstart":
+        if out["after_hot_swap"] != ["math", "code"] or \
+                out["next_tokens"].shape != (3,):
+            raise AssertionError(f"quickstart: {out}")
+        return (f"next_tokens={out['next_tokens'].tolist()} resident="
+                f"{out['resident']} after_hot_swap={out['after_hot_swap']} "
+                f"migrated_slot={out['migrated_slot']}")
+    if name == "migration":
+        losses = out["losses_A"] + out["losses_B"]
+        if not (out["opt_steps_A"] == out["opt_steps_B"] >= 1
+                and np.isfinite(losses).all()):
+            raise AssertionError(f"migration: {out}")
+        return (f"tokens_trained A={out['tokens_A']} B={out['tokens_B']} "
+                f"opt_steps={out['opt_steps_A']} loss A={out['loss_A']:.4f}"
+                f" B={out['loss_B_first']:.4f}->{out['loss_B_last']:.4f} "
+                f"payload_bytes={out['payload_bytes']}")
+    if name == "multi_finetune":
+        parts = []
+        for tname, tr in out["trainers"].items():
+            if tr["opt_steps"] < 1 or not np.isfinite(
+                    tr["train_losses"] + tr["eval_losses"]).all():
+                raise AssertionError(f"multi_finetune {tname}: {tr}")
+            parts.append(f"{tname}: tokens_trained={tr['tokens_trained']} "
+                         f"opt_steps={tr['opt_steps']} loss "
+                         f"{tr['loss_first']:.4f}->{tr['loss_last']:.4f} "
+                         f"eval {tr['eval']:.4f}")
+        return "; ".join(parts)
+    if out["finished"] != 30 or any(len(t) != 12
+                                    for t in out["tokens"].values()) \
+            or out["opt_steps"] < 1 or not np.isfinite(
+                out["train_losses"]).all():
+        raise AssertionError(f"unified_serving: {out}")
+    return (f"slo_attainment={out['slo']:.3f} finished={out['finished']}/30"
+            f" student tokens_trained={out['tokens_trained']} opt_steps="
+            f"{out['opt_steps']} loss {out['loss_first']:.4f}->"
+            f"{out['loss_last']:.4f}")
+
+
+def tick_ms(recs) -> str:
+    """Count, mean and p50 ms of tick records (seconds, enqueue seconds,
+    device wait seconds, ...), with the mean enqueue and device wait."""
+    if not recs:
+        return "n=0"
+    return (f"{ms_stats([r[0] for r in recs])} (enqueue "
+            f"{np.mean([r[1] for r in recs]) * 1e3:.3f} + device wait "
+            f"{np.mean([r[2] for r in recs]) * 1e3:.3f})")
+
+
+def example_ticks(ticks) -> str:
+    """Every timed tick, then the decode-only ticks, the ticks with prefill
+    rows and the ticks with ft or eval rows: count, mean and p50 ms, and
+    the step's enqueue and device wait."""
+    if not ticks:
+        return "ticks=0 (one forward, no engine)"
+    parts = [("ticks", ticks),
+             ("decode_only", [t for t in ticks if not t[3] and not t[5]]),
+             ("with_prefill", [t for t in ticks if t[3]]),
+             ("with_ft", [t for t in ticks if t[5]])]
+    return " ".join(f"{label}: {tick_ms(ts)}" for label, ts in parts)
+
+
+def full_examples(K, dev):
+    """Phase 14, part 2: each twin at full width (llama3-8b in bf16, at
+    ``EXAMPLE_LAYERS``), its weights drawn on the card from phase 4's
+    seeds; one ``examples:`` line each.  Returns the launch counts summed
+    over the four runs."""
+    from repro_torch.configs import get_config
+    full = get_config("llama3-8b")
+    total = {k: 0 for k in COUNTERS}
+    for name in EXAMPLES:
+        mod = twin(name)
+        cfg = full.replace(n_layers=EXAMPLE_LAYERS[name])
+        engines, ticks = [], []
+        if hasattr(mod, "UnifiedEngine"):
+            mod.UnifiedEngine = timed_engine_class(engines, ticks)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(K)
+        t0 = time.perf_counter()
+        out = mod.run(cfg, dev, torch.bfloat16)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts(K)
+        check_routes(f"examples {name}", cfg, counts, EXAMPLE_KERNELS[name])
+        if not all(e.cachemgr.pristine for e in engines):
+            raise AssertionError(f"examples {name}: a pool is not pristine")
+        print(f"examples: {name} {cfg.name} bf16 L={cfg.n_layers} of "
+              f"{full.n_layers} wall_s={wall:.3f} {example_ticks(ticks)} "
+              f"{example_summary(name, out)} peak_alloc_gib="
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} launches="
+              f"{ {k: v for k, v in counts.items() if v} } ok")
+        for k in total:
+            total[k] += counts[k]
+        # the engine class holds ``engines``, and they the weights
+        engines.clear()
+        sys.modules.pop(mod.__name__)
+        del mod, out
+        gc.collect()
+        torch.cuda.empty_cache()
+    return total
+
+
+def costs_lines(measured):
+    """Phase 14, part 3: the port's ``step_cost`` (one card: dp 1, tp 1,
+    whole weights) and its ``Roofline`` bound for phase 4's decode ticks
+    over 512 slots (4 rows, and each other row count its decode-only ticks
+    had) and its 144-token cold prefill tick (4 rows), phase 6's
+    3000-token prefill and phase 8's grad step, each beside the ticks
+    measured in this run (``measured``; empty under ``--examples``).  One
+    card sends no collective, so the bound is the larger of the compute
+    and the memory term."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.costs import step_cost
+    cfg = get_config("llama3-8b")
+    grad, decode = measured.get("grad_step"), measured.get("decode", {})
+    cases = [("decode", "decode", 512, rows, decode.get(rows))
+             for rows in sorted({4, *decode})]
+    cases += [("prefill", "prefill", 144, 4, measured.get("prefill")),
+              ("long_prefill", "prefill", 3000, 1,
+               measured.get("long_prefill"))]
+    if grad:
+        cases.append(("grad_step", "train",
+                      -(-grad["tokens"] // grad["rows"]), grad["rows"],
+                      grad))
+    for label, kind, seq, batch, got in cases:
+        c = step_cost(cfg, kind, seq, batch, dp=1, tp=1, strategy="tp")
+        r = RA.Roofline(c.flops, c.hbm_bytes, c.coll_bytes, chips=1)
+        bound_ms = max(r.compute_s, r.memory_s) * 1e3
+        head = (f"costs: {label} {cfg.name} bf16 step_cost(kind={kind}, "
+                f"seq_len={seq}, batch={batch}, dp=1, tp=1, strategy=tp): "
+                f"flops={c.flops:.6e} hbm_bytes={c.hbm_bytes:.6e} "
+                f"compute_ms={r.compute_s * 1e3:.4f} memory_ms="
+                f"{r.memory_s * 1e3:.4f} bound_ms={bound_ms:.4f} "
+                f"({'compute' if r.compute_s >= r.memory_s else 'memory'})")
+        if not got:
+            print(f"{head}; measured: not run in this call (phases 4, 6 "
+                  f"and 8 run in the whole smoke)")
+            continue
+        if label in ("decode", "prefill"):
+            mean = np.mean([t for t, _, _ in got]) * 1e3
+            print(f"{head}; measured {tick_ms(got)} bound_share_of_mean="
+                  f"{bound_ms / mean:.4f}")
+        elif label == "long_prefill":
+            wall, busy, recs = got
+            print(f"{head}; measured (profiled tick) wall_ms={wall:.3f} "
+                  f"device_busy_ms={busy:.3f} {tick_ms(recs)} "
+                  f"bound_share_of_wall={bound_ms / wall:.4f} "
+                  f"bound_share_of_busy={bound_ms / busy:.4f}")
+        else:
+            print(f"{head}; measured {got['tokens']} tokens in "
+                  f"{got['rows']} rows: profiled wall_ms={got['wall_ms']:.3f}"
+                  f" device_busy_ms={got['busy_ms']:.3f}, unprofiled "
+                  f"{ms_stats(got['again'])} bound_share_of_mean="
+                  f"{bound_ms / (np.mean(got['again']) * 1e3):.4f} "
+                  f"bound_share_of_busy={bound_ms / got['busy_ms']:.4f}")
+
+
+def examples_phase(K, dev, measured):
+    """Phase 14: the twins' reduced parity, their full-width runs and the
+    ``costs:`` lines; returns the full-width runs' launch counts."""
+    parity_examples()
+    counts = full_examples(K, dev)
+    costs_lines(measured)
+    return counts
+
+
 SOURCES = {
     "smlm": ("src/repro_torch/kernels/csrc/smlm.cu",
              "src/repro/kernels/smlm.py:39"),
@@ -5172,6 +5544,9 @@ def main() -> int:
     ap.add_argument("--window", action="store_true",
                     help="only sliding windows: the windowed flash rows and "
                          "phase 13")
+    ap.add_argument("--examples", action="store_true",
+                    help="only the example twins: phase 14 (the costs: "
+                         "lines without the ticks of phases 4, 6 and 8)")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -5273,6 +5648,10 @@ def main() -> int:
         window_phase(K, full_weights(cfg, dev, torch.bfloat16), dev)
         print(card())
         return 0
+    if a.examples:
+        examples_phase(K, dev, {})
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -5291,24 +5670,28 @@ def main() -> int:
     cfg = get_config("llama3-8b")
     weights = full_weights(cfg, dev, torch.bfloat16)
     by_path = {}
-    by_path["full"], waves, plain = full_width(K, cfg, weights, dev)
+    measured = {}
+    by_path["full"], waves, plain = full_width(K, cfg, weights, dev,
+                                               measured)
     ref_rows = plain_logits(cfg, weights, waves, plain)
     by_path["spec"] = full_spec(K, cfg, weights, dev, waves, plain,
                                 ref_rows)
-    long_counts = long_context(K, cfg, weights, dev)
+    long_counts = long_context(K, cfg, weights, dev, measured)
     by_path["long"], by_path["long_spec"] = long_counts[False], \
         long_counts[True]
     by_path["dense"] = full_dense(K, cfg, weights, dev, waves, plain,
                                   ref_rows)
     del ref_rows
     layouts_in_turns(cfg, weights, waves)
-    by_path["train"] = full_train(K, cfg, weights, dev, waves, plain)
+    by_path["train"] = full_train(K, cfg, weights, dev, waves, plain,
+                                  measured)
     by_path["tiers"] = full_tiers(K, cfg, weights, dev)
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
+    by_path["examples"] = examples_phase(K, dev, measured)
 
     kernels = []
     for name in SOURCES:

@@ -35,10 +35,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.flow import FlowConfig
 from repro_torch.core.lora import LoRAConfig, init_lora_bank
 from repro_torch.device import DeviceLike, resolve_device, resolve_dtype
 from repro_torch.errors import ConfigInvariantError, MigrationInvariantError
 from repro_torch.models.configs import ModelConfig
+from repro_torch.models.model import unified_forward
 from repro_torch.models.schema import lora_targets
 
 
@@ -526,3 +528,13 @@ class MixedLoraModel:
 
     def virtual(self, name: str, mode: str = "infer") -> VirtualModel:
         return VirtualModel(name, self.base, self.store, mode)
+
+    def forward(self, batch, cache=None, **kw):
+        """``unified_forward`` over the shared base and the store's bank;
+        ``block_t`` defaults to the flow planner's tile, so ft and prefill
+        rows are padded to a multiple of it (the engine's planner does
+        that)."""
+        kw.setdefault("block_t", FlowConfig().block_t)
+        return unified_forward(self.cfg, self.base, batch, cache,
+                               loras=self.store.bank,
+                               lora_scale=self.store.scale, **kw)

@@ -1,6 +1,7 @@
 """Package rules of the PyTorch port.
 
-* No file under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+* No file under ``src/repro_torch/``, not the example twins
+  ``examples/*_torch.py`` and not ``chip_smoke.py``, imports
   ``jax`` or anything of the JAX package ``repro`` (AST scan, so a lazy
   import inside a function counts too).
 * The entry points run on ``cuda`` by default and raise when no GPU is
@@ -28,6 +29,9 @@ def _port_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
+    for twin in ("quickstart", "migration", "multi_finetune",
+                 "unified_serving"):
+        yield os.path.join(ROOT, "examples", f"{twin}_torch.py")
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
