@@ -12,6 +12,8 @@
     python3 chip_smoke.py --archs
     python3 chip_smoke.py --window
     python3 chip_smoke.py --examples
+    python3 chip_smoke.py --mesh-local
+    python3 chip_smoke.py --mesh [--mesh-arms llama,qwen,maverick]   # 4 cards
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -43,7 +45,10 @@ configs: the ``mla:``, ``ssd:`` and ``xattn:`` lines, phase 3's arch, MLA,
 Mamba and cross-attention parity, then phase 12.  The tenth runs only
 sliding windows: phase 2's windowed flash rows, then phase 13.  The
 eleventh runs only the example twins: phase 14, whose ``costs:`` lines
-then have no measured ticks beside them.
+then have no measured ticks beside them.  The twelfth runs only phase 15's
+``(1, 1)`` mesh on one card; the thirteenth only phase 15's 4-rank arms,
+and exits non-zero unless four cards are visible (``--mesh-arms`` picks
+some of them).
 
 Imports only the port (``src/repro_torch``), never JAX.  Phases, each
 printing its lines; any failure raises and exits non-zero:
@@ -332,11 +337,49 @@ printing its lines; any failure raises and exits non-zero:
              x 144 tokens), phase 6's profiled 3000-token prefill and
              phase 8's profiled grad step, beside the ticks measured in
              this run and the share bound / measured.
+15. mesh   — (run after phase 13, on phase 4's weights) the sharded
+             step (``make_forward_step(..., mesh=...)``) on a ``(1, 1)``
+             mesh over an NCCL process group of one rank: (a) reduced
+             llama3-8b fp32, CUDA == CPU greedy tokens, logits within
+             1e-3; (b) full-width llama3-8b bf16, 4 x 256 prompts and 8
+             greedy decode steps on dense rows, through the sharded step
+             (every collective the identity) against the plain step:
+             first-step logits within the bf16 tolerance, divergences
+             near ties (``NEAR_TIE_ULPS``), the split SMLM / BGMV
+             entries, flash and dense decode launched and the fused
+             SMLM / BGMV calls not.  Phase 2 adds SMLM's and BGMV's split entries
+             (``check_split``: shrink and expand apart, as a model axis
+             > 1 runs them) against their plain versions and the fused
+             calls, timed at one rank's slice of a 4-way split.  The
+             4-rank arms run only with ``--mesh`` on a host with four
+             cards: one NCCL rank a card, spawned after
+             the kernels are built here once, every group and the join
+             under ``MESH_TIMEOUT_S``; (a) llama3-8b bf16 32 layers at
+             ``(1, 4)`` ``tp`` and ``(2, 2)`` ``fsdp_tp``, 8 x 1024
+             prompts and 16 greedy decode steps, against the same weights
+             on one card; (b) qwen1.5-110b bf16 at all 80 layers at both
+             layouts, 4 x 2048 and 32 steps, the layouts against each
+             other, and at 8 layers at ``(1, 4)`` against one card; (c)
+             llama4-maverick's first 2 layers at ``(1, 4)`` (expert
+             parallel, 32 of 128 experts a card, capacity factor 128 so
+             that no side drops) against one card, with the all-to-all
+             bytes beside ``step_cost``'s ``moe_a2a``.  Per card: resident
+             and peak bytes, prefill and decode ms (enqueue and device
+             wait), launches (the split entries, flash and dense decode
+             on every rank, gated); per arm the collective operand bytes
+             a step by kind beside ``step_cost``'s ``coll/*`` and the
+             ``costs:`` share; tokens equal or each near tie printed with
+             its margins in bf16 ulps (``divergences``), every first
+             divergence within ``NEAR_TIE_ULPS``, first-step logits
+             within ``MESH_LOGIT_LIMIT`` of a row's max |logit| (llama,
+             qwen) or the bf16 tolerance (maverick); and a planted fault
+             (llama ``(1, 4)``, model ranks 1-3 drop their LoRA shrink
+             partials, 4 decode steps) that those gates must catch.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
-run of phases 4-14 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, window, archs, archs_mla, archs_mamba,
+run of phases 4-15 that launched it: full, spec, long, long_spec, dense,
+train, tiers, paging, fleet, window, mesh, archs, archs_mla, archs_mamba,
 archs_cross (the MLA, Mamba and cross arms with their grad steps) and
 examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
@@ -407,6 +450,10 @@ def _import_port(root: str = ROOT):
     from repro_torch.kernels import ops
     from repro_torch.kernels.smlm import SMLMFunction, smlm_wgrad
     K.update(ops=ops, smlm_wgrad=smlm_wgrad, SMLMFunction=SMLMFunction)
+    try:                # a parent checkout may lack the split entries
+        K.update(_split_entries())
+    except ImportError:
+        pass
     return K
 
 
@@ -725,6 +772,80 @@ def chunk_routes(K, dev):
                   f"max |float64 plain|) {errs}")
 
 
+# the split entries' timed shape: a 4-way column-parallel slice of the
+# widest llama3-8b projection (4096 -> 14336: a rank's 1024 of d_in and
+# 3584 of d_out), at SMLM's and BGMV's main-path token counts
+SPLIT_WAYS = 4
+
+
+def check_split(K, name, x, a, b, ids, scale, bt, dtype, timing):
+    """SMLM's (``bt``) or BGMV's (``bt`` None) split entries: the shrink
+    against its plain version; the expand of the whole shrink against the
+    fused call (bit-equal for SMLM: the same device code; within the
+    tolerance for BGMV, whose split shrink groups its slices of d_in
+    otherwise); and the ``SPLIT_WAYS``-way split of the mesh (shrinks over
+    slices of d_in summed, expands over slices of d_out concatenated)
+    against the plain whole call.  With ``timing``, the timing row of one
+    rank's shrink + expand at its slice (``SPLIT_WAYS`` of d_in and
+    d_out).  Returns (max abs error, row or None)."""
+    shrink, expand = K[f"{name}_shrink"], K[f"{name}_expand"]
+    kw = {"block_t": bt} if bt else {}
+    fused = K[name](x, a, b, ids, scale, **kw)
+    if bt:
+        plain_s = K["ref"].smlm_shrink_ref(x, a, ids, scale, bt)
+        plain = K["ref"].smlm_ref(x, a, b, ids, scale, bt)
+    else:
+        plain_s = K["ref"].bgmv_shrink_ref(x, a, ids, scale)
+        plain = K["ref"].bgmv_ref(x, a, b, ids, scale)
+    s = shrink(x, a, ids, scale, **kw)
+    err = compare(s, plain_s, dtype)
+    y = expand(s, b, ids, scale, **kw)
+    if bt and not torch.equal(y, fused):
+        raise AssertionError(f"{name} split expand != the fused call")
+    err = max(err, compare(y, plain, dtype))
+    n = SPLIT_WAYS
+    di, do = x.shape[1] // n, b.shape[-1] // n
+    parts = [shrink(x[:, i * di:(i + 1) * di].contiguous(),
+                    a[:, i * di:(i + 1) * di].contiguous(), ids, scale, **kw)
+             for i in range(n)]
+    s = torch.stack(parts).sum(0)
+    y = torch.cat([expand(s, b[..., i * do:(i + 1) * do].contiguous(), ids,
+                          scale, **kw) for i in range(n)], dim=1)
+    err = max(err, compare(y, plain, dtype))
+    if not timing:
+        return err, None
+    T = x.shape[0]
+    xl, al = x[:, :di].contiguous(), a[:, :di].contiguous()
+    bl = b[..., :do].contiguous()
+    run = lambda: expand(shrink(xl, al, ids, scale, **kw), bl, ids, scale,
+                         **kw)
+    if bt:
+        plain_fn = lambda: K["ref"].smlm_expand_ref(
+            K["ref"].smlm_shrink_ref(xl, al, ids, scale, bt), bl, ids, scale,
+            bt)
+        t_live = int((scale != 0).sum()) * bt
+    else:
+        plain_fn = lambda: K["ref"].bgmv_expand_ref(
+            K["ref"].bgmv_shrink_ref(xl, al, ids, scale), bl, ids, scale)
+        t_live = int((scale != 0).sum())
+    used = torch.unique(ids[scale != 0]).numel()
+    it, r = x.element_size(), a.shape[-1]
+    nbytes = (t_live * di + T * do) * it + used * r * (di + do) * it \
+        + 2 * T * r * 4
+    bms, by = bound(nbytes, 2 * t_live * r * (di + do), x.dtype)
+    sel = ids.long()
+    xa = xl.view(-1, bt or 1, di)
+    ag, bg = al[sel], bl[sel]
+    return err, dict(
+        max_abs_err=err, ms=time_ms(run), plain_ms=time_ms(plain_fn,
+                                                          eager=True),
+        library_ms=time_ms(lambda: torch.bmm(torch.bmm(xa, ag), bg)),
+        bound_ms=bms, bound_by=by,
+        shape=f"split shrink+expand, one of {n} ranks: T={T} d_in={di} "
+              f"d_out={do} r={r} n={a.shape[0]}"
+              + (f" block_t={bt}" if bt else ""))
+
+
 def check_lora(K, dtype, dev, gen, timing: bool):
     rows = {}
     bt = K["block_t"]
@@ -756,6 +877,14 @@ def check_lora(K, dtype, dev, gen, timing: bool):
                               dtype)
             errs.append(err)
             main = (T_, d_in, d_out) == (T, 4096, 14336)
+            if main and f"{name}_shrink" in K:
+                err_s, row = check_split(K, name, *args,
+                                         bt if name == "smlm" else None,
+                                         dtype, timing)
+                errs.append(err_s)
+                if row is not None:
+                    rows[f"{name} split T={T_} {d_in // SPLIT_WAYS}x"
+                         f"{d_out // SPLIT_WAYS}"] = row
             if timing and (main or (T_, d_in, d_out) in timed):
                 key = name if main else f"{name} T={T_} {d_in}x{d_out}"
                 rows[key] = lora_row(K, *args,
@@ -5482,6 +5611,582 @@ COUNTER = {"smlm": ("smlm", "full"), "bgmv": ("bgmv", "full"),
            "smlm_wgrad": ("smlm_wgrad", "train")}
 
 
+# ------------------------------------------------------- phase 15: the mesh
+MESH_TIMEOUT_S = 300     # every process group's collectives, and the join
+# the launch counters of the split SMLM / BGMV entries (every sharded step)
+SPLIT_COUNTERS = ("smlm_shrink", "smlm_expand", "bgmv_shrink",
+                  "bgmv_expand")
+# what every rank of a sharded step must launch: the split LoRA entries,
+# flash (cold prefill) and dense decode
+MESH_NEED = SPLIT_COUNTERS + ("flash", "dense_decode")
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_group(rank: int, world: int, port: int) -> None:
+    """NCCL over ``world`` local ranks, each on its own card, at
+    ``tcp://127.0.0.1:port``; collectives time out after
+    ``MESH_TIMEOUT_S``."""
+    import datetime
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+
+
+def mesh_prompts(cfg, B, S, seed):
+    """B prompts of S tokens from a numpy seed, adapters 0, 1, base, 0,
+    ..."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    ad = np.asarray([(0, 1, -1, 0)[i % 4] for i in range(B)], np.int32)
+    return toks, np.full((B,), S, np.int32), ad
+
+
+def mesh_weights(cfg, mesh, strategy, dev, dtype=torch.bfloat16, seed=0):
+    """This rank's shards of the weights one card draws from ``seed``
+    (params leaf by leaf, ``checkpoint.io.init_sharded_params``) and of a
+    bank of two gaussian-B adapters (r 8) drawn whole from ``seed + 100``;
+    whole on one card (``mesh`` None or of one rank)."""
+    from repro_torch.checkpoint.io import init_sharded_params, shard_bank
+    from repro_torch.core.lora import LoRAConfig, init_lora_bank
+    from repro_torch.models.schema import init_params, lora_targets
+    lcfg = LoRAConfig(n_slots=4, r=8)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    spread = mesh is not None and mesh.size > 1
+    params = (init_sharded_params(cfg, mesh, strategy, gen, dev, dtype)
+              if spread else init_params(cfg, gen, device=dev, dtype=dtype))
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 100)
+    bank = init_lora_bank(lora_targets(cfg, lcfg.targets), lcfg, g, dev,
+                          dtype, gaussian_b=True)
+    for layer in bank["layers"]:        # slots 2 and 3 stay empty
+        for ab in layer.values():
+            ab["a"][2:].zero_()
+            ab["b"][2:].zero_()
+    if spread:
+        bank = shard_bank(bank, mesh)
+    scale = torch.ones(lcfg.n_slots, device=dev)
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    return params, bank, scale
+
+
+def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
+                  dtype=torch.bfloat16, profile=False):
+    """A cold prefill of the prompt rows into dense rows (this rank's shard
+    of them under a mesh: ``sharding.shard_cache``), then ``n_decode``
+    greedy decode steps, every logit row on the host.  Returns the rows
+    ({rid: [(token, logits)]}), the step records (seconds, enqueue, device
+    wait), the collective bytes of the prefill and of the last decode step,
+    and on a card this rank's resident (weights, bank, cache) and peak
+    bytes over the whole run (``roofline.analysis.memory_summary``).  With
+    ``profile`` one more decode step (the last one's inputs again, its
+    logits unused) runs under ``torch.profiler``, whose host and device
+    top operations come back as ``profile``."""
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+    toks, lens, ad = prompts
+    B, S = toks.shape
+    cache = init_cache(cfg, B, S + n_decode, dev, dtype)
+    if mesh is not None:
+        cache = SH.shard_cache(cfg, cache, mesh)
+    params, bank, scale = weights
+    length = torch.tensor(lens, device=dev)
+    adapter = torch.tensor(ad, device=dev)
+    rows = {r: [] for r in range(B)}
+    recs, coll = [], {}
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+
+    def run(batch, cache, label):
+        SH.reset_collective_log()
+        t0 = time.perf_counter()
+        out = step(params, bank, scale, batch, cache)
+        t1 = time.perf_counter()
+        sync()
+        t2 = time.perf_counter()
+        coll[label] = SH.collective_log()
+        recs.append((t2 - t0, t1 - t0, t2 - t1))
+        return out
+
+    def generate():
+        out = run(UnifiedBatch(pf=PFBatch(
+            tokens=torch.tensor(toks, device=dev), length=length,
+            adapter=adapter)), cache, "prefill")
+        logits, last = out.pf_logits, None
+        for i in range(n_decode + 1):
+            lg = logits.float().cpu()
+            tok = lg.argmax(-1)
+            for r in range(B):
+                rows[r].append((int(tok[r]), lg[r]))
+            if i == n_decode:
+                break
+            last = UnifiedBatch(dec=DECBatch(
+                tokens=tok.to(dev, torch.int32), pos=length + i,
+                adapter=adapter))
+            out = run(last, out.cache, "decode")
+            logits = out.dec_logits
+        return out, last
+
+    resident = peak = None
+    if dev.type == "cuda":
+        mem = RA.memory_summary(generate, state=[params, bank, cache],
+                                device=dev)
+        out, last = mem["out"]
+        resident, peak = mem["argument_size_in_bytes"], mem["peak_bytes"]
+    else:
+        out, last = generate()
+    prof = None
+    if profile and n_decode:
+        from torch.profiler import ProfilerActivity, profile as trace
+        with trace(activities=[ProfilerActivity.CPU,
+                               ProfilerActivity.CUDA]) as p:
+            t0 = time.perf_counter()
+            step(params, bank, scale, last, out.cache)
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy, names, _ = device_top(p)
+        host = sorted((e for e in p.key_averages()
+                       if e.self_cpu_time_total > 0),
+                      key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+        prof = (wall, busy, names, "; ".join(
+            f"{e.key[:40]}={e.self_cpu_time_total / 1e3:.3f}ms/{e.count}"
+            for e in host))
+    return dict(rows=rows, prefill=recs[0], decode=recs[1:], coll=coll,
+                resident=resident, peak=peak, profile=prof)
+
+
+# the first-step logits of a many-layer bf16 arm against another layout:
+# each row's max abs error within this share of its max |logit|.  The sound
+# 4-card arms read 0.014-0.026 (NVIDIA H100 80GB HBM3, 700 W); every
+# ``--mesh`` run also plants a sharding fault (``planted_fault``) and fails
+# unless the gates below see it
+MESH_LOGIT_LIMIT = 0.05
+# a first divergence between two runs must be a near tie: both runs'
+# top-1 minus top-2 gaps and own-token margins within this many bf16 ulps
+# at the top logit (the sound 4-card arms read at most 3)
+NEAR_TIE_ULPS = 8
+
+
+def compare_rows(label, ref_name, ref, name, got, n_tokens):
+    """The first step's logits of ``got`` against ``ref`` (every later
+    step's input depends on the tokens): the worst row's max abs error as a
+    share of that row's max |logit| (``worst_row``); the max abs logit
+    difference over every step where both runs had fed the same tokens;
+    and each request's first divergence in bf16 ulps (``divergences``).
+    Prints them; returns (worst row, max abs difference, max ulps)."""
+    first = torch.stack([got[r][0][1] for r in sorted(got)])
+    want = torch.stack([ref[r][0][1] for r in sorted(ref)])
+    err0 = float((first - want).abs().max())
+    worst = worst_row(first, want)
+    if not torch.isfinite(first).all():
+        worst = float("inf")
+    err = 0.0
+    for r in ref:
+        for (ta, la), (tb, lb) in zip(ref[r], got[r]):
+            err = max(err, float((la - lb).abs().max()))
+            if ta != tb:
+                break
+    print(f"{label}: first-step logits max_abs_err={err0:.4g}, worst row "
+          f"{worst:.4g} of its max|{ref_name}|, max_abs_logit_diff over the "
+          f"steps fed the same tokens={err:.4g}")
+    ulps = max(divergences(label, ref_name, ref, name, got, n_tokens),
+               default=0.0)
+    return worst, err, ulps
+
+
+def same_rows(label, ref_name, ref, name, got, dtype, n_tokens, limit=None):
+    """``compare_rows``, gated: the worst first-step row within ``limit``
+    (default ``TOL[dtype]``) and every first divergence a near tie (within
+    ``NEAR_TIE_ULPS``).  Returns the max abs logit difference."""
+    limit = TOL[dtype] if limit is None else limit
+    worst, err, ulps = compare_rows(label, ref_name, ref, name, got,
+                                    n_tokens)
+    if worst > limit or ulps > NEAR_TIE_ULPS:
+        raise AssertionError(
+            f"{label}: worst first-step row {worst:.4g} of its max "
+            f"|{ref_name}| (limit {limit:g}), a first divergence {ulps:.3g} "
+            f"bf16 ulps apart (limit {NEAR_TIE_ULPS})")
+    print(f"{label}: ok (worst row {worst:.4g} <= {limit:g}, divergences "
+          f"<= {ulps:.3g} ulps <= {NEAR_TIE_ULPS})")
+    return err
+
+
+def mesh_counts(K, names=MESH_NEED):
+    return {k: K[k].launches for k in names}
+
+
+def mesh_reset(K):
+    reset_counts(K)
+    for k in SPLIT_COUNTERS:
+        K[k].launches = 0
+
+
+def step_cost_coll(cfg, kind, seq, batch, dp, tp, strategy):
+    """``models.costs.step_cost``'s collective detail and Roofline bound."""
+    from repro_torch.models.costs import step_cost
+    c = step_cost(cfg, kind, seq, batch, dp=dp, tp=tp, strategy=strategy)
+    r = RA.Roofline(c.flops, c.hbm_bytes, c.coll_bytes, chips=dp * tp)
+    coll = {k[5:]: v for k, v in c.detail.items() if k.startswith("coll/")}
+    return coll, max(r.compute_s, r.memory_s, r.collective_s) * 1e3, r
+
+
+def gather_stats(obj):
+    """Every rank's ``obj``, in rank order (on every rank)."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
+             seed=0, profile=False):
+    """One sharded arm on this rank: weights drawn and cut, prefill and
+    greedy decode, the split LoRA entries, flash and dense decode launched
+    on this rank (raises otherwise).  Rank 0 prints the per-card lines.
+    Returns rank 0's result (None elsewhere)."""
+    import torch.distributed as dist
+    from repro_torch.core.unified import make_forward_step
+    t0 = time.perf_counter()
+    weights = mesh_weights(cfg, mesh, strategy, dev, seed=seed)
+    setup = time.perf_counter() - t0
+    step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
+                             strategy=strategy)
+    mesh_reset(K)
+    res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
+                        profile=profile)
+    counts = mesh_counts(K)
+    del weights, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if dev.type == "cuda" and min(counts.values()) == 0:
+        raise AssertionError(f"{label} rank {dist.get_rank()}: a kernel of "
+                             f"the sharded path did not launch: {counts}")
+    stats = gather_stats(dict(resident=res["resident"], peak=res["peak"],
+                              prefill=res["prefill"],
+                              decode=res["decode"], coll=res["coll"],
+                              counts=counts, setup=setup))
+    if dist.get_rank() != 0:
+        return None
+    B, S = prompts[0].shape
+    shape = "x".join(map(str, mesh.devices_shape))
+    if res["profile"]:
+        wall, busy, names, host = res["profile"]
+        print(f"profile: mesh {label} {shape} {strategy} card 0, one decode "
+              f"step: wall_ms={wall:.3f} device_busy_ms={busy:.3f}; device "
+              f"top: {names}; host self-time top: {host}")
+    for rank, st in enumerate(stats):
+        pf, dec = st["prefill"], st["decode"]
+        print(f"mesh: {label} {cfg.name} bf16 {cfg.n_layers} layers "
+              f"({shape}) {strategy} card {rank}: resident_bytes="
+              f"{st['resident']} peak_bytes={st['peak']} prefill "
+              f"B={B}x{S} ms={pf[0] * 1e3:.3f} (enqueue {pf[1] * 1e3:.3f} "
+              f"+ device wait {pf[2] * 1e3:.3f}) decode {tick_ms(dec)} "
+              f"setup_s={st['setup']:.2f} launches={st['counts']}")
+    dp, tp = mesh.shape["data"], mesh.shape["model"]
+    for kind, seq in (("prefill", S), ("decode", S + n_decode)):
+        coll, bound_ms, r = step_cost_coll(cfg, kind, seq, B, dp, tp,
+                                           strategy)
+        got = stats[0]["coll"][kind]
+        if kind == "prefill":
+            meas = stats[0]["prefill"][0] * 1e3
+        else:
+            meas = np.mean([d[0] for d in stats[0]["decode"]]) * 1e3
+        print(f"mesh: {label} {shape} {strategy} {kind} collective operand "
+              f"bytes a step (card 0, sharding.collective_log) {got}; "
+              f"step_cost(kind={kind}, seq_len={seq}, batch={B}, dp={dp}, "
+              f"tp={tp}, strategy={strategy}) coll detail (bytes sent a "
+              f"card) { {k: float(v) for k, v in coll.items()} }")
+        print(f"costs: mesh {label} {cfg.name} {shape} {strategy} {kind} "
+              f"step_cost flops={r.flops:.6e} hbm_bytes={r.hbm_bytes:.6e} "
+              f"coll_bytes={r.coll_bytes:.6e} compute_ms="
+              f"{r.compute_s * 1e3:.4f} memory_ms={r.memory_s * 1e3:.4f} "
+              f"collective_ms={r.collective_s * 1e3:.4f} bound_ms="
+              f"{bound_ms:.4f} ({r.dominant}); measured mean ms={meas:.3f} "
+              f"bound_share={bound_ms / meas:.4f}")
+    return res
+
+
+def planted_fault(K, cfg, mesh, prompts, n_decode, dev):
+    """The llama arm once more at ``(1, 4)`` ``tp`` with a planted sharding
+    fault in the LoRA term: model ranks 1-3 hand zeros to the shrinks'
+    all-reduce (``ops.lora_shrink`` wrapped here), so every projection
+    expands rank 0's partial shrink alone.  Returns rank 0's rows (None
+    elsewhere)."""
+    import torch.distributed as dist
+    from repro_torch.core.unified import make_forward_step
+    ops = K["ops"]
+    shrink = ops.lora_shrink
+    mine = mesh.coords["model"] == 0
+    ops.lora_shrink = lambda x, a, rt: (shrink(x, a, rt) if mine else
+                                        torch.zeros_like(shrink(x, a, rt)))
+    try:
+        weights = mesh_weights(cfg, mesh, "tp", dev)
+        step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
+                                 strategy="tp")
+        res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev)
+    finally:
+        ops.lora_shrink = shrink
+    del weights, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res if dist.get_rank() == 0 else None
+
+
+def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0):
+    """The same weights whole on this rank's card, the plain step."""
+    from repro_torch.core.unified import make_forward_step
+    weights = mesh_weights(cfg, None, None, dev, seed=seed)
+    step = make_forward_step(cfg, block_t=K["block_t"])
+    res = mesh_generate(cfg, step, weights, None, prompts, n_decode, dev)
+    del weights, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    B, S = prompts[0].shape
+    pf = res["prefill"]
+    print(f"mesh: {label} {cfg.name} bf16 {cfg.n_layers} layers one card: "
+          f"resident_bytes={res['resident']} peak_bytes={res['peak']} "
+          f"prefill B={B}x{S} ms={pf[0] * 1e3:.3f} decode "
+          f"{tick_ms(res['decode'])}")
+    return res
+
+
+def mesh_rank(rank, world, port, only):
+    """One rank of ``chip_smoke.py --mesh`` (spawned once per card): the
+    arms of phase 15 on a ``(1, 4)`` and a ``(2, 2)`` mesh of 4 NCCL
+    ranks."""
+    import dataclasses
+    import torch.distributed as dist
+    sys.stdout.reconfigure(line_buffering=True)   # lines survive a crash
+    start_group(rank, world, port)
+    try:
+        K = _import_port()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import init_mesh
+        dev = torch.device("cuda", rank)
+        m14 = init_mesh((1, 4), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
+        m22 = init_mesh((2, 2), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
+        lead = rank == 0
+        # every group's NCCL communicator is made at its first collective:
+        # make them all before anything is timed
+        for mesh in (m14, m22):
+            for g in mesh.groups.values():
+                if g is not None:
+                    dist.all_reduce(torch.zeros(1, device=dev), group=g)
+        torch.cuda.synchronize(dev)
+
+        def one_card(label, cfg, prompts, n_decode):
+            res = one_card_arm(K, label, cfg, prompts, n_decode, dev) \
+                if lead else None
+            dist.barrier()
+            return res
+
+        n_tok = lambda p, n: p[0].shape[0] * (n + 1)
+        if "llama" in only:
+            cfg = get_config("llama3-8b")
+            p = mesh_prompts(cfg, 8, 1024, seed=1)
+            got = {key: mesh_arm(K, "llama", cfg, mesh, st, p, 16, dev,
+                                 profile=True)
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            ref = one_card("llama", cfg, p, 16)
+            if lead:
+                for key, res in got.items():
+                    same_rows(f"mesh: llama {key} vs one card", "one_card",
+                              ref["rows"], "mesh", res["rows"],
+                              torch.bfloat16, n_tok(p, 16), MESH_LOGIT_LIMIT)
+            bad = planted_fault(K, cfg, m14, p, 4, dev)
+            if lead:
+                label = ("mesh: llama 1x4 tp with a planted fault (model "
+                         "ranks 1-3 drop their LoRA shrink partials) vs one "
+                         "card")
+                worst, _, ulps = compare_rows(label, "one_card", ref["rows"],
+                                              "fault", bad["rows"],
+                                              n_tok(p, 4))
+                if worst <= MESH_LOGIT_LIMIT and ulps <= NEAR_TIE_ULPS:
+                    raise AssertionError(
+                        f"{label}: the gates do not see it (worst row "
+                        f"{worst:.4g}, divergences {ulps:.3g} ulps)")
+                print(f"{label}: caught (worst row {worst:.4g} > "
+                      f"{MESH_LOGIT_LIMIT:g} or divergences {ulps:.3g} ulps "
+                      f"> {NEAR_TIE_ULPS})")
+        if "qwen" in only:
+            cfg = get_config("qwen1.5-110b")
+            p = mesh_prompts(cfg, 4, 2048, seed=2)
+            got = {key: mesh_arm(K, "qwen", cfg, mesh, st, p, 32, dev)
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            if lead:
+                same_rows("mesh: qwen 2x2 fsdp_tp vs 1x4 tp", "1x4_tp",
+                          got["1x4 tp"]["rows"], "2x2_fsdp_tp",
+                          got["2x2 fsdp_tp"]["rows"], torch.bfloat16,
+                          n_tok(p, 32), MESH_LOGIT_LIMIT)
+            del got
+            c8 = cfg.replace(n_layers=8)
+            res = mesh_arm(K, "qwen8", c8, m14, "tp", p, 32, dev)
+            ref = one_card("qwen8", c8, p, 32)
+            if lead:
+                same_rows("mesh: qwen 8 layers 1x4 tp vs one card",
+                          "one_card", ref["rows"], "mesh", res["rows"],
+                          torch.bfloat16, n_tok(p, 32), MESH_LOGIT_LIMIT)
+        if "maverick" in only:
+            cfg = get_config("llama4-maverick-400b-a17b")
+            # two layers (one MoE), capacity factor E: neither the one-card
+            # groups nor a rank's buffer can drop an entry, so the two runs
+            # compute one function
+            cfg = cfg.replace(n_layers=2, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+            p = mesh_prompts(cfg, 4, 512, seed=3)
+            res = mesh_arm(K, "maverick", cfg, m14, "tp", p, 8, dev)
+            from repro_torch.models.moe_dist import moe_apply_auto
+            branch = moe_apply_auto.branch
+            ref = one_card("maverick", cfg, p, 8)
+            if lead:
+                if branch != "expert_parallel":
+                    raise AssertionError(f"maverick took {branch}")
+                same_rows("mesh: maverick 2 layers 1x4 tp (expert-parallel,"
+                          " 32 of 128 experts a card) vs one card",
+                          "one_card", ref["rows"], "mesh", res["rows"],
+                          torch.bfloat16, n_tok(p, 8))
+                S = p[0].shape[1]
+                for kind, seq in (("prefill", S), ("decode", S + 8)):
+                    coll, _, _ = step_cost_coll(cfg, kind, seq, 4, 1, 4,
+                                                "tp")
+                    print(f"mesh: maverick {kind} all-to-all operand bytes "
+                          f"(card 0) {res['coll'][kind]['all-to-all']} "
+                          f"beside step_cost moe_a2a "
+                          f"{coll.get('moe_a2a', 0.0):.6g} (sent each way: "
+                          f"2 x T/chips x k x cf x d x 2 B a layer)")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _split_entries():
+    from repro_torch.kernels.bgmv import bgmv_expand, bgmv_shrink
+    from repro_torch.kernels.smlm import smlm_expand, smlm_shrink
+    return dict(smlm_shrink=smlm_shrink, smlm_expand=smlm_expand,
+                bgmv_shrink=bgmv_shrink, bgmv_expand=bgmv_expand)
+
+
+MESH_ARMS = ("llama", "qwen", "maverick")
+
+
+def mesh_main(K, only=MESH_ARMS) -> int:
+    """``--mesh``: the 4-rank arms, one process a card, NCCL; the kernels
+    are built here first so that four ranks never build at once."""
+    import torch.multiprocessing as mp
+    n = torch.cuda.device_count()
+    if n < 4:
+        print(f"chip_smoke --mesh: needs 4 cards, {n} visible",
+              file=sys.stderr)
+        return 2
+    port = free_port()
+    ctx = mp.start_processes(mesh_rank, args=(4, port, tuple(only)),
+                             nprocs=4, join=False, start_method="spawn")
+    deadline = time.monotonic() + MESH_TIMEOUT_S * 4
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise TimeoutError("the mesh ranks did not finish in "
+                                   f"{MESH_TIMEOUT_S * 4} s")
+    except BaseException:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        raise
+    return 0
+
+
+def mesh_phase(K, cfg, weights, dev):
+    """Phase 15 of the default run, one card: (a) reduced llama3-8b fp32,
+    the sharded step on a ``(1, 1)`` mesh over an NCCL process group of one
+    rank on the card against the same step on the CPU (tokens equal,
+    logits within 1e-3); (b) full-width llama3-8b bf16 (phase 4's weights)
+    through the sharded step on that mesh (every collective the identity,
+    the LoRA terms through the split shrink and expand entries) against the
+    plain step: first-step logits within the bf16 tolerance, divergences
+    near ties, the split entries, flash and dense decode launched and the
+    fused SMLM and BGMV calls not.  Returns (b)'s launches."""
+    import torch.distributed as dist
+    from repro_torch.core.unified import make_forward_step
+    from repro_torch.configs import get_reduced
+    from repro_torch.launch.mesh import init_mesh
+    start_group(0, 1, free_port())
+    try:
+        mesh = init_mesh((1, 1), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
+        small = get_reduced("llama3-8b")
+        p = mesh_prompts(small, 4, 32, seed=4)
+        got = {}
+        for d in ("cuda", "cpu"):
+            dv = torch.device(d)
+            w = mesh_weights(small, None, None, torch.device("cpu"),
+                             dtype=torch.float32)
+            w = (to_device(w[0], dv), to_device(w[1], dv), w[2].to(dv))
+            step = make_forward_step(small, block_t=K["block_t"], mesh=mesh,
+                                     strategy="tp")
+            got[d] = mesh_generate(small, step, w, mesh, p, 4, dv,
+                                   torch.float32)["rows"]
+        tc = {r: [t for t, _ in v] for r, v in got["cuda"].items()}
+        tp_ = {r: [t for t, _ in v] for r, v in got["cpu"].items()}
+        err = max(float((a[1] - b[1]).abs().max())
+                  for r in got["cuda"] for a, b in zip(got["cuda"][r],
+                                                       got["cpu"][r]))
+        if tc != tp_ or err > 1e-3:
+            raise AssertionError(f"mesh (1, 1) cuda {tc} cpu {tp_} logits "
+                                 f"{err:.3e}")
+        print(f"mesh: (1, 1) NCCL mesh of one rank, reduced llama3-8b fp32 "
+              f"cuda==cpu greedy tokens for 4 requests (20 tokens), logits "
+              f"max_abs_err={err:.3e} tol=1e-3 ok")
+        params, store = weights[0], weights[1]
+        w = (params, store.bank, store.scale)
+        p = mesh_prompts(cfg, 4, 256, seed=5)
+        plain = mesh_generate(cfg, make_forward_step(cfg, block_t=K[
+            "block_t"]), w, None, p, 8, dev)
+        mesh_reset(K)
+        res = mesh_generate(cfg, make_forward_step(
+            cfg, block_t=K["block_t"], mesh=mesh, strategy="tp"), w, mesh,
+            p, 8, dev)
+        counts = read_counts(K)
+        counts.update(mesh_counts(K, SPLIT_COUNTERS))
+        same_rows("mesh: (1, 1) llama3-8b bf16 full width, the sharded step "
+                  "vs the plain step", "plain", plain["rows"], "mesh",
+                  res["rows"], torch.bfloat16, 4 * 9)
+        fused = {k: counts[k] for k in ("smlm", "bgmv") if counts[k]}
+        missing = [k for k in MESH_NEED if not counts[k]]
+        if fused or missing:
+            raise AssertionError(f"the (1, 1) mesh step launched the fused "
+                                 f"LoRA calls {fused} or not {missing}: "
+                                 f"{counts}")
+        print(f"mesh: (1, 1) llama3-8b bf16 B=4x256 + 8 decode steps: "
+              f"prefill {tick_ms([res['prefill']])} decode "
+              f"{tick_ms(res['decode'])} launches={counts} ok")
+        print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
+              "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
+              "expert-parallel) need --mesh on a host with four cards: "
+              "python3 chip_smoke.py --mesh")
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.to(dev)
+
+
 def check_kernels(K, dev):
     """Phase 2: every kernel against its plain version in bf16 and fp32,
     timed in bf16; prints the
@@ -5547,6 +6252,14 @@ def main() -> int:
     ap.add_argument("--examples", action="store_true",
                     help="only the example twins: phase 14 (the costs: "
                          "lines without the ticks of phases 4, 6 and 8)")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only the 4-rank arms of phase 15, one NCCL rank "
+                         "a card: needs 4 cards")
+    ap.add_argument("--mesh-arms", default=",".join(MESH_ARMS),
+                    help="with --mesh: the arms to run, of "
+                         f"{','.join(MESH_ARMS)}")
+    ap.add_argument("--mesh-local", action="store_true",
+                    help="only phase 15's (1, 1) mesh on one card")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -5652,6 +6365,26 @@ def main() -> int:
         examples_phase(K, dev, {})
         print(card())
         return 0
+    if a.mesh:
+        rc = mesh_main(K, tuple(a.mesh_arms.split(",")))
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, check=True, timeout=60)
+        for i, line in enumerate(smi.stdout.strip().splitlines()):
+            print(f"mesh: card {i}: {line}")
+        if rc:
+            return rc
+        print(card())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if a.mesh_local:
+        from repro_torch.configs import get_config
+        cfg = get_config("llama3-8b")
+        mesh_phase(K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
+        print(card())
+        return 0
     rows = check_kernels(K, dev)
     if a.kernel_timing:
         print(json.dumps({"root": os.path.relpath(root, ROOT), "iters": ITERS,
@@ -5689,6 +6422,7 @@ def main() -> int:
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
+    by_path["mesh"] = mesh_phase(K, cfg, weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
     by_path["examples"] = examples_phase(K, dev, measured)
@@ -5704,6 +6438,11 @@ def main() -> int:
             "launches_path": path,
             "launches_by_path": {p: c[counter] for p, c in by_path.items()
                                  if c[counter]},
+            # the split shrink and expand entries of the sharded step
+            **({"split_launches_by_path": {"mesh": {
+                k: by_path["mesh"][k] for k in SPLIT_COUNTERS
+                if k.startswith(name + "_")}}}
+               if name in ("smlm", "bgmv") else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

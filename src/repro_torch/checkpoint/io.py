@@ -233,3 +233,57 @@ def bank_to_numpy(cfg: ModelConfig, bank: Dict) -> Flat:
     ``bank_from_numpy``."""
     return _flat(_stacked(bank["layers"], len(cfg.pattern),
                           lambda pos: ("blocks", pos)))
+
+
+# ---------------------------------------------------------------------------
+# weights across a mesh: this rank's shards
+# ---------------------------------------------------------------------------
+
+def shard_params(params: Dict, cfg: ModelConfig, mesh,
+                 strategy: str = "fsdp_tp") -> Dict:
+    """This rank's shards of the whole ``params`` (``params_from_numpy``'s
+    tree, e.g. from JAX's npz), cut as ``sharding.param_shardings`` says
+    under ``strategy``: every rank then computes its part of the function
+    the whole weights compute."""
+    from repro_torch.distributed.sharding import param_shardings, shard_tree
+    return shard_tree(params, param_shardings(cfg, mesh, strategy), mesh)
+
+
+def shard_bank(bank: Dict, mesh) -> Dict:
+    """This rank's shards of a whole LoRA bank (``{"layers": [{target:
+    {"a", "b"}}]}``), cut as ``sharding.lora_shardings`` says."""
+    from repro_torch.distributed.sharding import lora_shardings, shard_tree
+    return shard_tree(bank, lora_shardings(bank, mesh), mesh)
+
+
+def init_sharded_params(cfg: ModelConfig, mesh, strategy: str,
+                        generator: torch.Generator, device, dtype) -> Dict:
+    """This rank's shards of ``schema.init_params(cfg, generator, device,
+    dtype)``: every leaf is drawn whole from ``generator``, in
+    ``init_params``' order, cut to this rank's block and freed, one leaf at
+    a time, so the ranks' shards are those of the one model a single card
+    would draw from the same seed and the largest transient is one whole
+    leaf."""
+    from repro_torch.distributed.sharding import local_shard, \
+        param_shardings
+    from repro_torch.models.schema import init_leaf, layer_shapes, \
+        top_leaves
+    if cfg.encoder is not None:
+        raise ValueError(f"{cfg.name}: an encoder under a mesh is not "
+                         "sharded yet")
+    specs = param_shardings(cfg, mesh, strategy)
+
+    def draw(leaf, spec):
+        return local_shard(init_leaf(leaf, generator, device, dtype), spec,
+                           mesh)
+
+    top = top_leaves(cfg)
+    params = {"embed": draw(top["embed"], specs["embed"]),
+              "layers": [{k: draw(leaf, specs["layers"][li][k])
+                          for k, leaf in layer_shapes(cfg, li).items()}
+                         for li in range(cfg.n_layers)],
+              "final_norm": torch.ones(cfg.d_model, device=device,
+                                       dtype=dtype)}
+    if "lm_head" in top:
+        params["lm_head"] = draw(top["lm_head"], specs["lm_head"])
+    return params

@@ -15,6 +15,7 @@ every forward.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -42,13 +43,24 @@ class StepOut(NamedTuple):
     grads: Optional[Any]
 
 
-def make_forward_step(cfg: ModelConfig, *, block_t: int,
-                      attn_chunk: int = 0,
+def make_forward_step(cfg: ModelConfig, *, block_t: int, mesh=None,
+                      strategy: str = "tp", attn_chunk: int = 0,
                       return_ft_logits: bool = False) -> Callable:
-    """Inference-only unified step (serve/prefill/decode/eval)."""
+    """Inference-only unified step (serve/prefill/decode/eval).  With a
+    ``mesh`` (``launch.mesh.init_mesh``) the step runs on one rank of it:
+    ``base`` and ``bank`` are this rank's shards (``checkpoint.io.
+    shard_params(..., strategy)`` / ``shard_bank``), ``batch`` the whole
+    ``UnifiedBatch`` and ``cache`` this rank's shard
+    (``distributed.sharding.shard_cache``); it returns the single-device
+    step's logits, ft loss sums and aux loss on every rank, and the local
+    cache.  Any mesh takes that sharded path; on a mesh whose axes are all
+    1 every collective is the identity."""
+    from repro_torch.distributed.sharding import mesh_context
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> ModelOut:
-        with torch.inference_mode():
+        scope = (contextlib.nullcontext() if mesh is None
+                 else mesh_context(mesh, strategy))
+        with torch.inference_mode(), scope:
             return unified_forward(cfg, base, batch, cache, loras=bank,
                                    lora_scale=scale, block_t=block_t,
                                    attn_chunk=attn_chunk,

@@ -1,0 +1,472 @@
+"""Logical-axis -> mesh sharding rules, the shards they cut, and the
+collectives of the explicit-SPMD forward.
+
+Port of ``repro.distributed.sharding``.  A spec is the port's own tuple
+with one entry per dimension: ``None`` (replicated), an axis name, or a
+tuple of axis names (sharded over their product, in mesh order); it
+stands where JAX writes ``PartitionSpec``.  The rules return specs in the
+port's trees: the per-layer params (``param_shardings``), the per-layer
+bank (``lora_shardings``), the cache dict of named leaves ``[L_kind, rows,
+...]`` (``cache_shardings``) and the buckets of a ``UnifiedBatch``
+(``batch_shardings``).
+
+Strategies:
+  "tp"      — tensor parallel over the "model" axis only; params replicated
+              across data/pod.
+  "fsdp_tp" — additionally shard the "embed" logical axis of every weight
+              over "data" (FSDP); pods replicate (DP across pods).
+
+Divisibility is checked per leaf: a dimension that does not divide the mesh
+axis is replicated (40 attention heads or 8 KV heads on a 16-way model
+axis, the 50280/51865 vocabs).  Head-count sharding is only applied when the
+HEAD COUNT divides the axis, so a rank's columns are whole heads.
+
+PyTorch has no GSPMD, so the sharded forward (``models.model``,
+``models.moe_dist``) is written as explicit SPMD: ``local_shard`` cuts this
+rank's block of a whole tensor by its spec, ``gather`` puts a sharded one
+back together, and the forward calls only the collectives below
+(``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``), each
+over the process group of a mesh axis or tuple of axes and each recording
+its operand bytes by kind (``collective_log``, read by
+``roofline.analysis.collective_bytes``).  A collective over an axis of size
+1 is the identity and records nothing.  JAX's two layout hints have no
+counterpart: ``maybe_constrain`` hinted the expert-parallel layout, which
+``models.moe_dist.moe_apply_auto`` now states itself (tokens split over
+``(*batch_axes, "model")``, experts over ``"model"``), and
+``act_constraint_fn``'s sequence sharding of the training carry belongs to
+the train step under a mesh, which is not ported yet (``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.launch.mesh import Mesh, axis_size, batch_axes
+from repro_torch.models.configs import ModelConfig
+from repro_torch.models.schema import encoder_shapes, layer_shapes, \
+    top_leaves
+
+Spec = Tuple
+
+
+def _spec_for(cfg: ModelConfig, mesh: Mesh, strategy: str, shape,
+              logical) -> Spec:
+    msize = mesh.shape["model"]
+    dsize = mesh.shape["data"]
+    parts = []
+    used = set()
+    for dim, name in zip(shape, logical):
+        ax = None
+        if name == "embed":
+            if strategy == "fsdp_tp" and dim % dsize == 0:
+                ax = "data"
+        elif name == "vocab":
+            if dim % msize == 0:
+                ax = "model"
+        elif name == "heads":
+            if cfg.n_heads % msize == 0 and dim % msize == 0:
+                ax = "model"
+        elif name == "kv_heads":
+            if cfg.n_kv_heads % msize == 0 and dim % msize == 0:
+                ax = "model"
+        elif name == "heads_sep":
+            if dim % msize == 0:
+                ax = "model"
+        elif name in ("ffn", "experts"):
+            if dim % msize == 0:
+                ax = "model"
+        elif name in ("ssm", "ssm_heads"):
+            # Mamba head-parallel TP when the SSM head count divides the
+            # model axis
+            if cfg.ssm is not None and cfg.n_ssm_heads % msize == 0 \
+                    and dim % msize == 0:
+                ax = "model"
+        if ax in used:       # one mesh axis per spec (experts wins over ffn)
+            ax = None
+        if ax is not None:
+            used.add(ax)
+        parts.append(ax)
+    return tuple(parts)
+
+
+def param_shardings(cfg: ModelConfig, mesh: Mesh,
+                    strategy: str = "fsdp_tp") -> Dict:
+    """Specs in the params' tree (``schema.init_params``)."""
+    def specs(leaves):
+        return {k: _spec_for(cfg, mesh, strategy, leaf.shape, leaf.logical)
+                for k, leaf in leaves.items()}
+    out = specs(top_leaves(cfg))
+    out["layers"] = [specs(layer_shapes(cfg, li))
+                     for li in range(cfg.n_layers)]
+    out["final_norm"] = (None,)
+    if cfg.encoder is not None:
+        enc = specs(encoder_shapes(cfg))
+        out["encoder"] = {"layers": [dict(enc)
+                                     for _ in range(cfg.encoder.n_layers)],
+                          "final_norm": (None,)}
+    return out
+
+
+def replicated(mesh: Mesh) -> Spec:
+    return ()
+
+
+def tree_replicated(tree, mesh: Mesh):
+    return _tree_map(lambda _: (), tree)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the tensor leaves of a nest of dicts, lists, tuples and
+    NamedTuples; None stays None."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _dim0_batch_spec(mesh: Mesh, b: int, extra_dims: int) -> Spec:
+    bx = batch_axes(mesh)
+    if b % axis_size(mesh, bx) == 0:
+        return (bx, *([None] * extra_dims))
+    return tuple([None] * (extra_dims + 1))
+
+
+def batch_shardings(batch, mesh: Mesh):
+    """Shard every bucket tensor's leading (row) dim over the batch axes
+    (when it divides them), in the batch's own tree."""
+    return _tree_map(lambda x: _dim0_batch_spec(mesh, x.shape[0],
+                                                x.ndim - 1), batch)
+
+
+def cache_shardings(cfg: ModelConfig, cache: Dict, mesh: Mesh,
+                    strategy: str = "auto") -> Dict:
+    """Cache leaves are ``[L_kind, rows, ...]``: rows over the batch axes
+    when divisible; the widest remaining axis over "model" (``k``/``v``
+    and ``xk``/``xv`` [.., S, g, hd]: the KV heads when their count divides
+    the axis, else the head dim, else the sequence; MLA's ``ckv``/``kpe``:
+    the sequence; Mamba's ``h``: the SSM heads, ``conv_x``: d_inner;
+    ``conv_bc`` stays replicated).  ``strategy="seq"`` shards the KV
+    sequence over "model" instead (the flash-decoding layout).  ``cache``:
+    any dict of tensors with the cache's names and shapes (meta tensors
+    do)."""
+    msize = mesh.shape["model"]
+    bx = batch_axes(mesh)
+    bsz = axis_size(mesh, bx)
+
+    def leaf_spec(key, x):
+        dims = [None] * x.ndim
+        if x.shape[1] % bsz == 0 and x.shape[1] > 1:
+            dims[1] = bx
+        if key in ("k", "v", "xk", "xv"):
+            if strategy == "seq" and x.shape[2] % msize == 0:
+                dims[2] = "model"
+            elif cfg.n_kv_heads % msize == 0:
+                dims[3] = "model"
+            elif x.shape[4] % msize == 0:
+                dims[4] = "model"
+            elif x.shape[2] % msize == 0:
+                dims[2] = "model"
+        elif key in ("ckv", "kpe"):
+            if x.shape[2] % msize == 0:
+                dims[2] = "model"
+        elif key == "h":
+            if x.shape[2] % msize == 0:
+                dims[2] = "model"
+        elif key == "conv_x":
+            if x.shape[3] % msize == 0:
+                dims[3] = "model"
+        return tuple(dims)
+
+    return {key: leaf_spec(key, x) for key, x in cache.items()}
+
+
+def lora_shardings(bank, mesh: Mesh):
+    """Shard each adapter's wide dim over "model": ``a``'s d_in (the
+    contraction: a rank's shrink is a partial sum, all-reduced as a small
+    fp32 [T, r]) and ``b``'s d_out (the base linear's output columns)."""
+    msize = mesh.shape["model"]
+
+    def walk(node, key=None):
+        if isinstance(node, dict):
+            return {k: walk(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, key) for v in node)
+        dims = [None] * node.ndim
+        if key == "a" and node.ndim >= 2 and node.shape[-2] % msize == 0:
+            dims[-2] = "model"
+        elif key == "b" and node.ndim >= 1 and node.shape[-1] % msize == 0:
+            dims[-1] = "model"
+        return tuple(dims)
+
+    return walk(bank)
+
+
+def opt_shardings(opt, mesh: Mesh):
+    """AdamW moments follow the bank; the per-slot step counters
+    replicate.  ``opt``: ``training.optimizer.AdamWState`` (its ``m`` and
+    ``v`` are bank-shaped trees, concatenated into flat buffers only
+    inside ``adamw_apply``)."""
+    return type(opt)(m=lora_shardings(opt.m, mesh),
+                     v=lora_shardings(opt.v, mesh), t=replicated(mesh))
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh
+# ---------------------------------------------------------------------------
+
+_AMBIENT: list = []
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Mesh, strategy: str = "fsdp_tp"):
+    """Install ``mesh`` (and the params' ``strategy``, which says which
+    leaves the forward finds sharded over "data") as the ambient mesh."""
+    _AMBIENT.append((mesh, strategy))
+    try:
+        yield mesh
+    finally:
+        _AMBIENT.pop()
+
+
+def ambient_mesh() -> Optional[Mesh]:
+    """The mesh currently in scope, or None."""
+    return _AMBIENT[-1][0] if _AMBIENT else None
+
+
+def ambient_strategy() -> Optional[str]:
+    return _AMBIENT[-1][1] if _AMBIENT else None
+
+
+# ---------------------------------------------------------------------------
+# shards
+# ---------------------------------------------------------------------------
+
+def _entry_axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def local_shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``x``: along each dimension
+    sharded over axes ``A``, the ``mesh.index(A)``-th of ``axis_size(A)``
+    equal blocks (data-major for a tuple).  A new tensor of its own
+    storage (a view would keep the whole alive), or ``x`` itself when
+    nothing is sharded."""
+    out = x
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if not axes:
+            continue
+        n = axis_size(mesh, axes)
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"divide {axes} = {n}")
+        size = x.shape[dim] // n
+        out = out.narrow(dim, mesh.index(axes) * size, size)
+    return out.clone(memory_format=torch.contiguous_format) \
+        if out is not x else x
+
+
+def gather(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor from every rank's block ``x`` (``local_shard``'s
+    inverse), by an all-gather along each sharded dimension."""
+    for dim, entry in enumerate(spec):
+        axes = _entry_axes(entry)
+        if axes:
+            x = all_gather(x, axes, mesh, dim=dim)
+    return x
+
+
+def shard_tree(tree, specs, mesh: Mesh):
+    """``local_shard`` over a tree and its same-shaped tree of specs."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(shard_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    return local_shard(tree, specs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# collectives over mesh axes, with their operand bytes recorded by kind
+# ---------------------------------------------------------------------------
+
+KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all")
+_LOG: Dict[str, int] = {k: 0 for k in KINDS}
+
+
+def reset_collective_log() -> None:
+    for k in KINDS:
+        _LOG[k] = 0
+
+
+def collective_log() -> Dict[str, int]:
+    """Operand bytes by kind since the last reset (a rank's own)."""
+    return dict(_LOG)
+
+
+def _record(kind: str, x: torch.Tensor) -> None:
+    _LOG[kind] += x.numel() * x.element_size()
+
+
+def _group(mesh: Mesh, axes):
+    axes = mesh.axes(axes)
+    return axes, axis_size(mesh, axes)
+
+
+def all_reduce(x: torch.Tensor, axes, mesh: Mesh,
+               op: str = "sum") -> torch.Tensor:
+    """In place: ``x`` summed (``op="max"``: maxed) over ``axes``."""
+    import torch.distributed as dist
+    axes, n = _group(mesh, axes)
+    if n == 1:
+        return x
+    _record("all-reduce", x)
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    dist.all_reduce(x, op=red, group=mesh.group(axes))
+    return x
+
+
+def all_gather(x: torch.Tensor, axes, mesh: Mesh,
+               dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` over ``axes``, concatenated along ``dim`` in
+    mesh order."""
+    import torch.distributed as dist
+    axes, n = _group(mesh, axes)
+    if n == 1:
+        return x
+    _record("all-gather", x)
+    xm = x.movedim(dim, 0).contiguous()
+    out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.all_gather_into_tensor(out, xm, group=mesh.group(axes))
+    return out.movedim(0, dim) if dim else out
+
+
+def reduce_scatter(x: torch.Tensor, axes, mesh: Mesh,
+                   dim: int = 0) -> torch.Tensor:
+    """``x`` summed over ``axes``; this rank keeps its block along
+    ``dim``."""
+    import torch.distributed as dist
+    axes, n = _group(mesh, axes)
+    if n == 1:
+        return x
+    _record("reduce-scatter", x)
+    xm = x.movedim(dim, 0).contiguous()
+    if xm.shape[0] % n:
+        raise ValueError(f"reduce_scatter: {xm.shape[0]} rows over {n}")
+    out = torch.empty((xm.shape[0] // n, *xm.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    dist.reduce_scatter_tensor(out, xm, group=mesh.group(axes))
+    return out.movedim(0, dim) if dim else out
+
+
+def all_to_all(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """Block ``i`` of ``x``'s leading dim to rank ``i`` of ``axes``; the
+    result's block ``i`` came from rank ``i``."""
+    import torch.distributed as dist
+    axes, n = _group(mesh, axes)
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all: {x.shape[0]} rows over {n}")
+    _record("all-to-all", x)
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=mesh.group(axes))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cache's rows under a data axis
+# ---------------------------------------------------------------------------
+
+def cache_rows(n_rows: int, segments, mesh: Mesh) -> list:
+    """The global cache rows this rank holds, in local order.  ``segments``:
+    the buckets' row counts in the cache's order (dense rows: the decode
+    bucket's ``Bd`` rows, then the prefill bucket's ``Bp``); the rows past
+    them are one more segment.  A segment that divides the batch axes
+    gives this rank its block of it, as the forward splits that bucket;
+    any other is held whole by every data rank.  With one segment (a
+    cache whose rows are one bucket's, as when a prefill's rows then
+    decode) this is the contiguous block of ``cache_shardings``."""
+    bx = batch_axes(mesh)
+    n, i = axis_size(mesh, bx), mesh.index(bx)
+    segs = [int(s) for s in segments or ()]
+    if sum(segs) < n_rows:
+        segs.append(n_rows - sum(segs))
+    rows, o = [], 0
+    for s in segs:
+        if s % n == 0:
+            rows.extend(range(o + i * (s // n), o + (i + 1) * (s // n)))
+        else:
+            rows.extend(range(o, o + s))
+        o += s
+    return rows
+
+
+def _model_spec(cfg: ModelConfig, cache: Dict, mesh: Mesh) -> Dict:
+    """``cache_shardings`` (strategy ``auto``) with the rows left to
+    ``cache_rows``."""
+    specs = cache_shardings(cfg, cache, mesh, "auto")
+    return {k: tuple(None if d == 1 else e for d, e in enumerate(sp))
+            for k, sp in specs.items()}
+
+
+def shard_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh,
+                segments=None) -> Dict:
+    """This rank's shard of a whole dense-row cache: its ``cache_rows`` and
+    its block of the "model" axis as ``cache_shardings`` says (the KV
+    heads)."""
+    specs = _model_spec(cfg, cache, mesh)
+    out = {}
+    for k, x in cache.items():
+        rows = torch.tensor(cache_rows(x.shape[1], segments, mesh),
+                            device=x.device)
+        out[k] = local_shard(x.index_select(1, rows), specs[k], mesh)
+    return out
+
+
+def gather_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh, n_rows: int,
+                 segments=None) -> Dict:
+    """The whole cache from every rank's ``shard_cache`` block."""
+    bx = batch_axes(mesh)
+    n = axis_size(mesh, bx)
+    specs = _model_spec(cfg, cache, mesh)
+    out = {}
+    for k, x in cache.items():
+        x = gather(x, specs[k], mesh)
+        per = x.shape[1]
+        x = all_gather(x, bx, mesh, dim=1)          # [L, n * per, ...]
+        held = {}
+        for d in range(n):
+            probe = Mesh(mesh.devices_shape, mesh.axis_names,
+                         _rank_with(mesh, bx, d))
+            for j, r in enumerate(cache_rows(n_rows, segments, probe)):
+                held.setdefault(r, d * per + j)
+        idx = torch.tensor([held[r] for r in range(n_rows)],
+                           device=x.device)
+        out[k] = x.index_select(1, idx)
+    return out
+
+
+def _rank_with(mesh: Mesh, axes, index: int) -> int:
+    """A rank whose index along ``axes`` is ``index`` (the others' at this
+    rank's)."""
+    for r in range(mesh.size):
+        probe = Mesh(mesh.devices_shape, mesh.axis_names, r)
+        if probe.index(axes) == index and all(
+                probe.coords[a] == mesh.coords[a]
+                for a in mesh.axis_names if a not in axes):
+            return r
+    raise ValueError(f"no rank at {axes} = {index}")

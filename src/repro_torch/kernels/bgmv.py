@@ -29,9 +29,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P, require
+from repro_torch.kernels.ref import bgmv_expand_ref, bgmv_shrink_ref
 from repro_torch.kernels.ref import bgmv_ref as bgmv_plain
 
 _ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+_SPLIT_ARGS = [P, P, P, P, P, I, I, I, I, I, P]
 MAX_RANK = 64
 MAX_SLOTS = 1024        # adapters the kernel lists per block
 SPLIT_CHUNK = 128       # d_in a shrink block reduces for few tokens
@@ -95,3 +97,74 @@ def bgmv(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 bgmv.launches = 0
+
+
+def _check_tokens(T: int, n: int, r: int, ids: torch.Tensor,
+                  scale: torch.Tensor) -> None:
+    require(0 < r <= MAX_RANK, f"rank {r} outside [1, {MAX_RANK}]")
+    require(0 < n <= MAX_SLOTS, f"{n} adapter slots outside [1, {MAX_SLOTS}]")
+    require(ids.dtype == torch.int32 and ids.shape == (T,),
+            "ids must be int32 [T]")
+    require(scale.dtype == torch.float32 and scale.shape == (T,),
+            "scale must be float32 [T]")
+
+
+def bgmv_shrink(x: torch.Tensor, a: torch.Tensor, ids: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """BGMV's first launch alone: ``scale[t] * x[t] @ A[ids[t]]`` as a plain
+    fp32 [T, r] (zeros for a token without an adapter).  On a rank that
+    holds a slice of d_in it is that slice's partial sum, to be summed over
+    the ranks before ``bgmv_expand``.  One cluster of ``CLUSTER`` slices of
+    d_in a group of 8 tokens sums its partials on chip.  CPU tensors take
+    the plain version; CUDA tensors launch ``bgmv_shrink_launch``
+    (``csrc/bgmv.cu``)."""
+    if x.device.type == "cpu":
+        return bgmv_shrink_ref(x, a, ids, scale)
+    require(x.device.type == "cuda", f"no BGMV kernel for {x.device}")
+    T, d_in = x.shape
+    n, d_in_a, r = a.shape
+    require(d_in_a == d_in and a.dtype == x.dtype,
+            f"bgmv_shrink x{tuple(x.shape)} {x.dtype} a{tuple(a.shape)} "
+            f"{a.dtype}")
+    _check_tokens(T, n, r, ids, scale)
+    build.check_cuda(x, a, ids, scale)
+    s = torch.empty((T, r), dtype=torch.float32, device=x.device)
+    fn = build.function("bgmv", "bgmv_shrink_launch", _SPLIT_ARGS)
+    err = fn(x.data_ptr(), a.data_ptr(), ids.data_ptr(), scale.data_ptr(),
+             s.data_ptr(), T, n, d_in, r, build.dtype_code(x),
+             build.stream_of(x))
+    build.check(err, "bgmv")
+    bgmv_shrink.launches += 1
+    return s
+
+
+bgmv_shrink.launches = 0
+
+
+def bgmv_expand(s: torch.Tensor, b: torch.Tensor, ids: torch.Tensor,
+                scale: torch.Tensor) -> torch.Tensor:
+    """BGMV's second launch alone: ``s[t] @ B[ids[t]]`` [T, d_out] in b's
+    dtype (zeros for a token without an adapter), ``s`` the fp32 [T, r]
+    of ``bgmv_shrink`` summed over the ranks that hold d_in; ``b`` may be a
+    rank's slice of d_out.  CPU tensors take the plain version; CUDA
+    tensors launch ``bgmv_expand_launch`` (``csrc/bgmv.cu``)."""
+    if s.device.type == "cpu":
+        return bgmv_expand_ref(s, b, ids, scale)
+    require(s.device.type == "cuda", f"no BGMV kernel for {s.device}")
+    T, r = s.shape
+    n, r_b, d_out = b.shape
+    require(r_b == r and s.dtype == torch.float32,
+            f"bgmv_expand s{tuple(s.shape)} {s.dtype} b{tuple(b.shape)}")
+    _check_tokens(T, n, r, ids, scale)
+    build.check_cuda(s, b, ids, scale)
+    out = torch.empty((T, d_out), dtype=b.dtype, device=s.device)
+    fn = build.function("bgmv", "bgmv_expand_launch", _SPLIT_ARGS)
+    err = fn(s.data_ptr(), b.data_ptr(), ids.data_ptr(), scale.data_ptr(),
+             out.data_ptr(), T, n, r, d_out, build.dtype_code(b),
+             build.stream_of(s))
+    build.check(err, "bgmv")
+    bgmv_expand.launches += 1
+    return out
+
+
+bgmv_expand.launches = 0

@@ -38,6 +38,15 @@
 // on a 16-byte boundary) takes element loads in the shrink; d_out % 8 != 0
 // (or fp32, which only the reduced-size parity runs use) element copies of
 // B and element stores.
+//
+// Split entries (`bgmv_shrink_launch`, `bgmv_expand_launch`): the same two
+// kernels with PLAIN set, launched apart, so that a collective can sit
+// between them (a rank's shrink over its slice of d_in is a partial sum,
+// all-reduced over the mesh's model axis before the expand).  The split
+// shrink always runs one cluster of BG_CLUSTER slices a token group and
+// writes the cluster's sum, scaled, as a plain fp32 [T, r] (a token
+// without an adapter as zeros); the split expand reads that (one partial,
+// already scaled) and is an ordinary launch, not a programmatic dependent.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -92,7 +101,7 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
 // r == RP): a lane takes 8 consecutive d at a time, x as one 16-byte load
 // and A's 8 rows (8 * RP contiguous elements) as RP 16-byte loads, two
 // such steps in flight; else element loads.
-template <typename T, int RP, bool VIN, bool CSUM>
+template <typename T, int RP, bool VIN, bool CSUM, bool PLAIN>
 __global__ void __launch_bounds__(BG_THREADS)
 bgmv_shrink(const T* __restrict__ x, const T* __restrict__ a,
             const int* __restrict__ ids, const float* __restrict__ scale,
@@ -157,8 +166,16 @@ bgmv_shrink(const T* __restrict__ x, const T* __restrict__ a,
 #pragma unroll
       for (int c = 0; c < BG_CLUSTER; ++c)
         v += *cluster.map_shared_rank(&pt[tw][k], c);
-      part[(static_cast<size_t>(blockIdx.x / BG_CLUSTER) * T_ + te) * RP +
-           k] = v;
+      if constexpr (PLAIN) {   // one cluster: the scaled sum, [T][r]
+        if (k < r) {
+          const float sc = scale[te];
+          part[static_cast<size_t>(te) * r + k] =
+              has_adapter(ids[te], sc, n) ? v * sc : 0.f;
+        }
+      } else {
+        part[(static_cast<size_t>(blockIdx.x / BG_CLUSTER) * T_ + te) * RP +
+             k] = v;
+      }
     }
     cluster_arrive();   // done reading the peers' partials
     cluster_wait();     // the peers have read this block's
@@ -299,7 +316,7 @@ __device__ __forceinline__ void expand_slice(const Groups& G, const float* xa,
 // shared memory in batches of ub (one batch unless many adapters at a wide
 // rank); the first batch is copied before the wait.  NP: the most partials
 // a token has (its loads are unrolled to it, each predicated on np).
-template <typename T, int RP, bool VOUT, int NP>
+template <typename T, int RP, bool VOUT, int NP, bool PLAIN>
 __global__ void __launch_bounds__(BG_THREADS)
 bgmv_expand(const float* part, const T* __restrict__ b,
             const int* __restrict__ ids, const float* __restrict__ scale,
@@ -319,14 +336,18 @@ bgmv_expand(const float* part, const T* __restrict__ b,
     const int t = e / RP, k = e - t * RP;
     float v = 0.f;
     if (G.slot[t] >= 0 && k < r) {   // the np loads in flight, summed in order
-      const float* p = part + static_cast<size_t>(t0 + t) * RP + k;
-      float pv[NP];
+      if constexpr (PLAIN) {   // the split shrink's scaled [T][r]
+        v = __ldcg(part + static_cast<size_t>(t0 + t) * r + k);
+      } else {
+        const float* p = part + static_cast<size_t>(t0 + t) * RP + k;
+        float pv[NP];
 #pragma unroll
-      for (int s = 0; s < NP; ++s)
-        pv[s] = s < np ? __ldcg(p + static_cast<size_t>(s) * T_ * RP) : 0.f;
+        for (int s = 0; s < NP; ++s)
+          pv[s] = s < np ? __ldcg(p + static_cast<size_t>(s) * T_ * RP) : 0.f;
 #pragma unroll
-      for (int s = 0; s < NP; ++s) v += pv[s];
-      v *= G.sc[t];
+        for (int s = 0; s < NP; ++s) v += pv[s];
+        v *= G.sc[t];
+      }
     }
     xa[e] = v;
   }
@@ -346,13 +367,12 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T, int RP, bool VIN, bool VOUT>
-cudaError_t launch_v(const void* x, const void* a, const void* b,
-                     const int* ids, const float* scale, float* part,
-                     void* out, int T_, int n, int d_in, int r, int d_out,
-                     int ns, cudaStream_t stream) {
+template <typename T, int RP, bool VIN, bool PLAIN>
+cudaError_t launch_shrink(const void* x, const void* a, const int* ids,
+                          const float* scale, float* part, int T_, int n,
+                          int d_in, int r, int ns, bool csum,
+                          cudaStream_t stream) {
   const int span = ((d_in + ns - 1) / ns + 7) / 8 * 8;
-  const bool csum = T_ > BG_CSUM_T && ns % BG_CLUSTER == 0;
   cudaLaunchConfig_t sc = {};
   sc.gridDim = dim3(ns, (T_ + BG_WARPS - 1) / BG_WARPS);
   sc.blockDim = dim3(BG_THREADS);
@@ -365,21 +385,28 @@ cudaError_t launch_v(const void* x, const void* a, const void* b,
   sc.attrs = sa;
   sc.numAttrs = csum ? 1 : 0;
   cudaError_t e = cudaLaunchKernelEx(
-      &sc, csum ? bgmv_shrink<T, RP, VIN, true> : bgmv_shrink<T, RP, VIN, false>,
+      &sc,
+      csum ? bgmv_shrink<T, RP, VIN, true, PLAIN>
+           : bgmv_shrink<T, RP, VIN, false, PLAIN>,
       static_cast<const T*>(x), static_cast<const T*>(a), ids, scale, part,
       T_, n, d_in, r, span);
   if (e != cudaSuccess) return e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// np: partials a token (1 for PLAIN); pdl: launched as a programmatic
+// dependent of the shrink just before it
+template <typename T, int RP, bool VOUT, int NP, bool PLAIN>
+cudaError_t launch_expand(const float* part, const void* b, const int* ids,
+                          const float* scale, void* out, int T_, int n, int r,
+                          int d_out, int np, bool pdl, cudaStream_t stream) {
   // ub: used adapters whose B slices fit BG_B_SMEM at once
   const int max_used = std::min(n, std::min(T_, BG_TOKENS));
   const size_t per = static_cast<size_t>(RP) * BG_W * sizeof(T);
   const int ub =
       std::max(1, std::min(max_used, static_cast<int>(BG_B_SMEM / per)));
-  // the cluster sums leave at most BG_SPLITS / BG_CLUSTER partials a token
-  auto kern = csum ? bgmv_expand<T, RP, VOUT, BG_SPLITS / BG_CLUSTER>
-                   : bgmv_expand<T, RP, VOUT, BG_SPLITS>;
-  e = repro::allow_smem(
+  auto kern = bgmv_expand<T, RP, VOUT, NP, PLAIN>;
+  cudaError_t e = repro::allow_smem(
       kern, ub * per + sizeof(Groups) + BG_TOKENS * RP * sizeof(float));
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t ec = {};
@@ -392,13 +419,30 @@ cudaError_t launch_v(const void* x, const void* a, const void* b,
   ea[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   ea[0].val.programmaticStreamSerializationAllowed = 1;
   ec.attrs = ea;
-  ec.numAttrs = 1;
-  e = cudaLaunchKernelEx(&ec, kern, static_cast<const float*>(part),
-                         static_cast<const T*>(b), ids, scale,
-                         static_cast<T*>(out), T_, n, r, d_out,
-                         csum ? ns / BG_CLUSTER : ns, ub);
+  ec.numAttrs = pdl ? 1 : 0;
+  e = cudaLaunchKernelEx(&ec, kern, part, static_cast<const T*>(b), ids,
+                         scale, static_cast<T*>(out), T_, n, r, d_out, np,
+                         ub);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, int RP, bool VIN, bool VOUT>
+cudaError_t launch_v(const void* x, const void* a, const void* b,
+                     const int* ids, const float* scale, float* part,
+                     void* out, int T_, int n, int d_in, int r, int d_out,
+                     int ns, cudaStream_t stream) {
+  const bool csum = T_ > BG_CSUM_T && ns % BG_CLUSTER == 0;
+  cudaError_t e = launch_shrink<T, RP, VIN, false>(
+      x, a, ids, scale, part, T_, n, d_in, r, ns, csum, stream);
+  if (e != cudaSuccess) return e;
+  // the cluster sums leave at most BG_SPLITS / BG_CLUSTER partials a token
+  if (csum)
+    return launch_expand<T, RP, VOUT, BG_SPLITS / BG_CLUSTER, false>(
+        part, b, ids, scale, out, T_, n, r, d_out, ns / BG_CLUSTER, true,
+        stream);
+  return launch_expand<T, RP, VOUT, BG_SPLITS, false>(
+      part, b, ids, scale, out, T_, n, r, d_out, ns, true, stream);
 }
 
 template <typename T, int RP>
@@ -458,6 +502,109 @@ extern "C" int bgmv_launch(const void* x, const void* a, const void* b,
     e = launch_t<float>(x, a, b, i, sc, p, out, T_, n, d_in, r, d_out, ns, s);
   else if (dtype == DT_BF16)
     e = launch_t<bf16>(x, a, b, i, sc, p, out, T_, n, d_in, r, d_out, ns, s);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+namespace {
+
+template <typename T, int RP>
+cudaError_t split_shrink_rp(const void* x, const void* a, const int* ids,
+                            const float* scale, float* s, int T_, int n,
+                            int d_in, int r, cudaStream_t st) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (d_in % 8 == 0 && r == RP && aligned16(x) && aligned16(a))
+      return launch_shrink<T, RP, true, true>(x, a, ids, scale, s, T_, n,
+                                              d_in, r, BG_CLUSTER, true, st);
+  }
+  return launch_shrink<T, RP, false, true>(x, a, ids, scale, s, T_, n, d_in,
+                                           r, BG_CLUSTER, true, st);
+}
+
+template <typename T, int RP>
+cudaError_t split_expand_rp(const float* s, const void* b, const int* ids,
+                            const float* scale, void* out, int T_, int n,
+                            int r, int d_out, cudaStream_t st) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (d_out % 8 == 0 && aligned16(b) && aligned16(out))
+      return launch_expand<T, RP, true, 1, true>(s, b, ids, scale, out, T_, n,
+                                                 r, d_out, 1, false, st);
+  }
+  return launch_expand<T, RP, false, 1, true>(s, b, ids, scale, out, T_, n, r,
+                                              d_out, 1, false, st);
+}
+
+#define BGMV_BY_RANK(FN, ...)                                  \
+  (r <= 4 ? FN<T, 4>(__VA_ARGS__)                              \
+   : r <= 8 ? FN<T, 8>(__VA_ARGS__)                            \
+   : r <= 16 ? FN<T, 16>(__VA_ARGS__)                          \
+   : r <= 32 ? FN<T, 32>(__VA_ARGS__)                          \
+             : FN<T, 64>(__VA_ARGS__))
+
+template <typename T>
+cudaError_t split_shrink_t(const void* x, const void* a, const int* ids,
+                           const float* scale, float* s, int T_, int n,
+                           int d_in, int r, cudaStream_t st) {
+  return BGMV_BY_RANK(split_shrink_rp, x, a, ids, scale, s, T_, n, d_in, r,
+                      st);
+}
+
+template <typename T>
+cudaError_t split_expand_t(const float* s, const void* b, const int* ids,
+                           const float* scale, void* out, int T_, int n,
+                           int r, int d_out, cudaStream_t st) {
+  return BGMV_BY_RANK(split_expand_rp, s, b, ids, scale, out, T_, n, r, d_out,
+                      st);
+}
+
+bool split_ok(int T_, int n, int r) {
+  return r > 0 && r <= 64 && n > 0 && n <= BG_MAX_SLOTS &&
+         (T_ + BG_WARPS - 1) / BG_WARPS <= 65535;
+}
+
+}  // namespace
+
+// The split shrink: s [T][r] fp32 = scale * x @ A[ids] (zeros for a token
+// without an adapter), summed over this call's d_in.
+extern "C" int bgmv_shrink_launch(const void* x, const void* a,
+                                  const void* ids, const void* scale,
+                                  void* s, int T_, int n, int d_in, int r,
+                                  int dtype, void* stream) {
+  if (T_ <= 0) return 0;
+  if (!split_ok(T_, n, r) || d_in <= 0) return cudaErrorInvalidValue;
+  const int* i = static_cast<const int*>(ids);
+  const float* sc = static_cast<const float*>(scale);
+  float* sp = static_cast<float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = split_shrink_t<float>(x, a, i, sc, sp, T_, n, d_in, r, st);
+  else if (dtype == DT_BF16)
+    e = split_shrink_t<bf16>(x, a, i, sc, sp, T_, n, d_in, r, st);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The split expand: out [T][d_out] = s @ B[ids] (zeros for a token without
+// an adapter), s the plain fp32 [T][r] of `bgmv_shrink_launch`, summed over
+// the ranks that hold d_in.
+extern "C" int bgmv_expand_launch(const void* s, const void* b,
+                                  const void* ids, const void* scale,
+                                  void* out, int T_, int n, int r, int d_out,
+                                  int dtype, void* stream) {
+  if (T_ <= 0 || d_out <= 0) return 0;
+  if (!split_ok(T_, n, r)) return cudaErrorInvalidValue;
+  const int* i = static_cast<const int*>(ids);
+  const float* sc = static_cast<const float*>(scale);
+  const float* sp = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = split_expand_t<float>(sp, b, i, sc, out, T_, n, r, d_out, st);
+  else if (dtype == DT_BF16)
+    e = split_expand_t<bf16>(sp, b, i, sc, out, T_, n, r, d_out, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

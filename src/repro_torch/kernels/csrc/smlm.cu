@@ -42,6 +42,15 @@
 // stores throughout, the shrink on the CUDA cores.  A
 // tile whose scale is 0 (base-only rows, invalid ids) is skipped by the
 // shrink and written as zeros by the expand without reading B.
+//
+// Split entries (`smlm_shrink_launch`, `smlm_expand_launch`): the same two
+// kernels with PLAIN set, launched apart, so that a collective can sit
+// between them (a rank's shrink over its slice of d_in is a partial sum,
+// all-reduced over the mesh's model axis before the expand).  PLAIN keeps
+// the scaled shrink as a plain fp32 [T, r] (a tile of scale 0 as zeros) in
+// place of the packed [tiles][groups][RP][8], and the expand reads it from
+// there; the expand is then an ordinary launch, not a programmatic
+// dependent.
 #include <cooperative_groups.h>
 
 #include <type_traits>
@@ -315,7 +324,7 @@ __device__ __forceinline__ void shrink_block(
 // past the tile's end as 0).  A tile of scale 0 does nothing.  RP: the rank
 // padded to 4, 8, 16, 32 or 64; VIN (bf16 only): X and A as 16-byte
 // copies (d_in % 8 == 0, r == RP >= 8, 16-byte aligned).
-template <typename T, int RP, bool VIN>
+template <typename T, int RP, bool VIN, bool PLAIN>
 __global__ void __launch_bounds__(SMLM_THREADS)
 smlm_shrink(const T* __restrict__ x, const T* __restrict__ a,
             const int* __restrict__ tile_ids,
@@ -329,7 +338,15 @@ smlm_shrink(const T* __restrict__ x, const T* __restrict__ a,
   // read s
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const float sc = tile_scale[tile];
-  if (sc == 0.f) return;   // uniform over the cluster: nobody waits
+  if (sc == 0.f) {   // uniform over the cluster: nobody waits
+    if constexpr (PLAIN) {
+      float* st = s + static_cast<size_t>(tile) * block_t * r;
+      for (int e = rank * SMLM_THREADS + threadIdx.x; e < block_t * r;
+           e += SMLM_CLUSTER * SMLM_THREADS)
+        st[e] = 0.f;
+    }
+    return;
+  }
   int id = tile_ids[tile];
   id = id < 0 ? 0 : (id >= n ? n - 1 : id);
   const T* A = a + static_cast<size_t>(id) * d_in * r;
@@ -344,18 +361,31 @@ smlm_shrink(const T* __restrict__ x, const T* __restrict__ a,
     shrink_block<T, RP, VIN>(x, A, t0 + g0, nt, d_in, d0, d1, r, pg, sbuf);
     cluster_arrive();   // every partial of the group is written ...
     cluster_wait();     // ... and visible to the whole cluster
-    float* sg = s + (static_cast<size_t>(tile) * groups + grp) * RP *
-                        SMLM_GROUP;
-    for (int e = rank * SMLM_THREADS + threadIdx.x; e < RP * SMLM_GROUP;
-         e += SMLM_CLUSTER * SMLM_THREADS) {
-      const int k = e / SMLM_GROUP, t = e - k * SMLM_GROUP;
-      float v = 0.f;
-      if (t < nt) {
+    if constexpr (PLAIN) {   // s [T][r]: the group's nt rows
+      float* sg = s + (t0 + g0) * r;
+      for (int e = rank * SMLM_THREADS + threadIdx.x; e < nt * r;
+           e += SMLM_CLUSTER * SMLM_THREADS) {
+        const int t = e / r, k = e - t * r;
+        float v = 0.f;
 #pragma unroll
         for (int c = 0; c < SMLM_CLUSTER; ++c)
           v += *cluster.map_shared_rank(&pg[t][k], c);
+        sg[e] = v * sc;
       }
-      sg[e] = v * sc;
+    } else {
+      float* sg = s + (static_cast<size_t>(tile) * groups + grp) * RP *
+                          SMLM_GROUP;
+      for (int e = rank * SMLM_THREADS + threadIdx.x; e < RP * SMLM_GROUP;
+           e += SMLM_CLUSTER * SMLM_THREADS) {
+        const int k = e / SMLM_GROUP, t = e - k * SMLM_GROUP;
+        float v = 0.f;
+        if (t < nt) {
+#pragma unroll
+          for (int c = 0; c < SMLM_CLUSTER; ++c)
+            v += *cluster.map_shared_rank(&pg[t][k], c);
+        }
+        sg[e] = v * sc;
+      }
     }
     if (grp + 1 == groups) cluster_arrive();   // done reading peers
   }
@@ -372,7 +402,7 @@ smlm_shrink(const T* __restrict__ x, const T* __restrict__ a,
 // as a programmatic dependent of the shrink: its blocks may start while the
 // shrink runs, load their first rows of B, and wait (`griddepcontrol.wait`)
 // for the whole shrink grid before they read s, through L2 (`ld.global.cg`).
-template <typename T, int RP, bool VOUT>
+template <typename T, int RP, bool VOUT, bool PLAIN>
 __global__ void __launch_bounds__(SMLM_THREADS, 2)
 smlm_expand(const T* __restrict__ b, const int* __restrict__ tile_ids,
             const float* __restrict__ tile_scale, const float* s,
@@ -406,8 +436,10 @@ smlm_expand(const T* __restrict__ b, const int* __restrict__ tile_ids,
   }
   asm volatile("griddepcontrol.wait;\n" ::: "memory");   // s is complete
   if (sc != 0.f) {
-    const float* sg = s + (static_cast<size_t>(tile) * groups + grp) * RP *
-                              SMLM_GROUP;
+    const float* sg =
+        PLAIN ? s + (static_cast<size_t>(tile) * block_t + grp * SMLM_GROUP) * r
+              : s + (static_cast<size_t>(tile) * groups + grp) * RP *
+                        SMLM_GROUP;
 #pragma unroll 1
     for (int k0 = 0; k0 < RP; k0 += KB) {
       if constexpr (VOUT) {
@@ -426,11 +458,17 @@ smlm_expand(const T* __restrict__ b, const int* __restrict__ tile_ids,
             raw[k].unpack(bv);
           else
             ld8_edge(B + static_cast<size_t>(k0 + k) * d_out, ncol, bv);
-          const float4* sp =
-              reinterpret_cast<const float4*>(sg + (k0 + k) * SMLM_GROUP);
-          const float4 s0 = __ldcg(sp), s1 = __ldcg(sp + 1);
-          sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
-          sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+          if constexpr (PLAIN) {
+#pragma unroll
+            for (int i = 0; i < SMLM_GROUP; ++i)
+              sv[i] = i < nt ? __ldcg(sg + i * r + k0 + k) : 0.f;
+          } else {
+            const float4* sp =
+                reinterpret_cast<const float4*>(sg + (k0 + k) * SMLM_GROUP);
+            const float4 s0 = __ldcg(sp), s1 = __ldcg(sp + 1);
+            sv[0] = s0.x; sv[1] = s0.y; sv[2] = s0.z; sv[3] = s0.w;
+            sv[4] = s1.x; sv[5] = s1.y; sv[6] = s1.z; sv[7] = s1.w;
+          }
 #pragma unroll
           for (int i = 0; i < SMLM_GROUP; ++i)
 #pragma unroll
@@ -444,15 +482,13 @@ smlm_expand(const T* __restrict__ b, const int* __restrict__ tile_ids,
     if (i < nt) st8<VOUT>(Y + static_cast<size_t>(i) * d_out, ncol, acc[i]);
 }
 
-template <typename T, int RP, bool VIN, bool VOUT>
-cudaError_t launch_v(const void* x, const void* a, const void* b,
-                     const int* ids, const float* scale, float* s, void* out,
-                     int T_, int n, int d_in, int r, int d_out, int block_t,
-                     cudaStream_t stream) {
+template <typename T, int RP, bool VIN, bool PLAIN>
+cudaError_t launch_shrink(const void* x, const void* a, const int* ids,
+                          const float* scale, float* s, int T_, int n,
+                          int d_in, int r, int block_t, cudaStream_t stream) {
   // each block's slice of d_in, a multiple of 8 elements
   const int d_span = ((d_in + SMLM_CLUSTER - 1) / SMLM_CLUSTER + 7) / 8 * 8;
   const int tiles = T_ / block_t;
-  const int groups = (block_t + SMLM_GROUP - 1) / SMLM_GROUP;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles * SMLM_CLUSTER);
   cfg.blockDim = dim3(SMLM_THREADS);
@@ -466,11 +502,20 @@ cudaError_t launch_v(const void* x, const void* a, const void* b,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, smlm_shrink<T, RP, VIN>, static_cast<const T*>(x),
+      &cfg, smlm_shrink<T, RP, VIN, PLAIN>, static_cast<const T*>(x),
       static_cast<const T*>(a), ids, scale, s, n, d_in, r, block_t, d_span);
   if (e != cudaSuccess) return e;
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// PDL: launched as a programmatic dependent of the shrink just before it
+template <typename T, int RP, bool VOUT, bool PLAIN>
+cudaError_t launch_expand(const void* b, const int* ids, const float* scale,
+                          const float* s, void* out, int T_, int n, int r,
+                          int d_out, int block_t, bool pdl,
+                          cudaStream_t stream) {
+  const int tiles = T_ / block_t;
+  const int groups = (block_t + SMLM_GROUP - 1) / SMLM_GROUP;
   const int ncb = (d_out + 8 * SMLM_THREADS - 1) / (8 * SMLM_THREADS);
   cudaLaunchConfig_t ec = {};
   ec.gridDim = dim3(tiles * groups, ncb);
@@ -481,13 +526,25 @@ cudaError_t launch_v(const void* x, const void* a, const void* b,
   ea[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   ea[0].val.programmaticStreamSerializationAllowed = 1;
   ec.attrs = ea;
-  ec.numAttrs = 1;
-  e = cudaLaunchKernelEx(&ec, smlm_expand<T, RP, VOUT>,
-                         static_cast<const T*>(b), ids, scale,
-                         static_cast<const float*>(s), static_cast<T*>(out),
-                         n, r, d_out, block_t);
+  ec.numAttrs = pdl ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&ec, smlm_expand<T, RP, VOUT, PLAIN>,
+                                     static_cast<const T*>(b), ids, scale, s,
+                                     static_cast<T*>(out), n, r, d_out,
+                                     block_t);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+template <typename T, int RP, bool VIN, bool VOUT>
+cudaError_t launch_v(const void* x, const void* a, const void* b,
+                     const int* ids, const float* scale, float* s, void* out,
+                     int T_, int n, int d_in, int r, int d_out, int block_t,
+                     cudaStream_t stream) {
+  cudaError_t e = launch_shrink<T, RP, VIN, false>(
+      x, a, ids, scale, s, T_, n, d_in, r, block_t, stream);
+  if (e != cudaSuccess) return e;
+  return launch_expand<T, RP, VOUT, false>(b, ids, scale, s, out, T_, n, r,
+                                           d_out, block_t, true, stream);
 }
 
 bool aligned16(const void* p) {
@@ -551,6 +608,117 @@ extern "C" int smlm_launch(const void* x, const void* a, const void* b,
     e = launch_t<float>(x, a, b, ids, sc, sp, out, T_, n, d_in, r, d_out, block_t, st);
   else if (dtype == DT_BF16)
     e = launch_t<__nv_bfloat16>(x, a, b, ids, sc, sp, out, T_, n, d_in, r, d_out, block_t, st);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+namespace {
+
+template <typename T, int RP>
+cudaError_t split_shrink_rp(const void* x, const void* a, const int* ids,
+                            const float* scale, float* s, int T_, int n,
+                            int d_in, int r, int block_t, cudaStream_t st) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (d_in % 8 == 0 && r == RP && RP >= 8 && aligned16(x) && aligned16(a))
+      return launch_shrink<T, RP, true, true>(x, a, ids, scale, s, T_, n,
+                                              d_in, r, block_t, st);
+  }
+  return launch_shrink<T, RP, false, true>(x, a, ids, scale, s, T_, n, d_in,
+                                           r, block_t, st);
+}
+
+template <typename T, int RP>
+cudaError_t split_expand_rp(const void* b, const int* ids, const float* scale,
+                            const float* s, void* out, int T_, int n, int r,
+                            int d_out, int block_t, cudaStream_t st) {
+  if constexpr (!std::is_same<T, float>::value) {
+    if (d_out % 8 == 0 && aligned16(b) && aligned16(out))
+      return launch_expand<T, RP, true, true>(b, ids, scale, s, out, T_, n, r,
+                                              d_out, block_t, false, st);
+  }
+  return launch_expand<T, RP, false, true>(b, ids, scale, s, out, T_, n, r,
+                                           d_out, block_t, false, st);
+}
+
+#define SMLM_BY_RANK(FN, ...)                                  \
+  (r <= 4 ? FN<T, 4>(__VA_ARGS__)                              \
+   : r <= 8 ? FN<T, 8>(__VA_ARGS__)                            \
+   : r <= 16 ? FN<T, 16>(__VA_ARGS__)                          \
+   : r <= 32 ? FN<T, 32>(__VA_ARGS__)                          \
+             : FN<T, 64>(__VA_ARGS__))
+
+template <typename T>
+cudaError_t split_shrink_t(const void* x, const void* a, const int* ids,
+                           const float* scale, float* s, int T_, int n,
+                           int d_in, int r, int block_t, cudaStream_t st) {
+  return SMLM_BY_RANK(split_shrink_rp, x, a, ids, scale, s, T_, n, d_in, r,
+                      block_t, st);
+}
+
+template <typename T>
+cudaError_t split_expand_t(const void* b, const int* ids, const float* scale,
+                           const float* s, void* out, int T_, int n, int r,
+                           int d_out, int block_t, cudaStream_t st) {
+  return SMLM_BY_RANK(split_expand_rp, b, ids, scale, s, out, T_, n, r, d_out,
+                      block_t, st);
+}
+
+bool split_shape_ok(int T_, int r, int block_t) {
+  return block_t > 0 && T_ % block_t == 0 && r > 0 && r <= 64 &&
+         static_cast<long long>(T_ / block_t) * SMLM_CLUSTER <= 0x7fffffffLL;
+}
+
+}  // namespace
+
+// The split shrink: s [T][r] fp32 = tile_scale * X @ A[tile_ids] (zeros on
+// tiles of scale 0), summed over this call's d_in.
+extern "C" int smlm_shrink_launch(const void* x, const void* a,
+                                  const void* tile_ids,
+                                  const void* tile_scale, void* s, int T_,
+                                  int n, int d_in, int r, int block_t,
+                                  int dtype, void* stream) {
+  if (T_ <= 0) return 0;
+  if (!split_shape_ok(T_, r, block_t) || d_in <= 0)
+    return cudaErrorInvalidValue;
+  const int* ids = static_cast<const int*>(tile_ids);
+  const float* sc = static_cast<const float*>(tile_scale);
+  float* sp = static_cast<float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = split_shrink_t<float>(x, a, ids, sc, sp, T_, n, d_in, r, block_t, st);
+  else if (dtype == DT_BF16)
+    e = split_shrink_t<__nv_bfloat16>(x, a, ids, sc, sp, T_, n, d_in, r,
+                                      block_t, st);
+  else
+    e = cudaErrorInvalidValue;
+  return static_cast<int>(e);
+}
+
+// The split expand: out [T][d_out] = s @ B[tile_ids] (zeros on tiles of
+// scale 0), s the plain fp32 [T][r] of `smlm_shrink_launch`, summed over
+// the ranks that hold d_in.
+extern "C" int smlm_expand_launch(const void* s, const void* b,
+                                  const void* tile_ids,
+                                  const void* tile_scale, void* out, int T_,
+                                  int n, int r, int d_out, int block_t,
+                                  int dtype, void* stream) {
+  if (T_ <= 0 || d_out <= 0) return 0;
+  if (!split_shape_ok(T_, r, block_t) ||
+      (d_out + 8 * SMLM_THREADS - 1) / (8 * SMLM_THREADS) > 65535)
+    return cudaErrorInvalidValue;
+  const int* ids = static_cast<const int*>(tile_ids);
+  const float* sc = static_cast<const float*>(tile_scale);
+  const float* sp = static_cast<const float*>(s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (dtype == DT_F32)
+    e = split_expand_t<float>(b, ids, sc, sp, out, T_, n, r, d_out, block_t,
+                              st);
+  else if (dtype == DT_BF16)
+    e = split_expand_t<__nv_bfloat16>(b, ids, sc, sp, out, T_, n, r, d_out,
+                                      block_t, st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

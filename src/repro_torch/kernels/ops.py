@@ -29,8 +29,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import decode_attn, flash_attn
-from repro_torch.kernels.bgmv import bgmv
-from repro_torch.kernels.smlm import SMLMFunction, smlm
+from repro_torch.kernels.bgmv import bgmv, bgmv_expand, bgmv_shrink
+from repro_torch.kernels.smlm import SMLMFunction, smlm, smlm_expand, \
+    smlm_shrink
 
 
 class LoraRoute(NamedTuple):
@@ -90,6 +91,40 @@ def lora_apply(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     if x.shape[0] > rt.n_head:
         parts.append(bgmv(x[rt.n_head:].detach(), a.detach(), b.detach(),
                           rt.tail_ids, rt.tail_scale))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def lora_shrink(x: torch.Tensor, a: torch.Tensor,
+                rt: LoraRoute) -> torch.Tensor:
+    """The multi-LoRA term's scaled shrink alone, fp32 [T, r]: the head
+    through ``smlm_shrink``, the decode tail through ``bgmv_shrink``.  Under
+    a mesh, x and a hold one rank's slice of d_in, and the result is that
+    slice's partial sum (no gradient: grad steps under a mesh are not
+    ported)."""
+    x = x.contiguous()
+    parts = []
+    if rt.n_head:
+        parts.append(smlm_shrink(x[:rt.n_head], a, rt.tile_ids,
+                                 rt.tile_scale, block_t=rt.block_t))
+    if x.shape[0] > rt.n_head:
+        parts.append(bgmv_shrink(x[rt.n_head:], a, rt.tail_ids,
+                                 rt.tail_scale))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def lora_expand(s: torch.Tensor, b: torch.Tensor,
+                rt: LoraRoute) -> torch.Tensor:
+    """``lora_shrink``'s summed fp32 [T, r] through ``b`` (a rank's slice of
+    d_out under a mesh): [T, d_out] in b's dtype, the head through
+    ``smlm_expand``, the tail through ``bgmv_expand``."""
+    s = s.contiguous()
+    parts = []
+    if rt.n_head:
+        parts.append(smlm_expand(s[:rt.n_head], b, rt.tile_ids,
+                                 rt.tile_scale, block_t=rt.block_t))
+    if s.shape[0] > rt.n_head:
+        parts.append(bgmv_expand(s[rt.n_head:], b, rt.tail_ids,
+                                 rt.tail_scale))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 

@@ -55,6 +55,40 @@ def smlm_shrink_ref(x: torch.Tensor, a: torch.Tensor,
     return (xa * onehot[:, :, None]).sum(1)
 
 
+def smlm_expand_ref(s: torch.Tensor, b: torch.Tensor,
+                    tile_ids: torch.Tensor, tile_scale: torch.Tensor,
+                    block_t: int) -> torch.Tensor:
+    """SMLM's expand of a given fp32 shrink ``s`` [T, r] (``smlm_shrink_ref``,
+    summed over the ranks that hold d_in): ``Y[t] = s[t] @ B[id[tile]]``,
+    zeros on tiles of scale 0, in b's dtype."""
+    ids = torch.repeat_interleave(tile_ids, block_t)
+    live = torch.repeat_interleave(tile_scale != 0, block_t)
+    return bgmv_expand_ref(s, b, ids, live.float())
+
+
+def bgmv_shrink_ref(x: torch.Tensor, a: torch.Tensor, ids: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """BGMV's scaled shrink ``s[t] = scale[t] * x[t] @ A[ids[t]]``, fp32
+    [T, r] (0 for a token with scale 0 or an id outside the bank)."""
+    n, d_in, r = a.shape
+    onehot = _onehot(ids, n) * scale.float()[:, None]            # [T, n]
+    xa = (x.float() @ a.float().permute(1, 0, 2).reshape(d_in, n * r)
+          ).reshape(-1, n, r)
+    return (xa * onehot[:, :, None]).sum(1)
+
+
+def bgmv_expand_ref(s: torch.Tensor, b: torch.Tensor, ids: torch.Tensor,
+                    scale: torch.Tensor) -> torch.Tensor:
+    """BGMV's expand of a given fp32 shrink ``s`` [T, r]: ``y[t] = s[t] @
+    B[ids[t]]`` for a token with a nonzero scale and an id in the bank,
+    zeros otherwise, in b's dtype."""
+    n, r, _ = b.shape
+    live = _onehot(ids, n) * (scale != 0).float()[:, None]       # [T, n]
+    sn = s.float()[:, None, :] * live[:, :, None]                 # [T, n, r]
+    return (sn.reshape(-1, n * r) @ b.float().reshape(n * r, -1)
+            ).to(b.dtype)
+
+
 def smlm_wgrad_ref(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,
                    gs: torch.Tensor, tile_ids: torch.Tensor,
                    tile_scale: torch.Tensor, block_t: int, n_slots: int):

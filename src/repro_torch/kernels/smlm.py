@@ -56,10 +56,11 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P, require
-from repro_torch.kernels.ref import pack_shrink, rank_pad, smlm_ref, \
-    smlm_shrink_ref, smlm_wgrad_ref, unpack_shrink
+from repro_torch.kernels.ref import pack_shrink, rank_pad, \
+    smlm_expand_ref, smlm_ref, smlm_shrink_ref, smlm_wgrad_ref, unpack_shrink
 
 _ARGS = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
+_SPLIT_ARGS = [P, P, P, P, P, I, I, I, I, I, I, P]
 _WGRAD_ARGS = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, P]
 MAX_RANK = 64
 
@@ -126,6 +127,78 @@ def smlm(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 
 smlm.launches = 0
+
+
+def _check_tiles(T: int, r: int, block_t: int, tile_ids: torch.Tensor,
+                 tile_scale: torch.Tensor) -> None:
+    require(block_t > 0 and T % block_t == 0,
+            f"T={T} is not a multiple of block_t={block_t}")
+    require(0 < r <= MAX_RANK, f"rank {r} outside [1, {MAX_RANK}]")
+    nt = T // block_t
+    require(tile_ids.dtype == torch.int32 and tile_ids.shape == (nt,),
+            "tile_ids must be int32 [T / block_t]")
+    require(tile_scale.dtype == torch.float32 and tile_scale.shape == (nt,),
+            "tile_scale must be float32 [T / block_t]")
+
+
+def smlm_shrink(x: torch.Tensor, a: torch.Tensor, tile_ids: torch.Tensor,
+                tile_scale: torch.Tensor, *, block_t: int) -> torch.Tensor:
+    """SMLM's first launch alone: the scaled shrink ``scale[tile] * X @
+    A[id[tile]]`` as a plain fp32 [T, r] (zeros on tiles of scale 0).  On a
+    rank that holds a slice of d_in (x's columns and a's rows) it is that
+    slice's partial sum, to be summed over the ranks before
+    ``smlm_expand``.  CPU tensors take the plain version; CUDA tensors
+    launch ``smlm_shrink_launch`` (``csrc/smlm.cu``)."""
+    if x.device.type == "cpu":
+        return smlm_shrink_ref(x, a, tile_ids, tile_scale, block_t)
+    require(x.device.type == "cuda", f"no SMLM kernel for {x.device}")
+    T, d_in = x.shape
+    n, d_in_a, r = a.shape
+    require(d_in_a == d_in and a.dtype == x.dtype,
+            f"smlm_shrink x{tuple(x.shape)} {x.dtype} a{tuple(a.shape)} "
+            f"{a.dtype}")
+    _check_tiles(T, r, block_t, tile_ids, tile_scale)
+    build.check_cuda(x, a, tile_ids, tile_scale)
+    s = torch.empty((T, r), dtype=torch.float32, device=x.device)
+    fn = build.function("smlm", "smlm_shrink_launch", _SPLIT_ARGS)
+    err = fn(x.data_ptr(), a.data_ptr(), tile_ids.data_ptr(),
+             tile_scale.data_ptr(), s.data_ptr(), T, n, d_in, r, block_t,
+             build.dtype_code(x), build.stream_of(x))
+    build.check(err, "smlm")
+    smlm_shrink.launches += 1
+    return s
+
+
+smlm_shrink.launches = 0
+
+
+def smlm_expand(s: torch.Tensor, b: torch.Tensor, tile_ids: torch.Tensor,
+                tile_scale: torch.Tensor, *, block_t: int) -> torch.Tensor:
+    """SMLM's second launch alone: ``s[t] @ B[id[tile]]`` [T, d_out] in b's
+    dtype (zeros on tiles of scale 0), ``s`` the fp32 [T, r] of
+    ``smlm_shrink`` summed over the ranks that hold d_in; ``b`` may be a
+    rank's slice of d_out.  CPU tensors take the plain version; CUDA
+    tensors launch ``smlm_expand_launch`` (``csrc/smlm.cu``)."""
+    if s.device.type == "cpu":
+        return smlm_expand_ref(s, b, tile_ids, tile_scale, block_t)
+    require(s.device.type == "cuda", f"no SMLM kernel for {s.device}")
+    T, r = s.shape
+    n, r_b, d_out = b.shape
+    require(r_b == r and s.dtype == torch.float32,
+            f"smlm_expand s{tuple(s.shape)} {s.dtype} b{tuple(b.shape)}")
+    _check_tiles(T, r, block_t, tile_ids, tile_scale)
+    build.check_cuda(s, b, tile_ids, tile_scale)
+    out = torch.empty((T, d_out), dtype=b.dtype, device=s.device)
+    fn = build.function("smlm", "smlm_expand_launch", _SPLIT_ARGS)
+    err = fn(s.data_ptr(), b.data_ptr(), tile_ids.data_ptr(),
+             tile_scale.data_ptr(), out.data_ptr(), T, n, r, d_out, block_t,
+             build.dtype_code(b), build.stream_of(s))
+    build.check(err, "smlm")
+    smlm_expand.launches += 1
+    return out
+
+
+smlm_expand.launches = 0
 
 
 def smlm_wgrad(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,

@@ -70,6 +70,13 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   ``aux_embed`` by ``encoder_forward``'s output (bidirectional, LoRA-free,
   plain PyTorch).  A cross model given an ft or prefill bucket without
   ``aux_embed`` raises a ``ValueError`` (the JAX model fails on ``None``).
+* under an ambient mesh (``distributed.sharding.mesh_context``, which
+  ``core.unified.make_forward_step(..., mesh=)`` sets), ``unified_forward``
+  is ``_sharded_forward``: explicit SPMD on this rank's shards, where the
+  JAX model is one program that GSPMD partitions (the same function:
+  logits, ft losses and aux loss come back whole on every rank).  The two
+  paths share the embedding lookup (``_embed``) and the head and loss
+  (``_outputs``), whose collectives are the identity on one device.
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
@@ -95,7 +102,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.lora import dense
+from repro_torch.core.lora import dense, dense_col, dense_row
+from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
@@ -107,8 +115,10 @@ from repro_torch.models import mamba as M
 from repro_torch.models.configs import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.moe import EXPERT_STACKS, moe_apply
+from repro_torch.models.moe_dist import moe_apply_auto
 from repro_torch.models.schema import check_supported, cross_len, is_moe
 from repro_torch.models.stream import ModelOut, UnifiedBatch
+from repro_torch.training.optimizer import tree_leaves
 
 
 # ---------------------------------------------------------------------------
@@ -399,10 +409,13 @@ def _rope_heads(x: torch.Tensor, pos: torch.Tensor, n: int,
 
 def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 x: torch.Tensor, cache: Optional[Dict],
-                attn_chunk: int = 0) -> torch.Tensor:
+                attn_chunk: int = 0, mesh=None) -> torch.Tensor:
     """``cache``: the layer's leaves, ``k``/``v`` of its paged pool
     ``[n_blocks, bs, g, hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the
-    buckets' tables say (None for an ft-only batch)."""
+    buckets' tables say (None for an ft-only batch).  Under a ``mesh``
+    (``_sharded_forward``) every rank runs its h/m query and g/m KV heads
+    over its cache shard: ``wq``/``wk``/``wv`` column-parallel, ``wo``
+    row-parallel with its all-reduce."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
@@ -414,7 +427,12 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         return dense(xn, p[name], p.get(bias) if bias else None,
                      lr.get(name), plan.route)
 
-    q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
+    if mesh is None:
+        q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
+    else:
+        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
+        q, k, v = dense_col(xn, [(p[w], p.get(b), lr.get(w)) for w, b in (
+            ("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], plan.route, mesh)
     qf, qp, qd = plan.split(q)
     kf, kp, kd = plan.split(k)
     vf, vp, vd = plan.split(v)
@@ -496,6 +514,8 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                                               num_splits=ns)
         outs[2] = o
     out = _merge_flat(plan, *outs)
+    if mesh is not None:
+        return x + dense_row(out, p["wo"], lr.get("wo"), plan.route, mesh)
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
 
 
@@ -804,14 +824,32 @@ def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Dict) -> torch.Tensor:
 
 
 def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
-               x: torch.Tensor):
+               x: torch.Tensor, mesh=None, fsdp: bool = False,
+               own: Optional[torch.Tensor] = None):
     """The dense SwiGLU, or on a MoE layer the routed experts
     (``moe.moe_apply``) plus the shared expert through ``dense`` with its
     LoRA; a layer with no FFN (no ``ln2``: ``mamba2-1.3b``) returns ``x``.
-    Returns (x + y, the layer's router aux loss)."""
+    Under a ``mesh``, ``wg``/``wu`` are column-parallel and ``wd``
+    row-parallel, and the routed experts go through
+    ``moe_dist.moe_apply_auto`` (``own``: its token mask for the aux
+    statistics).  Returns (x + y, the layer's router aux loss)."""
     if "ln2" not in p:
         return x, None
     xn = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    if mesh is not None:
+        if is_moe(cfg, li):
+            y, aux = moe_apply_auto(xn, p, cfg.moe, fsdp=fsdp, own=own)
+            names = ("shared_wg", "shared_wu", "shared_wd")
+        else:
+            y, aux = None, None
+            names = ("wg", "wu", "wd")
+        if names[0] in p:
+            g, u = dense_col(xn, [(p[n], None, lr.get(n))
+                                  for n in names[:2]], plan.route, mesh)
+            ys = dense_row(F.silu(g) * u, p[names[2]], lr.get(names[2]),
+                           plan.route, mesh)
+            y = ys if y is None else y + ys
+        return x + y, aux
     if not is_moe(cfg, li):
         g = dense(xn, p["wg"], None, lr.get("wg"), plan.route)
         u = dense(xn, p["wu"], None, lr.get("wu"), plan.route)
@@ -842,6 +880,11 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     a batch of ft rows only may pass ``cache=None``.  Fine-tune rows give
     the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``)."""
     check_supported(cfg)
+    mesh = SH.ambient_mesh()
+    if mesh is not None:
+        return _sharded_forward(cfg, mesh, SH.ambient_strategy(), params,
+                                batch, cache, loras, lora_scale, block_t,
+                                attn_chunk, return_ft_logits)
     plan = _Plan(cfg, batch, lora_scale, block_t)
     index = layer_index(cfg)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
@@ -868,14 +911,7 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
                 params[key] = quant.dequant_tree(params[key], dtype)
     if any(i[2] is not None for i in index):
         _cross_sources(cfg, params, plan, dtype)
-    toks = []
-    if batch.ft is not None:
-        toks.append(batch.ft.tokens.reshape(-1))
-    if batch.pf is not None:
-        toks.append(batch.pf.tokens.reshape(-1))
-    if batch.dec is not None:
-        toks.append(batch.dec.tokens.reshape(-1))
-    x = params["embed"][torch.cat(toks).long()]                    # [T, d]
+    x = _embed(cfg, params["embed"], _tokens(batch))               # [T, d]
 
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
@@ -896,32 +932,236 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
         if aux is not None:
             aux_loss = aux_loss + aux
 
-    x = L.rms_norm(x, params["final_norm"], cfg.rms_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return _outputs(cfg, plan, batch, x, params["final_norm"], head, cache,
+                    aux_loss, return_ft_logits)
+
+
+def _tokens(batch: UnifiedBatch) -> torch.Tensor:
+    """The flat stream's token ids: ft rows, then prefill, then decode."""
+    return torch.cat([b.tokens.reshape(-1) for b in (batch.ft, batch.pf,
+                                                     batch.dec)
+                      if b is not None]).long()
+
+
+def _embed(cfg: ModelConfig, emb: torch.Tensor, toks: torch.Tensor,
+           mesh=None) -> torch.Tensor:
+    """The rows of ``emb`` at ``toks``.  Under a mesh whose "model" axis
+    splits the vocab, ``emb`` is this rank's rows [V/m, d]: a masked local
+    lookup (zeros for another rank's tokens) summed over "model"."""
+    if mesh is None or emb.shape[0] == cfg.vocab:
+        return emb[toks]
+    v0 = mesh.coords["model"] * emb.shape[0]
+    local = toks - v0
+    hit = (local >= 0) & (local < emb.shape[0])
+    x = emb[local.clamp(0, emb.shape[0] - 1)] * hit[:, None].to(emb.dtype)
+    return SH.all_reduce(x, "model", mesh)
+
+
+def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
+             x: torch.Tensor, final_norm: torch.Tensor, head: torch.Tensor,
+             cache: Optional[Dict], aux_loss: torch.Tensor,
+             return_ft_logits: bool, mesh=None,
+             split: Optional[Dict] = None) -> ModelOut:
+    """The final norm and the head over the stream's buckets: decode and
+    prefill logits, and the ft rows' shifted per-row CE.  Under a mesh
+    ``head`` may be this rank's vocab columns [d, V/m]: the logits are
+    all-gathered over "model" and the CE takes a vocab-parallel logsumexp
+    and label pick; a bucket whose rows ``split`` says are cut over the
+    batch axes is all-gathered over them.  With no mesh both are
+    whole."""
+    x = L.rms_norm(x, final_norm, cfg.rms_eps)
+    vocab_split = mesh is not None and head.shape[1] != cfg.vocab
+
+    def rows_whole(t, name):
+        if split and split[name]:
+            from repro_torch.launch.mesh import batch_axes
+            return SH.all_gather(t, batch_axes(mesh), mesh, dim=0)
+        return t
+
+    def vocab_whole(t):
+        return SH.all_gather(t, "model", mesh, dim=t.ndim - 1) \
+            if vocab_split else t
+
     xf, xp, xd = plan.split(x)
     ft_loss = ft_cnt = ft_logits = pf_logits = dec_logits = None
     if xd is not None:
         # [Bd, V] for plain decode; [Bd, Sd, V] for verify chunks (one
         # next-token distribution per chunk position, the acceptance oracle)
-        dec_logits = xd[:, 0] @ head if plan.Sd == 1 else xd @ head
+        dec_logits = rows_whole(vocab_whole(
+            xd[:, 0] @ head if plan.Sd == 1 else xd @ head), "dec")
     if xp is not None:
         last = (batch.pf.length.long() - 1).clamp(min=0)
-        pf_logits = xp[torch.arange(plan.Bp, device=x.device), last] @ head
+        pf_logits = rows_whole(vocab_whole(
+            xp[torch.arange(plan.Bp, device=x.device), last] @ head), "pf")
     if xf is not None:
         ft = batch.ft
         logits = (xf.reshape(-1, cfg.d_model) @ head
                   ).reshape(plan.Bf, plan.Sf, -1)
         if return_ft_logits:
-            ft_logits = logits
+            ft_logits = rows_whole(vocab_whole(logits), "ft")
         lg = logits[:, :-1].float()
         lbl = ft.labels[:, 1:].long()
         valid = (lbl != -100) & ft.mask[:, 1:]
-        lse = torch.logsumexp(lg, dim=-1)
-        picked = lg.gather(-1, lbl.clamp(min=0)[..., None])[..., 0]
+        if vocab_split:
+            # each rank holds columns [v0, v0 + V/m)
+            v0 = mesh.coords["model"] * lg.shape[-1]
+            gmax = SH.all_reduce(lg.amax(-1).contiguous(), "model", mesh,
+                                 op="max")
+            sumexp = torch.exp(lg - gmax[..., None]).sum(-1)
+            mine = (lbl >= v0) & (lbl < v0 + lg.shape[-1])
+            picked = lg.gather(-1, (lbl - v0).clamp(0, lg.shape[-1] - 1)[
+                ..., None])[..., 0] * mine.float()
+            both = SH.all_reduce(torch.stack([sumexp, picked]), "model", mesh)
+            lse, picked = torch.log(both[0]) + gmax, both[1]
+        else:
+            lse = torch.logsumexp(lg, dim=-1)
+            picked = lg.gather(-1, lbl.clamp(min=0)[..., None])[..., 0]
         ce = torch.where(valid, lse - picked,
                          torch.zeros((), device=x.device))
-        ft_loss = ce.sum(dim=1)
-        ft_cnt = valid.sum(dim=1).float()
+        ft_loss = rows_whole(ce.sum(dim=1), "ft")
+        ft_cnt = rows_whole(valid.sum(dim=1).float(), "ft")
     return ModelOut(ft_loss_sum=ft_loss, ft_tok_count=ft_cnt,
                     ft_logits=ft_logits, pf_logits=pf_logits,
                     dec_logits=dec_logits, cache=cache, aux_loss=aux_loss)
+
+
+# ---------------------------------------------------------------------------
+# the forward under a mesh (explicit SPMD)
+# ---------------------------------------------------------------------------
+
+def check_shardable(cfg: ModelConfig, mesh, params: Dict,
+                    batch: UnifiedBatch, loras: Optional[Dict] = None
+                    ) -> None:
+    """What this slice shards, or a ``ValueError`` that names the case: GQA
+    attention whose query and KV head counts divide the "model" axis, on
+    dense rows, with dense or MoE FFNs, in bf16 or fp32."""
+    m = mesh.shape["model"]
+    where = f"under a {dict(mesh.shape)} mesh"
+    if torch.is_grad_enabled() and loras is not None and any(
+            t.requires_grad for t in tree_leaves(loras)):
+        raise ValueError(f"a forward with gradient {where}: the train step "
+                         "under a mesh is the next slice (ROADMAP Queue 1, "
+                         "5b)")
+    if cfg.mla is not None:
+        raise ValueError(f"{cfg.name}: MLA attention {where} is not sharded "
+                         "yet (ROADMAP Queue 1, 5c)")
+    if "mamba" in cfg.pattern:
+        raise ValueError(f"{cfg.name}: Mamba2 layers {where} are not "
+                         "sharded yet (ROADMAP Queue 1, 5c)")
+    if cfg.cross_attn_every or cfg.encoder is not None:
+        raise ValueError(f"{cfg.name}: cross-attention layers or an "
+                         f"encoder {where} are not sharded yet (ROADMAP "
+                         "Queue 1, 5c)")
+    if quant.has_q8(params):
+        raise ValueError(f"{cfg.name}: int8 leaves {where} are not sharded "
+                         "yet (quant_shardings, ROADMAP Queue 1, 5c)")
+    if cfg.sliding_window > 0:
+        raise ValueError(f"{cfg.name}: a sliding window {where} is not "
+                         "sharded yet")
+    for name in ("pf", "dec"):
+        b = getattr(batch, name)
+        if b is not None and b.block_tables is not None:
+            raise ValueError(f"a paged {name} bucket {where}: the sharded "
+                             "forward runs on dense rows only")
+    if batch.dec is not None and batch.dec.tokens.ndim == 2:
+        raise ValueError(f"verify chunks {where}: the sharded forward runs "
+                         "on dense rows only")
+    if cfg.n_kv_heads % m or cfg.n_heads % m:
+        raise ValueError(
+            f"{cfg.name}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do "
+            f"not divide the model axis {m}: the head-dim and seq cache "
+            "layouts are the next slice (ROADMAP Queue 1, 5c)")
+
+
+def local_batch(batch: UnifiedBatch, mesh):
+    """This rank's rows of every bucket: the ``batch_axes`` block of a
+    bucket whose rows divide them (``batch_shardings``), else the whole
+    bucket.  Returns (the local batch, {bucket: split?})."""
+    from repro_torch.launch.mesh import axis_size, batch_axes
+    bx = batch_axes(mesh)
+    n, i = axis_size(mesh, bx), mesh.index(bx)
+    out, split = {}, {}
+    for name in ("ft", "pf", "dec"):
+        b = getattr(batch, name)
+        if b is None:
+            out[name] = None
+            continue
+        rows = b.tokens.shape[0]
+        split[name] = rows % n == 0 and n > 1
+        if not split[name]:
+            out[name] = b
+            continue
+        size = rows // n
+        out[name] = type(b)(*(None if t is None else t[i * size:(i + 1) * size]
+                              for t in b))
+    return UnifiedBatch(**out), split
+
+
+def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
+                     params: Dict, batch: UnifiedBatch,
+                     cache: Optional[Dict], loras: Optional[Dict],
+                     lora_scale: Optional[torch.Tensor], block_t: int,
+                     attn_chunk: int, return_ft_logits: bool) -> ModelOut:
+    """``unified_forward`` as explicit SPMD on one rank of ``mesh``:
+    ``params`` / ``loras`` are this rank's shards (``checkpoint.io.
+    shard_params`` / ``shard_bank`` under ``strategy``), ``batch`` is the
+    whole batch and ``cache`` this rank's shard (``sharding.shard_cache``).
+    Every bucket's rows are split over the batch axes when they divide them
+    (else every data rank runs the whole bucket), and the cache rows with
+    them.  The embedding and the head are vocab-parallel over "model"
+    (``_embed``, ``_outputs``); the projections are column- or
+    row-parallel (``core.lora.dense_col`` / ``dense_row``); under
+    ``fsdp_tp`` each layer's "embed"-sharded leaves are all-gathered over
+    "data" just before the layer and freed after it (the expert stacks by
+    ``moe_apply_auto``).  Returns the single-device step's logits, ft loss
+    sums and aux loss on every rank, and the local cache."""
+    from repro_torch.launch.mesh import batch_axes
+    check_shardable(cfg, mesh, params, batch, loras)
+    strategy = strategy or "fsdp_tp"
+    fsdp = strategy == "fsdp_tp"
+    bx = batch_axes(mesh)
+    gb, split = local_batch(batch, mesh)
+    if (gb.pf is not None or gb.dec is not None) and cache is None:
+        raise ValueError("prefill/decode buckets require a cache")
+    plan = _Plan(cfg, gb, lora_scale, block_t)
+    index = layer_index(cfg)
+    specs = SH.param_shardings(cfg, mesh, strategy)
+    first = mesh.index(bx) == 0
+
+    def unshard(leaf, spec):
+        """A leaf whole over "data" (the FSDP gather)."""
+        for dim, ax in enumerate(spec):
+            if ax == "data":
+                return SH.all_gather(leaf, "data", mesh, dim=dim)
+        return leaf
+
+    toks = _tokens(gb)
+    # the tokens whose router statistics this data group counts: a bucket
+    # whole on every data rank is counted by data rank 0 alone
+    own = torch.cat([torch.full((n,), bool(split.get(name)) or first,
+                                dtype=torch.bool, device=toks.device)
+                     for name, n in zip(("ft", "pf", "dec"), plan.sizes)])
+    x = _embed(cfg, unshard(params["embed"], specs["embed"]), toks, mesh)
+
+    lora_layers = (loras["layers"] if loras is not None
+                   else [{} for _ in range(cfg.n_layers)])
+    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
+        sp = specs["layers"][li]
+        p = {k: (v if k in EXPERT_STACKS or k == "router"
+                 else unshard(v, sp[k])) for k, v in p.items()}
+        lc = None if cache is None else layer_cache(cfg, cache, li, index)
+        x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
+        x, aux = _ffn_apply(cfg, li, p, lr, plan, x, mesh=mesh, fsdp=fsdp,
+                            own=own)
+        if aux is not None:
+            aux_loss = aux_loss + aux
+        del p
+
+    if cfg.tie_embeddings:
+        head = unshard(params["embed"], specs["embed"]).T
+    else:
+        head = unshard(params["lm_head"], specs["lm_head"])
+    return _outputs(cfg, plan, gb, x, params["final_norm"], head, cache,
+                    aux_loss, return_ft_logits, mesh, split)

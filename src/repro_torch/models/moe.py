@@ -2,7 +2,8 @@
 
 Port of ``repro.models.moe`` (and of the single-device branch of
 ``repro.models.moe_dist.moe_apply_auto``, which is ``moe_apply``; the
-expert-parallel branch across cards is not ported).  Tokens are routed
+expert-parallel branch across cards is ``models.moe_dist.moe_apply_auto``,
+which the forward takes under a mesh).  Tokens are routed
 top-k (softmax, then top-k, gates renormalised), cut into dispatch groups
 of about ``GROUP_TOKENS`` (``G = max(T // GROUP_TOKENS, 1)``, lowered until
 it divides T), and inside each group the (token, choice) entries are

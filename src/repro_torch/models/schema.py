@@ -73,6 +73,46 @@ class Leaf:
     init: str = "normal"
     scale: float = 0.02
     lora: str = ""
+    logical: Tuple[Optional[str], ...] = ()
+
+
+# each leaf's logical axes: the JAX schema's ``P.logical`` without the
+# leading ``periods`` / ``enc_layers`` axis (``repro_torch.distributed.
+# sharding`` maps them to mesh axes); a leaf name means the same axes in
+# every family
+LOGICAL: Dict[str, Tuple[Optional[str], ...]] = {
+    "embed": ("vocab", "embed"), "lm_head": ("embed", "vocab"),
+    "final_norm": (None,),
+    "ln1": (None,), "ln2": (None,), "xln": (None,),
+    "wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+    "wv": ("embed", "kv_heads"), "wo": ("heads", "embed"),
+    "bq": ("heads",), "bk": ("kv_heads",), "bv": ("kv_heads",),
+    "wdkv": ("embed", None), "wuk": (None, "heads_sep", None),
+    "wuv": (None, "heads_sep", None),
+    "xwq": ("embed", "heads"), "xwk": ("embed", "kv_heads"),
+    "xwv": ("embed", "kv_heads"), "xwo": ("heads", "embed"), "xgate": (),
+    "in_z": ("embed", "ssm"), "in_x": ("embed", "ssm"),
+    "in_bc": ("embed", None), "in_dt": ("embed", "ssm_heads"),
+    "conv_x": (None, "ssm"), "conv_bx": ("ssm",), "conv_bc": (None, None),
+    "conv_bbc": (None,), "a_log": ("ssm_heads",), "d_skip": ("ssm_heads",),
+    "dt_bias": ("ssm_heads",), "mnorm": ("ssm",),
+    "out_proj": ("ssm", "embed"),
+    "router": ("embed", "experts"), "w_gate": ("experts", "embed", "ffn"),
+    "w_up": ("experts", "embed", "ffn"), "w_down": ("experts", "ffn", "embed"),
+    "wg": ("embed", "ffn"), "wu": ("embed", "ffn"), "wd": ("ffn", "embed"),
+    "shared_wg": ("embed", "ffn"), "shared_wu": ("embed", "ffn"),
+    "shared_wd": ("ffn", "embed"),
+}
+
+
+def _logical(leaves: Dict[str, Leaf]) -> Dict[str, Leaf]:
+    """``leaves`` with each one's logical axes from ``LOGICAL``."""
+    out = {}
+    for k, leaf in leaves.items():
+        axes = LOGICAL[k]
+        assert len(axes) == len(leaf.shape), (k, leaf.shape, axes)
+        out[k] = dataclasses.replace(leaf, logical=axes)
+    return out
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -168,7 +208,7 @@ def layer_shapes(cfg: ModelConfig, li: int = 0) -> Dict[str, Leaf]:
         out["ln2"] = Leaf((d,), "ones")
         out.update(wg=Leaf((d, f), lora="wg"), wu=Leaf((d, f), lora="wu"),
                    wd=Leaf((f, d), lora="wd"))
-    return out
+    return _logical(out)
 
 
 def encoder_shapes(cfg: ModelConfig) -> Dict[str, Leaf]:
@@ -176,10 +216,11 @@ def encoder_shapes(cfg: ModelConfig) -> Dict[str, Leaf]:
     ``[ne]`` axis dropped): plain products, no LoRA."""
     d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, \
         cfg.d_ff
-    return dict(ln1=Leaf((d,), "ones"), wq=Leaf((d, h * hd)),
-                wk=Leaf((d, kv * hd)), wv=Leaf((d, kv * hd)),
-                wo=Leaf((h * hd, d)), ln2=Leaf((d,), "ones"),
-                wg=Leaf((d, f)), wu=Leaf((d, f)), wd=Leaf((f, d)))
+    return _logical(dict(ln1=Leaf((d,), "ones"), wq=Leaf((d, h * hd)),
+                         wk=Leaf((d, kv * hd)), wv=Leaf((d, kv * hd)),
+                         wo=Leaf((h * hd, d)), ln2=Leaf((d,), "ones"),
+                         wg=Leaf((d, f)), wu=Leaf((d, f)),
+                         wd=Leaf((f, d))))
 
 
 def jax_key(cfg: ModelConfig, li: int, name: str) -> str:
@@ -235,6 +276,24 @@ def top_leaves(cfg: ModelConfig) -> Dict[str, Leaf]:
     out = {"embed": Leaf((cfg.vocab, cfg.d_model))}
     if not cfg.tie_embeddings:
         out["lm_head"] = Leaf((cfg.d_model, cfg.vocab))
+    return _logical(out)
+
+
+def param_logical_axes(cfg: ModelConfig) -> Dict:
+    """The logical axes of every leaf, in the params' tree (the JAX
+    ``param_logical_axes`` in the port's per-layer layout, its periods
+    axis dropped)."""
+    out = {k: leaf.logical for k, leaf in top_leaves(cfg).items()}
+    out["layers"] = [{k: leaf.logical
+                      for k, leaf in layer_shapes(cfg, li).items()}
+                     for li in range(cfg.n_layers)]
+    out["final_norm"] = LOGICAL["final_norm"]
+    if cfg.encoder is not None:
+        out["encoder"] = {
+            "layers": [{k: leaf.logical
+                        for k, leaf in encoder_shapes(cfg).items()}
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": LOGICAL["final_norm"]}
     return out
 
 

@@ -1,0 +1,242 @@
+"""Worker side of ``tests/test_torch_mesh.py``: one rank of a CPU mesh over
+``torch.distributed`` with the ``gloo`` backend.  Imports only torch and the
+port, never JAX: the parent test process computes the JAX references and
+hands them over in an npz (``case.npz``) beside the weights it wrote with
+``save_pytree``; each rank writes its findings to ``result_<rank>.json``,
+and any failed check raises, which fails the spawn."""
+import dataclasses
+import datetime
+import json
+import os
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.checkpoint.io import bank_from_numpy, load_npz, \
+    params_from_numpy, shard_bank, shard_params
+from repro_torch.configs import get_reduced
+from repro_torch.core.flow import FlowConfig
+from repro_torch.core.unified import make_forward_step, make_grad_step
+from repro_torch.distributed import sharding as SH
+from repro_torch.launch.mesh import init_mesh
+from repro_torch.models import model as TM
+from repro_torch.models.configs import MoEConfig
+from repro_torch.models.moe_dist import moe_apply_auto
+from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
+    UnifiedBatch
+from repro_torch.roofline.analysis import collective_bytes
+
+BT = FlowConfig().block_t
+TOL = 2e-4          # fp32, sums over ranks in another order than one device
+TIMEOUT_S = 60
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def mixed_batch(z, prefix=""):
+    """The ft + prefill + decode batch of ``case.npz`` (dense rows)."""
+    g = lambda k: _t(z[prefix + k])
+    return UnifiedBatch(
+        ft=FTBatch(tokens=g("ft_tokens"), mask=g("ft_mask"),
+                   labels=g("ft_labels"), adapter=g("ft_adapter"),
+                   weight=g("ft_weight")),
+        pf=PFBatch(tokens=g("pf_tokens"), length=g("pf_length"),
+                   adapter=g("pf_adapter")),
+        dec=DECBatch(tokens=g("dec_tokens"), pos=g("dec_pos"),
+                     adapter=g("dec_adapter")))
+
+
+def err(a, b) -> float:
+    return float((a.double() - torch.as_tensor(np.asarray(b)).double()
+                  ).abs().max())
+
+
+def forward_case(tmp, name, mesh, strategy, z):
+    """The sharded step of case ``name`` against JAX's single-device
+    ``unified_forward`` (``case.npz``) and the port's one-process step on
+    the same weights.  Returns the case's errors and collective log."""
+    cfg = get_reduced(z[f"{name}/arch"].item())
+    if f"{name}/cf" in z:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(z[f"{name}/cf"])))
+    params = params_from_numpy(load_npz(os.path.join(tmp, f"{name}_params.npz")),
+                               device="cpu")
+    bank = bank_from_numpy(load_npz(os.path.join(tmp, f"{name}_bank.npz")),
+                           device="cpu")
+    scale = _t(z[f"{name}/scale"])
+    batch = mixed_batch(z, f"{name}/")
+    segs = (batch.dec.tokens.shape[0], batch.pf.tokens.shape[0])
+    cache0 = {k: _t(z[f"{name}/cache0_{k}"]) for k in ("k", "v")}
+    n_rows = cache0["k"].shape[1]
+
+    one = make_forward_step(cfg, block_t=BT)(
+        params, bank, scale, batch, {k: v.clone() for k, v in cache0.items()})
+    step = make_forward_step(cfg, block_t=BT, mesh=mesh, strategy=strategy)
+    local = SH.shard_cache(cfg, cache0, mesh, segs)
+    SH.reset_collective_log()
+    out = step(shard_params(params, cfg, mesh, strategy),
+               shard_bank(bank, mesh), scale, batch, local)
+    coll = collective_bytes()
+    cache = SH.gather_cache(cfg, out.cache, mesh, n_rows, segs)
+    got = {"pf_logits": out.pf_logits, "dec_logits": out.dec_logits,
+           "ft_loss_sum": out.ft_loss_sum, "ft_tok_count": out.ft_tok_count,
+           "aux_loss": out.aux_loss, "cache_k": cache["k"],
+           "cache_v": cache["v"]}
+    ref_one = {"pf_logits": one.pf_logits, "dec_logits": one.dec_logits,
+               "ft_loss_sum": one.ft_loss_sum,
+               "ft_tok_count": one.ft_tok_count, "aux_loss": one.aux_loss,
+               "cache_k": one.cache["k"], "cache_v": one.cache["v"]}
+    errs = {}
+    for k, v in got.items():
+        e_jax, e_one = err(v, z[f"{name}/ref_{k}"]), err(v, ref_one[k])
+        errs[k] = (e_jax, e_one)
+        assert e_jax < TOL and e_one < TOL, (name, strategy, k, e_jax, e_one)
+    if cfg.moe is not None:
+        assert moe_apply_auto.branch == z[f"{name}/branch"].item(), \
+            moe_apply_auto.branch
+    return {"errs": errs, "coll": coll["raw"], "scaled": coll["scaled"],
+            "branch": moe_apply_auto.branch if cfg.moe else None}
+
+
+def hand_count(cfg, mesh, z, name, lcfg_r):
+    """The collective bytes of case ``name``'s step under ``tp`` by hand,
+    from its shapes: fp32, every bucket split over "data", vocab over
+    "model", every projection a LoRA target whose ``a`` splits."""
+    D, m = mesh.shape["data"], mesh.shape["model"]
+    Bf, Sf = z[f"{name}/ft_tokens"].shape
+    Bp, Sp = z[f"{name}/pf_tokens"].shape
+    Bd = z[f"{name}/dec_tokens"].shape[0]
+    T = (Bf * Sf + Bp * Sp + Bd) // D
+    d, V, r, L = cfg.d_model, cfg.vocab, lcfg_r, cfg.n_layers
+    f4 = 4
+    ar = T * d * f4                               # embed
+    # per layer: q/k/v shrinks, wo shrink + base, g/u shrinks, wd shrink +
+    # base
+    ar += L * (T * 3 * r + T * r + T * d + T * 2 * r + T * r + T * d) * f4
+    bf, bp, bd = Bf // D, Bp // D, Bd // D
+    ar += bf * (Sf - 1) * f4 + 2 * bf * (Sf - 1) * f4   # max, then sum/pick
+    ag = (bd * V // m + bd * V + bp * V // m + bp * V) * f4 + 2 * bf * f4
+    return {"all-reduce": ar, "all-gather": ag, "reduce-scatter": 0,
+            "all-to-all": 0}
+
+
+def moe_case(tmp, z, mesh, fsdp):
+    """``moe_apply_auto`` at capacity factor 1.0 (drops happen) against
+    JAX's ``moe_apply_auto`` under a 4-device host mesh of this shape."""
+    key = f"moe_{mesh.devices_shape[0]}x{mesh.devices_shape[1]}_{int(fsdp)}"
+    E, k, f = (int(v) for v in z["moe_dims"])
+    mcfg = MoEConfig(num_experts=E, top_k=k, d_ff_expert=f,
+                     capacity_factor=1.0)
+    x = _t(z["moe_x"])
+    whole = {n: _t(z[f"moe_{n}"]) for n in ("router", "w_gate", "w_up",
+                                             "w_down")}
+    strategy = "fsdp_tp" if fsdp else "tp"
+    spec = {n: SH._spec_for(None, mesh, strategy, whole[n].shape, ax)
+            for n, ax in (("router", ("embed", "experts")),
+                          ("w_gate", ("experts", "embed", "ffn")),
+                          ("w_up", ("experts", "embed", "ffn")),
+                          ("w_down", ("experts", "ffn", "embed")))}
+    local = {n: SH.local_shard(w, spec[n], mesh) for n, w in whole.items()}
+    D = mesh.shape["data"]
+    T = x.shape[0] // D
+    xd = x[mesh.coords["data"] * T:(mesh.coords["data"] + 1) * T]
+    with SH.mesh_context(mesh, strategy):
+        y, aux = moe_apply_auto(xd, local, mcfg, fsdp=fsdp)
+    assert moe_apply_auto.branch == "expert_parallel"
+    y_all = SH.all_gather(y.contiguous(), "data", mesh, dim=0)
+    kept = SH.all_gather(moe_apply_auto.kept.to(torch.int32), ("data",
+                                                                 "model"),
+                         mesh, dim=0)
+    e_y = err(y_all, z[f"{key}/y"])
+    e_aux = abs(float(aux) - float(z[f"{key}/aux"]))
+    same_drops = bool((kept.numpy() == z[f"{key}/kept"]).all())
+    assert e_y < 1e-5 and e_aux < 1e-6 and same_drops, (key, e_y, e_aux)
+    return {"err": e_y, "aux_err": e_aux, "dropped": int((kept == 0).sum())}
+
+
+def raises(fn, *words):
+    try:
+        fn()
+    except ValueError as e:
+        text = str(e)
+        assert all(w in text for w in words), (text, words)
+        return text
+    raise AssertionError(f"no ValueError naming {words}")
+
+
+def value_errors(tmp, z, mesh):
+    """Every case the sharded forward refuses, each a ValueError naming
+    it."""
+    cfg = get_reduced("llama3-8b")
+    params = params_from_numpy(load_npz(os.path.join(tmp, "llama_tp_params.npz")),
+                               device="cpu")
+    batch = mixed_batch(z, "llama_tp/")
+    step = lambda c, p=params, b=batch: make_forward_step(
+        c, block_t=BT, mesh=mesh)(p, None, None, b, {})
+    out = {}
+    for arch, word in (("deepseek-v2-236b", "MLA"),
+                       ("mamba2-1.3b", "Mamba2"),
+                       ("llama-3.2-vision-90b", "cross-attention"),
+                       ("whisper-base", "cross-attention")):
+        out[arch] = raises(lambda: step(get_reduced(arch)), word)
+    q8 = dict(params, lm_head={"_q8": torch.zeros(2, 2, dtype=torch.int8),
+                               "_qs": torch.ones(1, 2)})
+    out["int8"] = raises(lambda: step(cfg, q8), "int8")
+    out["window"] = raises(lambda: step(cfg.replace(sliding_window=8)),
+                           "sliding window")
+    paged = batch._replace(pf=batch.pf._replace(
+        block_tables=torch.zeros((batch.pf.tokens.shape[0], 2),
+                                 dtype=torch.int32)))
+    out["paged"] = raises(lambda: step(cfg, params, paged), "paged", "pf")
+    verify = UnifiedBatch(dec=DECBatch(
+        tokens=torch.zeros((2, 3), dtype=torch.int32),
+        pos=torch.zeros(2, dtype=torch.int32),
+        adapter=torch.full((2,), -1, dtype=torch.int32)))
+    out["verify"] = raises(lambda: step(cfg, params, verify), "verify")
+    bank = bank_from_numpy(load_npz(os.path.join(tmp, "llama_tp_bank.npz")),
+                           device="cpu")
+    scale = _t(z["llama_tp/scale"])
+
+    def grad_step():
+        with SH.mesh_context(mesh):
+            make_grad_step(cfg, block_t=BT)(params, bank, scale,
+                                            UnifiedBatch(ft=batch.ft), None)
+
+    out["grad"] = raises(grad_step, "gradient", "train step")
+    if mesh.shape["model"] > cfg.n_kv_heads:
+        out["kv_heads"] = raises(lambda: step(cfg), "KV heads",
+                                 "model axis")
+    return out
+
+
+def run(rank, world, tmp, shape, cases):
+    torch.set_num_threads(1)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(tmp, 'init_' + 'x'.join(map(str, shape)))}",
+        rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        mesh = init_mesh(shape, ("data", "model"), timeout_s=TIMEOUT_S)
+        z = np.load(os.path.join(tmp, "case.npz"))
+        res = {}
+        for case in cases:
+            kind, rest = case.split(":", 1)
+            if kind == "fwd":
+                name, strategy = rest.split(",")
+                res[case] = forward_case(tmp, name, mesh, strategy, z)
+                if name == "llama_tp" and strategy == "tp":
+                    cfg = get_reduced("llama3-8b")
+                    res["hand_count"] = hand_count(
+                        cfg, mesh, z, name, int(z["lora_r"]))
+            elif kind == "moe":
+                res[case] = moe_case(tmp, z, mesh, rest == "1")
+            elif kind == "errors":
+                res[case] = value_errors(tmp, z, mesh)
+        with open(os.path.join(tmp, f"result_{'x'.join(map(str, shape))}_"
+                                    f"{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+    finally:
+        dist.destroy_process_group()

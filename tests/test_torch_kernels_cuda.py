@@ -17,12 +17,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.bgmv import bgmv
+from repro_torch.kernels.bgmv import bgmv, bgmv_expand, bgmv_shrink
 from repro_torch.kernels.decode_attn import (decode_attention,
                                              paged_decode_attention)
 from repro_torch.kernels.flash_attn import flash_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
-from repro_torch.kernels.smlm import SMLMFunction, smlm, smlm_wgrad
+from repro_torch.kernels.smlm import SMLMFunction, smlm, smlm_expand, \
+    smlm_shrink, smlm_wgrad
 from repro_torch.kernels.splitk import (lse_merge,
                                         paged_decode_attention_splitk,
                                         paged_verify_attention_splitk,
@@ -112,6 +113,57 @@ def test_cuda_smlm_and_bgmv_match_plain(dtype):
     y = bgmv(x[48:56], a, b, rt.tail_ids, rt.tail_scale)
     _close(y, ref.bgmv_ref(x[48:56], a, b, rt.tail_ids, rt.tail_scale),
            dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("o", [300, 1024])
+def test_cuda_split_shrink_and_expand_match_plain_and_fused(dtype, o):
+    """SMLM's and BGMV's split entries against their plain versions and the
+    fused calls: the split shrink within the table's tolerance of the plain
+    fp32 shrink; the shrink over two halves of d_in, summed (what the
+    model-axis all-reduce does), then expanded over two halves of d_out,
+    within the tolerance of the plain whole call; SMLM's split expand of
+    the whole shrink bit-equal to the fused call (the same device code);
+    BGMV's within the tolerance (its split shrink sums its slices in
+    another grouping than the fused call)."""
+    dev = _card()
+    rng = np.random.default_rng(5)
+    n, d, r, bt, T = 4, 512, 8, 16, 64
+    x, a, b = (v.to(dev, dtype) for v in map(t, _lora_inputs(rng, T, d, r,
+                                                             n, o)))
+    tile_ids = t(rng.integers(-1, n + 1, T // bt).astype(np.int32)).to(dev)
+    ids = torch.repeat_interleave(tile_ids, bt)[:56].contiguous()
+    rt = ops.route(ids, None, n, n_head=48, block_t=bt)
+    h, c = d // 2, o // 2
+    halves = lambda v: (v[..., :h].contiguous(), v[..., h:].contiguous())
+    x0, x1 = halves(x)
+    a0, a1 = (a[:, :h].contiguous(), a[:, h:].contiguous())
+    b0, b1 = (b[..., :c].contiguous(), b[..., c:].contiguous())
+    # SMLM on the head
+    args = (rt.tile_ids, rt.tile_scale)
+    s = smlm_shrink(x[:48], a, *args, block_t=bt)
+    _close_rows(s, ref.smlm_shrink_ref(x[:48], a, *args, bt), dtype)
+    fused = smlm(x[:48], a, b, *args, block_t=bt)
+    assert torch.equal(smlm_expand(s, b, *args, block_t=bt), fused)
+    s2 = smlm_shrink(x0[:48], a0, *args, block_t=bt) \
+        + smlm_shrink(x1[:48], a1, *args, block_t=bt)
+    y = torch.cat([smlm_expand(s2, b0, *args, block_t=bt),
+                   smlm_expand(s2, b1, *args, block_t=bt)], 1)
+    _close(y, ref.smlm_ref(x[:48], a, b, *args, bt), dtype)
+    # BGMV on the tail
+    args = (rt.tail_ids, rt.tail_scale)
+    s = bgmv_shrink(x[48:56].contiguous(), a, *args)
+    _close_rows(s, ref.bgmv_shrink_ref(x[48:56], a, *args), dtype)
+    plain = ref.bgmv_ref(x[48:56], a, b, *args)
+    _close(bgmv_expand(s, b, *args), plain, dtype)
+    _close(bgmv(x[48:56].contiguous(), a, b, *args), plain, dtype)
+    s2 = bgmv_shrink(x0[48:56].contiguous(), a0, *args) \
+        + bgmv_shrink(x1[48:56].contiguous(), a1, *args)
+    y = torch.cat([bgmv_expand(s2, b0, *args), bgmv_expand(s2, b1, *args)],
+                  1)
+    _close(y, plain, dtype)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
