@@ -13,7 +13,7 @@
     python3 chip_smoke.py --window
     python3 chip_smoke.py --examples
     python3 chip_smoke.py --mesh-local
-    python3 chip_smoke.py --mesh [--mesh-arms llama,qwen,maverick]   # 4 cards
+    python3 chip_smoke.py --mesh [--mesh-arms llama,qwen,...]   # 4 cards
 
 The second form only checks and times the nine kernels of ``PERF.md``
 (SMLM at its main-path shape and at ``SMLM_SHAPES``, BGMV at
@@ -347,7 +347,13 @@ printing its lines; any failure raises and exits non-zero:
              first-step logits within the bf16 tolerance, divergences
              near ties (``NEAR_TIE_ULPS``), the split SMLM / BGMV
              entries, flash and dense decode launched and the fused
-             SMLM / BGMV calls not.  Phase 2 adds SMLM's and BGMV's split entries
+             SMLM / BGMV calls not; then the same for the other families
+             (``FAMILY_LOCAL``, against the plain step on the same card,
+             first-step worst row <= ``MESH_LOGIT_LIMIT``):
+             llama-3.2-vision-90b bf16 5 layers (one cross layer),
+             deepseek-v2-236b int8 2 layers (MLA: split-K's merge kernel
+             launched, no GQA kernel), whisper-base, llama3-8b 2 layers
+             with an 8192 window and 2 x 9000-token prompts.  Phase 2 adds SMLM's and BGMV's split entries
              (``check_split``: shrink and expand apart, as a model axis
              > 1 runs them) against their plain versions and the fused
              calls, timed at one rank's slice of a 4-way split.  The
@@ -363,7 +369,18 @@ printing its lines; any failure raises and exits non-zero:
              llama4-maverick's first 2 layers at ``(1, 4)`` (expert
              parallel, 32 of 128 experts a card, capacity factor 128 so
              that no side drops) against one card, with the all-to-all
-             bytes beside ``step_cost``'s ``moe_a2a``.  Per card: resident
+             bytes beside ``step_cost``'s ``moe_a2a``; (d) ``vlm``:
+             llama-3.2-vision-90b bf16 at all 100 layers at ``(1, 4)``
+             ``tp`` and ``(2, 2)`` ``fsdp_tp``, 4 x 512 prompts with their
+             1600 image patches and 8 steps, the layouts against each
+             other, and 10 layers at ``(1, 4)`` against one card; (e)
+             ``dsv2``: deepseek-v2-236b int8 at all 60 layers at ``(1, 4)``
+             (40 of 160 experts and 32 of 128 heads a card, the latent's
+             slots cut over the cards), 4 x 128 and 8 steps, every logit
+             finite, and 8 layers (capacity factor 160) against one card;
+             (f) ``whisper``: whisper-base at ``(1, 4)`` against one card;
+             (g) ``window``: llama3-8b with an 8192 window and one
+             16384-token prompt at ``(1, 4)`` against one card.  Per card: resident
              and peak bytes, prefill and decode ms (enqueue and device
              wait), launches (the split entries, flash and dense decode
              on every rank, gated); per arm the collective operand bytes
@@ -5617,8 +5634,11 @@ MESH_TIMEOUT_S = 300     # every process group's collectives, and the join
 SPLIT_COUNTERS = ("smlm_shrink", "smlm_expand", "bgmv_shrink",
                   "bgmv_expand")
 # what every rank of a sharded step must launch: the split LoRA entries,
-# flash (cold prefill) and dense decode
+# flash (cold prefill) and dense decode; an MLA model the split entries
+# and split-K's merge kernel (its decode merges every head's partials
+# across the model axis), no GQA attention kernel
 MESH_NEED = SPLIT_COUNTERS + ("flash", "dense_decode")
+MLA_NEED = SPLIT_COUNTERS + ("merge",)
 
 
 def free_port() -> int:
@@ -5642,27 +5662,43 @@ def start_group(rank: int, world: int, port: int) -> None:
 
 def mesh_prompts(cfg, B, S, seed):
     """B prompts of S tokens from a numpy seed, adapters 0, 1, base, 0,
-    ..."""
+    ..., and for a cross model each prompt's cross source [F, d] float32
+    (image patches or audio frames, a standard normal; else None)."""
+    from repro_torch.models.schema import cross_len
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
     ad = np.asarray([(0, 1, -1, 0)[i % 4] for i in range(B)], np.int32)
-    return toks, np.full((B,), S, np.int32), ad
+    aux = (rng.standard_normal((B, cross_len(cfg), cfg.d_model),
+                               dtype=np.float32) if is_cross(cfg) else None)
+    return toks, np.full((B,), S, np.int32), ad, aux
 
 
-def mesh_weights(cfg, mesh, strategy, dev, dtype=torch.bfloat16, seed=0):
+def mesh_weights(cfg, mesh, strategy, dev, dtype=torch.bfloat16, seed=0,
+                 int8=False):
     """This rank's shards of the weights one card draws from ``seed``
-    (params leaf by leaf, ``checkpoint.io.init_sharded_params``) and of a
-    bank of two gaussian-B adapters (r 8) drawn whole from ``seed + 100``;
-    whole on one card (``mesh`` None or of one rank)."""
+    (params leaf by leaf, ``checkpoint.io.init_sharded_params``; with
+    ``int8`` each eligible leaf quantized whole before it is cut; a cross
+    layer's gate ``XGATE``) and of a bank of two gaussian-B adapters (r 8;
+    a cross model's over ``xwq`` / ``xwo`` too) drawn whole from ``seed +
+    100``; whole on one card (``mesh`` None or of one rank)."""
     from repro_torch.checkpoint.io import init_sharded_params, shard_bank
     from repro_torch.core.lora import LoRAConfig, init_lora_bank
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models.schema import init_params, lora_targets
-    lcfg = LoRAConfig(n_slots=4, r=8)
+    lcfg = LoRAConfig(n_slots=4, r=8, targets=cross_targets()
+                      if is_cross(cfg) else LoRAConfig().targets)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     spread = mesh is not None and mesh.size > 1
-    params = (init_sharded_params(cfg, mesh, strategy, gen, dev, dtype)
-              if spread else init_params(cfg, gen, device=dev, dtype=dtype))
+    if spread or int8:
+        params = init_sharded_params(
+            cfg, mesh if spread else make_local_mesh(), strategy or "tp",
+            gen, dev, dtype, quantized=int8)
+    else:
+        params = init_params(cfg, gen, device=dev, dtype=dtype)
+    for layer in params["layers"]:
+        if "xgate" in layer:
+            layer["xgate"].fill_(XGATE)
     g = torch.Generator(device=dev)
     g.manual_seed(seed + 100)
     bank = init_lora_bank(lora_targets(cfg, lcfg.targets), lcfg, g, dev,
@@ -5693,7 +5729,7 @@ def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
     from repro_torch.distributed import sharding as SH
     from repro_torch.models.model import init_cache
     from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
-    toks, lens, ad = prompts
+    toks, lens, ad, aux = prompts
     B, S = toks.shape
     cache = init_cache(cfg, B, S + n_decode, dev, dtype)
     if mesh is not None:
@@ -5720,7 +5756,8 @@ def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
     def generate():
         out = run(UnifiedBatch(pf=PFBatch(
             tokens=torch.tensor(toks, device=dev), length=length,
-            adapter=adapter)), cache, "prefill")
+            adapter=adapter, aux_embed=None if aux is None else
+            torch.tensor(aux, device=dev))), cache, "prefill")
         logits, last = out.pf_logits, None
         for i in range(n_decode + 1):
             lg = logits.float().cpu()
@@ -5774,6 +5811,8 @@ MESH_LOGIT_LIMIT = 0.05
 # top-1 minus top-2 gaps and own-token margins within this many bf16 ulps
 # at the top logit (the sound 4-card arms read at most 3)
 NEAR_TIE_ULPS = 8
+# the weights' and activations' name in the ``mesh:`` lines
+DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
 
 def compare_rows(label, ref_name, ref, name, got, n_tokens):
@@ -5848,22 +5887,25 @@ def gather_stats(obj):
 
 
 def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
-             seed=0, profile=False):
+             seed=0, profile=False, int8=False, need=MESH_NEED,
+             dtype=torch.bfloat16):
     """One sharded arm on this rank: weights drawn and cut, prefill and
-    greedy decode, the split LoRA entries, flash and dense decode launched
-    on this rank (raises otherwise).  Rank 0 prints the per-card lines.
+    greedy decode, the kernels of ``need`` (the split LoRA entries, flash
+    and dense decode; MLA's: the split entries and the merge) launched on
+    this rank (raises otherwise).  Rank 0 prints the per-card lines.
     Returns rank 0's result (None elsewhere)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
     t0 = time.perf_counter()
-    weights = mesh_weights(cfg, mesh, strategy, dev, seed=seed)
+    weights = mesh_weights(cfg, mesh, strategy, dev, dtype, seed=seed,
+                           int8=int8)
     setup = time.perf_counter() - t0
     step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
                              strategy=strategy)
     mesh_reset(K)
     res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
-                        profile=profile)
-    counts = mesh_counts(K)
+                        dtype, profile=profile)
+    counts = mesh_counts(K, need)
     del weights, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -5885,7 +5927,8 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
               f"top: {names}; host self-time top: {host}")
     for rank, st in enumerate(stats):
         pf, dec = st["prefill"], st["decode"]
-        print(f"mesh: {label} {cfg.name} bf16 {cfg.n_layers} layers "
+        print(f"mesh: {label} {cfg.name} {'int8/' if int8 else ''}"
+              f"{DTYPE_NAME[dtype]} {cfg.n_layers} layers "
               f"({shape}) {strategy} card {rank}: resident_bytes="
               f"{st['resident']} peak_bytes={st['peak']} prefill "
               f"B={B}x{S} ms={pf[0] * 1e3:.3f} (enqueue {pf[1] * 1e3:.3f} "
@@ -5941,18 +5984,33 @@ def planted_fault(K, cfg, mesh, prompts, n_decode, dev):
     return res if dist.get_rank() == 0 else None
 
 
-def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0):
+def finite_rows(label, rows):
+    """Every logit row of an arm with no reference on fewer cards finite;
+    prints the tokens' count."""
+    bad = [r for r, v in rows.items()
+           if not all(torch.isfinite(lg).all() for _, lg in v)]
+    if bad:
+        raise AssertionError(f"{label}: non-finite logits in rows {bad}")
+    print(f"{label}: {sum(len(v) for v in rows.values())} tokens, every "
+          f"logit row finite ok")
+
+
+def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0,
+                 int8=False, dtype=torch.bfloat16):
     """The same weights whole on this rank's card, the plain step."""
     from repro_torch.core.unified import make_forward_step
-    weights = mesh_weights(cfg, None, None, dev, seed=seed)
+    weights = mesh_weights(cfg, None, None, dev, dtype, seed=seed,
+                           int8=int8)
     step = make_forward_step(cfg, block_t=K["block_t"])
-    res = mesh_generate(cfg, step, weights, None, prompts, n_decode, dev)
+    res = mesh_generate(cfg, step, weights, None, prompts, n_decode, dev,
+                        dtype)
     del weights, step
     gc.collect()
     torch.cuda.empty_cache()
     B, S = prompts[0].shape
     pf = res["prefill"]
-    print(f"mesh: {label} {cfg.name} bf16 {cfg.n_layers} layers one card: "
+    print(f"mesh: {label} {cfg.name} {'int8/' if int8 else ''}"
+          f"{DTYPE_NAME[dtype]} {cfg.n_layers} layers one card: "
           f"resident_bytes={res['resident']} peak_bytes={res['peak']} "
           f"prefill B={B}x{S} ms={pf[0] * 1e3:.3f} decode "
           f"{tick_ms(res['decode'])}")
@@ -5984,11 +6042,31 @@ def mesh_rank(rank, world, port, only):
                     dist.all_reduce(torch.zeros(1, device=dev), group=g)
         torch.cuda.synchronize(dev)
 
-        def one_card(label, cfg, prompts, n_decode):
-            res = one_card_arm(K, label, cfg, prompts, n_decode, dev) \
-                if lead else None
+        def one_card(label, cfg, prompts, n_decode, **kw):
+            res = one_card_arm(K, label, cfg, prompts, n_decode, dev,
+                               **kw) if lead else None
             dist.barrier()
             return res
+
+        def verdict(check):
+            """Rank 0's gates (``check`` raises), their verdict shared:
+            every rank raises together, so none waits on a collective the
+            others never reach."""
+            err = None
+            if lead:
+                try:
+                    check()
+                except AssertionError as e:
+                    err = str(e)
+            err = gather_stats(err)[0]
+            if err:
+                raise AssertionError(err)
+
+        def gate(label, ref_name, ref, name, got, n_tokens,
+                 dtype=torch.bfloat16):
+            verdict(lambda: same_rows(label, ref_name, ref["rows"], name,
+                                      got["rows"], dtype, n_tokens,
+                                      MESH_LOGIT_LIMIT))
 
         n_tok = lambda p, n: p[0].shape[0] * (n + 1)
         if "llama" in only:
@@ -5999,13 +6077,12 @@ def mesh_rank(rank, world, port, only):
                    for key, mesh, st in (("1x4 tp", m14, "tp"),
                                          ("2x2 fsdp_tp", m22, "fsdp_tp"))}
             ref = one_card("llama", cfg, p, 16)
-            if lead:
-                for key, res in got.items():
-                    same_rows(f"mesh: llama {key} vs one card", "one_card",
-                              ref["rows"], "mesh", res["rows"],
-                              torch.bfloat16, n_tok(p, 16), MESH_LOGIT_LIMIT)
+            for key, res in got.items():
+                gate(f"mesh: llama {key} vs one card", "one_card", ref,
+                     "mesh", res, n_tok(p, 16))
             bad = planted_fault(K, cfg, m14, p, 4, dev)
-            if lead:
+
+            def caught():
                 label = ("mesh: llama 1x4 tp with a planted fault (model "
                          "ranks 1-3 drop their LoRA shrink partials) vs one "
                          "card")
@@ -6019,25 +6096,22 @@ def mesh_rank(rank, world, port, only):
                 print(f"{label}: caught (worst row {worst:.4g} > "
                       f"{MESH_LOGIT_LIMIT:g} or divergences {ulps:.3g} ulps "
                       f"> {NEAR_TIE_ULPS})")
+            verdict(caught)
         if "qwen" in only:
             cfg = get_config("qwen1.5-110b")
             p = mesh_prompts(cfg, 4, 2048, seed=2)
             got = {key: mesh_arm(K, "qwen", cfg, mesh, st, p, 32, dev)
                    for key, mesh, st in (("1x4 tp", m14, "tp"),
                                          ("2x2 fsdp_tp", m22, "fsdp_tp"))}
-            if lead:
-                same_rows("mesh: qwen 2x2 fsdp_tp vs 1x4 tp", "1x4_tp",
-                          got["1x4 tp"]["rows"], "2x2_fsdp_tp",
-                          got["2x2 fsdp_tp"]["rows"], torch.bfloat16,
-                          n_tok(p, 32), MESH_LOGIT_LIMIT)
+            gate("mesh: qwen 2x2 fsdp_tp vs 1x4 tp", "1x4_tp",
+                 got["1x4 tp"], "2x2_fsdp_tp", got["2x2 fsdp_tp"],
+                 n_tok(p, 32))
             del got
             c8 = cfg.replace(n_layers=8)
             res = mesh_arm(K, "qwen8", c8, m14, "tp", p, 32, dev)
             ref = one_card("qwen8", c8, p, 32)
-            if lead:
-                same_rows("mesh: qwen 8 layers 1x4 tp vs one card",
-                          "one_card", ref["rows"], "mesh", res["rows"],
-                          torch.bfloat16, n_tok(p, 32), MESH_LOGIT_LIMIT)
+            gate("mesh: qwen 8 layers 1x4 tp vs one card", "one_card", ref,
+                 "mesh", res, n_tok(p, 32))
         if "maverick" in only:
             cfg = get_config("llama4-maverick-400b-a17b")
             # two layers (one MoE), capacity factor E: neither the one-card
@@ -6050,7 +6124,8 @@ def mesh_rank(rank, world, port, only):
             from repro_torch.models.moe_dist import moe_apply_auto
             branch = moe_apply_auto.branch
             ref = one_card("maverick", cfg, p, 8)
-            if lead:
+
+            def maverick():
                 if branch != "expert_parallel":
                     raise AssertionError(f"maverick took {branch}")
                 same_rows("mesh: maverick 2 layers 1x4 tp (expert-parallel,"
@@ -6066,6 +6141,66 @@ def mesh_rank(rank, world, port, only):
                           f"beside step_cost moe_a2a "
                           f"{coll.get('moe_a2a', 0.0):.6g} (sent each way: "
                           f"2 x T/chips x k x cf x d x 2 B a layer)")
+            verdict(maverick)
+        if "vlm" in only:
+            # llama-3.2-vision-90b, 181 GB in bf16: 45 GB a card
+            cfg = get_config("llama-3.2-vision-90b")
+            p = mesh_prompts(cfg, 4, 512, seed=6)
+            got = {key: mesh_arm(K, "vlm", cfg, mesh, st, p, 8, dev)
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            gate("mesh: vlm 2x2 fsdp_tp vs 1x4 tp", "1x4_tp", got["1x4 tp"],
+                 "2x2_fsdp_tp", got["2x2 fsdp_tp"], n_tok(p, 8))
+            del got
+            c10 = cfg.replace(n_layers=10)
+            res = mesh_arm(K, "vlm10", c10, m14, "tp", p, 8, dev)
+            ref = one_card("vlm10", c10, p, 8)
+            gate("mesh: vlm 10 layers 1x4 tp vs one card", "one_card", ref,
+                 "mesh", res, n_tok(p, 8))
+            del res, ref
+        if "dsv2" in only:
+            # deepseek-v2-236b in int8, 244 GB: 61 GB a card, 40 of 160
+            # experts and 32 of 128 heads a card, the latent's slots cut
+            # over the cards
+            cfg = get_config("deepseek-v2-236b")
+            p = mesh_prompts(cfg, 4, 128, seed=7)
+            res = mesh_arm(K, "dsv2", cfg, m14, "tp", p, 8, dev, int8=True,
+                           need=MLA_NEED)
+            verdict(lambda: finite_rows("mesh: dsv2 60 layers 1x4 tp",
+                                        res["rows"]))
+            del res
+            # 8 layers against one card, capacity factor E (neither side
+            # drops an entry), int8 weights dequantized to fp32: in bf16
+            # the two layouts' rounding, through 8 layers of near-uniform
+            # random routers over 160 experts, moved the first-step logits
+            # by 0.105-0.143 of a row's max (NVIDIA H100 80GB HBM3, 700 W),
+            # more than a sharding fault must be told from
+            c8 = cfg.replace(n_layers=8, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+            res = mesh_arm(K, "dsv2_8", c8, m14, "tp", p, 8, dev, int8=True,
+                           need=MLA_NEED, dtype=torch.float32)
+            ref = one_card("dsv2_8", c8, p, 8, int8=True,
+                           dtype=torch.float32)
+            gate("mesh: dsv2 int8/fp32 8 layers 1x4 tp vs one card",
+                 "one_card", ref, "mesh", res, n_tok(p, 8), torch.float32)
+            del res, ref
+        if "whisper" in only:
+            cfg = get_config("whisper-base")
+            p = mesh_prompts(cfg, 4, 256, seed=8)
+            res = mesh_arm(K, "whisper", cfg, m14, "tp", p, 16, dev)
+            ref = one_card("whisper", cfg, p, 16)
+            gate("mesh: whisper 1x4 tp vs one card", "one_card", ref, "mesh",
+                 res, n_tok(p, 16))
+            del res, ref
+        if "window" in only:
+            # llama3-8b with an 8192-token window, one 16384-token prompt
+            cfg = get_config("llama3-8b").replace(sliding_window=8192)
+            p = mesh_prompts(cfg, 1, 16384, seed=9)
+            res = mesh_arm(K, "window", cfg, m14, "tp", p, 16, dev)
+            ref = one_card("window", cfg, p, 16)
+            gate("mesh: window 8192, 16384-token prompt, 1x4 tp vs one card",
+                 "one_card", ref, "mesh", res, n_tok(p, 16))
+            del res, ref
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -6078,7 +6213,8 @@ def _split_entries():
                 bgmv_shrink=bgmv_shrink, bgmv_expand=bgmv_expand)
 
 
-MESH_ARMS = ("llama", "qwen", "maverick")
+MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
+             "window")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -6093,12 +6229,12 @@ def mesh_main(K, only=MESH_ARMS) -> int:
     port = free_port()
     ctx = mp.start_processes(mesh_rank, args=(4, port, tuple(only)),
                              nprocs=4, join=False, start_method="spawn")
-    deadline = time.monotonic() + MESH_TIMEOUT_S * 4
+    deadline = time.monotonic() + MESH_TIMEOUT_S * 8
     try:
         while not ctx.join(timeout=5):
             if time.monotonic() > deadline:
                 raise TimeoutError("the mesh ranks did not finish in "
-                                   f"{MESH_TIMEOUT_S * 4} s")
+                                   f"{MESH_TIMEOUT_S * 8} s")
     except BaseException:
         for p in ctx.processes:
             if p.is_alive():
@@ -6170,13 +6306,79 @@ def mesh_phase(K, cfg, weights, dev):
         print(f"mesh: (1, 1) llama3-8b bf16 B=4x256 + 8 decode steps: "
               f"prefill {tick_ms([res['prefill']])} decode "
               f"{tick_ms(res['decode'])} launches={counts} ok")
+        fam = mesh_families_local(K, mesh, dev)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
-              "expert-parallel) need --mesh on a host with four cards: "
-              "python3 chip_smoke.py --mesh")
-        return counts
+              "expert-parallel, llama-3.2-vision-90b at 100 layers, "
+              "deepseek-v2-236b int8 at 60 layers, whisper-base, a windowed "
+              "llama3-8b) need --mesh on a host with four cards: python3 "
+              "chip_smoke.py --mesh")
+        return counts, fam
     finally:
         dist.destroy_process_group()
+
+
+# phase 15's one-card arms of the other families, each through the sharded
+# step on the (1, 1) mesh against the plain step: (label, arch, config
+# changes, int8, prompts B x S, decode steps)
+FAMILY_LOCAL = (
+    ("vlm", "llama-3.2-vision-90b", dict(n_layers=5), False, 4, 256, 8),
+    ("dsv2", "deepseek-v2-236b", dict(n_layers=2), True, 4, 256, 8),
+    ("whisper", "whisper-base", {}, False, 4, 256, 8),
+    ("window", "llama3-8b", dict(n_layers=2, sliding_window=8192), False, 2,
+     9000, 8))
+
+
+def mesh_families_local(K, mesh, dev):
+    """Phase 15's ``FAMILY_LOCAL`` arms on the ``(1, 1)`` ``mesh``: each
+    config's weights whole on the card (an int8 one quantized leaf by
+    leaf), prefill and greedy decode through the plain step and through
+    the sharded step; the sharded run's first-step logits within
+    ``MESH_LOGIT_LIMIT`` of a row's max and its divergences near ties, the
+    split SMLM / BGMV entries launched and the fused calls not, flash and
+    dense decode launched (MLA: split-K's merge kernel, its decode's merge
+    over the model axis).  Returns the arms' launches summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.unified import make_forward_step
+    total = {}
+    for label, arch, change, int8, B, S, n in FAMILY_LOCAL:
+        cfg = get_config(arch).replace(**change)
+        t0 = time.perf_counter()
+        w = mesh_weights(cfg, None, None, dev, int8=int8)
+        setup = time.perf_counter() - t0
+        p = mesh_prompts(cfg, B, S, seed=10)
+        plain = mesh_generate(cfg, make_forward_step(
+            cfg, block_t=K["block_t"]), w, None, p, n, dev)
+        mesh_reset(K)
+        res = mesh_generate(cfg, make_forward_step(
+            cfg, block_t=K["block_t"], mesh=mesh, strategy="tp"), w, mesh,
+            p, n, dev)
+        counts = read_counts(K)
+        counts.update(mesh_counts(K, SPLIT_COUNTERS))
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = (f"mesh: (1, 1) {label} {cfg.name} "
+                f"{'int8' if int8 else 'bf16'} {cfg.n_layers} layers")
+        same_rows(f"{name}, the sharded step vs the plain step", "plain",
+                  plain["rows"], "mesh", res["rows"], torch.bfloat16,
+                  B * (n + 1), MESH_LOGIT_LIMIT)
+        need = MLA_NEED if cfg.mla is not None else MESH_NEED
+        fused = {k: counts[k] for k in ("smlm", "bgmv") if counts[k]}
+        missing = [k for k in need if not counts[k]]
+        if fused or missing:
+            raise AssertionError(f"{name}: the sharded step launched the "
+                                 f"fused LoRA calls {fused} or not "
+                                 f"{missing}: {counts}")
+        print(f"{name} B={B}x{S} + {n} decode steps: setup_s={setup:.2f} "
+              f"resident_bytes={res['resident']} peak_bytes={res['peak']}; "
+              f"sharded prefill {tick_ms([res['prefill']])} decode "
+              f"{tick_ms(res['decode'])}; plain prefill "
+              f"{tick_ms([plain['prefill']])} decode "
+              f"{tick_ms(plain['decode'])} launches={counts} ok")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def to_device(tree, dev):
@@ -6382,7 +6584,9 @@ def main() -> int:
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        mesh_phase(K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
+        _, fam = mesh_phase(K, cfg, full_weights(cfg, dev, torch.bfloat16),
+                            dev)
+        print(f"mesh: (1, 1) family arms' launches summed: {fam}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -6422,7 +6626,8 @@ def main() -> int:
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
-    by_path["mesh"] = mesh_phase(K, cfg, weights, dev)
+    by_path["mesh"], by_path["mesh_families"] = mesh_phase(K, cfg, weights,
+                                                           dev)
     del weights
     by_path.update(full_archs(K, dev))
     by_path["examples"] = examples_phase(K, dev, measured)
@@ -6439,10 +6644,15 @@ def main() -> int:
             "launches_by_path": {p: c[counter] for p, c in by_path.items()
                                  if c[counter]},
             # the split shrink and expand entries of the sharded step
-            **({"split_launches_by_path": {"mesh": {
-                k: by_path["mesh"][k] for k in SPLIT_COUNTERS
-                if k.startswith(name + "_")}}}
+            **({"split_launches_by_path": {
+                p: {k: by_path[p][k] for k in SPLIT_COUNTERS
+                    if k.startswith(name + "_")}
+                for p in ("mesh", "mesh_families")}}
                if name in ("smlm", "bgmv") else {}),
+            # the merge kernel alone: MLA's decode under a mesh
+            **({"merge_launches_by_path": {
+                p: c["merge"] for p, c in by_path.items() if c["merge"]}}
+               if name == "paged_splitk" else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -243,10 +243,15 @@ def shard_params(params: Dict, cfg: ModelConfig, mesh,
                  strategy: str = "fsdp_tp") -> Dict:
     """This rank's shards of the whole ``params`` (``params_from_numpy``'s
     tree, e.g. from JAX's npz), cut as ``sharding.param_shardings`` says
-    under ``strategy``: every rank then computes its part of the function
-    the whole weights compute."""
+    under ``strategy`` (``quant.quant_shardings`` for a tree with int8
+    leaves, each quantized whole): every rank then computes its part of the
+    function the whole weights compute."""
     from repro_torch.distributed.sharding import param_shardings, shard_tree
-    return shard_tree(params, param_shardings(cfg, mesh, strategy), mesh)
+    from repro_torch.models import quant
+    specs = (quant.quant_shardings(cfg, mesh, strategy)
+             if quant.has_q8(params) else
+             param_shardings(cfg, mesh, strategy))
+    return shard_tree(params, specs, mesh)
 
 
 def shard_bank(bank: Dict, mesh) -> Dict:
@@ -257,33 +262,48 @@ def shard_bank(bank: Dict, mesh) -> Dict:
 
 
 def init_sharded_params(cfg: ModelConfig, mesh, strategy: str,
-                        generator: torch.Generator, device, dtype) -> Dict:
+                        generator: torch.Generator, device, dtype,
+                        quantized: bool = False) -> Dict:
     """This rank's shards of ``schema.init_params(cfg, generator, device,
-    dtype)``: every leaf is drawn whole from ``generator``, in
-    ``init_params``' order, cut to this rank's block and freed, one leaf at
-    a time, so the ranks' shards are those of the one model a single card
-    would draw from the same seed and the largest transient is one whole
-    leaf."""
+    dtype)`` (with ``quantized``: of ``quant.quantize_params`` of it):
+    every leaf is drawn whole from ``generator``, in ``init_params``'
+    order, quantized whole if eligible (a scale spans the whole input
+    axis, which a shard may cut), cut to this rank's block and freed, one
+    leaf at a time, so the ranks' shards are those of the one model a
+    single card would draw from the same seed and the largest transient is
+    one whole leaf."""
     from repro_torch.distributed.sharding import local_shard, \
-        param_shardings
-    from repro_torch.models.schema import init_leaf, layer_shapes, \
-        top_leaves
-    if cfg.encoder is not None:
-        raise ValueError(f"{cfg.name}: an encoder under a mesh is not "
-                         "sharded yet")
-    specs = param_shardings(cfg, mesh, strategy)
+        param_shardings, shard_tree
+    from repro_torch.models import quant
+    from repro_torch.models.schema import encoder_shapes, init_leaf, \
+        layer_shapes, top_leaves
+    specs = (quant.quant_shardings(cfg, mesh, strategy) if quantized
+             else param_shardings(cfg, mesh, strategy))
 
-    def draw(leaf, spec):
-        return local_shard(init_leaf(leaf, generator, device, dtype), spec,
-                           mesh)
+    def draw(leaf, spec, lead=()):
+        w = init_leaf(leaf, generator, device, dtype)
+        if quantized and quant._eligible(leaf, (*lead, *leaf.shape)):
+            w = quant.quantize_weight(w)
+            return shard_tree(w, spec, mesh)
+        return local_shard(w, spec, mesh)
 
     top = top_leaves(cfg)
+    lead = (cfg.n_periods,)
     params = {"embed": draw(top["embed"], specs["embed"]),
-              "layers": [{k: draw(leaf, specs["layers"][li][k])
+              "layers": [{k: draw(leaf, specs["layers"][li][k], lead)
                           for k, leaf in layer_shapes(cfg, li).items()}
                          for li in range(cfg.n_layers)],
               "final_norm": torch.ones(cfg.d_model, device=device,
                                        dtype=dtype)}
     if "lm_head" in top:
         params["lm_head"] = draw(top["lm_head"], specs["lm_head"])
+    if cfg.encoder is not None:
+        ne = cfg.encoder.n_layers
+        enc = specs["encoder"]["layers"]
+        params["encoder"] = {
+            "layers": [{k: draw(leaf, enc[i][k], (ne,))
+                        for k, leaf in encoder_shapes(cfg).items()}
+                       for i in range(ne)],
+            "final_norm": torch.ones(cfg.d_model, device=device,
+                                     dtype=dtype)}
     return params

@@ -97,10 +97,11 @@ def dense_col(x: torch.Tensor, items, rt: Optional[LoraRoute], mesh
     """Column-parallel projections of one input under a mesh: ``x`` [T,
     d_in] whole on every rank, each item ``(w, bias, lora)`` holding this
     rank's output columns (``w`` [d_in, c], ``bias`` [c], the bank entry's
-    ``a`` [n, d_in or d_in/m, r] and ``b`` [n, r, c or d_out]).  The LoRA
-    shrinks of every item whose ``a`` is split go in one all-reduce over
-    "model".  Returns each item's [T, c]."""
-    from repro_torch.distributed.sharding import all_reduce
+    ``a`` [n, d_in or d_in/m, r] and ``b`` [n, r, c or d_out]), or a ``w``
+    whole on every rank (MLA's ``wdkv``), whose ``b`` if cut over "model"
+    is all-gathered.  The LoRA shrinks of every item whose ``a`` is split
+    go in one all-reduce over "model".  Returns each item's [T, c]."""
+    from repro_torch.distributed.sharding import all_gather, all_reduce
     m, mi = mesh.shape["model"], mesh.coords["model"]
     outs, shrinks, split = [], [], []
     for w, bias, lora in items:
@@ -133,8 +134,10 @@ def dense_col(x: torch.Tensor, items, rt: Optional[LoraRoute], mesh
             continue
         b = lora["b"]
         c = outs[i].shape[1]
-        if b.shape[-1] != c:          # b whole, the base's columns split
+        if b.shape[-1] > c:           # b whole, the base's columns split
             b = b[..., mi * c:(mi + 1) * c].contiguous()
+        elif b.shape[-1] < c:         # b split, the base whole
+            b = all_gather(b, "model", mesh, dim=b.ndim - 1).contiguous()
         outs[i] += ops.lora_expand(s, b, rt)
     return outs
 

@@ -259,13 +259,13 @@ def local_shard(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     sharded over axes ``A``, the ``mesh.index(A)``-th of ``axis_size(A)``
     equal blocks (data-major for a tuple).  A new tensor of its own
     storage (a view would keep the whole alive), or ``x`` itself when
-    nothing is sharded."""
+    nothing is cut (every axis of its spec of size 1 too)."""
     out = x
     for dim, entry in enumerate(spec):
         axes = _entry_axes(entry)
-        if not axes:
+        n = axis_size(mesh, axes) if axes else 1
+        if n == 1:
             continue
-        n = axis_size(mesh, axes)
         if x.shape[dim] % n:
             raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
                              f"divide {axes} = {n}")
@@ -427,7 +427,13 @@ def shard_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh,
                 segments=None) -> Dict:
     """This rank's shard of a whole dense-row cache: its ``cache_rows`` and
     its block of the "model" axis as ``cache_shardings`` says (the KV
-    heads)."""
+    heads; MLA's latent ``ckv`` / ``kpe``: the slots, which must divide
+    the axis, as the sharded forward reads them cut)."""
+    m = mesh.shape["model"]
+    for k in ("ckv", "kpe"):
+        if k in cache and cache[k].shape[2] % m:
+            raise ValueError(f"MLA's latent rows of {cache[k].shape[2]} "
+                             f"slots do not divide the model axis {m}")
     specs = _model_spec(cfg, cache, mesh)
     out = {}
     for k, x in cache.items():

@@ -76,7 +76,12 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   JAX model is one program that GSPMD partitions (the same function:
   logits, ft losses and aux loss come back whole on every rank).  The two
   paths share the embedding lookup (``_embed``) and the head and loss
-  (``_outputs``), whose collectives are the identity on one device.
+  (``_outputs``), whose collectives are the identity on one device, and
+  every sublayer: GQA (windowed too), MLA, cross-attention and the
+  encoder take the ``mesh`` and run their heads column- and row-parallel.
+  MLA's latent rows are cut by slots over "model", so its decode is flash
+  decoding over the ranks (``_mla_decode_sharded``: ``mla_partials`` on
+  each rank, one all-to-all, split-K's merge kernel).
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
@@ -107,7 +112,8 @@ from repro_torch.distributed import sharding as SH
 from repro_torch.kernels import autotune, ops
 from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
-from repro_torch.kernels.splitk import (paged_decode_attention_splitk,
+from repro_torch.kernels.splitk import (lse_merge,
+                                        paged_decode_attention_splitk,
                                         paged_verify_attention_splitk)
 from repro_torch.kernels.verify_attn import paged_verify_attention
 from repro_torch.models import layers as L
@@ -310,19 +316,27 @@ def init_cache(cfg: ModelConfig, n_rows: int, s_max: int,
 
 
 def _dense_write_prompt(rows: torch.Tensor, xh: torch.Tensor,
-                        r0: int) -> None:
+                        r0: int, s0: int = 0,
+                        sc: Optional[int] = None) -> None:
     """In place: prefill rows ``[Bp, Sp, ...]`` land in cache rows
     ``[r0, r0 + Bp)`` at positions ``:Sp``.  A bucket longer than the row
     (``Sp > sc``) takes the rolling write of the JAX model: the last ``sc``
     positions at slots ``p % sc``, so its padding tail overwrites the head
-    of the prompt (ROADMAP Queue 3)."""
+    of the prompt (ROADMAP Queue 3).  ``rows`` may hold only the slots
+    ``[s0, s0 + rows.shape[1])`` of rows of ``sc`` slots (MLA's latent
+    under a mesh, its sequence cut over "model"): only the positions that
+    land there are written."""
     Bp, Sp = xh.shape[:2]
-    sc = rows.shape[1]
+    n = rows.shape[1]
+    sc = n if sc is None else sc
     if Sp <= sc:
-        rows[r0:r0 + Bp, :Sp] = xh.to(rows.dtype)
+        lo, hi = min(s0, Sp), min(Sp, s0 + n)
+        rows[r0:r0 + Bp, :hi - lo] = xh[:, lo:hi].to(rows.dtype)
     else:
-        sl = torch.arange(Sp - sc, Sp, device=xh.device) % sc
-        rows[r0:r0 + Bp, sl] = xh[:, -sc:].to(rows.dtype)
+        p = torch.arange(Sp - sc, Sp)
+        keep = (p % sc >= s0) & (p % sc < s0 + n)
+        p = p[keep].to(xh.device)
+        rows[r0:r0 + Bp, p % sc - s0] = xh[:, p].to(rows.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -419,7 +433,10 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
-        out = _mla_apply(cfg, p, lr, plan, xn, cache, attn_chunk)
+        out = _mla_apply(cfg, p, lr, plan, xn, cache, attn_chunk, mesh)
+        if mesh is not None:
+            return x + dense_row(out, p["wo"], lr.get("wo"), plan.route,
+                                 mesh)
         return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
     k_pool, v_pool = (cache["k"], cache["v"]) if cache else (None, None)
 
@@ -521,15 +538,31 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
 
 def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                xn: torch.Tensor, cache: Optional[Dict],
-               attn_chunk: int = 0) -> torch.Tensor:
+               attn_chunk: int = 0, mesh=None) -> torch.Tensor:
     """Absorbed-form MLA over every bucket (``_mla_apply`` of the JAX model);
     ``cache``: the layer's ``ckv`` [.., c] and ``kpe`` [.., dr] leaves, a
     paged pool or dense rows.  Returns the attention output ``[T, h*dv]``,
-    before ``wo``."""
+    before ``wo``.  Under a ``mesh`` (dense rows) a rank runs its h/m heads
+    (``wq``, ``wuk``, ``wuv`` cut by heads) over the whole latent of its
+    rows (``wdkv`` whole on every model rank) and holds the slots ``[s0,
+    s0 + sc/m)`` of every latent row (``cache_shardings``: the sequence
+    over "model"): ft and cold prefill attend over the bucket's fresh
+    latent, each rank writing its own slots; decode is flash decoding over
+    the ranks (``_mla_decode_sharded``).  Returns this rank's heads'
+    ``[T, h/m*dv]``."""
     m, h = cfg.mla, cfg.n_heads
     dnp, dr, c_rank = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank
-    q = dense(xn, p["wq"], None, lr.get("wq"), plan.route)   # [T, h*(dn+dr)]
-    lat = dense(xn, p["wdkv"], None, lr.get("wdkv"), plan.route)  # [T, c+dr]
+    if mesh is None:
+        q = dense(xn, p["wq"], None, lr.get("wq"), plan.route)
+        lat = dense(xn, p["wdkv"], None, lr.get("wdkv"), plan.route)
+        n_model = 1
+    else:
+        n_model = mesh.shape["model"]
+        h //= n_model
+        q, lat = dense_col(xn, [(p["wq"], None, lr.get("wq")),
+                                (p["wdkv"], None, lr.get("wdkv"))],
+                           plan.route, mesh)
+    # q [T, h*(dn+dr)], lat [T, c+dr]
     qf, qp, qd = plan.split(q)
     cf, cp, cd = plan.split(lat)
     # serving rows carry no gradient, and the cache writes stay out of the
@@ -589,7 +622,10 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                 if tbl is not None:
                     _paged_write_prompt(cache[name], xh, tbl)
                 else:
-                    _dense_write_prompt(cache[name], xh, plan.Bd)
+                    sl = cache[name].shape[1]
+                    s0 = mesh.coords["model"] * sl if mesh else 0
+                    _dense_write_prompt(cache[name], xh, plan.Bd, s0,
+                                        sl * n_model)
     if qd is not None:           # decode / verify: (1 + k)-token chunk
         dec, dpos = plan.dec, plan.dec_qpos
         qn, qr = heads(qd, dpos)
@@ -606,21 +642,101 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
             ce = _paged_view(cache["kpe"], tbl)
         else:                    # dense rows: one token into its slot
             rows = torch.arange(plan.Bd, device=xn.device)
-            sc = cache["ckv"].shape[1]
+            sl = cache["ckv"].shape[1]
+            sc = sl * n_model
             slot = plan.dec_pos.long() % sc
-            cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
-            cache["kpe"][rows, slot] = kpe[:, 0].to(cache["kpe"].dtype)
+            if mesh is None:
+                cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
+                cache["kpe"][rows, slot] = kpe[:, 0].to(cache["kpe"].dtype)
+            else:
+                # the rank that holds the slot writes it; the others write
+                # their own slot's value back (no host sync)
+                s0 = mesh.coords["model"] * sl
+                own = ((slot >= s0) & (slot < s0 + sl))[:, None]
+                ls = (slot - s0).clamp(0, sl - 1)
+                for name, t in (("ckv", ckv), ("kpe", kpe)):
+                    c = cache[name]
+                    c[rows, ls] = torch.where(own, t[:, 0].to(c.dtype),
+                                              c[rows, ls])
             k_pos, k_valid = L.dec_cache_pos(
                 plan.dec_pos + plan.dec_len - 1, sc)
             cc, ce = cache["ckv"][:plan.Bd], cache["kpe"][:plan.Bd]
+            if mesh is not None:
+                s0 = mesh.coords["model"] * sl
+                outs[2] = _mla_decode_sharded(
+                    qn, qr, cc, ce, wuk, wuv, dpos, k_pos[:, s0:s0 + sl],
+                    k_valid[:, s0:s0 + sl], mesh)
+                return _merge_flat(plan, *outs)
         outs[2] = L.mla_attention(qn, qr, cc, ce, wuk, wuv, q_pos=dpos,
                                   k_pos=k_pos, k_valid=k_valid, causal=True)
     return _merge_flat(plan, *outs)
 
 
+def mla_partials(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+                 kpe: torch.Tensor, q_pos: torch.Tensor, k_pos: torch.Tensor,
+                 k_valid: torch.Tensor, scale: float):
+    """One rank's flash-decoding partials of absorbed MLA over the latent
+    slots it holds, for every head: q_lat [B, S, h, c], q_pe [B, S, h, dr],
+    ckv [B, t, c], kpe [B, t, dr] -> (o [B, S, h, c], m, l [B, S, h]), all
+    fp32: ``m`` the max score over the valid keys, ``l`` the sum of
+    ``exp(score - m)`` and ``o`` that weighted sum of ``ckv``, unnormalized
+    (``kernels.splitk.lse_merge``'s partials).  A rank with no valid key
+    gives ``o = l = 0``, so its merge weight is 0."""
+    s = torch.einsum("bshc,btc->bhst", q_lat, ckv).float()
+    s = (s + torch.einsum("bshd,btd->bhst", q_pe, kpe).float()) * scale
+    mask = L._build_mask(q_pos, k_pos, k_valid, True, 0)[:, None]
+    s = s.masked_fill(~mask, L.NEG_INF)
+    mx = s.amax(-1)                                              # [B, h, S]
+    e = torch.exp(s - mx[..., None]) * mask
+    o = torch.einsum("bhst,btc->bshc", e, ckv.float())
+    return o, mx.transpose(1, 2), e.sum(-1).transpose(1, 2)
+
+
+def _lse_merge(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """``kernels.splitk.lse_merge`` (split-K's merge kernel on the card)
+    over partials [B, ns, S, h, c]: a latent wider than the kernel's 256
+    columns is merged as ``c / 256`` heads of 256 columns each (the merge
+    is per column, its weights per head)."""
+    B, ns, S, h, c = o.shape
+    f = c // 256 if c > 256 and c % 256 == 0 else 1
+    if f > 1:
+        o = o.reshape(B, ns, S, h * f, c // f)
+        m, l = m.repeat_interleave(f, -1), l.repeat_interleave(f, -1)
+    return lse_merge(o.contiguous(), m.contiguous(), l.contiguous(),
+                     dtype).reshape(B, S, h, c)
+
+
+def _mla_decode_sharded(qn: torch.Tensor, qr: torch.Tensor,
+                        ckv: torch.Tensor, kpe: torch.Tensor,
+                        wuk: torch.Tensor, wuv: torch.Tensor,
+                        q_pos: torch.Tensor, k_pos: torch.Tensor,
+                        k_valid: torch.Tensor, mesh) -> torch.Tensor:
+    """MLA decode over a latent whose slots are cut over "model": this
+    rank's heads' queries qn [B, S, h/m, dn] / qr [B, S, h/m, dr], its
+    slots ckv [B, t, c] / kpe [B, t, dr] and their positions.  The absorbed
+    query of every head is all-gathered over "model"; each rank computes
+    every head's partials over its own slots (``mla_partials``); one
+    all-to-all brings each head's partials to the rank that holds the
+    head, which merges them (``_lse_merge``) and applies ``wuv``.  Returns
+    [B, S, h/m, dv]."""
+    n = mesh.shape["model"]
+    B, S, hl, dn = qn.shape
+    c = ckv.shape[-1]
+    q_lat = torch.einsum("bshd,chd->bshc", qn, wuk.to(qn.dtype))
+    qa = SH.all_gather(torch.cat([q_lat, qr], -1), "model", mesh, dim=2)
+    o, mx, l = mla_partials(qa[..., :c], qa[..., c:], ckv, kpe, q_pos,
+                            k_pos, k_valid, (dn + qr.shape[-1]) ** -0.5)
+    pack = torch.cat([o, mx[..., None], l[..., None]], -1)   # [B, S, h, c+2]
+    pack = pack.reshape(B, S, n, hl, c + 2).permute(2, 0, 1, 3, 4)
+    got = SH.all_to_all(pack, "model", mesh).permute(1, 0, 2, 3, 4)
+    o_lat = _lse_merge(got[..., :c], got[..., c], got[..., c + 1], qn.dtype)
+    return torch.einsum("bshc,chd->bshd", o_lat, wuv.to(qn.dtype))
+
+
 def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                  x: torch.Tensor, cache: Optional[Dict],
-                 attn_chunk: int = 0) -> torch.Tensor:
+                 attn_chunk: int = 0, mesh=None) -> torch.Tensor:
     """The cross-attention sublayer (``_cross_apply`` of the JAX model): a
     query ``xwq`` through ``dense`` (LoRA when targeted), non-causal
     attention over the cross source's keys, ``xwo`` through ``dense``, the
@@ -629,10 +745,18 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     ``xwv`` (plain products); prefill writes the projections into the
     layer's ``xk`` / ``xv`` rows ``[Bd, Bd + Bp)`` and decode (plain or
     verify chunks) reads rows ``[0, Bd)``.  ``cache``: the layer's views
-    (None for an ft-only batch)."""
+    (None for an ft-only batch).  Under a ``mesh`` a rank runs its h/m
+    query and g/m KV heads: ``xwq`` / ``xwk`` / ``xwv`` column-parallel,
+    ``xwo`` row-parallel with its all-reduce, its ``xk`` / ``xv`` rows
+    holding its KV heads; ``xgate`` is whole on every rank."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["xln"], cfg.rms_eps)
-    q = dense(xn, p["xwq"], None, lr.get("xwq"), plan.route)
+    if mesh is None:
+        q = dense(xn, p["xwq"], None, lr.get("xwq"), plan.route)
+    else:
+        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
+        q, = dense_col(xn, [(p["xwq"], None, lr.get("xwq"))], plan.route,
+                       mesh)
     qf, qp, qd = plan.split(q)
     # serving rows carry no gradient, and the row writes stay out of the
     # graph
@@ -666,40 +790,54 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     if qd is not None:           # decode / verify: rows [0, Bd)
         outs[2] = xattn(qd, cache["xk"][:plan.Bd], cache["xv"][:plan.Bd],
                         plan.dec_qpos)
-    o = dense(_merge_flat(plan, *outs), p["xwo"], None, lr.get("xwo"),
-              plan.route)
+    o = _merge_flat(plan, *outs)
+    if mesh is None:
+        o = dense(o, p["xwo"], None, lr.get("xwo"), plan.route)
+    else:
+        o = dense_row(o, p["xwo"], lr.get("xwo"), plan.route, mesh)
     return x + torch.tanh(p["xgate"]).to(o.dtype) * o
 
 
-def encoder_forward(cfg: ModelConfig, enc: Dict,
-                    frames: torch.Tensor) -> torch.Tensor:
+def encoder_forward(cfg: ModelConfig, enc: Dict, frames: torch.Tensor,
+                    mesh=None, prep=None) -> torch.Tensor:
     """The Whisper encoder (``encoder_forward`` of the JAX model) over
     ``frames`` [B, F, d]: per layer rms_norm, plain q/k/v/o products,
-    bidirectional attention and a SwiGLU, no LoRA; then the final norm."""
+    bidirectional attention and a SwiGLU, no LoRA; then the final norm.
+    Under a ``mesh`` the leaves are this rank's shards, ``prep(i, layer)``
+    making layer ``i``'s ready (whole over "data", dequantized): ``wq`` /
+    ``wk`` / ``wv`` / ``wg`` / ``wu`` column-parallel, ``wo`` / ``wd``
+    row-parallel, one all-reduce over "model" a sublayer."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    if mesh is not None:
+        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
     B, F, d = frames.shape
     kpos = torch.zeros((B, F), dtype=torch.int32, device=frames.device)
     valid = torch.ones((B, F), dtype=torch.bool, device=frames.device)
+    reduce = ((lambda y: y) if mesh is None
+              else (lambda y: SH.all_reduce(y, "model", mesh)))
     x = frames
-    for p in enc["layers"]:
+    for i, p in enumerate(enc["layers"]):
+        p = p if prep is None else prep(i, p)
         flat = L.rms_norm(x, p["ln1"], cfg.rms_eps).reshape(B * F, d)
         q = (flat @ p["wq"].to(x.dtype)).reshape(B, F, h, hd)
         k = (flat @ p["wk"].to(x.dtype)).reshape(B, F, kv, hd)
         v = (flat @ p["wv"].to(x.dtype)).reshape(B, F, kv, hd)
         o = L.attention(q, k, v, q_pos=kpos, k_pos=kpos, k_valid=valid,
                         causal=False)
-        x = x + (o.reshape(B * F, h * hd) @ p["wo"].to(x.dtype)
-                 ).reshape(B, F, d)
+        x = x + reduce(o.reshape(B * F, h * hd) @ p["wo"].to(x.dtype)
+                       ).reshape(B, F, d)
         xn = L.rms_norm(x, p["ln2"], cfg.rms_eps).reshape(B * F, d)
-        x = x + L.swiglu(xn, p["wg"], p["wu"], p["wd"]).reshape(B, F, d)
+        x = x + reduce(L.swiglu(xn, p["wg"], p["wu"], p["wd"])
+                       ).reshape(B, F, d)
     return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
 
 def _cross_sources(cfg: ModelConfig, params: Dict, plan: _Plan,
-                   dtype: torch.dtype) -> None:
+                   dtype: torch.dtype, mesh=None, prep=None) -> None:
     """A cross model's ft and prefill buckets must carry ``aux_embed``;
     with an encoder it is replaced by the encoder's output, as in the JAX
-    model (no graph: neither the encoder nor the sources are trained)."""
+    model (no graph: neither the encoder nor the sources are trained).
+    ``mesh`` / ``prep``: ``encoder_forward``'s, under a mesh."""
     for name in ("ft", "pf"):
         b = getattr(plan, name)
         if b is None:
@@ -710,7 +848,7 @@ def _cross_sources(cfg: ModelConfig, params: Dict, plan: _Plan,
                 "needs aux_embed, the [B, F, d] cross source embeddings")
         if cfg.encoder is not None:
             enc = encoder_forward(cfg, params["encoder"],
-                                  b.aux_embed.to(dtype))
+                                  b.aux_embed.to(dtype), mesh, prep)
             setattr(plan, name, b._replace(aux_embed=enc))
 
 
@@ -1030,48 +1168,40 @@ def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
 # the forward under a mesh (explicit SPMD)
 # ---------------------------------------------------------------------------
 
-def check_shardable(cfg: ModelConfig, mesh, params: Dict,
-                    batch: UnifiedBatch, loras: Optional[Dict] = None
-                    ) -> None:
-    """What this slice shards, or a ``ValueError`` that names the case: GQA
-    attention whose query and KV head counts divide the "model" axis, on
-    dense rows, with dense or MoE FFNs, in bf16 or fp32."""
+def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
+                    loras: Optional[Dict] = None) -> None:
+    """What the sharded forward runs, or a ``ValueError`` that names the
+    case: GQA or MLA attention whose query and KV head counts divide the
+    "model" axis, on dense rows, with dense or MoE FFNs, cross-attention
+    layers and an encoder, GQA sliding windows, in bf16, fp32 or with int8
+    leaves."""
     m = mesh.shape["model"]
     where = f"under a {dict(mesh.shape)} mesh"
     if torch.is_grad_enabled() and loras is not None and any(
             t.requires_grad for t in tree_leaves(loras)):
         raise ValueError(f"a forward with gradient {where}: the train step "
-                         "under a mesh is the next slice (ROADMAP Queue 1, "
+                         "under a mesh is a later slice (ROADMAP Queue 1, "
                          "5b)")
-    if cfg.mla is not None:
-        raise ValueError(f"{cfg.name}: MLA attention {where} is not sharded "
-                         "yet (ROADMAP Queue 1, 5c)")
     if "mamba" in cfg.pattern:
         raise ValueError(f"{cfg.name}: Mamba2 layers {where} are not "
-                         "sharded yet (ROADMAP Queue 1, 5c)")
-    if cfg.cross_attn_every or cfg.encoder is not None:
-        raise ValueError(f"{cfg.name}: cross-attention layers or an "
-                         f"encoder {where} are not sharded yet (ROADMAP "
-                         "Queue 1, 5c)")
-    if quant.has_q8(params):
-        raise ValueError(f"{cfg.name}: int8 leaves {where} are not sharded "
-                         "yet (quant_shardings, ROADMAP Queue 1, 5c)")
-    if cfg.sliding_window > 0:
-        raise ValueError(f"{cfg.name}: a sliding window {where} is not "
-                         "sharded yet")
+                         "sharded yet (ROADMAP Queue 1, 5c-ii)")
+    if cfg.mla is not None and cfg.sliding_window > 0:
+        raise ValueError(f"{cfg.name}: MLA with a sliding window {where} is "
+                         "not sharded yet (ROADMAP Queue 1, 5c-ii)")
     for name in ("pf", "dec"):
         b = getattr(batch, name)
         if b is not None and b.block_tables is not None:
             raise ValueError(f"a paged {name} bucket {where}: the sharded "
-                             "forward runs on dense rows only")
+                             "forward runs on dense rows only (ROADMAP "
+                             "Queue 1, 5c-ii)")
     if batch.dec is not None and batch.dec.tokens.ndim == 2:
         raise ValueError(f"verify chunks {where}: the sharded forward runs "
-                         "on dense rows only")
+                         "on dense rows only (ROADMAP Queue 1, 5c-ii)")
     if cfg.n_kv_heads % m or cfg.n_heads % m:
         raise ValueError(
             f"{cfg.name}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do "
             f"not divide the model axis {m}: the head-dim and seq cache "
-            "layouts are the next slice (ROADMAP Queue 1, 5c)")
+            "layouts are a later slice (ROADMAP Queue 1, 5c-ii)")
 
 
 def local_batch(batch: UnifiedBatch, mesh):
@@ -1114,10 +1244,15 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     row-parallel (``core.lora.dense_col`` / ``dense_row``); under
     ``fsdp_tp`` each layer's "embed"-sharded leaves are all-gathered over
     "data" just before the layer and freed after it (the expert stacks by
-    ``moe_apply_auto``).  Returns the single-device step's logits, ft loss
-    sums and aux loss on every rank, and the local cache."""
+    ``moe_apply_auto``), an int8 leaf as its int8 payload and scales
+    (``quant.quant_shardings``), dequantized only after the gather.  Cross
+    layers and an encoder run their heads column- and row-parallel
+    (``_cross_apply``, ``encoder_forward``), MLA its heads with the latent
+    sequence cut over "model" (``_mla_apply``).  Returns the single-device
+    step's logits, ft loss sums and aux loss on every rank, and the local
+    cache."""
     from repro_torch.launch.mesh import batch_axes
-    check_shardable(cfg, mesh, params, batch, loras)
+    check_shardable(cfg, mesh, batch, loras)
     strategy = strategy or "fsdp_tp"
     fsdp = strategy == "fsdp_tp"
     bx = batch_axes(mesh)
@@ -1126,11 +1261,18 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
         raise ValueError("prefill/decode buckets require a cache")
     plan = _Plan(cfg, gb, lora_scale, block_t)
     index = layer_index(cfg)
-    specs = SH.param_shardings(cfg, mesh, strategy)
+    dtype = params["final_norm"].dtype
+    specs = (quant.quant_shardings(cfg, mesh, strategy)
+             if quant.has_q8(params) else
+             SH.param_shardings(cfg, mesh, strategy))
     first = mesh.index(bx) == 0
 
-    def unshard(leaf, spec):
-        """A leaf whole over "data" (the FSDP gather)."""
+    def load(leaf, spec):
+        """A leaf whole over "data" (the FSDP gather; an int8 leaf's
+        payload and scales apart), then dequantized."""
+        if quant.is_q8(leaf):
+            return quant.dequant_leaf({k: load(leaf[k], spec[k])
+                                       for k in leaf}, dtype)
         for dim, ax in enumerate(spec):
             if ax == "data":
                 return SH.all_gather(leaf, "data", mesh, dim=dim)
@@ -1142,7 +1284,11 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     own = torch.cat([torch.full((n,), bool(split.get(name)) or first,
                                 dtype=torch.bool, device=toks.device)
                      for name, n in zip(("ft", "pf", "dec"), plan.sizes)])
-    x = _embed(cfg, unshard(params["embed"], specs["embed"]), toks, mesh)
+    if any(i[2] is not None for i in index):
+        enc = specs.get("encoder")
+        _cross_sources(cfg, params, plan, dtype, mesh, lambda i, p: {
+            k: load(v, enc["layers"][i][k]) for k, v in p.items()})
+    x = _embed(cfg, load(params["embed"], specs["embed"]), toks, mesh)
 
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
@@ -1150,9 +1296,11 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
         sp = specs["layers"][li]
         p = {k: (v if k in EXPERT_STACKS or k == "router"
-                 else unshard(v, sp[k])) for k, v in p.items()}
+                 else load(v, sp[k])) for k, v in p.items()}
         lc = None if cache is None else layer_cache(cfg, cache, li, index)
         x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
+        if index[li][2] is not None:
+            x = _cross_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
         x, aux = _ffn_apply(cfg, li, p, lr, plan, x, mesh=mesh, fsdp=fsdp,
                             own=own)
         if aux is not None:
@@ -1160,8 +1308,8 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
         del p
 
     if cfg.tie_embeddings:
-        head = unshard(params["embed"], specs["embed"]).T
+        head = load(params["embed"], specs["embed"]).T
     else:
-        head = unshard(params["lm_head"], specs["lm_head"])
+        head = load(params["lm_head"], specs["lm_head"])
     return _outputs(cfg, plan, gb, x, params["final_norm"], head, cache,
                     aux_loss, return_ft_logits, mesh, split)

@@ -22,6 +22,10 @@ the single-device path keeps.  The expert FFN computes only the slots that
 hold a kept entry (empty slots are zeros and give zeros, as
 ``moe.moe_apply`` skips them).
 
+Int8 leaves (``models.quant``) cross the wire as their int8 payload and
+scales (``_gather``) and dequantize after: the router whole, an expert
+stack one local expert at a time.
+
 Without a mesh, or with one whose "model" and batch axes are all 1, it is
 ``moe.moe_apply``.
 """
@@ -37,7 +41,8 @@ from repro_torch.distributed.sharding import all_gather, all_reduce, \
     all_to_all, ambient_mesh
 from repro_torch.launch.mesh import axis_size, batch_axes
 from repro_torch.models.configs import MoEConfig
-from repro_torch.models.moe import moe_apply
+from repro_torch.models.moe import _expert, moe_apply
+from repro_torch.models.quant import dequant_leaf, is_q8
 
 
 def _spread(mesh) -> bool:
@@ -60,6 +65,19 @@ def _aux(probs: torch.Tensor, idx: torch.Tensor, own: torch.Tensor,
     f = counts / torch.clamp(n * k, min=1.0)
     p = p_sum / torch.clamp(n, min=1.0)
     return (E * torch.sum(f * p)) * mcfg.router_aux_weight
+
+
+def _gather(w, axes, mesh, dim: int):
+    """``all_gather`` of a weight leaf along ``dim``; an int8 leaf's
+    payload, and its scales unless ``dim`` is their reduced axis (-2, of
+    size 1)."""
+    if not is_q8(w):
+        return all_gather(w, axes, mesh, dim=dim)
+    q = w["_q8"]
+    d = dim % q.ndim
+    return {"_q8": all_gather(q, axes, mesh, dim=d),
+            "_qs": (w["_qs"] if d == q.ndim - 2
+                    else all_gather(w["_qs"], axes, mesh, dim=d))}
 
 
 def _route(x: torch.Tensor, router: torch.Tensor, k: int):
@@ -94,23 +112,24 @@ def moe_apply_auto(x: torch.Tensor, params: Dict, mcfg: MoEConfig,
     w_embed_data = fsdp and d % dsize == 0 and dsize > 1
     router = params["router"]
     if w_embed_data:
-        router = all_gather(router, "data", mesh, dim=0)
-    if router.shape[1] != E:
-        router = all_gather(router, "model", mesh, dim=1)
+        router = _gather(router, "data", mesh, 0)
+    if (router["_q8"] if is_q8(router) else router).shape[1] != E:
+        router = _gather(router, "model", mesh, 1)
+    if is_q8(router):
+        router = dequant_leaf(router, x.dtype)
     wg, wu, wd = params["w_gate"], params["w_up"], params["w_down"]
     # un-FSDP the weight blocks (the manual analogue of GSPMD's per-layer
     # FSDP all-gather)
     if w_embed_data:
-        wg = all_gather(wg, "data", mesh, dim=1)
-        wu = all_gather(wu, "data", mesh, dim=1)
-        wd = all_gather(wd, "data", mesh, dim=2)
+        wg = _gather(wg, "data", mesh, 1)
+        wu = _gather(wu, "data", mesh, 1)
+        wd = _gather(wd, "data", mesh, 2)
     if E % m != 0 or T % m != 0:
         # JAX's own ``moe_apply`` branch when the experts or the stream do
         # not divide (``moe_dist.py:54-55``): that is the JAX semantics,
         # every rank computes its whole stream with every expert
-        if wg.shape[0] != E:
-            wg, wu, wd = (all_gather(w, "model", mesh, dim=0)
-                          for w in (wg, wu, wd))
+        if (wg["_q8"] if is_q8(wg) else wg).shape[0] != E:
+            wg, wu, wd = (_gather(w, "model", mesh, 0) for w in (wg, wu, wd))
         full = dict(params, router=router, w_gate=wg, w_up=wu, w_down=wd)
         y, _ = moe_apply(x, full, mcfg)
         probs, _, idx = _route(x, router, k)
@@ -142,14 +161,14 @@ def moe_apply_auto(x: torch.Tensor, params: Dict, mcfg: MoEConfig,
     got = all_to_all(buf, "model", mesh).reshape(m, el, cap, d)
     got_n = all_to_all(counts, "model", mesh).reshape(m, el).tolist()
     out = torch.zeros_like(got)
-    wg_, wu_, wd_ = (w.to(x.dtype) for w in (wg, wu, wd))
     for e in range(el):
         rows = [(j, got_n[j][e]) for j in range(m) if got_n[j][e]]
         if not rows:
             continue
         xe = torch.cat([got[j, e, :n] for j, n in rows])
-        h = F.silu(xe @ wg_[e]) * (xe @ wu_[e])
-        ye = h @ wd_[e]
+        h = F.silu(xe @ _expert(wg, e, x.dtype)) \
+            * (xe @ _expert(wu, e, x.dtype))
+        ye = h @ _expert(wd, e, x.dtype)
         start = 0
         for j, n in rows:
             out[j, e, :n] = ye[start:start + n]

@@ -23,6 +23,12 @@ int8 and at most one layer's dequantized weights at a time; a MoE layer's
 expert stacks dequantize only the routed experts' slices
 (``repro_torch.models.moe``).  Dequant is elementwise PyTorch, as the JAX
 package leaves it to XLA.
+
+Under a mesh (``quant_shardings``, JAX's rule in the port's per-layer
+tree) an int8 leaf's ``_q8`` payload takes the float leaf's spec and its
+``_qs`` scales the same spec with the reduced input axis replicated: a
+scale spans the whole input axis, so a leaf is quantized whole and then
+cut (``checkpoint.io.init_sharded_params``), never quantized per shard.
 """
 from __future__ import annotations
 
@@ -117,6 +123,39 @@ def quantize_params(cfg: ModelConfig, params: Dict) -> Dict:
                  if _eligible(leaf, (ne, *leaf.shape)) else layer[k])
              for k, leaf in encoder_shapes(cfg).items()}
             for layer in params["encoder"]["layers"]])
+    return out
+
+
+def q8_spec(spec: tuple, ndim: int) -> Dict[str, tuple]:
+    """The specs of an int8 leaf whose float leaf has ``spec`` over
+    ``ndim`` dims: ``_q8`` inherits it, ``_qs`` drops the reduced input
+    axis (``-2``, of size 1 there)."""
+    parts = tuple(spec) + (None,) * (ndim - len(spec))
+    return {"_q8": parts, "_qs": parts[:-2] + (None, parts[-1])}
+
+
+def quant_shardings(cfg: ModelConfig, mesh, strategy: str = "fsdp_tp"
+                    ) -> Dict:
+    """``distributed.sharding.param_shardings`` for the tree
+    ``quantize_params`` makes (JAX's ``quant_shardings``): every eligible
+    leaf's spec becomes ``q8_spec``'s pair."""
+    from repro_torch.distributed.sharding import param_shardings
+    specs = param_shardings(cfg, mesh, strategy)
+
+    def walk(sp, leaves, lead):
+        return {k: (q8_spec(sp[k], len(leaf.shape))
+                    if _eligible(leaf, (*lead, *leaf.shape)) else sp[k])
+                for k, leaf in leaves.items()}
+
+    out = dict(specs)
+    out.update(walk(specs, top_leaves(cfg), ()))
+    out["layers"] = [walk(sp, layer_shapes(cfg, li), (cfg.n_periods,))
+                     for li, sp in enumerate(specs["layers"])]
+    if cfg.encoder is not None:
+        ne = cfg.encoder.n_layers
+        out["encoder"] = dict(specs["encoder"], layers=[
+            walk(sp, encoder_shapes(cfg), (ne,))
+            for sp in specs["encoder"]["layers"]])
     return out
 
 

@@ -176,17 +176,11 @@ def value_errors(tmp, z, mesh):
     batch = mixed_batch(z, "llama_tp/")
     step = lambda c, p=params, b=batch: make_forward_step(
         c, block_t=BT, mesh=mesh)(p, None, None, b, {})
-    out = {}
-    for arch, word in (("deepseek-v2-236b", "MLA"),
-                       ("mamba2-1.3b", "Mamba2"),
-                       ("llama-3.2-vision-90b", "cross-attention"),
-                       ("whisper-base", "cross-attention")):
-        out[arch] = raises(lambda: step(get_reduced(arch)), word)
-    q8 = dict(params, lm_head={"_q8": torch.zeros(2, 2, dtype=torch.int8),
-                               "_qs": torch.ones(1, 2)})
-    out["int8"] = raises(lambda: step(cfg, q8), "int8")
-    out["window"] = raises(lambda: step(cfg.replace(sliding_window=8)),
-                           "sliding window")
+    out = {"mamba2-1.3b": raises(lambda: step(get_reduced("mamba2-1.3b")),
+                                 "Mamba2", "5c-ii"),
+           "mla_window": raises(lambda: step(get_reduced(
+               "deepseek-v2-236b").replace(sliding_window=8)), "MLA",
+               "sliding window", "5c-ii")}
     paged = batch._replace(pf=batch.pf._replace(
         block_tables=torch.zeros((batch.pf.tokens.shape[0], 2),
                                  dtype=torch.int32)))
@@ -212,6 +206,103 @@ def value_errors(tmp, z, mesh):
     return out
 
 
+def _cache_of(z, prefix):
+    return {k[len(prefix):]: _t(z[k]) for k in z.files
+            if k.startswith(prefix)}
+
+
+def _family_batch(z, name):
+    """Case ``name``'s mixed batch of ``case.npz``, with its ft and prefill
+    buckets' ``aux_embed`` when the case has them, and its second step's
+    decode bucket (every row: the decode rows one further, the prefill
+    rows at their next position)."""
+    batch = mixed_batch(z, f"{name}/")
+    if f"{name}/ft_aux" in z:
+        batch = batch._replace(
+            ft=batch.ft._replace(aux_embed=_t(z[f"{name}/ft_aux"])),
+            pf=batch.pf._replace(aux_embed=_t(z[f"{name}/pf_aux"])))
+    g = lambda k: _t(z[f"{name}/{k}"])
+    dec2 = UnifiedBatch(dec=DECBatch(tokens=g("dec2_tokens"),
+                                     pos=g("dec2_pos"),
+                                     adapter=g("dec2_adapter")))
+    return batch, dec2
+
+
+def family_case(tmp, name, mesh, strategy, z, fault=False):
+    """Two steps of case ``name`` (``tests/test_torch_mesh_families.py``)
+    on this rank's shards: the mixed step, then a decode of every row
+    (the cache gathered whole and cut again for the new rows' split), each
+    against JAX's single-device ``unified_forward`` (``case.npz``) and the
+    port's one-process step on the same weights.  With ``fault``, model
+    ranks 1-3 drop their MLA decode partials (``model.mla_partials``) and
+    the errors come back unchecked.  Returns the errors, the collective
+    log of the first step and the MoE branch."""
+    cfg = get_reduced(z[f"{name}/arch"].item())
+    if f"{name}/window" in z:
+        cfg = cfg.replace(sliding_window=int(z[f"{name}/window"]))
+    if f"{name}/cf" in z:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(z[f"{name}/cf"])))
+    params = params_from_numpy(load_npz(os.path.join(tmp, f"{name}_params.npz")),
+                               device="cpu")
+    bank = bank_from_numpy(load_npz(os.path.join(tmp, f"{name}_bank.npz")),
+                           device="cpu")
+    scale = _t(z[f"{name}/scale"])
+    batch, dec2 = _family_batch(z, name)
+    cache0 = _cache_of(z, f"{name}/cache0_")
+    n_rows = next(iter(cache0.values())).shape[1]
+    segs = (batch.dec.tokens.shape[0], batch.pf.tokens.shape[0])
+
+    plain = make_forward_step(cfg, block_t=BT)
+    one1 = plain(params, bank, scale, batch,
+                 {k: v.clone() for k, v in cache0.items()})
+    one2 = plain(params, bank, scale, dec2,
+                 {k: v.clone() for k, v in one1.cache.items()})
+    step = make_forward_step(cfg, block_t=BT, mesh=mesh, strategy=strategy)
+    local_p = shard_params(params, cfg, mesh, strategy)
+    local_b = shard_bank(bank, mesh)
+    partials = TM.mla_partials
+    if fault:
+        mine = mesh.coords["model"] == 0
+
+        def dropped(*a):
+            o, m, l = partials(*a)
+            return ((o, m, l) if mine else (torch.zeros_like(o),
+                                            torch.full_like(m, -1e30),
+                                            torch.zeros_like(l)))
+        TM.mla_partials = dropped
+    try:
+        SH.reset_collective_log()
+        out1 = step(local_p, local_b, scale, batch,
+                    SH.shard_cache(cfg, cache0, mesh, segs))
+        coll = collective_bytes()["raw"]
+        branch = moe_apply_auto.branch if cfg.moe is not None else None
+        whole1 = SH.gather_cache(cfg, out1.cache, mesh, n_rows, segs)
+        out2 = step(local_p, local_b, scale, dec2,
+                    SH.shard_cache(cfg, whole1, mesh))
+        whole2 = SH.gather_cache(cfg, out2.cache, mesh, n_rows)
+    finally:
+        TM.mla_partials = partials
+    got = {"pf_logits": out1.pf_logits, "dec_logits": out1.dec_logits,
+           "ft_loss_sum": out1.ft_loss_sum,
+           "ft_tok_count": out1.ft_tok_count, "aux_loss": out1.aux_loss,
+           "dec2_logits": out2.dec_logits}
+    ref_one = {"pf_logits": one1.pf_logits, "dec_logits": one1.dec_logits,
+               "ft_loss_sum": one1.ft_loss_sum,
+               "ft_tok_count": one1.ft_tok_count, "aux_loss": one1.aux_loss,
+               "dec2_logits": one2.dec_logits}
+    for k in cache0:
+        got[f"cache1_{k}"], ref_one[f"cache1_{k}"] = whole1[k], one1.cache[k]
+        got[f"cache2_{k}"], ref_one[f"cache2_{k}"] = whole2[k], one2.cache[k]
+    errs = {}
+    for k, v in got.items():
+        e_jax, e_one = err(v, z[f"{name}/ref_{k}"]), err(v, ref_one[k])
+        errs[k] = (e_jax, e_one)
+        assert fault or (e_jax < TOL and e_one < TOL), \
+            (name, strategy, k, e_jax, e_one)
+    return {"errs": errs, "coll": coll, "branch": branch}
+
+
 def run(rank, world, tmp, shape, cases):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -233,6 +324,10 @@ def run(rank, world, tmp, shape, cases):
                         cfg, mesh, z, name, int(z["lora_r"]))
             elif kind == "moe":
                 res[case] = moe_case(tmp, z, mesh, rest == "1")
+            elif kind in ("fam", "fault"):
+                name, strategy = rest.split(",")
+                res[case] = family_case(tmp, name, mesh, strategy, z,
+                                        fault=kind == "fault")
             elif kind == "errors":
                 res[case] = value_errors(tmp, z, mesh)
         with open(os.path.join(tmp, f"result_{'x'.join(map(str, shape))}_"

@@ -1,0 +1,209 @@
+"""The sharded forward's other families on a CPU mesh of 4 ``gloo`` ranks
+against the JAX package's single-device ``unified_forward`` on the same npz
+weights: MLA (reduced deepseek-v2-236b, with its MoE), cross-attention
+layers (reduced llama-3.2-vision-90b) and an encoder (reduced whisper-base),
+int8 leaves (reduced llama3-8b and deepseek-v2 through JAX's
+``quantize_params``) and a GQA sliding window (reduced llama3-8b, W = 8).
+
+One spawn per mesh shape holds all its cases (``_torch_mesh_worker.
+family_case``); each case is two steps on dense rows: the mixed ft +
+prefill + decode batch of ``tests/test_torch_mesh.py`` (cross models with
+an ``aux_embed`` on the ft and prefill buckets, ``xgate`` opened to 0.5:
+JAX draws it as zero), then a decode of every row, the prefill rows at
+their next position (so MLA's decode reads a latent that prefill wrote
+into every rank's slots, and the window's rows roll past W).  The
+llama32v and llama3 cases run at ``(2, 2)`` only: their 2 KV heads do not
+divide 4.  MoE capacity factor 8.0, as in ``tests/test_torch_mesh.py``.
+
+Tolerance ``W.TOL`` = 2e-4 abs (fp32) for the logits, ft loss sums, aux
+loss and the gathered cache of both steps, against JAX and against the
+port's one-process step.  One planted fault: at ``(1, 4)`` model ranks 1-3
+drop their MLA decode partials, which must break that tolerance.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import _torch_mesh_worker as W
+from _torch_bridge import j
+from test_torch_mesh import LORA_R, _batch, _spawn
+from repro.checkpoint.io import save_pytree
+from repro.configs import get_reduced as j_get_reduced
+from repro.core.lora import LoRAConfig as JLoRAConfig
+from repro.core.virtualization import AdapterStore as JAdapterStore
+from repro.models import model as JM
+from repro.models import quant as JQ
+from repro.models.schema import init_params as j_init_params
+from repro.models.stream import DECBatch as JDEC, FTBatch as JFT, \
+    PFBatch as JPF, UnifiedBatch as JUB
+
+TARGETS = JLoRAConfig().targets + ("xwq", "xwo")
+# name: (arch, seed, int8, window, capacity factor)
+CASES = {"dsv2": ("deepseek-v2-236b", 20, False, 0, 8.0),
+         "vlm": ("llama-3.2-vision-90b", 21, False, 0, None),
+         "whisper": ("whisper-base", 22, False, 0, None),
+         "llama_q8": ("llama3-8b", 23, True, 0, None),
+         "dsv2_q8": ("deepseek-v2-236b", 24, True, 0, 8.0),
+         "window": ("llama3-8b", 25, False, 8, None)}
+N_ROWS, S_MAX = 6, 32
+RUN_1X4 = ["fam:dsv2,tp", "fam:whisper,tp", "fam:dsv2_q8,tp"]
+RUN_2X2 = ["fam:dsv2,fsdp_tp", "fam:vlm,tp", "fam:vlm,fsdp_tp",
+           "fam:whisper,fsdp_tp", "fam:llama_q8,tp", "fam:llama_q8,fsdp_tp",
+           "fam:window,tp"]
+FAULT = "fault:dsv2,tp"
+SPAWN_TIMEOUT_S = 120
+
+
+def _jcfg(arch, window, cf):
+    jcfg = j_get_reduced(arch)
+    if window:
+        jcfg = jcfg.replace(sliding_window=window)
+    if cf is not None:
+        jcfg = jcfg.replace(moe=dataclasses.replace(jcfg.moe,
+                                                    capacity_factor=cf))
+    return jcfg
+
+
+def _gated(jparams):
+    """Every ``xgate`` opened to 0.5."""
+    return dict(jparams, blocks=tuple(
+        dict(b, xgate=jnp.full_like(b["xgate"], 0.5)) if "xgate" in b else b
+        for b in jparams["blocks"]))
+
+
+def _port_leaves(jcfg, layers, name):
+    """JAX's per-position ``name`` leaves in the port's layout: the layers
+    that carry it, in layer order."""
+    P = len(jcfg.pattern)
+    return np.stack([np.asarray(layers[li % P][name][li // P])
+                     for li in range(jcfg.n_layers)
+                     if name in layers[li % P]])
+
+
+def _jax_case(tmp, name, arch, seed, int8, window, cf, z):
+    jcfg = _jcfg(arch, window, cf)
+    jparams = _gated(j_init_params(jcfg, jax.random.PRNGKey(seed)))
+    if int8:
+        jparams = JQ.quantize_params(jcfg, jparams)
+    store = JAdapterStore(jcfg, JLoRAConfig(n_slots=4, r=LORA_R,
+                                            targets=TARGETS),
+                          jax.random.PRNGKey(seed + 10))
+    store.load_random("a0", jax.random.PRNGKey(seed + 11))
+    store.load_random("a1", jax.random.PRNGKey(seed + 12))
+    save_pytree(str(tmp / f"{name}_params.npz"), jparams)
+    save_pytree(str(tmp / f"{name}_bank.npz"), store.bank)
+    rng = np.random.default_rng(seed)
+    b = _batch(rng, jcfg.vocab)
+    cross = jcfg.cross_attn_every > 0 or jcfg.encoder is not None
+    if cross:
+        F = jcfg.encoder.n_frames if jcfg.encoder else jcfg.n_img_tokens
+        for k in ("ft_aux", "pf_aux"):
+            b[k] = rng.standard_normal((2, F, jcfg.d_model)).astype(
+                np.float32)
+    jcache = JM.init_cache(jcfg, N_ROWS, S_MAX)
+    layers = tuple({k: jnp.asarray(rng.standard_normal(v.shape).astype(
+        np.float32) * 0.5) for k, v in c.items()} for c in jcache["layers"])
+    names = sorted({k for c in layers for k in c})
+    for k in names:
+        z[f"{name}/cache0_{k}"] = _port_leaves(jcfg, layers, k)
+    aux = (lambda k: j(b[k])) if cross else (lambda k: None)
+    jb = JUB(ft=JFT(tokens=j(b["ft_tokens"]), mask=j(b["ft_mask"]),
+                    labels=j(b["ft_labels"]), adapter=j(b["ft_adapter"]),
+                    weight=j(b["ft_weight"]), aux_embed=aux("ft_aux")),
+             pf=JPF(tokens=j(b["pf_tokens"]), length=j(b["pf_length"]),
+                    adapter=j(b["pf_adapter"]), aux_embed=aux("pf_aux")),
+             dec=JDEC(tokens=j(b["dec_tokens"]), pos=j(b["dec_pos"]),
+                      adapter=j(b["dec_adapter"])))
+    out = JM.unified_forward(jcfg, jparams, jb, {"layers": layers},
+                             loras=store.bank, lora_scale=store.scale)
+    # the second step: every row decodes, the prefill rows at their next
+    # position
+    b["dec2_tokens"] = rng.integers(0, jcfg.vocab, (N_ROWS,)).astype(
+        np.int32)
+    b["dec2_pos"] = np.concatenate([b["dec_pos"] + 1,
+                                    b["pf_length"]]).astype(np.int32)
+    b["dec2_adapter"] = np.concatenate([b["dec_adapter"],
+                                        b["pf_adapter"]]).astype(np.int32)
+    out2 = JM.unified_forward(
+        jcfg, jparams, JUB(dec=JDEC(tokens=j(b["dec2_tokens"]),
+                                    pos=j(b["dec2_pos"]),
+                                    adapter=j(b["dec2_adapter"]))),
+        out.cache, loras=store.bank, lora_scale=store.scale)
+    for k, v in b.items():
+        z[f"{name}/{k}"] = v
+    z[f"{name}/arch"] = np.asarray(arch)
+    if window:
+        z[f"{name}/window"] = np.asarray(window)
+    if cf is not None:
+        z[f"{name}/cf"] = np.asarray(cf)
+    z[f"{name}/scale"] = np.asarray(store.scale, np.float32)
+    for k in ("pf_logits", "dec_logits", "ft_loss_sum", "ft_tok_count",
+              "aux_loss"):
+        z[f"{name}/ref_{k}"] = np.asarray(getattr(out, k))
+    z[f"{name}/ref_dec2_logits"] = np.asarray(out2.dec_logits)
+    for k in names:
+        z[f"{name}/ref_cache1_{k}"] = _port_leaves(jcfg, out.cache["layers"],
+                                                   k)
+        z[f"{name}/ref_cache2_{k}"] = _port_leaves(jcfg,
+                                                   out2.cache["layers"], k)
+
+
+@pytest.fixture(scope="module")
+def case_dir(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh_families")
+    z = {"lora_r": np.asarray(LORA_R)}
+    for name, case in CASES.items():
+        _jax_case(tmp, name, *case, z)
+    np.savez(tmp / "case.npz", **z)
+    return tmp
+
+
+@pytest.fixture(scope="module")
+def run_1x4(case_dir):
+    return _spawn(case_dir, (1, 4), RUN_1X4 + [FAULT], SPAWN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def run_2x2(case_dir):
+    return _spawn(case_dir, (2, 2), RUN_2X2, SPAWN_TIMEOUT_S)
+
+
+def _within(res):
+    for k, (e_jax, e_one) in res["errs"].items():
+        assert e_jax < W.TOL and e_one < W.TOL, (k, e_jax, e_one)
+
+
+@pytest.mark.parametrize("case", RUN_1X4)
+def test_sharded_families_1x4_match_jax(run_1x4, case):
+    res = run_1x4[case]
+    _within(res)
+    if case.startswith("fam:dsv2"):
+        # the expert-parallel MoE, and the latent merge's all-to-all
+        assert res["branch"] == "expert_parallel"
+        assert res["coll"]["all-to-all"] > 0
+
+
+@pytest.mark.parametrize("case", RUN_2X2)
+def test_sharded_families_2x2_match_jax(run_2x2, case):
+    res = run_2x2[case]
+    _within(res)
+    if case.endswith("fsdp_tp"):
+        # the layer weights come whole over "data" just before each layer
+        tp = run_2x2.get(case.replace("fsdp_tp", "tp"))
+        if tp is not None:
+            assert res["coll"]["all-gather"] > tp["coll"]["all-gather"]
+
+
+def test_planted_mla_fault_is_caught(run_1x4):
+    """Model ranks 1-3 drop their MLA decode partials: the decode logits
+    of both steps leave the tolerance; the ft and prefill rows, which
+    attend over their own fresh latent, do not."""
+    errs = run_1x4[FAULT]["errs"]
+    for k in ("dec_logits", "dec2_logits"):
+        e_jax, e_one = errs[k]
+        assert e_jax > W.TOL and e_one > W.TOL, (k, e_jax, e_one)
+    for k in ("pf_logits", "ft_loss_sum"):
+        assert max(errs[k]) < W.TOL, (k, errs[k])

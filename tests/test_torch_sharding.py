@@ -391,3 +391,215 @@ def test_a_local_mesh_runs_the_sharded_forward(monkeypatch):
         assert err < 1e-5, (k, err)
     for k in cache0:
         assert float((got.cache[k] - want.cache[k]).abs().max()) < 1e-5, k
+
+
+# ------------------------------------------------------------- int8 leaves
+def _qnorm(spec):
+    """A port spec, or an int8 leaf's pair of them, normalised."""
+    if isinstance(spec, dict):
+        return {k: _norm(v) for k, v in spec.items()}
+    return _norm(spec)
+
+
+def _jqspec(s, drop=0):
+    """A JAX sharding, or an int8 leaf's pair of them, as spec tuples
+    without the first ``drop`` entries (the periods axis: None)."""
+    if isinstance(s, dict):
+        return {k: _jqspec(v, drop) for k, v in s.items()}
+    spec = _jspec(s)
+    assert all(e is None for e in spec[:drop]), spec
+    return spec[drop:]
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_quant_shardings_match_jax(arch, mesh, strategy):
+    """``quant.quant_shardings`` against JAX's spec for spec: the payload
+    of an int8 leaf takes the float leaf's spec, its scales that spec
+    with the reduced input axis replicated; the other leaves keep
+    ``param_shardings``'."""
+    from repro.models import quant as JQ
+    from repro_torch.models import quant
+    jm, tm = _meshes(mesh)
+    cfg = get_config(arch)
+    want = JQ.quant_shardings(j_get_config(arch), jm, strategy)
+    got = quant.quant_shardings(cfg, tm, strategy)
+    P = len(cfg.pattern)
+    n_q8 = 0
+    for li, layer in enumerate(got["layers"]):
+        for name, spec in layer.items():
+            w = _jqspec(_jax_leaf(want, li, P, name), drop=1)
+            assert _qnorm(spec) == w, (li, name, spec, w)
+            n_q8 += isinstance(spec, dict)
+    for name in ("embed", "lm_head", "final_norm"):
+        if name in want:
+            assert _qnorm(got[name]) == _jqspec(want[name]), name
+    if cfg.encoder is not None:
+        for name, spec in got["encoder"]["layers"][0].items():
+            assert _qnorm(spec) == _jqspec(
+                want["encoder"]["blocks"][name], drop=1), name
+    assert n_q8 > 0
+
+
+@pytest.mark.parametrize("strategy,leaf", [("tp", "wo"), ("fsdp_tp", "wq"),
+                                           ("fsdp_tp", "wo")])
+def test_init_sharded_params_int8_is_the_cut_of_the_whole_leaf(strategy,
+                                                                leaf):
+    """``init_sharded_params(..., quantized=True)`` on every rank of a
+    ``(2, 2)`` mesh: each ``_q8`` / ``_qs`` shard equals the cut of
+    ``quantize_params`` of the whole model drawn from the same seed, on a
+    row-parallel leaf (``wo``: its input rows over "model", the scales
+    whole) and on leaves cut over "data" by FSDP (``wq``'s input rows,
+    ``wo``'s output columns with their scales).  A rank that quantized its
+    own cut would get other scales."""
+    from repro_torch.checkpoint.io import init_sharded_params
+    from repro_torch.models import quant
+    from repro_torch.models.schema import init_params
+    cfg = get_reduced("llama3-8b")
+    cpu = torch.device("cpu")
+    gen = lambda: torch.Generator().manual_seed(3)
+    plain = init_params(cfg, gen(), device=cpu, dtype=torch.float32)
+    whole = quant.quantize_params(cfg, plain)
+    specs = quant.quant_shardings(cfg, Mesh((2, 2), ("data", "model")),
+                                  strategy)
+    own_scales_differ = False
+    for rank in range(4):
+        mesh = Mesh((2, 2), ("data", "model"), rank)
+        got = init_sharded_params(cfg, mesh, strategy, gen(), cpu,
+                                  torch.float32, quantized=True)
+        for li in range(cfg.n_layers):
+            spec = specs["layers"][li][leaf]
+            for k in ("_q8", "_qs"):
+                want = S.local_shard(whole["layers"][li][leaf][k], spec[k],
+                                     mesh)
+                assert torch.equal(got["layers"][li][leaf][k], want), \
+                    (rank, li, k)
+            own = quant.quantize_leaf(S.local_shard(
+                plain["layers"][li][leaf], spec["_q8"], mesh))
+            own_scales_differ |= not torch.equal(
+                own["_qs"], got["layers"][li][leaf]["_qs"])
+    assert own_scales_differ
+
+
+# ------------------------------------------------ collective bytes by hand
+def _fake_collectives(monkeypatch):
+    """``torch.distributed``'s collectives as shape-true stand-ins on one
+    process (the values are not the mesh's; only the recorded operand
+    bytes are read)."""
+    import torch.distributed as dist
+
+    def gather(out, x, group=None):
+        out.view(-1, *x.shape).copy_(x.expand(out.numel() // x.numel(),
+                                              *x.shape))
+
+    monkeypatch.setattr(dist, "all_reduce", lambda x, op=None, group=None:
+                        None)
+    monkeypatch.setattr(dist, "all_gather_into_tensor", gather)
+    monkeypatch.setattr(dist, "reduce_scatter_tensor",
+                        lambda out, x, group=None: out.copy_(
+                            x[:out.shape[0]]))
+    monkeypatch.setattr(dist, "all_to_all_single",
+                        lambda out, x, group=None: out.copy_(x))
+
+
+def _fake_mesh(m):
+    """Rank 0 of a ``(1, m)`` mesh with stand-in groups."""
+    return Mesh((1, m), ("data", "model"), 0,
+                {("data",): None, ("model",): "model",
+                 ("data", "model"): "model"})
+
+
+def _collective_run(monkeypatch, cfg, m, aux):
+    """The sharded step of ``cfg`` (fp32, LoRA r 4 over every target and
+    ``xwq`` / ``xwo``) on rank 0 of a ``(1, m)`` ``tp`` mesh over a mixed
+    batch: ft 2 x 16, prefill 2 x 16, 3 decode rows on 24-slot rows.
+    Returns the recorded bytes and the bucket sizes."""
+    from repro_torch.checkpoint.io import shard_bank, shard_params
+    from repro_torch.core.lora import LoRAConfig, init_lora_bank
+    from repro_torch.core.unified import make_forward_step
+    from repro_torch.models.schema import init_params, lora_targets
+    from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
+        UnifiedBatch
+    _fake_collectives(monkeypatch)
+    mesh = _fake_mesh(m)
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = init_params(cfg, gen, device=cpu, dtype=torch.float32)
+    lc = LoRAConfig(n_slots=4, r=4, targets=LoRAConfig().targets
+                    + ("xwq", "xwo"))
+    bank = init_lora_bank(lora_targets(cfg, lc.targets), lc, gen, cpu,
+                          torch.float32, gaussian_b=True)
+    i32 = lambda *v: torch.tensor(v, dtype=torch.int32)
+    tok = lambda *s: torch.randint(0, cfg.vocab, s, generator=gen,
+                                   dtype=torch.int32)
+    src = (lambda: torch.randn(2, aux, cfg.d_model, generator=gen)) \
+        if aux else (lambda: None)
+    Bf, Sf, Bp, Sp, Bd = 2, 16, 2, 16, 3
+    batch = UnifiedBatch(
+        ft=FTBatch(tokens=tok(Bf, Sf), mask=torch.ones(Bf, Sf,
+                                                       dtype=torch.bool),
+                   labels=tok(Bf, Sf), adapter=i32(0, 1),
+                   weight=torch.ones(Bf), aux_embed=src()),
+        pf=PFBatch(tokens=tok(Bp, Sp), length=i32(13, 9),
+                   adapter=i32(1, -1), aux_embed=src()),
+        dec=DECBatch(tokens=tok(Bd), pos=i32(5, 11, 0), adapter=i32(0, 1,
+                                                                    -1)))
+    cache = S.shard_cache(cfg, TM.init_cache(cfg, Bd + Bp, 24, cpu,
+                                             torch.float32), mesh)
+    S.reset_collective_log()
+    make_forward_step(cfg, block_t=8, mesh=mesh, strategy="tp")(
+        shard_params(params, cfg, mesh, "tp"), shard_bank(bank, mesh),
+        torch.ones(4), batch, cache)
+    return S.collective_log(), (Bf, Sf, Bp, Sp, Bd), lc.r
+
+
+def _head_bytes(cfg, m, Bf, Sf, Bp, Bd):
+    """The head's collectives (vocab over "model"), fp32: the decode and
+    prefill logits all-gathered; the ft CE's max, then its sum and label
+    pick all-reduced."""
+    ag = (Bd + Bp) * cfg.vocab // m * 4
+    ar = Bf * (Sf - 1) * 4 + 2 * Bf * (Sf - 1) * 4
+    return ar, ag
+
+
+def test_collective_bytes_of_a_cross_model_equal_the_hand_count(
+        monkeypatch):
+    """Reduced llama-3.2-vision-90b (5 layers, the fifth a cross layer) at
+    ``(1, 2)`` ``tp``: per layer the q/k/v shrinks in one all-reduce, ``wo``'s
+    shrink and base partial, the FFN's; on the cross layer ``xwq``'s shrink
+    and ``xwo``'s shrink and base partial (``xwk`` / ``xwv`` are plain
+    products over each rank's KV heads: no collective)."""
+    cfg = get_reduced("llama-3.2-vision-90b")
+    m = 2
+    got, (Bf, Sf, Bp, Sp, Bd), r = _collective_run(monkeypatch, cfg, m,
+                                                   cfg.n_img_tokens)
+    T, d, L = Bf * Sf + Bp * Sp + Bd, cfg.d_model, cfg.n_layers
+    ar = T * d                                       # embed
+    ar += L * (T * 3 * r + T * r + T * d + T * 2 * r + T * r + T * d)
+    ar += T * r + T * r + T * d                      # the cross sublayer
+    head_ar, head_ag = _head_bytes(cfg, m, Bf, Sf, Bp, Bd)
+    assert got == {"all-reduce": ar * 4 + head_ar, "all-gather": head_ag,
+                   "reduce-scatter": 0, "all-to-all": 0}
+
+
+def test_collective_bytes_of_mla_equal_the_hand_count(monkeypatch):
+    """Reduced deepseek-v2-236b with a dense FFN at ``(1, 4)`` ``tp``: per
+    layer ``wq`` / ``wdkv``'s shrinks in one all-reduce and ``wdkv``'s
+    LoRA B (its base is whole on every rank) all-gathered; decode's
+    absorbed queries all-gathered ([Bd, h/m, c + dr]) and every head's
+    partials sent to its rank in one all-to-all ([m, Bd, h/m, c + 2],
+    fp32); ``wo``'s shrink and base partial; the FFN's."""
+    cfg = get_reduced("deepseek-v2-236b").replace(moe=None, d_ff=512)
+    m = 4
+    got, (Bf, Sf, Bp, Sp, Bd), r = _collective_run(monkeypatch, cfg, m, 0)
+    T, d, L, h = Bf * Sf + Bp * Sp + Bd, cfg.d_model, cfg.n_layers, \
+        cfg.n_heads
+    c, dr = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_dim
+    ar = T * d + L * (T * 2 * r + T * r + T * d + T * 2 * r + T * r + T * d)
+    ag = L * (4 * r * (c + dr) // m + Bd * h // m * (c + dr))
+    a2a = L * Bd * h * (c + 2)
+    head_ar, head_ag = _head_bytes(cfg, m, Bf, Sf, Bp, Bd)
+    assert got == {"all-reduce": ar * 4 + head_ar,
+                   "all-gather": ag * 4 + head_ag, "reduce-scatter": 0,
+                   "all-to-all": a2a * 4}
