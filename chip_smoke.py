@@ -392,11 +392,32 @@ printing its lines; any failure raises and exits non-zero:
              qwen) or the bf16 tolerance (maverick); and a planted fault
              (llama ``(1, 4)``, model ranks 1-3 drop their LoRA shrink
              partials, 4 decode steps) that those gates must catch.
+             The cache layouts (``make_forward_step(...,
+             cache_strategy=)``): phase 15 adds ``LAYOUTS_LOCAL``, the
+             ``(1, 1)`` arms where both layouts are the whole row
+             (phi3-medium-14b 2 layers, "auto"; llama3-8b 2 layers,
+             "seq": its decode through split-K's partial and merge
+             kernels on one rank), against the plain step; ``--mesh``
+             adds (h) ``phi3``: phi3-medium-14b bf16 40 layers at ``(1,
+             4)`` tp, 10 query heads a card and its 10 KV heads cut by the
+             head dim, 8 x 1024 and 16 steps, against one card; (i)
+             ``seq``: llama3-8b at ``(1, 4)`` tp and ``(2, 2)`` fsdp_tp
+             with ``cache_strategy="seq"``, 4 x 8192 and 16 steps,
+             against one card and against the "auto" layout at ``(1,
+             4)`` on the same prompts, and a planted fault (model ranks
+             1-3 drop their decode partials, ``model.seq_partials``);
+             (j) ``seq_window``: (g) under "seq"; (k) ``seq_vlm``: the
+             VLM at 10 layers at ``(1, 4)`` under "seq" (``xk``/``xv``'s
+             1600 patches 400 a card), against one card.  These print
+             the layouts' collective operand bytes a step beside their
+             hand count (``layout_terms``), and gate flash on every rank
+             and, on a "seq" decode, split-K's merge once a layer a step.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-15 that launched it: full, spec, long, long_spec, dense,
-train, tiers, paging, fleet, window, mesh, archs, archs_mla, archs_mamba,
+train, tiers, paging, fleet, window, mesh, mesh_families, mesh_layouts,
+archs, archs_mla, archs_mamba,
 archs_cross (the MLA, Mamba and cross arms with their grad steps) and
 examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
@@ -5639,6 +5660,11 @@ SPLIT_COUNTERS = ("smlm_shrink", "smlm_expand", "bgmv_shrink",
 # across the model axis), no GQA attention kernel
 MESH_NEED = SPLIT_COUNTERS + ("flash", "dense_decode")
 MLA_NEED = SPLIT_COUNTERS + ("merge",)
+# KV rows cut by the head dim: decode is plain PyTorch over the partial
+# scores' all-reduce (no single-rank kernel computes a score cut over
+# ranks); by the slots: split-K's partial and merge kernels
+HD_NEED = SPLIT_COUNTERS + ("flash",)
+SEQ_NEED = SPLIT_COUNTERS + ("flash", "partials", "merge")
 
 
 def free_port() -> int:
@@ -5715,7 +5741,8 @@ def mesh_weights(cfg, mesh, strategy, dev, dtype=torch.bfloat16, seed=0,
 
 
 def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
-                  dtype=torch.bfloat16, profile=False):
+                  dtype=torch.bfloat16, profile=False, cache_strategy="auto",
+                  s_max=None):
     """A cold prefill of the prompt rows into dense rows (this rank's shard
     of them under a mesh: ``sharding.shard_cache``), then ``n_decode``
     greedy decode steps, every logit row on the host.  Returns the rows
@@ -5725,15 +5752,17 @@ def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
     bytes over the whole run (``roofline.analysis.memory_summary``).  With
     ``profile`` one more decode step (the last one's inputs again, its
     logits unused) runs under ``torch.profiler``, whose host and device
-    top operations come back as ``profile``."""
+    top operations come back as ``profile``.  The rows hold ``s_max``
+    slots (default: the prompt and its decode steps), cut under
+    ``cache_strategy``."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.models.model import init_cache
     from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
     toks, lens, ad, aux = prompts
     B, S = toks.shape
-    cache = init_cache(cfg, B, S + n_decode, dev, dtype)
+    cache = init_cache(cfg, B, s_max or S + n_decode, dev, dtype)
     if mesh is not None:
-        cache = SH.shard_cache(cfg, cache, mesh)
+        cache = SH.shard_cache(cfg, cache, mesh, strategy=cache_strategy)
     params, bank, scale = weights
     length = torch.tensor(lens, device=dev)
     adapter = torch.tensor(ad, device=dev)
@@ -5888,12 +5917,15 @@ def gather_stats(obj):
 
 def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
              seed=0, profile=False, int8=False, need=MESH_NEED,
-             dtype=torch.bfloat16):
+             dtype=torch.bfloat16, cache_strategy="auto", s_max=None):
     """One sharded arm on this rank: weights drawn and cut, prefill and
-    greedy decode, the kernels of ``need`` (the split LoRA entries, flash
-    and dense decode; MLA's: the split entries and the merge) launched on
-    this rank (raises otherwise).  Rank 0 prints the per-card lines.
-    Returns rank 0's result (None elsewhere)."""
+    greedy decode with the rows cut under ``cache_strategy``, the kernels
+    of ``need`` (the split LoRA entries, flash and dense decode; MLA's: the
+    split entries and the merge; ``HD_NEED`` / ``SEQ_NEED`` for rows cut by
+    the head dim / the slots) launched on this rank (raises otherwise),
+    and on rows cut by the slots split-K's merge once a layer (and a cross
+    layer) a decode step.  Rank 0 prints the per-card lines.  Returns rank
+    0's result (None elsewhere)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
     t0 = time.perf_counter()
@@ -5901,10 +5933,11 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
                            int8=int8)
     setup = time.perf_counter() - t0
     step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
-                             strategy=strategy)
+                             strategy=strategy, cache_strategy=cache_strategy)
     mesh_reset(K)
     res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
-                        dtype, profile=profile)
+                        dtype, profile=profile, cache_strategy=cache_strategy,
+                        s_max=s_max)
     counts = mesh_counts(K, need)
     del weights, step
     gc.collect()
@@ -5912,6 +5945,15 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
     if dev.type == "cuda" and min(counts.values()) == 0:
         raise AssertionError(f"{label} rank {dist.get_rank()}: a kernel of "
                              f"the sharded path did not launch: {counts}")
+    terms = layout_terms(cfg, mesh, cache_strategy, prompts[0].shape[0],
+                         s_max or prompts[0].shape[1] + n_decode, dtype, dev)
+    steps = n_decode + (1 if profile and n_decode else 0)   # + profiled
+    if dev.type == "cuda" and "seq" in terms["layouts"].values() and \
+            counts["merge"] != steps * terms["seq_layers"]:
+        raise AssertionError(f"{label} rank {dist.get_rank()}: split-K's "
+                             f"merge launched {counts['merge']} times, not "
+                             f"once a layer a decode step "
+                             f"({steps} x {terms['seq_layers']})")
     stats = gather_stats(dict(resident=res["resident"], peak=res["peak"],
                               prefill=res["prefill"],
                               decode=res["decode"], coll=res["coll"],
@@ -5948,6 +5990,10 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
               f"step_cost(kind={kind}, seq_len={seq}, batch={B}, dp={dp}, "
               f"tp={tp}, strategy={strategy}) coll detail (bytes sent a "
               f"card) { {k: float(v) for k, v in coll.items()} }")
+        print(f"mesh: {label} {shape} {strategy} cache_strategy="
+              f"{cache_strategy} layouts {terms['layouts']} {kind}: the "
+              f"layouts' own collective operand bytes a step by hand (card "
+              f"0, beside the recorded totals above) {terms[kind]}")
         print(f"costs: mesh {label} {cfg.name} {shape} {strategy} {kind} "
               f"step_cost flops={r.flops:.6e} hbm_bytes={r.hbm_bytes:.6e} "
               f"coll_bytes={r.coll_bytes:.6e} compute_ms="
@@ -5958,26 +6004,103 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
     return res
 
 
-def planted_fault(K, cfg, mesh, prompts, n_decode, dev):
-    """The llama arm once more at ``(1, 4)`` ``tp`` with a planted sharding
-    fault in the LoRA term: model ranks 1-3 hand zeros to the shrinks'
-    all-reduce (``ops.lora_shrink`` wrapped here), so every projection
-    expands rank 0's partial shrink alone.  Returns rank 0's rows (None
+def layout_terms(cfg, mesh, cache_strategy, B, s_max, dtype, dev):
+    """The collective operand bytes a step that the head-dim and sequence
+    layouts add on card 0 (its rows of ``B``), by hand from the shapes, by
+    kind: a decode step's query all-gather where ``wq`` is cut, and on rows
+    cut by the head dim the partial scores' fp32 all-reduce [B, h, S] and
+    the outputs' all-gather [B, h, hd/m]; on rows cut by the slots the new
+    token's K/V all-gather where ``wk`` is cut and the fp32 partials [B,
+    ns, h, hd + 2] in an all-to-all (an all-gather where ``wq`` is whole);
+    a prefill's K/V all-to-all to the slots' ranks where ``wk`` is cut
+    (the rows' ``s_max`` slots; a cross layer's source).  Also the layouts
+    of the KV and cross rows and the count of layers whose decode merges
+    partials (``seq_layers``)."""
+    from repro_torch.distributed.sharding import KINDS, kv_layout
+    from repro_torch.kernels import autotune
+    from repro_torch.launch.mesh import axis_size, batch_axes
+    from repro_torch.models import model as TM
+    from repro_torch.models.schema import cross_len
+    m = mesh.shape["model"]
+    D = axis_size(mesh, batch_axes(mesh))
+    b = B // D if B % D == 0 else B
+    e = torch.empty((), dtype=dtype).element_size()
+    h, g, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hl = h // m if h % m == 0 else h
+    gl = g // m if g % m == 0 else g
+    idx = TM.layer_index(cfg)
+    out = {"prefill": dict.fromkeys(KINDS, 0),
+           "decode": dict.fromkeys(KINDS, 0), "layouts": {}, "seq_layers": 0}
+    dec, pf = out["decode"], out["prefill"]
+    for name, n, slots in (
+            ("k", sum(1 for i in idx if i[0] == "attn"),
+             TM.cache_seq_len(cfg, s_max)),
+            ("xk", sum(1 for i in idx if i[2] is not None),
+             cross_len(cfg) if is_cross(cfg) else 0)):
+        if not n or cfg.mla is not None:
+            continue
+        lay = kv_layout(cfg, slots, hd, m, cache_strategy)
+        out["layouts"][name] = lay
+        if lay == "seq":
+            out["seq_layers"] += n
+        if m == 1 or lay == "heads":
+            continue
+        if hl < h:
+            dec["all-gather"] += n * b * hl * hd * e
+        if lay == "head_dim":
+            dec["all-reduce"] += n * b * h * slots * 4
+            dec["all-gather"] += n * b * h * (hd // m) * e
+            continue
+        sl = slots // m
+        bs = TM._rows_block(sl)
+        ns = autotune.choose(hd, bs, sl // bs, b * g,
+                             lanes=autotune.effective_lanes(dev)).num_splits
+        part = n * b * ns * h * (hd + 2) * 4
+        dec["all-to-all" if hl < h else "all-gather"] += part
+        if gl < g:
+            pf["all-to-all"] += n * 2 * b * slots * gl * hd * e
+            if name == "k":
+                dec["all-gather"] += n * 2 * b * gl * hd * e
+    return out
+
+
+def planted_fault(K, cfg, mesh, prompts, n_decode, dev, kind="lora",
+                  s_max=None):
+    """An arm once more at ``(1, 4)`` ``tp`` with a planted sharding fault:
+    ``"lora"``, model ranks 1-3 hand zeros to the shrinks' all-reduce
+    (``ops.lora_shrink`` wrapped here), so every projection expands rank
+    0's partial shrink alone; ``"seq"``, rows cut by the slots
+    (``cache_strategy="seq"``) and model ranks 1-3 drop their decode
+    partials (``model.seq_partials`` wrapped: empty partials), so every
+    head attends over rank 0's slots alone.  Returns rank 0's rows (None
     elsewhere)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
-    ops = K["ops"]
-    shrink = ops.lora_shrink
+    from repro_torch.models import model as TM
+    host, attr = (K["ops"], "lora_shrink") if kind == "lora" else \
+        (TM, "seq_partials")
+    orig = getattr(host, attr)
     mine = mesh.coords["model"] == 0
-    ops.lora_shrink = lambda x, a, rt: (shrink(x, a, rt) if mine else
-                                        torch.zeros_like(shrink(x, a, rt)))
+
+    def dropped(*a):
+        out = orig(*a)
+        if mine:
+            return out
+        if kind == "lora":
+            return torch.zeros_like(out)
+        o, mx, l = out
+        return (torch.zeros_like(o), torch.full_like(mx, -1e30),
+                torch.zeros_like(l))
+    setattr(host, attr, dropped)
+    cs = "seq" if kind == "seq" else "auto"
     try:
         weights = mesh_weights(cfg, mesh, "tp", dev)
         step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
-                                 strategy="tp")
-        res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev)
+                                 strategy="tp", cache_strategy=cs)
+        res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
+                            cache_strategy=cs, s_max=s_max)
     finally:
-        ops.lora_shrink = shrink
+        setattr(host, attr, orig)
     del weights, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -5996,14 +6119,14 @@ def finite_rows(label, rows):
 
 
 def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0,
-                 int8=False, dtype=torch.bfloat16):
+                 int8=False, dtype=torch.bfloat16, s_max=None):
     """The same weights whole on this rank's card, the plain step."""
     from repro_torch.core.unified import make_forward_step
     weights = mesh_weights(cfg, None, None, dev, dtype, seed=seed,
                            int8=int8)
     step = make_forward_step(cfg, block_t=K["block_t"])
     res = mesh_generate(cfg, step, weights, None, prompts, n_decode, dev,
-                        dtype)
+                        dtype, s_max=s_max)
     del weights, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -6034,12 +6157,18 @@ def mesh_rank(rank, world, port, only):
         m14 = init_mesh((1, 4), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
         m22 = init_mesh((2, 2), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
         lead = rank == 0
-        # every group's NCCL communicator is made at its first collective:
-        # make them all before anything is timed
+        # every group's NCCL communicator is made at its first collective,
+        # and its all-to-all connections at its first all-to-all: make
+        # them all before anything is timed
         for mesh in (m14, m22):
             for g in mesh.groups.values():
                 if g is not None:
                     dist.all_reduce(torch.zeros(1, device=dev), group=g)
+                    n = dist.get_world_size(g)
+                    if n > 1:
+                        x = torch.zeros(n, device=dev)
+                        dist.all_to_all_single(torch.empty_like(x), x,
+                                               group=g)
         torch.cuda.synchronize(dev)
 
         def one_card(label, cfg, prompts, n_decode, **kw):
@@ -6201,6 +6330,94 @@ def mesh_rank(rank, world, port, only):
             gate("mesh: window 8192, 16384-token prompt, 1x4 tp vs one card",
                  "one_card", ref, "mesh", res, n_tok(p, 16))
             del res, ref
+        if "phi3" in only:
+            # phi3-medium-14b, 29.3 GB in bf16: its 40 query heads divide
+            # 4, its 10 KV heads do not, so wk / wv are whole on every card
+            # and the KV rows are cut by the head dim
+            cfg = get_config("phi3-medium-14b")
+            p = mesh_prompts(cfg, 8, 1024, seed=11)
+            res = mesh_arm(K, "phi3", cfg, m14, "tp", p, 16, dev,
+                           need=HD_NEED)
+            ref = one_card("phi3", cfg, p, 16)
+            gate("mesh: phi3 40 layers 1x4 tp (KV rows cut by the head dim) "
+                 "vs one card", "one_card", ref, "mesh", res, n_tok(p, 16))
+            del res, ref
+        if "seq" in only:
+            # llama3-8b, 4 x 8192 prompts, rows cut by the slots: 2048 a
+            # card of 8192 + 64 slots (a multiple of 64 a card, split-K's
+            # block)
+            cfg = get_config("llama3-8b")
+            p = mesh_prompts(cfg, 4, 8192, seed=12)
+            sm = 8192 + 64 * 4
+            got = {key: mesh_arm(K, "seq", cfg, mesh, st, p, 16, dev,
+                                 need=SEQ_NEED, cache_strategy="seq",
+                                 s_max=sm, profile=key == "1x4 tp")
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            auto = mesh_arm(K, "seq_auto", cfg, m14, "tp", p, 16, dev,
+                            s_max=sm, profile=True)
+            ref = one_card("seq", cfg, p, 16, s_max=sm)
+            for key, res in got.items():
+                gate(f"mesh: seq {key} (rows cut by the slots) vs one card",
+                     "one_card", ref, "mesh", res, n_tok(p, 16))
+            gate("mesh: seq_auto 1x4 tp (rows cut by the KV heads) vs one "
+                 "card", "one_card", ref, "mesh", auto, n_tok(p, 16))
+
+            def side_by_side():
+                for name, r in (("seq", got["1x4 tp"]), ("auto", auto)):
+                    print(f"mesh: seq vs auto, llama3-8b 1x4 tp 4 x 8192, "
+                          f"{name} layout card 0: decode "
+                          f"{tick_ms(r['decode'])} collective operand "
+                          f"bytes a decode step {r['coll']['decode']}, a "
+                          f"prefill {r['coll']['prefill']}")
+            verdict(side_by_side)
+            del got, auto
+            bad = planted_fault(K, cfg, m14, p, 4, dev, kind="seq", s_max=sm)
+
+            def caught_seq():
+                label = ("mesh: seq 1x4 tp with a planted fault (model ranks "
+                         "1-3 drop their decode partials) vs one card")
+                worst, _, ulps = compare_rows(label, "one_card", ref["rows"],
+                                              "fault", bad["rows"],
+                                              n_tok(p, 4))
+                # the first step is the prefill, which reads no rows: the
+                # fault shows from the first decode step on
+                err = max(float((a[1] - b[1]).abs().max())
+                          for r in ref["rows"] for a, b in
+                          zip(ref["rows"][r][1:2], bad["rows"][r][1:2]))
+                top = max(float(ref["rows"][r][1][1].abs().max())
+                          for r in ref["rows"])
+                if err / top <= MESH_LOGIT_LIMIT and ulps <= NEAR_TIE_ULPS:
+                    raise AssertionError(
+                        f"{label}: the gates do not see it (first decode "
+                        f"step {err / top:.4g} of the max |logit|, "
+                        f"divergences {ulps:.3g} ulps)")
+                print(f"{label}: caught (first decode step {err / top:.4g} "
+                      f"of the max |logit| > {MESH_LOGIT_LIMIT:g} or "
+                      f"divergences {ulps:.3g} ulps > {NEAR_TIE_ULPS})")
+            verdict(caught_seq)
+            del ref, bad
+        if "seq_window" in only:
+            cfg = get_config("llama3-8b").replace(sliding_window=8192)
+            p = mesh_prompts(cfg, 1, 16384, seed=9)
+            res = mesh_arm(K, "seq_window", cfg, m14, "tp", p, 16, dev,
+                           need=SEQ_NEED, cache_strategy="seq", profile=True)
+            ref = one_card("seq_window", cfg, p, 16)
+            gate("mesh: seq_window 8192, 16384-token prompt, 1x4 tp (rolling "
+                 "rows cut by the slots) vs one card", "one_card", ref,
+                 "mesh", res, n_tok(p, 16))
+            del res, ref
+        if "seq_vlm" in only:
+            cfg = get_config("llama-3.2-vision-90b").replace(n_layers=10)
+            p = mesh_prompts(cfg, 4, 512, seed=6)
+            res = mesh_arm(K, "seq_vlm", cfg, m14, "tp", p, 8, dev,
+                           need=SEQ_NEED, cache_strategy="seq",
+                           s_max=512 + 64 * 4)
+            ref = one_card("seq_vlm", cfg, p, 8, s_max=512 + 64 * 4)
+            gate("mesh: seq_vlm 10 layers 1x4 tp (KV and cross rows cut by "
+                 "the slots) vs one card", "one_card", ref, "mesh", res,
+                 n_tok(p, 8))
+            del res, ref
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -6214,7 +6431,7 @@ def _split_entries():
 
 
 MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
-             "window")
+             "window", "phi3", "seq", "seq_window", "seq_vlm")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -6307,41 +6524,53 @@ def mesh_phase(K, cfg, weights, dev):
               f"prefill {tick_ms([res['prefill']])} decode "
               f"{tick_ms(res['decode'])} launches={counts} ok")
         fam = mesh_families_local(K, mesh, dev)
+        lay = mesh_families_local(K, mesh, dev, LAYOUTS_LOCAL)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
               "expert-parallel, llama-3.2-vision-90b at 100 layers, "
               "deepseek-v2-236b int8 at 60 layers, whisper-base, a windowed "
-              "llama3-8b) need --mesh on a host with four cards: python3 "
+              "llama3-8b; the cache layouts: phi3-medium-14b, llama3-8b, "
+              "the windowed llama3-8b and the VLM under cache_strategy "
+              "'seq') need --mesh on a host with four cards: python3 "
               "chip_smoke.py --mesh")
-        return counts, fam
+        return counts, fam, lay
     finally:
         dist.destroy_process_group()
 
 
 # phase 15's one-card arms of the other families, each through the sharded
 # step on the (1, 1) mesh against the plain step: (label, arch, config
-# changes, int8, prompts B x S, decode steps)
+# changes, int8, prompts B x S, decode steps, cache strategy)
 FAMILY_LOCAL = (
-    ("vlm", "llama-3.2-vision-90b", dict(n_layers=5), False, 4, 256, 8),
-    ("dsv2", "deepseek-v2-236b", dict(n_layers=2), True, 4, 256, 8),
-    ("whisper", "whisper-base", {}, False, 4, 256, 8),
+    ("vlm", "llama-3.2-vision-90b", dict(n_layers=5), False, 4, 256, 8,
+     "auto"),
+    ("dsv2", "deepseek-v2-236b", dict(n_layers=2), True, 4, 256, 8, "auto"),
+    ("whisper", "whisper-base", {}, False, 4, 256, 8, "auto"),
     ("window", "llama3-8b", dict(n_layers=2, sliding_window=8192), False, 2,
-     9000, 8))
+     9000, 8, "auto"))
+# and of the cache layouts: on one rank both are the whole row; "seq" still
+# decodes through split-K's partial and merge kernels (256 slots: 64-slot
+# blocks)
+LAYOUTS_LOCAL = (
+    ("phi3", "phi3-medium-14b", dict(n_layers=2), False, 4, 256, 8, "auto"),
+    ("seq", "llama3-8b", dict(n_layers=2), False, 4, 240, 16, "seq"))
 
 
-def mesh_families_local(K, mesh, dev):
-    """Phase 15's ``FAMILY_LOCAL`` arms on the ``(1, 1)`` ``mesh``: each
+def mesh_families_local(K, mesh, dev, arms=FAMILY_LOCAL):
+    """Phase 15's ``FAMILY_LOCAL`` (or ``LAYOUTS_LOCAL``) arms on the ``(1,
+    1)`` ``mesh``, the rows cut under each arm's cache strategy: each
     config's weights whole on the card (an int8 one quantized leaf by
     leaf), prefill and greedy decode through the plain step and through
     the sharded step; the sharded run's first-step logits within
     ``MESH_LOGIT_LIMIT`` of a row's max and its divergences near ties, the
     split SMLM / BGMV entries launched and the fused calls not, flash and
     dense decode launched (MLA: split-K's merge kernel, its decode's merge
-    over the model axis).  Returns the arms' launches summed."""
+    over the model axis; "seq": split-K's partial and merge kernels, not
+    dense decode).  Returns the arms' launches summed."""
     from repro_torch.configs import get_config
     from repro_torch.core.unified import make_forward_step
     total = {}
-    for label, arch, change, int8, B, S, n in FAMILY_LOCAL:
+    for label, arch, change, int8, B, S, n, cs in arms:
         cfg = get_config(arch).replace(**change)
         t0 = time.perf_counter()
         w = mesh_weights(cfg, None, None, dev, int8=int8)
@@ -6351,21 +6580,25 @@ def mesh_families_local(K, mesh, dev):
             cfg, block_t=K["block_t"]), w, None, p, n, dev)
         mesh_reset(K)
         res = mesh_generate(cfg, make_forward_step(
-            cfg, block_t=K["block_t"], mesh=mesh, strategy="tp"), w, mesh,
-            p, n, dev)
+            cfg, block_t=K["block_t"], mesh=mesh, strategy="tp",
+            cache_strategy=cs), w, mesh, p, n, dev, cache_strategy=cs)
         counts = read_counts(K)
         counts.update(mesh_counts(K, SPLIT_COUNTERS))
         del w
         gc.collect()
         torch.cuda.empty_cache()
         name = (f"mesh: (1, 1) {label} {cfg.name} "
-                f"{'int8' if int8 else 'bf16'} {cfg.n_layers} layers")
+                f"{'int8' if int8 else 'bf16'} {cfg.n_layers} layers "
+                f"cache_strategy={cs}")
         same_rows(f"{name}, the sharded step vs the plain step", "plain",
                   plain["rows"], "mesh", res["rows"], torch.bfloat16,
                   B * (n + 1), MESH_LOGIT_LIMIT)
-        need = MLA_NEED if cfg.mla is not None else MESH_NEED
+        need = (MLA_NEED if cfg.mla is not None else
+                SEQ_NEED if cs == "seq" else MESH_NEED)
         fused = {k: counts[k] for k in ("smlm", "bgmv") if counts[k]}
         missing = [k for k in need if not counts[k]]
+        if cs == "seq" and counts["dense_decode"]:
+            missing.append("dense_decode 0")
         if fused or missing:
             raise AssertionError(f"{name}: the sharded step launched the "
                                  f"fused LoRA calls {fused} or not "
@@ -6584,9 +6817,10 @@ def main() -> int:
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        _, fam = mesh_phase(K, cfg, full_weights(cfg, dev, torch.bfloat16),
-                            dev)
+        _, fam, lay = mesh_phase(K, cfg, full_weights(cfg, dev,
+                                                      torch.bfloat16), dev)
         print(f"mesh: (1, 1) family arms' launches summed: {fam}")
+        print(f"mesh: (1, 1) layout arms' launches summed: {lay}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -6626,8 +6860,8 @@ def main() -> int:
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
-    by_path["mesh"], by_path["mesh_families"] = mesh_phase(K, cfg, weights,
-                                                           dev)
+    by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"] = \
+        mesh_phase(K, cfg, weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
     by_path["examples"] = examples_phase(K, dev, measured)
@@ -6647,9 +6881,10 @@ def main() -> int:
             **({"split_launches_by_path": {
                 p: {k: by_path[p][k] for k in SPLIT_COUNTERS
                     if k.startswith(name + "_")}
-                for p in ("mesh", "mesh_families")}}
+                for p in ("mesh", "mesh_families", "mesh_layouts")}}
                if name in ("smlm", "bgmv") else {}),
-            # the merge kernel alone: MLA's decode under a mesh
+            # the merge kernel alone: MLA's decode under a mesh, and a GQA
+            # decode over rows cut by the slots (mesh_layouts)
             **({"merge_launches_by_path": {
                 p: c["merge"] for p, c in by_path.items() if c["merge"]}}
                if name == "paged_splitk" else {}),

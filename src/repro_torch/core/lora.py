@@ -144,14 +144,22 @@ def dense_col(x: torch.Tensor, items, rt: Optional[LoraRoute], mesh
 
 def dense_row(x: torch.Tensor, w: torch.Tensor,
               lora: Optional[Dict[str, torch.Tensor]],
-              rt: Optional[LoraRoute], mesh) -> torch.Tensor:
+              rt: Optional[LoraRoute], mesh, whole: bool = False
+              ) -> torch.Tensor:
     """A row-parallel projection under a mesh: ``x`` [T, d_in/m] this rank's
     slice of the contraction, ``w`` [d_in/m, d_out].  The base partial and
     the LoRA expand at the rank's own columns (``b`` [n, r, d_out/m]; a
     whole ``b`` is added by model rank 0 alone) are summed in one
-    all-reduce over "model", after the shrinks' all-reduce.  Returns the
-    whole [T, d_out] on every rank."""
+    all-reduce over "model", after the shrinks' all-reduce.  With
+    ``whole`` the base is whole on every rank (a ``wo`` whose query heads
+    do not divide the model axis, so every rank ran every head): ``x`` [T,
+    d_in] and ``w`` [d_in, d_out] whole, no base collective, and the LoRA
+    term is ``dense_col``'s "b split, the base whole" case (a cut ``a``
+    shrinks x's slice, all-reduced; a cut ``b`` is all-gathered).  Returns
+    the whole [T, d_out] on every rank."""
     from repro_torch.distributed.sharding import all_reduce
+    if whole:
+        return dense_col(x, [(w, None, lora)], rt, mesh)[0]
     m, mi = mesh.shape["model"], mesh.coords["model"]
     y = x @ w
     if lora is not None and rt is not None:

@@ -44,22 +44,29 @@ class StepOut(NamedTuple):
 
 
 def make_forward_step(cfg: ModelConfig, *, block_t: int, mesh=None,
-                      strategy: str = "tp", attn_chunk: int = 0,
+                      strategy: str = "tp", cache_strategy: str = "auto",
+                      attn_chunk: int = 0,
                       return_ft_logits: bool = False) -> Callable:
     """Inference-only unified step (serve/prefill/decode/eval).  With a
     ``mesh`` (``launch.mesh.init_mesh``) the step runs on one rank of it:
     ``base`` and ``bank`` are this rank's shards (``checkpoint.io.
     shard_params(..., strategy)`` / ``shard_bank``), ``batch`` the whole
     ``UnifiedBatch`` and ``cache`` this rank's shard
-    (``distributed.sharding.shard_cache``); it returns the single-device
-    step's logits, ft loss sums and aux loss on every rank, and the local
-    cache.  Any mesh takes that sharded path; on a mesh whose axes are all
-    1 every collective is the identity."""
-    from repro_torch.distributed.sharding import mesh_context
+    (``distributed.sharding.shard_cache(..., strategy=cache_strategy)``:
+    ``"auto"`` or ``"seq"``, the layouts of JAX dryrun's
+    ``cache_strategy``; a shard of the other layout raises); it returns the
+    single-device step's logits, ft loss sums and aux loss on every rank,
+    and the local cache.  Any mesh takes that sharded path; on a mesh whose
+    axes are all 1 every collective is the identity."""
+    from repro_torch.distributed.sharding import CACHE_STRATEGIES, \
+        mesh_context
+    if cache_strategy not in CACHE_STRATEGIES:
+        raise ValueError(f"cache_strategy {cache_strategy!r}: one of "
+                         f"{CACHE_STRATEGIES}")
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> ModelOut:
         scope = (contextlib.nullcontext() if mesh is None
-                 else mesh_context(mesh, strategy))
+                 else mesh_context(mesh, strategy, cache_strategy))
         with torch.inference_mode(), scope:
             return unified_forward(cfg, base, batch, cache, loras=bank,
                                    lora_scale=scale, block_t=block_t,

@@ -10,6 +10,12 @@ bank (``lora_shardings``), the cache dict of named leaves ``[L_kind, rows,
 ...]`` (``cache_shardings``) and the buckets of a ``UnifiedBatch``
 (``batch_shardings``).
 
+Cache strategies (JAX dryrun's ``cache_strategy``): "auto" cuts a KV leaf
+by its KV heads when their count divides "model", else by the head dim,
+else by the slots; "seq" cuts the slots first (the flash-decoding layout).
+``kv_layout`` names the layout, ``shard_layout`` reads it back from a
+shard and refuses a shard of the other one.
+
 Strategies:
   "tp"      — tensor parallel over the "model" axis only; params replicated
               across data/pod.
@@ -165,14 +171,9 @@ def cache_shardings(cfg: ModelConfig, cache: Dict, mesh: Mesh,
         if x.shape[1] % bsz == 0 and x.shape[1] > 1:
             dims[1] = bx
         if key in ("k", "v", "xk", "xv"):
-            if strategy == "seq" and x.shape[2] % msize == 0:
-                dims[2] = "model"
-            elif cfg.n_kv_heads % msize == 0:
-                dims[3] = "model"
-            elif x.shape[4] % msize == 0:
-                dims[4] = "model"
-            elif x.shape[2] % msize == 0:
-                dims[2] = "model"
+            cut = kv_layout(cfg, x.shape[2], x.shape[4], msize, strategy)
+            if cut is not None:
+                dims[LAYOUT_DIM[cut]] = "model"
         elif key in ("ckv", "kpe"):
             if x.shape[2] % msize == 0:
                 dims[2] = "model"
@@ -185,6 +186,61 @@ def cache_shardings(cfg: ModelConfig, cache: Dict, mesh: Mesh,
         return tuple(dims)
 
     return {key: leaf_spec(key, x) for key, x in cache.items()}
+
+
+# the dimension of a ``k``/``v``/``xk``/``xv`` leaf [L, rows, S, g, hd] that
+# each layout cuts over "model"
+LAYOUT_DIM = {"seq": 2, "heads": 3, "head_dim": 4}
+CACHE_STRATEGIES = ("auto", "seq")
+
+
+def kv_layout(cfg: ModelConfig, n_slots: int, hd: int, m: int,
+              strategy: str = "auto") -> Optional[str]:
+    """The layout ``cache_shardings`` gives a ``k``/``v``/``xk``/``xv`` leaf
+    of ``n_slots`` slots under a model axis of ``m``: ``"seq"`` (the
+    slots; first under ``strategy="seq"``), ``"heads"`` (the KV heads, when
+    their count divides the axis), ``"head_dim"``, or None (nothing
+    divides: the leaf stays whole)."""
+    if strategy not in CACHE_STRATEGIES:
+        raise ValueError(f"cache_strategy {strategy!r}: one of "
+                         f"{CACHE_STRATEGIES}")
+    if strategy == "seq" and n_slots % m == 0:
+        return "seq"
+    if cfg.n_kv_heads % m == 0:
+        return "heads"
+    if hd % m == 0:
+        return "head_dim"
+    if n_slots % m == 0:
+        return "seq"
+    return None
+
+
+def shard_layout(cfg: ModelConfig, key: str, dims, mesh: Mesh,
+                 strategy: str = "auto") -> str:
+    """The layout of this rank's shard of a ``k``/``v``/``xk``/``xv`` leaf,
+    read from its trailing dims ``(S, g, hd)`` (a cut KV-head or head-dim
+    axis, else the slots), checked against the layout ``strategy`` gives
+    the whole leaf: a shard of the other layout raises a ``ValueError``
+    that names both, so it is never read as the wrong one.  On a model axis
+    of 1 every layout is the whole row, and the strategy's is taken."""
+    m = mesh.shape["model"]
+    S, g, hd = (int(d) for d in dims[-3:])
+    if m == 1:
+        return kv_layout(cfg, S, hd, 1, strategy)
+    if g < cfg.n_kv_heads:
+        got, whole = "heads", S
+    elif hd < cfg.hd:
+        got, whole = "head_dim", S
+    else:
+        got, whole = "seq", S * m
+    want = kv_layout(cfg, whole, cfg.hd, m, strategy)
+    if got != want:
+        raise ValueError(
+            f"a {key} shard [.., {S}, {g}, {hd}] in the {got!r} layout given "
+            f"to cache_strategy {strategy!r}, whose layout is {want!r} "
+            f"(model axis {m}): shard the cache with the step's "
+            "cache_strategy")
+    return got
 
 
 def lora_shardings(bank, mesh: Mesh):
@@ -225,10 +281,16 @@ _AMBIENT: list = []
 
 
 @contextlib.contextmanager
-def mesh_context(mesh: Mesh, strategy: str = "fsdp_tp"):
-    """Install ``mesh`` (and the params' ``strategy``, which says which
-    leaves the forward finds sharded over "data") as the ambient mesh."""
-    _AMBIENT.append((mesh, strategy))
+def mesh_context(mesh: Mesh, strategy: str = "fsdp_tp",
+                 cache_strategy: str = "auto"):
+    """Install ``mesh`` (with the params' ``strategy``, which says which
+    leaves the forward finds sharded over "data", and the cache's
+    ``cache_strategy``, which says how ``shard_cache`` cut its KV rows) as
+    the ambient mesh."""
+    if cache_strategy not in CACHE_STRATEGIES:
+        raise ValueError(f"cache_strategy {cache_strategy!r}: one of "
+                         f"{CACHE_STRATEGIES}")
+    _AMBIENT.append((mesh, strategy, cache_strategy))
     try:
         yield mesh
     finally:
@@ -242,6 +304,10 @@ def ambient_mesh() -> Optional[Mesh]:
 
 def ambient_strategy() -> Optional[str]:
     return _AMBIENT[-1][1] if _AMBIENT else None
+
+
+def ambient_cache_strategy() -> str:
+    return _AMBIENT[-1][2] if _AMBIENT else "auto"
 
 
 # ---------------------------------------------------------------------------
@@ -415,26 +481,39 @@ def cache_rows(n_rows: int, segments, mesh: Mesh) -> list:
     return rows
 
 
-def _model_spec(cfg: ModelConfig, cache: Dict, mesh: Mesh) -> Dict:
-    """``cache_shardings`` (strategy ``auto``) with the rows left to
+def _model_spec(cfg: ModelConfig, cache: Dict, mesh: Mesh,
+                strategy: str = "auto") -> Dict:
+    """``cache_shardings`` under ``strategy`` with the rows left to
     ``cache_rows``."""
-    specs = cache_shardings(cfg, cache, mesh, "auto")
+    specs = cache_shardings(cfg, cache, mesh, strategy)
     return {k: tuple(None if d == 1 else e for d, e in enumerate(sp))
             for k, sp in specs.items()}
 
 
 def shard_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh,
-                segments=None) -> Dict:
+                segments=None, strategy: str = "auto") -> Dict:
     """This rank's shard of a whole dense-row cache: its ``cache_rows`` and
-    its block of the "model" axis as ``cache_shardings`` says (the KV
-    heads; MLA's latent ``ckv`` / ``kpe``: the slots, which must divide
-    the axis, as the sharded forward reads them cut)."""
+    its block of the "model" axis as ``cache_shardings(..., strategy)``
+    says: ``k``/``v``/``xk``/``xv`` by ``kv_layout`` (the KV heads, else
+    the head dim, else the slots; under ``strategy="seq"`` the slots
+    first), MLA's latent ``ckv`` / ``kpe`` by the slots under both.  A
+    leaf the rule would leave whole under a model axis > 1 (MLA's slots, or
+    a GQA leaf whose heads, head dim and slots all fail to divide it)
+    raises a ``ValueError``: the sharded forward reads every such leaf
+    cut."""
     m = mesh.shape["model"]
     for k in ("ckv", "kpe"):
         if k in cache and cache[k].shape[2] % m:
             raise ValueError(f"MLA's latent rows of {cache[k].shape[2]} "
                              f"slots do not divide the model axis {m}")
-    specs = _model_spec(cfg, cache, mesh)
+    for k in ("k", "v", "xk", "xv"):
+        if k in cache and kv_layout(cfg, cache[k].shape[2],
+                                    cache[k].shape[4], m, strategy) is None:
+            raise ValueError(
+                f"{k} rows [.., {cache[k].shape[2]}, {cfg.n_kv_heads}, "
+                f"{cache[k].shape[4]}]: neither the KV heads, the head dim "
+                f"nor the slots divide the model axis {m}")
+    specs = _model_spec(cfg, cache, mesh, strategy)
     out = {}
     for k, x in cache.items():
         rows = torch.tensor(cache_rows(x.shape[1], segments, mesh),
@@ -443,12 +522,31 @@ def shard_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh,
     return out
 
 
+def _shard_spec(cfg: ModelConfig, key: str, x: torch.Tensor, mesh: Mesh,
+                strategy: str) -> Spec:
+    """The "model" part of the spec of this rank's shard ``x`` of leaf
+    ``key``, read from the shard (``shard_layout``; MLA's latent: the
+    slots), the rows left to ``cache_rows``."""
+    dims = [None] * x.ndim
+    if mesh.shape["model"] > 1:
+        if key in ("k", "v", "xk", "xv"):
+            dims[LAYOUT_DIM[shard_layout(cfg, key, x.shape, mesh,
+                                         strategy)]] = "model"
+        elif key in ("ckv", "kpe"):
+            dims[2] = "model"
+        else:
+            dims = list(_model_spec(cfg, {key: x}, mesh, strategy)[key])
+    return tuple(dims)
+
+
 def gather_cache(cfg: ModelConfig, cache: Dict, mesh: Mesh, n_rows: int,
-                 segments=None) -> Dict:
-    """The whole cache from every rank's ``shard_cache`` block."""
+                 segments=None, strategy: str = "auto") -> Dict:
+    """The whole cache from every rank's ``shard_cache(..., strategy)``
+    block; a block of the other layout raises (``shard_layout``)."""
     bx = batch_axes(mesh)
     n = axis_size(mesh, bx)
-    specs = _model_spec(cfg, cache, mesh)
+    specs = {k: _shard_spec(cfg, k, x, mesh, strategy)
+             for k, x in cache.items()}
     out = {}
     for k, x in cache.items():
         x = gather(x, specs[k], mesh)

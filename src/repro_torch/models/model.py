@@ -78,10 +78,17 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   paths share the embedding lookup (``_embed``) and the head and loss
   (``_outputs``), whose collectives are the identity on one device, and
   every sublayer: GQA (windowed too), MLA, cross-attention and the
-  encoder take the ``mesh`` and run their heads column- and row-parallel.
-  MLA's latent rows are cut by slots over "model", so its decode is flash
-  decoding over the ranks (``_mla_decode_sharded``: ``mla_partials`` on
-  each rank, one all-to-all, split-K's merge kernel).
+  encoder take the ``mesh`` and run their heads column- and row-parallel,
+  or whole on every rank where a head count does not divide the model
+  axis (``_Heads``).  MLA's latent rows are cut by slots over "model", so
+  its decode is flash decoding over the ranks (``_mla_decode_sharded``:
+  ``mla_partials`` on each rank, one all-to-all, split-K's merge kernel).
+  GQA's ``k``/``v`` and the cross ``xk``/``xv`` rows are cut as
+  ``distributed.sharding.kv_layout`` says under the step's
+  ``cache_strategy``: by the KV heads; by the head dim, whose decode sums
+  the partial scores in one all-reduce (``_hd_decode``, plain PyTorch);
+  or by the slots, whose decode is flash decoding over the ranks with
+  split-K's partial and merge kernels (``_seq_decode``).
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
@@ -114,7 +121,8 @@ from repro_torch.kernels.decode_attn import paged_decode_attention
 from repro_torch.kernels.prefill_attn import paged_prefill_attention
 from repro_torch.kernels.splitk import (lse_merge,
                                         paged_decode_attention_splitk,
-                                        paged_verify_attention_splitk)
+                                        paged_verify_attention_splitk,
+                                        splitk_partials)
 from repro_torch.kernels.verify_attn import paged_verify_attention
 from repro_torch.models import layers as L
 from repro_torch.models import mamba as M
@@ -122,7 +130,8 @@ from repro_torch.models.configs import ModelConfig
 from repro_torch.models import quant
 from repro_torch.models.moe import EXPERT_STACKS, moe_apply
 from repro_torch.models.moe_dist import moe_apply_auto
-from repro_torch.models.schema import check_supported, cross_len, is_moe
+from repro_torch.models.schema import check_supported, cross_len, \
+    encoder_shapes, is_moe
 from repro_torch.models.stream import ModelOut, UnifiedBatch
 from repro_torch.training.optimizer import tree_leaves
 
@@ -145,6 +154,7 @@ class _Plan:
         else:
             self.Bd, self.Sd = 0, 1
         self.sizes = [self.Bf * self.Sf, self.Bp * self.Sp, self.Bd * self.Sd]
+        self._heads: Dict[tuple, "_Heads"] = {}
         self.T = sum(self.sizes)
         ids = []
         if ft is not None:
@@ -188,6 +198,14 @@ class _Plan:
             self.dec_qpos = dec.pos[:, None] + ard[None, :]
             self.dec_len = (dec.length if dec.length is not None
                             else torch.full_like(dec.pos, self.Sd))
+
+    def heads(self, cfg: ModelConfig, mesh, h: int, kv: int) -> "_Heads":
+        """This rank's ``_Heads`` for ``h`` query and ``kv`` KV heads (made
+        once a forward)."""
+        if (h, kv) not in self._heads:
+            self._heads[h, kv] = _Heads(cfg, mesh, h, kv, self.ids.device
+                                        if self.ids is not None else None)
+        return self._heads[h, kv]
 
     def split(self, x: torch.Tensor):
         """[T, ...] -> (xf [Bf, Sf, ...], xp [Bp, Sp, ...], xd [Bd, Sd,
@@ -427,9 +445,13 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     """``cache``: the layer's leaves, ``k``/``v`` of its paged pool
     ``[n_blocks, bs, g, hd]`` or dense rows ``[n_rows, sc, g, hd]``, as the
     buckets' tables say (None for an ft-only batch).  Under a ``mesh``
-    (``_sharded_forward``) every rank runs its h/m query and g/m KV heads
-    over its cache shard: ``wq``/``wk``/``wv`` column-parallel, ``wo``
-    row-parallel with its all-reduce."""
+    (``_sharded_forward``) every rank runs the query and KV heads of its
+    ``wq``/``wk``/``wv`` (column-parallel where the head count divides the
+    model axis, else whole: ``_Heads``) over its cache shard, in the layout
+    ``plan.kv_layout`` names: the KV heads (each rank's query heads read
+    its own), the head dim (``_hd_decode``) or the slots
+    (``_seq_decode``); ``wo`` row-parallel with its all-reduce, or whole
+    where ``wq`` is."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla is not None:
@@ -444,12 +466,14 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         return dense(xn, p[name], p.get(bias) if bias else None,
                      lr.get(name), plan.route)
 
+    heads, fit = None, (lambda t: t)
     if mesh is None:
         q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
     else:
-        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
         q, k, v = dense_col(xn, [(p[w], p.get(b), lr.get(w)) for w, b in (
             ("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], plan.route, mesh)
+        heads = plan.heads(cfg, mesh, q.shape[1] // hd, k.shape[1] // hd)
+        h, kv, fit = heads.h, heads.kv, heads.fit
     qf, qp, qd = plan.split(q)
     kf, kp, kd = plan.split(k)
     vf, vp, vd = plan.split(v)
@@ -462,7 +486,7 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         qh = _rope_heads(qf, plan.ft_pos, h, cfg.rope_theta)
         kh = _rope_heads(kf, plan.ft_pos, kv, cfg.rope_theta)
         vh = vf.reshape(plan.Bf, plan.Sf, kv, hd)
-        outs[0] = L.attention(qh, kh, vh, q_pos=plan.ft_pos,
+        outs[0] = L.attention(qh, fit(kh), fit(vh), q_pos=plan.ft_pos,
                               k_pos=plan.ft_pos, k_valid=plan.ft_valid,
                               causal=True, window=cfg.sliding_window,
                               chunk=attn_chunk)
@@ -486,25 +510,37 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         else:
             # cold prefill: prompt-local causal attention over the bucket's
             # own K/V (flash attention), then into the blocks or the rows
-            outs[1] = ops.flash_attention(qh, kh, vh, pf.length,
+            outs[1] = ops.flash_attention(qh, fit(kh), fit(vh), pf.length,
                                           causal=True,
                                           window=cfg.sliding_window)
             if pf.block_tables is not None:
                 _paged_write_prompt(k_pool, kh, pf.block_tables)
                 _paged_write_prompt(v_pool, vh, pf.block_tables)
-            else:
+            elif mesh is None:
                 _dense_write_prompt(k_pool, kh, plan.Bd)
                 _dense_write_prompt(v_pool, vh, plan.Bd)
+            else:
+                _write_rows_sharded(plan.kv_layout, (k_pool, v_pool),
+                                    (kh, vh), plan.Bd, mesh)
     if qd is not None and plan.dec.block_tables is None:   # dense decode
         qh = _rope_heads(qd, plan.dec_qpos, h, cfg.rope_theta)
         kh = _rope_heads(kd, plan.dec_qpos, kv, cfg.rope_theta)
-        rows = torch.arange(plan.Bd, device=x.device)
-        slot = plan.dec_pos.long() % k_pool.shape[1]
-        k_pool[rows, slot] = kh[:, 0].to(k_pool.dtype)
-        v_pool[rows, slot] = vd.reshape(plan.Bd, kv, hd).to(v_pool.dtype)
-        outs[2] = ops.decode_attention(qh[:, 0].contiguous(),
-                                       k_pool[:plan.Bd], v_pool[:plan.Bd],
-                                       plan.dec_pos)[:, None]
+        vh = vd.reshape(plan.Bd, 1, kv, hd)
+        if mesh is not None and plan.kv_layout != "heads":
+            valid = _write_slot_sharded(plan.kv_layout, kh[:, 0], vh[:, 0],
+                                        k_pool, v_pool, plan.dec_pos, mesh)
+            outs[2] = _attend_sharded(
+                cfg, plan.kv_layout, heads, qh[:, 0], k_pool[:plan.Bd],
+                v_pool[:plan.Bd], valid, mesh)[:, None]
+        else:
+            rows = torch.arange(plan.Bd, device=x.device)
+            slot = plan.dec_pos.long() % k_pool.shape[1]
+            k_pool[rows, slot] = kh[:, 0].to(k_pool.dtype)
+            v_pool[rows, slot] = vh[:, 0].to(v_pool.dtype)
+            outs[2] = ops.decode_attention(qh[:, 0].contiguous(),
+                                           k_pool[:plan.Bd],
+                                           v_pool[:plan.Bd],
+                                           plan.dec_pos)[:, None]
     elif qd is not None:         # paged decode / verify: (1 + k)-token chunk
         dec, Sd, ns = plan.dec, plan.Sd, plan.num_splits
         tbl, dpos, dlen = dec.block_tables, plan.dec_pos, plan.dec_len
@@ -532,8 +568,228 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         outs[2] = o
     out = _merge_flat(plan, *outs)
     if mesh is not None:
-        return x + dense_row(out, p["wo"], lr.get("wo"), plan.route, mesh)
+        return x + dense_row(out, p["wo"], lr.get("wo"), plan.route, mesh,
+                             whole=heads.q_whole)
     return x + dense(out, p["wo"], None, lr.get("wo"), plan.route)
+
+
+# ---------------------------------------------------------------------------
+# GQA under a mesh: a rank's heads, and the head-dim and sequence layouts of
+# its KV rows (``distributed.sharding.kv_layout``)
+# ---------------------------------------------------------------------------
+
+class _Heads:
+    """A rank's query and KV heads under a mesh: ``h`` query heads from
+    ``q0`` and ``kv`` KV heads from ``k0`` (every head, from 0, where the
+    projection is whole: its head count does not divide the model axis).
+    ``fit`` gives each local query head the local KV head it reads: the
+    rank's KV heads as they are when its query heads are whole groups of
+    them, else one KV head per query head (MHA form, h/g = 1: a rank's
+    query heads straddle KV groups, as phi3's 10 a rank over groups of
+    4)."""
+
+    def __init__(self, cfg: ModelConfig, mesh, h: int, kv: int, device):
+        c, m = mesh.coords["model"], mesh.shape["model"]
+        self.h, self.kv = h, kv
+        self.q0 = c * h if h < cfg.n_heads else 0
+        self.k0 = c * kv if kv < cfg.n_kv_heads else 0
+        self.q_whole = h == cfg.n_heads and m > 1
+        grp = cfg.n_heads // cfg.n_kv_heads
+        need = [(self.q0 + j) // grp - self.k0 for j in range(h)]
+        if self.q0 % grp == 0 and h % grp == 0:
+            self.sel = None if (need[0], h // grp) == (0, kv) else \
+                slice(need[0], need[0] + h // grp)
+        else:
+            self.sel = torch.tensor(need, device=device)
+
+    def fit(self, t: torch.Tensor) -> torch.Tensor:
+        """[..., kv, hd] -> [..., n, hd], n dividing the rank's h."""
+        if self.sel is None:
+            return t
+        if isinstance(self.sel, slice):
+            return t[..., self.sel, :].contiguous()
+        return t.index_select(t.ndim - 2, self.sel)
+
+
+def _write_rows_sharded(layout: str, rows: tuple, xs: tuple, r0: int,
+                        mesh) -> None:
+    """In place: prefill K/V ``xs`` [Bp, Sp, kv, hd] (this rank's KV heads,
+    or all of them where ``wk`` is whole) into this rank's shards ``rows``
+    [n_rows, S', g', hd'] at rows ``[r0, r0 + Bp)``, as
+    ``_dense_write_prompt`` writes a whole row: ``"heads"`` the rank's own
+    heads; ``"head_dim"`` its slice of the head dim of every head; ``"seq"``
+    its slots ``[s0, s0 + S')`` of every head, the rolling write of a
+    bucket longer than the row included.  Under ``"seq"`` with the KV heads
+    cut, each rank sends every other rank the prompt's K/V at the slots
+    that rank owns, in one all-to-all over "model" (``B * S * kv * hd``
+    elements a rank, K and V together)."""
+    c, m = mesh.coords["model"], mesh.shape["model"]
+    if layout == "heads":
+        for r, x in zip(rows, xs):
+            _dense_write_prompt(r, x, r0)
+        return
+    if layout == "head_dim":
+        hl = rows[0].shape[-1]
+        for r, x in zip(rows, xs):
+            _dense_write_prompt(r, x[..., c * hl:(c + 1) * hl], r0)
+        return
+    sl = rows[0].shape[1]
+    sc = sl * m
+    if xs[0].shape[2] == rows[0].shape[2]:     # every KV head on every rank
+        for r, x in zip(rows, xs):
+            _dense_write_prompt(r, x, r0, c * sl, sc)
+        return
+    kv = torch.stack(xs)                       # [2, B, Sp, kv, hd]
+    _, B, Sp, kvl, hd = kv.shape
+    if Sp <= sc:                               # the row's image: slot = pos
+        img = F.pad(kv, (0, 0, 0, 0, 0, sc - Sp))
+    else:                                      # the last sc positions, rolled
+        img = torch.roll(kv[:, :, Sp - sc:], (Sp - sc) % sc, dims=2)
+    img = img.reshape(2, B, m, sl, kvl, hd).permute(2, 0, 1, 3, 4, 5)
+    got = SH.all_to_all(img, "model", mesh)    # [m: the sender's heads, ...]
+    got = got.permute(1, 2, 3, 0, 4, 5).reshape(2, B, sl, m * kvl, hd)
+    n = min(Sp, sc) - c * sl                   # slots of this rank written
+    if n > 0:
+        for r, x in zip(rows, got):
+            r[r0:r0 + B, :min(n, sl)] = x[:, :min(n, sl)].to(r.dtype)
+
+
+def _write_slot_sharded(layout: str, k: torch.Tensor, v: torch.Tensor,
+                        k_rows: torch.Tensor, v_rows: torch.Tensor,
+                        pos: torch.Tensor, mesh) -> torch.Tensor:
+    """In place: a decode's fresh ``k`` / ``v`` [B, kv', hd] at ``pos`` [B]
+    into this rank's rows ``k_rows`` / ``v_rows`` [n_rows, S', g', hd'] cut
+    by the head dim (the rank's slice of every head) or by the slots (the
+    slot's owner writes every head, gathered over "model" where ``wk`` is
+    cut).  Returns the validity [B, S'] of the rank's slots."""
+    c, m = mesh.coords["model"], mesh.shape["model"]
+    B = k.shape[0]
+    rows = torch.arange(B, device=k.device)
+    sl = k_rows.shape[1]
+    if layout == "head_dim":
+        hl = k_rows.shape[-1]
+        slot = pos.long() % sl
+        k_rows[rows, slot] = k[..., c * hl:(c + 1) * hl].to(k_rows.dtype)
+        v_rows[rows, slot] = v[..., c * hl:(c + 1) * hl].to(v_rows.dtype)
+        return L.dec_cache_pos(pos, sl)[1]
+    kv = torch.stack([k, v])                            # [2, B, kv', hd]
+    if kv.shape[2] < k_rows.shape[2]:
+        kv = SH.all_gather(kv, "model", mesh, dim=2)
+    slot = pos.long() % (sl * m)
+    # the rank that holds the slot writes it; the others write their own
+    # slot's value back (no host sync)
+    own = ((slot >= c * sl) & (slot < (c + 1) * sl))[:, None, None]
+    ls = (slot - c * sl).clamp(0, sl - 1)
+    for r, t in zip((k_rows, v_rows), kv):
+        r[rows, ls] = torch.where(own, t.to(r.dtype), r[rows, ls])
+    return L.dec_cache_pos(pos, sl * m)[1][:, c * sl:(c + 1) * sl]
+
+
+def _attend_sharded(cfg: ModelConfig, layout: str, heads: _Heads,
+                    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    k_valid: torch.Tensor, mesh) -> torch.Tensor:
+    """Decode attention of this rank's query heads ``q`` [B, h', hd] over
+    its rows ``k`` / ``v`` [B, S', g', hd'] cut by the head dim
+    (``_hd_decode``) or by the slots (``_seq_decode``; ``k_valid`` [B, S']
+    is then a prefix of the rank's slots), every head's query gathered over
+    "model" where ``wq`` is cut.  Returns [B, h', hd]."""
+    if heads.h < cfg.n_heads:
+        q = SH.all_gather(q.contiguous(), "model", mesh, dim=1)
+    if layout == "head_dim":
+        o = _hd_decode(q, k, v, k_valid, cfg.hd ** -0.5, mesh)
+        return o[:, heads.q0:heads.q0 + heads.h]
+    return _seq_decode(q, k, v, k_valid.sum(-1), heads, mesh)[:, 0]
+
+
+def hd_partial_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """This rank's share of every head's decode scores over rows cut by the
+    head dim: q [B, h, hd'] (every head, the rank's slice of the head dim),
+    k [B, S, g, hd'] -> fp32 [B, g, h/g, S], the dot products over the
+    slice (summed over "model" by ``_hd_decode``)."""
+    B, h, hl = q.shape
+    g = k.shape[2]
+    return torch.einsum("bgrd,bsgd->bgrs", q.float().reshape(B, g, h // g, hl),
+                        k.float())
+
+
+def _hd_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               k_valid: torch.Tensor, scale: float, mesh) -> torch.Tensor:
+    """Decode attention over KV rows cut by the head dim (plain PyTorch: a
+    score is a sum over the cut axis, so no single-rank kernel computes
+    it).  q [B, h, hd] every head whole; k / v [B, S, g, hd/m] this rank's
+    slice; k_valid [B, S].  The partial scores (``hd_partial_scores``) go
+    in one all-reduce over "model" (fp32 [B, h, S]); every rank takes the
+    softmax, weighs its slice of V, and the [B, h, hd/m] outputs are
+    all-gathered over the head dim.  Returns [B, h, hd]."""
+    c = mesh.coords["model"]
+    B, h, hd = q.shape
+    hl = k.shape[-1]
+    s = SH.all_reduce(hd_partial_scores(q[..., c * hl:(c + 1) * hl], k),
+                      "model", mesh) * scale
+    s = s.masked_fill(~k_valid[:, None, None, :], L.NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgrs,bsgd->bgrd", p, v.float()).reshape(B, h, hl)
+    return SH.all_gather(o.to(q.dtype), "model", mesh, dim=2)
+
+
+def _rows_block(n: int) -> int:
+    """The block size at which a rank's ``n`` slots are read as a paged pool
+    (``seq_partials``): the largest power of two <= 64 dividing ``n``."""
+    return min(n & -n, 64)
+
+
+def seq_partials(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 n_valid: torch.Tensor):
+    """One rank's flash-decoding partials over the slots it holds, for every
+    head: q [B, h, hd], k / v [B, t, g, hd] (a contiguous prefix of a cache
+    leaf's rows), ``n_valid`` [B] the number of valid slots, which on a
+    dense row are always a prefix of the rank's slots (``L.dec_cache_pos``:
+    slot j is valid iff j <= pos, rolling or not; cross rows: all).  Split-K's
+    partial kernel (``kernels.splitk.splitk_partials``) reads the rows as a
+    pool of ``t / bs`` blocks a row, the query at local position ``n_valid
+    - 1``; a row with no valid slot gives ``(o, m, l) = (0, NEG_INF, 0)``.
+    Returns fp32 (o [B, ns, 1, h, hd], m [B, ns, 1, h], l [B, ns, 1,
+    h])."""
+    B, t, g, hd = k.shape
+    bs = _rows_block(t)
+    nb = t // bs
+    tbl = torch.arange(B * nb, dtype=torch.int32,
+                       device=q.device).reshape(B, nb)
+    ns = autotune.choose(hd, bs, nb, B * g, lanes=autotune.effective_lanes(
+        q.device)).num_splits
+    o, mx, l = splitk_partials(
+        q[:, None].contiguous(), k.reshape(B * nb, bs, g, hd),
+        v.reshape(B * nb, bs, g, hd), tbl,
+        (n_valid - 1).clamp(min=0).to(torch.int32),
+        torch.ones((B,), dtype=torch.int32, device=q.device), ns)
+    none = (n_valid == 0)[:, None, None, None]
+    return (o.masked_fill(none[..., None], 0.0),
+            mx.masked_fill(none, L.NEG_INF), l.masked_fill(none, 0.0))
+
+
+def _seq_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                n_valid: torch.Tensor, heads: _Heads, mesh) -> torch.Tensor:
+    """Decode over KV rows cut by the slots (flash decoding over the ranks,
+    the GQA twin of ``_mla_decode_sharded``): q [B, h, hd] every head; k /
+    v [B, t, g, hd] this rank's slots of every KV head.  Each rank computes
+    every head's partials over its slots (``seq_partials``); one all-to-all
+    over "model" brings each head's partials to the rank that holds the
+    head (an all-gather where ``wq`` is whole and every rank holds every
+    head), which merges them with split-K's merge kernel (``_lse_merge``).
+    Returns [B, 1, h', hd]."""
+    m = mesh.shape["model"]
+    B, h, hd = q.shape
+    o, mx, l = seq_partials(q, k, v, n_valid)
+    ns = o.shape[1]
+    pack = torch.cat([o, mx[..., None], l[..., None]], -1)  # [B,ns,1,h,hd+2]
+    if heads.h == h:
+        got = SH.all_gather(pack, "model", mesh, dim=1)
+    else:
+        pack = pack.reshape(B, ns, 1, m, heads.h, hd + 2)
+        got = SH.all_to_all(pack.permute(3, 0, 1, 2, 4, 5), "model", mesh)
+        got = got.permute(1, 0, 2, 3, 4, 5).reshape(B, m * ns, 1, heads.h,
+                                                    hd + 2)
+    return _lse_merge(got[..., :hd], got[..., hd], got[..., hd + 1], q.dtype)
 
 
 def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
@@ -745,18 +1001,24 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     ``xwv`` (plain products); prefill writes the projections into the
     layer's ``xk`` / ``xv`` rows ``[Bd, Bd + Bp)`` and decode (plain or
     verify chunks) reads rows ``[0, Bd)``.  ``cache``: the layer's views
-    (None for an ft-only batch).  Under a ``mesh`` a rank runs its h/m
-    query and g/m KV heads: ``xwq`` / ``xwk`` / ``xwv`` column-parallel,
-    ``xwo`` row-parallel with its all-reduce, its ``xk`` / ``xv`` rows
-    holding its KV heads; ``xgate`` is whole on every rank."""
+    (None for an ft-only batch).  Under a ``mesh`` a rank runs the heads of
+    its ``xwq`` / ``xwk`` / ``xwv`` (column-parallel where the head count
+    divides the model axis, else whole: ``_Heads``), ``xwo`` row-parallel
+    with its all-reduce or whole where ``xwq`` is; its ``xk`` / ``xv`` rows
+    are cut as ``plan.x_layout`` says (the KV heads, the head dim or the
+    source positions, as ``_attn_apply``'s rows; decode without a mask);
+    ``xgate`` is whole on every rank."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["xln"], cfg.rms_eps)
+    heads = None
     if mesh is None:
         q = dense(xn, p["xwq"], None, lr.get("xwq"), plan.route)
     else:
-        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
         q, = dense_col(xn, [(p["xwq"], None, lr.get("xwq"))], plan.route,
                        mesh)
+        heads = plan.heads(cfg, mesh, q.shape[1] // hd,
+                           p["xwk"].shape[1] // hd)
+        h, kv = heads.h, heads.kv
     qf, qp, qd = plan.split(q)
     # serving rows carry no gradient, and the row writes stay out of the
     # graph
@@ -771,6 +1033,8 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     def xattn(qb, kx, vx, qpos):
         B, S = qb.shape[:2]
         F = kx.shape[1]
+        if heads is not None:
+            kx, vx = heads.fit(kx), heads.fit(vx)
         kpos = torch.zeros((B, F), dtype=torch.int32, device=kx.device)
         valid = torch.ones((B, F), dtype=torch.bool, device=kx.device)
         return L.attention(qb.reshape(B, S, h, hd), kx, vx, q_pos=qpos,
@@ -784,17 +1048,28 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     if qp is not None:           # prefill: rows [Bd, Bd + Bp)
         kx, vx = kv_from(plan.pf.aux_embed.to(x.dtype))
         outs[1] = xattn(qp, kx, vx, plan.pf_pos)
-        rows = slice(plan.Bd, plan.Bd + plan.Bp)
-        cache["xk"][rows] = kx.to(cache["xk"].dtype)
-        cache["xv"][rows] = vx.to(cache["xv"].dtype)
+        if mesh is None:
+            rows = slice(plan.Bd, plan.Bd + plan.Bp)
+            cache["xk"][rows] = kx.to(cache["xk"].dtype)
+            cache["xv"][rows] = vx.to(cache["xv"].dtype)
+        else:
+            _write_rows_sharded(plan.x_layout, (cache["xk"], cache["xv"]),
+                                (kx, vx), plan.Bd, mesh)
     if qd is not None:           # decode / verify: rows [0, Bd)
-        outs[2] = xattn(qd, cache["xk"][:plan.Bd], cache["xv"][:plan.Bd],
-                        plan.dec_qpos)
+        xk, xv = cache["xk"][:plan.Bd], cache["xv"][:plan.Bd]
+        if mesh is None or plan.x_layout == "heads":
+            outs[2] = xattn(qd, xk, xv, plan.dec_qpos)
+        else:                    # every source position valid
+            outs[2] = _attend_sharded(
+                cfg, plan.x_layout, heads, qd.reshape(plan.Bd, h, hd), xk,
+                xv, torch.ones(xk.shape[:2], dtype=torch.bool,
+                               device=xk.device), mesh)[:, None]
     o = _merge_flat(plan, *outs)
     if mesh is None:
         o = dense(o, p["xwo"], None, lr.get("xwo"), plan.route)
     else:
-        o = dense_row(o, p["xwo"], lr.get("xwo"), plan.route, mesh)
+        o = dense_row(o, p["xwo"], lr.get("xwo"), plan.route, mesh,
+                      whole=heads.q_whole)
     return x + torch.tanh(p["xgate"]).to(o.dtype) * o
 
 
@@ -806,29 +1081,37 @@ def encoder_forward(cfg: ModelConfig, enc: Dict, frames: torch.Tensor,
     Under a ``mesh`` the leaves are this rank's shards, ``prep(i, layer)``
     making layer ``i``'s ready (whole over "data", dequantized): ``wq`` /
     ``wk`` / ``wv`` / ``wg`` / ``wu`` column-parallel, ``wo`` / ``wd``
-    row-parallel, one all-reduce over "model" a sublayer."""
+    row-parallel, one all-reduce over "model" a sublayer; a leaf whose
+    heads (or FFN width) do not divide the axis is whole (``_Heads``), and
+    a whole ``wo`` / ``wd`` needs no all-reduce."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    if mesh is not None:
-        h, kv = h // mesh.shape["model"], kv // mesh.shape["model"]
     B, F, d = frames.shape
     kpos = torch.zeros((B, F), dtype=torch.int32, device=frames.device)
     valid = torch.ones((B, F), dtype=torch.bool, device=frames.device)
-    reduce = ((lambda y: y) if mesh is None
-              else (lambda y: SH.all_reduce(y, "model", mesh)))
+    d_ff = encoder_shapes(cfg)["wd"].shape[0]
+
+    def reduce(y, whole):
+        return y if mesh is None or whole else SH.all_reduce(y, "model",
+                                                             mesh)
     x = frames
     for i, p in enumerate(enc["layers"]):
         p = p if prep is None else prep(i, p)
+        fit = lambda t: t
+        if mesh is not None:
+            heads = _Heads(cfg, mesh, p["wq"].shape[1] // hd,
+                           p["wk"].shape[1] // hd, frames.device)
+            h, kv, fit = heads.h, heads.kv, heads.fit
         flat = L.rms_norm(x, p["ln1"], cfg.rms_eps).reshape(B * F, d)
         q = (flat @ p["wq"].to(x.dtype)).reshape(B, F, h, hd)
         k = (flat @ p["wk"].to(x.dtype)).reshape(B, F, kv, hd)
         v = (flat @ p["wv"].to(x.dtype)).reshape(B, F, kv, hd)
-        o = L.attention(q, k, v, q_pos=kpos, k_pos=kpos, k_valid=valid,
-                        causal=False)
-        x = x + reduce(o.reshape(B * F, h * hd) @ p["wo"].to(x.dtype)
-                       ).reshape(B, F, d)
+        o = L.attention(q, fit(k), fit(v), q_pos=kpos, k_pos=kpos,
+                        k_valid=valid, causal=False)
+        x = x + reduce(o.reshape(B * F, h * hd) @ p["wo"].to(x.dtype),
+                       h == cfg.n_heads).reshape(B, F, d)
         xn = L.rms_norm(x, p["ln2"], cfg.rms_eps).reshape(B * F, d)
-        x = x + reduce(L.swiglu(xn, p["wg"], p["wu"], p["wd"])
-                       ).reshape(B, F, d)
+        x = x + reduce(L.swiglu(xn, p["wg"], p["wu"], p["wd"]),
+                       p["wd"].shape[0] == d_ff).reshape(B, F, d)
     return L.rms_norm(x, enc["final_norm"], cfg.rms_eps)
 
 
@@ -1022,7 +1305,8 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
     if mesh is not None:
         return _sharded_forward(cfg, mesh, SH.ambient_strategy(), params,
                                 batch, cache, loras, lora_scale, block_t,
-                                attn_chunk, return_ft_logits)
+                                attn_chunk, return_ft_logits,
+                                SH.ambient_cache_strategy())
     plan = _Plan(cfg, batch, lora_scale, block_t)
     index = layer_index(cfg)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
@@ -1171,11 +1455,10 @@ def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
 def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
                     loras: Optional[Dict] = None) -> None:
     """What the sharded forward runs, or a ``ValueError`` that names the
-    case: GQA or MLA attention whose query and KV head counts divide the
-    "model" axis, on dense rows, with dense or MoE FFNs, cross-attention
+    case: GQA attention (any head counts: the head-dim and sequence cache
+    layouts) or MLA, on dense rows, with dense or MoE FFNs, cross-attention
     layers and an encoder, GQA sliding windows, in bf16, fp32 or with int8
     leaves."""
-    m = mesh.shape["model"]
     where = f"under a {dict(mesh.shape)} mesh"
     if torch.is_grad_enabled() and loras is not None and any(
             t.requires_grad for t in tree_leaves(loras)):
@@ -1184,24 +1467,23 @@ def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
                          "5b)")
     if "mamba" in cfg.pattern:
         raise ValueError(f"{cfg.name}: Mamba2 layers {where} are not "
-                         "sharded yet (ROADMAP Queue 1, 5c-ii)")
+                         "sharded yet (ROADMAP Queue 1, 5c-ii-b)")
     if cfg.mla is not None and cfg.sliding_window > 0:
         raise ValueError(f"{cfg.name}: MLA with a sliding window {where} is "
-                         "not sharded yet (ROADMAP Queue 1, 5c-ii)")
+                         "not sharded yet (ROADMAP Queue 1, 5c-ii-b)")
+    if cfg.mla is not None and cfg.n_heads % mesh.shape["model"]:
+        raise ValueError(f"{cfg.name}: MLA's {cfg.n_heads} heads do not "
+                         f"divide the model axis {where} (ROADMAP Queue 1, "
+                         "5c-ii-b)")
     for name in ("pf", "dec"):
         b = getattr(batch, name)
         if b is not None and b.block_tables is not None:
             raise ValueError(f"a paged {name} bucket {where}: the sharded "
                              "forward runs on dense rows only (ROADMAP "
-                             "Queue 1, 5c-ii)")
+                             "Queue 1, 5c-ii-b)")
     if batch.dec is not None and batch.dec.tokens.ndim == 2:
         raise ValueError(f"verify chunks {where}: the sharded forward runs "
-                         "on dense rows only (ROADMAP Queue 1, 5c-ii)")
-    if cfg.n_kv_heads % m or cfg.n_heads % m:
-        raise ValueError(
-            f"{cfg.name}: {cfg.n_heads} query / {cfg.n_kv_heads} KV heads do "
-            f"not divide the model axis {m}: the head-dim and seq cache "
-            "layouts are a later slice (ROADMAP Queue 1, 5c-ii)")
+                         "on dense rows only (ROADMAP Queue 1, 5c-ii-b)")
 
 
 def local_batch(batch: UnifiedBatch, mesh):
@@ -1232,11 +1514,14 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
                      params: Dict, batch: UnifiedBatch,
                      cache: Optional[Dict], loras: Optional[Dict],
                      lora_scale: Optional[torch.Tensor], block_t: int,
-                     attn_chunk: int, return_ft_logits: bool) -> ModelOut:
+                     attn_chunk: int, return_ft_logits: bool,
+                     cache_strategy: str = "auto") -> ModelOut:
     """``unified_forward`` as explicit SPMD on one rank of ``mesh``:
     ``params`` / ``loras`` are this rank's shards (``checkpoint.io.
     shard_params`` / ``shard_bank`` under ``strategy``), ``batch`` is the
-    whole batch and ``cache`` this rank's shard (``sharding.shard_cache``).
+    whole batch and ``cache`` this rank's shard (``sharding.shard_cache``
+    under ``cache_strategy``: its KV rows cut by the KV heads, the head dim
+    or the slots, ``sharding.shard_layout``).
     Every bucket's rows are split over the batch axes when they divide them
     (else every data rank runs the whole bucket), and the cache rows with
     them.  The embedding and the head are vocab-parallel over "model"
@@ -1260,6 +1545,10 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     if (gb.pf is not None or gb.dec is not None) and cache is None:
         raise ValueError("prefill/decode buckets require a cache")
     plan = _Plan(cfg, gb, lora_scale, block_t)
+    for name, attr in (("k", "kv_layout"), ("xk", "x_layout")):
+        setattr(plan, attr, SH.shard_layout(
+            cfg, name, cache[name].shape, mesh, cache_strategy)
+            if cache is not None and name in cache else None)
     index = layer_index(cfg)
     dtype = params["final_norm"].dtype
     specs = (quant.quant_shardings(cfg, mesh, strategy)

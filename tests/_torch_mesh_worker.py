@@ -177,19 +177,24 @@ def value_errors(tmp, z, mesh):
     step = lambda c, p=params, b=batch: make_forward_step(
         c, block_t=BT, mesh=mesh)(p, None, None, b, {})
     out = {"mamba2-1.3b": raises(lambda: step(get_reduced("mamba2-1.3b")),
-                                 "Mamba2", "5c-ii"),
+                                 "Mamba2", "5c-ii-b"),
            "mla_window": raises(lambda: step(get_reduced(
                "deepseek-v2-236b").replace(sliding_window=8)), "MLA",
-               "sliding window", "5c-ii")}
+               "sliding window", "5c-ii-b"),
+           "mla_heads": raises(lambda: step(get_reduced(
+               "deepseek-v2-236b").replace(n_heads=3, n_kv_heads=3)), "MLA",
+               "heads", "5c-ii-b")}
     paged = batch._replace(pf=batch.pf._replace(
         block_tables=torch.zeros((batch.pf.tokens.shape[0], 2),
                                  dtype=torch.int32)))
-    out["paged"] = raises(lambda: step(cfg, params, paged), "paged", "pf")
+    out["paged"] = raises(lambda: step(cfg, params, paged), "paged", "pf",
+                          "5c-ii-b")
     verify = UnifiedBatch(dec=DECBatch(
         tokens=torch.zeros((2, 3), dtype=torch.int32),
         pos=torch.zeros(2, dtype=torch.int32),
         adapter=torch.full((2,), -1, dtype=torch.int32)))
-    out["verify"] = raises(lambda: step(cfg, params, verify), "verify")
+    out["verify"] = raises(lambda: step(cfg, params, verify), "verify",
+                           "5c-ii-b")
     bank = bank_from_numpy(load_npz(os.path.join(tmp, "llama_tp_bank.npz")),
                            device="cpu")
     scale = _t(z["llama_tp/scale"])
@@ -200,9 +205,6 @@ def value_errors(tmp, z, mesh):
                                             UnifiedBatch(ft=batch.ft), None)
 
     out["grad"] = raises(grad_step, "gradient", "train step")
-    if mesh.shape["model"] > cfg.n_kv_heads:
-        out["kv_heads"] = raises(lambda: step(cfg), "KV heads",
-                                 "model axis")
     return out
 
 
@@ -228,21 +230,56 @@ def _family_batch(z, name):
     return batch, dec2
 
 
-def family_case(tmp, name, mesh, strategy, z, fault=False):
-    """Two steps of case ``name`` (``tests/test_torch_mesh_families.py``)
-    on this rank's shards: the mixed step, then a decode of every row
-    (the cache gathered whole and cut again for the new rows' split), each
-    against JAX's single-device ``unified_forward`` (``case.npz``) and the
-    port's one-process step on the same weights.  With ``fault``, model
-    ranks 1-3 drop their MLA decode partials (``model.mla_partials``) and
-    the errors come back unchecked.  Returns the errors, the collective
-    log of the first step and the MoE branch."""
+def _planted(fault, mesh):
+    """A sharding fault on model ranks 1-3, as (module attribute, its
+    replacement): ``"mla"`` drops their MLA decode partials, ``"seq"``
+    their GQA slot partials (``model.seq_partials``), ``"hd"`` their share
+    of the head-dim layout's partial scores, so the all-reduce sums rank
+    0's slice of the head dim alone (``model.hd_partial_scores``)."""
+    mine = mesh.coords["model"] == 0
+    name = {"mla": "mla_partials", "seq": "seq_partials",
+            "hd": "hd_partial_scores"}[fault]
+    orig = getattr(TM, name)
+
+    def dropped(*a):
+        out = orig(*a)
+        if mine:
+            return out
+        if fault == "hd":
+            return torch.zeros_like(out)
+        o, m, l = out
+        return (torch.zeros_like(o), torch.full_like(m, -1e30),
+                torch.zeros_like(l))
+    return name, orig, dropped
+
+
+def case_config(z, name):
+    """Case ``name``'s reduced config with its changes (a window, a
+    capacity factor, head counts and head dim)."""
     cfg = get_reduced(z[f"{name}/arch"].item())
     if f"{name}/window" in z:
         cfg = cfg.replace(sliding_window=int(z[f"{name}/window"]))
     if f"{name}/cf" in z:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(z[f"{name}/cf"])))
+    if f"{name}/heads" in z:
+        h, kv, hd = (int(v) for v in z[f"{name}/heads"])
+        cfg = cfg.replace(n_heads=h, n_kv_heads=kv, head_dim=hd)
+    return cfg
+
+
+def family_case(tmp, name, mesh, strategy, z, fault=None,
+                cache_strategy="auto", keep=False):
+    """Two steps of case ``name`` (``tests/test_torch_mesh_families.py``)
+    on this rank's shards, the cache cut under ``cache_strategy``: the
+    mixed step, then a decode of every row (the cache gathered whole and
+    cut again for the new rows' split), each against JAX's single-device
+    ``unified_forward`` (``case.npz``) and the port's one-process step on
+    the same weights.  With a ``fault`` (``_planted``) the errors come back
+    unchecked.  Returns the errors, the collective log of the first step,
+    the MoE branch and the layouts of the KV and cross rows' shards (with
+    ``keep``, the outputs themselves under ``"got"``)."""
+    cfg = case_config(z, name)
     params = params_from_numpy(load_npz(os.path.join(tmp, f"{name}_params.npz")),
                                device="cpu")
     bank = bank_from_numpy(load_npz(os.path.join(tmp, f"{name}_bank.npz")),
@@ -258,31 +295,29 @@ def family_case(tmp, name, mesh, strategy, z, fault=False):
                  {k: v.clone() for k, v in cache0.items()})
     one2 = plain(params, bank, scale, dec2,
                  {k: v.clone() for k, v in one1.cache.items()})
-    step = make_forward_step(cfg, block_t=BT, mesh=mesh, strategy=strategy)
+    step = make_forward_step(cfg, block_t=BT, mesh=mesh, strategy=strategy,
+                             cache_strategy=cache_strategy)
     local_p = shard_params(params, cfg, mesh, strategy)
     local_b = shard_bank(bank, mesh)
-    partials = TM.mla_partials
+    cs = cache_strategy
     if fault:
-        mine = mesh.coords["model"] == 0
-
-        def dropped(*a):
-            o, m, l = partials(*a)
-            return ((o, m, l) if mine else (torch.zeros_like(o),
-                                            torch.full_like(m, -1e30),
-                                            torch.zeros_like(l)))
-        TM.mla_partials = dropped
+        attr, orig, dropped = _planted(fault, mesh)
+        setattr(TM, attr, dropped)
     try:
         SH.reset_collective_log()
-        out1 = step(local_p, local_b, scale, batch,
-                    SH.shard_cache(cfg, cache0, mesh, segs))
+        local = SH.shard_cache(cfg, cache0, mesh, segs, cs)
+        layouts = {k: SH.shard_layout(cfg, k, local[k].shape, mesh, cs)
+                   for k in ("k", "xk") if k in local}
+        out1 = step(local_p, local_b, scale, batch, local)
         coll = collective_bytes()["raw"]
         branch = moe_apply_auto.branch if cfg.moe is not None else None
-        whole1 = SH.gather_cache(cfg, out1.cache, mesh, n_rows, segs)
+        whole1 = SH.gather_cache(cfg, out1.cache, mesh, n_rows, segs, cs)
         out2 = step(local_p, local_b, scale, dec2,
-                    SH.shard_cache(cfg, whole1, mesh))
-        whole2 = SH.gather_cache(cfg, out2.cache, mesh, n_rows)
+                    SH.shard_cache(cfg, whole1, mesh, strategy=cs))
+        whole2 = SH.gather_cache(cfg, out2.cache, mesh, n_rows, strategy=cs)
     finally:
-        TM.mla_partials = partials
+        if fault:
+            setattr(TM, attr, orig)
     got = {"pf_logits": out1.pf_logits, "dec_logits": out1.dec_logits,
            "ft_loss_sum": out1.ft_loss_sum,
            "ft_tok_count": out1.ft_tok_count, "aux_loss": out1.aux_loss,
@@ -299,8 +334,74 @@ def family_case(tmp, name, mesh, strategy, z, fault=False):
         e_jax, e_one = err(v, z[f"{name}/ref_{k}"]), err(v, ref_one[k])
         errs[k] = (e_jax, e_one)
         assert fault or (e_jax < TOL and e_one < TOL), \
-            (name, strategy, k, e_jax, e_one)
-    return {"errs": errs, "coll": coll, "branch": branch}
+            (name, strategy, cs, k, e_jax, e_one)
+    res = {"errs": errs, "coll": coll, "branch": branch, "layouts": layouts}
+    if keep:
+        res["got"] = got
+    return res
+
+
+def round_trips(tmp, z, mesh, names):
+    """``gather_cache(shard_cache(c)) == c`` bit for bit under both
+    strategies for the first cache of each case in ``names`` (every leaf
+    kind: ``k``/``v``, ``xk``/``xv``, ``ckv``/``kpe``), and a shard of one
+    layout refused by ``gather_cache`` and by the step of the other where
+    the two layouts differ.  Returns {case/strategy: same?} and {case:
+    the refusal's text}."""
+    same, refused = {}, {}
+    for name in names:
+        cfg = case_config(z, name)
+        cache0 = _cache_of(z, f"{name}/cache0_")
+        n_rows = next(iter(cache0.values())).shape[1]
+        segs = (z[f"{name}/dec_tokens"].shape[0],
+                z[f"{name}/pf_tokens"].shape[0])
+        for cs in ("auto", "seq"):
+            local = SH.shard_cache(cfg, cache0, mesh, segs, cs)
+            back = SH.gather_cache(cfg, local, mesh, n_rows, segs, cs)
+            same[f"{name}/{cs}"] = all(torch.equal(back[k], cache0[k])
+                                       for k in cache0)
+        if "k" not in cache0:
+            continue
+        auto = SH.shard_cache(cfg, cache0, mesh, segs, "auto")
+        if SH.shard_layout(cfg, "k", auto["k"].shape, mesh) == \
+                SH.kv_layout(cfg, cache0["k"].shape[2], cfg.hd,
+                             mesh.shape["model"], "seq"):
+            continue
+        lay = SH.shard_layout(cfg, "k", auto["k"].shape, mesh)
+        text = raises(lambda: SH.gather_cache(cfg, auto, mesh, n_rows, segs,
+                                              "seq"), f"'{lay}'", "'seq'")
+        batch, _ = _family_batch(z, name)
+        step = make_forward_step(cfg, block_t=BT, mesh=mesh,
+                                 cache_strategy="seq")
+        params = shard_params(params_from_numpy(load_npz(os.path.join(
+            tmp, f"{name}_params.npz")), device="cpu"), cfg, mesh, "tp")
+        raises(lambda: step(params, None, None, batch, auto), f"'{lay}'",
+               "'seq'")
+        refused[name] = text
+    return same, refused
+
+
+def whole_row(mesh, seed=5):
+    """``core.lora.dense_row(..., whole=True)``: ``wo`` whole on every rank
+    with its LoRA ``a`` cut on d_in and ``b`` on d_out
+    (``lora_shardings``), against the one-device ``dense`` on the whole
+    leaves.  Returns the max abs error."""
+    from repro_torch.core.lora import dense, dense_row
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(seed)
+    T, din, dout, n, r = 12, 192, 64, 4, 4
+    x = _t(rng.standard_normal((T, din)).astype(np.float32))
+    w = _t(rng.standard_normal((din, dout)).astype(np.float32) * 0.1)
+    lora = {"a": _t(rng.standard_normal((n, din, r)).astype(np.float32)
+                    / din ** 0.5),
+            "b": _t(rng.standard_normal((n, r, dout)).astype(np.float32))}
+    ids = torch.tensor([0, 1, -1, 2] * 3, dtype=torch.int32)
+    rt = ops.route(ids, torch.ones(T), n, 8, BT)
+    spec = SH.lora_shardings(lora, mesh)
+    assert spec["a"][1] == "model" and spec["b"][2] == "model", spec
+    local = SH.shard_tree(lora, spec, mesh)
+    got = dense_row(x, w, local, rt, mesh, whole=True)
+    return err(got, dense(x, w, None, lora, rt).numpy())
 
 
 def run(rank, world, tmp, shape, cases):
@@ -327,7 +428,27 @@ def run(rank, world, tmp, shape, cases):
             elif kind in ("fam", "fault"):
                 name, strategy = rest.split(",")
                 res[case] = family_case(tmp, name, mesh, strategy, z,
-                                        fault=kind == "fault")
+                                        fault="mla" if kind == "fault"
+                                        else None)
+            elif kind in ("seq", "fault_seq", "fault_hd"):
+                name, strategy = rest.split(",")
+                cs = "auto" if kind == "fault_hd" else "seq"
+                fault = kind[6:] if kind.startswith("fault") else None
+                res[case] = family_case(tmp, name, mesh, strategy, z,
+                                        fault=fault, cache_strategy=cs,
+                                        keep=name.startswith("dsv2"))
+                if kind == "seq" and name.startswith("dsv2"):
+                    # MLA's latent is cut by slots under both strategies
+                    auto = family_case(tmp, name, mesh, strategy, z,
+                                       keep=True)
+                    res[case]["same_as_auto"] = all(
+                        torch.equal(v, auto["got"][k])
+                        for k, v in res[case]["got"].items())
+                res[case].pop("got", None)
+            elif kind == "rt":
+                res[case] = round_trips(tmp, z, mesh, rest.split(","))
+            elif kind == "row":
+                res[case] = whole_row(mesh)
             elif kind == "errors":
                 res[case] = value_errors(tmp, z, mesh)
         with open(os.path.join(tmp, f"result_{'x'.join(map(str, shape))}_"

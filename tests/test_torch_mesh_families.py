@@ -11,9 +11,13 @@ prefill + decode batch of ``tests/test_torch_mesh.py`` (cross models with
 an ``aux_embed`` on the ft and prefill buckets, ``xgate`` opened to 0.5:
 JAX draws it as zero), then a decode of every row, the prefill rows at
 their next position (so MLA's decode reads a latent that prefill wrote
-into every rank's slots, and the window's rows roll past W).  The
-llama32v and llama3 cases run at ``(2, 2)`` only: their 2 KV heads do not
-divide 4.  MoE capacity factor 8.0, as in ``tests/test_torch_mesh.py``.
+into every rank's slots, and the window's rows roll past W).  At ``(1,
+4)`` the VLM's and llama3's 2 KV heads do not divide the model axis, so
+their KV rows (and the VLM's ``xk``/``xv``) are cut by the head dim; the
+``seq:`` cases cut every KV row by its slots (``cache_strategy="seq"``),
+against the same JAX references, and deepseek-v2's MLA, whose latent is
+cut by slots under both strategies, must give its ``"auto"`` result bit
+for bit.  MoE capacity factor 8.0, as in ``tests/test_torch_mesh.py``.
 
 Tolerance ``W.TOL`` = 2e-4 abs (fp32) for the logits, ft loss sums, aux
 loss and the gathered cache of both steps, against JAX and against the
@@ -49,16 +53,32 @@ CASES = {"dsv2": ("deepseek-v2-236b", 20, False, 0, 8.0),
          "dsv2_q8": ("deepseek-v2-236b", 24, True, 0, 8.0),
          "window": ("llama3-8b", 25, False, 8, None)}
 N_ROWS, S_MAX = 6, 32
-RUN_1X4 = ["fam:dsv2,tp", "fam:whisper,tp", "fam:dsv2_q8,tp"]
+RUN_1X4 = ["fam:dsv2,tp", "fam:whisper,tp", "fam:dsv2_q8,tp",
+           # the head-dim layout
+           "fam:vlm,tp", "fam:llama_q8,tp", "fam:window,tp",
+           # the sequence layout
+           "seq:vlm,tp", "seq:window,tp", "seq:dsv2,tp"]
 RUN_2X2 = ["fam:dsv2,fsdp_tp", "fam:vlm,tp", "fam:vlm,fsdp_tp",
            "fam:whisper,fsdp_tp", "fam:llama_q8,tp", "fam:llama_q8,fsdp_tp",
-           "fam:window,tp"]
+           "fam:window,tp", "seq:vlm,fsdp_tp", "seq:window,tp",
+           "seq:dsv2,fsdp_tp"]
 FAULT = "fault:dsv2,tp"
-SPAWN_TIMEOUT_S = 120
+# shard/gather round trips of every leaf kind: MLA's ckv/kpe, the VLM's
+# k/v and xk/xv, the window's rolling rows
+RT = "rt:dsv2,vlm,window"
+SPAWN_TIMEOUT_S = 150
+# the layout each case's KV rows (and cross rows) take: (1, 4) / (2, 2)
+LAYOUT = {("vlm", "fam"): ("head_dim", "heads"),
+          ("llama_q8", "fam"): ("head_dim", "heads"),
+          ("window", "fam"): ("head_dim", "heads"),
+          ("vlm", "seq"): ("seq", "seq"), ("window", "seq"): ("seq", "seq")}
 
 
-def _jcfg(arch, window, cf):
+def _jcfg(arch, window, cf, heads=None):
     jcfg = j_get_reduced(arch)
+    if heads:
+        jcfg = jcfg.replace(n_heads=heads[0], n_kv_heads=heads[1],
+                            head_dim=heads[2])
     if window:
         jcfg = jcfg.replace(sliding_window=window)
     if cf is not None:
@@ -83,8 +103,8 @@ def _port_leaves(jcfg, layers, name):
                      if name in layers[li % P]])
 
 
-def _jax_case(tmp, name, arch, seed, int8, window, cf, z):
-    jcfg = _jcfg(arch, window, cf)
+def _jax_case(tmp, name, arch, seed, int8, window, cf, z, heads=None):
+    jcfg = _jcfg(arch, window, cf, heads)
     jparams = _gated(j_init_params(jcfg, jax.random.PRNGKey(seed)))
     if int8:
         jparams = JQ.quantize_params(jcfg, jparams)
@@ -137,6 +157,8 @@ def _jax_case(tmp, name, arch, seed, int8, window, cf, z):
     z[f"{name}/arch"] = np.asarray(arch)
     if window:
         z[f"{name}/window"] = np.asarray(window)
+    if heads:
+        z[f"{name}/heads"] = np.asarray(heads)
     if cf is not None:
         z[f"{name}/cf"] = np.asarray(cf)
     z[f"{name}/scale"] = np.asarray(store.scale, np.float32)
@@ -163,12 +185,12 @@ def case_dir(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def run_1x4(case_dir):
-    return _spawn(case_dir, (1, 4), RUN_1X4 + [FAULT], SPAWN_TIMEOUT_S)
+    return _spawn(case_dir, (1, 4), RUN_1X4 + [FAULT, RT], SPAWN_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
 def run_2x2(case_dir):
-    return _spawn(case_dir, (2, 2), RUN_2X2, SPAWN_TIMEOUT_S)
+    return _spawn(case_dir, (2, 2), RUN_2X2 + [RT], SPAWN_TIMEOUT_S)
 
 
 def _within(res):
@@ -176,13 +198,26 @@ def _within(res):
         assert e_jax < W.TOL and e_one < W.TOL, (k, e_jax, e_one)
 
 
+def _layout(res, case, i):
+    kind, rest = case.split(":")
+    want = LAYOUT.get((rest.split(",")[0], kind))
+    if want is not None:
+        assert set(res["layouts"].values()) == {want[i]}, res["layouts"]
+    if kind == "seq" and rest.startswith("dsv2"):
+        assert res["same_as_auto"]
+
+
 @pytest.mark.parametrize("case", RUN_1X4)
 def test_sharded_families_1x4_match_jax(run_1x4, case):
     res = run_1x4[case]
     _within(res)
+    _layout(res, case, 0)
     if case.startswith("fam:dsv2"):
         # the expert-parallel MoE, and the latent merge's all-to-all
         assert res["branch"] == "expert_parallel"
+        assert res["coll"]["all-to-all"] > 0
+    if case.startswith("seq:"):
+        # every head's partials to its rank
         assert res["coll"]["all-to-all"] > 0
 
 
@@ -190,6 +225,7 @@ def test_sharded_families_1x4_match_jax(run_1x4, case):
 def test_sharded_families_2x2_match_jax(run_2x2, case):
     res = run_2x2[case]
     _within(res)
+    _layout(res, case, 1)
     if case.endswith("fsdp_tp"):
         # the layer weights come whole over "data" just before each layer
         tp = run_2x2.get(case.replace("fsdp_tp", "tp"))
@@ -207,3 +243,13 @@ def test_planted_mla_fault_is_caught(run_1x4):
         assert e_jax > W.TOL and e_one > W.TOL, (k, e_jax, e_one)
     for k in ("pf_logits", "ft_loss_sum"):
         assert max(errs[k]) < W.TOL, (k, errs[k])
+
+
+@pytest.mark.parametrize("shape", ["1x4", "2x2"])
+def test_cache_round_trips_every_leaf_kind(run_1x4, run_2x2, shape):
+    """``gather_cache(shard_cache(c)) == c`` bit for bit under both
+    strategies; a k/v shard of the "auto" layout (the head dim at (1, 4),
+    the KV heads at (2, 2)) is refused by the "seq" gather and step."""
+    same, refused = (run_1x4 if shape == "1x4" else run_2x2)[RT]
+    assert len(same) == 6 and all(same.values()), same
+    assert set(refused) == {"vlm", "window"}, refused
