@@ -349,7 +349,7 @@ printing its lines; any failure raises and exits non-zero:
              entries, flash and dense decode launched and the fused
              SMLM / BGMV calls not; then the same for the other families
              (``FAMILY_LOCAL``, against the plain step on the same card,
-             first-step worst row <= ``MESH_LOGIT_LIMIT``):
+             first-step worst row <= ``MESH_LIMIT`` of its dtype):
              llama-3.2-vision-90b bf16 5 layers (one cross layer),
              deepseek-v2-236b int8 2 layers (MLA: split-K's merge kernel
              launched, no GQA kernel), whisper-base, llama3-8b 2 layers
@@ -412,12 +412,38 @@ printing its lines; any failure raises and exits non-zero:
              the layouts' collective operand bytes a step beside their
              hand count (``layout_terms``), and gate flash on every rank
              and, on a "seq" decode, split-K's merge once a layer a step.
+             Mamba2, jamba and MLA's window: phase 15 adds ``SSM_LOCAL``
+             (key ``mesh_ssm``), the ``(1, 1)`` arms mamba2-1.3b 2
+             layers, jamba int8 8 layers (fp32) and deepseek-v2 bf16 2
+             layers with an 8192 window and one 9000-token prompt (MLA's
+             prefill in blocks of 1024), against the plain step;
+             ``--mesh`` adds
+             (l) ``mamba2``: mamba2-1.3b bf16 at all 48 layers at ``(1,
+             4)`` tp and ``(2, 2)`` fsdp_tp (16 / 32 of its 64 SSM heads
+             a card), 8 x 1024 and 16 steps, against one card in bf16
+             (within ``MAMBA_BF16_LIMIT`` and ``MAMBA_BF16_ULPS``) and in
+             fp32 (``MESH_FP32_LIMIT``, the limit of every arm computed in
+             fp32), and a planted fault in both (model ranks 1-3 skip the
+             all-reduce of the gated norm's sum of squares,
+             ``model.gated_sum_sq``); (m)
+             ``jamba``: jamba-1.5-large-398b int8 (fp32 compute) at 8
+             layers at ``(1, 4)`` (4 of 16 experts a card, capacity
+             factor 16), 4 x 512 and 8 steps, against one card, no entry
+             dropped on either side; (n) ``jamba_deep``: the same in bf16
+             at 40 layers (221 B parameters), every logit finite; (o)
+             ``dsv2_window``:
+             deepseek-v2-236b at long_500k (window 8192: rolling latent
+             rows of 2048 slots a card), int8 dequantized to fp32, 8
+             layers, capacity factor 4, one 16384-token prompt and 16
+             steps, against one card, the same entries dropped on both
+             sides (a card's tokens are one of the one-card dispatch
+             groups).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-15 that launched it: full, spec, long, long_spec, dense,
 train, tiers, paging, fleet, window, mesh, mesh_families, mesh_layouts,
-archs, archs_mla, archs_mamba,
+mesh_ssm, archs, archs_mla, archs_mamba,
 archs_cross (the MLA, Mamba and cross arms with their grad steps) and
 examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
@@ -825,7 +851,8 @@ def check_split(K, name, x, a, b, ids, scale, bt, dtype, timing):
     slices of d_in summed, expands over slices of d_out concatenated)
     against the plain whole call.  With ``timing``, the timing row of one
     rank's shrink + expand at its slice (``SPLIT_WAYS`` of d_in and
-    d_out).  Returns (max abs error, row or None)."""
+    d_out), and a ``timing:`` line of each entry's time beside its own
+    bound.  Returns (max abs error, row or None)."""
     shrink, expand = K[f"{name}_shrink"], K[f"{name}_expand"]
     kw = {"block_t": bt} if bt else {}
     fused = K[name](x, a, b, ids, scale, **kw)
@@ -871,6 +898,21 @@ def check_split(K, name, x, a, b, ids, scale, bt, dtype, timing):
     nbytes = (t_live * di + T * do) * it + used * r * (di + do) * it \
         + 2 * T * r * 4
     bms, by = bound(nbytes, 2 * t_live * r * (di + do), x.dtype)
+    # each entry apart: the shrink reads the live rows' slice of x and the
+    # used adapters' A and writes the fp32 [T, r]; the expand reads that
+    # and the used adapters' B and writes y
+    b_s = bound((t_live * di + used * r * di) * it + T * r * 4,
+                2 * t_live * r * di, x.dtype)
+    b_e = bound(T * r * 4 + (used * r * do + T * do) * it,
+                2 * t_live * r * do, x.dtype)
+    s_l = shrink(xl, al, ids, scale, **kw)
+    ms_s = time_ms(lambda: shrink(xl, al, ids, scale, **kw))
+    ms_e = time_ms(lambda: expand(s_l, bl, ids, scale, **kw))
+    print(f"timing: {name} split entries bf16 T={T} d_in={di} d_out={do} "
+          f"r={r}, one of {n} ranks: shrink ms={ms_s:.5f} bound_ms="
+          f"{b_s[0]:.5f} ({b_s[1]}) bound_share={b_s[0] / ms_s:.4f}; expand "
+          f"ms={ms_e:.5f} bound_ms={b_e[0]:.5f} ({b_e[1]}) bound_share="
+          f"{b_e[0] / ms_e:.4f}")
     sel = ids.long()
     xa = xl.view(-1, bt or 1, di)
     ag, bg = al[sel], bl[sel]
@@ -1948,10 +1990,12 @@ def ssd_record(dev, gen):
 
         def run(prm=p, cast=lambda x: x, st=state):
             if S == 1:
-                return TM.mamba_step(cfg, prm, cast(xb), cast(bcb),
-                                     cast(dtb), cast(zb), st)
-            return TM.mamba_seq(cfg, prm, cast(xb), cast(bcb), cast(dtb),
-                                cast(zb), valid)[0]
+                y = TM.mamba_step(cfg, prm, cast(xb), cast(bcb), cast(dtb),
+                                  st)
+            else:
+                y = TM.mamba_seq(cfg, prm, cast(xb), cast(bcb), cast(dtb),
+                                 valid)[0]
+            return TM._gated_out(y, cast(zb), prm)
 
         out = run(st={k: v.clone() for k, v in state.items()})
         exact = run(p32, lambda x: x.float(),
@@ -5665,6 +5709,10 @@ MLA_NEED = SPLIT_COUNTERS + ("merge",)
 # ranks); by the slots: split-K's partial and merge kernels
 HD_NEED = SPLIT_COUNTERS + ("flash",)
 SEQ_NEED = SPLIT_COUNTERS + ("flash", "partials", "merge")
+# a stack of Mamba2 layers alone (mamba2-1.3b): the split entries (its mixer
+# is plain PyTorch, as the JAX model's is jnp); jamba's attention layer
+# adds flash and dense decode (MESH_NEED)
+SSM_NEED = SPLIT_COUNTERS
 
 
 def free_port() -> int:
@@ -5836,10 +5884,24 @@ def mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
 # ``--mesh`` run also plants a sharding fault (``planted_fault``) and fails
 # unless the gates below see it
 MESH_LOGIT_LIMIT = 0.05
+# the same share for an arm computed in fp32 (int8 weights dequantized to
+# fp32): the sound fp32 arms read 3.8e-06 to 4.9e-05, mamba2's planted
+# norm fault 1.142 (NVIDIA H100 80GB HBM3, 700 W)
+MESH_FP32_LIMIT = 1e-3
+MESH_LIMIT = {torch.bfloat16: MESH_LOGIT_LIMIT,
+              torch.float32: MESH_FP32_LIMIT}
 # a first divergence between two runs must be a near tie: both runs'
 # top-1 minus top-2 gaps and own-token margins within this many bf16 ulps
 # at the top logit (the sound 4-card arms read at most 3)
 NEAR_TIE_ULPS = 8
+# mamba2-1.3b's 48 layers in bf16 against one card: the bf16 mixer is
+# itself ~1 % of a row off fp32 a layer (the ``ssd:`` record), so another
+# rounding order (row-parallel out_proj partials summed in bf16, the SSD's
+# products over a rank's heads) read worst rows of 0.0787 at (1, 4) and
+# 0.0612 at (2, 2), first divergences up to 10 ulps apart; the planted
+# norm fault read 1.142 (NVIDIA H100 80GB HBM3, 700 W)
+MAMBA_BF16_LIMIT = 0.2
+MAMBA_BF16_ULPS = 16
 # the weights' and activations' name in the ``mesh:`` lines
 DTYPE_NAME = {torch.bfloat16: "bf16", torch.float32: "fp32"}
 
@@ -5871,20 +5933,21 @@ def compare_rows(label, ref_name, ref, name, got, n_tokens):
     return worst, err, ulps
 
 
-def same_rows(label, ref_name, ref, name, got, dtype, n_tokens, limit=None):
+def same_rows(label, ref_name, ref, name, got, dtype, n_tokens, limit=None,
+              max_ulps=NEAR_TIE_ULPS):
     """``compare_rows``, gated: the worst first-step row within ``limit``
     (default ``TOL[dtype]``) and every first divergence a near tie (within
-    ``NEAR_TIE_ULPS``).  Returns the max abs logit difference."""
+    ``max_ulps``).  Returns the max abs logit difference."""
     limit = TOL[dtype] if limit is None else limit
     worst, err, ulps = compare_rows(label, ref_name, ref, name, got,
                                     n_tokens)
-    if worst > limit or ulps > NEAR_TIE_ULPS:
+    if worst > limit or ulps > max_ulps:
         raise AssertionError(
             f"{label}: worst first-step row {worst:.4g} of its max "
             f"|{ref_name}| (limit {limit:g}), a first divergence {ulps:.3g} "
-            f"bf16 ulps apart (limit {NEAR_TIE_ULPS})")
+            f"bf16 ulps apart (limit {max_ulps})")
     print(f"{label}: ok (worst row {worst:.4g} <= {limit:g}, divergences "
-          f"<= {ulps:.3g} ulps <= {NEAR_TIE_ULPS})")
+          f"<= {ulps:.3g} ulps <= {max_ulps})")
     return err
 
 
@@ -5917,15 +5980,17 @@ def gather_stats(obj):
 
 def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
              seed=0, profile=False, int8=False, need=MESH_NEED,
-             dtype=torch.bfloat16, cache_strategy="auto", s_max=None):
+             dtype=torch.bfloat16, cache_strategy="auto", s_max=None,
+             attn_chunk=0):
     """One sharded arm on this rank: weights drawn and cut, prefill and
     greedy decode with the rows cut under ``cache_strategy``, the kernels
     of ``need`` (the split LoRA entries, flash and dense decode; MLA's: the
     split entries and the merge; ``HD_NEED`` / ``SEQ_NEED`` for rows cut by
     the head dim / the slots) launched on this rank (raises otherwise),
     and on rows cut by the slots split-K's merge once a layer (and a cross
-    layer) a decode step.  Rank 0 prints the per-card lines.  Returns rank
-    0's result (None elsewhere)."""
+    layer) a decode step.  ``attn_chunk``: the step's (MLA's long
+    prefill).  Rank 0 prints the per-card lines.  Returns rank 0's result
+    (None elsewhere)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
     t0 = time.perf_counter()
@@ -5933,7 +5998,8 @@ def mesh_arm(K, label, cfg, mesh, strategy, prompts, n_decode, dev,
                            int8=int8)
     setup = time.perf_counter() - t0
     step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
-                             strategy=strategy, cache_strategy=cache_strategy)
+                             strategy=strategy, cache_strategy=cache_strategy,
+                             attn_chunk=attn_chunk)
     mesh_reset(K)
     res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
                         dtype, profile=profile, cache_strategy=cache_strategy,
@@ -6065,20 +6131,24 @@ def layout_terms(cfg, mesh, cache_strategy, B, s_max, dtype, dev):
 
 
 def planted_fault(K, cfg, mesh, prompts, n_decode, dev, kind="lora",
-                  s_max=None):
+                  s_max=None, dtype=torch.bfloat16):
     """An arm once more at ``(1, 4)`` ``tp`` with a planted sharding fault:
     ``"lora"``, model ranks 1-3 hand zeros to the shrinks' all-reduce
     (``ops.lora_shrink`` wrapped here), so every projection expands rank
     0's partial shrink alone; ``"seq"``, rows cut by the slots
     (``cache_strategy="seq"``) and model ranks 1-3 drop their decode
     partials (``model.seq_partials`` wrapped: empty partials), so every
-    head attends over rank 0's slots alone.  Returns rank 0's rows (None
-    elsewhere)."""
+    head attends over rank 0's slots alone; ``"norm"``, model ranks 1-3
+    skip the all-reduce of Mamba2's gated-norm sum of squares
+    (``model.gated_sum_sq`` wrapped: their own slice's sum, taken as the
+    whole d_inner's; the all-reduce is still called, so that the
+    collectives pair).  Returns rank 0's rows (None elsewhere)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
     from repro_torch.models import model as TM
-    host, attr = (K["ops"], "lora_shrink") if kind == "lora" else \
-        (TM, "seq_partials")
+    host, attr = {"lora": (K["ops"], "lora_shrink"),
+                  "seq": (TM, "seq_partials"),
+                  "norm": (TM, "gated_sum_sq")}[kind]
     orig = getattr(host, attr)
     mine = mesh.coords["model"] == 0
 
@@ -6088,23 +6158,62 @@ def planted_fault(K, cfg, mesh, prompts, n_decode, dev, kind="lora",
             return out
         if kind == "lora":
             return torch.zeros_like(out)
+        if kind == "norm":
+            return a[0].float().pow(2).sum(-1)
         o, mx, l = out
         return (torch.zeros_like(o), torch.full_like(mx, -1e30),
                 torch.zeros_like(l))
     setattr(host, attr, dropped)
     cs = "seq" if kind == "seq" else "auto"
     try:
-        weights = mesh_weights(cfg, mesh, "tp", dev)
+        weights = mesh_weights(cfg, mesh, "tp", dev, dtype)
         step = make_forward_step(cfg, block_t=K["block_t"], mesh=mesh,
                                  strategy="tp", cache_strategy=cs)
         res = mesh_generate(cfg, step, weights, mesh, prompts, n_decode, dev,
-                            cache_strategy=cs, s_max=s_max)
+                            dtype, cache_strategy=cs, s_max=s_max)
     finally:
         setattr(host, attr, orig)
     del weights, step
     gc.collect()
     torch.cuda.empty_cache()
     return res if dist.get_rank() == 0 else None
+
+
+def fault_seen(label, ref, bad, n_tokens, limit=MESH_LOGIT_LIMIT,
+               max_ulps=NEAR_TIE_ULPS):
+    """A planted fault's rows ``bad`` against the sound one-card run
+    ``ref``: raises unless the first-step gate (``limit``) or the
+    divergence rule (``max_ulps``) sees the fault."""
+    worst, _, ulps = compare_rows(label, "one_card", ref["rows"], "fault",
+                                  bad["rows"], n_tokens)
+    if worst <= limit and ulps <= max_ulps:
+        raise AssertionError(f"{label}: the gates do not see it (worst row "
+                             f"{worst:.4g}, divergences {ulps:.3g} ulps)")
+    print(f"{label}: caught (worst row {worst:.4g} > {limit:g} or "
+          f"divergences {ulps:.3g} ulps > {max_ulps})")
+
+
+def with_drops(run):
+    """``run()`` and the MoE entries it dropped over capacity, summed over
+    the ranks: ``moe.moe_apply``'s own count, and on the expert-parallel
+    branch each call's ``~moe_apply_auto.kept`` (``model.moe_apply_auto``
+    wrapped here: the forward keeps no count of its own)."""
+    from repro_torch.models import model as TM
+    from repro_torch.models.moe import moe_apply
+    orig, ep = TM.moe_apply_auto, []
+
+    def counted(*a, **kw):
+        out = orig(*a, **kw)
+        if orig.branch == "expert_parallel":
+            ep.append((~orig.kept).sum())
+        return out
+    moe_apply.dropped = 0
+    TM.moe_apply_auto = counted
+    try:
+        res = run()
+    finally:
+        TM.moe_apply_auto = orig
+    return res, sum(gather_stats(int(sum(ep)) + moe_apply.dropped))
 
 
 def finite_rows(label, rows):
@@ -6119,12 +6228,13 @@ def finite_rows(label, rows):
 
 
 def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0,
-                 int8=False, dtype=torch.bfloat16, s_max=None):
+                 int8=False, dtype=torch.bfloat16, s_max=None, attn_chunk=0):
     """The same weights whole on this rank's card, the plain step."""
     from repro_torch.core.unified import make_forward_step
     weights = mesh_weights(cfg, None, None, dev, dtype, seed=seed,
                            int8=int8)
-    step = make_forward_step(cfg, block_t=K["block_t"])
+    step = make_forward_step(cfg, block_t=K["block_t"],
+                             attn_chunk=attn_chunk)
     res = mesh_generate(cfg, step, weights, None, prompts, n_decode, dev,
                         dtype, s_max=s_max)
     del weights, step
@@ -6195,7 +6305,7 @@ def mesh_rank(rank, world, port, only):
                  dtype=torch.bfloat16):
             verdict(lambda: same_rows(label, ref_name, ref["rows"], name,
                                       got["rows"], dtype, n_tokens,
-                                      MESH_LOGIT_LIMIT))
+                                      MESH_LIMIT[dtype]))
 
         n_tok = lambda p, n: p[0].shape[0] * (n + 1)
         if "llama" in only:
@@ -6210,22 +6320,10 @@ def mesh_rank(rank, world, port, only):
                 gate(f"mesh: llama {key} vs one card", "one_card", ref,
                      "mesh", res, n_tok(p, 16))
             bad = planted_fault(K, cfg, m14, p, 4, dev)
-
-            def caught():
-                label = ("mesh: llama 1x4 tp with a planted fault (model "
-                         "ranks 1-3 drop their LoRA shrink partials) vs one "
-                         "card")
-                worst, _, ulps = compare_rows(label, "one_card", ref["rows"],
-                                              "fault", bad["rows"],
-                                              n_tok(p, 4))
-                if worst <= MESH_LOGIT_LIMIT and ulps <= NEAR_TIE_ULPS:
-                    raise AssertionError(
-                        f"{label}: the gates do not see it (worst row "
-                        f"{worst:.4g}, divergences {ulps:.3g} ulps)")
-                print(f"{label}: caught (worst row {worst:.4g} > "
-                      f"{MESH_LOGIT_LIMIT:g} or divergences {ulps:.3g} ulps "
-                      f"> {NEAR_TIE_ULPS})")
-            verdict(caught)
+            verdict(lambda: fault_seen(
+                "mesh: llama 1x4 tp with a planted fault (model ranks 1-3 "
+                "drop their LoRA shrink partials) vs one card", ref, bad,
+                n_tok(p, 4)))
         if "qwen" in only:
             cfg = get_config("qwen1.5-110b")
             p = mesh_prompts(cfg, 4, 2048, seed=2)
@@ -6418,6 +6516,137 @@ def mesh_rank(rank, world, port, only):
                  "the slots) vs one card", "one_card", ref, "mesh", res,
                  n_tok(p, 8))
             del res, ref
+        if "mamba2" in only:
+            # mamba2-1.3b whole: its 64 SSM heads 16 a card at (1, 4), 32
+            # at (2, 2), the gated norm's squares summed over the cards;
+            # in bf16 at ``MAMBA_BF16_LIMIT`` / ``MAMBA_BF16_ULPS``, in fp32
+            # at ``MESH_FP32_LIMIT``, the norm fault planted in both
+            cfg = get_config("mamba2-1.3b")
+            p = mesh_prompts(cfg, 8, 1024, seed=13)
+            got = {key: mesh_arm(K, "mamba2", cfg, mesh, st, p, 16, dev,
+                                 need=SSM_NEED, profile=key == "1x4 tp")
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            ref = one_card("mamba2", cfg, p, 16)
+            for key, res in got.items():
+                verdict(lambda: same_rows(
+                    f"mesh: mamba2 48 layers bf16 {key} vs one card",
+                    "one_card", ref["rows"], "mesh", res["rows"],
+                    torch.bfloat16, n_tok(p, 16), MAMBA_BF16_LIMIT,
+                    MAMBA_BF16_ULPS))
+            del got
+            bad = planted_fault(K, cfg, m14, p, 4, dev, kind="norm")
+            verdict(lambda: fault_seen(
+                "mesh: mamba2 bf16 1x4 tp with a planted fault (model ranks "
+                "1-3 skip the gated norm's all-reduce) vs one card", ref, bad,
+                n_tok(p, 4), MAMBA_BF16_LIMIT, MAMBA_BF16_ULPS))
+            del ref, bad
+            f32 = torch.float32
+            got = {key: mesh_arm(K, "mamba2_fp32", cfg, mesh, st, p, 16, dev,
+                                 need=SSM_NEED, dtype=f32)
+                   for key, mesh, st in (("1x4 tp", m14, "tp"),
+                                         ("2x2 fsdp_tp", m22, "fsdp_tp"))}
+            ref = one_card("mamba2_fp32", cfg, p, 16, dtype=f32)
+            for key, res in got.items():
+                gate(f"mesh: mamba2 48 layers fp32 {key} vs one card",
+                     "one_card", ref, "mesh", res, n_tok(p, 16), f32)
+            del got
+            bad = planted_fault(K, cfg, m14, p, 4, dev, kind="norm",
+                                dtype=f32)
+            verdict(lambda: fault_seen(
+                "mesh: mamba2 fp32 1x4 tp with a planted fault (model ranks "
+                "1-3 skip the gated norm's all-reduce) vs one card", ref, bad,
+                n_tok(p, 4), MESH_FP32_LIMIT))
+            del ref, bad
+        if "jamba" in only or "jamba_deep" in only:
+            from repro_torch.models.moe_dist import moe_apply_auto
+            # jamba-1.5-large-398b in int8, capacity factor E: neither the
+            # one-card groups nor a card's buffer can drop an entry
+            jam = get_config("jamba-1.5-large-398b")
+            jam = jam.replace(moe=dataclasses.replace(
+                jam.moe, capacity_factor=float(jam.moe.num_experts)))
+            pj = mesh_prompts(jam, 4, 512, seed=14)
+        if "jamba" in only:
+            # one period of 8 layers (7 Mamba2, 1 attention, 4 MoE of 16
+            # experts, 4 a card), int8 dequantized to fp32: random routers'
+            # near-tied top-2 choices flip on bf16 rounding (SSM_LOCAL)
+            c8 = jam.replace(n_layers=8)
+            f32 = torch.float32
+            res, d_mesh = with_drops(lambda: mesh_arm(
+                K, "jamba", c8, m14, "tp", pj, 8, dev, int8=True,
+                profile=True, dtype=f32))
+            branch = moe_apply_auto.branch
+            ref, d_one = with_drops(lambda: one_card(
+                "jamba", c8, pj, 8, int8=True, dtype=f32))
+
+            def jamba():
+                print(f"mesh: jamba 8 layers int8/fp32 1x4 tp: MoE branch "
+                      f"{branch}, entries dropped {d_mesh} on the 4 cards, "
+                      f"{d_one} on one card (capacity factor "
+                      f"{c8.moe.capacity_factor:g})")
+                if d_mesh or d_one or branch != "expert_parallel":
+                    raise AssertionError(f"jamba: {d_mesh} / {d_one} entries "
+                                         f"dropped, branch {branch}")
+                same_rows("mesh: jamba 8 layers int8/fp32 1x4 tp (experts "
+                          "over the cards) vs one card", "one_card",
+                          ref["rows"], "mesh", res["rows"], f32,
+                          n_tok(pj, 8), MESH_FP32_LIMIT)
+            verdict(jamba)
+            del res, ref
+        if "jamba_deep" in only:
+            # 5 periods, 221 B parameters: about 55 GB of int8 a card
+            cd = jam.replace(n_layers=40)
+            res, d_mesh = with_drops(lambda: mesh_arm(
+                K, "jamba_deep", cd, m14, "tp", pj, 8, dev, int8=True))
+
+            def deep():
+                finite_rows("mesh: jamba_deep 40 layers int8 1x4 tp",
+                            res["rows"])
+                print(f"mesh: jamba_deep 40 layers int8 1x4 tp: entries "
+                      f"dropped {d_mesh} on the 4 cards (capacity factor "
+                      f"{cd.moe.capacity_factor:g})")
+            verdict(deep)
+            del res
+        if "dsv2_window" in only:
+            # deepseek-v2-236b at long_500k (window 8192: rolling latent rows
+            # of 8192 slots, 2048 a card), int8 weights dequantized to fp32
+            # as the dsv2 arm's check, 8 layers; MLA's prefill in key and
+            # query blocks of 1024 (an unchunked 16384 x 16384 score block
+            # of 128 heads would take 137 GB); capacity factor 4: at E
+            # (160) a card's [E, cap, d] buffer for 4096 tokens would take
+            # 80 GB. Its random routers drop entries at any factor a card
+            # can hold (37 % here, ROADMAP Queue 3), so the gate is the
+            # same drops on both sides: a card's 4096 tokens are one of the
+            # one-card run's dispatch groups (``moe.GROUP_TOKENS``), with
+            # the same capacity, so the two drop the same entries
+            from repro_torch.launch.shapes import SHAPES, adapt_config
+            cfg = adapt_config(get_config("deepseek-v2-236b"),
+                               SHAPES["long_500k"])
+            cfg = cfg.replace(n_layers=8, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=4.0))
+            p = mesh_prompts(cfg, 1, 16384, seed=15)
+            res, d_mesh = with_drops(lambda: mesh_arm(
+                K, "dsv2_window", cfg, m14, "tp", p, 16, dev, int8=True,
+                need=MLA_NEED, dtype=torch.float32, attn_chunk=1024))
+            ref, d_one = with_drops(lambda: one_card(
+                "dsv2_window", cfg, p, 16, int8=True, dtype=torch.float32,
+                attn_chunk=1024))
+
+            def dsv2_window():
+                print(f"mesh: dsv2_window: entries dropped {d_mesh} on the 4 "
+                      f"cards, {d_one} on one card (capacity factor "
+                      f"{cfg.moe.capacity_factor:g})")
+                if d_mesh != d_one:
+                    raise AssertionError(f"dsv2_window: {d_mesh} entries "
+                                         f"dropped on the 4 cards, {d_one} "
+                                         "on one card")
+                same_rows("mesh: dsv2_window 8192, int8/fp32 8 layers, "
+                          "16384-token prompt, 1x4 tp (rolling latent rows "
+                          "cut by the slots) vs one card", "one_card",
+                          ref["rows"], "mesh", res["rows"], torch.float32,
+                          n_tok(p, 16), MESH_FP32_LIMIT)
+            verdict(dsv2_window)
+            del res, ref
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -6431,7 +6660,8 @@ def _split_entries():
 
 
 MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
-             "window", "phi3", "seq", "seq_window", "seq_vlm")
+             "window", "phi3", "seq", "seq_window", "seq_vlm", "mamba2",
+             "jamba", "jamba_deep", "dsv2_window")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -6525,15 +6755,17 @@ def mesh_phase(K, cfg, weights, dev):
               f"{tick_ms(res['decode'])} launches={counts} ok")
         fam = mesh_families_local(K, mesh, dev)
         lay = mesh_families_local(K, mesh, dev, LAYOUTS_LOCAL)
+        ssm = mesh_families_local(K, mesh, dev, SSM_LOCAL)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
               "expert-parallel, llama-3.2-vision-90b at 100 layers, "
               "deepseek-v2-236b int8 at 60 layers, whisper-base, a windowed "
               "llama3-8b; the cache layouts: phi3-medium-14b, llama3-8b, "
               "the windowed llama3-8b and the VLM under cache_strategy "
-              "'seq') need --mesh on a host with four cards: python3 "
-              "chip_smoke.py --mesh")
-        return counts, fam, lay
+              "'seq'; mamba2-1.3b, jamba-1.5-large-398b int8 at 8 and 40 "
+              "layers, deepseek-v2-236b at long_500k's window) need --mesh "
+              "on a host with four cards: python3 chip_smoke.py --mesh")
+        return counts, fam, lay, ssm
     finally:
         dist.destroy_process_group()
 
@@ -6554,46 +6786,68 @@ FAMILY_LOCAL = (
 LAYOUTS_LOCAL = (
     ("phi3", "phi3-medium-14b", dict(n_layers=2), False, 4, 256, 8, "auto"),
     ("seq", "llama3-8b", dict(n_layers=2), False, 4, 240, 16, "seq"))
+# and of Mamba2, the hybrid stack and MLA's rolling rows (key ``mesh_ssm``;
+# ``attn_chunk`` is the step's: MLA's 9000-token prefill in blocks of 1024;
+# ``fp32``: int8 weights dequantized to fp32, for jamba's random routers:
+# in bf16 the split LoRA entries' rounding (BGMV's shrink sums its slices
+# of d_in in another order than the fused call) flipped near-tied top-2
+# choices at decode and moved a row's logits by up to 1.15 (NVIDIA H100
+# 80GB HBM3, 700 W), as deepseek-v2's 8 layers did across cards (PR 30))
+SSM_LOCAL = (
+    ("mamba2", "mamba2-1.3b", dict(n_layers=2), False, 4, 256, 8, "auto"),
+    ("jamba", "jamba-1.5-large-398b", dict(n_layers=8, fp32=True), True,
+     4, 256, 8, "auto"),
+    ("dsv2_window", "deepseek-v2-236b",
+     dict(n_layers=2, sliding_window=8192, attn_chunk=1024), False, 1, 9000,
+     8, "auto"))
 
 
 def mesh_families_local(K, mesh, dev, arms=FAMILY_LOCAL):
-    """Phase 15's ``FAMILY_LOCAL`` (or ``LAYOUTS_LOCAL``) arms on the ``(1,
-    1)`` ``mesh``, the rows cut under each arm's cache strategy: each
-    config's weights whole on the card (an int8 one quantized leaf by
+    """Phase 15's ``FAMILY_LOCAL`` (or ``LAYOUTS_LOCAL``, ``SSM_LOCAL``)
+    arms on the ``(1, 1)`` ``mesh``, the rows cut under each arm's cache
+    strategy: each config's weights whole on the card (an int8 one quantized leaf by
     leaf), prefill and greedy decode through the plain step and through
     the sharded step; the sharded run's first-step logits within
-    ``MESH_LOGIT_LIMIT`` of a row's max and its divergences near ties, the
+    ``MESH_LIMIT`` of a row's max and its divergences near ties, the
     split SMLM / BGMV entries launched and the fused calls not, flash and
     dense decode launched (MLA: split-K's merge kernel, its decode's merge
     over the model axis; "seq": split-K's partial and merge kernels, not
-    dense decode).  Returns the arms' launches summed."""
+    dense decode; a stack with no attention layer: the split entries
+    alone).  Returns the arms' launches summed."""
     from repro_torch.configs import get_config
     from repro_torch.core.unified import make_forward_step
     total = {}
     for label, arch, change, int8, B, S, n, cs in arms:
+        change = dict(change)
+        chunk = change.pop("attn_chunk", 0)
+        dtype = torch.float32 if change.pop("fp32", False) else \
+            torch.bfloat16
         cfg = get_config(arch).replace(**change)
         t0 = time.perf_counter()
-        w = mesh_weights(cfg, None, None, dev, int8=int8)
+        w = mesh_weights(cfg, None, None, dev, dtype, int8=int8)
         setup = time.perf_counter() - t0
         p = mesh_prompts(cfg, B, S, seed=10)
         plain = mesh_generate(cfg, make_forward_step(
-            cfg, block_t=K["block_t"]), w, None, p, n, dev)
+            cfg, block_t=K["block_t"], attn_chunk=chunk), w, None, p, n, dev,
+            dtype)
         mesh_reset(K)
         res = mesh_generate(cfg, make_forward_step(
             cfg, block_t=K["block_t"], mesh=mesh, strategy="tp",
-            cache_strategy=cs), w, mesh, p, n, dev, cache_strategy=cs)
+            cache_strategy=cs, attn_chunk=chunk), w, mesh, p, n, dev, dtype,
+            cache_strategy=cs)
         counts = read_counts(K)
         counts.update(mesh_counts(K, SPLIT_COUNTERS))
         del w
         gc.collect()
         torch.cuda.empty_cache()
         name = (f"mesh: (1, 1) {label} {cfg.name} "
-                f"{'int8' if int8 else 'bf16'} {cfg.n_layers} layers "
-                f"cache_strategy={cs}")
+                f"{'int8/' if int8 else ''}{DTYPE_NAME[dtype]} "
+                f"{cfg.n_layers} layers cache_strategy={cs}")
         same_rows(f"{name}, the sharded step vs the plain step", "plain",
-                  plain["rows"], "mesh", res["rows"], torch.bfloat16,
-                  B * (n + 1), MESH_LOGIT_LIMIT)
+                  plain["rows"], "mesh", res["rows"], dtype, B * (n + 1),
+                  MESH_LIMIT[dtype])
         need = (MLA_NEED if cfg.mla is not None else
+                SSM_NEED if "attn" not in cfg.pattern else
                 SEQ_NEED if cs == "seq" else MESH_NEED)
         fused = {k: counts[k] for k in ("smlm", "bgmv") if counts[k]}
         missing = [k for k in need if not counts[k]]
@@ -6817,10 +7071,12 @@ def main() -> int:
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        _, fam, lay = mesh_phase(K, cfg, full_weights(cfg, dev,
-                                                      torch.bfloat16), dev)
+        _, fam, lay, ssm = mesh_phase(K, cfg, full_weights(
+            cfg, dev, torch.bfloat16), dev)
         print(f"mesh: (1, 1) family arms' launches summed: {fam}")
         print(f"mesh: (1, 1) layout arms' launches summed: {lay}")
+        print(f"mesh: (1, 1) Mamba2 / jamba / MLA-window arms' launches "
+              f"summed: {ssm}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -6860,8 +7116,8 @@ def main() -> int:
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
-    by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"] = \
-        mesh_phase(K, cfg, weights, dev)
+    (by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"],
+     by_path["mesh_ssm"]) = mesh_phase(K, cfg, weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
     by_path["examples"] = examples_phase(K, dev, measured)
@@ -6881,7 +7137,8 @@ def main() -> int:
             **({"split_launches_by_path": {
                 p: {k: by_path[p][k] for k in SPLIT_COUNTERS
                     if k.startswith(name + "_")}
-                for p in ("mesh", "mesh_families", "mesh_layouts")}}
+                for p in ("mesh", "mesh_families", "mesh_layouts",
+                          "mesh_ssm")}}
                if name in ("smlm", "bgmv") else {}),
             # the merge kernel alone: MLA's decode under a mesh, and a GQA
             # decode over rows cut by the slots (mesh_layouts)

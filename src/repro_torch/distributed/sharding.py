@@ -526,7 +526,9 @@ def _shard_spec(cfg: ModelConfig, key: str, x: torch.Tensor, mesh: Mesh,
                 strategy: str) -> Spec:
     """The "model" part of the spec of this rank's shard ``x`` of leaf
     ``key``, read from the shard (``shard_layout``; MLA's latent: the
-    slots), the rows left to ``cache_rows``."""
+    slots; Mamba's ``h`` / ``conv_x``: cut where the shard holds fewer SSM
+    heads / d_inner channels than the model, ``conv_bc`` whole), the rows
+    left to ``cache_rows``."""
     dims = [None] * x.ndim
     if mesh.shape["model"] > 1:
         if key in ("k", "v", "xk", "xv"):
@@ -534,8 +536,10 @@ def _shard_spec(cfg: ModelConfig, key: str, x: torch.Tensor, mesh: Mesh,
                                          strategy)]] = "model"
         elif key in ("ckv", "kpe"):
             dims[2] = "model"
-        else:
-            dims = list(_model_spec(cfg, {key: x}, mesh, strategy)[key])
+        elif key == "h" and x.shape[2] < cfg.n_ssm_heads:
+            dims[2] = "model"
+        elif key == "conv_x" and x.shape[3] < cfg.d_inner:
+            dims[3] = "model"
     return tuple(dims)
 
 

@@ -30,11 +30,14 @@ from torch.utils.checkpoint import checkpoint
 NEG_INF = -1e30
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5
-             ) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
+             ms: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """RMSNorm over the last axis; ``ms`` [..., 1]: the fp32 mean of squares
+    when ``x`` is a slice of the normed axis (taken over every slice)."""
     x32 = x.float()
-    y = x32 * torch.rsqrt(x32.pow(2).mean(dim=-1, keepdim=True) + eps)
-    return (y * w.float()).to(x.dtype)
+    if ms is None:
+        ms = x32.pow(2).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(ms + eps) * w.float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:

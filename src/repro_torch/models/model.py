@@ -77,12 +77,15 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   logits, ft losses and aux loss come back whole on every rank).  The two
   paths share the embedding lookup (``_embed``) and the head and loss
   (``_outputs``), whose collectives are the identity on one device, and
-  every sublayer: GQA (windowed too), MLA, cross-attention and the
-  encoder take the ``mesh`` and run their heads column- and row-parallel,
-  or whole on every rank where a head count does not divide the model
-  axis (``_Heads``).  MLA's latent rows are cut by slots over "model", so
-  its decode is flash decoding over the ranks (``_mla_decode_sharded``:
-  ``mla_partials`` on each rank, one all-to-all, split-K's merge kernel).
+  every sublayer: GQA and MLA (windowed too), Mamba2, cross-attention and
+  the encoder take the ``mesh`` and run their heads column- and
+  row-parallel, or whole on every rank where a head count does not divide
+  the model axis (``_Heads``; a Mamba2 mixer's SSM heads likewise).  MLA's
+  latent rows (rolling rows of W slots under a window) are cut by slots
+  over "model", so its decode is flash decoding over the ranks
+  (``_mla_decode_sharded``: ``mla_partials`` on each rank, one
+  all-to-all, split-K's merge kernel).  Mamba2's gated norm sums its
+  squares over the ranks' d_inner slices (``gated_sum_sq``).
   GQA's ``k``/``v`` and the cross ``xk``/``xv`` rows are cut as
   ``distributed.sharding.kv_layout`` says under the step's
   ``cache_strategy``: by the KV heads; by the head dim, whose decode sums
@@ -803,8 +806,11 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     rows (``wdkv`` whole on every model rank) and holds the slots ``[s0,
     s0 + sc/m)`` of every latent row (``cache_shardings``: the sequence
     over "model"): ft and cold prefill attend over the bucket's fresh
-    latent, each rank writing its own slots; decode is flash decoding over
-    the ranks (``_mla_decode_sharded``).  Returns this rank's heads'
+    latent (with ``window=W`` under a sliding window), each rank writing
+    its own slots (of a rolling row of W slots under a window: the
+    positions whose slot ``pos % W`` it holds, ``_dense_write_prompt``);
+    decode is flash decoding over the ranks (``_mla_decode_sharded``, the
+    slots' positions from ``L.dec_cache_pos``).  Returns this rank's heads'
     ``[T, h/m*dv]``."""
     m, h = cfg.mla, cfg.n_heads
     dnp, dr, c_rank = m.qk_nope_dim, m.qk_rope_dim, m.kv_lora_rank
@@ -1135,67 +1141,97 @@ def _cross_sources(cfg: ModelConfig, params: Dict, plan: _Plan,
             setattr(plan, name, b._replace(aux_embed=enc))
 
 
-def _expand_bc(cfg: ModelConfig, y_bc: torch.Tensor, lead: tuple):
-    """[.., 2*g*ds] -> (B, C) [.., nh, ds], groups expanded over heads."""
+def _expand_bc(cfg: ModelConfig, y_bc: torch.Tensor, lead: tuple,
+               h0: int, nh: int):
+    """[.., 2*g*ds] -> (B, C) [.., nh, ds] for the ``nh`` SSM heads from
+    head ``h0``: each head takes its group's B / C, the group of global
+    head ``j`` being ``j // (n_ssm_heads / g)`` (``mamba.expand_groups``
+    over every head)."""
     s = cfg.ssm
     gds = s.n_groups * s.d_state
     b2 = y_bc[..., :gds].reshape(*lead, s.n_groups, s.d_state)
     c2 = y_bc[..., gds:].reshape(*lead, s.n_groups, s.d_state)
-    return (M.expand_groups(b2, cfg.n_ssm_heads),
-            M.expand_groups(c2, cfg.n_ssm_heads))
+    grp = torch.arange(h0, h0 + nh, device=y_bc.device) // (
+        cfg.n_ssm_heads // s.n_groups)
+    return b2.index_select(-2, grp), c2.index_select(-2, grp)
 
 
 def mamba_seq(cfg: ModelConfig, p: Dict, xb: torch.Tensor, bcb: torch.Tensor,
-              dtb: torch.Tensor, zb: torch.Tensor, valid: torch.Tensor,
-              remat: bool = False):
+              dtb: torch.Tensor, valid: torch.Tensor, remat: bool = False,
+              h0: int = 0):
     """The Mamba2 mixer between its projections over whole rows from zero
-    state (the JAX model's ``_seq`` and ``_gated_out``): the causal convs,
-    the chunked SSD and the gated norm.  xb / zb: [B, S, di]; bcb: [B, S,
-    2*g*ds]; dtb: [B, S, nh]; ``valid`` [B, S] (``dt = 0`` elsewhere).
-    Returns (out [B, S, di], h [B, nh, hd, ds], conv_x, conv_bc states)."""
+    state (the JAX model's ``_seq``): the causal convs and the chunked SSD,
+    before the gated norm (``_gated_out``).  xb: [B, S, di']; bcb: [B, S,
+    2*g*ds]; dtb: [B, S, nh']; ``valid`` [B, S] (``dt = 0`` elsewhere):
+    ``nh'`` heads from head ``h0`` and their ``di' = nh' * hd`` channels,
+    every head on one card, a rank's own under a mesh (``p`` its shards).
+    Returns (out [B, S, di'], h [B, nh', hd, ds], conv_x, conv_bc
+    states)."""
     s = cfg.ssm
     B, S = xb.shape[:2]
+    nh = dtb.shape[-1]
     y_x, cx = M.causal_conv(xb, p["conv_x"], p["conv_bx"], None)
     y_bc, cbc = M.causal_conv(bcb, p["conv_bc"], p["conv_bbc"], None)
     y_x, y_bc = F.silu(y_x), F.silu(y_bc)
-    xs = y_x.reshape(B, S, cfg.n_ssm_heads, s.head_dim)
-    b2, c2 = _expand_bc(cfg, y_bc, (B, S))
+    xs = y_x.reshape(B, S, nh, s.head_dim)
+    b2, c2 = _expand_bc(cfg, y_bc, (B, S), h0, nh)
     dtv = F.softplus(dtb.float() + p["dt_bias"].float())
     dtv = dtv * valid[..., None].float()                     # pad -> no-op
     A = -torch.exp(p["a_log"].float())
     y, h = M.ssd_chunked(xs, dtv, A, b2, c2, s.chunk, remat=remat)
     y = y + p["d_skip"].to(y.dtype)[None, None, :, None] * xs
-    return _gated_out(y.reshape(B, S, cfg.d_inner), zb, p), h, cx, cbc
+    y = y.reshape(B, S, nh * s.head_dim)
+    return y, h, cx, cbc
 
 
 def mamba_step(cfg: ModelConfig, p: Dict, xd: torch.Tensor,
-               bcd: torch.Tensor, dtd: torch.Tensor, zd: torch.Tensor,
-               cache: Dict) -> torch.Tensor:
-    """One decode step of the Mamba2 mixer between its projections, in
-    place on the state rows ``[0, B)`` of ``cache`` (``h``, ``conv_x``,
-    ``conv_bc``).  xd / zd: [B, 1, di]; bcd: [B, 1, 2*g*ds]; dtd: [B, 1,
-    nh].  ``dt`` rounds to the activation dtype before the decay, as in
-    the JAX model.  Returns out [B, 1, di]."""
+               bcd: torch.Tensor, dtd: torch.Tensor, cache: Dict, mesh=None,
+               h0: int = 0) -> torch.Tensor:
+    """One decode step of the Mamba2 mixer between its projections, before
+    the gated norm, in place on the state rows ``[0, B)`` of ``cache``
+    (``h``, ``conv_x``, ``conv_bc``).  xd: [B, 1, di']; bcd: [B, 1,
+    2*g*ds]; dtd: [B, 1, nh'] (``mamba_seq``'s heads).  ``dt`` rounds to
+    the activation dtype before the decay, as in the JAX model.  Under a
+    ``mesh``, a mixer whole on every rank whose ``conv_x`` rows are cut by
+    d_inner (a head count that does not divide "model", a d_inner that
+    does) gathers them over "model" first and writes back its own slice.
+    Returns out [B, 1, di']."""
     s = cfg.ssm
     B = xd.shape[0]
-    y_x, cx = M.causal_conv(xd, p["conv_x"], p["conv_bx"],
-                            cache["conv_x"][:B])
+    nh = dtd.shape[-1]
+    cx0 = cache["conv_x"][:B]
+    if cx0.shape[-1] < xd.shape[-1]:
+        cx0 = SH.all_gather(cx0, "model", mesh, dim=2)
+    y_x, cx = M.causal_conv(xd, p["conv_x"], p["conv_bx"], cx0)
     y_bc, cbc = M.causal_conv(bcd, p["conv_bc"], p["conv_bbc"],
                               cache["conv_bc"][:B])
     y_x, y_bc = F.silu(y_x[:, 0]), F.silu(y_bc[:, 0])
-    xs = y_x.reshape(B, cfg.n_ssm_heads, s.head_dim)
-    b2, c2 = _expand_bc(cfg, y_bc, (B,))
+    xs = y_x.reshape(B, nh, s.head_dim)
+    b2, c2 = _expand_bc(cfg, y_bc, (B,), h0, nh)
     dtv = F.softplus(dtd[:, 0].float() + p["dt_bias"].float())
     A = -torch.exp(p["a_log"].float())
     y, h = M.ssd_step(cache["h"][:B], xs, dtv.to(xs.dtype), A, b2, c2)
     y = y + p["d_skip"].to(y.dtype)[None, :, None] * xs
-    for name, v in (("h", h), ("conv_x", cx), ("conv_bc", cbc)):
-        cache[name][:B] = v.to(cache[name].dtype)
-    return _gated_out(y.reshape(B, 1, cfg.d_inner), zd, p)
+    _write_state(cache, slice(0, B), (h, cx, cbc), mesh)
+    return y.reshape(B, 1, nh * s.head_dim)
+
+
+def _write_state(cache: Dict, rows: slice, states: tuple, mesh) -> None:
+    """In place: the state rows ``h``, ``conv_x``, ``conv_bc`` at ``rows``;
+    a state wider than its leaf (the whole mixer's ``conv_x`` over rows
+    cut by d_inner) writes this rank's slice of its channels."""
+    for name, v in zip(("h", "conv_x", "conv_bc"), states):
+        c = cache[name]
+        w = c.shape[-1]
+        if v.shape[-1] > w:
+            i = mesh.coords["model"]
+            v = v[..., i * w:(i + 1) * w]
+        c[rows] = v.to(c.dtype)
 
 
 def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
-                 x: torch.Tensor, cache: Optional[Dict]) -> torch.Tensor:
+                 x: torch.Tensor, cache: Optional[Dict],
+                 mesh=None) -> torch.Tensor:
     """The Mamba2 layer over every bucket (``_mamba_apply`` of the JAX
     model); ``cache``: the layer's state rows ``h`` [rows, nh, hd, ds],
     ``conv_x`` [rows, K-1, di] and ``conv_bc`` [rows, K-1, 2*g*ds] (None
@@ -1204,12 +1240,30 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     + Bp)``; decode reads and writes rows ``[0, Bd)``.  A prefill row's
     conv state is the last ``K-1`` inputs of its padded bucket row, pad
     tokens included, as in the JAX model (ROADMAP Queue 3); its SSM state
-    is exact, since ``dt = 0`` on pad tokens."""
+    is exact, since ``dt = 0`` on pad tokens.  The gated norm runs once,
+    over the merged stream.
+
+    Under a ``mesh`` (``_sharded_forward``), where the SSM heads divide
+    "model", a rank runs its own heads and their d_inner channels:
+    ``in_z`` / ``in_x`` column-parallel in one ``dense_col``, ``in_bc``
+    whole, ``in_dt``, the conv, the SSD and the state rows ``h`` /
+    ``conv_x`` its heads' (``conv_bc`` whole), the gated norm's mean of
+    squares over the whole d_inner (``gated_sum_sq``: one fp32 all-reduce
+    of a [T] vector), ``out_proj`` row-parallel.  Where they do not
+    divide, the leaves are whole and every rank runs the whole mixer
+    (``mamba_step`` gathers a ``conv_x`` row cut by d_inner)."""
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
-    z_all = dense(xn, p["in_z"], None, lr.get("in_z"), plan.route)  # [T, di]
-    x_all = dense(xn, p["in_x"], None, lr.get("in_x"), plan.route)  # [T, di]
+    if mesh is None:
+        z_all = dense(xn, p["in_z"], None, lr.get("in_z"), plan.route)
+        x_all = dense(xn, p["in_x"], None, lr.get("in_x"), plan.route)
+    else:
+        z_all, x_all = dense_col(xn, [(p[w], None, lr.get(w))
+                                      for w in ("in_z", "in_x")],
+                                 plan.route, mesh)                  # [T, di']
     bc_all = xn @ p["in_bc"].to(xn.dtype)                           # [T, 2gds]
-    dt_all = xn @ p["in_dt"].to(xn.dtype)                           # [T, nh]
+    dt_all = xn @ p["in_dt"].to(xn.dtype)                           # [T, nh']
+    nh = dt_all.shape[1]
+    h0 = mesh.coords["model"] * nh if nh < cfg.n_ssm_heads else 0
     zf, zp, zd = plan.split(z_all)
     xf, xp, xd = plan.split(x_all)
     bf, bp, bd = plan.split(bc_all)
@@ -1221,27 +1275,46 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                                                  bd, dd))
     outs = [None, None, None]
     if zf is not None:           # fine-tune / eval: from zero state
-        outs[0] = mamba_seq(cfg, p, xf, bf, df, zf, plan.ft_valid,
-                            remat=True)[0]
+        outs[0] = mamba_seq(cfg, p, xf, bf, df, plan.ft_valid, remat=True,
+                            h0=h0)[0]
     if zp is not None:           # prefill: from zero state, rows [Bd, Bd+Bp)
-        outs[1], h, cx, cbc = mamba_seq(cfg, p, xp, bp, dp, zp,
-                                        plan.pf_valid)
-        rows = slice(plan.Bd, plan.Bd + plan.Bp)
-        for name, v in (("h", h), ("conv_x", cx), ("conv_bc", cbc)):
-            cache[name][rows] = v.to(cache[name].dtype)
+        outs[1], h, cx, cbc = mamba_seq(cfg, p, xp, bp, dp, plan.pf_valid,
+                                        h0=h0)
+        _write_state(cache, slice(plan.Bd, plan.Bd + plan.Bp), (h, cx, cbc),
+                     mesh)
     if zd is not None:           # decode: rows [0, Bd) in place
         if plan.Sd > 1:
             raise NotImplementedError(
                 "mamba decode state cannot roll back rejected drafts; "
                 "speculative verify chunks are attention-only")
-        outs[2] = mamba_step(cfg, p, xd, bd, dd, zd, cache)
-    y = _merge_flat(plan, *outs)
-    return x + dense(y, p["out_proj"], None, lr.get("out_proj"), plan.route)
+        outs[2] = mamba_step(cfg, p, xd, bd, dd, cache, mesh, h0)
+    y = _gated_out(_merge_flat(plan, *outs), _merge_flat(plan, zf, zp, zd),
+                   p, mesh, cfg.d_inner)
+    if mesh is None:
+        return x + dense(y, p["out_proj"], None, lr.get("out_proj"),
+                         plan.route)
+    return x + dense_row(y, p["out_proj"], lr.get("out_proj"), plan.route,
+                         mesh, whole=nh == cfg.n_ssm_heads
+                         and mesh.shape["model"] > 1)
 
 
-def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Dict) -> torch.Tensor:
-    """Mamba2's gated RMSNorm: norm(y * silu(z))."""
-    return L.rms_norm(y * F.silu(z), p["mnorm"])
+def gated_sum_sq(g: torch.Tensor, mesh) -> torch.Tensor:
+    """The fp32 sum of squares of each row of ``g`` [T, di/m] over the
+    whole d_inner: this rank's slice's, summed over "model" in one
+    all-reduce of a [T] vector."""
+    return SH.all_reduce(g.float().pow(2).sum(-1), "model", mesh)
+
+
+def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Dict, mesh=None,
+               d_inner: int = 0) -> torch.Tensor:
+    """Mamba2's gated RMSNorm: norm(y * silu(z)) over d_inner.  Rows cut by
+    d_inner over "model" (``y`` [T, di/m]) take their mean of squares from
+    ``gated_sum_sq``."""
+    g = y * F.silu(z)
+    if mesh is None or g.shape[-1] == d_inner:
+        return L.rms_norm(g, p["mnorm"])
+    return L.rms_norm(g, p["mnorm"],
+                      ms=(gated_sum_sq(g, mesh) / d_inner)[..., None])
 
 
 def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
@@ -1456,34 +1529,29 @@ def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
                     loras: Optional[Dict] = None) -> None:
     """What the sharded forward runs, or a ``ValueError`` that names the
     case: GQA attention (any head counts: the head-dim and sequence cache
-    layouts) or MLA, on dense rows, with dense or MoE FFNs, cross-attention
-    layers and an encoder, GQA sliding windows, in bf16, fp32 or with int8
-    leaves."""
+    layouts), MLA (heads dividing the model axis) or Mamba2 mixers, alone
+    or in one stack (jamba), on dense rows, with dense or MoE FFNs,
+    cross-attention layers and an encoder, sliding windows (GQA and MLA),
+    in bf16, fp32 or with int8 leaves."""
     where = f"under a {dict(mesh.shape)} mesh"
     if torch.is_grad_enabled() and loras is not None and any(
             t.requires_grad for t in tree_leaves(loras)):
         raise ValueError(f"a forward with gradient {where}: the train step "
                          "under a mesh is a later slice (ROADMAP Queue 1, "
                          "5b)")
-    if "mamba" in cfg.pattern:
-        raise ValueError(f"{cfg.name}: Mamba2 layers {where} are not "
-                         "sharded yet (ROADMAP Queue 1, 5c-ii-b)")
-    if cfg.mla is not None and cfg.sliding_window > 0:
-        raise ValueError(f"{cfg.name}: MLA with a sliding window {where} is "
-                         "not sharded yet (ROADMAP Queue 1, 5c-ii-b)")
     if cfg.mla is not None and cfg.n_heads % mesh.shape["model"]:
         raise ValueError(f"{cfg.name}: MLA's {cfg.n_heads} heads do not "
                          f"divide the model axis {where} (ROADMAP Queue 1, "
-                         "5c-ii-b)")
+                         "5c-ii-b-ii)")
     for name in ("pf", "dec"):
         b = getattr(batch, name)
         if b is not None and b.block_tables is not None:
             raise ValueError(f"a paged {name} bucket {where}: the sharded "
                              "forward runs on dense rows only (ROADMAP "
-                             "Queue 1, 5c-ii-b)")
+                             "Queue 1, 5c-ii-b-ii)")
     if batch.dec is not None and batch.dec.tokens.ndim == 2:
         raise ValueError(f"verify chunks {where}: the sharded forward runs "
-                         "on dense rows only (ROADMAP Queue 1, 5c-ii-b)")
+                         "on dense rows only (ROADMAP Queue 1, 5c-ii-b-ii)")
 
 
 def local_batch(batch: UnifiedBatch, mesh):
@@ -1533,7 +1601,10 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     (``quant.quant_shardings``), dequantized only after the gather.  Cross
     layers and an encoder run their heads column- and row-parallel
     (``_cross_apply``, ``encoder_forward``), MLA its heads with the latent
-    sequence cut over "model" (``_mla_apply``).  Returns the single-device
+    sequence cut over "model" (``_mla_apply``; a windowed latent row is a
+    rolling row of W slots, W/m a rank), a Mamba2 layer its SSM heads
+    (``_mamba_apply``; the layer kind picks the sublayer, as in the plain
+    loop).  Returns the single-device
     step's logits, ft loss sums and aux loss on every rank, and the local
     cache."""
     from repro_torch.launch.mesh import batch_axes
@@ -1587,7 +1658,10 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
         p = {k: (v if k in EXPERT_STACKS or k == "router"
                  else load(v, sp[k])) for k, v in p.items()}
         lc = None if cache is None else layer_cache(cfg, cache, li, index)
-        x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
+        if index[li][0] == "mamba":
+            x = _mamba_apply(cfg, p, lr, plan, x, lc, mesh=mesh)
+        else:
+            x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
         if index[li][2] is not None:
             x = _cross_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
         x, aux = _ffn_apply(cfg, li, p, lr, plan, x, mesh=mesh, fsdp=fsdp,

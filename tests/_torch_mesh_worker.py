@@ -176,25 +176,20 @@ def value_errors(tmp, z, mesh):
     batch = mixed_batch(z, "llama_tp/")
     step = lambda c, p=params, b=batch: make_forward_step(
         c, block_t=BT, mesh=mesh)(p, None, None, b, {})
-    out = {"mamba2-1.3b": raises(lambda: step(get_reduced("mamba2-1.3b")),
-                                 "Mamba2", "5c-ii-b"),
-           "mla_window": raises(lambda: step(get_reduced(
-               "deepseek-v2-236b").replace(sliding_window=8)), "MLA",
-               "sliding window", "5c-ii-b"),
-           "mla_heads": raises(lambda: step(get_reduced(
-               "deepseek-v2-236b").replace(n_heads=3, n_kv_heads=3)), "MLA",
-               "heads", "5c-ii-b")}
+    out = {"mla_heads": raises(lambda: step(get_reduced(
+        "deepseek-v2-236b").replace(n_heads=3, n_kv_heads=3)), "MLA",
+        "heads", "5c-ii-b-ii")}
     paged = batch._replace(pf=batch.pf._replace(
         block_tables=torch.zeros((batch.pf.tokens.shape[0], 2),
                                  dtype=torch.int32)))
     out["paged"] = raises(lambda: step(cfg, params, paged), "paged", "pf",
-                          "5c-ii-b")
+                          "5c-ii-b-ii")
     verify = UnifiedBatch(dec=DECBatch(
         tokens=torch.zeros((2, 3), dtype=torch.int32),
         pos=torch.zeros(2, dtype=torch.int32),
         adapter=torch.full((2,), -1, dtype=torch.int32)))
     out["verify"] = raises(lambda: step(cfg, params, verify), "verify",
-                           "5c-ii-b")
+                           "5c-ii-b-ii")
     bank = bank_from_numpy(load_npz(os.path.join(tmp, "llama_tp_bank.npz")),
                            device="cpu")
     scale = _t(z["llama_tp/scale"])
@@ -232,30 +227,45 @@ def _family_batch(z, name):
 
 def _planted(fault, mesh):
     """A sharding fault on model ranks 1-3, as (module attribute, its
-    replacement): ``"mla"`` drops their MLA decode partials, ``"seq"``
-    their GQA slot partials (``model.seq_partials``), ``"hd"`` their share
-    of the head-dim layout's partial scores, so the all-reduce sums rank
-    0's slice of the head dim alone (``model.hd_partial_scores``)."""
+    original, its replacement): ``"mla"`` drops their MLA decode partials,
+    ``"seq"`` their GQA slot partials (``model.seq_partials``), ``"hd"``
+    their share of the head-dim layout's partial scores, so the all-reduce
+    sums rank 0's slice of the head dim alone (``model.hd_partial_scores``);
+    ``"norm"`` skips the all-reduce of Mamba2's gated-norm sum of squares,
+    taking their own d_inner slice's sum for the whole d_inner's
+    (``model.gated_sum_sq``, still called so that the collectives pair);
+    ``"roll"`` writes their slots of a rolling row unrolled, slot ``s0 +
+    j`` given prompt position ``s0 + j`` (``model._dense_write_prompt``
+    told the row is at least as long as the bucket)."""
     mine = mesh.coords["model"] == 0
     name = {"mla": "mla_partials", "seq": "seq_partials",
-            "hd": "hd_partial_scores"}[fault]
+            "hd": "hd_partial_scores", "norm": "gated_sum_sq",
+            "roll": "_dense_write_prompt"}[fault]
     orig = getattr(TM, name)
+
+    def unrolled(rows, xh, r0, s0=0, sc=None):
+        if not mine:
+            sc = max(sc or rows.shape[1], xh.shape[1])
+        return orig(rows, xh, r0, s0, sc)
 
     def dropped(*a):
         out = orig(*a)
         if mine:
             return out
+        if fault == "norm":
+            return a[0].float().pow(2).sum(-1)
         if fault == "hd":
             return torch.zeros_like(out)
         o, m, l = out
         return (torch.zeros_like(o), torch.full_like(m, -1e30),
                 torch.zeros_like(l))
-    return name, orig, dropped
+    return name, orig, unrolled if fault == "roll" else dropped
 
 
 def case_config(z, name):
     """Case ``name``'s reduced config with its changes (a window, a
-    capacity factor, head counts and head dim)."""
+    capacity factor, head counts and head dim, d_model and the SSM head
+    dim)."""
     cfg = get_reduced(z[f"{name}/arch"].item())
     if f"{name}/window" in z:
         cfg = cfg.replace(sliding_window=int(z[f"{name}/window"]))
@@ -265,6 +275,10 @@ def case_config(z, name):
     if f"{name}/heads" in z:
         h, kv, hd = (int(v) for v in z[f"{name}/heads"])
         cfg = cfg.replace(n_heads=h, n_kv_heads=kv, head_dim=hd)
+    if f"{name}/ssm" in z:
+        d, hd = (int(v) for v in z[f"{name}/ssm"])
+        cfg = cfg.replace(d_model=d, ssm=dataclasses.replace(cfg.ssm,
+                                                             head_dim=hd))
     return cfg
 
 
@@ -430,6 +444,10 @@ def run(rank, world, tmp, shape, cases):
                 res[case] = family_case(tmp, name, mesh, strategy, z,
                                         fault="mla" if kind == "fault"
                                         else None)
+            elif kind in ("fault_norm", "fault_roll"):
+                name, strategy = rest.split(",")
+                res[case] = family_case(tmp, name, mesh, strategy, z,
+                                        fault=kind[6:])
             elif kind in ("seq", "fault_seq", "fault_hd"):
                 name, strategy = rest.split(",")
                 cs = "auto" if kind == "fault_hd" else "seq"

@@ -283,6 +283,24 @@ def test_split_and_expand_match_jax():
         np.asarray(JMB.expand_groups(j(g), jcfg.n_ssm_heads)))
 
 
+@pytest.mark.parametrize("h0,nh", [(0, 16), (4, 4), (8, 8), (12, 4)])
+def test_rank_heads_take_their_groups(h0, nh):
+    """A rank's SSM heads ``[h0, h0 + nh)`` under a mesh take the B / C of
+    their global head's group (``model._expand_bc``): its slice of JAX's
+    ``expand_groups`` over every head, at 2 groups of 8 heads (not
+    ``expand_groups`` over the rank's own ``nh`` heads, which would give
+    heads 6-7 of rank 1 at (4, 4) the second group)."""
+    cfg = get_reduced(MAMBA).replace(ssm=SSMConfig(
+        d_state=16, head_dim=32, expand=2, chunk=16, n_groups=2))
+    y = np.random.default_rng(5).standard_normal((3, 64)).astype(np.float32)
+    b, c = TM._expand_bc(cfg, t(y), (3,), h0, nh)
+    for got, half in ((b, y[:, :32]), (c, y[:, 32:])):
+        want = JMB.expand_groups(j(half.reshape(3, 2, 16)),
+                                 cfg.n_ssm_heads)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(want)[:, h0:h0 + nh])
+
+
 # ----------------------------------------------------- model-level twins
 def _fwd(s, batch, cache, loras=False):
     kw = dict(loras=s["bank"], lora_scale=s["scale"]) if loras else {}

@@ -3,7 +3,12 @@ against the JAX package's single-device ``unified_forward`` on the same npz
 weights: MLA (reduced deepseek-v2-236b, with its MoE), cross-attention
 layers (reduced llama-3.2-vision-90b) and an encoder (reduced whisper-base),
 int8 leaves (reduced llama3-8b and deepseek-v2 through JAX's
-``quantize_params``) and a GQA sliding window (reduced llama3-8b, W = 8).
+``quantize_params``), a GQA sliding window (reduced llama3-8b, W = 8),
+Mamba2 (reduced mamba2-1.3b: 16 SSM heads, 4 a rank at ``(1, 4)``; and at
+d_model 192 with an SSM head dim of 64, 6 heads that do not divide 4, so
+the mixer runs whole on every rank over ``conv_x`` rows cut by d_inner),
+the hybrid stack (reduced jamba: Mamba2, GQA and MoE layers in one stack,
+also under "seq") and MLA's rolling rows (reduced deepseek-v2, W = 8).
 
 One spawn per mesh shape holds all its cases (``_torch_mesh_worker.
 family_case``); each case is two steps on dense rows: the mixed ft +
@@ -21,8 +26,10 @@ for bit.  MoE capacity factor 8.0, as in ``tests/test_torch_mesh.py``.
 
 Tolerance ``W.TOL`` = 2e-4 abs (fp32) for the logits, ft loss sums, aux
 loss and the gathered cache of both steps, against JAX and against the
-port's one-process step.  One planted fault: at ``(1, 4)`` model ranks 1-3
-drop their MLA decode partials, which must break that tolerance.
+port's one-process step.  Three planted faults at ``(1, 4)``, each of
+which must break that tolerance: model ranks 1-3 drop their MLA decode
+partials; skip the all-reduce of Mamba2's gated-norm sum of squares; write
+their slots of the window's rolling latent rows unrolled.
 """
 import dataclasses
 
@@ -51,31 +58,51 @@ CASES = {"dsv2": ("deepseek-v2-236b", 20, False, 0, 8.0),
          "whisper": ("whisper-base", 22, False, 0, None),
          "llama_q8": ("llama3-8b", 23, True, 0, None),
          "dsv2_q8": ("deepseek-v2-236b", 24, True, 0, 8.0),
-         "window": ("llama3-8b", 25, False, 8, None)}
+         "window": ("llama3-8b", 25, False, 8, None),
+         "mamba2": ("mamba2-1.3b", 40, False, 0, None),
+         "jamba": ("jamba-1.5-large-398b", 41, False, 0, 8.0),
+         "mamba_whole": ("mamba2-1.3b", 42, False, 0, None),
+         "dsv2_window": ("deepseek-v2-236b", 43, False, 8, 8.0)}
+# (d_model, SSM head dim): 6 SSM heads of 64, which do not divide a model
+# axis of 4, over a d_inner of 384, which does
+SSM = {"mamba_whole": (192, 64)}
 N_ROWS, S_MAX = 6, 32
 RUN_1X4 = ["fam:dsv2,tp", "fam:whisper,tp", "fam:dsv2_q8,tp",
            # the head-dim layout
            "fam:vlm,tp", "fam:llama_q8,tp", "fam:window,tp",
            # the sequence layout
-           "seq:vlm,tp", "seq:window,tp", "seq:dsv2,tp"]
+           "seq:vlm,tp", "seq:window,tp", "seq:dsv2,tp",
+           # Mamba2, the hybrid stack and MLA's rolling rows
+           "fam:mamba2,tp", "fam:jamba,tp", "fam:mamba_whole,tp",
+           "fam:dsv2_window,tp", "seq:jamba,tp"]
 RUN_2X2 = ["fam:dsv2,fsdp_tp", "fam:vlm,tp", "fam:vlm,fsdp_tp",
            "fam:whisper,fsdp_tp", "fam:llama_q8,tp", "fam:llama_q8,fsdp_tp",
            "fam:window,tp", "seq:vlm,fsdp_tp", "seq:window,tp",
-           "seq:dsv2,fsdp_tp"]
+           "seq:dsv2,fsdp_tp", "fam:mamba2,fsdp_tp", "fam:jamba,fsdp_tp"]
 FAULT = "fault:dsv2,tp"
+# model ranks 1-3 skip the all-reduce of Mamba2's gated-norm squares; they
+# write their slots of the window's rolling latent rows unrolled
+FAULTS = ["fault_norm:mamba2,tp", "fault_roll:dsv2_window,tp"]
 # shard/gather round trips of every leaf kind: MLA's ckv/kpe, the VLM's
-# k/v and xk/xv, the window's rolling rows
-RT = "rt:dsv2,vlm,window"
+# k/v and xk/xv, the window's rolling rows, jamba's k/v beside the state
+# rows h/conv_x/conv_bc cut by the SSM heads, and the whole mixer's h
+# whole beside its conv_x cut by d_inner
+RT = "rt:dsv2,vlm,window,jamba,mamba_whole"
 SPAWN_TIMEOUT_S = 150
 # the layout each case's KV rows (and cross rows) take: (1, 4) / (2, 2)
 LAYOUT = {("vlm", "fam"): ("head_dim", "heads"),
           ("llama_q8", "fam"): ("head_dim", "heads"),
           ("window", "fam"): ("head_dim", "heads"),
-          ("vlm", "seq"): ("seq", "seq"), ("window", "seq"): ("seq", "seq")}
+          ("jamba", "fam"): ("head_dim", "heads"),
+          ("vlm", "seq"): ("seq", "seq"), ("window", "seq"): ("seq", "seq"),
+          ("jamba", "seq"): ("seq", "seq")}
 
 
-def _jcfg(arch, window, cf, heads=None):
+def _jcfg(arch, window, cf, heads=None, ssm=None):
     jcfg = j_get_reduced(arch)
+    if ssm:
+        jcfg = jcfg.replace(d_model=ssm[0], ssm=dataclasses.replace(
+            jcfg.ssm, head_dim=ssm[1]))
     if heads:
         jcfg = jcfg.replace(n_heads=heads[0], n_kv_heads=heads[1],
                             head_dim=heads[2])
@@ -103,8 +130,9 @@ def _port_leaves(jcfg, layers, name):
                      if name in layers[li % P]])
 
 
-def _jax_case(tmp, name, arch, seed, int8, window, cf, z, heads=None):
-    jcfg = _jcfg(arch, window, cf, heads)
+def _jax_case(tmp, name, arch, seed, int8, window, cf, z, heads=None,
+              ssm=None):
+    jcfg = _jcfg(arch, window, cf, heads, ssm)
     jparams = _gated(j_init_params(jcfg, jax.random.PRNGKey(seed)))
     if int8:
         jparams = JQ.quantize_params(jcfg, jparams)
@@ -159,6 +187,8 @@ def _jax_case(tmp, name, arch, seed, int8, window, cf, z, heads=None):
         z[f"{name}/window"] = np.asarray(window)
     if heads:
         z[f"{name}/heads"] = np.asarray(heads)
+    if ssm:
+        z[f"{name}/ssm"] = np.asarray(ssm)
     if cf is not None:
         z[f"{name}/cf"] = np.asarray(cf)
     z[f"{name}/scale"] = np.asarray(store.scale, np.float32)
@@ -178,14 +208,15 @@ def case_dir(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_families")
     z = {"lora_r": np.asarray(LORA_R)}
     for name, case in CASES.items():
-        _jax_case(tmp, name, *case, z)
+        _jax_case(tmp, name, *case, z, ssm=SSM.get(name))
     np.savez(tmp / "case.npz", **z)
     return tmp
 
 
 @pytest.fixture(scope="module")
 def run_1x4(case_dir):
-    return _spawn(case_dir, (1, 4), RUN_1X4 + [FAULT, RT], SPAWN_TIMEOUT_S)
+    return _spawn(case_dir, (1, 4), RUN_1X4 + [FAULT, RT] + FAULTS,
+                  SPAWN_TIMEOUT_S)
 
 
 @pytest.fixture(scope="module")
@@ -245,11 +276,42 @@ def test_planted_mla_fault_is_caught(run_1x4):
         assert max(errs[k]) < W.TOL, (k, errs[k])
 
 
+# each planted fault: the outputs that must leave the tolerance, and those
+# that must stay within it
+FAULT_EFFECTS = {
+    # every row's gated norm is off on 3/4 of its channels (by 2x: a
+    # quarter of the squares taken for the whole d_inner's)
+    "fault_norm:mamba2,tp": (("pf_logits", "dec_logits", "ft_loss_sum",
+                              "dec2_logits"), ()),
+    # the prefill rows' latent lands in the wrong slots: their cache and
+    # their next decode, not the rows that attend over their fresh latent
+    # nor the decode rows, which prefill never writes
+    "fault_roll:dsv2_window,tp": (("cache1_ckv", "cache1_kpe",
+                                   "dec2_logits"),
+                                  ("pf_logits", "ft_loss_sum",
+                                   "dec_logits"))}
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_planted_ssm_and_window_faults_are_caught(run_1x4, fault):
+    """Model ranks 1-3 skip the all-reduce of the gated norm's sum of
+    squares (each takes its own d_inner slice's), or write their slots of
+    the window's rolling latent rows unrolled (slot ``s0 + j`` given
+    position ``s0 + j``, not the last one the row's roll leaves there)."""
+    errs = run_1x4[fault]["errs"]
+    broken, kept = FAULT_EFFECTS[fault]
+    for k in broken:
+        e_jax, e_one = errs[k]
+        assert e_jax > W.TOL and e_one > W.TOL, (k, e_jax, e_one)
+    for k in kept:
+        assert max(errs[k]) < W.TOL, (k, errs[k])
+
+
 @pytest.mark.parametrize("shape", ["1x4", "2x2"])
 def test_cache_round_trips_every_leaf_kind(run_1x4, run_2x2, shape):
     """``gather_cache(shard_cache(c)) == c`` bit for bit under both
     strategies; a k/v shard of the "auto" layout (the head dim at (1, 4),
     the KV heads at (2, 2)) is refused by the "seq" gather and step."""
     same, refused = (run_1x4 if shape == "1x4" else run_2x2)[RT]
-    assert len(same) == 6 and all(same.values()), same
-    assert set(refused) == {"vlm", "window"}, refused
+    assert len(same) == 10 and all(same.values()), same
+    assert set(refused) == {"vlm", "window", "jamba"}, refused
