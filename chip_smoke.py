@@ -438,12 +438,25 @@ printing its lines; any failure raises and exits non-zero:
              steps, against one card, the same entries dropped on both
              sides (a card's tokens are one of the one-card dispatch
              groups).
+             The train step under a mesh: phase 15 adds ``TRAIN_LOCAL``
+             (key ``mesh_train``), llama3-8b bf16 2 layers through the
+             sharded grad and train steps at ``(1, 1)`` against the plain
+             steps, the split entries' and ``smlm_wgrad``'s launches gated
+             exactly and the fused SMLM's at 0; ``--mesh`` adds (p)
+             ``train``: llama3-8b fp32 8 layers at ``(1, 4)`` tp and
+             ``(2, 2)`` fsdp_tp on ft rows and on a mixed batch against
+             one card (``TRAIN_LIMIT``), the two planted faults of
+             ``planted_train``, and bf16 32 layers at ``(2, 2)`` against
+             one card, with the batch fault planted in bf16 and both bf16
+             steps read against the fp32 grad step; (q) ``train_qwen``:
+             qwen1.5-110b bf16 at all 80 layers, two train steps at both
+             meshes, a falling finite loss and the peak per card.
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-15 that launched it: full, spec, long, long_spec, dense,
 train, tiers, paging, fleet, window, mesh, mesh_families, mesh_layouts,
-mesh_ssm, archs, archs_mla, archs_mamba,
+mesh_ssm, mesh_train, archs, archs_mla, archs_mamba,
 archs_cross (the MLA, Mamba and cross arms with their grad steps) and
 examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
@@ -514,6 +527,11 @@ def _import_port(root: str = ROOT):
     from repro_torch.kernels import ops
     from repro_torch.kernels.smlm import SMLMFunction, smlm_wgrad
     K.update(ops=ops, smlm_wgrad=smlm_wgrad, SMLMFunction=SMLMFunction)
+    try:                # a parent checkout may lack the split backward
+        from repro_torch.kernels.smlm import smlm_wgrad_split
+        K.update(smlm_wgrad_split=smlm_wgrad_split)
+    except ImportError:
+        pass
     try:                # a parent checkout may lack the split entries
         K.update(_split_entries())
     except ImportError:
@@ -989,6 +1007,10 @@ WGRAD_PER_LAYER = (2, 2, 2, 1)     # projections of a layer at each shape
 MLA_WGRAD_SHAPES = ((WGRAD_T, 5120, 24576), (WGRAD_T, 5120, 576),
                     (WGRAD_T, 16384, 5120), (WGRAD_T, 5120, 3072),
                     (WGRAD_T, 3072, 5120))
+# the sharded train step's weight gradient: one rank's slices of the gate
+# projection under a model axis of 4 (d_in 4096 / 4, d_out 14336 / 4), its
+# shrinks in the split entries' plain [T, r] layout, packed first
+SPLIT_WGRAD_SHAPE = (WGRAD_T, 4096 // SPLIT_WAYS, 14336 // SPLIT_WAYS)
 
 
 def wgrad_case(T, d_in, d_out, dtype, dev, gen, bt, r=8):
@@ -1046,7 +1068,8 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
     rows, errs, bt = {}, [], K["block_t"]
     ref = K["ref"]
     slices = {}
-    for T, d_in, d_out in WGRAD_SHAPES + MLA_WGRAD_SHAPES:
+    for T, d_in, d_out in WGRAD_SHAPES + MLA_WGRAD_SHAPES + (
+            SPLIT_WGRAD_SHAPE,):
         x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dtype, dev,
                                               gen, bt)
         sb, gb = ref.pack_shrink(s, bt), ref.pack_shrink(gs, bt)
@@ -1077,6 +1100,20 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
             slices[(T, d_in, d_out)] = time_ms(lambda: (
                 b.transpose(1, 2).contiguous(),
                 a.transpose(1, 2).contiguous()))
+    if timing and "smlm_wgrad_split" in K:
+        # the sharded step's form: the plain shrinks packed, then the kernel
+        T, d_in, d_out = SPLIT_WGRAD_SHAPE
+        x, dy, s, gs, ids, scale = wgrad_case(T, d_in, d_out, dtype, dev,
+                                              gen, bt)
+        pack_ms = time_ms(lambda: (ref.pack_shrink(s, bt),
+                                   ref.pack_shrink(gs, bt)))
+        split_ms = time_ms(lambda: K["smlm_wgrad_split"](
+            x, dy, s, gs, ids, scale, block_t=bt, n_slots=4))
+        bms = rows[f"smlm_wgrad T={T} {d_in}x{d_out}"]["bound_ms"]
+        print(f"kernels: smlm_wgrad split T={T} {d_in}x{d_out} (one rank of "
+              f"{SPLIT_WAYS}) bf16: packed shrinks + kernel ms="
+              f"{split_ms:.5f}, the two pack_shrink copies alone ms="
+              f"{pack_ms:.5f}, bound_ms={bms:.5f}")
     if timing:
         per_step = 32 * sum(slices[k] * m
                             for k, m in zip(WGRAD_SHAPES, WGRAD_PER_LAYER))
@@ -1087,7 +1124,8 @@ def check_wgrad(K, dtype, dev, gen, timing: bool):
     print(f"kernels: smlm_wgrad    {str(dtype)[6:]:<8} max_abs_err="
           f"{max(errs):.3e} tol={TOL[dtype]:g}xmax|plain| per row shapes("
           f"T,d_in,d_out)="
-          f"{','.join(str(v) for v in WGRAD_SHAPES + MLA_WGRAD_SHAPES)} ok")
+          f"{','.join(str(v) for v in WGRAD_SHAPES + MLA_WGRAD_SHAPES)}"
+          f",{SPLIT_WGRAD_SHAPE} ok")
     # SMLMFunction: ft rows (with a base-only tile) then prefill tiles of
     # zero cotangent, at the widest projection
     T, n_ft, d_in, d_out = WGRAD_T + 256, WGRAD_T, 4096, 14336
@@ -6250,6 +6288,238 @@ def one_card_arm(K, label, cfg, prompts, n_decode, dev, seed=0,
     return res
 
 
+# ------------------------------------------ phase 15: the train step sharded
+# AdamW for the train arms: eps 1e-5 (its first step per element is g / (|g|
+# + eps), whose slope 1 / eps bounds what a rounding difference of a
+# near-zero gradient moves a weight by) and a clip far below the gradient
+# norm, so that it engages; slot 1 masked (its rows still carry gradient)
+TRAIN_OPT = dict(lr=1e-3, eps=1e-5, grad_clip=1e-3)
+TRAIN_SLOTS = (1, 0, 1, 1)
+# the sharded train step against one card, each grad / moment / new bank
+# leaf's max abs error as a share of the leaf's max abs, and the loss's abs
+# error, by dtype.  The 4-card arms (NVIDIA H100 80GB HBM3, 700 W) read
+# fp32 llama3-8b 8 L <= 2.6e-05 (loss 1.9e-06) and its two planted faults
+# 1.392 / 1.101; bf16 32 L 0.0977 (loss 0.00136)
+TRAIN_LIMIT = {torch.float32: 1e-3, torch.bfloat16: 0.2}
+TRAIN_LOSS_LIMIT = {torch.float32: 1e-3, torch.bfloat16: 0.01}
+# phase 15's (1, 1) train arm: llama3-8b at full width, 2 layers, bf16,
+# 2 ft rows of 512 tokens, gated at (grads, loss): it read 0.008675 (dX's
+# projections summed in another bf16 order than autograd's) and a loss
+# equal to the plain step's
+TRAIN_LOCAL = dict(arch="llama3-8b", layers=2, rows=2, seq=512)
+TRAIN_LOCAL_LIMITS = (0.03, 1e-3)
+
+
+def train_batch(cfg, rows, S, dev, seed, mixed=False, dtype=torch.bfloat16):
+    """``rows`` ft rows of ``S`` tokens from a numpy seed (adapters 0, 1,
+    base, 0, ...; row 1 cut short by its mask, one label ignored; weights
+    1, 0.5, 0.25, 0.75), and with ``mixed`` a cold prefill of 2 prompts of
+    S/4 tokens and a decode of 4 rows over dense rows.  Returns (the
+    batch, the whole cache or None, its segments)."""
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
+        UnifiedBatch
+    rng = np.random.default_rng(seed)
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    toks = rng.integers(0, cfg.vocab, (rows, S)).astype(np.int32)
+    mask = np.ones((rows, S), bool)
+    mask[min(1, rows - 1), S * 3 // 4:] = False
+    labels = toks.copy()
+    labels[0, 3] = -100
+    ad = np.asarray([(0, 1, -1, 0)[i % 4] for i in range(rows)], np.int32)
+    w = np.asarray([(1.0, 0.5, 0.25, 0.75)[i % 4] for i in range(rows)],
+                   np.float32)
+    ft = FTBatch(tokens=tt(toks), mask=tt(mask), labels=tt(labels),
+                 adapter=tt(ad), weight=tt(w))
+    if not mixed:
+        return UnifiedBatch(ft=ft), None, None
+    Sp = S // 4
+    pf = PFBatch(tokens=tt(rng.integers(0, cfg.vocab, (2, Sp)).astype(
+        np.int32)), length=tt(np.asarray([Sp, Sp - 9], np.int32)),
+        adapter=tt(np.asarray([1, -1], np.int32)))
+    dec = DECBatch(tokens=tt(rng.integers(0, cfg.vocab, (4,)).astype(
+        np.int32)), pos=tt(np.asarray([9, Sp, 5, 0], np.int32)),
+        adapter=tt(np.asarray([0, -1, 1, 0], np.int32)))
+    cache = init_cache(cfg, 6, Sp + 8, dev, dtype)
+    return UnifiedBatch(ft=ft, pf=pf, dec=dec), cache, (4, 2)
+
+
+def train_steps(K, cfg, weights, batch, cache, segs, dev, mesh=None,
+                strategy="tp", cache_strategy="auto", grads_only=False):
+    """One grad step and one train step (``TRAIN_OPT``, ``TRAIN_SLOTS``)
+    from the same bank, on this rank's shards under ``mesh`` (the cache
+    cut under ``cache_strategy``) or whole on the card.  Returns the loss,
+    the grads, and the train step's loss, new bank and state, whole (the
+    shards gathered) on the host, with the train step's ms, collective
+    bytes by kind, resident and peak bytes, and the launches of both
+    steps."""
+    from repro_torch.checkpoint.io import gather_bank, gather_opt_state
+    from repro_torch.core.unified import make_grad_step, make_train_step
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
+        tree_leaves, tree_map
+    params, bank, scale = weights
+    kw = dict(block_t=K["block_t"], mesh=mesh, strategy=strategy,
+              cache_strategy=cache_strategy)
+    cut = (lambda c: None if c is None else
+           SH.shard_cache(cfg, c, mesh, segs, cache_strategy)
+           if mesh is not None else {k: v.clone() for k, v in c.items()})
+    host = lambda t: tree_map(lambda x: x.float().cpu(), t)
+    whole = (lambda t: host(gather_bank(cfg, t, mesh))) if mesh is not None \
+        else host
+    mesh_reset(K)
+    res = make_grad_step(cfg, **kw)(params, bank, scale, batch, cut(cache))
+    out = dict(loss=float(res.loss), grads=whole(res.grads))
+    del res
+    if grads_only:
+        return out
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), **kw)
+    st0 = adamw_init(bank, len(TRAIN_SLOTS))
+    mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32, device=dev)
+    local = cut(cache)
+    SH.reset_collective_log()
+    t0 = time.perf_counter()
+    mem = RA.memory_summary(step, params, bank, scale, st0, batch, mask,
+                            local, state=[params, bank, st0, local],
+                            device=dev)
+    ms = (time.perf_counter() - t0) * 1e3
+    loss, nb, ns, _ = mem["out"]
+    out.update(tloss=float(loss), bank=whole(nb), ms=ms,
+               coll=SH.collective_log(), resident=mem[
+                   "argument_size_in_bytes"], peak=mem["peak_bytes"],
+               counts={**read_counts(K), **mesh_counts(K, SPLIT_COUNTERS)})
+    st = gather_opt_state(cfg, ns, mesh) if mesh is not None else ns
+    out.update(m=host(st.m), v=host(st.v))
+    out["norm"] = float(torch.sqrt(sum(g.double().square().sum() for g in
+                                       tree_leaves(out["grads"]))))
+    return out
+
+
+def train_errs(got, ref) -> dict:
+    """The loss's abs error and, per kind (grad, m, v, bank), the worst
+    leaf's max abs error over that leaf's max abs, with the leaf's name."""
+    out = {"loss": abs(got["loss"] - ref["loss"])}
+    if "tloss" in got:
+        out["loss"] = max(out["loss"], abs(got["tloss"] - ref["tloss"]))
+    for kind in ("grads", "m", "v", "bank"):
+        if kind not in got:
+            continue
+        worst = (0.0, "")
+        for li, (lg, lw) in enumerate(zip(got[kind]["layers"],
+                                          ref[kind]["layers"])):
+            for n in lw:
+                for ab in ("a", "b"):
+                    w = lw[n][ab]
+                    e = float((lg[n][ab] - w).abs().max()) / max(
+                        float(w.abs().max()), 1e-30)
+                    worst = max(worst, (e, f"{li}/{n}/{ab}"))
+        out[kind] = worst
+    return out
+
+
+def train_gate(label, got, ref, dtype, expect_ok=True, limits=None):
+    """``train_errs`` printed and gated at ``TRAIN_LIMIT`` /
+    ``TRAIN_LOSS_LIMIT`` (or ``limits``, (leaf, loss)): a sound arm must
+    stay within them, a planted fault (``expect_ok`` False) must break
+    them."""
+    e = train_errs(got, ref)
+    lim, llim = limits or (TRAIN_LIMIT[dtype], TRAIN_LOSS_LIMIT[dtype])
+    worst = max(v[0] for k, v in e.items() if k != "loss")
+    print(f"{label}: loss {got['loss']:.6f} vs {ref['loss']:.6f} abs_err="
+          f"{e['loss']:.4g} (limit {llim:g}); worst leaf max_abs_err / "
+          f"max|leaf| " + " ".join(f"{k}={v[0]:.4g}@{v[1]}" for k, v in
+                                   e.items() if k != "loss")
+          + f" (limit {lim:g})"
+          + (f"; grad norm {got['norm']:.6g} > clip "
+             f"{TRAIN_OPT['grad_clip']:g}" if "norm" in got else ""))
+    ok = e["loss"] <= llim and worst <= lim
+    if expect_ok and not ok:
+        raise AssertionError(f"{label}: over the limits: {e}")
+    if not expect_ok and ok:
+        raise AssertionError(f"{label}: the gates do not see the planted "
+                             f"fault: {e}")
+    if "norm" in got and not got["norm"] > 10 * TRAIN_OPT["grad_clip"]:
+        raise AssertionError(f"{label}: the clip did not engage "
+                             f"(norm {got['norm']})")
+    print(f"{label}: {'ok' if expect_ok else 'caught'}")
+
+
+def planted_train(K, mesh, kind):
+    """A planted fault of the sharded train step, as (module, attribute,
+    replacement): ``"shrink"``, model ranks 1-3 take their own ``Gs`` for
+    the backward's shrink all-reduce (``ops.reduce_gs``; still called, so
+    that the collectives pair); ``"batch"``, the bank's gradients not
+    summed over the batch axes (``sharding.reduce_bank_grads``)."""
+    from repro_torch.distributed import sharding as SH
+    if kind == "batch":
+        return SH, "reduce_bank_grads", lambda grads, mesh, split: grads
+    orig = K["ops"].reduce_gs
+
+    def own(reduce, gs):
+        out = orig(reduce, gs.clone())
+        return out if mesh.coords["model"] == 0 else gs
+    return K["ops"], "reduce_gs", own
+
+
+def mesh_train_local(K, mesh, dev):
+    """Phase 15's ``TRAIN_LOCAL`` arm on the ``(1, 1)`` mesh: llama3-8b at
+    full width, 2 layers, bf16, whole on the card; a forward-only step,
+    then ``train_steps`` through the sharded step and through the plain
+    step on the same weights and batch: the loss and the grads within
+    ``TRAIN_LOCAL_LIMITS``, the split shrink and expand, ``smlm_wgrad``
+    and the fused SMLM launched exactly as often as the projections ask
+    for (the fused SMLM never).  Returns the sharded steps' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.unified import make_forward_step
+    t = TRAIN_LOCAL
+    cfg = get_config(t["arch"]).replace(n_layers=t["layers"])
+    bf16 = torch.bfloat16
+    w = mesh_weights(cfg, None, None, dev, bf16, seed=3)
+    batch, _, _ = train_batch(cfg, t["rows"], t["seq"], dev, seed=30)
+    mesh_reset(K)
+    make_forward_step(cfg, block_t=K["block_t"], mesh=mesh)(
+        *w, batch, None)
+    fwd = mesh_counts(K, ("smlm_shrink", "smlm_expand"))
+    got = train_steps(K, cfg, w, batch, None, None, dev, mesh)
+    ref = train_steps(K, cfg, w, batch, None, None, dev)
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    label = (f"mesh: (1, 1) train {cfg.name} bf16 {cfg.n_layers} layers "
+             f"{t['rows']}x{t['seq']} ft rows, the sharded steps vs the "
+             f"plain steps")
+    train_gate(label, {k: v for k, v in got.items()
+                       if k in ("loss", "tloss", "grads", "norm")},
+               ref, bf16, limits=TRAIN_LOCAL_LIMITS)
+    c = got["counts"]
+    n_lora = sum(len(layer) for layer in got["grads"]["layers"])
+    # layer 0's q / k / v read the embedding, which takes no gradient, so
+    # they take no dX expand
+    no_dx = sum(n in ("wq", "wk", "wv") for n in got["grads"]["layers"][0])
+    bwd = {k: c[k] - 2 * fwd[k] for k in ("smlm_shrink", "smlm_expand")}
+    # over the grad and the train step: a forward's shrink and expand once
+    # a projection; a backward's Gs shrink and smlm_wgrad once a
+    # projection, its dX expand once a projection whose input carries a
+    # gradient
+    want = dict(fwd={"smlm_shrink": n_lora, "smlm_expand": n_lora},
+                bwd={"smlm_shrink": 2 * n_lora,
+                     "smlm_expand": 2 * (n_lora - no_dx)},
+                smlm_wgrad=2 * n_lora, smlm=0)
+    seen = dict(fwd=fwd, bwd=bwd, smlm_wgrad=c["smlm_wgrad"],
+                smlm=c["smlm"])
+    if dev.type == "cuda" and seen != want:
+        raise AssertionError(f"{label}: launches {seen}, want {want} "
+                             f"(all {c})")
+    train_errs_all = train_errs(got, ref)
+    print(f"{label}: train step ms={got['ms']:.3f} (plain {ref['ms']:.3f}) "
+          f"peak_bytes={got['peak']} (plain {ref['peak']}); new bank / "
+          f"moments " + " ".join(f"{k}={train_errs_all[k][0]:.4g}"
+                                 for k in ("m", "v", "bank"))
+          + f"; launches over the grad and train steps {c} (a forward "
+            f"alone {fwd}) ok")
+    return c
+
+
 def mesh_rank(rank, world, port, only):
     """One rank of ``chip_smoke.py --mesh`` (spawned once per card): the
     arms of phase 15 on a ``(1, 4)`` and a ``(2, 2)`` mesh of 4 NCCL
@@ -6647,9 +6917,241 @@ def mesh_rank(rank, world, port, only):
                           n_tok(p, 16), MESH_FP32_LIMIT)
             verdict(dsv2_window)
             del res, ref
+        if "train" in only:
+            train_arms(K, get_config, m14, m22, dev, lead, verdict)
+        if "train_qwen" in only:
+            cfg = get_config("qwen1.5-110b")
+            batch, _, _ = train_batch(cfg, 2, 256, dev, seed=40)
+            for key, mesh, st in (("2x2 fsdp_tp", m22, "fsdp_tp"),
+                                  ("1x4 tp", m14, "tp")):
+                res = qwen_train_arm(K, cfg, mesh, st, dev, batch)
+                verdict(lambda: qwen_gate(f"mesh: train qwen {key}", res))
+                del res
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def train_arms(K, get_config, m14, m22, dev, lead, verdict):
+    """``--mesh-arms train``: llama3-8b at full width, fp32, 8 layers, at
+    ``(1, 4)`` tp and ``(2, 2)`` fsdp_tp, on 4 x 512 ft rows and on a mixed
+    ft + prefill + decode batch over dense rows: each arm's grad step and
+    train step against one card's plain steps on the same weights (rank
+    0), gated at ``TRAIN_LIMIT``; the two planted faults (``planted_train``)
+    must break it; then bf16 at 32 layers, ``(2, 2)`` fsdp_tp against one
+    card, gated at the bf16 limit, which the batch fault planted in bf16
+    must break, and both bf16 steps read against the fp32 grad step on
+    the same weights (a record of bf16's own rounding)."""
+    import torch.distributed as dist
+    from repro_torch.training.optimizer import tree_map
+    f32, bf16 = torch.float32, torch.bfloat16
+    cfg = get_config("llama3-8b").replace(n_layers=8)
+    batches = {"ft": train_batch(cfg, 4, 512, dev, seed=20, dtype=f32),
+               "mixed": train_batch(cfg, 2, 512, dev, seed=21, mixed=True,
+                                    dtype=f32)}
+    got, bad = {}, {}
+    for key, mesh, st, fault in (("1x4 tp", m14, "tp", "shrink"),
+                                 ("2x2 fsdp_tp", m22, "fsdp_tp", "batch")):
+        w = mesh_weights(cfg, mesh, st, dev, f32)
+        for name, (batch, cache, segs) in batches.items():
+            got[key, name] = train_steps(K, cfg, w, batch, cache, segs, dev,
+                                         mesh, st)
+            need = SPLIT_COUNTERS[:2] + ("smlm_wgrad",) + (
+                ("bgmv_shrink", "bgmv_expand", "flash", "dense_decode")
+                if cache is not None else ())
+            c = got[key, name]["counts"]
+            if dev.type == "cuda" and (c["smlm"] or c["bgmv"]
+                                       or not min(c[k] for k in need)):
+                raise AssertionError(f"mesh: train {key} {name} rank "
+                                     f"{dist.get_rank()}: launches {c}")
+        mod, attr, planted = planted_train(K, mesh, fault)
+        orig = getattr(mod, attr)
+        setattr(mod, attr, planted)
+        try:
+            batch, cache, segs = batches["ft"]
+            bad[key] = train_steps(K, cfg, w, batch, cache, segs, dev, mesh,
+                                   st, grads_only=True)
+        finally:
+            setattr(mod, attr, orig)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats = gather_stats({k: {f: v[f] for f in ("ms", "coll", "resident",
+                                                "peak", "counts")}
+                          for k, v in got.items()})
+    ref = {}
+    if lead:
+        w = mesh_weights(cfg, None, None, dev, f32)
+        for name, (batch, cache, segs) in batches.items():
+            ref[name] = train_steps(K, cfg, w, batch, cache, segs, dev)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def fp32():
+        for name, r in ref.items():
+            print(f"mesh: train {cfg.name} fp32 {cfg.n_layers} layers {name} "
+                  f"one card: train step ms={r['ms']:.3f} peak_bytes="
+                  f"{r['peak']}")
+        for (key, name), res in got.items():
+            for rank, st in enumerate(stats):
+                x = st[key, name]
+                print(f"mesh: train {cfg.name} fp32 {cfg.n_layers} layers "
+                      f"{key} {name} card {rank}: train step ms="
+                      f"{x['ms']:.3f} resident_bytes={x['resident']} "
+                      f"peak_bytes={x['peak']} collective operand bytes "
+                      f"{x['coll']} launches={x['counts']}")
+            train_gate(f"mesh: train {cfg.name} fp32 {cfg.n_layers} layers "
+                       f"{key} {name} vs one card", res, ref[name], f32)
+        for key, what in (("1x4 tp", "model ranks 1-3 take the identity "
+                                     "for the shrink all-reduce's backward"),
+                          ("2x2 fsdp_tp", "the bank's gradients not summed "
+                                          "over the batch axes")):
+            train_gate(f"mesh: train {key} with a planted fault ({what}) "
+                       f"vs one card", bad[key], ref["ft"], f32,
+                       expect_ok=False)
+    verdict(fp32)
+    del got, bad, ref
+    # bf16, every layer, against one card; the batch fault planted in bf16
+    # too, and both bf16 steps held to the fp32 grad step on the same
+    # weights (the bf16 shards upcast, sharded at (2, 2)), which says how
+    # far bf16's own rounding moves a leaf
+    c32 = get_config("llama3-8b")
+    batch, _, _ = train_batch(c32, 4, 512, dev, seed=22)
+    w = mesh_weights(c32, m22, "fsdp_tp", dev, bf16)
+    res = train_steps(K, c32, w, batch, None, None, dev, m22, "fsdp_tp")
+    mod, attr, planted = planted_train(K, m22, "batch")
+    orig = getattr(mod, attr)
+    setattr(mod, attr, planted)
+    try:
+        bad = train_steps(K, c32, w, batch, None, None, dev, m22, "fsdp_tp",
+                          grads_only=True)
+    finally:
+        setattr(mod, attr, orig)
+    w = tree_map(lambda x: x.float() if x.is_floating_point() else x, w)
+    truth = train_steps(K, c32, w, batch, None, None, dev, m22, "fsdp_tp",
+                        grads_only=True)
+    del w
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = None
+    if lead:
+        w = mesh_weights(c32, None, None, dev, bf16)
+        ref = train_steps(K, c32, w, batch, None, None, dev)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def bf16_arm():
+        print(f"mesh: train {c32.name} bf16 {c32.n_layers} layers 2x2 "
+              f"fsdp_tp card 0: "
+              f"train step ms={res['ms']:.3f} peak_bytes={res['peak']} "
+              f"collective operand bytes {res['coll']}; one card ms="
+              f"{ref['ms']:.3f} peak_bytes={ref['peak']}")
+        label = f"mesh: train {c32.name} bf16 {c32.n_layers} layers 2x2"
+        for who, x in (("fsdp_tp", res), ("one card", ref)):
+            e = train_errs({k: x[k] for k in ("loss", "grads")}, truth)
+            print(f"{label} {who} vs the fp32 grad step (record): loss "
+                  f"abs_err={e['loss']:.4g} grads={e['grads'][0]:.4g}@"
+                  f"{e['grads'][1]}")
+        train_gate(f"{label} fsdp_tp vs one card", res, ref, bf16)
+        train_gate(f"{label} fsdp_tp with a planted fault (the bank's "
+                   f"gradients not summed over the batch axes) vs one card",
+                   bad, ref, bf16, expect_ok=False)
+    verdict(bf16_arm)
+
+
+def qwen_train_arm(K, cfg, mesh, strategy, dev, batch):
+    """qwen1.5-110b bf16 at every layer on this rank's shards: the
+    forward-only step's loss, a grad step (every grad finite), then two
+    train steps on the same batch, the first under
+    ``roofline.analysis.memory_summary`` with its collective bytes.
+    Returns every rank's readings (on every rank)."""
+    import torch.distributed as dist
+    from repro_torch.core.unified import make_forward_step, \
+        make_grad_step, make_train_step, scalar_loss
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
+        tree_leaves
+    t0 = time.perf_counter()
+    params, bank, scale = mesh_weights(cfg, mesh, strategy, dev,
+                                       torch.bfloat16, seed=4)
+    setup = time.perf_counter() - t0
+    kw = dict(block_t=K["block_t"], mesh=mesh, strategy=strategy)
+    out = make_forward_step(cfg, **kw)(params, bank, scale, batch, None)
+    fwd = float(scalar_loss(out, batch))
+    del out
+    mesh_reset(K)
+    res = make_grad_step(cfg, **kw)(params, bank, scale, batch, None)
+    finite = all(bool(torch.isfinite(g).all())
+                 for g in tree_leaves(res.grads))
+    gloss = float(res.loss)
+    del res
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), **kw)
+    st0 = adamw_init(bank, len(TRAIN_SLOTS))
+    mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32, device=dev)
+    SH.reset_collective_log()
+    t1 = time.perf_counter()
+    mem = RA.memory_summary(step, params, bank, scale, st0, batch, mask,
+                            state=[params, bank, st0], device=dev)
+    ms1 = (time.perf_counter() - t1) * 1e3
+    coll = SH.collective_log()
+    loss1, nb, ns, _ = mem["out"]
+    del mem["out"], st0, bank
+    t2 = time.perf_counter()
+    loss2, _, _, _ = step(params, nb, scale, ns, batch, mask)
+    torch.cuda.synchronize(dev)
+    ms2 = (time.perf_counter() - t2) * 1e3
+    counts = {**read_counts(K), **mesh_counts(K, SPLIT_COUNTERS)}
+    peak2 = torch.cuda.max_memory_allocated(dev)
+    del params, nb, ns, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gather_stats(dict(
+        fwd=fwd, gloss=gloss, loss1=float(loss1), loss2=float(loss2),
+        finite=finite, resident=mem["argument_size_in_bytes"],
+        peak=max(mem["peak_bytes"], peak2), ms1=ms1, ms2=ms2, coll=coll,
+        counts=counts, setup=setup, cuda=dev.type == "cuda",
+        shape="x".join(map(
+            str, mesh.devices_shape)), strategy=strategy,
+        rows=tuple(batch.ft.tokens.shape), layers=cfg.n_layers,
+        rank=dist.get_rank()))
+
+
+def qwen_gate(label, stats):
+    """qwen1.5-110b's train arm: the first step's loss equal to the
+    forward-only step's to bf16 rounding (one bf16 ulp of it, 2^-8 of its
+    size), the second step's below the first, every grad finite, each
+    card's peak under 80 GB, the fused SMLM never launched; prints every
+    card's readings."""
+    for st in stats:
+        print(f"{label} qwen1.5-110b bf16 {st['layers']} layers ft rows "
+              f"{st['rows'][0]}x{st['rows'][1]} card {st['rank']}: "
+              f"resident_GB={st['resident'] / 1e9:.3f} peak_GB="
+              f"{st['peak'] / 1e9:.3f} setup_s={st['setup']:.2f} train step"
+              f" 1 ms={st['ms1']:.3f} step 2 ms={st['ms2']:.3f} collective "
+              f"operand bytes of step 1 (all-reduce / all-gather / "
+              f"reduce-scatter / all-to-all) {st['coll']} launches="
+              f"{st['counts']}")
+    st = stats[0]
+    print(f"{label}: forward-only loss {st['fwd']:.6f}, grad step loss "
+          f"{st['gloss']:.6f}, train step 1 loss {st['loss1']:.6f}, step 2 "
+          f"loss {st['loss2']:.6f}, grads finite {st['finite']}")
+    ulp = abs(st["fwd"]) * 2.0 ** -8
+    bad = [s["rank"] for s in stats if not s["finite"]
+           or s["peak"] >= 80e9 or s["cuda"] and (
+               s["counts"]["smlm"] or not s["counts"]["smlm_wgrad"])]
+    if bad or abs(st["loss1"] - st["fwd"]) > ulp or \
+            abs(st["gloss"] - st["fwd"]) > ulp or \
+            not st["loss2"] < st["loss1"]:
+        raise AssertionError(f"{label}: cards {bad}; losses forward "
+                             f"{st['fwd']} grad {st['gloss']} step 1 "
+                             f"{st['loss1']} step 2 {st['loss2']} (bf16 ulp "
+                             f"{ulp:.4g})")
+    print(f"{label}: ok (step 1 within {ulp:.4g} of the forward's loss, "
+          f"step 2 below step 1, every grad finite, peak under 80 GB)")
 
 
 def _split_entries():
@@ -6661,7 +7163,7 @@ def _split_entries():
 
 MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
              "window", "phi3", "seq", "seq_window", "seq_vlm", "mamba2",
-             "jamba", "jamba_deep", "dsv2_window")
+             "jamba", "jamba_deep", "dsv2_window", "train", "train_qwen")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -6756,6 +7258,7 @@ def mesh_phase(K, cfg, weights, dev):
         fam = mesh_families_local(K, mesh, dev)
         lay = mesh_families_local(K, mesh, dev, LAYOUTS_LOCAL)
         ssm = mesh_families_local(K, mesh, dev, SSM_LOCAL)
+        train = mesh_train_local(K, mesh, dev)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
               "expert-parallel, llama-3.2-vision-90b at 100 layers, "
@@ -6763,9 +7266,11 @@ def mesh_phase(K, cfg, weights, dev):
               "llama3-8b; the cache layouts: phi3-medium-14b, llama3-8b, "
               "the windowed llama3-8b and the VLM under cache_strategy "
               "'seq'; mamba2-1.3b, jamba-1.5-large-398b int8 at 8 and 40 "
-              "layers, deepseek-v2-236b at long_500k's window) need --mesh "
-              "on a host with four cards: python3 chip_smoke.py --mesh")
-        return counts, fam, lay, ssm
+              "layers, deepseek-v2-236b at long_500k's window; the train "
+              "step: llama3-8b fp32 8 layers and bf16 32 layers, "
+              "qwen1.5-110b bf16 at 80 layers) need --mesh on a host with "
+              "four cards: python3 chip_smoke.py --mesh")
+        return counts, fam, lay, ssm, train
     finally:
         dist.destroy_process_group()
 
@@ -7071,12 +7576,13 @@ def main() -> int:
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        _, fam, lay, ssm = mesh_phase(K, cfg, full_weights(
+        _, fam, lay, ssm, train = mesh_phase(K, cfg, full_weights(
             cfg, dev, torch.bfloat16), dev)
         print(f"mesh: (1, 1) family arms' launches summed: {fam}")
         print(f"mesh: (1, 1) layout arms' launches summed: {lay}")
         print(f"mesh: (1, 1) Mamba2 / jamba / MLA-window arms' launches "
               f"summed: {ssm}")
+        print(f"mesh: (1, 1) train arm's launches: {train}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -7117,7 +7623,8 @@ def main() -> int:
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
     by_path["window"] = window_phase(K, weights, dev)
     (by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"],
-     by_path["mesh_ssm"]) = mesh_phase(K, cfg, weights, dev)
+     by_path["mesh_ssm"], by_path["mesh_train"]) = mesh_phase(K, cfg,
+                                                              weights, dev)
     del weights
     by_path.update(full_archs(K, dev))
     by_path["examples"] = examples_phase(K, dev, measured)
@@ -7138,7 +7645,7 @@ def main() -> int:
                 p: {k: by_path[p][k] for k in SPLIT_COUNTERS
                     if k.startswith(name + "_")}
                 for p in ("mesh", "mesh_families", "mesh_layouts",
-                          "mesh_ssm")}}
+                          "mesh_ssm", "mesh_train")}}
                if name in ("smlm", "bgmv") else {}),
             # the merge kernel alone: MLA's decode under a mesh, and a GQA
             # decode over rows cut by the slots (mesh_layouts)

@@ -261,6 +261,30 @@ def shard_bank(bank: Dict, mesh) -> Dict:
     return shard_tree(bank, lora_shardings(bank, mesh), mesh)
 
 
+def shard_opt_state(state, mesh):
+    """This rank's shards of a whole AdamW state (``training.optimizer.
+    AdamWState``): the moments cut as the bank (``sharding.
+    opt_shardings``), the per-slot step counts whole."""
+    from repro_torch.distributed.sharding import opt_shardings, shard_tree
+    specs = opt_shardings(state, mesh)
+    return type(state)(m=shard_tree(state.m, specs.m, mesh),
+                       v=shard_tree(state.v, specs.v, mesh), t=state.t)
+
+
+def gather_bank(cfg: ModelConfig, bank: Dict, mesh) -> Dict:
+    """The whole bank (or a bank-shaped tree: grads, moments) from every
+    rank's shards of it (``shard_bank``'s inverse; the specs from the
+    config, ``sharding.bank_shardings``)."""
+    from repro_torch.distributed.sharding import bank_shardings, gather_tree
+    return gather_tree(bank, bank_shardings(cfg, bank, mesh), mesh)
+
+
+def gather_opt_state(cfg: ModelConfig, state, mesh):
+    """The whole AdamW state from every rank's ``shard_opt_state``."""
+    return type(state)(m=gather_bank(cfg, state.m, mesh),
+                       v=gather_bank(cfg, state.v, mesh), t=state.t)
+
+
 def init_sharded_params(cfg: ModelConfig, mesh, strategy: str,
                         generator: torch.Generator, device, dtype,
                         quantized: bool = False) -> Dict:

@@ -27,6 +27,15 @@ elements a projection and call.  Row-parallel projections (``wo``/``wd``:
 x split on d_in) add their expand into the base product's partial at the
 rank's own columns before the base all-reduce, so the sum is exact and
 the expand's output needs no all-gather.
+
+With a gradient (the train step under a mesh) the same code runs under
+autograd: the LoRA terms through ``ops.SplitLoRAFunction`` (the shrinks'
+all-reduce in the forward, the ``Gs`` all-reduce in the backward), the
+collectives through their ``*_grad`` forms (``distributed.sharding``).
+A gradient is summed over "model" only where the ranks' consumers differ:
+``x`` enters ``dense_col``'s column-parallel products and sliced shrinks
+through ``sum_grad``, except the base of a sublayer every rank runs whole
+and alike (``read="alike"``), whose gradient is whole already.
 """
 from __future__ import annotations
 
@@ -95,86 +104,115 @@ def dense(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 def dense_col(x: torch.Tensor, items, rt: Optional[LoraRoute], mesh
               ) -> list:
     """Column-parallel projections of one input under a mesh: ``x`` [T,
-    d_in] whole on every rank, each item ``(w, bias, lora)`` holding this
-    rank's output columns (``w`` [d_in, c], ``bias`` [c], the bank entry's
-    ``a`` [n, d_in or d_in/m, r] and ``b`` [n, r, c or d_out]), or a ``w``
-    whole on every rank (MLA's ``wdkv``), whose ``b`` if cut over "model"
-    is all-gathered.  The LoRA shrinks of every item whose ``a`` is split
-    go in one all-reduce over "model".  Returns each item's [T, c]."""
-    from repro_torch.distributed.sharding import all_gather, all_reduce
+    d_in] whole on every rank, each item ``(w, bias, lora, read)`` holding
+    this rank's output columns (``w`` [d_in, c] or an
+    ``sharding.FSDPWeight``, ``bias`` [c], the bank entry's ``a`` [n, d_in
+    or d_in/m, r] and ``b`` [n, r, c or d_out]), or a ``w`` whole on every
+    rank (MLA's ``wdkv``, heads that do not divide the model axis), whose
+    ``b`` if cut over "model" is all-gathered.  ``read`` says how the
+    ranks read the item's output, which decides its adjoints: ``"cut"``
+    (``w`` holds the rank's columns), ``"alike"`` (``w`` whole, every rank
+    reads all of it: a sublayer every rank runs whole), ``"differ"`` (``w``
+    whole, each rank reads part of it: whole ``wk`` / ``wv`` beside cut
+    query heads).  The LoRA shrinks of every item whose ``a`` is split go
+    in one all-reduce over "model" (and their ``Gs`` in one in the
+    backward).  Returns each item's [T, c]."""
+    from repro_torch.distributed.sharding import all_gather_grad, \
+        all_reduce, matmul, sum_grad
     m, mi = mesh.shape["model"], mesh.coords["model"]
-    outs, shrinks, split = [], [], []
-    for w, bias, lora in items:
-        y = x @ w
+    # a replicated x entering work that differs between ranks: its gradient
+    # is summed over "model" in the backward
+    xp = sum_grad(x, "model", mesh)
+    outs = []
+    for w, bias, _, read in items:
+        y = matmul(x if read == "alike" else xp, w)
         if bias is not None:
             y = y + bias
         outs.append(y)
+    split, whole = [], []
+    for i, (_, _, lora, read) in enumerate(items):
         if lora is None or rt is None:
-            shrinks.append(None)
-            split.append(False)
             continue
-        a = lora["a"]
-        dl = a.shape[1]
-        if dl == x.shape[1]:
-            shrinks.append(ops.lora_shrink(x, a, rt))
-            split.append(False)
-        else:
-            if dl * m != x.shape[1]:
-                raise ValueError(f"LoRA a{tuple(a.shape)} against x "
-                                 f"{tuple(x.shape)} under a model axis of {m}")
-            shrinks.append(ops.lora_shrink(x[:, mi * dl:(mi + 1) * dl], a, rt))
-            split.append(True)
-    parts = [s for s, sp in zip(shrinks, split) if sp]
-    if parts:
-        summed = all_reduce(torch.cat(parts, dim=1), "model", mesh)
-        summed = iter(torch.split(summed, [p.shape[1] for p in parts], dim=1))
-        shrinks = [next(summed) if sp else s for s, sp in zip(shrinks, split)]
-    for i, (s, (_, _, lora)) in enumerate(zip(shrinks, items)):
-        if s is None:
-            continue
-        b = lora["b"]
+        a, b = lora["a"], lora["b"]
         c = outs[i].shape[1]
+        differ = read != "alike"
         if b.shape[-1] > c:           # b whole, the base's columns split
-            b = b[..., mi * c:(mi + 1) * c].contiguous()
+            b = sum_grad(b, "model", mesh)[..., mi * c:(mi + 1) * c]
         elif b.shape[-1] < c:         # b split, the base whole
-            b = all_gather(b, "model", mesh, dim=b.ndim - 1).contiguous()
-        outs[i] += ops.lora_expand(s, b, rt)
+            b = all_gather_grad(b, "model", mesh, dim=b.ndim - 1,
+                                differ=differ)
+        elif read == "differ":        # b whole, the base whole, read in part
+            b = sum_grad(b, "model", mesh)
+        dl = a.shape[1]
+        if dl != x.shape[1] and dl * m != x.shape[1]:
+            raise ValueError(f"LoRA a{tuple(a.shape)} against x "
+                             f"{tuple(x.shape)} under a model axis of {m}")
+        (whole if dl == x.shape[1] else split).append(
+            (i, a, b.contiguous(), differ))
+    reduce = lambda t: all_reduce(t, "model", mesh)
+    if split:
+        dl = split[0][1].shape[1]
+        # x's slice of d_in that matches the rank's rows of a
+        ys = ops.lora_split(xp[:, mi * dl:(mi + 1) * dl],
+                            [(a, b) for _, a, b, _ in split], rt, reduce,
+                            True, [d for *_, d in split])
+        for (i, *_), y in zip(split, ys):
+            outs[i] += y
+    for i, a, b, differ in whole:     # a whole: every rank shrinks all of x
+        outs[i] += ops.lora_split(x, [(a, b)], rt, reduce, False,
+                                  [differ])[0]
     return outs
 
 
-def dense_row(x: torch.Tensor, w: torch.Tensor,
-              lora: Optional[Dict[str, torch.Tensor]],
+def dense_row(x: torch.Tensor, w, lora: Optional[Dict[str, torch.Tensor]],
               rt: Optional[LoraRoute], mesh, whole: bool = False
               ) -> torch.Tensor:
     """A row-parallel projection under a mesh: ``x`` [T, d_in/m] this rank's
-    slice of the contraction, ``w`` [d_in/m, d_out].  The base partial and
-    the LoRA expand at the rank's own columns (``b`` [n, r, d_out/m]; a
-    whole ``b`` is added by model rank 0 alone) are summed in one
-    all-reduce over "model", after the shrinks' all-reduce.  With
-    ``whole`` the base is whole on every rank (a ``wo`` whose query heads
-    do not divide the model axis, so every rank ran every head): ``x`` [T,
-    d_in] and ``w`` [d_in, d_out] whole, no base collective, and the LoRA
-    term is ``dense_col``'s "b split, the base whole" case (a cut ``a``
+    slice of the contraction, ``w`` [d_in/m, d_out] (or an
+    ``sharding.FSDPWeight``).  The base partial and the LoRA expand at the
+    rank's own columns (``b`` [n, r, d_out/m]; a whole ``b`` is added by
+    model rank 0 alone) are summed in one all-reduce over "model", after
+    the shrinks' all-reduce; the output feeds the replicated residual
+    stream, so that all-reduce's adjoint is the identity.  With ``whole``
+    the base is whole on every rank (a ``wo`` whose query heads do not
+    divide the model axis, so every rank ran every head): ``x`` [T, d_in]
+    and ``w`` [d_in, d_out] whole, no base collective, and the LoRA term is
+    ``dense_col``'s "b split, the base whole" case read alike (a cut ``a``
     shrinks x's slice, all-reduced; a cut ``b`` is all-gathered).  Returns
     the whole [T, d_out] on every rank."""
-    from repro_torch.distributed.sharding import all_reduce
+    from repro_torch.distributed.sharding import all_reduce, \
+        all_reduce_grad, matmul, sum_grad
     if whole:
-        return dense_col(x, [(w, None, lora)], rt, mesh)[0]
+        return dense_col(x, [(w, None, lora, "alike")], rt, mesh)[0]
     m, mi = mesh.shape["model"], mesh.coords["model"]
-    y = x @ w
+    y = matmul(x, w)
     if lora is not None and rt is not None:
         a, b = lora["a"], lora["b"]
         dl = x.shape[1]
         if a.shape[1] != dl:          # a whole, x split
-            a = a[:, mi * dl:(mi + 1) * dl].contiguous()
-        s = all_reduce(ops.lora_shrink(x, a, rt), "model", mesh)
+            a = sum_grad(a, "model", mesh)[:, mi * dl:(mi + 1) * dl]
         c = b.shape[-1]
-        if c == y.shape[1]:
-            if mi == 0:
-                y += ops.lora_expand(s, b, rt)
+        whole_b = c == y.shape[1]
+        if whole_b:
+            b = sum_grad(b, "model", mesh)
+        pairs = [(a.contiguous(), b)]
+        reduce = lambda t: all_reduce(t, "model", mesh)
+        if whole_b and mi != 0 and not ops.split_carries_grad(x, pairs, rt):
+            # no gradient: the shrinks' all-reduce pairs with model rank
+            # 0's, which alone expands and adds a whole b's term
+            reduce(ops.lora_shrink(x, pairs[0][0], rt))
         else:
-            y[:, mi * c:(mi + 1) * c] += ops.lora_expand(s, b, rt)
-    return all_reduce(y, "model", mesh)
+            out = ops.lora_split(x, pairs, rt, reduce, True, [True])[0]
+            if not whole_b:
+                y[:, mi * c:(mi + 1) * c] += out
+            elif mi == 0:
+                y += out
+            else:
+                # under a gradient every rank expands, so that every rank's
+                # backward reaches the Gs all-reduce; model rank 0 alone
+                # adds the term (a fill, not a product: an inf stays out)
+                y += out.masked_fill(out.new_ones((), dtype=torch.bool), 0)
+    return all_reduce_grad(y, "model", mesh)
 
 
 def init_lora_bank(layer_targets, lcfg: LoRAConfig,

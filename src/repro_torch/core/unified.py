@@ -12,6 +12,13 @@ gradients are zero, and the model runs their attention and cache writes
 outside the graph (what XLA prunes in the JAX package). Nothing keys on
 ``kernels.autotune.table_version()``: the model asks for its split choice on
 every forward.
+
+The grad and train steps take a mesh as the forward step does (JAX's
+``make_grad_step`` / ``make_train_step`` under the dryrun's mesh, without
+``remat`` and ``act_constraint``): the same sharded forward under autograd
+(``distributed.sharding``'s collectives with gradients), the bank's
+gradients summed over the batch axes where the ft bucket was split
+(``sharding.reduce_bank_grads``), and AdamW on this rank's shards.
 """
 from __future__ import annotations
 
@@ -58,16 +65,10 @@ def make_forward_step(cfg: ModelConfig, *, block_t: int, mesh=None,
     single-device step's logits, ft loss sums and aux loss on every rank,
     and the local cache.  Any mesh takes that sharded path; on a mesh whose
     axes are all 1 every collective is the identity."""
-    from repro_torch.distributed.sharding import CACHE_STRATEGIES, \
-        mesh_context
-    if cache_strategy not in CACHE_STRATEGIES:
-        raise ValueError(f"cache_strategy {cache_strategy!r}: one of "
-                         f"{CACHE_STRATEGIES}")
+    _check(cache_strategy)
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> ModelOut:
-        scope = (contextlib.nullcontext() if mesh is None
-                 else mesh_context(mesh, strategy, cache_strategy))
-        with torch.inference_mode(), scope:
+        with torch.inference_mode(), _scope(mesh, strategy, cache_strategy):
             return unified_forward(cfg, base, batch, cache, loras=bank,
                                    lora_scale=scale, block_t=block_t,
                                    attn_chunk=attn_chunk,
@@ -81,12 +82,29 @@ def _detached(out: ModelOut) -> ModelOut:
                       for v in out))
 
 
+def _check(cache_strategy: str) -> None:
+    from repro_torch.distributed.sharding import CACHE_STRATEGIES
+    if cache_strategy not in CACHE_STRATEGIES:
+        raise ValueError(f"cache_strategy {cache_strategy!r}: one of "
+                         f"{CACHE_STRATEGIES}")
+
+
+def _scope(mesh, strategy: str, cache_strategy: str):
+    """The step's ambient mesh (``sharding.mesh_context``), if any."""
+    from repro_torch.distributed.sharding import mesh_context
+    return (contextlib.nullcontext() if mesh is None
+            else mesh_context(mesh, strategy, cache_strategy))
+
+
 def _value_and_grad(cfg: ModelConfig, block_t: int, attn_chunk: int,
-                    base, bank, scale, batch: UnifiedBatch, cache):
+                    base, bank, scale, batch: UnifiedBatch, cache,
+                    mesh=None, strategy: str = "tp",
+                    cache_strategy: str = "auto"):
     """Forward under autograd with the bank's tensors as leaves, then the
     loss's gradient with respect to every leaf (zeros where a leaf is not
-    reached), in the bank's tree shape."""
-    with torch.enable_grad():
+    reached), in the bank's tree shape; under a ``mesh`` this rank's
+    shards of the whole step's gradients."""
+    with torch.enable_grad(), _scope(mesh, strategy, cache_strategy):
         leaves = tree_map(lambda p: p.detach().requires_grad_(), bank)
         out = unified_forward(cfg, base, batch, cache, loras=leaves,
                               lora_scale=scale, block_t=block_t,
@@ -99,34 +117,56 @@ def _value_and_grad(cfg: ModelConfig, block_t: int, attn_chunk: int,
         g = next(got)
         return torch.zeros_like(p) if g is None else g
 
-    return _detached(out), loss.detach(), tree_map(grad_of, leaves)
+    grads = tree_map(grad_of, leaves)
+    if mesh is not None:
+        from repro_torch.distributed import sharding as SH
+        from repro_torch.models.model import local_batch
+        split = local_batch(UnifiedBatch(ft=batch.ft), mesh)[1].get("ft")
+        grads = SH.reduce_bank_grads(grads, mesh, bool(split))
+    return _detached(out), loss.detach(), grads
 
 
-def make_grad_step(cfg: ModelConfig, *, block_t: int,
-                   attn_chunk: int = 0) -> Callable:
+def make_grad_step(cfg: ModelConfig, *, block_t: int, attn_chunk: int = 0,
+                   mesh=None, strategy: str = "tp",
+                   cache_strategy: str = "auto") -> Callable:
     """Unified step with gradients with respect to the LoRA bank (no
-    update): the engine's accumulation loop."""
+    update): the engine's accumulation loop.  With a ``mesh``, as
+    ``make_forward_step``: ``base``, ``bank`` and ``cache`` are this rank's
+    shards, ``batch`` the whole batch; it returns the single-device step's
+    loss and outputs on every rank and this rank's shards of the grads."""
+    _check(cache_strategy)
 
     def step(base, bank, scale, batch: UnifiedBatch, cache) -> StepOut:
         out, loss, grads = _value_and_grad(cfg, block_t, attn_chunk, base,
-                                           bank, scale, batch, cache)
+                                           bank, scale, batch, cache, mesh,
+                                           strategy, cache_strategy)
         return StepOut(out=out, loss=loss, grads=grads)
 
     return step
 
 
 def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *, block_t: int,
-                    attn_chunk: int = 0) -> Callable:
+                    attn_chunk: int = 0, mesh=None, strategy: str = "tp",
+                    cache_strategy: str = "auto") -> Callable:
     """Fused fine-tuning step: unified forward + backward + masked AdamW.
     Returns ``(loss, new_bank, new_state, aux_loss)`` as the JAX step
-    does."""
+    does.  With a ``mesh`` (``make_grad_step``'s), ``bank`` and
+    ``opt_state`` are this rank's shards (``checkpoint.io.shard_bank`` /
+    ``shard_opt_state``), and so are the new bank and state; the loss and
+    aux loss are the single-device step's, on every rank."""
+    _check(cache_strategy)
 
     def step(base, bank, scale, opt_state: AdamWState, batch: UnifiedBatch,
              slot_mask, cache=None):
         out, loss, grads = _value_and_grad(cfg, block_t, attn_chunk, base,
-                                           bank, scale, batch, cache)
+                                           bank, scale, batch, cache, mesh,
+                                           strategy, cache_strategy)
+        cut = None
+        if mesh is not None:
+            from repro_torch.distributed import sharding as SH
+            cut = SH.cut_over_model(SH.bank_shardings(cfg, bank, mesh))
         new_bank, new_state = adamw_apply(opt, grads, opt_state, bank,
-                                          slot_mask)
+                                          slot_mask, mesh, cut)
         return loss, new_bank, new_state, out.aux_loss
 
     return step

@@ -40,12 +40,30 @@ counterpart: ``maybe_constrain`` hinted the expert-parallel layout, which
 ``models.moe_dist.moe_apply_auto`` now states itself (tokens split over
 ``(*batch_axes, "model")``, experts over ``"model"``), and
 ``act_constraint_fn``'s sequence sharding of the training carry belongs to
-the train step under a mesh, which is not ported yet (``ROADMAP.md``).
+the train step's remat, which is not ported yet (``ROADMAP.md``, 5b-ii).
+
+The train step under a mesh differentiates the same explicit SPMD forward.
+Every rank computes the same scalar loss and runs the backward over its own
+graph, so the adjoint of a collective depends on who reads its result.  A
+tensor every rank holds alike has, on each rank, its whole gradient when
+every rank's consumers of it are alike, and a partial one (each rank holds
+a summand) when the consumers differ between ranks.  The collectives with
+gradients state which case they serve: ``all_reduce_grad`` is read alike
+(its backward is the identity), ``sum_grad`` feeds work that differs (its
+backward sums), and ``all_gather_grad`` takes the case as its ``differ``
+argument (a reduce-scatter or "take my rows").  The sum over "model" that
+``dense_col``'s shrink all-reduce needs is made inside
+``kernels.ops.SplitLoRAFunction``.  The plain collectives refuse a tensor
+that carries a gradient, so no collective is ever differentiated as the
+identity by mistake.
+``reduce_bank_grads`` sums the bank's gradients over the batch axes, and
+``FSDPWeight`` keeps a weight cut over "data" out of autograd's saved
+tensors (``matmul`` gathers it again in the backward).
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -264,6 +282,37 @@ def lora_shardings(bank, mesh: Mesh):
     return walk(bank)
 
 
+def bank_shardings(cfg: ModelConfig, bank, mesh: Mesh):
+    """``lora_shardings`` of the whole bank of which ``bank`` holds this
+    rank's shards (or the whole leaves): the whole shapes come from the
+    config (``schema.lora_targets``), so a shard gets its whole leaf's
+    spec."""
+    from repro_torch.models.schema import lora_targets
+    names = tuple({leaf.lora for li in range(cfg.n_layers)
+                   for leaf in layer_shapes(cfg, li).values() if leaf.lora})
+    targets = lora_targets(cfg, names)
+
+    def whole(li, k, ab):
+        n, r = ab["a"].shape[0], ab["a"].shape[-1]
+        t = targets[li][k]
+        return {"a": torch.empty((n, t.d_in, r), device="meta"),
+                "b": torch.empty((n, r, t.d_out), device="meta")}
+
+    return lora_shardings({"layers": [
+        {k: whole(li, k, ab) for k, ab in layer.items()}
+        for li, layer in enumerate(bank["layers"])]}, mesh)
+
+
+def cut_over_model(specs) -> List[bool]:
+    """Per leaf of a bank's spec tree (``bank_shardings``), in
+    ``training.optimizer.tree_leaves`` order: is it cut over "model"?"""
+    if isinstance(specs, dict):
+        return [c for v in specs.values() for c in cut_over_model(v)]
+    if isinstance(specs, list):
+        return [c for v in specs for c in cut_over_model(v)]
+    return [any("model" in _entry_axes(e) for e in specs)]
+
+
 def opt_shardings(opt, mesh: Mesh):
     """AdamW moments follow the bank; the per-slot step counters
     replicate.  ``opt``: ``training.optimizer.AdamWState`` (its ``m`` and
@@ -351,6 +400,18 @@ def gather(x: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return x
 
 
+def gather_tree(tree, specs, mesh: Mesh):
+    """``gather`` over a tree of shards and its tree of specs
+    (``shard_tree``'s inverse)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: gather_tree(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [gather_tree(v, s, mesh) for v, s in zip(tree, specs)]
+    return gather(tree, specs, mesh)
+
+
 def shard_tree(tree, specs, mesh: Mesh):
     """``local_shard`` over a tree and its same-shaped tree of specs."""
     if tree is None:
@@ -390,6 +451,18 @@ def _group(mesh: Mesh, axes):
     return axes, axis_size(mesh, axes)
 
 
+def _carries_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _no_grad(x: torch.Tensor, kind: str) -> None:
+    """A plain collective is invisible to autograd: refuse a tensor that
+    carries a gradient (the ``*_grad`` collectives take it)."""
+    if _carries_grad(x):
+        raise ValueError(f"a plain {kind} of a tensor that carries a "
+                         "gradient: use the collective's *_grad form")
+
+
 def all_reduce(x: torch.Tensor, axes, mesh: Mesh,
                op: str = "sum") -> torch.Tensor:
     """In place: ``x`` summed (``op="max"``: maxed) over ``axes``."""
@@ -397,6 +470,7 @@ def all_reduce(x: torch.Tensor, axes, mesh: Mesh,
     axes, n = _group(mesh, axes)
     if n == 1:
         return x
+    _no_grad(x, "all-reduce")
     _record("all-reduce", x)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     dist.all_reduce(x, op=red, group=mesh.group(axes))
@@ -411,6 +485,7 @@ def all_gather(x: torch.Tensor, axes, mesh: Mesh,
     axes, n = _group(mesh, axes)
     if n == 1:
         return x
+    _no_grad(x, "all-gather")
     _record("all-gather", x)
     xm = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * xm.shape[0], *xm.shape[1:]), dtype=x.dtype,
@@ -427,6 +502,7 @@ def reduce_scatter(x: torch.Tensor, axes, mesh: Mesh,
     axes, n = _group(mesh, axes)
     if n == 1:
         return x
+    _no_grad(x, "reduce-scatter")
     _record("reduce-scatter", x)
     xm = x.movedim(dim, 0).contiguous()
     if xm.shape[0] % n:
@@ -446,11 +522,177 @@ def all_to_all(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
         return x
     if x.shape[0] % n:
         raise ValueError(f"all_to_all: {x.shape[0]} rows over {n}")
+    _no_grad(x, "all-to-all")
     _record("all-to-all", x)
     x = x.contiguous()
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x, group=mesh.group(axes))
     return out
+
+
+# ---------------------------------------------------------------------------
+# collectives with gradients: the train step under a mesh
+# ---------------------------------------------------------------------------
+
+class _AllReduce(torch.autograd.Function):
+    """``y = sum_r x_r`` over ``axes``, the same on every rank and read
+    alike by every rank (``dense_row``'s output into the residual stream,
+    the vocab-parallel CE's ``sumexp`` / ``picked``).  Adjoint:
+    ``dx_r = dy``: each rank's ``dy`` is already the whole gradient, and
+    summing it again would multiply it by the axis size."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        return all_reduce(x.clone(), axes, mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    """``y = x`` (a tensor every rank holds alike entering work that
+    differs between ranks: column-parallel products, a rank's slice of a
+    whole leaf).  Adjoint: ``dx = sum_r dy_r`` over ``axes``."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return all_reduce(dy.clone(), ctx.axes, ctx.mesh), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """``y`` = every rank's ``x`` over ``axes``, concatenated along ``dim``.
+    Adjoint: ``dx_r`` = block ``r`` of ``dy`` along ``dim`` where every rank
+    reads ``y`` alike ("take my rows": the batch-axis gather of the ft loss
+    sums, a cut ``b`` gathered for a sublayer every rank runs alike); block
+    ``r`` of ``sum_r' dy_r'`` (a reduce-scatter) where the ranks read ``y``
+    differently (a cut ``b`` gathered for whole ``wk`` / ``wv`` whose heads
+    each rank's query heads read in part)."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh, dim, differ):
+        ctx.axes, ctx.mesh, ctx.dim, ctx.differ = axes, mesh, dim, differ
+        return all_gather(x, axes, mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        axes, mesh, dim = ctx.axes, ctx.mesh, ctx.dim
+        if ctx.differ:
+            dx = reduce_scatter(dy, axes, mesh, dim=dim)
+        else:
+            n = axis_size(mesh, axes)
+            dx = dy.narrow(dim, mesh.index(axes) * (dy.shape[dim] // n),
+                           dy.shape[dim] // n)
+        return dx.contiguous(), None, None, None, None
+
+
+def all_reduce_grad(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """``all_reduce`` (sum) of a result every rank reads alike, with the
+    identity as its gradient (``_AllReduce``).  Without a gradient to carry
+    it is the plain in-place ``all_reduce``."""
+    if axis_size(mesh, mesh.axes(axes)) == 1:
+        return x
+    if not _carries_grad(x):
+        return all_reduce(x, axes, mesh)
+    return _AllReduce.apply(x, axes, mesh)
+
+
+def sum_grad(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """``x`` itself, its gradient summed over ``axes`` (``_SumGrad``)."""
+    if axis_size(mesh, mesh.axes(axes)) == 1 or not _carries_grad(x):
+        return x
+    return _SumGrad.apply(x, axes, mesh)
+
+
+def all_gather_grad(x: torch.Tensor, axes, mesh: Mesh, dim: int = 0,
+                    differ: bool = False) -> torch.Tensor:
+    """``all_gather`` with its gradient (``_AllGather``; ``differ``: the
+    ranks read the gathered tensor differently)."""
+    if axis_size(mesh, mesh.axes(axes)) == 1:
+        return x
+    if not _carries_grad(x):
+        return all_gather(x, axes, mesh, dim=dim)
+    return _AllGather.apply(x, axes, mesh, dim % x.ndim, differ)
+
+
+def reduce_bank_grads(grads, mesh: Mesh, split: bool):
+    """The bank's gradients of one rank made the whole step's: summed over
+    the batch axes when the ft bucket was split over them (each data rank
+    ran its own rows), left as they are when every data rank ran the whole
+    bucket.  One all-reduce of the leaves in one flat buffer.  The "model"
+    axis needs no sum here: a leaf ``lora_shardings`` cuts gets its own
+    slice's gradient, and a whole leaf that ranks use differently (a whole
+    ``b`` each rank slices to its own columns, a whole ``b`` added by model
+    rank 0 alone, a whole ``a`` sliced to a rank's rows) goes through
+    ``sum_grad`` where it is used (``core.lora``), so its gradient arrives
+    summed over "model" on every rank."""
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    bx = batch_axes(mesh)
+    if not split or axis_size(mesh, bx) == 1:
+        return grads
+    leaves = tree_leaves(grads)
+    flat = all_reduce(torch.cat([g.reshape(-1) for g in leaves]), bx, mesh)
+    parts = iter(torch.split(flat, [g.numel() for g in leaves]))
+    return tree_map(lambda g: next(parts).view(g.shape), grads)
+
+
+class FSDPWeight(NamedTuple):
+    """A weight leaf cut over "data" (``fsdp_tp``) in a step with a
+    gradient: ``shard`` this rank's block, cut along ``dim``.  A gathered
+    leaf a product saved for its backward would stay alive until the
+    backward (qwen1.5-110b at ``(2, 2)``: ~1.36 GB a layer a card, ~109 GB
+    over 80 layers), so ``matmul`` gathers it for the product, keeps only
+    the shard, and gathers it again in the backward."""
+    shard: torch.Tensor
+    dim: int
+    mesh: Mesh
+
+    @property
+    def shape(self) -> torch.Size:
+        s = list(self.shard.shape)
+        s[self.dim] *= self.mesh.shape["data"]
+        return torch.Size(s)
+
+    @property
+    def T(self) -> "FSDPWeight":
+        return FSDPWeight(self.shard.T, 1 - self.dim, self.mesh)
+
+    def whole(self) -> torch.Tensor:
+        return all_gather(self.shard, "data", self.mesh, dim=self.dim)
+
+
+class _FSDPMatmul(torch.autograd.Function):
+    """``y = x @ W``, ``W`` gathered over "data" from ``shard``; saves the
+    shard alone.  Adjoint: ``dx = dy @ W^T`` with ``W`` gathered again (the
+    weight takes no gradient).  Every rank builds the same graph, so the
+    ranks of a data group reach their backward gathers in the same order
+    and the gathers pair up."""
+
+    @staticmethod
+    def forward(ctx, x, shard, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        ctx.save_for_backward(shard)
+        return x @ all_gather(shard, "data", mesh, dim=dim)
+
+    @staticmethod
+    def backward(ctx, dy):
+        shard, = ctx.saved_tensors
+        w = all_gather(shard, "data", ctx.mesh, dim=ctx.dim)
+        return dy @ w.mT, None, None, None
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` for a weight tensor or an ``FSDPWeight``."""
+    if not isinstance(w, FSDPWeight):
+        return x @ w
+    if not _carries_grad(x):
+        return x @ w.whole()
+    return _FSDPMatmul.apply(x, w.shard, w.dim, w.mesh)
 
 
 # ---------------------------------------------------------------------------

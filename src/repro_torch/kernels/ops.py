@@ -14,7 +14,11 @@ With grad mode on and fine-tune rows at the head of the stream (``n_ft``),
 SMLM runs as ``SMLMFunction``, whose backward is the SMLM kernel (dX) and
 ``smlm_wgrad`` (dA, dB) over those rows; the BGMV decode tail stays a plain
 launch without gradient, which is exact, since the loss reads only ft rows
-and ft attention sees only ft keys.
+and ft attention sees only ft keys.  Under a mesh the terms run split
+(``lora_split``: shrink, an all-reduce over the ranks that hold d_in,
+expand), and with grad mode on as ``SplitLoRAFunction``, whose backward is
+the split entries again (``Gs`` and dX) and ``smlm_wgrad`` on the rank's
+slices, with the collective held in both passes.
 
 This avoids two faults of the JAX dispatch ``repro.kernels.ops.smlm``: its
 default ``block_t=128`` straddles 8-token planner segments of different
@@ -31,7 +35,7 @@ import torch
 from repro_torch.kernels import decode_attn, flash_attn
 from repro_torch.kernels.bgmv import bgmv, bgmv_expand, bgmv_shrink
 from repro_torch.kernels.smlm import SMLMFunction, smlm, smlm_expand, \
-    smlm_shrink
+    smlm_shrink, smlm_wgrad_split
 
 
 class LoraRoute(NamedTuple):
@@ -99,8 +103,8 @@ def lora_shrink(x: torch.Tensor, a: torch.Tensor,
     """The multi-LoRA term's scaled shrink alone, fp32 [T, r]: the head
     through ``smlm_shrink``, the decode tail through ``bgmv_shrink``.  Under
     a mesh, x and a hold one rank's slice of d_in, and the result is that
-    slice's partial sum (no gradient: grad steps under a mesh are not
-    ported)."""
+    slice's partial sum.  No gradient of its own: ``SplitLoRAFunction``
+    differentiates it."""
     x = x.contiguous()
     parts = []
     if rt.n_head:
@@ -126,6 +130,106 @@ def lora_expand(s: torch.Tensor, b: torch.Tensor,
         parts.append(bgmv_expand(s[rt.n_head:], b, rt.tail_ids,
                                  rt.tail_scale))
     return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _split_terms(x, rt, reduce, reduce_s, pairs):
+    """The split terms' forward: every pair's shrink of ``x``, the shrinks
+    summed in one ``reduce`` (in place) when ``reduce_s``, every pair's
+    expand.  Returns (the terms, the summed shrinks)."""
+    s = [lora_shrink(x, a, rt) for a, _ in pairs]
+    if reduce_s:
+        s = list(torch.split(reduce(torch.cat(s, dim=1)),
+                             [t.shape[1] for t in s], dim=1))
+    return [lora_expand(si, b, rt) for si, (_, b) in zip(s, pairs)], s
+
+
+def reduce_gs(reduce, gs: torch.Tensor) -> torch.Tensor:
+    """The backward's all-reduce of the ``Gs`` shrinks (a seam for the
+    planted fault of the sharded train step's tests)."""
+    return reduce(gs)
+
+
+class SplitLoRAFunction(torch.autograd.Function):
+    """The multi-LoRA terms of projections that share one input ``x`` under
+    a mesh, with their gradient to x and to every pair's ``a`` and ``b``,
+    the collective held in both passes.  ``x`` [T, d] is a rank's slice of
+    d_in (its ``a`` the matching rows) or the whole input; ``b`` a rank's
+    columns, or whole.
+
+    Forward: per pair ``S = scale X A`` (``lora_shrink``), the shrinks
+    summed over the ranks in one ``reduce`` when ``reduce_s`` (the slices
+    of d_in), ``Y = S B`` (``lora_expand``); the summed ``S`` is kept.
+    Backward, over the first ``n_ft`` tokens (the fine-tune rows, the only
+    ones that carry gradient, as in ``SMLMFunction``): per pair ``Gs =
+    scale dY B^T`` (``smlm_shrink`` with ``B^T``), summed in one ``reduce``
+    for the pairs whose ``reduce_gs`` is set (the ranks read ``Y``
+    differently, so each ``dY`` is a summand; a ``Y`` every rank reads
+    alike has its whole ``dY`` on every rank already); ``dX = Gs A^T``
+    (``smlm_expand`` with ``A^T``), summed over the pairs; ``dA = X^T Gs``,
+    ``dB = S^T dY`` (``smlm_wgrad``, once a pair).  The prefill rows' dX is
+    zero; the BGMV decode tail takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, rt, reduce, reduce_s, reduce_gs, *ab):
+        pairs = list(zip(ab[0::2], ab[1::2]))
+        ys, s = _split_terms(x, rt, reduce, reduce_s, pairs)
+        ctx.save_for_backward(x, *ab, *(si[:rt.n_ft] for si in s))
+        ctx.rt, ctx.reduce, ctx.reduce_gs = rt, reduce, reduce_gs
+        return tuple(ys)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        rt, k = ctx.rt, len(ctx.reduce_gs)
+        x, *rest = ctx.saved_tensors
+        a, b, s = rest[0:2 * k:2], rest[1:2 * k:2], rest[2 * k:]
+        n_ft, bt = rt.n_ft, rt.block_t
+        ids, scale = rt.tile_ids[:n_ft // bt], rt.tile_scale[:n_ft // bt]
+        dy = [torch.zeros((n_ft, bi.shape[-1]), dtype=bi.dtype,
+                          device=x.device) if d is None
+              else d[:n_ft].contiguous() for d, bi in zip(dys, b)]
+        gs = [smlm_shrink(d, bi.transpose(1, 2).contiguous(), ids, scale,
+                          block_t=bt) for d, bi in zip(dy, b)]
+        summed = [g for g, r in zip(gs, ctx.reduce_gs) if r]
+        if summed:
+            got = iter(torch.split(
+                reduce_gs(ctx.reduce, torch.cat(summed, dim=1)),
+                [g.shape[1] for g in summed], dim=1))
+            gs = [next(got).contiguous() if r else g
+                  for g, r in zip(gs, ctx.reduce_gs)]
+        dx = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.zeros_like(x)
+            for g, ai in zip(gs, a):
+                dx[:n_ft] += smlm_expand(g, ai.transpose(1, 2).contiguous(),
+                                         ids, scale, block_t=bt)
+        dab = []
+        for i in range(k):
+            dab += smlm_wgrad_split(x[:n_ft].contiguous(), dy[i], s[i],
+                                    gs[i], ids, scale, block_t=bt,
+                                    n_slots=a[i].shape[0])
+        return (dx, None, None, None, None, *dab)
+
+
+def split_carries_grad(x: torch.Tensor, pairs, rt: LoraRoute) -> bool:
+    """Whether ``lora_split`` takes ``SplitLoRAFunction``: a gradient is to
+    be carried and the stream has fine-tune rows."""
+    return bool(rt.n_ft) and torch.is_grad_enabled() and (
+        x.requires_grad or any(t.requires_grad for p in pairs for t in p))
+
+
+def lora_split(x: torch.Tensor, pairs, rt: LoraRoute, reduce,
+               reduce_s: bool, reduce_gs) -> list:
+    """The split multi-LoRA terms [T, d_out_i] of the ``(a, b)`` ``pairs``
+    sharing ``x``: ``reduce`` an in-place all-reduce over the ranks that
+    hold d_in, ``reduce_s`` whether the shrinks are summed (x a slice of
+    d_in), ``reduce_gs`` per pair whether the backward sums its ``Gs``
+    (``SplitLoRAFunction``, taken when a gradient is to be carried and the
+    stream has fine-tune rows; otherwise the plain split entries)."""
+    if split_carries_grad(x, pairs, rt):
+        return list(SplitLoRAFunction.apply(
+            x, rt, reduce, reduce_s, tuple(reduce_gs),
+            *(t for p in pairs for t in p)))
+    return _split_terms(x, rt, reduce, reduce_s, pairs)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

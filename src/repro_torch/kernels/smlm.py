@@ -250,6 +250,21 @@ def smlm_wgrad(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,
 smlm_wgrad.launches = 0
 
 
+def smlm_wgrad_split(x: torch.Tensor, dy: torch.Tensor, s: torch.Tensor,
+                     gs: torch.Tensor, tile_ids: torch.Tensor,
+                     tile_scale: torch.Tensor, *, block_t: int,
+                     n_slots: int):
+    """``smlm_wgrad`` over the split entries' plain fp32 [T, r] shrinks
+    (``smlm_shrink``'s layout: the forward's ``S`` and the dX product's
+    ``Gs``, both summed over the ranks that hold d_in), each packed into
+    the kernel's layout first (``ref.pack_shrink``: a copy of
+    ``T / block_t * ceil(block_t / 8) * 8 * rank_pad(r)`` floats, plain
+    PyTorch on every device)."""
+    return smlm_wgrad(x, dy, pack_shrink(s, block_t),
+                      pack_shrink(gs, block_t), tile_ids, tile_scale,
+                      r=s.shape[1], block_t=block_t, n_slots=n_slots)
+
+
 class SMLMFunction(torch.autograd.Function):
     """SMLM over the ft+pf head with its gradient to x, a and b.  Only the
     first ``n_ft`` tokens (the fine-tune rows, a multiple of ``block_t``)

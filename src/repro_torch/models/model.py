@@ -91,7 +91,13 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   ``cache_strategy``: by the KV heads; by the head dim, whose decode sums
   the partial scores in one all-reduce (``_hd_decode``, plain PyTorch);
   or by the slots, whose decode is flash decoding over the ranks with
-  split-K's partial and merge kernels (``_seq_decode``).
+  split-K's partial and merge kernels (``_seq_decode``).  With a gradient
+  (``core.unified.make_grad_step(..., mesh=)``; GQA attention with dense
+  FFNs, else ``check_shardable`` refuses) the same forward runs under
+  autograd: its collectives in their ``*_grad`` forms, which sum a
+  gradient over "model" only where the ranks read a tensor differently
+  (``core.lora.dense_col``'s ``read``, ``_read``), and under ``fsdp_tp``
+  each layer's weights stay cut over "data" (``sharding.FSDPWeight``).
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
@@ -473,8 +479,12 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     if mesh is None:
         q, k, v = dn("wq", "bq"), dn("wk", "bk"), dn("wv", "bv")
     else:
-        q, k, v = dense_col(xn, [(p[w], p.get(b), lr.get(w)) for w, b in (
-            ("wq", "bq"), ("wk", "bk"), ("wv", "bv"))], plan.route, mesh)
+        q_cut = p["wq"].shape[1] < h * hd
+        kv_cut = p["wk"].shape[1] < kv * hd
+        q, k, v = dense_col(xn, [
+            (p[w], p.get(b), lr.get(w), _read(cut, q_cut))
+            for w, b, cut in (("wq", "bq", q_cut), ("wk", "bk", kv_cut),
+                              ("wv", "bv", kv_cut))], plan.route, mesh)
         heads = plan.heads(cfg, mesh, q.shape[1] // hd, k.shape[1] // hd)
         h, kv, fit = heads.h, heads.kv, heads.fit
     qf, qp, qd = plan.split(q)
@@ -580,6 +590,15 @@ def _attn_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
 # GQA under a mesh: a rank's heads, and the head-dim and sequence layouts of
 # its KV rows (``distributed.sharding.kv_layout``)
 # ---------------------------------------------------------------------------
+
+def _read(cut: bool, others_cut: bool) -> str:
+    """How the ranks read a column-parallel projection's output
+    (``core.lora.dense_col``'s ``read``): ``"cut"`` where its columns are
+    cut; where it is whole, ``"differ"`` if each rank's heads read part of
+    it (whole ``wk`` / ``wv`` beside cut query heads), else ``"alike"``
+    (the sublayer runs whole on every rank)."""
+    return "cut" if cut else "differ" if others_cut else "alike"
+
 
 class _Heads:
     """A rank's query and KV heads under a mesh: ``h`` query heads from
@@ -821,8 +840,9 @@ def _mla_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     else:
         n_model = mesh.shape["model"]
         h //= n_model
-        q, lat = dense_col(xn, [(p["wq"], None, lr.get("wq")),
-                                (p["wdkv"], None, lr.get("wdkv"))],
+        # wdkv is whole: every rank's heads read its latent in part
+        q, lat = dense_col(xn, [(p["wq"], None, lr.get("wq"), "cut"),
+                                (p["wdkv"], None, lr.get("wdkv"), "differ")],
                            plan.route, mesh)
     # q [T, h*(dn+dr)], lat [T, c+dr]
     qf, qp, qd = plan.split(q)
@@ -1020,8 +1040,8 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     if mesh is None:
         q = dense(xn, p["xwq"], None, lr.get("xwq"), plan.route)
     else:
-        q, = dense_col(xn, [(p["xwq"], None, lr.get("xwq"))], plan.route,
-                       mesh)
+        q, = dense_col(xn, [(p["xwq"], None, lr.get("xwq"), _read(
+            p["xwq"].shape[1] < h * hd, False))], plan.route, mesh)
         heads = plan.heads(cfg, mesh, q.shape[1] // hd,
                            p["xwk"].shape[1] // hd)
         h, kv = heads.h, heads.kv
@@ -1257,7 +1277,8 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
         z_all = dense(xn, p["in_z"], None, lr.get("in_z"), plan.route)
         x_all = dense(xn, p["in_x"], None, lr.get("in_x"), plan.route)
     else:
-        z_all, x_all = dense_col(xn, [(p[w], None, lr.get(w))
+        read = _read(p["in_x"].shape[1] < cfg.d_inner, False)
+        z_all, x_all = dense_col(xn, [(p[w], None, lr.get(w), read)
                                       for w in ("in_z", "in_x")],
                                  plan.route, mesh)                  # [T, di']
     bc_all = xn @ p["in_bc"].to(xn.dtype)                           # [T, 2gds]
@@ -1338,7 +1359,7 @@ def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
             y, aux = None, None
             names = ("wg", "wu", "wd")
         if names[0] in p:
-            g, u = dense_col(xn, [(p[n], None, lr.get(n))
+            g, u = dense_col(xn, [(p[n], None, lr.get(n), "cut")
                                   for n in names[:2]], plan.route, mesh)
             ys = dense_row(F.silu(g) * u, p[names[2]], lr.get(names[2]),
                            plan.route, mesh)
@@ -1467,11 +1488,15 @@ def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
     whole."""
     x = L.rms_norm(x, final_norm, cfg.rms_eps)
     vocab_split = mesh is not None and head.shape[1] != cfg.vocab
+    if vocab_split:
+        # a replicated x entering the vocab-parallel head
+        x = SH.sum_grad(x, "model", mesh)
 
     def rows_whole(t, name):
         if split and split[name]:
             from repro_torch.launch.mesh import batch_axes
-            return SH.all_gather(t, batch_axes(mesh), mesh, dim=0)
+            # every rank reads the gathered rows alike: "take my rows"
+            return SH.all_gather_grad(t, batch_axes(mesh), mesh, dim=0)
         return t
 
     def vocab_whole(t):
@@ -1480,34 +1505,40 @@ def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
 
     xf, xp, xd = plan.split(x)
     ft_loss = ft_cnt = ft_logits = pf_logits = dec_logits = None
+    # the serving rows' logits carry no gradient (the loss reads ft rows)
     if xd is not None:
         # [Bd, V] for plain decode; [Bd, Sd, V] for verify chunks (one
         # next-token distribution per chunk position, the acceptance oracle)
-        dec_logits = rows_whole(vocab_whole(
-            xd[:, 0] @ head if plan.Sd == 1 else xd @ head), "dec")
+        xd = xd.detach()
+        dec_logits = rows_whole(vocab_whole(SH.matmul(
+            xd[:, 0] if plan.Sd == 1 else xd, head)), "dec")
     if xp is not None:
         last = (batch.pf.length.long() - 1).clamp(min=0)
-        pf_logits = rows_whole(vocab_whole(
-            xp[torch.arange(plan.Bp, device=x.device), last] @ head), "pf")
+        pf_logits = rows_whole(vocab_whole(SH.matmul(
+            xp.detach()[torch.arange(plan.Bp, device=x.device), last],
+            head)), "pf")
     if xf is not None:
         ft = batch.ft
-        logits = (xf.reshape(-1, cfg.d_model) @ head
-                  ).reshape(plan.Bf, plan.Sf, -1)
+        logits = SH.matmul(xf.reshape(-1, cfg.d_model), head
+                           ).reshape(plan.Bf, plan.Sf, -1)
         if return_ft_logits:
-            ft_logits = rows_whole(vocab_whole(logits), "ft")
+            ft_logits = rows_whole(vocab_whole(logits.detach()), "ft")
         lg = logits[:, :-1].float()
         lbl = ft.labels[:, 1:].long()
         valid = (lbl != -100) & ft.mask[:, 1:]
         if vocab_split:
-            # each rank holds columns [v0, v0 + V/m)
+            # each rank holds columns [v0, v0 + V/m); the max only shifts
+            # the exponent and takes no gradient
             v0 = mesh.coords["model"] * lg.shape[-1]
-            gmax = SH.all_reduce(lg.amax(-1).contiguous(), "model", mesh,
-                                 op="max")
+            gmax = SH.all_reduce(lg.detach().amax(-1).contiguous(), "model",
+                                 mesh, op="max")
             sumexp = torch.exp(lg - gmax[..., None]).sum(-1)
             mine = (lbl >= v0) & (lbl < v0 + lg.shape[-1])
             picked = lg.gather(-1, (lbl - v0).clamp(0, lg.shape[-1] - 1)[
                 ..., None])[..., 0] * mine.float()
-            both = SH.all_reduce(torch.stack([sumexp, picked]), "model", mesh)
+            # every rank reads the sums alike: the identity as the adjoint
+            both = SH.all_reduce_grad(torch.stack([sumexp, picked]), "model",
+                                      mesh)
             lse, picked = torch.log(both[0]) + gmax, both[1]
         else:
             lse = torch.logsumexp(lg, dim=-1)
@@ -1525,20 +1556,38 @@ def _outputs(cfg: ModelConfig, plan: _Plan, batch: UnifiedBatch,
 # the forward under a mesh (explicit SPMD)
 # ---------------------------------------------------------------------------
 
+def _with_grad(loras: Optional[Dict]) -> bool:
+    """A forward that differentiates the bank (the train step)."""
+    return torch.is_grad_enabled() and loras is not None and any(
+        t.requires_grad for t in tree_leaves(loras))
+
+
 def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
-                    loras: Optional[Dict] = None) -> None:
+                    loras: Optional[Dict] = None,
+                    params: Optional[Dict] = None) -> None:
     """What the sharded forward runs, or a ``ValueError`` that names the
     case: GQA attention (any head counts: the head-dim and sequence cache
     layouts), MLA (heads dividing the model axis) or Mamba2 mixers, alone
     or in one stack (jamba), on dense rows, with dense or MoE FFNs,
     cross-attention layers and an encoder, sliding windows (GQA and MLA),
-    in bf16, fp32 or with int8 leaves."""
+    in bf16, fp32 or with int8 leaves.  With a gradient (the train step):
+    GQA attention with dense FFNs, sliding windows included, in bf16 or
+    fp32."""
     where = f"under a {dict(mesh.shape)} mesh"
-    if torch.is_grad_enabled() and loras is not None and any(
-            t.requires_grad for t in tree_leaves(loras)):
-        raise ValueError(f"a forward with gradient {where}: the train step "
-                         "under a mesh is a later slice (ROADMAP Queue 1, "
-                         "5b)")
+    if _with_grad(loras):
+        later = [what for what, on in (
+            ("MoE", any(is_moe(cfg, li) for li in range(cfg.n_layers))),
+            ("MLA", cfg.mla is not None),
+            ("Mamba2", cfg.ssm is not None),
+            ("cross-attention layers",
+             any(i[2] is not None for i in layer_index(cfg))),
+            ("an encoder", cfg.encoder is not None),
+            ("int8 leaves", params is not None and quant.has_q8(params)))
+            if on]
+        if later:
+            raise ValueError(f"{cfg.name}: a forward with gradient {where} "
+                             f"over {', '.join(later)} is a later slice "
+                             "(ROADMAP Queue 1, 5b-iii)")
     if cfg.mla is not None and cfg.n_heads % mesh.shape["model"]:
         raise ValueError(f"{cfg.name}: MLA's {cfg.n_heads} heads do not "
                          f"divide the model axis {where} (ROADMAP Queue 1, "
@@ -1608,9 +1657,13 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     step's logits, ft loss sums and aux loss on every rank, and the local
     cache."""
     from repro_torch.launch.mesh import batch_axes
-    check_shardable(cfg, mesh, batch, loras)
+    check_shardable(cfg, mesh, batch, loras, params)
     strategy = strategy or "fsdp_tp"
     fsdp = strategy == "fsdp_tp"
+    # with a gradient, a layer's weights cut over "data" stay cut
+    # (``sharding.FSDPWeight``): autograd saves the shard, not the gathered
+    # leaf
+    lazy = fsdp and mesh.shape["data"] > 1 and _with_grad(loras)
     bx = batch_axes(mesh)
     gb, split = local_batch(batch, mesh)
     if (gb.pf is not None or gb.dec is not None) and cache is None:
@@ -1627,14 +1680,17 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
              SH.param_shardings(cfg, mesh, strategy))
     first = mesh.index(bx) == 0
 
-    def load(leaf, spec):
+    def load(leaf, spec, keep=False):
         """A leaf whole over "data" (the FSDP gather; an int8 leaf's
-        payload and scales apart), then dequantized."""
+        payload and scales apart), then dequantized; with ``keep`` under a
+        gradient, an ``FSDPWeight`` that ``sharding.matmul`` gathers."""
         if quant.is_q8(leaf):
             return quant.dequant_leaf({k: load(leaf[k], spec[k])
                                        for k in leaf}, dtype)
         for dim, ax in enumerate(spec):
             if ax == "data":
+                if lazy and keep:
+                    return SH.FSDPWeight(leaf, dim, mesh)
                 return SH.all_gather(leaf, "data", mesh, dim=dim)
         return leaf
 
@@ -1656,7 +1712,7 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
         sp = specs["layers"][li]
         p = {k: (v if k in EXPERT_STACKS or k == "router"
-                 else load(v, sp[k])) for k, v in p.items()}
+                 else load(v, sp[k], keep=True)) for k, v in p.items()}
         lc = None if cache is None else layer_cache(cfg, cache, li, index)
         if index[li][0] == "mamba":
             x = _mamba_apply(cfg, p, lr, plan, x, lc, mesh=mesh)
@@ -1671,8 +1727,8 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
         del p
 
     if cfg.tie_embeddings:
-        head = load(params["embed"], specs["embed"]).T
+        head = load(params["embed"], specs["embed"], keep=True).T
     else:
-        head = load(params["lm_head"], specs["lm_head"])
+        head = load(params["lm_head"], specs["lm_head"], keep=True)
     return _outputs(cfg, plan, gb, x, params["final_norm"], head, cache,
                     aux_loss, return_ft_logits, mesh, split)

@@ -17,7 +17,13 @@ Functional like the JAX step: it returns new tensors.  Moments are fp32; a
 bf16 bank is stepped in fp32 and cast back, with no fp32 master copy (the
 JAX package keeps none).  The clip's norm is one fp32 sum over the flat
 gradient, where the JAX package adds per-leaf sums: the same value up to
-fp32 rounding.
+fp32 rounding.  The update itself runs over the flat buffers in chunks of
+``CHUNK`` elements, each element's arithmetic as one whole-buffer pass
+would do it, so its temporaries are a chunk's, not a buffer's
+(qwen1.5-110b's bank is 143 M elements a card on four, 0.57 GB per fp32
+temporary).  Under a mesh (the sharded train step) every tensor is a
+rank's shard, the moments cut as ``distributed.sharding.opt_shardings``
+says, and only the clip's norm needs the other ranks (``clip_sumsq``).
 """
 from __future__ import annotations
 
@@ -73,6 +79,13 @@ def adamw_init(params, n_slots: int) -> AdamWState:
                                         device=dev))
 
 
+CHUNK = 1 << 24          # elements a pass of the update (64 MB in fp32)
+
+
+def _chunks(n: int):
+    return (slice(i, min(i + CHUNK, n)) for i in range(0, n, CHUNK))
+
+
 def _mask_like(leaf: torch.Tensor, slot_mask: torch.Tensor) -> torch.Tensor:
     """Broadcast [n_slots] over the adapter axis at -3."""
     shape = [1] * leaf.ndim
@@ -118,33 +131,73 @@ def _per_element(values: torch.Tensor, leaves: List[torch.Tensor]
         torch.tensor(lens, device=dev), output_size=sum(lens))
 
 
+def clip_sumsq(g: torch.Tensor, leaves: List[torch.Tensor], cut, mesh
+               ) -> torch.Tensor:
+    """The clip's sum of squares of the whole gradient from this rank's
+    flat fp32 ``g`` over its shards ``leaves``: the leaves cut over "model"
+    (``cut``, per leaf) add their shards' sums over "model"; a leaf whole
+    on every rank counts once.  The bank is replicated over the data axes,
+    so they add nothing."""
+    from repro_torch.distributed.sharding import all_reduce
+    dev = g.device
+    on = torch.repeat_interleave(
+        torch.tensor(cut, dtype=torch.bool, device=dev),
+        torch.tensor([x.numel() for x in leaves], device=dev),
+        output_size=g.numel())
+    zero = torch.zeros((), device=dev)
+    sums = torch.zeros(2, device=dev)       # cut leaves, whole leaves
+    for c in _chunks(g.numel()):
+        sq = g[c].square()
+        sums[0] += torch.where(on[c], sq, zero).sum()
+        sums[1] += torch.where(on[c], zero, sq).sum()
+    return all_reduce(sums[:1], "model", mesh)[0] + sums[1]
+
+
 def adamw_apply(cfg: AdamWConfig, grads, state: AdamWState, params,
-                slot_mask: torch.Tensor):
+                slot_mask: torch.Tensor, mesh=None, cut=None):
     """Masked AdamW step.  Only slots with mask=1 are updated (their
     moments, their counters, their params); everything else passes through
-    untouched.  Returns (new_params, new_state)."""
+    untouched.  Under a ``mesh`` the trees are this rank's shards and
+    ``cut`` says per leaf (``tree_leaves`` order) whether it is cut over
+    "model" (``sharding.cut_over_model``), for the clip's norm
+    (``clip_sumsq``); with no mesh the norm is taken over the one flat
+    gradient.  Returns (new_params, new_state)."""
     with torch.no_grad():
         leaves = tree_leaves(params)
         g = _flat(tree_leaves(grads)).float()
         if cfg.grad_clip > 0:
-            gn = torch.sqrt(g.square().sum())
-            g = g * torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9),
-                                max=1.0)
+            gn = torch.sqrt(g.square().sum() if mesh is None else
+                            clip_sumsq(g, leaves, cut, mesh))
+            g.mul_(torch.clamp(cfg.grad_clip / torch.clamp(gn, min=1e-9),
+                               max=1.0))
         t_new = state.t + slot_mask.to(torch.int32)
-        msk = _per_element(slot_mask.float(), leaves)
-        t_b = _per_element(torch.clamp(t_new, min=1).float(), leaves)
+        # each element's slot, then its mask and step count a chunk at a
+        # time
+        n = slot_mask.shape[0]
+        sid = _per_element(torch.arange(n, device=g.device, dtype=(
+            torch.uint8 if n < 256 else torch.int32)), leaves)
+        slot_msk = slot_mask.float()
+        slot_t = torch.clamp(t_new, min=1).float()
         m, v = _flat(tree_leaves(state.m)), _flat(tree_leaves(state.v))
-        live = msk > 0
-        m_new = torch.where(live, cfg.b1 * m + (1 - cfg.b1) * g, m)
-        v_new = torch.where(live, cfg.b2 * v + (1 - cfg.b2) * g * g, v)
-        # per-slot bias correction
-        mhat = m_new / (1 - cfg.b1 ** t_b)
-        vhat = v_new / (1 - cfg.b2 ** t_b)
-        step = mhat / (torch.sqrt(vhat) + cfg.eps)
-        p = _flat(leaves).float()
-        if cfg.weight_decay:
-            step = step + cfg.weight_decay * p
-        p_new = (p - cfg.lr * step * msk).to(leaves[0].dtype)
+        p_all = _flat(leaves)
+        m_new, v_new = torch.empty_like(m), torch.empty_like(v)
+        p_new = torch.empty_like(p_all)
+        for c in _chunks(g.numel()):
+            i = sid[c].long()
+            msk, t_b = slot_msk[i], slot_t[i]
+            live, gc = msk > 0, g[c]
+            m_new[c] = torch.where(live, cfg.b1 * m[c] + (1 - cfg.b1) * gc,
+                                   m[c])
+            v_new[c] = torch.where(live, cfg.b2 * v[c]
+                                   + (1 - cfg.b2) * gc * gc, v[c])
+            # per-slot bias correction
+            mhat = m_new[c] / (1 - cfg.b1 ** t_b)
+            vhat = v_new[c] / (1 - cfg.b2 ** t_b)
+            step = mhat / (torch.sqrt(vhat) + cfg.eps)
+            p = p_all[c].float()
+            if cfg.weight_decay:
+                step = step + cfg.weight_decay * p
+            p_new[c] = (p - cfg.lr * step * msk).to(p_new.dtype)
     return _unflat(p_new, params), AdamWState(
         m=_unflat(m_new, state.m), v=_unflat(v_new, state.v), t=t_new)
 

@@ -13,19 +13,26 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.checkpoint.io import bank_from_numpy, load_npz, \
-    params_from_numpy, shard_bank, shard_params
+from repro_torch.checkpoint.io import bank_from_numpy, gather_bank, \
+    gather_opt_state, load_npz, params_from_numpy, shard_bank, \
+    shard_opt_state, shard_params
 from repro_torch.configs import get_reduced
 from repro_torch.core.flow import FlowConfig
-from repro_torch.core.unified import make_forward_step, make_grad_step
+from repro_torch.core.lora import LoRAConfig, init_lora_bank
+from repro_torch.core.unified import make_forward_step, make_grad_step, \
+    make_train_step
 from repro_torch.distributed import sharding as SH
 from repro_torch.launch.mesh import init_mesh
 from repro_torch.models import model as TM
 from repro_torch.models.configs import MoEConfig
 from repro_torch.models.moe_dist import moe_apply_auto
+from repro_torch.models.schema import cross_len, init_params, \
+    lora_targets
 from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
     UnifiedBatch
+from repro_torch.kernels import ops
 from repro_torch.roofline.analysis import collective_bytes
+from repro_torch.training import optimizer as topt
 
 BT = FlowConfig().block_t
 TOL = 2e-4          # fp32, sums over ranks in another order than one device
@@ -190,16 +197,38 @@ def value_errors(tmp, z, mesh):
         adapter=torch.full((2,), -1, dtype=torch.int32)))
     out["verify"] = raises(lambda: step(cfg, params, verify), "verify",
                            "5c-ii-b-ii")
-    bank = bank_from_numpy(load_npz(os.path.join(tmp, "llama_tp_bank.npz")),
-                           device="cpu")
-    scale = _t(z["llama_tp/scale"])
+    def grad_step(name, arch=None):
+        """A grad step under the mesh on case ``name``'s weights, or on a
+        reduced ``arch`` drawn here."""
+        if arch is None:
+            cfg = get_reduced(z[f"{name}/arch"].item())
+            p = params_from_numpy(load_npz(os.path.join(
+                tmp, f"{name}_params.npz")), device="cpu")
+            bank = bank_from_numpy(load_npz(os.path.join(
+                tmp, f"{name}_bank.npz")), device="cpu")
+        else:
+            cfg = get_reduced(arch)
+            gen = torch.Generator().manual_seed(0)
+            p = init_params(cfg, gen, device="cpu", dtype=torch.float32)
+            bank = init_lora_bank(lora_targets(cfg, LoRAConfig().targets
+                                               + ("xwq", "xwo")),
+                                  LoRAConfig(), gen, torch.device("cpu"),
+                                  torch.float32)
+        ft = batch.ft._replace(tokens=batch.ft.tokens % cfg.vocab)
+        if cfg.encoder is not None or cfg.cross_attn_every:
+            ft = ft._replace(aux_embed=torch.zeros(
+                (ft.tokens.shape[0], cross_len(cfg), cfg.d_model)))
+        return lambda: make_grad_step(cfg, block_t=BT, mesh=mesh)(
+            shard_params(p, cfg, mesh, "tp"), shard_bank(bank, mesh),
+            torch.ones(4), UnifiedBatch(ft=ft), None)
 
-    def grad_step():
-        with SH.mesh_context(mesh):
-            make_grad_step(cfg, block_t=BT)(params, bank, scale,
-                                            UnifiedBatch(ft=batch.ft), None)
-
-    out["grad"] = raises(grad_step, "gradient", "train step")
+    out["grad"] = raises(grad_step("maverick"), "gradient", "MoE", "5b-iii")
+    out["grad_mla"] = raises(grad_step(None, "deepseek-v2-236b"),
+                             "gradient", "MLA", "5b-iii")
+    out["grad_mamba"] = raises(grad_step(None, "mamba2-1.3b"), "gradient",
+                               "Mamba2", "5b-iii")
+    out["grad_cross"] = raises(grad_step(None, "llama-3.2-vision-90b"),
+                               "gradient", "cross-attention", "5b-iii")
     return out
 
 
@@ -418,6 +447,177 @@ def whole_row(mesh, seed=5):
     return err(got, dense(x, w, None, lora, rt).numpy())
 
 
+# the train step under a mesh (tests/test_torch_mesh_train.py): fp32
+# tolerances, each leaf's max abs error as a share of the leaf's max abs
+TRAIN_TOL = 2e-4
+TRAIN_LOSS_TOL = 1e-4
+# AdamW with eps 1e-5 (its first step's slope 1 / eps bounds what a
+# rounding difference of a near-zero gradient moves) and a clip far below
+# the gradient norm, so that it engages; slot 1 masked
+TRAIN_OPT = dict(lr=1e-3, eps=1e-5, grad_clip=1e-3)
+TRAIN_SLOTS = (1, 0, 1, 1)
+
+
+def _train_batch(z, name):
+    """Case ``name``'s ft bucket, and its prefill and decode buckets where
+    it has them (dense rows)."""
+    g = lambda k: _t(z[f"{name}/{k}"])
+    ft = FTBatch(tokens=g("ft_tokens"), mask=g("ft_mask"),
+                 labels=g("ft_labels"), adapter=g("ft_adapter"),
+                 weight=g("ft_weight"))
+    if f"{name}/pf_tokens" not in z:
+        return UnifiedBatch(ft=ft)
+    return UnifiedBatch(
+        ft=ft, pf=PFBatch(tokens=g("pf_tokens"), length=g("pf_length"),
+                          adapter=g("pf_adapter")),
+        dec=DECBatch(tokens=g("dec_tokens"), pos=g("dec_pos"),
+                     adapter=g("dec_adapter")))
+
+
+def _tree_errs(prefix, got, want) -> dict:
+    """Each leaf's max abs error over the leaf's max abs."""
+    out = {}
+    for li, (lg, lw) in enumerate(zip(got["layers"], want["layers"])):
+        for n in lw:
+            for ab in ("a", "b"):
+                w = lw[n][ab].double()
+                out[f"{prefix}/{li}/{n}/{ab}"] = float(
+                    (lg[n][ab].double() - w).abs().max()
+                    / max(float(w.abs().max()), 1e-30))
+    return out
+
+
+def _planted_train(fault, mesh):
+    """A fault of the train step under a mesh, as (module, attribute, its
+    replacement): ``"shrink"`` model ranks 1-3 take their own ``Gs`` for
+    the backward's shrink all-reduce (still called, so that the
+    collectives pair); ``"batch"`` the bank's gradients not summed over
+    the batch axes; ``"clip"`` the clip's sum of squares of this rank's
+    shards alone, without the sum over "model"."""
+    if fault == "shrink":
+        orig = ops.reduce_gs
+
+        def own(reduce, gs):
+            out = orig(reduce, gs.clone())
+            return out if mesh.coords["model"] == 0 else gs
+        return ops, "reduce_gs", own
+    if fault == "batch":
+        return SH, "reduce_bank_grads", lambda grads, mesh, split: grads
+    return topt, "clip_sumsq", lambda g, leaves, cut, mesh: g.square().sum()
+
+
+def train_case(tmp, name, mesh, strategy, z, cache_strategy="auto",
+               train=False, fault=None):
+    """Case ``name``'s grad step (and with ``train`` its train step) on
+    this rank's shards against JAX's single-device steps (the npz files
+    ``tests/test_torch_mesh_train.py`` wrote): the loss, every grad leaf
+    gathered whole, and the new bank and moments gathered whole.  With a
+    ``fault`` (``_planted_train``) the errors come back unchecked."""
+    cfg = case_config(z, name)
+    rd = lambda f: load_npz(os.path.join(tmp, f"{name}_{f}.npz"))
+    params = params_from_numpy(rd("params"), device="cpu")
+    bank = bank_from_numpy(rd("bank"), device="cpu")
+    scale = _t(z[f"{name}/scale"])
+    batch = _train_batch(z, name)
+    chunk = int(z[f"{name}/chunk"])
+    cache0 = _cache_of(z, f"{name}/cache0_")
+    segs = None if batch.pf is None else (batch.dec.tokens.shape[0],
+                                          batch.pf.tokens.shape[0])
+    cache = lambda: SH.shard_cache(cfg, cache0, mesh, segs,
+                                   cache_strategy) if cache0 else None
+    lp, lb = shard_params(params, cfg, mesh, strategy), shard_bank(bank,
+                                                                   mesh)
+    kw = dict(block_t=BT, attn_chunk=chunk, mesh=mesh, strategy=strategy,
+              cache_strategy=cache_strategy)
+    if fault:
+        mod, attr, bad = _planted_train(fault, mesh)
+        orig = getattr(mod, attr)
+        setattr(mod, attr, bad)
+    try:
+        local = cache()
+        res = make_grad_step(cfg, **kw)(lp, lb, scale, batch, local)
+        if train:
+            opt = topt.AdamWConfig(**TRAIN_OPT)
+            st0 = shard_opt_state(topt.adamw_init(bank, 4), mesh)
+            mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32)
+            tloss, nb, ns, _ = make_train_step(cfg, opt, **kw)(
+                lp, lb, scale, st0, batch, mask, cache())
+    finally:
+        if fault:
+            setattr(mod, attr, orig)
+    grads = gather_bank(cfg, res.grads, mesh)
+    errs = _tree_errs("grad", grads, bank_from_numpy(rd("grads"),
+                                                     device="cpu"))
+    out = {"loss": abs(float(res.loss) - float(z[f"{name}/ref_loss"])),
+           "split": TM.local_batch(batch, mesh)[1]["ft"],
+           "layout": None if local is None else SH.shard_layout(
+               cfg, "k", local["k"].shape, mesh, cache_strategy)}
+    if train:
+        nb, ns = gather_bank(cfg, nb, mesh), gather_opt_state(cfg, ns, mesh)
+        errs.update(_tree_errs("bank", nb, bank_from_numpy(
+            rd("newbank"), device="cpu")))
+        errs.update(_tree_errs("m", ns.m, bank_from_numpy(rd("m"),
+                                                          device="cpu")))
+        errs.update(_tree_errs("v", ns.v, bank_from_numpy(rd("v"),
+                                                          device="cpu")))
+        out["loss"] = max(out["loss"], abs(float(tloss) - float(
+            z[f"{name}/ref_tloss"])))
+        out["t_same"] = bool((ns.t.numpy() == z[f"{name}/ref_t"]).all())
+        out["norm"] = float(torch.sqrt(sum(
+            g.double().square().sum() for g in topt.tree_leaves(grads))))
+        out["masked_same"] = all(
+            torch.equal(nl[n][ab][1], ol[n][ab][1])
+            for nl, ol in zip(nb["layers"], bank["layers"]) for n in ol
+            for ab in ("a", "b"))
+        assert fault or out["t_same"], (name, ns.t, z[f"{name}/ref_t"])
+    out["errs"] = errs
+    assert fault or (out["loss"] < TRAIN_LOSS_TOL
+                     and max(errs.values()) < TRAIN_TOL), \
+        (name, strategy, cache_strategy, out["loss"],
+         max(errs.items(), key=lambda kv: kv[1]))
+    return out
+
+
+def hooks_case(tmp, name, mesh, strategy, z):
+    """The tensors autograd saves in a ``strategy`` grad step on this
+    rank's shards (``saved_tensors_hooks``): none may have the shape of a
+    leaf gathered whole over "data" (a saved tensor that is itself a
+    rank's shard, the same storage, is not one), and the shards
+    themselves must be among them."""
+    cfg = case_config(z, name)
+    params = params_from_numpy(load_npz(os.path.join(
+        tmp, f"{name}_params.npz")), device="cpu")
+    bank = bank_from_numpy(load_npz(os.path.join(tmp, f"{name}_bank.npz")),
+                           device="cpu")
+    lp = shard_params(params, cfg, mesh, strategy)
+    specs = SH.param_shardings(cfg, mesh, strategy)
+    gathered, shards = set(), set()
+    pairs = [(lp[k], specs[k]) for k in ("embed", "lm_head") if k in lp]
+    pairs += [(v, sp[k]) for layer, sp in zip(lp["layers"], specs["layers"])
+              for k, v in layer.items()]
+    for leaf, spec in pairs:
+        for dim, ax in enumerate(spec):
+            if ax == "data":
+                shape = list(leaf.shape)
+                shape[dim] *= mesh.shape["data"]
+                gathered.add(tuple(shape))
+                shards.add(leaf.data_ptr())
+    saved = []
+
+    def pack(t):
+        saved.append((tuple(t.shape), t.data_ptr()))
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        make_grad_step(cfg, block_t=BT, mesh=mesh, strategy=strategy)(
+            lp, shard_bank(bank, mesh), _t(z[f"{name}/scale"]),
+            _train_batch(z, name), None)
+    return {"n_saved": len(saved),
+            "shards_saved": sum(p in shards for _, p in saved),
+            "gathered_saved": sorted({s for s, p in saved
+                                      if s in gathered and p not in shards})}
+
+
 def run(rank, world, tmp, shape, cases):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -469,6 +669,19 @@ def run(rank, world, tmp, shape, cases):
                 res[case] = whole_row(mesh)
             elif kind == "errors":
                 res[case] = value_errors(tmp, z, mesh)
+            elif kind in ("grad", "train"):
+                name, strategy, *cs = rest.split(",")
+                res[case] = train_case(tmp, name, mesh, strategy, z,
+                                       *cs, train=kind == "train")
+            elif kind.startswith("fault_") and kind[6:] in (
+                    "shrink", "batch", "clip"):
+                name, strategy = rest.split(",")
+                res[case] = train_case(tmp, name, mesh, strategy, z,
+                                       train=kind == "fault_clip",
+                                       fault=kind[6:])
+            elif kind == "hooks":
+                name, strategy = rest.split(",")
+                res[case] = hooks_case(tmp, name, mesh, strategy, z)
         with open(os.path.join(tmp, f"result_{'x'.join(map(str, shape))}_"
                                     f"{rank}.json"), "w") as fh:
             json.dump(res, fh)

@@ -757,6 +757,64 @@ def test_cuda_smlm_function_backward_matches_plain_autograd(dtype):
         _close(got.grad, want.grad, dtype)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_split_lora_function_backward_matches_smlm_function(dtype):
+    """``ops.SplitLoRAFunction`` (the sharded step's LoRA term) at one
+    rank's slice of a 4-way split of llama3-8b's gate projection (d_in 4096
+    / 4, d_out 14336 / 4), its collective the identity: fine-tune tiles
+    (one of scale 0), prefill tiles of zero cotangent and a BGMV decode
+    tail.  y against the plain SMLM and BGMV; dX, dA and dB against
+    ``SMLMFunction`` on the same head and against autograd through the
+    plain versions (the prefill and decode rows' dX exactly 0); the split
+    entries launch in both passes, ``smlm_wgrad`` once, the fused SMLM
+    never."""
+    from repro_torch.kernels import bgmv as BG
+    from repro_torch.kernels import smlm as SM
+    dev = _card()
+    rng = np.random.default_rng(12)
+    n_ft, n_pf, d, o, n, r, bt = 64, 32, 1024, 3584, 4, 8, 8
+    dec = np.array([0, 1, -1, 3, 2, 0, 1, 1], np.int32)
+    ft_tiles = np.array([1, 1, 3, -1, 0, 2, 1, 3], np.int32)
+    pf_tiles = np.array([2, -1, 0, 1], np.int32)
+    ids = np.concatenate([np.repeat(ft_tiles, bt), np.repeat(pf_tiles, bt),
+                          dec])
+    T, n_head = ids.shape[0], n_ft + n_pf
+    x, a, b = (v.to(dev, dtype) for v in map(t, _lora_inputs(
+        rng, T, d, r, n, o)))
+    rt = ops.route(t(ids).to(dev), torch.full((T,), 1.5, device=dev), n,
+                   n_head, bt, n_ft=n_ft)
+    g = torch.zeros((T, o), device=dev, dtype=dtype)
+    g[:n_ft] = t(rng.standard_normal((n_ft, o), dtype=np.float32)
+                 ).to(dev, dtype)
+    counts = lambda: (SM.smlm_shrink.launches, SM.smlm_expand.launches,
+                      SM.smlm_wgrad.launches, SM.smlm.launches,
+                      BG.bgmv_shrink.launches, BG.bgmv_expand.launches)
+    split = [v.clone().requires_grad_() for v in (x, a, b)]
+    n0 = counts()
+    y, = ops.SplitLoRAFunction.apply(split[0], rt, lambda s: s, True,
+                                     (True,), split[1], split[2])
+    (y.float() * g.float()).sum().backward()
+    assert [c - c0 for c, c0 in zip(counts(), n0)] == [2, 2, 1, 0, 1, 1]
+    fused = [v.clone().requires_grad_() for v in (x, a, b)]
+    yf = SMLMFunction.apply(fused[0][:n_head], fused[1], fused[2],
+                            rt.tile_ids, rt.tile_scale, bt, n_ft)
+    (yf.float() * g[:n_head].float()).sum().backward()
+    plain = [v.clone().requires_grad_() for v in (x, a, b)]
+    yp = torch.cat([ref.smlm_ref(plain[0][:n_head], plain[1], plain[2],
+                                 rt.tile_ids, rt.tile_scale, bt),
+                    ref.bgmv_ref(x[n_head:], a, b, rt.tail_ids,
+                                 rt.tail_scale)])
+    (yp.float() * g.float()).sum().backward()
+    _close_rows(y.detach(), yp.detach(), dtype)
+    assert float(split[0].grad[n_ft:].abs().max()) == 0.0
+    for got, want in zip(split, plain):
+        _close(got.grad, want.grad, dtype)
+    for got, want in zip(split[1:], fused[1:]):
+        _close(got.grad, want.grad, dtype)
+    _close(split[0].grad[:n_head], fused[0].grad[:n_head], dtype)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}

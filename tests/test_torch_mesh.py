@@ -286,7 +286,8 @@ def test_collective_bytes_equal_the_hand_count(run_2x2):
     assert got["scaled"] == got["coll"]    # eager: raw equals scaled
 
 
-@pytest.mark.parametrize("case", ["mla_heads", "paged", "verify", "grad"])
+@pytest.mark.parametrize("case", ["mla_heads", "paged", "verify", "grad",
+                                  "grad_mla", "grad_mamba", "grad_cross"])
 def test_unsharded_cases_raise(run_2x2, case):
     assert run_2x2["errors:"][case]
 

@@ -1,0 +1,229 @@
+"""The port's grad and train steps under a mesh on 4 ``gloo`` ranks against
+the JAX package's single-device ``make_grad_step`` / ``make_train_step`` on
+the same npz weights, bank and batch, in fp32.
+
+One spawn per mesh shape holds all its cases (``_torch_mesh_worker.
+train_case``).  At ``(1, 4)`` ``tp``: reduced llama3-8b (8 query / 2 KV
+heads: ``wq`` cut, ``wk`` / ``wv`` whole, so each rank's query heads read
+part of K and V, and the cut LoRA ``b`` of ``wk`` / ``wv`` is all-gathered),
+the 6-head llama of ``tests/test_torch_mesh_layouts.py`` (``wq`` / ``wo``
+whole: every rank runs every head), reduced deepseek-7b (every count
+divides), a mixed ft + prefill + decode batch on dense rows under
+``cache_strategy`` "auto" (KV rows cut by the head dim) and "seq", the ft
+attention in chunks of 8 (``torch.utils.checkpoint``) and a sliding window
+of 8.  At ``(2, 2)``: llama under ``tp`` and ``fsdp_tp`` with its 4 ft rows
+split over "data", a 3-row bucket that every data rank runs whole, the
+mixed batch under ``fsdp_tp`` "auto" and ``tp`` "seq", reduced
+command-r-35b under ``fsdp_tp`` (its head is the tied embedding, cut over
+"data" and gathered again in the backward), and the saved tensors of an
+``fsdp_tp`` grad step.  Each ``train:`` case also takes one
+``make_train_step``: one slot masked, ``grad_clip`` far below the gradient
+norm so that the clip engages (asserted), the new bank and moments gathered
+whole.
+
+Tolerances (fp32; the ranks sum their partial products in another order
+than one device, and the port's kernels' plain versions in another order
+than XLA): the loss within ``W.TRAIN_LOSS_TOL`` = 1e-4 abs; each grad
+leaf, each moment leaf and each new bank leaf within ``W.TRAIN_TOL`` = 2e-4
+of that leaf's max abs (the tolerance ``tests/test_torch_train.py`` holds
+the one-device grad step to).  AdamW's first step per element is ``g /
+(|g| + eps)``, whose slope ``1 / eps`` turns a rounding difference of a
+near-zero gradient into a step difference of order ``lr``; the cases take
+``eps`` = 1e-5, so a gradient difference of 1e-7 moves a weight by at most
+``lr * 1e-2`` = 1e-5, under 2e-4 of a leaf's max (~0.1).  Three planted
+faults, each at least 10x its tolerance: model ranks 1-3 take the identity
+for the backward's shrink all-reduce (``ops.reduce_gs``), the bank's
+gradients not summed over the batch axes (``sharding.reduce_bank_grads``),
+and the clip's sum of squares without its sum over "model"
+(``optimizer.clip_sumsq``, seen on the moments).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+import _torch_mesh_worker as W
+from _torch_bridge import j
+from test_torch_mesh import LORA_R, _spawn
+from test_torch_mesh_families import _port_leaves
+from repro.checkpoint.io import save_pytree
+from repro.configs import get_reduced as j_get_reduced
+from repro.core.lora import LoRAConfig as JLoRAConfig
+from repro.core.unified import make_grad_step as j_grad_step, \
+    make_train_step as j_train_step
+from repro.core.virtualization import AdapterStore as JAdapterStore
+from repro.models import model as JM
+from repro.models.schema import init_params as j_init_params
+from repro.models.stream import DECBatch as JDEC, FTBatch as JFT, \
+    PFBatch as JPF, UnifiedBatch as JUB
+from repro.training.optimizer import AdamWConfig as JAdamW, \
+    adamw_init as j_adamw_init
+
+# name: (arch, seed, ft rows, (h, g, hd), window, attn_chunk, mixed, train)
+CASES = {"llama": ("llama3-8b", 50, 4, None, 0, 0, False, True),
+         "llama3": ("llama3-8b", 51, 3, None, 0, 0, False, True),
+         "llama6": ("llama3-8b", 52, 4, (6, 2, 32), 0, 0, False, True),
+         "deepseek": ("deepseek-7b", 53, 4, None, 0, 0, False, True),
+         "mixed": ("llama3-8b", 54, 2, None, 0, 0, True, False),
+         "chunk": ("llama3-8b", 55, 4, None, 0, 8, False, False),
+         "window": ("llama3-8b", 56, 4, None, 8, 0, False, False),
+         "cmdr": ("command-r-35b", 57, 4, None, 0, 0, False, False)}
+RUN_1X4 = ["train:llama,tp", "train:llama6,tp", "train:deepseek,tp",
+           "grad:mixed,tp,auto", "grad:mixed,tp,seq", "grad:chunk,tp",
+           "grad:window,tp"]
+RUN_2X2 = ["train:llama,tp", "train:llama,fsdp_tp", "train:llama3,tp",
+           "grad:mixed,fsdp_tp,auto", "grad:mixed,tp,seq",
+           "grad:cmdr,fsdp_tp"]
+FAULTS_1X4 = ["fault_shrink:llama,tp", "fault_clip:llama,tp"]
+FAULTS_2X2 = ["fault_batch:llama,tp"]
+HOOKS = "hooks:llama,fsdp_tp"
+SPAWN_TIMEOUT_S = 150
+SF, N_ROWS, S_MAX = 16, 6, 32
+
+
+def _ft(rng, V, rows):
+    toks = rng.integers(0, V, (rows, SF)).astype(np.int32)
+    mask = np.ones((rows, SF), bool)
+    mask[1, 11:] = False
+    labels = toks.copy()
+    labels[0, 3] = -100
+    return {"ft_tokens": toks, "ft_mask": mask,
+            "ft_labels": labels.astype(np.int32),
+            "ft_adapter": np.asarray([0, 1, -1, 0][:rows], np.int32),
+            "ft_weight": np.asarray([1.0, 0.5, 0.25, 0.75][:rows],
+                                    np.float32)}
+
+
+def _jax_case(tmp, name, arch, seed, rows, heads, window, chunk, mixed,
+              train, z):
+    jcfg = j_get_reduced(arch)
+    if heads:
+        jcfg = jcfg.replace(n_heads=heads[0], n_kv_heads=heads[1],
+                            head_dim=heads[2])
+    if window:
+        jcfg = jcfg.replace(sliding_window=window)
+    jparams = j_init_params(jcfg, jax.random.PRNGKey(seed))
+    store = JAdapterStore(jcfg, JLoRAConfig(n_slots=4, r=LORA_R),
+                          jax.random.PRNGKey(seed + 10))
+    store.load_random("a0", jax.random.PRNGKey(seed + 11))
+    store.load_random("a1", jax.random.PRNGKey(seed + 12))
+    save_pytree(str(tmp / f"{name}_params.npz"), jparams)
+    save_pytree(str(tmp / f"{name}_bank.npz"), store.bank)
+    rng = np.random.default_rng(seed)
+    b = _ft(rng, jcfg.vocab, rows)
+    ft = JFT(tokens=j(b["ft_tokens"]), mask=j(b["ft_mask"]),
+             labels=j(b["ft_labels"]), adapter=j(b["ft_adapter"]),
+             weight=j(b["ft_weight"]))
+    jb, cache = JUB(ft=ft), None
+    if mixed:
+        b.update(pf_tokens=rng.integers(0, jcfg.vocab, (2, 16)).astype(
+                     np.int32), pf_length=np.asarray([13, 9], np.int32),
+                 pf_adapter=np.asarray([1, -1], np.int32),
+                 dec_tokens=rng.integers(0, jcfg.vocab, (4,)).astype(
+                     np.int32), dec_pos=np.asarray([9, 13, 5, 0], np.int32),
+                 dec_adapter=np.asarray([0, -1, 1, 0], np.int32))
+        jb = JUB(ft=ft, pf=JPF(tokens=j(b["pf_tokens"]),
+                               length=j(b["pf_length"]),
+                               adapter=j(b["pf_adapter"])),
+                 dec=JDEC(tokens=j(b["dec_tokens"]), pos=j(b["dec_pos"]),
+                          adapter=j(b["dec_adapter"])))
+        layers = tuple({k: jnp.asarray(rng.standard_normal(v.shape).astype(
+            np.float32) * 0.5) for k, v in c.items()}
+            for c in JM.init_cache(jcfg, N_ROWS, S_MAX)["layers"])
+        for k in ("k", "v"):
+            z[f"{name}/cache0_{k}"] = _port_leaves(jcfg, layers, k)
+        cache = {"layers": layers}
+    res = j_grad_step(jcfg, attn_chunk=chunk)(jparams, store.bank,
+                                              store.scale, jb, cache)
+    save_pytree(str(tmp / f"{name}_grads.npz"), res.grads)
+    z[f"{name}/ref_loss"] = np.asarray(res.loss)
+    if train:
+        opt = JAdamW(lr=W.TRAIN_OPT["lr"], eps=W.TRAIN_OPT["eps"],
+                     grad_clip=W.TRAIN_OPT["grad_clip"])
+        mask = j(np.asarray(W.TRAIN_SLOTS, np.int32))
+        loss, nb, ns, _ = j_train_step(jcfg, opt, attn_chunk=chunk)(
+            jparams, store.bank, store.scale, j_adamw_init(store.bank, 4),
+            jb, mask, cache)
+        save_pytree(str(tmp / f"{name}_newbank.npz"), nb)
+        save_pytree(str(tmp / f"{name}_m.npz"), ns.m)
+        save_pytree(str(tmp / f"{name}_v.npz"), ns.v)
+        z[f"{name}/ref_tloss"] = np.asarray(loss)
+        z[f"{name}/ref_t"] = np.asarray(ns.t)
+    for k, v in b.items():
+        z[f"{name}/{k}"] = v
+    z[f"{name}/arch"] = np.asarray(arch)
+    if heads:
+        z[f"{name}/heads"] = np.asarray(heads)
+    if window:
+        z[f"{name}/window"] = np.asarray(window)
+    z[f"{name}/chunk"] = np.asarray(chunk)
+    z[f"{name}/scale"] = np.asarray(store.scale, np.float32)
+
+
+@pytest.fixture(scope="module")
+def case_dir(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("mesh_train")
+    z = {"lora_r": np.asarray(LORA_R)}
+    for name, case in CASES.items():
+        _jax_case(tmp, name, *case, z)
+    np.savez(tmp / "case.npz", **z)
+    return tmp
+
+
+@pytest.fixture(scope="module")
+def run_1x4(case_dir):
+    return _spawn(case_dir, (1, 4), RUN_1X4 + FAULTS_1X4,
+                  timeout_s=SPAWN_TIMEOUT_S)
+
+
+@pytest.fixture(scope="module")
+def run_2x2(case_dir):
+    return _spawn(case_dir, (2, 2), RUN_2X2 + FAULTS_2X2 + [HOOKS],
+                  timeout_s=SPAWN_TIMEOUT_S)
+
+
+def _check(res):
+    assert res["loss"] < W.TRAIN_LOSS_TOL, res["loss"]
+    for k, e in res["errs"].items():
+        assert e < W.TRAIN_TOL, (k, e)
+
+
+@pytest.mark.parametrize("case", RUN_1X4)
+def test_train_step_1x4_matches_jax(run_1x4, case):
+    res = run_1x4[case]
+    _check(res)
+    if case.startswith("train:"):
+        # the clip engaged, and the masked slot kept its weights
+        assert res["norm"] > 10 * W.TRAIN_OPT["grad_clip"], res["norm"]
+        assert res["masked_same"]
+        assert {"bank", "m", "v"} <= {k.split("/")[0] for k in res["errs"]}
+
+
+@pytest.mark.parametrize("case", RUN_2X2)
+def test_train_step_2x2_matches_jax(run_2x2, case):
+    res = run_2x2[case]
+    _check(res)
+    if case.startswith("train:llama,"):
+        assert res["split"]             # 4 rows: each data rank runs 2
+    if case.startswith("train:llama3,"):
+        assert not res["split"]         # 3 rows: every data rank runs 3
+
+
+def test_layouts_of_the_mixed_cases(run_1x4, run_2x2):
+    # llama's 2 KV heads at (1, 4): rows cut by the head dim under "auto"
+    assert run_1x4["grad:mixed,tp,auto"]["layout"] == "head_dim"
+    assert run_1x4["grad:mixed,tp,seq"]["layout"] == "seq"
+    assert run_2x2["grad:mixed,fsdp_tp,auto"]["layout"] == "heads"
+
+
+@pytest.mark.parametrize("case", FAULTS_1X4 + FAULTS_2X2)
+def test_planted_faults_break_the_tolerance(run_1x4, run_2x2, case):
+    res = (run_2x2 if case in FAULTS_2X2 else run_1x4)[case]
+    worst = max(res["errs"].values())
+    assert worst > 10 * W.TRAIN_TOL, (case, worst)
+
+
+def test_fsdp_saves_no_gathered_leaf(run_2x2):
+    res = run_2x2[HOOKS]
+    assert res["n_saved"] > 0 and res["shards_saved"] > 0
+    assert res["gathered_saved"] == [], res["gathered_saved"]

@@ -337,17 +337,10 @@ def test_flop_count_on_meta_tensors():
 
 
 # ----------------------------------------------------- a mesh of one rank
-def test_a_local_mesh_runs_the_sharded_forward(monkeypatch):
-    """``make_forward_step(..., mesh=make_local_mesh())`` takes the sharded
-    path (every collective the identity; the LoRA terms through the split
-    shrink and expand entries, whose plain versions the CPU runs) and gives
-    the plain step's outputs on reduced llama3-8b in fp32, on a mixed ft +
-    prefill + decode batch over dense rows: logits, ft loss sums and the
-    cache within 1e-5 abs."""
-    from repro_torch.core.flow import FlowConfig
+def _local_case():
+    """Reduced llama3-8b in fp32 with a gaussian-B bank, a mixed ft +
+    prefill + decode batch over dense rows and a random cache."""
     from repro_torch.core.lora import LoRAConfig, init_lora_bank
-    from repro_torch.core.unified import make_forward_step
-    from repro_torch.kernels import ops
     from repro_torch.models.schema import init_params, lora_targets
     from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
         UnifiedBatch
@@ -375,6 +368,20 @@ def test_a_local_mesh_runs_the_sharded_forward(monkeypatch):
     cache0 = TM.init_cache(cfg, 4, 24, dev, torch.float32)
     for leaf in cache0.values():
         leaf.normal_(generator=gen)
+    return cfg, params, bank, scale, batch, cache0
+
+
+def test_a_local_mesh_runs_the_sharded_forward(monkeypatch):
+    """``make_forward_step(..., mesh=make_local_mesh())`` takes the sharded
+    path (every collective the identity; the LoRA terms through the split
+    shrink and expand entries, whose plain versions the CPU runs) and gives
+    the plain step's outputs on reduced llama3-8b in fp32, on a mixed ft +
+    prefill + decode batch over dense rows: logits, ft loss sums and the
+    cache within 1e-5 abs."""
+    from repro_torch.core.flow import FlowConfig
+    from repro_torch.core.unified import make_forward_step
+    from repro_torch.kernels import ops
+    cfg, params, bank, scale, batch, cache0 = _local_case()
     calls = []
     shrink = ops.lora_shrink
     monkeypatch.setattr(ops, "lora_shrink",
@@ -391,6 +398,39 @@ def test_a_local_mesh_runs_the_sharded_forward(monkeypatch):
         assert err < 1e-5, (k, err)
     for k in cache0:
         assert float((got.cache[k] - want.cache[k]).abs().max()) < 1e-5, k
+
+
+def test_a_local_mesh_runs_the_sharded_train_step(monkeypatch):
+    """``make_train_step(..., mesh=make_local_mesh())`` (the split LoRA
+    term's backward, ``ops.SplitLoRAFunction``, once a projection; the
+    sharded clip with every collective the identity) gives the plain
+    train step's loss, new bank and moments on the same mixed batch, and
+    ``make_grad_step`` its grads: within 1e-5 of each leaf's max (fp32)."""
+    from repro_torch.core.flow import FlowConfig
+    from repro_torch.core.unified import make_grad_step, make_train_step
+    from repro_torch.kernels import ops
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
+        tree_leaves
+    cfg, params, bank, scale, batch, cache0 = _local_case()
+    calls = []
+    wgrad = ops.smlm_wgrad_split
+    monkeypatch.setattr(ops, "smlm_wgrad_split",
+                        lambda *a, **k: calls.append(1) or wgrad(*a, **k))
+    bt, mesh = FlowConfig().block_t, make_local_mesh()
+    opt = AdamWConfig(lr=1e-3, eps=1e-5, grad_clip=1e-3)
+    mask = torch.tensor([1, 0, 1, 1], dtype=torch.int32)
+    fresh = lambda: {k: v.clone() for k, v in cache0.items()}
+    got, want = [], []
+    for m, out in ((None, want), (mesh, got)):
+        g = make_grad_step(cfg, block_t=bt, mesh=m)(params, bank, scale,
+                                                    batch, fresh())
+        loss, nb, ns, _ = make_train_step(cfg, opt, block_t=bt, mesh=m)(
+            params, bank, scale, adamw_init(bank, 4), batch, mask, fresh())
+        out += [g.loss, loss, *tree_leaves([g.grads, nb, ns.m, ns.v])]
+        assert len(calls) == (0 if m is None else 2 * 7 * cfg.n_layers)
+    for a, b in zip(got, want):
+        err = float((a - b).abs().max())
+        assert err <= 1e-5 * max(float(b.abs().max()), 1.0), err
 
 
 # ------------------------------------------------------------- int8 leaves
