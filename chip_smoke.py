@@ -6345,14 +6345,17 @@ def train_batch(cfg, rows, S, dev, seed, mixed=False, dtype=torch.bfloat16):
 
 
 def train_steps(K, cfg, weights, batch, cache, segs, dev, mesh=None,
-                strategy="tp", cache_strategy="auto", grads_only=False):
+                strategy="tp", cache_strategy="auto", grads_only=False,
+                remat=False, act_constraint=False, attn_chunk=0):
     """One grad step and one train step (``TRAIN_OPT``, ``TRAIN_SLOTS``)
     from the same bank, on this rank's shards under ``mesh`` (the cache
-    cut under ``cache_strategy``) or whole on the card.  Returns the loss,
-    the grads, and the train step's loss, new bank and state, whole (the
-    shards gathered) on the host, with the train step's ms, collective
-    bytes by kind, resident and peak bytes, and the launches of both
-    steps."""
+    cut under ``cache_strategy``) or whole on the card; both with
+    ``remat`` and ``attn_chunk``, the train step with
+    ``act_constraint_fn(mesh)`` where ``act_constraint`` is set (JAX's grad
+    step takes none).  Returns the loss, the grads, and the train step's
+    loss, new bank and state, whole (the shards gathered) on the host, with
+    the train step's ms, collective bytes by kind, resident and peak
+    bytes, and the launches of both steps."""
     from repro_torch.checkpoint.io import gather_bank, gather_opt_state
     from repro_torch.core.unified import make_grad_step, make_train_step
     from repro_torch.distributed import sharding as SH
@@ -6360,7 +6363,10 @@ def train_steps(K, cfg, weights, batch, cache, segs, dev, mesh=None,
         tree_leaves, tree_map
     params, bank, scale = weights
     kw = dict(block_t=K["block_t"], mesh=mesh, strategy=strategy,
-              cache_strategy=cache_strategy)
+              cache_strategy=cache_strategy, remat=remat,
+              attn_chunk=attn_chunk)
+    seq = SH.act_constraint_fn(mesh) if act_constraint and mesh is not None \
+        else None
     cut = (lambda c: None if c is None else
            SH.shard_cache(cfg, c, mesh, segs, cache_strategy)
            if mesh is not None else {k: v.clone() for k, v in c.items()})
@@ -6373,7 +6379,8 @@ def train_steps(K, cfg, weights, batch, cache, segs, dev, mesh=None,
     del res
     if grads_only:
         return out
-    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT), **kw)
+    step = make_train_step(cfg, AdamWConfig(**TRAIN_OPT),
+                           act_constraint=seq, **kw)
     st0 = adamw_init(bank, len(TRAIN_SLOTS))
     mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32, device=dev)
     local = cut(cache)
@@ -6449,10 +6456,22 @@ def planted_train(K, mesh, kind):
     replacement): ``"shrink"``, model ranks 1-3 take their own ``Gs`` for
     the backward's shrink all-reduce (``ops.reduce_gs``; still called, so
     that the collectives pair); ``"batch"``, the bank's gradients not
-    summed over the batch axes (``sharding.reduce_bank_grads``)."""
+    summed over the batch axes (``sharding.reduce_bank_grads``); ``"cut"``,
+    the sequence-sharded carry's cut giving back only this rank's block of
+    the gradient, zeros where the other ranks' blocks belong
+    (``sharding.cut_grad``, on every rank: no collective goes unpaired)."""
     from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import axis_size
     if kind == "batch":
         return SH, "reduce_bank_grads", lambda grads, mesh, split: grads
+    if kind == "cut":
+        def local_only(dy, axes, mesh, n_tokens):
+            n, i = dy.shape[0], mesh.index(axes)
+            dx = dy.new_zeros((n * axis_size(mesh, mesh.axes(axes)),
+                               *dy.shape[1:]))
+            dx[i * n:(i + 1) * n] = dy
+            return dx[:n_tokens]
+        return SH, "cut_grad", local_only
     orig = K["ops"].reduce_gs
 
     def own(reduce, gs):
@@ -6482,6 +6501,8 @@ def mesh_train_local(K, mesh, dev):
     fwd = mesh_counts(K, ("smlm_shrink", "smlm_expand"))
     got = train_steps(K, cfg, w, batch, None, None, dev, mesh)
     ref = train_steps(K, cfg, w, batch, None, None, dev)
+    rem = train_steps(K, cfg, w, batch, None, None, dev, mesh, remat=True,
+                      act_constraint=True)
     del w
     gc.collect()
     torch.cuda.empty_cache()
@@ -6517,7 +6538,30 @@ def mesh_train_local(K, mesh, dev):
                                  for k in ("m", "v", "bank"))
           + f"; launches over the grad and train steps {c} (a forward "
             f"alone {fwd}) ok")
-    return c
+    # the same steps with remat (and the train step's act_constraint, the
+    # identity on one rank): each period's forward runs again in the
+    # backward, so every forward entry launches twice a step; the
+    # backward's launches are unchanged
+    rlabel = (f"mesh: (1, 1) train {cfg.name} bf16 {cfg.n_layers} layers "
+              f"remat, the sharded steps vs the plain steps")
+    train_gate(rlabel, {k: v for k, v in rem.items()
+                        if k in ("loss", "tloss", "grads", "norm")},
+               ref, bf16, limits=TRAIN_LOCAL_LIMITS)
+    cr = rem["counts"]
+    want_r = {"smlm_shrink": 2 * (2 * n_lora + n_lora),
+              "smlm_expand": 2 * (2 * n_lora + n_lora - no_dx),
+              "smlm_wgrad": 2 * n_lora, "smlm": 0}
+    seen_r = {k: cr[k] for k in want_r}
+    if dev.type == "cuda" and seen_r != want_r:
+        raise AssertionError(f"{rlabel}: launches {seen_r}, want {want_r} "
+                             f"(all {cr})")
+    e = train_errs(rem, ref)
+    print(f"{rlabel}: train step ms={rem['ms']:.3f} peak_bytes="
+          f"{rem['peak']} (without remat {got['peak']}); new bank / moments "
+          + " ".join(f"{k}={e[k][0]:.4g}" for k in ("m", "v", "bank"))
+          + f"; launches over the grad and train steps {seen_r} "
+            f"(predicted {want_r}) ok")
+    return c, cr
 
 
 def mesh_rank(rank, world, port, only):
@@ -6927,6 +6971,14 @@ def mesh_rank(rank, world, port, only):
                 res = qwen_train_arm(K, cfg, mesh, st, dev, batch)
                 verdict(lambda: qwen_gate(f"mesh: train qwen {key}", res))
                 del res
+        if "train_remat" in only:
+            train_remat_arms(K, get_config, m14, m22, dev, lead, verdict)
+        if "train_qwen_4k" in only:
+            cfg = get_config("qwen1.5-110b")
+            batch, _, _ = train_batch(cfg, 1, QWEN_4K["seq"], dev, seed=41)
+            res = qwen_4k_arm(K, cfg, m14, dev, batch)
+            verdict(lambda: qwen_4k_gate("mesh: train qwen 4k 1x4 tp", res))
+            del res
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -7154,6 +7206,336 @@ def qwen_gate(label, stats):
           f"step 2 below step 1, every grad finite, peak under 80 GB)")
 
 
+# remat (``remat:``, one card, and the ``--mesh`` arms ``train_remat`` /
+# ``train_qwen_4k``): llama3-8b bf16 at all 32 layers on 4096-token ft rows
+# in chunks of 1024 (JAX dryrun's ``DEFAULT_CHUNK``), one train step with
+# remat off and one with it on at ``rows``, then remat alone at ``wide``
+# rows; jamba at 8 layers (one period, int8) in a mixed tick; qwen1.5-110b
+# bf16 at 80 layers on one 4096-token row.  Gated at (leaf, loss): remat
+# on against off on the same weights and batch
+REMAT_LLAMA = dict(rows=1, wide=2, seq=4096, chunk=1024)
+REMAT_JAMBA = dict(layers=8, rows=2, seq=256, prompt=128)
+REMAT_LIMITS = (0.03, 1e-3)
+REMAT_CACHE_LIMIT = 1e-3        # x max |leaf| of the remat-off tick's cache
+QWEN_4K = dict(seq=4096, chunk=1024)
+
+
+def remat_phase(K, cfg, weights, dev):
+    """``remat:`` on one card, llama3-8b bf16 (phase 4's weights): one grad
+    and one train step over ``REMAT_LLAMA["rows"]`` ft rows of 4096 tokens
+    with remat off, the same with it on; each step's ms, resident and peak
+    bytes and loss; the remat steps' grads, new bank and moments against
+    the plain steps' (``REMAT_LIMITS``); the fused SMLM launched once more
+    a projection and step with remat (each period's forward runs again in
+    the backward), and ``smlm_wgrad`` once a projection and step, exactly.
+    Then the same at ``REMAT_LLAMA["wide"]`` rows
+    with remat alone.  Returns the remat steps' launches."""
+    bf16 = torch.bfloat16
+    r = REMAT_LLAMA
+    w = (weights[0], weights[1].bank, weights[1].scale)
+    batch, _, _ = train_batch(cfg, r["rows"], r["seq"], dev, seed=60)
+    arms = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        arms[remat] = train_steps(K, cfg, w, batch, None, None, dev,
+                                  remat=remat, attn_chunk=r["chunk"])
+    label = (f"remat: {cfg.name} bf16 {cfg.n_layers} layers {r['rows']}x"
+             f"{r['seq']} ft rows attn_chunk={r['chunk']}")
+    for remat, a in arms.items():
+        print(f"{label} remat={remat}: train step ms={a['ms']:.3f} "
+              f"resident_bytes={a['resident']} peak_bytes={a['peak']} loss "
+              f"{a['tloss']:.6f} launches over the grad and train steps "
+              f"{a['counts']}")
+    train_gate(f"{label} remat on vs off", arms[True], arms[False], bf16,
+               limits=REMAT_LIMITS)
+    on, off = arms[True]["counts"], arms[False]["counts"]
+    # over the grad and the train step: the recompute runs each
+    # projection's forward once more a step; the backward is unchanged
+    n_lora = sum(len(layer) for layer in arms[True]["grads"]["layers"])
+    want = {"smlm": off["smlm"] + 2 * n_lora, "smlm_wgrad": 2 * n_lora}
+    seen = {k: on[k] for k in want}
+    if dev.type == "cuda" and seen != want:
+        raise AssertionError(f"{label}: launches remat {seen}, want {want} "
+                             f"(plain {off})")
+    print(f"{label}: launches with remat {seen} (predicted {want}) ok")
+    del arms
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide, _, _ = train_batch(cfg, r["wide"], r["seq"], dev, seed=61)
+    a = train_steps(K, cfg, w, wide, None, None, dev, remat=True,
+                    attn_chunk=r["chunk"])
+    if not (np.isfinite(a["tloss"]) and np.isfinite(a["norm"])):
+        raise AssertionError(f"remat: {r['wide']}x{r['seq']}: loss "
+                             f"{a['tloss']} grad norm {a['norm']}")
+    print(f"remat: {cfg.name} bf16 {cfg.n_layers} layers {r['wide']}x"
+          f"{r['seq']} ft rows remat=True: train step ms={a['ms']:.3f} "
+          f"resident_bytes={a['resident']} peak_bytes={a['peak']} loss "
+          f"{a['tloss']:.6f} grad norm {a['norm']:.6g} finite ok")
+    return on
+
+
+def remat_jamba(K, dev):
+    """``remat:`` on one card, jamba-1.5-large-398b int8 at 8 layers (one
+    period: Mamba2 layers, an attention layer, MoE on every other layer):
+    two prompts prefilled into dense rows 0-1, then one mixed grad tick
+    (``REMAT_JAMBA["rows"]`` ft rows, a cold prefill at row 2, decode of
+    rows 0-1: the Mamba state read and written in place) with remat off
+    and on, each from its own copy of the same cache.  Gates: the cache
+    after the tick within ``REMAT_CACHE_LIMIT``, the loss and grads
+    within ``REMAT_LIMITS`` (the
+    MoE router reads the serving rows beside the ft rows, so a decode step
+    run twice would move the ft rows' routing too); flash, dense decode,
+    SMLM, BGMV and ``smlm_wgrad`` launched.  Returns the remat tick's
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.unified import make_forward_step, make_grad_step
+    from repro_torch.models.model import init_cache
+    from repro_torch.models.stream import DECBatch, PFBatch, UnifiedBatch
+    from repro_torch.training.optimizer import tree_map
+    r = REMAT_JAMBA
+    cfg = get_config("jamba-1.5-large-398b").replace(n_layers=r["layers"])
+    torch.cuda.empty_cache()
+    params, store, setup = arch_weights(cfg, dev, True)
+    rng = np.random.default_rng(61)
+    tt = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    P = r["prompt"]
+    cache = init_cache(cfg, 3, 2 * P, dev, torch.bfloat16)
+    make_forward_step(cfg, block_t=K["block_t"])(
+        params, store.bank, store.scale, UnifiedBatch(pf=PFBatch(
+            tokens=tt(rng.integers(0, cfg.vocab, (2, P)).astype(np.int32)),
+            length=tt(np.asarray([P, P - 17], np.int32)),
+            adapter=tt(np.asarray([0, 1], np.int32)))), cache)
+    ft = train_batch(cfg, r["rows"], r["seq"], dev, seed=62)[0].ft
+    batch = UnifiedBatch(
+        ft=ft, pf=PFBatch(
+            tokens=tt(rng.integers(0, cfg.vocab, (1, P)).astype(np.int32)),
+            length=tt(np.asarray([P - 5], np.int32)),
+            adapter=tt(np.asarray([1], np.int32))),
+        dec=DECBatch(tokens=tt(rng.integers(0, cfg.vocab, (2,)).astype(
+            np.int32)), pos=tt(np.asarray([P, P - 17], np.int32)),
+            adapter=tt(np.asarray([1, 0], np.int32))))
+    res = {}
+    # remat off twice: the floor two plain ticks differ by (the bf16
+    # backward's atomic accumulations run in any order)
+    for key, remat in (("off", False), ("off again", False), ("on", True)):
+        c = {k: v.clone() for k, v in cache.items()}
+        reset_counts(K)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = make_grad_step(cfg, block_t=K["block_t"], remat=remat)(
+            params, store.bank, store.scale, batch, c)
+        torch.cuda.synchronize()
+        res[key] = dict(ms=(time.perf_counter() - t0) * 1e3,
+                        peak=torch.cuda.max_memory_allocated(),
+                        loss=float(out.loss), counts=read_counts(K),
+                        grads=tree_map(lambda x: x.float().cpu(),
+                                       out.grads), cache=c)
+        del out
+    label = (f"remat: {cfg.name} int8 {cfg.n_layers} layers mixed tick "
+             f"({r['rows']}x{r['seq']} ft rows, a {P}-token prefill, 2 "
+             f"decode rows)")
+    cache_err = max(
+        float((a.float() - res["off"]["cache"][k].float()).abs().max())
+        / max(float(res["off"]["cache"][k].float().abs().max()), 1e-30)
+        for k, a in res["on"]["cache"].items())
+    for key, x in res.items():
+        print(f"{label} remat {key}: grad step ms={x['ms']:.3f} "
+              f"peak_bytes={x['peak']} loss {x['loss']:.6f} launches "
+              f"{x['counts']}")
+    print(f"{label}: cache after the tick, remat on vs off, worst leaf "
+          f"max_abs_err / max|leaf| = {cache_err:.4g} (limit "
+          f"{REMAT_CACHE_LIMIT:g})")
+    floor = train_errs(res["off again"], res["off"])
+    print(f"{label}: two remat-off ticks (record): loss abs_err="
+          f"{floor['loss']:.4g} grads={floor['grads'][0]:.4g}@"
+          f"{floor['grads'][1]}")
+    train_gate(f"{label} remat on vs off", res["on"], res["off"],
+               torch.bfloat16, limits=REMAT_LIMITS)
+    c = res["on"]["counts"]
+    need = ("smlm", "bgmv", "flash", "dense_decode", "smlm_wgrad")
+    if not cache_err <= REMAT_CACHE_LIMIT or not np.isfinite(
+            res["on"]["loss"]) or (
+            dev.type == "cuda" and not min(c[k] for k in need)):
+        raise AssertionError(f"{label}: cache {cache_err}, loss "
+                             f"{res['on']['loss']}, launches {c}")
+    del params, store, cache, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c
+
+
+def train_remat_arms(K, get_config, m14, m22, dev, lead, verdict):
+    """``--mesh-arms train_remat``: llama3-8b at full width, fp32, 8
+    layers, at ``(1, 4)`` tp and ``(2, 2)`` fsdp_tp, on 4 x 512 ft rows and
+    the mixed batch: the grad step with remat and the train step with
+    remat and ``act_constraint_fn`` (the carry between periods a rank's
+    block of the tokens) against one card's plain steps and against the
+    same mesh's steps without remat, both at ``TRAIN_LIMIT``; the cut's
+    adjoint giving back only a rank's own block (``planted_train``
+    "cut") must break the first."""
+    import torch.distributed as dist
+    f32 = torch.float32
+    cfg = get_config("llama3-8b").replace(n_layers=8)
+    batches = {"ft": train_batch(cfg, 4, 512, dev, seed=20, dtype=f32),
+               "mixed": train_batch(cfg, 2, 512, dev, seed=21, mixed=True,
+                                    dtype=f32)}
+    got, plain, bad = {}, {}, {}
+    for key, mesh, st in (("1x4 tp", m14, "tp"),
+                          ("2x2 fsdp_tp", m22, "fsdp_tp")):
+        w = mesh_weights(cfg, mesh, st, dev, f32)
+        for name, (batch, cache, segs) in batches.items():
+            got[key, name] = train_steps(K, cfg, w, batch, cache, segs, dev,
+                                         mesh, st, remat=True,
+                                         act_constraint=True)
+            c = got[key, name]["counts"]
+            if dev.type == "cuda" and (c["smlm"] or c["bgmv"] or not min(
+                    c[k] for k in SPLIT_COUNTERS[:2] + ("smlm_wgrad",))):
+                raise AssertionError(f"mesh: train_remat {key} {name} rank "
+                                     f"{dist.get_rank()}: launches {c}")
+            plain[key, name] = train_steps(K, cfg, w, batch, cache, segs,
+                                           dev, mesh, st)
+        mod, attr, planted = planted_train(K, mesh, "cut")
+        orig = getattr(mod, attr)
+        setattr(mod, attr, planted)
+        try:
+            batch, cache, segs = batches["ft"]
+            bad[key] = train_steps(K, cfg, w, batch, cache, segs, dev, mesh,
+                                   st, remat=True, act_constraint=True)
+        finally:
+            setattr(mod, attr, orig)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    stats = gather_stats({k: {f: v[f] for f in ("ms", "coll", "resident",
+                                                "peak", "counts")}
+                          for k, v in got.items()})
+    plain_stats = gather_stats({k: {f: v[f] for f in ("ms", "coll", "peak")}
+                                for k, v in plain.items()})
+    ref = {}
+    if lead:
+        w = mesh_weights(cfg, None, None, dev, f32)
+        for name, (batch, cache, segs) in batches.items():
+            ref[name] = train_steps(K, cfg, w, batch, cache, segs, dev)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    def check():
+        label = f"mesh: train_remat {cfg.name} fp32 {cfg.n_layers} layers"
+        for (key, name), res in got.items():
+            for rank, st in enumerate(stats):
+                x, y = st[key, name], plain_stats[rank][key, name]
+                print(f"{label} {key} {name} card {rank}: remat + "
+                      f"act_constraint train step ms={x['ms']:.3f} "
+                      f"resident_bytes={x['resident']} peak_bytes="
+                      f"{x['peak']} collective operand bytes {x['coll']} "
+                      f"launches={x['counts']}; without remat ms="
+                      f"{y['ms']:.3f} peak_bytes={y['peak']} collective "
+                      f"operand bytes {y['coll']}")
+            train_gate(f"{label} {key} {name} remat vs one card", res,
+                       ref[name], f32)
+            train_gate(f"{label} {key} {name} remat vs the same mesh "
+                       f"without remat", res, plain[key, name], f32)
+        for key, res in bad.items():
+            train_gate(f"{label} {key} ft with a planted fault (the "
+                       f"carry's cut gives back only a rank's own block of "
+                       f"the gradient) vs one card", res, ref["ft"], f32,
+                       expect_ok=False)
+    verdict(check)
+
+
+def qwen_4k_arm(K, cfg, mesh, dev, batch):
+    """qwen1.5-110b bf16 at every layer on this rank's shards (``(1, 4)``
+    tp), one 4096-token ft row, ``attn_chunk`` 1024: two train steps with
+    remat and ``act_constraint_fn``, then one with remat alone, each from
+    the last one's bank and moments, under ``roofline.analysis.
+    memory_summary``, each with its collective bytes.  Returns every
+    rank's readings (on every rank)."""
+    import torch.distributed as dist
+    from repro_torch.core.unified import make_train_step
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
+        tree_leaves
+    t0 = time.perf_counter()
+    params, bank, scale = mesh_weights(cfg, mesh, "tp", dev, torch.bfloat16,
+                                       seed=4)
+    setup = time.perf_counter() - t0
+    kw = dict(block_t=K["block_t"], mesh=mesh, strategy="tp", remat=True,
+              attn_chunk=QWEN_4K["chunk"])
+    opt = AdamWConfig(**TRAIN_OPT)
+    steps = {"remat + act_constraint": make_train_step(
+        cfg, opt, act_constraint=SH.act_constraint_fn(mesh), **kw),
+        "remat alone": make_train_step(cfg, opt, **kw)}
+    st = adamw_init(bank, len(TRAIN_SLOTS))
+    mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32, device=dev)
+    mesh_reset(K)
+    out = []
+    for kind in ("remat + act_constraint", "remat + act_constraint",
+                 "remat alone"):
+        SH.reset_collective_log()
+        t1 = time.perf_counter()
+        mem = RA.memory_summary(steps[kind], params, bank, scale, st, batch,
+                                mask, state=[params, bank, st], device=dev)
+        ms = (time.perf_counter() - t1) * 1e3
+        loss, bank, st, _ = mem.pop("out")
+        out.append(dict(kind=kind, loss=float(loss), ms=ms,
+                        resident=mem["argument_size_in_bytes"],
+                        peak=mem["peak_bytes"], coll=SH.collective_log(),
+                        finite=bool(torch.isfinite(loss)) and all(
+                            bool(torch.isfinite(x).all())
+                            for x in tree_leaves(bank))))
+    counts = {**read_counts(K), **mesh_counts(K, SPLIT_COUNTERS)}
+    _, bound_ms, _ = step_cost_coll(cfg, "train", QWEN_4K["seq"],
+                                    batch.ft.tokens.shape[0], 1,
+                                    mesh.shape["model"], "tp")
+    del params, bank, st, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return gather_stats(dict(
+        steps=out, counts=counts, setup=setup, bound_ms=bound_ms,
+        cuda=dev.type == "cuda", layers=cfg.n_layers,
+        rows=tuple(batch.ft.tokens.shape), rank=dist.get_rank()))
+
+
+def qwen_4k_gate(label, stats):
+    """qwen1.5-110b's 4096-token arm: every step's loss finite and below
+    the last, every card's bank finite and peak under 80 GB, the fused SMLM
+    never launched and ``smlm_wgrad`` launched; prints every card's
+    readings and the ``costs:`` share (``step_cost``'s bound over the
+    step's ms; its train flops count a remat forward)."""
+    for sx in stats:
+        for i, x in enumerate(sx["steps"]):
+            print(f"{label} qwen1.5-110b bf16 {sx['layers']} layers ft rows "
+                  f"{sx['rows'][0]}x{sx['rows'][1]} card {sx['rank']} step "
+                  f"{i + 1} ({x['kind']}): ms={x['ms']:.3f} resident_GB="
+                  f"{x['resident'] / 1e9:.3f} peak_GB={x['peak'] / 1e9:.3f} "
+                  f"all-reduce_bytes={x['coll']['all-reduce']} "
+                  f"all-gather_bytes={x['coll']['all-gather']} "
+                  f"collective operand bytes {x['coll']} loss "
+                  f"{x['loss']:.6f}")
+        print(f"{label} card {sx['rank']}: setup_s={sx['setup']:.2f} "
+              f"launches={sx['counts']}")
+    st = stats[0]
+    for i, x in enumerate(st["steps"]):
+        print(f"costs: {label} step {i + 1} ({x['kind']}) step_cost(kind="
+              f"train, seq_len={QWEN_4K['seq']}, batch={st['rows'][0]}, "
+              f"dp=1, tp=4, strategy=tp) bound_ms={st['bound_ms']:.3f} "
+              f"measured_ms={x['ms']:.3f} share="
+              f"{st['bound_ms'] / x['ms']:.4f}")
+    losses = [x["loss"] for x in st["steps"]]
+    bad = [s["rank"] for s in stats if not all(
+        x["finite"] and x["peak"] < 80e9 for x in s["steps"])
+        or s["cuda"] and (s["counts"]["smlm"]
+                          or not s["counts"]["smlm_wgrad"])]
+    if bad or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"{label}: cards {bad}; losses {losses}")
+    print(f"{label}: ok (losses {', '.join(f'{v:.6f}' for v in losses)} "
+          f"falling, every bank finite, peak under 80 GB)")
+
+
 def _split_entries():
     from repro_torch.kernels.bgmv import bgmv_expand, bgmv_shrink
     from repro_torch.kernels.smlm import smlm_expand, smlm_shrink
@@ -7163,7 +7545,8 @@ def _split_entries():
 
 MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
              "window", "phi3", "seq", "seq_window", "seq_vlm", "mamba2",
-             "jamba", "jamba_deep", "dsv2_window", "train", "train_qwen")
+             "jamba", "jamba_deep", "dsv2_window", "train", "train_qwen",
+             "train_remat", "train_qwen_4k")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -7258,7 +7641,7 @@ def mesh_phase(K, cfg, weights, dev):
         fam = mesh_families_local(K, mesh, dev)
         lay = mesh_families_local(K, mesh, dev, LAYOUTS_LOCAL)
         ssm = mesh_families_local(K, mesh, dev, SSM_LOCAL)
-        train = mesh_train_local(K, mesh, dev)
+        train, train_remat = mesh_train_local(K, mesh, dev)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
               "expert-parallel, llama-3.2-vision-90b at 100 layers, "
@@ -7270,7 +7653,7 @@ def mesh_phase(K, cfg, weights, dev):
               "step: llama3-8b fp32 8 layers and bf16 32 layers, "
               "qwen1.5-110b bf16 at 80 layers) need --mesh on a host with "
               "four cards: python3 chip_smoke.py --mesh")
-        return counts, fam, lay, ssm, train
+        return counts, fam, lay, ssm, train, train_remat
     finally:
         dist.destroy_process_group()
 
@@ -7454,6 +7837,10 @@ def main() -> int:
                          f"{','.join(MESH_ARMS)}")
     ap.add_argument("--mesh-local", action="store_true",
                     help="only phase 15's (1, 1) mesh on one card")
+    ap.add_argument("--remat", action="store_true",
+                    help="only the remat: phase (llama3-8b at 32 layers on "
+                         "4096-token rows, jamba's mixed tick) and phase "
+                         "15's (1, 1) train arm with its remat case")
     ap.add_argument("--root", default=ROOT,
                     help="checkout whose port --kernel-timing, "
                          "--bgmv-splits, --chunk-routes or --divergence "
@@ -7573,16 +7960,38 @@ def main() -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+    if a.remat:
+        import torch.distributed as dist
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import init_mesh
+        cfg = get_config("llama3-8b")
+        weights = full_weights(cfg, dev, torch.bfloat16)
+        remat = remat_phase(K, cfg, weights, dev)
+        del weights
+        jamba = remat_jamba(K, dev)
+        start_group(0, 1, free_port())
+        try:
+            mesh = init_mesh((1, 1), ("data", "model"),
+                             timeout_s=MESH_TIMEOUT_S)
+            _, train_remat = mesh_train_local(K, mesh, dev)
+        finally:
+            dist.destroy_process_group()
+        print(f"remat: launches of llama3-8b's remat steps {remat}; of "
+              f"jamba's remat tick {jamba}; of the (1, 1) remat steps "
+              f"{train_remat}")
+        print(card())
+        return 0
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        _, fam, lay, ssm, train = mesh_phase(K, cfg, full_weights(
-            cfg, dev, torch.bfloat16), dev)
+        _, fam, lay, ssm, train, train_remat = mesh_phase(
+            K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
         print(f"mesh: (1, 1) family arms' launches summed: {fam}")
         print(f"mesh: (1, 1) layout arms' launches summed: {lay}")
         print(f"mesh: (1, 1) Mamba2 / jamba / MLA-window arms' launches "
               f"summed: {ssm}")
-        print(f"mesh: (1, 1) train arm's launches: {train}")
+        print(f"mesh: (1, 1) train arm's launches: {train}; with remat: "
+              f"{train_remat}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -7593,11 +8002,22 @@ def main() -> int:
                                          for k, r in rows.items()}}))
         print(card())
         return 0
+    # each phase's wall time, so that the run's share of its time limit
+    # can be read by phase
+    clock = [time.perf_counter()]
+
+    def mark(phase):
+        now = time.perf_counter()
+        print(f"phase: {phase} wall_s={now - clock[0]:.1f}")
+        clock[0] = now
+
+    mark("kernels")
     mla_record(dev, gen)
     ssd_record(dev, gen)
     xattn_record(dev, gen)
 
     parity(K)
+    mark("records and parity")
 
     from repro_torch.configs import get_config
     cfg = get_config("llama3-8b")
@@ -7607,6 +8027,7 @@ def main() -> int:
     by_path["full"], waves, plain = full_width(K, cfg, weights, dev,
                                                measured)
     ref_rows = plain_logits(cfg, weights, waves, plain)
+    mark("full")
     by_path["spec"] = full_spec(K, cfg, weights, dev, waves, plain,
                                 ref_rows)
     long_counts = long_context(K, cfg, weights, dev, measured)
@@ -7616,18 +8037,29 @@ def main() -> int:
                                   ref_rows)
     del ref_rows
     layouts_in_turns(cfg, weights, waves)
+    mark("spec, long, dense, layouts")
     by_path["train"] = full_train(K, cfg, weights, dev, waves, plain,
                                   measured)
+    mark("train")
+    by_path["remat"] = remat_phase(K, cfg, weights, dev)
+    mark("remat")
     by_path["tiers"] = full_tiers(K, cfg, weights, dev)
     by_path["paging"] = full_paging(K, cfg, weights, dev)
     by_path["fleet"] = full_fleet(K, cfg, weights, dev)
+    mark("tiers, paging, fleet")
     by_path["window"] = window_phase(K, weights, dev)
+    mark("window")
     (by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"],
-     by_path["mesh_ssm"], by_path["mesh_train"]) = mesh_phase(K, cfg,
-                                                              weights, dev)
+     by_path["mesh_ssm"], by_path["mesh_train"],
+     by_path["mesh_train_remat"]) = mesh_phase(K, cfg, weights, dev)
     del weights
+    mark("mesh")
+    by_path["remat_jamba"] = remat_jamba(K, dev)
+    mark("remat_jamba")
     by_path.update(full_archs(K, dev))
+    mark("archs")
     by_path["examples"] = examples_phase(K, dev, measured)
+    mark("examples")
 
     kernels = []
     for name in SOURCES:
@@ -7645,7 +8077,7 @@ def main() -> int:
                 p: {k: by_path[p][k] for k in SPLIT_COUNTERS
                     if k.startswith(name + "_")}
                 for p in ("mesh", "mesh_families", "mesh_layouts",
-                          "mesh_ssm", "mesh_train")}}
+                          "mesh_ssm", "mesh_train", "mesh_train_remat")}}
                if name in ("smlm", "bgmv") else {}),
             # the merge kernel alone: MLA's decode under a mesh, and a GQA
             # decode over rows cut by the slots (mesh_layouts)

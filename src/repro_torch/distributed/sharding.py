@@ -36,11 +36,14 @@ over the process group of a mesh axis or tuple of axes and each recording
 its operand bytes by kind (``collective_log``, read by
 ``roofline.analysis.collective_bytes``).  A collective over an axis of size
 1 is the identity and records nothing.  JAX's two layout hints have no
-counterpart: ``maybe_constrain`` hinted the expert-parallel layout, which
-``models.moe_dist.moe_apply_auto`` now states itself (tokens split over
-``(*batch_axes, "model")``, experts over ``"model"``), and
-``act_constraint_fn``'s sequence sharding of the training carry belongs to
-the train step's remat, which is not ported yet (``ROADMAP.md``, 5b-ii).
+counterpart as hints: ``maybe_constrain`` hinted the expert-parallel
+layout, which ``models.moe_dist.moe_apply_auto`` now states itself (tokens
+split over ``(*batch_axes, "model")``, experts over ``"model"``), and
+``act_constraint_fn``'s sequence sharding of the training carry is two
+explicit steps (``SeqShard``): a layer period ends by keeping this rank's
+block of the carry's tokens (``SeqShard.cut``) and the next one starts by
+all-gathering the blocks (``SeqShard.whole``), so a rematerialised period
+(``models.model``, ``remat``) saves the block alone.
 
 The train step under a mesh differentiates the same explicit SPMD forward.
 Every rank computes the same scalar loss and runs the backward over its own
@@ -618,6 +621,110 @@ def all_gather_grad(x: torch.Tensor, axes, mesh: Mesh, dim: int = 0,
     if not _carries_grad(x):
         return all_gather(x, axes, mesh, dim=dim)
     return _AllGather.apply(x, axes, mesh, dim % x.ndim, differ)
+
+
+# ---------------------------------------------------------------------------
+# the sequence-parallel carry of the train step (JAX's ``act_constraint_fn``)
+# ---------------------------------------------------------------------------
+
+def _block(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the rows of ``x`` over ``axes``, the row count
+    padded with zero rows to a multiple of their size: a tensor of its own
+    storage (a view would keep the whole alive)."""
+    n = axis_size(mesh, mesh.axes(axes))
+    rows = -(-x.shape[0] // n)
+    i = mesh.index(axes)
+    y = x.new_zeros((rows, *x.shape[1:]))
+    part = x[i * rows:(i + 1) * rows]
+    y[:part.shape[0]] = part
+    return y
+
+
+def cut_grad(dy: torch.Tensor, axes, mesh: Mesh,
+             n_tokens: int) -> torch.Tensor:
+    """``_SeqCut``'s adjoint: every rank's block gradient, all-gathered
+    over ``axes`` and unpadded to ``n_tokens`` rows."""
+    return all_gather(dy.contiguous(), axes, mesh, dim=0)[:n_tokens]
+
+
+class _SeqCut(torch.autograd.Function):
+    """``y`` = this rank's block of the rows of ``x`` [T, d] over ``axes``
+    (``_block``).  ``x`` is held alike by every rank, and each rank's work
+    after the cut reads only its own block (the next period's
+    ``_SeqGather`` takes it as this rank's part), so rank ``r``'s ``dy`` is
+    the whole gradient of block ``r`` and nothing of the others.  Adjoint:
+    ``dx`` = every rank's ``dy`` all-gathered over ``axes`` and unpadded
+    (``cut_grad``): the whole gradient of ``x`` on every rank, as the layer
+    before the cut expects of a tensor read alike."""
+
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh, ctx.n_tokens = axes, mesh, x.shape[0]
+        return _block(x, axes, mesh)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return cut_grad(dy, ctx.axes, ctx.mesh, ctx.n_tokens), None, None
+
+
+class _SeqGather(torch.autograd.Function):
+    """``y`` [T, d] = every rank's block over ``axes``, concatenated in
+    mesh order and unpadded to ``n_tokens`` rows.  Every rank reads ``y``
+    alike, and the period's layers give it its whole gradient on every
+    rank (``rms_norm`` and the residual are read alike, and
+    ``core.lora.dense_col``'s ``sum_grad`` sums the column-parallel
+    products' parts over "model").  Adjoint: ``dx_r`` = block ``r`` of
+    ``dy`` ("take my rows"; a padding row takes zeros)."""
+
+    @staticmethod
+    def forward(ctx, xb, axes, mesh, n_tokens):
+        ctx.axes, ctx.mesh = axes, mesh
+        return all_gather(xb, axes, mesh, dim=0)[:n_tokens]
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _block(dy, ctx.axes, ctx.mesh), None, None, None
+
+
+class SeqShard(NamedTuple):
+    """``act_constraint_fn(mesh)``: the sequence-parallel carry of a layer
+    stack under ``mesh``.  ``axes(split)``: the axes the carry's tokens are
+    cut over: "model" always, and the batch axes too where no bucket was
+    split over them (``models.model.local_batch``), since the carry is
+    then whole, and alike, on every rank of them.  ``cut`` keeps this
+    rank's block of the tokens (``_SeqCut``), ``whole`` gathers the blocks
+    back (``_SeqGather``); a token count that the axes do not divide is
+    padded with zero rows.  Neither changes a value: only what a rank
+    holds between periods shrinks.  Over axes of size 1 both are the
+    identity."""
+    mesh: Mesh
+
+    def axes(self, split: bool) -> tuple:
+        return ("model",) if split else (*batch_axes(self.mesh), "model")
+
+    def _one(self, axes) -> bool:
+        return axis_size(self.mesh, self.mesh.axes(axes)) == 1
+
+    def cut(self, x: torch.Tensor, axes) -> torch.Tensor:
+        if self._one(axes):
+            return x
+        if _carries_grad(x):
+            return _SeqCut.apply(x, axes, self.mesh)
+        return _block(x, axes, self.mesh)
+
+    def whole(self, xb: torch.Tensor, axes, n_tokens: int) -> torch.Tensor:
+        if self._one(axes):
+            return xb
+        if _carries_grad(xb):
+            return _SeqGather.apply(xb, axes, self.mesh, n_tokens)
+        return all_gather(xb, axes, self.mesh, dim=0)[:n_tokens]
+
+
+def act_constraint_fn(mesh: Mesh) -> SeqShard:
+    """The counterpart of JAX's ``act_constraint_fn`` (the sequence
+    sharding of the train step's carry over ``(*batch_axes, "model")``):
+    hand it to ``core.unified.make_train_step(..., act_constraint=)``."""
+    return SeqShard(mesh)
 
 
 def reduce_bank_grads(grads, mesh: Mesh, split: bool):

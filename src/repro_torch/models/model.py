@@ -7,7 +7,12 @@ bucket), per-bucket attention, and per-bucket logits.
 Port of the attention, Mamba2 and FFN / MoE paths of ``repro.models.model``,
 fine-tune bucket and int8 weight-only serving included.  Differences of form:
 
-* the JAX ``lax.scan`` over periods becomes a loop over layers;
+* the JAX ``lax.scan`` over periods becomes a loop over periods
+  (``_run_periods``); with ``remat`` each period runs under
+  ``torch.utils.checkpoint`` where JAX's scan body is ``jax.checkpoint``ed,
+  its serving rows' Mamba decode step run once (``_Tape``), and JAX's
+  ``act_constraint`` is the train step's sequence-sharded carry
+  (``distributed.sharding.SeqShard``);
 * the JAX functions return a new cache; here the cache is written in place
   (the paged pool by ``_paged_write_prompt`` / ``_paged_write_chunk``, the
   dense rows by ``_dense_write_prompt`` and a slot write, all index writes
@@ -164,6 +169,8 @@ class _Plan:
             self.Bd, self.Sd = 0, 1
         self.sizes = [self.Bf * self.Sf, self.Bp * self.Sp, self.Bd * self.Sd]
         self._heads: Dict[tuple, "_Heads"] = {}
+        # the running period's ``_Tape`` under remat (``_run_periods``)
+        self.tape: Optional["_Tape"] = None
         self.T = sum(self.sizes)
         ids = []
         if ft is not None:
@@ -1308,7 +1315,9 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
             raise NotImplementedError(
                 "mamba decode state cannot roll back rejected drafts; "
                 "speculative verify chunks are attention-only")
-        outs[2] = mamba_step(cfg, p, xd, bd, dd, cache, mesh, h0)
+        # the state advances once a step: a recompute takes the output
+        outs[2] = _once(plan, lambda: mamba_step(cfg, p, xd, bd, dd, cache,
+                                                 mesh, h0))
     y = _gated_out(_merge_flat(plan, *outs), _merge_flat(plan, zf, zp, zd),
                    p, mesh, cfg.d_inner)
     if mesh is None:
@@ -1380,6 +1389,105 @@ def _ffn_apply(cfg: ModelConfig, li: int, p: Dict, lr: Dict, plan: _Plan,
 
 
 # ---------------------------------------------------------------------------
+# the layer stack, one period at a time: remat and the sequence-sharded carry
+# ---------------------------------------------------------------------------
+
+class _Tape:
+    """The serving rows' stateful work of one rematerialised period, run
+    once.  The first run of the period (the forward) records each
+    ``_once`` call's output in call order; every later run (the recompute
+    in the backward) hands them back in the same order and runs nothing.
+    The JAX period is pure (the cache rides in the scan carry, and
+    ``jax.checkpoint`` recomputes from the saved input cache); the port's
+    writes the cache in place, so a Mamba decode step run again would
+    advance its state a second time and give the period's later layers
+    other serving-row states, which the MoE router reads beside the ft
+    rows.  The other cache writes (K/V slots and prompt rows, MLA's
+    latent, a Mamba prefill's final state, the cross rows) write the same
+    values again from the same inputs and need no tape."""
+
+    def __init__(self):
+        self.outs: list = []
+        self.runs = 0
+        self.i = 0
+
+    def begin(self) -> None:
+        self.runs += 1
+        self.i = 0
+
+    def once(self, run):
+        if self.runs > 1:
+            out = self.outs[self.i]
+            self.i += 1
+            return out
+        out = run()
+        self.outs.append(out)
+        return out
+
+
+def _once(plan: _Plan, run):
+    """``run()``, a serving bucket's stateful sublayer (no gradient), once a
+    step: through the running period's ``_Tape`` under remat."""
+    return run() if plan.tape is None else plan.tape.once(run)
+
+
+def _run_periods(cfg: ModelConfig, plan: _Plan, x: torch.Tensor, layer,
+                 remat: bool, seq=None, axes=None):
+    """The stream ``x`` [T, d] through every layer, one period
+    (``cfg.pattern``: one layer for the dense decoders, 8 for jamba) at a
+    time; ``layer(li, x)`` -> (x, the layer's router aux loss or None).
+    Returns (x, the summed aux loss).
+
+    With ``remat`` (a forward with gradient) each period runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as JAX's scan body under
+    ``jax.checkpoint``: the period's one saved tensor is its input carry,
+    and the backward runs it again to rebuild the rest.  Early stopping is
+    off, so the recompute runs the whole period and issues every
+    collective of it, in the forward's order, on every rank.  A serving
+    row's stateful work runs once (``_Tape``), and weights made inside a
+    layer (int8 dequant, an FSDP gather) are made again.
+
+    With ``seq`` (``distributed.sharding.SeqShard``, the train step's
+    ``act_constraint`` under a mesh) the carry between periods is this
+    rank's block of the tokens over ``axes``: the embedding's output is
+    cut, each period starts by gathering the blocks and ends by cutting,
+    and the last block is gathered for the head.  Under remat the saved
+    carry is then the block."""
+    from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
+    n_layers, P, T = cfg.n_layers, len(cfg.pattern), x.shape[0]
+    zero = lambda: torch.zeros((), dtype=torch.float32, device=x.device)
+    aux_loss = zero()
+    if seq is not None:
+        x = seq.cut(x, axes)
+    for p0 in range(0, n_layers, P):
+        tape = _Tape() if remat else None
+
+        def period(xc, p0=p0, tape=tape):
+            plan.tape = tape
+            if tape is not None:
+                tape.begin()
+            try:
+                xx = xc if seq is None else seq.whole(xc, axes, T)
+                aux = zero()
+                for li in range(p0, min(p0 + P, n_layers)):
+                    xx, a = layer(li, xx)
+                    if a is not None:
+                        aux = aux + a
+                return (xx if seq is None else seq.cut(xx, axes)), aux
+            finally:
+                plan.tape = None
+
+        if remat:
+            with set_checkpoint_early_stop(False):
+                x, aux = checkpoint(period, x, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            x, aux = period(x)
+        aux_loss = aux_loss + aux
+    return (x if seq is None else seq.whole(x, axes, T)), aux_loss
+
+
+# ---------------------------------------------------------------------------
 # unified forward (Algorithm 1, serving buckets)
 # ---------------------------------------------------------------------------
 
@@ -1388,19 +1496,27 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
                     loras: Optional[Dict] = None,
                     lora_scale: Optional[torch.Tensor] = None,
                     block_t: int, attn_chunk: int = 0,
-                    return_ft_logits: bool = False) -> ModelOut:
+                    return_ft_logits: bool = False, remat: bool = False,
+                    act_constraint: Optional[SH.SeqShard] = None
+                    ) -> ModelOut:
     """One joint forward over the fine-tune, prefill and decode buckets.
     ``block_t`` is the flow planner's SMLM tile (``FlowConfig.block_t``).
     The ``cache`` is updated in place and returned in ``ModelOut.cache``;
     a batch of ft rows only may pass ``cache=None``.  Fine-tune rows give
-    the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``)."""
+    the shifted per-row CE loss (``ft_loss_sum``, ``ft_tok_count``).
+    ``remat`` (with a gradient; else it changes nothing) recomputes each
+    layer period in the backward (``_run_periods``); ``act_constraint``
+    (``distributed.sharding.act_constraint_fn(mesh)``) cuts the carry
+    between periods by tokens under a mesh and is the identity without
+    one, as JAX's sharding constraint is on one device."""
     check_supported(cfg)
     mesh = SH.ambient_mesh()
     if mesh is not None:
         return _sharded_forward(cfg, mesh, SH.ambient_strategy(), params,
                                 batch, cache, loras, lora_scale, block_t,
                                 attn_chunk, return_ft_logits,
-                                SH.ambient_cache_strategy())
+                                SH.ambient_cache_strategy(), remat,
+                                act_constraint)
     plan = _Plan(cfg, batch, lora_scale, block_t)
     index = layer_index(cfg)
     if (batch.pf is not None or batch.dec is not None) and cache is None:
@@ -1431,8 +1547,9 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
 
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
-    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
+
+    def layer(li, x):
+        p, lr = params["layers"][li], lora_layers[li]
         if quantized:
             p = {k: (quant.dequant_leaf(v, dtype)
                      if quant.is_q8(v) and k not in EXPERT_STACKS else v)
@@ -1444,9 +1561,10 @@ def unified_forward(cfg: ModelConfig, params: Dict, batch: UnifiedBatch,
             x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk)
         if index[li][2] is not None:
             x = _cross_apply(cfg, p, lr, plan, x, lc, attn_chunk)
-        x, aux = _ffn_apply(cfg, li, p, lr, plan, x)
-        if aux is not None:
-            aux_loss = aux_loss + aux
+        return _ffn_apply(cfg, li, p, lr, plan, x)
+
+    x, aux_loss = _run_periods(cfg, plan, x, layer,
+                               remat and _with_grad(loras))
 
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return _outputs(cfg, plan, batch, x, params["final_norm"], head, cache,
@@ -1632,7 +1750,9 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
                      cache: Optional[Dict], loras: Optional[Dict],
                      lora_scale: Optional[torch.Tensor], block_t: int,
                      attn_chunk: int, return_ft_logits: bool,
-                     cache_strategy: str = "auto") -> ModelOut:
+                     cache_strategy: str = "auto", remat: bool = False,
+                     act_constraint: Optional[SH.SeqShard] = None
+                     ) -> ModelOut:
     """``unified_forward`` as explicit SPMD on one rank of ``mesh``:
     ``params`` / ``loras`` are this rank's shards (``checkpoint.io.
     shard_params`` / ``shard_bank`` under ``strategy``), ``batch`` is the
@@ -1653,9 +1773,13 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     sequence cut over "model" (``_mla_apply``; a windowed latent row is a
     rolling row of W slots, W/m a rank), a Mamba2 layer its SSM heads
     (``_mamba_apply``; the layer kind picks the sublayer, as in the plain
-    loop).  Returns the single-device
-    step's logits, ft loss sums and aux loss on every rank, and the local
-    cache."""
+    loop).  ``remat`` and ``act_constraint`` as in ``unified_forward``
+    (``_run_periods``): under remat ``fsdp_tp`` gathers each layer's
+    "data"-cut leaves once more (forward, recompute, backward), and the
+    carry between periods is this rank's block of the tokens over "model",
+    and over the batch axes too where no bucket was split over them.
+    Returns the single-device step's logits, ft loss sums and aux loss on
+    every rank, and the local cache."""
     from repro_torch.launch.mesh import batch_axes
     check_shardable(cfg, mesh, batch, loras, params)
     strategy = strategy or "fsdp_tp"
@@ -1708,11 +1832,12 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
 
     lora_layers = (loras["layers"] if loras is not None
                    else [{} for _ in range(cfg.n_layers)])
-    aux_loss = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li, (p, lr) in enumerate(zip(params["layers"], lora_layers)):
-        sp = specs["layers"][li]
+
+    def layer(li, x):
+        sp, lr = specs["layers"][li], lora_layers[li]
         p = {k: (v if k in EXPERT_STACKS or k == "router"
-                 else load(v, sp[k], keep=True)) for k, v in p.items()}
+                 else load(v, sp[k], keep=True))
+             for k, v in params["layers"][li].items()}
         lc = None if cache is None else layer_cache(cfg, cache, li, index)
         if index[li][0] == "mamba":
             x = _mamba_apply(cfg, p, lr, plan, x, lc, mesh=mesh)
@@ -1720,11 +1845,16 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
             x = _attn_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
         if index[li][2] is not None:
             x = _cross_apply(cfg, p, lr, plan, x, lc, attn_chunk, mesh=mesh)
-        x, aux = _ffn_apply(cfg, li, p, lr, plan, x, mesh=mesh, fsdp=fsdp,
-                            own=own)
-        if aux is not None:
-            aux_loss = aux_loss + aux
-        del p
+        return _ffn_apply(cfg, li, p, lr, plan, x, mesh=mesh, fsdp=fsdp,
+                          own=own)
+
+    seq = act_constraint
+    if seq is not None and seq.mesh is not mesh:
+        raise ValueError("act_constraint was made for another mesh than "
+                         "the step's")
+    x, aux_loss = _run_periods(
+        cfg, plan, x, layer, remat and _with_grad(loras), seq,
+        None if seq is None else seq.axes(any(split.values())))
 
     if cfg.tie_embeddings:
         head = load(params["embed"], specs["embed"], keep=True).T

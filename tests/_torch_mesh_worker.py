@@ -22,7 +22,7 @@ from repro_torch.core.lora import LoRAConfig, init_lora_bank
 from repro_torch.core.unified import make_forward_step, make_grad_step, \
     make_train_step
 from repro_torch.distributed import sharding as SH
-from repro_torch.launch.mesh import init_mesh
+from repro_torch.launch.mesh import axis_size as mesh_size, init_mesh
 from repro_torch.models import model as TM
 from repro_torch.models.configs import MoEConfig
 from repro_torch.models.moe_dist import moe_apply_auto
@@ -493,7 +493,17 @@ def _planted_train(fault, mesh):
     the backward's shrink all-reduce (still called, so that the
     collectives pair); ``"batch"`` the bank's gradients not summed over
     the batch axes; ``"clip"`` the clip's sum of squares of this rank's
-    shards alone, without the sum over "model"."""
+    shards alone, without the sum over "model"; ``"cut"`` the
+    sequence-sharded carry's cut giving back only this rank's block of
+    the gradient (zeros elsewhere) where the others' blocks belong."""
+    if fault == "cut":
+        def local_only(dy, axes, mesh, n_tokens):
+            n = dy.shape[0]
+            i = mesh.index(axes)
+            dx = dy.new_zeros((n * mesh_size(mesh, axes), *dy.shape[1:]))
+            dx[i * n:(i + 1) * n] = dy
+            return dx[:n_tokens]
+        return SH, "cut_grad", local_only
     if fault == "shrink":
         orig = ops.reduce_gs
 
@@ -527,8 +537,12 @@ def train_case(tmp, name, mesh, strategy, z, cache_strategy="auto",
                                    cache_strategy) if cache0 else None
     lp, lb = shard_params(params, cfg, mesh, strategy), shard_bank(bank,
                                                                    mesh)
+    remat = bool(z[f"{name}/remat"]) if f"{name}/remat" in z else False
     kw = dict(block_t=BT, attn_chunk=chunk, mesh=mesh, strategy=strategy,
-              cache_strategy=cache_strategy)
+              cache_strategy=cache_strategy, remat=remat)
+    # a remat case's train step cuts the carry between periods by tokens
+    tkw = dict(kw, act_constraint=SH.act_constraint_fn(mesh)) if remat \
+        else kw
     if fault:
         mod, attr, bad = _planted_train(fault, mesh)
         orig = getattr(mod, attr)
@@ -540,7 +554,7 @@ def train_case(tmp, name, mesh, strategy, z, cache_strategy="auto",
             opt = topt.AdamWConfig(**TRAIN_OPT)
             st0 = shard_opt_state(topt.adamw_init(bank, 4), mesh)
             mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32)
-            tloss, nb, ns, _ = make_train_step(cfg, opt, **kw)(
+            tloss, nb, ns, _ = make_train_step(cfg, opt, **tkw)(
                 lp, lb, scale, st0, batch, mask, cache())
     finally:
         if fault:
@@ -618,6 +632,42 @@ def hooks_case(tmp, name, mesh, strategy, z):
                                       if s in gathered and p not in shards})}
 
 
+def remat_hooks_case(tmp, name, mesh, strategy, z):
+    """The shapes of the tensors autograd saves in a remat train step on
+    this rank's shards, with the sequence-sharded carry
+    (``act_constraint_fn``) and without it: [T, d] the stream, [ceil(T /
+    n), d] a rank's block of it over the cut's axes (``n`` their size).
+    Returns each shape's count in both steps, and the layer count."""
+    cfg = case_config(z, name)
+    rd = lambda f: load_npz(os.path.join(tmp, f"{name}_{f}.npz"))
+    lp = shard_params(params_from_numpy(rd("params"), device="cpu"), cfg,
+                      mesh, strategy)
+    bank = bank_from_numpy(rd("bank"), device="cpu")
+    batch = _train_batch(z, name)
+    seq = SH.act_constraint_fn(mesh)
+    axes = seq.axes(TM.local_batch(batch, mesh)[1]["ft"])
+    T = TM.local_batch(batch, mesh)[0].ft.tokens.numel()
+    n = mesh_size(mesh, mesh.axes(axes))
+    whole, block = (T, cfg.d_model), (-(-T // n), cfg.d_model)
+    out = {"layers": cfg.n_layers, "n": n}
+    for key, ac in (("cut", seq), ("alone", None)):
+        saved = []
+
+        def pack(x):
+            saved.append(tuple(x.shape))
+            return x
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            make_train_step(cfg, topt.AdamWConfig(**TRAIN_OPT), block_t=BT,
+                            remat=True, act_constraint=ac, mesh=mesh,
+                            strategy=strategy)(
+                lp, shard_bank(bank, mesh), _t(z[f"{name}/scale"]),
+                shard_opt_state(topt.adamw_init(bank, 4), mesh), batch,
+                torch.tensor(TRAIN_SLOTS, dtype=torch.int32))
+        out[key] = {"whole": saved.count(whole), "block": saved.count(block)}
+    return out
+
+
 def run(rank, world, tmp, shape, cases):
     torch.set_num_threads(1)
     dist.init_process_group(
@@ -669,16 +719,20 @@ def run(rank, world, tmp, shape, cases):
                 res[case] = whole_row(mesh)
             elif kind == "errors":
                 res[case] = value_errors(tmp, z, mesh)
-            elif kind in ("grad", "train"):
+            elif kind in ("grad", "train", "remat"):
                 name, strategy, *cs = rest.split(",")
                 res[case] = train_case(tmp, name, mesh, strategy, z,
-                                       *cs, train=kind == "train")
+                                       *cs, train=kind != "grad")
             elif kind.startswith("fault_") and kind[6:] in (
-                    "shrink", "batch", "clip"):
+                    "shrink", "batch", "clip", "cut"):
                 name, strategy = rest.split(",")
                 res[case] = train_case(tmp, name, mesh, strategy, z,
-                                       train=kind == "fault_clip",
+                                       train=kind in ("fault_clip",
+                                                      "fault_cut"),
                                        fault=kind[6:])
+            elif kind == "remat_hooks":
+                name, strategy = rest.split(",")
+                res[case] = remat_hooks_case(tmp, name, mesh, strategy, z)
             elif kind == "hooks":
                 name, strategy = rest.split(",")
                 res[case] = hooks_case(tmp, name, mesh, strategy, z)

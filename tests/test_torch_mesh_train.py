@@ -30,12 +30,24 @@ the one-device grad step to).  AdamW's first step per element is ``g /
 (|g| + eps)``, whose slope ``1 / eps`` turns a rounding difference of a
 near-zero gradient into a step difference of order ``lr``; the cases take
 ``eps`` = 1e-5, so a gradient difference of 1e-7 moves a weight by at most
-``lr * 1e-2`` = 1e-5, under 2e-4 of a leaf's max (~0.1).  Three planted
+``lr * 1e-2`` = 1e-5, under 2e-4 of a leaf's max (~0.1).  Four planted
 faults, each at least 10x its tolerance: model ranks 1-3 take the identity
 for the backward's shrink all-reduce (``ops.reduce_gs``), the bank's
 gradients not summed over the batch axes (``sharding.reduce_bank_grads``),
-and the clip's sum of squares without its sum over "model"
-(``optimizer.clip_sumsq``, seen on the moments).
+the clip's sum of squares without its sum over "model"
+(``optimizer.clip_sumsq``, seen on the moments), and the sequence-sharded
+carry's cut giving back only a rank's own block of the gradient
+(``sharding.cut_grad``, seen on the train step's moments).
+
+Remat (``REMAT``, references from JAX's ``remat=True`` steps): the grad
+step with ``remat`` and the train step with ``remat`` and
+``act_constraint_fn(mesh)``, whose carry between periods is a rank's block
+of the tokens: over "model" at ``(1, 4)`` (4 ft rows, and a mixed batch of
+67 tokens, which the cut pads), over "model" at ``(2, 2)`` where the ft
+rows are split over "data" (4 rows; the mixed batch's 35 local tokens
+over 2), over ("data", "model") where no bucket is (3 rows).  The saved
+tensors of a remat train step at ``(1, 4)`` show the carry's block [T/4,
+d] saved once a period in place of the whole [T, d] (``REMAT_HOOKS``).
 """
 import jax
 import jax.numpy as jnp
@@ -68,15 +80,26 @@ CASES = {"llama": ("llama3-8b", 50, 4, None, 0, 0, False, True),
          "chunk": ("llama3-8b", 55, 4, None, 0, 8, False, False),
          "window": ("llama3-8b", 56, 4, None, 8, 0, False, False),
          "cmdr": ("command-r-35b", 57, 4, None, 0, 0, False, False)}
+# remat cases (JAX's references with ``remat=True``; the port's grad step
+# with ``remat``, its train step with ``remat`` and ``act_constraint_fn``):
+# name: (a CASES tuple, decode rows of the mixed batch).  "rmixed" has 2 ft
+# rows of 16, 2 prompts of 16 and 3 decode rows: 67 tokens, which neither
+# 4 nor (at (2, 2), its 3 decode rows run whole) 35 over 2 divides
+REMAT = {"rllama": (("llama3-8b", 58, 4, None, 0, 0, False, True), 4),
+         "rllama3": (("llama3-8b", 59, 3, None, 0, 0, False, True), 4),
+         "rmixed": (("llama3-8b", 60, 2, None, 0, 0, True, True), 3)}
 RUN_1X4 = ["train:llama,tp", "train:llama6,tp", "train:deepseek,tp",
            "grad:mixed,tp,auto", "grad:mixed,tp,seq", "grad:chunk,tp",
-           "grad:window,tp"]
+           "grad:window,tp", "remat:rllama,tp", "remat:rmixed,tp"]
 RUN_2X2 = ["train:llama,tp", "train:llama,fsdp_tp", "train:llama3,tp",
            "grad:mixed,fsdp_tp,auto", "grad:mixed,tp,seq",
-           "grad:cmdr,fsdp_tp"]
-FAULTS_1X4 = ["fault_shrink:llama,tp", "fault_clip:llama,tp"]
+           "grad:cmdr,fsdp_tp", "remat:rllama,fsdp_tp", "remat:rllama3,tp",
+           "remat:rmixed,fsdp_tp"]
+FAULTS_1X4 = ["fault_shrink:llama,tp", "fault_clip:llama,tp",
+              "fault_cut:rllama,tp"]
 FAULTS_2X2 = ["fault_batch:llama,tp"]
 HOOKS = "hooks:llama,fsdp_tp"
+REMAT_HOOKS = "remat_hooks:rllama,tp"
 SPAWN_TIMEOUT_S = 150
 SF, N_ROWS, S_MAX = 16, 6, 32
 
@@ -95,7 +118,7 @@ def _ft(rng, V, rows):
 
 
 def _jax_case(tmp, name, arch, seed, rows, heads, window, chunk, mixed,
-              train, z):
+              train, z, remat=False, n_dec=4):
     jcfg = j_get_reduced(arch)
     if heads:
         jcfg = jcfg.replace(n_heads=heads[0], n_kv_heads=heads[1],
@@ -119,9 +142,10 @@ def _jax_case(tmp, name, arch, seed, rows, heads, window, chunk, mixed,
         b.update(pf_tokens=rng.integers(0, jcfg.vocab, (2, 16)).astype(
                      np.int32), pf_length=np.asarray([13, 9], np.int32),
                  pf_adapter=np.asarray([1, -1], np.int32),
-                 dec_tokens=rng.integers(0, jcfg.vocab, (4,)).astype(
-                     np.int32), dec_pos=np.asarray([9, 13, 5, 0], np.int32),
-                 dec_adapter=np.asarray([0, -1, 1, 0], np.int32))
+                 dec_tokens=rng.integers(0, jcfg.vocab, (n_dec,)).astype(
+                     np.int32),
+                 dec_pos=np.asarray([9, 13, 5, 0][:n_dec], np.int32),
+                 dec_adapter=np.asarray([0, -1, 1, 0][:n_dec], np.int32))
         jb = JUB(ft=ft, pf=JPF(tokens=j(b["pf_tokens"]),
                                length=j(b["pf_length"]),
                                adapter=j(b["pf_adapter"])),
@@ -133,15 +157,16 @@ def _jax_case(tmp, name, arch, seed, rows, heads, window, chunk, mixed,
         for k in ("k", "v"):
             z[f"{name}/cache0_{k}"] = _port_leaves(jcfg, layers, k)
         cache = {"layers": layers}
-    res = j_grad_step(jcfg, attn_chunk=chunk)(jparams, store.bank,
-                                              store.scale, jb, cache)
+    res = j_grad_step(jcfg, attn_chunk=chunk, remat=remat)(
+        jparams, store.bank, store.scale, jb, cache)
     save_pytree(str(tmp / f"{name}_grads.npz"), res.grads)
     z[f"{name}/ref_loss"] = np.asarray(res.loss)
     if train:
         opt = JAdamW(lr=W.TRAIN_OPT["lr"], eps=W.TRAIN_OPT["eps"],
                      grad_clip=W.TRAIN_OPT["grad_clip"])
         mask = j(np.asarray(W.TRAIN_SLOTS, np.int32))
-        loss, nb, ns, _ = j_train_step(jcfg, opt, attn_chunk=chunk)(
+        loss, nb, ns, _ = j_train_step(jcfg, opt, attn_chunk=chunk,
+                                       remat=remat)(
             jparams, store.bank, store.scale, j_adamw_init(store.bank, 4),
             jb, mask, cache)
         save_pytree(str(tmp / f"{name}_newbank.npz"), nb)
@@ -157,6 +182,7 @@ def _jax_case(tmp, name, arch, seed, rows, heads, window, chunk, mixed,
     if window:
         z[f"{name}/window"] = np.asarray(window)
     z[f"{name}/chunk"] = np.asarray(chunk)
+    z[f"{name}/remat"] = np.asarray(remat)
     z[f"{name}/scale"] = np.asarray(store.scale, np.float32)
 
 
@@ -166,13 +192,15 @@ def case_dir(tmp_path_factory):
     z = {"lora_r": np.asarray(LORA_R)}
     for name, case in CASES.items():
         _jax_case(tmp, name, *case, z)
+    for name, (case, n_dec) in REMAT.items():
+        _jax_case(tmp, name, *case, z, remat=True, n_dec=n_dec)
     np.savez(tmp / "case.npz", **z)
     return tmp
 
 
 @pytest.fixture(scope="module")
 def run_1x4(case_dir):
-    return _spawn(case_dir, (1, 4), RUN_1X4 + FAULTS_1X4,
+    return _spawn(case_dir, (1, 4), RUN_1X4 + FAULTS_1X4 + [REMAT_HOOKS],
                   timeout_s=SPAWN_TIMEOUT_S)
 
 
@@ -192,7 +220,7 @@ def _check(res):
 def test_train_step_1x4_matches_jax(run_1x4, case):
     res = run_1x4[case]
     _check(res)
-    if case.startswith("train:"):
+    if case.startswith(("train:", "remat:")):
         # the clip engaged, and the masked slot kept its weights
         assert res["norm"] > 10 * W.TRAIN_OPT["grad_clip"], res["norm"]
         assert res["masked_same"]
@@ -205,8 +233,10 @@ def test_train_step_2x2_matches_jax(run_2x2, case):
     _check(res)
     if case.startswith("train:llama,"):
         assert res["split"]             # 4 rows: each data rank runs 2
-    if case.startswith("train:llama3,"):
+    if case.startswith(("train:llama3,", "remat:rllama3,")):
         assert not res["split"]         # 3 rows: every data rank runs 3
+    if case.startswith("remat:"):
+        assert {"bank", "m", "v"} <= {k.split("/")[0] for k in res["errs"]}
 
 
 def test_layouts_of_the_mixed_cases(run_1x4, run_2x2):
@@ -227,3 +257,15 @@ def test_fsdp_saves_no_gathered_leaf(run_2x2):
     res = run_2x2[HOOKS]
     assert res["n_saved"] > 0 and res["shards_saved"] > 0
     assert res["gathered_saved"] == [], res["gathered_saved"]
+
+
+def test_remat_saves_the_carrys_block(run_1x4):
+    """A remat train step at ``(1, 4)`` saves one carry a period: with
+    ``act_constraint_fn`` this rank's block of the tokens [T/4, d] in place
+    of the whole stream [T, d] that remat alone saves; nothing else moves
+    (the head's tensors are the same in both)."""
+    res = run_1x4[REMAT_HOOKS]
+    cut, alone, n = res["cut"], res["alone"], res["layers"]
+    assert res["n"] == 4
+    assert cut["block"] - alone["block"] == n, res
+    assert alone["whole"] - cut["whole"] == n, res
