@@ -451,12 +451,31 @@ printing its lines; any failure raises and exits non-zero:
              steps read against the fp32 grad step; (q) ``train_qwen``:
              qwen1.5-110b bf16 at all 80 layers, two train steps at both
              meshes, a falling finite loss and the peak per card.
+             The other families' train step under a mesh: phase 15 adds
+             ``TRAIN_FAMILIES_LOCAL`` (key ``mesh_train_families``):
+             mamba2-1.3b 2 layers, the VLM 5 layers (one cross layer over
+             1600-patch sources), whisper-base and llama3-8b int8 2
+             layers, bf16, each through the sharded steps at ``(1, 1)``
+             against the plain steps, launches gated by
+             ``split_launches``; ``--mesh`` adds (r) ``train_families``:
+             the ``TRAIN_FAMILIES`` arms in fp32 at both meshes on ft rows
+             and a mixed batch against one card, remat and
+             ``act_constraint_fn`` on mamba2 and the VLM, the gated norm's
+             identity-adjoint fault planted on mamba2; (s) ``train_vlm``:
+             the VLM bf16 at all 100 layers at ``(1, 4)``, three remat +
+             ``act_constraint_fn`` train steps; (t) ``train_qwen_int8``:
+             qwen1.5-110b int8 at all 80 layers at ``(2, 2)`` fsdp_tp,
+             three train steps (``big_train_arm``: a falling finite loss
+             and the peak per card); a ``--mesh`` run ends with the train
+             arms' launches on card 0 as one JSON line
+             (``mesh_launches_by_path``).
 
 Then one JSON line of per-kernel numbers (``launches`` from the kernel's
 main-path run, named in ``launches_path``; ``launches_by_path`` from every
 run of phases 4-15 that launched it: full, spec, long, long_spec, dense,
 train, tiers, paging, fleet, window, mesh, mesh_families, mesh_layouts,
-mesh_ssm, mesh_train, archs, archs_mla, archs_mamba,
+mesh_ssm, mesh_train, mesh_train_remat, mesh_train_families, archs,
+archs_mla, archs_mamba,
 archs_cross (the MLA, Mamba and cross arms with their grad steps) and
 examples (the four twins at full width);
 ``shapes`` its other timed rows, flash's windowed ones among them), the
@@ -6314,9 +6333,11 @@ def train_batch(cfg, rows, S, dev, seed, mixed=False, dtype=torch.bfloat16):
     """``rows`` ft rows of ``S`` tokens from a numpy seed (adapters 0, 1,
     base, 0, ...; row 1 cut short by its mask, one label ignored; weights
     1, 0.5, 0.25, 0.75), and with ``mixed`` a cold prefill of 2 prompts of
-    S/4 tokens and a decode of 4 rows over dense rows.  Returns (the
-    batch, the whole cache or None, its segments)."""
+    S/4 tokens and a decode of 4 rows over dense rows; a cross model's
+    ft and prefill rows with their sources.  Returns (the batch, the whole
+    cache or None, its segments)."""
     from repro_torch.models.model import init_cache
+    from repro_torch.models.schema import cross_len
     from repro_torch.models.stream import DECBatch, FTBatch, PFBatch, \
         UnifiedBatch
     rng = np.random.default_rng(seed)
@@ -6331,12 +6352,18 @@ def train_batch(cfg, rows, S, dev, seed, mixed=False, dtype=torch.bfloat16):
                    np.float32)
     ft = FTBatch(tokens=tt(toks), mask=tt(mask), labels=tt(labels),
                  adapter=tt(ad), weight=tt(w))
+    # a cross model's rows carry their sources [F, d] float32 (a standard
+    # normal: image patches or audio frames)
+    aux = (lambda n: tt(rng.standard_normal(
+        (n, cross_len(cfg), cfg.d_model), dtype=np.float32))) \
+        if is_cross(cfg) else (lambda n: None)
+    ft = ft._replace(aux_embed=aux(rows))
     if not mixed:
         return UnifiedBatch(ft=ft), None, None
     Sp = S // 4
     pf = PFBatch(tokens=tt(rng.integers(0, cfg.vocab, (2, Sp)).astype(
         np.int32)), length=tt(np.asarray([Sp, Sp - 9], np.int32)),
-        adapter=tt(np.asarray([1, -1], np.int32)))
+        adapter=tt(np.asarray([1, -1], np.int32)), aux_embed=aux(2))
     dec = DECBatch(tokens=tt(rng.integers(0, cfg.vocab, (4,)).astype(
         np.int32)), pos=tt(np.asarray([9, Sp, 5, 0], np.int32)),
         adapter=tt(np.asarray([0, -1, 1, 0], np.int32)))
@@ -6459,11 +6486,18 @@ def planted_train(K, mesh, kind):
     summed over the batch axes (``sharding.reduce_bank_grads``); ``"cut"``,
     the sequence-sharded carry's cut giving back only this rank's block of
     the gradient, zeros where the other ranks' blocks belong
-    (``sharding.cut_grad``, on every rank: no collective goes unpaired)."""
+    (``sharding.cut_grad``, on every rank: no collective goes unpaired);
+    ``"gsq"``, Mamba2's gated-norm sum of squares with the identity as its
+    adjoint where each rank reads the sum for its own slice of d_inner
+    (``model.gated_sum_sq``, on every rank)."""
     from repro_torch.distributed import sharding as SH
     from repro_torch.launch.mesh import axis_size
+    from repro_torch.models import model as M
     if kind == "batch":
         return SH, "reduce_bank_grads", lambda grads, mesh, split: grads
+    if kind == "gsq":
+        return M, "gated_sum_sq", lambda g, mesh: SH.all_reduce_grad(
+            g.float().pow(2).sum(-1), "model", mesh)
     if kind == "cut":
         def local_only(dy, axes, mesh, n_tokens):
             n, i = dy.shape[0], mesh.index(axes)
@@ -6548,9 +6582,7 @@ def mesh_train_local(K, mesh, dev):
                         if k in ("loss", "tloss", "grads", "norm")},
                ref, bf16, limits=TRAIN_LOCAL_LIMITS)
     cr = rem["counts"]
-    want_r = {"smlm_shrink": 2 * (2 * n_lora + n_lora),
-              "smlm_expand": 2 * (2 * n_lora + n_lora - no_dx),
-              "smlm_wgrad": 2 * n_lora, "smlm": 0}
+    want_r = split_launches(n_lora, no_dx, remat=True)
     seen_r = {k: cr[k] for k in want_r}
     if dev.type == "cuda" and seen_r != want_r:
         raise AssertionError(f"{rlabel}: launches {seen_r}, want {want_r} "
@@ -6562,6 +6594,82 @@ def mesh_train_local(K, mesh, dev):
           + f"; launches over the grad and train steps {seen_r} "
             f"(predicted {want_r}) ok")
     return c, cr
+
+
+# phase 15's (1, 1) train arms of the other families (ROADMAP 5b-iii-a),
+# bf16 at full width, each through the sharded grad and train steps against
+# the plain ones on the same weights and batch (``TRAIN_LOCAL``'s rows),
+# gated at ``TRAIN_LOCAL_LIMITS``: (label, arch, config changes, int8).
+# The VLM's 5 layers hold one cross layer over 1600-patch sources
+TRAIN_FAMILIES_LOCAL = (
+    ("mamba2", "mamba2-1.3b", dict(n_layers=2), False),
+    ("vlm", "llama-3.2-vision-90b", dict(n_layers=5), False),
+    ("whisper", "whisper-base", {}, False),
+    ("llama_q8", "llama3-8b", dict(n_layers=2), True))
+# the projections whose input is the embedding, so whose backward makes no
+# dX expand (layer 0's)
+NO_DX = ("wq", "wk", "wv", "in_z", "in_x")
+
+
+def split_launches(n_lora: int, no_dx: int, remat: bool = False) -> dict:
+    """The launches a grad step and a train step make on ft rows through
+    the split SMLM entries: a forward's shrink and expand once a projection
+    (twice under remat: the recompute); a backward's ``Gs`` shrink and
+    ``smlm_wgrad`` once a projection, its dX expand once a projection whose
+    input carries a gradient; the fused SMLM never."""
+    f = 2 if remat else 1
+    return {"smlm_shrink": 2 * (f * n_lora + n_lora),
+            "smlm_expand": 2 * (f * n_lora + n_lora - no_dx),
+            "smlm_wgrad": 2 * n_lora, "smlm": 0}
+
+
+def mesh_train_families_local(K, mesh, dev):
+    """Phase 15's ``TRAIN_FAMILIES_LOCAL`` arms on the ``(1, 1)`` mesh:
+    each config's weights whole on the card (int8 quantized leaf by leaf),
+    ``train_steps`` through the sharded steps and through the plain steps
+    on the same weights and batch: the loss and the grads within
+    ``TRAIN_LOCAL_LIMITS``, the split entries and ``smlm_wgrad`` launched
+    as ``split_launches`` predicts.  Returns the arms' launches summed."""
+    from repro_torch.configs import get_config
+    t = TRAIN_LOCAL
+    bf16 = torch.bfloat16
+    total = {}
+    for label, arch, change, int8 in TRAIN_FAMILIES_LOCAL:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(**change)
+        w = mesh_weights(cfg, None, None, dev, bf16, seed=3, int8=int8)
+        batch, _, _ = train_batch(cfg, t["rows"], t["seq"], dev, seed=31)
+        got = train_steps(K, cfg, w, batch, None, None, dev, mesh)
+        ref = train_steps(K, cfg, w, batch, None, None, dev)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+        name = (f"mesh: (1, 1) train {label} {cfg.name} "
+                f"{'int8/' if int8 else ''}bf16 {cfg.n_layers} layers "
+                f"{t['rows']}x{t['seq']} ft rows")
+        train_gate(f"{name}, the sharded steps vs the plain steps",
+                   {k: v for k, v in got.items()
+                    if k in ("loss", "tloss", "grads", "norm")},
+                   ref, bf16, limits=TRAIN_LOCAL_LIMITS)
+        layers = got["grads"]["layers"]
+        want = split_launches(sum(len(x) for x in layers),
+                              sum(n in NO_DX for n in layers[0]))
+        c = got["counts"]
+        seen = {k: c[k] for k in want}
+        if dev.type == "cuda" and seen != want:
+            raise AssertionError(f"{name}: launches {seen}, want {want} "
+                                 f"(all {c})")
+        e = train_errs(got, ref)
+        print(f"{name}: train step ms={got['ms']:.3f} (plain "
+              f"{ref['ms']:.3f}) peak_bytes={got['peak']} (plain "
+              f"{ref['peak']}); new bank / moments "
+              + " ".join(f"{k}={e[k][0]:.4g}" for k in ("m", "v", "bank"))
+              + f"; launches over the grad and train steps {seen} "
+                f"(predicted {want}); wall_s={time.perf_counter() - t0:.1f}"
+                f" ok")
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def mesh_rank(rank, world, port, only):
@@ -6581,6 +6689,7 @@ def mesh_rank(rank, world, port, only):
         m14 = init_mesh((1, 4), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
         m22 = init_mesh((2, 2), ("data", "model"), timeout_s=MESH_TIMEOUT_S)
         lead = rank == 0
+        by_path = {}          # the train arms' launches on card 0, by arm
         # every group's NCCL communicator is made at its first collective,
         # and its all-to-all connections at its first all-to-all: make
         # them all before anything is timed
@@ -6976,9 +7085,27 @@ def mesh_rank(rank, world, port, only):
         if "train_qwen_4k" in only:
             cfg = get_config("qwen1.5-110b")
             batch, _, _ = train_batch(cfg, 1, QWEN_4K["seq"], dev, seed=41)
-            res = qwen_4k_arm(K, cfg, m14, dev, batch)
-            verdict(lambda: qwen_4k_gate("mesh: train qwen 4k 1x4 tp", res))
+            res = big_train_arm(K, cfg, m14, "tp", dev, batch,
+                                ("remat + act_constraint",) * 2
+                                + ("remat alone",), chunk=QWEN_4K["chunk"])
+            verdict(lambda: big_train_gate("mesh: train qwen 4k 1x4 tp",
+                                           res))
             del res
+        if "train_families" in only:
+            by_path.update(train_family_arms(K, get_config, m14, m22, dev,
+                                             lead, verdict))
+        for arm, (arch, int8, shape, st, S, kinds) in TRAIN_BIG.items():
+            if arm not in only:
+                continue
+            cfg = get_config(arch)
+            batch, _, _ = train_batch(cfg, 2, S, dev, seed=42)
+            res = big_train_arm(K, cfg, m14 if shape == "1x4" else m22, st,
+                                dev, batch, kinds, int8=int8)
+            verdict(lambda: big_train_gate(f"mesh: {arm} {shape} {st}", res))
+            by_path[arm] = res[0]["counts"]
+            del res, batch
+        if lead and by_path:
+            print(json.dumps({"mesh_launches_by_path": by_path}))
         dist.barrier()
     finally:
         dist.destroy_process_group()
@@ -7447,34 +7574,36 @@ def train_remat_arms(K, get_config, m14, m22, dev, lead, verdict):
     verdict(check)
 
 
-def qwen_4k_arm(K, cfg, mesh, dev, batch):
-    """qwen1.5-110b bf16 at every layer on this rank's shards (``(1, 4)``
-    tp), one 4096-token ft row, ``attn_chunk`` 1024: two train steps with
-    remat and ``act_constraint_fn``, then one with remat alone, each from
-    the last one's bank and moments, under ``roofline.analysis.
-    memory_summary``, each with its collective bytes.  Returns every
-    rank's readings (on every rank)."""
+def big_train_arm(K, cfg, mesh, strategy, dev, batch, kinds, int8=False,
+                  chunk=0):
+    """``cfg`` bf16 at every layer on this rank's shards (with ``int8``
+    each eligible leaf quantized whole, then cut), ``attn_chunk`` ``chunk``:
+    one train step of each of ``kinds`` in turn ("remat +
+    act_constraint": remat and ``act_constraint_fn``; "remat alone";
+    "plain"), each from the last one's bank and moments, under
+    ``roofline.analysis.memory_summary``, each with its collective bytes.
+    Returns every rank's readings (on every rank)."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_train_step
     from repro_torch.distributed import sharding as SH
     from repro_torch.training.optimizer import AdamWConfig, adamw_init, \
         tree_leaves
     t0 = time.perf_counter()
-    params, bank, scale = mesh_weights(cfg, mesh, "tp", dev, torch.bfloat16,
-                                       seed=4)
+    params, bank, scale = mesh_weights(cfg, mesh, strategy, dev,
+                                       torch.bfloat16, seed=4, int8=int8)
     setup = time.perf_counter() - t0
-    kw = dict(block_t=K["block_t"], mesh=mesh, strategy="tp", remat=True,
-              attn_chunk=QWEN_4K["chunk"])
+    kw = dict(block_t=K["block_t"], mesh=mesh, strategy=strategy,
+              attn_chunk=chunk)
     opt = AdamWConfig(**TRAIN_OPT)
     steps = {"remat + act_constraint": make_train_step(
-        cfg, opt, act_constraint=SH.act_constraint_fn(mesh), **kw),
-        "remat alone": make_train_step(cfg, opt, **kw)}
+        cfg, opt, remat=True, act_constraint=SH.act_constraint_fn(mesh),
+        **kw), "remat alone": make_train_step(cfg, opt, remat=True, **kw),
+        "plain": make_train_step(cfg, opt, **kw)}
     st = adamw_init(bank, len(TRAIN_SLOTS))
     mask = torch.tensor(TRAIN_SLOTS, dtype=torch.int32, device=dev)
     mesh_reset(K)
     out = []
-    for kind in ("remat + act_constraint", "remat + act_constraint",
-                 "remat alone"):
+    for kind in kinds:
         SH.reset_collective_log()
         t1 = time.perf_counter()
         mem = RA.memory_summary(steps[kind], params, bank, scale, st, batch,
@@ -7488,42 +7617,46 @@ def qwen_4k_arm(K, cfg, mesh, dev, batch):
                             bool(torch.isfinite(x).all())
                             for x in tree_leaves(bank))))
     counts = {**read_counts(K), **mesh_counts(K, SPLIT_COUNTERS)}
-    _, bound_ms, _ = step_cost_coll(cfg, "train", QWEN_4K["seq"],
-                                    batch.ft.tokens.shape[0], 1,
-                                    mesh.shape["model"], "tp")
+    rows, S = batch.ft.tokens.shape
+    _, bound_ms, _ = step_cost_coll(cfg, "train", S, rows,
+                                    mesh.shape["data"], mesh.shape["model"],
+                                    strategy)
     del params, bank, st, steps
     gc.collect()
     torch.cuda.empty_cache()
     return gather_stats(dict(
         steps=out, counts=counts, setup=setup, bound_ms=bound_ms,
-        cuda=dev.type == "cuda", layers=cfg.n_layers,
-        rows=tuple(batch.ft.tokens.shape), rank=dist.get_rank()))
+        cuda=dev.type == "cuda", layers=cfg.n_layers, name=cfg.name,
+        dtype="int8/bf16" if int8 else "bf16", strategy=strategy,
+        shape="x".join(map(str, mesh.devices_shape)), rows=(rows, S),
+        rank=dist.get_rank()))
 
 
-def qwen_4k_gate(label, stats):
-    """qwen1.5-110b's 4096-token arm: every step's loss finite and below
-    the last, every card's bank finite and peak under 80 GB, the fused SMLM
-    never launched and ``smlm_wgrad`` launched; prints every card's
-    readings and the ``costs:`` share (``step_cost``'s bound over the
-    step's ms; its train flops count a remat forward)."""
+def big_train_gate(label, stats):
+    """A ``big_train_arm``: every step's loss finite and below the last,
+    every card's bank finite and peak under 80 GB, the fused SMLM never
+    launched and ``smlm_wgrad`` launched; prints every card's readings and
+    the ``costs:`` share (``step_cost``'s bound over the step's ms; its
+    train flops count a remat forward)."""
     for sx in stats:
         for i, x in enumerate(sx["steps"]):
-            print(f"{label} qwen1.5-110b bf16 {sx['layers']} layers ft rows "
-                  f"{sx['rows'][0]}x{sx['rows'][1]} card {sx['rank']} step "
-                  f"{i + 1} ({x['kind']}): ms={x['ms']:.3f} resident_GB="
-                  f"{x['resident'] / 1e9:.3f} peak_GB={x['peak'] / 1e9:.3f} "
-                  f"all-reduce_bytes={x['coll']['all-reduce']} "
-                  f"all-gather_bytes={x['coll']['all-gather']} "
-                  f"collective operand bytes {x['coll']} loss "
-                  f"{x['loss']:.6f}")
+            print(f"{label} {sx['name']} {sx['dtype']} {sx['layers']} layers "
+                  f"ft rows {sx['rows'][0]}x{sx['rows'][1]} card "
+                  f"{sx['rank']} step {i + 1} ({x['kind']}): ms="
+                  f"{x['ms']:.3f} resident_GB={x['resident'] / 1e9:.3f} "
+                  f"peak_GB={x['peak'] / 1e9:.3f} all-reduce_bytes="
+                  f"{x['coll']['all-reduce']} all-gather_bytes="
+                  f"{x['coll']['all-gather']} collective operand bytes "
+                  f"{x['coll']} loss {x['loss']:.6f}")
         print(f"{label} card {sx['rank']}: setup_s={sx['setup']:.2f} "
               f"launches={sx['counts']}")
     st = stats[0]
+    dp, tp = (int(v) for v in st["shape"].split("x"))
     for i, x in enumerate(st["steps"]):
         print(f"costs: {label} step {i + 1} ({x['kind']}) step_cost(kind="
-              f"train, seq_len={QWEN_4K['seq']}, batch={st['rows'][0]}, "
-              f"dp=1, tp=4, strategy=tp) bound_ms={st['bound_ms']:.3f} "
-              f"measured_ms={x['ms']:.3f} share="
+              f"train, seq_len={st['rows'][1]}, batch={st['rows'][0]}, "
+              f"dp={dp}, tp={tp}, strategy={st['strategy']}) bound_ms="
+              f"{st['bound_ms']:.3f} measured_ms={x['ms']:.3f} share="
               f"{st['bound_ms'] / x['ms']:.4f}")
     losses = [x["loss"] for x in st["steps"]]
     bad = [s["rank"] for s in stats if not all(
@@ -7536,6 +7669,118 @@ def qwen_4k_gate(label, stats):
           f"falling, every bank finite, peak under 80 GB)")
 
 
+# the other families' train steps on four cards (``--mesh-arms
+# train_families``, ROADMAP 5b-iii-a), fp32 at published widths, cut in
+# depth: (label, arch, config changes, int8, remat + act_constraint)
+TRAIN_FAMILIES = (
+    ("mamba2", "mamba2-1.3b", dict(n_layers=8), False, True),
+    ("whisper", "whisper-base", {}, False, False),
+    ("vlm", "llama-3.2-vision-90b", dict(n_layers=5), False, True),
+    ("llama_q8", "llama3-8b", dict(n_layers=8), True, False))
+# ``--mesh-arms train_vlm`` / ``train_qwen_int8``: every layer on four
+# cards, 2 ft rows (the VLM's with 1600-patch sources), three train steps:
+# (arch, int8, mesh, strategy, row length, the steps' kinds)
+TRAIN_BIG = {
+    "train_vlm": ("llama-3.2-vision-90b", False, "1x4", "tp", 512,
+                  ("remat + act_constraint",) * 3),
+    "train_qwen_int8": ("qwen1.5-110b", True, "2x2", "fsdp_tp", 256,
+                        ("plain",) * 3)}
+
+
+def train_family_arms(K, get_config, m14, m22, dev, lead, verdict):
+    """``--mesh-arms train_families``: each ``TRAIN_FAMILIES`` arm at
+    ``(1, 4)`` tp and ``(2, 2)`` fsdp_tp, on 4 x 512 ft rows and on the
+    mixed ft + prefill + decode batch over dense rows (a cross arm's rows
+    with their sources; a Mamba arm's decode rows advance its state once):
+    the grad step (with remat where the arm says) and the train step (with
+    remat and ``act_constraint_fn`` there) against one card's plain steps
+    on the same weights and batch (rank 0), gated at ``TRAIN_LIMIT``; on
+    mamba2 at ``(1, 4)`` the gated norm's sum with the identity as its
+    adjoint (``planted_train`` "gsq") must break it.  Returns card 0's
+    launches of each arm."""
+    import torch.distributed as dist
+    f32 = torch.float32
+    by_path = {}
+    for label, arch, change, int8, remat in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = get_config(arch).replace(**change)
+        batches = {"ft": train_batch(cfg, 4, 512, dev, seed=50, dtype=f32),
+                   "mixed": train_batch(cfg, 2, 512, dev, seed=51,
+                                        mixed=True, dtype=f32)}
+        got, bad = {}, {}
+        for key, mesh, st in (("1x4 tp", m14, "tp"),
+                              ("2x2 fsdp_tp", m22, "fsdp_tp")):
+            w = mesh_weights(cfg, mesh, st, dev, f32, int8=int8)
+            for name, (batch, cache, segs) in batches.items():
+                got[key, name] = train_steps(
+                    K, cfg, w, batch, cache, segs, dev, mesh, st,
+                    remat=remat, act_constraint=remat)
+                c = got[key, name]["counts"]
+                if dev.type == "cuda" and (c["smlm"] or c["bgmv"] or not min(
+                        c[k] for k in SPLIT_COUNTERS[:2] + ("smlm_wgrad",))):
+                    raise AssertionError(f"mesh: train {label} {key} {name} "
+                                         f"rank {dist.get_rank()}: launches "
+                                         f"{c}")
+            if label == "mamba2" and key == "1x4 tp":
+                mod, attr, planted = planted_train(K, mesh, "gsq")
+                orig = getattr(mod, attr)
+                setattr(mod, attr, planted)
+                try:
+                    batch, cache, segs = batches["ft"]
+                    bad[key] = train_steps(K, cfg, w, batch, cache, segs,
+                                           dev, mesh, st, grads_only=True,
+                                           remat=remat)
+                finally:
+                    setattr(mod, attr, orig)
+            del w
+            gc.collect()
+            torch.cuda.empty_cache()
+        stats = gather_stats({k: {f: v[f] for f in ("ms", "coll",
+                                                    "resident", "peak",
+                                                    "counts")}
+                              for k, v in got.items()})
+        ref = {}
+        if lead:
+            w = mesh_weights(cfg, None, None, dev, f32, int8=int8)
+            for name, (batch, cache, segs) in batches.items():
+                ref[name] = train_steps(K, cfg, w, batch, cache, segs, dev)
+            del w
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        tag = (f"mesh: train {label} {cfg.name} {'int8/' if int8 else ''}"
+               f"fp32 {cfg.n_layers} layers"
+               + (" remat + act_constraint" if remat else ""))
+
+        def check():
+            for name, r in ref.items():
+                print(f"{tag} {name} one card: train step ms={r['ms']:.3f} "
+                      f"peak_bytes={r['peak']}")
+            for (key, name), res in got.items():
+                for rank, sx in enumerate(stats):
+                    x = sx[key, name]
+                    print(f"{tag} {key} {name} card {rank}: train step ms="
+                          f"{x['ms']:.3f} resident_bytes={x['resident']} "
+                          f"peak_bytes={x['peak']} collective operand bytes "
+                          f"{x['coll']} launches={x['counts']}")
+                train_gate(f"{tag} {key} {name} vs one card", res,
+                           ref[name], f32)
+            for key, res in bad.items():
+                train_gate(f"{tag} {key} ft with a planted fault (the gated "
+                           f"norm's sum of squares with the identity as its "
+                           f"adjoint) vs one card", res, ref["ft"], f32,
+                           expect_ok=False)
+            print(f"{tag}: wall_s={time.perf_counter() - t0:.1f}")
+        verdict(check)
+        total = {}
+        for sx in stats[0].values():
+            for k, v in sx["counts"].items():
+                total[k] = total.get(k, 0) + v
+        by_path[f"train_families_{label}"] = total
+        del got, bad, ref
+    return by_path
+
+
 def _split_entries():
     from repro_torch.kernels.bgmv import bgmv_expand, bgmv_shrink
     from repro_torch.kernels.smlm import smlm_expand, smlm_shrink
@@ -7546,7 +7791,8 @@ def _split_entries():
 MESH_ARMS = ("llama", "qwen", "maverick", "vlm", "dsv2", "whisper",
              "window", "phi3", "seq", "seq_window", "seq_vlm", "mamba2",
              "jamba", "jamba_deep", "dsv2_window", "train", "train_qwen",
-             "train_remat", "train_qwen_4k")
+             "train_remat", "train_qwen_4k", "train_families", "train_vlm",
+             "train_qwen_int8")
 
 
 def mesh_main(K, only=MESH_ARMS) -> int:
@@ -7584,7 +7830,10 @@ def mesh_phase(K, cfg, weights, dev):
     the LoRA terms through the split shrink and expand entries) against the
     plain step: first-step logits within the bf16 tolerance, divergences
     near ties, the split entries, flash and dense decode launched and the
-    fused SMLM and BGMV calls not.  Returns (b)'s launches."""
+    fused SMLM and BGMV calls not; then the other (1, 1) arms on that
+    mesh: the families, the cache layouts, Mamba2 / jamba / MLA's window,
+    the train step of llama3-8b (with remat) and of the other families.
+    Returns (b)'s launches and each of those arms'."""
     import torch.distributed as dist
     from repro_torch.core.unified import make_forward_step
     from repro_torch.configs import get_reduced
@@ -7642,6 +7891,7 @@ def mesh_phase(K, cfg, weights, dev):
         lay = mesh_families_local(K, mesh, dev, LAYOUTS_LOCAL)
         ssm = mesh_families_local(K, mesh, dev, SSM_LOCAL)
         train, train_remat = mesh_train_local(K, mesh, dev)
+        train_fam = mesh_train_families_local(K, mesh, dev)
         print("mesh: the 4-rank arms ((1, 4) tp and (2, 2) fsdp_tp: "
               "llama3-8b, qwen1.5-110b at 80 layers, maverick's 2 layers "
               "expert-parallel, llama-3.2-vision-90b at 100 layers, "
@@ -7651,9 +7901,12 @@ def mesh_phase(K, cfg, weights, dev):
               "'seq'; mamba2-1.3b, jamba-1.5-large-398b int8 at 8 and 40 "
               "layers, deepseek-v2-236b at long_500k's window; the train "
               "step: llama3-8b fp32 8 layers and bf16 32 layers, "
-              "qwen1.5-110b bf16 at 80 layers) need --mesh on a host with "
+              "qwen1.5-110b bf16 at 80 layers; the other families' train "
+              "steps: mamba2-1.3b, whisper-base, the VLM and llama3-8b "
+              "int8 in fp32, the VLM bf16 at 100 layers, qwen1.5-110b int8 "
+              "at 80 layers) need --mesh on a host with "
               "four cards: python3 chip_smoke.py --mesh")
-        return counts, fam, lay, ssm, train, train_remat
+        return counts, fam, lay, ssm, train, train_remat, train_fam
     finally:
         dist.destroy_process_group()
 
@@ -7984,14 +8237,14 @@ def main() -> int:
     if a.mesh_local:
         from repro_torch.configs import get_config
         cfg = get_config("llama3-8b")
-        _, fam, lay, ssm, train, train_remat = mesh_phase(
+        _, fam, lay, ssm, train, train_remat, train_fam = mesh_phase(
             K, cfg, full_weights(cfg, dev, torch.bfloat16), dev)
         print(f"mesh: (1, 1) family arms' launches summed: {fam}")
         print(f"mesh: (1, 1) layout arms' launches summed: {lay}")
         print(f"mesh: (1, 1) Mamba2 / jamba / MLA-window arms' launches "
               f"summed: {ssm}")
         print(f"mesh: (1, 1) train arm's launches: {train}; with remat: "
-              f"{train_remat}")
+              f"{train_remat}; the other families' train arms: {train_fam}")
         print(card())
         return 0
     rows = check_kernels(K, dev)
@@ -8051,7 +8304,8 @@ def main() -> int:
     mark("window")
     (by_path["mesh"], by_path["mesh_families"], by_path["mesh_layouts"],
      by_path["mesh_ssm"], by_path["mesh_train"],
-     by_path["mesh_train_remat"]) = mesh_phase(K, cfg, weights, dev)
+     by_path["mesh_train_remat"],
+     by_path["mesh_train_families"]) = mesh_phase(K, cfg, weights, dev)
     del weights
     mark("mesh")
     by_path["remat_jamba"] = remat_jamba(K, dev)
@@ -8077,7 +8331,8 @@ def main() -> int:
                 p: {k: by_path[p][k] for k in SPLIT_COUNTERS
                     if k.startswith(name + "_")}
                 for p in ("mesh", "mesh_families", "mesh_layouts",
-                          "mesh_ssm", "mesh_train", "mesh_train_remat")}}
+                          "mesh_ssm", "mesh_train", "mesh_train_remat",
+                          "mesh_train_families")}}
                if name in ("smlm", "bgmv") else {}),
             # the merge kernel alone: MLA's decode under a mesh, and a GQA
             # decode over rows cut by the slots (mesh_layouts)

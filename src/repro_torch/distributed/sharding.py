@@ -51,17 +51,19 @@ graph, so the adjoint of a collective depends on who reads its result.  A
 tensor every rank holds alike has, on each rank, its whole gradient when
 every rank's consumers of it are alike, and a partial one (each rank holds
 a summand) when the consumers differ between ranks.  The collectives with
-gradients state which case they serve: ``all_reduce_grad`` is read alike
-(its backward is the identity), ``sum_grad`` feeds work that differs (its
-backward sums), and ``all_gather_grad`` takes the case as its ``differ``
-argument (a reduce-scatter or "take my rows").  The sum over "model" that
+gradients state which case they serve: ``sum_grad`` feeds work that
+differs (its backward sums), and ``all_reduce_grad`` and
+``all_gather_grad`` take the case as their ``differ`` argument (read
+alike: the identity or "take my rows"; read differently: an all-reduce or
+a reduce-scatter).  The sum over "model" that
 ``dense_col``'s shrink all-reduce needs is made inside
 ``kernels.ops.SplitLoRAFunction``.  The plain collectives refuse a tensor
 that carries a gradient, so no collective is ever differentiated as the
 identity by mistake.
 ``reduce_bank_grads`` sums the bank's gradients over the batch axes, and
-``FSDPWeight`` keeps a weight cut over "data" out of autograd's saved
-tensors (``matmul`` gathers it again in the backward).
+``FSDPWeight`` keeps a weight cut over "data" (an int8 leaf as its int8
+payload and scales) out of autograd's saved tensors (``matmul`` gathers
+it again in the backward).
 """
 from __future__ import annotations
 
@@ -72,6 +74,7 @@ import torch
 
 from repro_torch.launch.mesh import Mesh, axis_size, batch_axes
 from repro_torch.models.configs import ModelConfig
+from repro_torch.models.quant import dequant_leaf
 from repro_torch.models.schema import encoder_shapes, layer_shapes, \
     top_leaves
 
@@ -538,19 +541,26 @@ def all_to_all(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class _AllReduce(torch.autograd.Function):
-    """``y = sum_r x_r`` over ``axes``, the same on every rank and read
-    alike by every rank (``dense_row``'s output into the residual stream,
-    the vocab-parallel CE's ``sumexp`` / ``picked``).  Adjoint:
+    """``y = sum_r x_r`` over ``axes``, the same on every rank.  Where every
+    rank reads ``y`` alike (``dense_row``'s output into the residual
+    stream, the vocab-parallel CE's ``sumexp`` / ``picked``) the adjoint is
     ``dx_r = dy``: each rank's ``dy`` is already the whole gradient, and
-    summing it again would multiply it by the axis size."""
+    summing it again would multiply it by the axis size.  Where the ranks
+    read ``y`` differently (``differ``: Mamba2's gated-norm sum of squares,
+    which each rank applies to its own slice of d_inner) each rank's ``dy``
+    is a summand of the whole gradient, and the adjoint is ``dx_r = sum_r'
+    dy_r'``, one all-reduce in the backward."""
 
     @staticmethod
-    def forward(ctx, x, axes, mesh):
+    def forward(ctx, x, axes, mesh, differ):
+        ctx.axes, ctx.mesh, ctx.differ = axes, mesh, differ
         return all_reduce(x.clone(), axes, mesh)
 
     @staticmethod
     def backward(ctx, dy):
-        return dy, None, None
+        if ctx.differ:
+            dy = all_reduce(dy.clone(), ctx.axes, ctx.mesh)
+        return dy, None, None, None
 
 
 class _SumGrad(torch.autograd.Function):
@@ -594,15 +604,17 @@ class _AllGather(torch.autograd.Function):
         return dx.contiguous(), None, None, None, None
 
 
-def all_reduce_grad(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
-    """``all_reduce`` (sum) of a result every rank reads alike, with the
-    identity as its gradient (``_AllReduce``).  Without a gradient to carry
-    it is the plain in-place ``all_reduce``."""
+def all_reduce_grad(x: torch.Tensor, axes, mesh: Mesh,
+                    differ: bool = False) -> torch.Tensor:
+    """``all_reduce`` (sum) with its gradient (``_AllReduce``): the
+    identity where every rank reads the result alike, the sum of every
+    rank's gradient where they read it differently (``differ``).  Without
+    a gradient to carry it is the plain in-place ``all_reduce``."""
     if axis_size(mesh, mesh.axes(axes)) == 1:
         return x
     if not _carries_grad(x):
         return all_reduce(x, axes, mesh)
-    return _AllReduce.apply(x, axes, mesh)
+    return _AllReduce.apply(x, axes, mesh, differ)
 
 
 def sum_grad(x: torch.Tensor, axes, mesh: Mesh) -> torch.Tensor:
@@ -754,10 +766,18 @@ class FSDPWeight(NamedTuple):
     leaf a product saved for its backward would stay alive until the
     backward (qwen1.5-110b at ``(2, 2)``: ~1.36 GB a layer a card, ~109 GB
     over 80 layers), so ``matmul`` gathers it for the product, keeps only
-    the shard, and gathers it again in the backward."""
+    the shard, and gathers it again in the backward.  An int8 leaf
+    (``models.quant``) is its int8 payload ``shard`` with its fp32
+    ``scale`` (cut over "data" along ``scale_dim``, or None where the
+    scales span the cut axis, which then holds one scale row), dequantized
+    to ``dtype`` after each gather: the saved tensors are the int8 shard
+    and its scales."""
     shard: torch.Tensor
     dim: int
     mesh: Mesh
+    scale: Optional[torch.Tensor] = None
+    scale_dim: Optional[int] = None
+    dtype: Optional[torch.dtype] = None
 
     @property
     def shape(self) -> torch.Size:
@@ -767,29 +787,39 @@ class FSDPWeight(NamedTuple):
 
     @property
     def T(self) -> "FSDPWeight":
-        return FSDPWeight(self.shard.T, 1 - self.dim, self.mesh)
+        flip = lambda d: None if d is None else 1 - d
+        return self._replace(
+            shard=self.shard.T, dim=1 - self.dim,
+            scale=None if self.scale is None else self.scale.T,
+            scale_dim=flip(self.scale_dim))
 
     def whole(self) -> torch.Tensor:
-        return all_gather(self.shard, "data", self.mesh, dim=self.dim)
+        w = all_gather(self.shard, "data", self.mesh, dim=self.dim)
+        if self.scale is None:
+            return w
+        s = self.scale if self.scale_dim is None else all_gather(
+            self.scale, "data", self.mesh, dim=self.scale_dim)
+        return dequant_leaf({"_q8": w, "_qs": s}, self.dtype)
 
 
 class _FSDPMatmul(torch.autograd.Function):
-    """``y = x @ W``, ``W`` gathered over "data" from ``shard``; saves the
-    shard alone.  Adjoint: ``dx = dy @ W^T`` with ``W`` gathered again (the
-    weight takes no gradient).  Every rank builds the same graph, so the
-    ranks of a data group reach their backward gathers in the same order
-    and the gathers pair up."""
+    """``y = x @ W``, ``W`` gathered over "data" from ``shard`` (an int8
+    leaf's ``scale`` gathered beside it and the two dequantized); saves the
+    shard and its scales alone.  Adjoint: ``dx = dy @ W^T`` with ``W``
+    gathered (and dequantized) again (the weight takes no gradient).  Every
+    rank builds the same graph, so the ranks of a data group reach their
+    backward gathers in the same order and the gathers pair up."""
 
     @staticmethod
-    def forward(ctx, x, shard, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
-        ctx.save_for_backward(shard)
-        return x @ all_gather(shard, "data", mesh, dim=dim)
+    def forward(ctx, x, shard, scale, layout):
+        ctx.layout = layout
+        ctx.save_for_backward(shard, scale)
+        return x @ layout._replace(shard=shard, scale=scale).whole()
 
     @staticmethod
     def backward(ctx, dy):
-        shard, = ctx.saved_tensors
-        w = all_gather(shard, "data", ctx.mesh, dim=ctx.dim)
+        shard, scale = ctx.saved_tensors
+        w = ctx.layout._replace(shard=shard, scale=scale).whole()
         return dy @ w.mT, None, None, None
 
 
@@ -799,7 +829,8 @@ def matmul(x: torch.Tensor, w) -> torch.Tensor:
         return x @ w
     if not _carries_grad(x):
         return x @ w.whole()
-    return _FSDPMatmul.apply(x, w.shard, w.dim, w.mesh)
+    return _FSDPMatmul.apply(x, w.shard, w.scale,
+                             w._replace(shard=None, scale=None))
 
 
 # ---------------------------------------------------------------------------

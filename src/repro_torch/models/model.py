@@ -97,12 +97,15 @@ fine-tune bucket and int8 weight-only serving included.  Differences of form:
   the partial scores in one all-reduce (``_hd_decode``, plain PyTorch);
   or by the slots, whose decode is flash decoding over the ranks with
   split-K's partial and merge kernels (``_seq_decode``).  With a gradient
-  (``core.unified.make_grad_step(..., mesh=)``; GQA attention with dense
-  FFNs, else ``check_shardable`` refuses) the same forward runs under
+  (``core.unified.make_grad_step(..., mesh=)``; every family but MoE and
+  MLA, which ``check_shardable`` refuses) the same forward runs under
   autograd: its collectives in their ``*_grad`` forms, which sum a
   gradient over "model" only where the ranks read a tensor differently
-  (``core.lora.dense_col``'s ``read``, ``_read``), and under ``fsdp_tp``
-  each layer's weights stay cut over "data" (``sharding.FSDPWeight``).
+  (``core.lora.dense_col``'s ``read``, ``_read``, ``_ssm_reads``; the
+  gated norm's sum, ``gated_sum_sq``), and under ``fsdp_tp`` each layer's
+  weights stay cut over "data" (``sharding.FSDPWeight``; an int8 leaf as
+  its payload and scales).  The cross sources and the encoder carry no
+  gradient: they are not trained.
 
 The cache is a dict of named leaves (``cache_leaves``): ``k``/``v`` for
 GQA, ``ckv``/``kpe`` for MLA, each ``[L_attn, ...]`` over the attention
@@ -1040,7 +1043,11 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     with its all-reduce or whole where ``xwq`` is; its ``xk`` / ``xv`` rows
     are cut as ``plan.x_layout`` says (the KV heads, the head dim or the
     source positions, as ``_attn_apply``'s rows; decode without a mask);
-    ``xgate`` is whole on every rank."""
+    ``xgate`` is whole on every rank.  Under a gradient only the ft rows'
+    query carries one: ``xwq`` enters through ``dense_col`` (its input's
+    gradient summed over "model" where the heads are cut, read alike where
+    they are whole), ``xwo`` through ``dense_row``, and K/V, made from
+    sources that are not trained, carry none."""
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     xn = L.rms_norm(x, p["xln"], cfg.rms_eps)
     heads = None
@@ -1058,10 +1065,13 @@ def _cross_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     qp, qd = (t if t is None else t.detach() for t in (qp, qd))
 
     def kv_from(src):            # [B, F, d] -> K, V [B, F, g, hd]
+        # the sources carry no gradient: an FSDPWeight is gathered whole
         B, F = src.shape[:2]
         flat = src.reshape(B * F, -1)
-        return ((flat @ p["xwk"].to(src.dtype)).reshape(B, F, kv, hd),
-                (flat @ p["xwv"].to(src.dtype)).reshape(B, F, kv, hd))
+        w = lambda n: p[n] if isinstance(p[n], SH.FSDPWeight) \
+            else p[n].to(src.dtype)
+        return (SH.matmul(flat, w("xwk")).reshape(B, F, kv, hd),
+                SH.matmul(flat, w("xwv")).reshape(B, F, kv, hd))
 
     def xattn(qb, kx, vx, qpos):
         B, S = qb.shape[:2]
@@ -1278,18 +1288,25 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
     squares over the whole d_inner (``gated_sum_sq``: one fp32 all-reduce
     of a [T] vector), ``out_proj`` row-parallel.  Where they do not
     divide, the leaves are whole and every rank runs the whole mixer
-    (``mamba_step`` gathers a ``conv_x`` row cut by d_inner)."""
+    (``mamba_step`` gathers a ``conv_x`` row cut by d_inner).  ``in_bc``
+    and ``in_dt`` go through the same ``dense_col`` as ``in_z`` / ``in_x``
+    (``_ssm_reads``), so that under a gradient the input's gradient from
+    B/C and dt is summed over "model" with the rest where each rank reads
+    them for its own heads."""
     xn = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if mesh is None:
         z_all = dense(xn, p["in_z"], None, lr.get("in_z"), plan.route)
         x_all = dense(xn, p["in_x"], None, lr.get("in_x"), plan.route)
+        bc_all = xn @ p["in_bc"].to(xn.dtype)                       # [T, 2gds]
+        dt_all = xn @ p["in_dt"].to(xn.dtype)                       # [T, nh']
     else:
-        read = _read(p["in_x"].shape[1] < cfg.d_inner, False)
-        z_all, x_all = dense_col(xn, [(p[w], None, lr.get(w), read)
-                                      for w in ("in_z", "in_x")],
-                                 plan.route, mesh)                  # [T, di']
-    bc_all = xn @ p["in_bc"].to(xn.dtype)                           # [T, 2gds]
-    dt_all = xn @ p["in_dt"].to(xn.dtype)                           # [T, nh']
+        cut = p["in_x"].shape[1] < cfg.d_inner
+        read = _read(cut, False)
+        z_all, x_all, bc_all, dt_all = dense_col(
+            xn, [(p[w], None, lr.get(w), read) for w in ("in_z", "in_x")]
+            + [(p[w], None, None, r)
+               for w, r in zip(("in_bc", "in_dt"), _ssm_reads(cut))],
+            plan.route, mesh)                      # [T, di'], [T, 2gds, nh']
     nh = dt_all.shape[1]
     h0 = mesh.coords["model"] * nh if nh < cfg.n_ssm_heads else 0
     zf, zp, zd = plan.split(z_all)
@@ -1328,11 +1345,24 @@ def _mamba_apply(cfg: ModelConfig, p: Dict, lr: Dict, plan: _Plan,
                          and mesh.shape["model"] > 1)
 
 
+def _ssm_reads(cut: bool) -> tuple:
+    """How the ranks read ``in_bc`` / ``in_dt``'s outputs (``dense_col``'s
+    ``read``): where the SSM heads are cut, ``in_bc`` is whole and each
+    rank expands B/C for its own heads (``"differ"``) and ``in_dt`` holds
+    the rank's heads (``"cut"``), so the input's gradient from both is a
+    summand a rank; where every rank runs the whole mixer, both are read
+    alike."""
+    return ("differ", "cut") if cut else ("alike", "alike")
+
+
 def gated_sum_sq(g: torch.Tensor, mesh) -> torch.Tensor:
     """The fp32 sum of squares of each row of ``g`` [T, di/m] over the
     whole d_inner: this rank's slice's, summed over "model" in one
-    all-reduce of a [T] vector."""
-    return SH.all_reduce(g.float().pow(2).sum(-1), "model", mesh)
+    all-reduce of a [T] vector.  Each rank applies the sum to its own
+    slice of d_inner, so under a gradient its adjoint sums every rank's
+    gradient (``all_reduce_grad(differ=True)``)."""
+    return SH.all_reduce_grad(g.float().pow(2).sum(-1), "model", mesh,
+                              differ=True)
 
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: Dict, mesh=None,
@@ -1681,31 +1711,25 @@ def _with_grad(loras: Optional[Dict]) -> bool:
 
 
 def check_shardable(cfg: ModelConfig, mesh, batch: UnifiedBatch,
-                    loras: Optional[Dict] = None,
-                    params: Optional[Dict] = None) -> None:
+                    loras: Optional[Dict] = None) -> None:
     """What the sharded forward runs, or a ``ValueError`` that names the
     case: GQA attention (any head counts: the head-dim and sequence cache
     layouts), MLA (heads dividing the model axis) or Mamba2 mixers, alone
     or in one stack (jamba), on dense rows, with dense or MoE FFNs,
     cross-attention layers and an encoder, sliding windows (GQA and MLA),
     in bf16, fp32 or with int8 leaves.  With a gradient (the train step):
-    GQA attention with dense FFNs, sliding windows included, in bf16 or
-    fp32."""
+    GQA attention and Mamba2 mixers with dense FFNs (or none), alone or in
+    one stack, cross-attention layers and an encoder, sliding windows, in
+    bf16, fp32 or with int8 leaves; MoE and MLA are refused."""
     where = f"under a {dict(mesh.shape)} mesh"
     if _with_grad(loras):
         later = [what for what, on in (
             ("MoE", any(is_moe(cfg, li) for li in range(cfg.n_layers))),
-            ("MLA", cfg.mla is not None),
-            ("Mamba2", cfg.ssm is not None),
-            ("cross-attention layers",
-             any(i[2] is not None for i in layer_index(cfg))),
-            ("an encoder", cfg.encoder is not None),
-            ("int8 leaves", params is not None and quant.has_q8(params)))
-            if on]
+            ("MLA", cfg.mla is not None)) if on]
         if later:
             raise ValueError(f"{cfg.name}: a forward with gradient {where} "
-                             f"over {', '.join(later)} is a later slice "
-                             "(ROADMAP Queue 1, 5b-iii)")
+                             f"over {' and '.join(later)} is a later slice "
+                             "(ROADMAP Queue 1, 5b-iii-b)")
     if cfg.mla is not None and cfg.n_heads % mesh.shape["model"]:
         raise ValueError(f"{cfg.name}: MLA's {cfg.n_heads} heads do not "
                          f"divide the model axis {where} (ROADMAP Queue 1, "
@@ -1767,7 +1791,8 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     ``fsdp_tp`` each layer's "embed"-sharded leaves are all-gathered over
     "data" just before the layer and freed after it (the expert stacks by
     ``moe_apply_auto``), an int8 leaf as its int8 payload and scales
-    (``quant.quant_shardings``), dequantized only after the gather.  Cross
+    (``quant.quant_shardings``), dequantized only after the gather (with a
+    gradient, inside ``sharding.matmul``: an ``FSDPWeight``).  Cross
     layers and an encoder run their heads column- and row-parallel
     (``_cross_apply``, ``encoder_forward``), MLA its heads with the latent
     sequence cut over "model" (``_mla_apply``; a windowed latent row is a
@@ -1781,7 +1806,7 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
     Returns the single-device step's logits, ft loss sums and aux loss on
     every rank, and the local cache."""
     from repro_torch.launch.mesh import batch_axes
-    check_shardable(cfg, mesh, batch, loras, params)
+    check_shardable(cfg, mesh, batch, loras)
     strategy = strategy or "fsdp_tp"
     fsdp = strategy == "fsdp_tp"
     # with a gradient, a layer's weights cut over "data" stay cut
@@ -1804,19 +1829,27 @@ def _sharded_forward(cfg: ModelConfig, mesh, strategy: Optional[str],
              SH.param_shardings(cfg, mesh, strategy))
     first = mesh.index(bx) == 0
 
+    def data_dim(spec):
+        return next((d for d, ax in enumerate(spec) if ax == "data"), None)
+
     def load(leaf, spec, keep=False):
         """A leaf whole over "data" (the FSDP gather; an int8 leaf's
         payload and scales apart), then dequantized; with ``keep`` under a
-        gradient, an ``FSDPWeight`` that ``sharding.matmul`` gathers."""
+        gradient, an ``FSDPWeight`` that ``sharding.matmul`` gathers (an
+        int8 leaf's payload and scales, dequantized after each gather)."""
         if quant.is_q8(leaf):
-            return quant.dequant_leaf({k: load(leaf[k], spec[k])
-                                       for k in leaf}, dtype)
-        for dim, ax in enumerate(spec):
-            if ax == "data":
-                if lazy and keep:
-                    return SH.FSDPWeight(leaf, dim, mesh)
-                return SH.all_gather(leaf, "data", mesh, dim=dim)
-        return leaf
+            w = load(leaf["_q8"], spec["_q8"], keep)
+            if isinstance(w, SH.FSDPWeight):
+                return w._replace(scale=leaf["_qs"], dtype=dtype,
+                                  scale_dim=data_dim(spec["_qs"]))
+            return quant.dequant_leaf({"_q8": w, "_qs": load(
+                leaf["_qs"], spec["_qs"])}, dtype)
+        dim = data_dim(spec)
+        if dim is None:
+            return leaf
+        if lazy and keep:
+            return SH.FSDPWeight(leaf, dim, mesh)
+        return SH.all_gather(leaf, "data", mesh, dim=dim)
 
     toks = _tokens(gb)
     # the tokens whose router statistics this data group counts: a bucket

@@ -176,7 +176,7 @@ def raises(fn, *words):
 
 def value_errors(tmp, z, mesh):
     """Every case the sharded forward refuses, each a ValueError naming
-    it."""
+    it; and the grad steps that ran refused before 5b-iii-a, now run."""
     cfg = get_reduced("llama3-8b")
     params = params_from_numpy(load_npz(os.path.join(tmp, "llama_tp_params.npz")),
                                device="cpu")
@@ -222,13 +222,18 @@ def value_errors(tmp, z, mesh):
             shard_params(p, cfg, mesh, "tp"), shard_bank(bank, mesh),
             torch.ones(4), UnifiedBatch(ft=ft), None)
 
-    out["grad"] = raises(grad_step("maverick"), "gradient", "MoE", "5b-iii")
+    out["grad"] = raises(grad_step("maverick"), "gradient", "MoE",
+                         "5b-iii-b")
     out["grad_mla"] = raises(grad_step(None, "deepseek-v2-236b"),
-                             "gradient", "MLA", "5b-iii")
-    out["grad_mamba"] = raises(grad_step(None, "mamba2-1.3b"), "gradient",
-                               "Mamba2", "5b-iii")
-    out["grad_cross"] = raises(grad_step(None, "llama-3.2-vision-90b"),
-                               "gradient", "cross-attention", "5b-iii")
+                             "gradient", "MLA", "5b-iii-b")
+    # Mamba2 and cross-attention layers take a gradient under a mesh
+    # (ROADMAP 5b-iii-a): the same steps run, every grad leaf finite
+    for key, arch in (("grad_mamba", "mamba2-1.3b"),
+                      ("grad_cross", "llama-3.2-vision-90b")):
+        grads = topt.tree_leaves(grad_step(None, arch)().grads)
+        assert grads and all(bool(torch.isfinite(g).all()) for g in grads), \
+            key
+        out[key] = f"{len(grads)} grad leaves, all finite"
     return out
 
 
@@ -460,16 +465,17 @@ TRAIN_SLOTS = (1, 0, 1, 1)
 
 def _train_batch(z, name):
     """Case ``name``'s ft bucket, and its prefill and decode buckets where
-    it has them (dense rows)."""
+    it has them (dense rows), with a cross model's ``aux_embed``."""
     g = lambda k: _t(z[f"{name}/{k}"])
+    aux = lambda k: g(k) if f"{name}/{k}" in z else None
     ft = FTBatch(tokens=g("ft_tokens"), mask=g("ft_mask"),
                  labels=g("ft_labels"), adapter=g("ft_adapter"),
-                 weight=g("ft_weight"))
+                 weight=g("ft_weight"), aux_embed=aux("ft_aux"))
     if f"{name}/pf_tokens" not in z:
         return UnifiedBatch(ft=ft)
     return UnifiedBatch(
         ft=ft, pf=PFBatch(tokens=g("pf_tokens"), length=g("pf_length"),
-                          adapter=g("pf_adapter")),
+                          adapter=g("pf_adapter"), aux_embed=aux("pf_aux")),
         dec=DECBatch(tokens=g("dec_tokens"), pos=g("dec_pos"),
                      adapter=g("dec_adapter")))
 
@@ -495,7 +501,17 @@ def _planted_train(fault, mesh):
     the batch axes; ``"clip"`` the clip's sum of squares of this rank's
     shards alone, without the sum over "model"; ``"cut"`` the
     sequence-sharded carry's cut giving back only this rank's block of
-    the gradient (zeros elsewhere) where the others' blocks belong."""
+    the gradient (zeros elsewhere) where the others' blocks belong;
+    ``"gsq"`` Mamba2's gated-norm sum of squares with the identity as its
+    adjoint (``model.gated_sum_sq`` read alike); ``"ssm"`` the ``in_bc`` /
+    ``in_dt`` products' input gradient not summed over "model"
+    (``model._ssm_reads`` always "alike").  Each is planted on every
+    rank, so every collective still pairs."""
+    if fault == "gsq":
+        return TM, "gated_sum_sq", lambda g, mesh: SH.all_reduce_grad(
+            g.float().pow(2).sum(-1), "model", mesh)
+    if fault == "ssm":
+        return TM, "_ssm_reads", lambda cut: ("alike", "alike")
     if fault == "cut":
         def local_only(dy, axes, mesh, n_tokens):
             n = dy.shape[0]
@@ -562,10 +578,20 @@ def train_case(tmp, name, mesh, strategy, z, cache_strategy="auto",
     grads = gather_bank(cfg, res.grads, mesh)
     errs = _tree_errs("grad", grads, bank_from_numpy(rd("grads"),
                                                      device="cpu"))
+    if local is not None and f"{name}/ref_cache_h" in z:
+        # the state rows after the grad step: prefill's final states and
+        # the decode rows' one step, against JAX's
+        whole = SH.gather_cache(cfg, res.out.cache, mesh,
+                                cache0["h"].shape[1], segs, cache_strategy)
+        for k, v in whole.items():
+            w = torch.as_tensor(z[f"{name}/ref_cache_{k}"]).double()
+            errs[f"cache/{k}"] = float((v.double() - w).abs().max()
+                                       / max(float(w.abs().max()), 1e-30))
     out = {"loss": abs(float(res.loss) - float(z[f"{name}/ref_loss"])),
            "split": TM.local_batch(batch, mesh)[1]["ft"],
-           "layout": None if local is None else SH.shard_layout(
-               cfg, "k", local["k"].shape, mesh, cache_strategy)}
+           "layout": None if local is None or "k" not in local else
+           SH.shard_layout(cfg, "k", local["k"].shape, mesh,
+                           cache_strategy)}
     if train:
         nb, ns = gather_bank(cfg, nb, mesh), gather_opt_state(cfg, ns, mesh)
         errs.update(_tree_errs("bank", nb, bank_from_numpy(
@@ -597,19 +623,27 @@ def hooks_case(tmp, name, mesh, strategy, z):
     rank's shards (``saved_tensors_hooks``): none may have the shape of a
     leaf gathered whole over "data" (a saved tensor that is itself a
     rank's shard, the same storage, is not one), and the shards
-    themselves must be among them."""
+    themselves must be among them.  An int8 leaf's payload is held so,
+    and its scales are counted apart: a dequantized leaf, gathered or
+    not, has the payload's shape, so the int8 shards and scales saved
+    and no dequantized whole leaf say that only the shards were kept."""
+    from repro_torch.models import quant
     cfg = case_config(z, name)
     params = params_from_numpy(load_npz(os.path.join(
         tmp, f"{name}_params.npz")), device="cpu")
     bank = bank_from_numpy(load_npz(os.path.join(tmp, f"{name}_bank.npz")),
                            device="cpu")
     lp = shard_params(params, cfg, mesh, strategy)
-    specs = SH.param_shardings(cfg, mesh, strategy)
-    gathered, shards = set(), set()
+    specs = (quant.quant_shardings(cfg, mesh, strategy)
+             if quant.has_q8(lp) else SH.param_shardings(cfg, mesh, strategy))
+    gathered, shards, scales = set(), set(), set()
     pairs = [(lp[k], specs[k]) for k in ("embed", "lm_head") if k in lp]
     pairs += [(v, sp[k]) for layer, sp in zip(lp["layers"], specs["layers"])
               for k, v in layer.items()]
     for leaf, spec in pairs:
+        if quant.is_q8(leaf):
+            scales.add(leaf["_qs"].data_ptr())
+            leaf, spec = leaf["_q8"], spec["_q8"]
         for dim, ax in enumerate(spec):
             if ax == "data":
                 shape = list(leaf.shape)
@@ -619,7 +653,7 @@ def hooks_case(tmp, name, mesh, strategy, z):
     saved = []
 
     def pack(t):
-        saved.append((tuple(t.shape), t.data_ptr()))
+        saved.append((tuple(t.shape), t.data_ptr(), t.dtype))
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
@@ -627,9 +661,56 @@ def hooks_case(tmp, name, mesh, strategy, z):
             lp, shard_bank(bank, mesh), _t(z[f"{name}/scale"]),
             _train_batch(z, name), None)
     return {"n_saved": len(saved),
-            "shards_saved": sum(p in shards for _, p in saved),
-            "gathered_saved": sorted({s for s, p in saved
+            "shards_saved": sum(p in shards for _, p, _ in saved),
+            "int8_shards_saved": sum(p in shards and d == torch.int8
+                                     for _, p, d in saved),
+            "scales_saved": sum(p in scales for _, p, _ in saved),
+            "gathered_saved": sorted({s for s, p, _ in saved
                                       if s in gathered and p not in shards})}
+
+
+def encoder_case(tmp, name, mesh, strategy, z):
+    """The collectives of a ``strategy`` grad step's encoder on this
+    rank's shards: ``model.encoder_forward`` wrapped to record, for each
+    collective it makes (``sharding._record``), whether a gradient could
+    reach it (grad mode on and the tensor requiring it, or grad mode off:
+    inside a ``*_grad`` collective's autograd function).  Returns the
+    records, whether the encoder's output requires a gradient, and the
+    grad step's loss error against JAX's."""
+    cfg = case_config(z, name)
+    rd = lambda f: load_npz(os.path.join(tmp, f"{name}_{f}.npz"))
+    lp = shard_params(params_from_numpy(rd("params"), device="cpu"), cfg,
+                      mesh, strategy)
+    bank = bank_from_numpy(rd("bank"), device="cpu")
+    inside, seen, outs = [False], [], []
+    record, enc = SH._record, TM.encoder_forward
+
+    def watched(kind, x):
+        if inside[0]:
+            seen.append((kind, not torch.is_grad_enabled()
+                         or bool(x.requires_grad)))
+        return record(kind, x)
+
+    def encoder(*a, **kw):
+        inside[0] = True
+        try:
+            out = enc(*a, **kw)
+        finally:
+            inside[0] = False
+        outs.append(bool(out.requires_grad))
+        return out
+    SH._record, TM.encoder_forward = watched, encoder
+    try:
+        res = make_grad_step(cfg, block_t=BT, mesh=mesh, strategy=strategy)(
+            lp, shard_bank(bank, mesh), _t(z[f"{name}/scale"]),
+            _train_batch(z, name), None)
+    finally:
+        SH._record, TM.encoder_forward = record, enc
+    return {"collectives": len(seen),
+            "with_grad": sorted({k for k, g in seen if g}),
+            "kinds": sorted({k for k, _ in seen}),
+            "out_requires_grad": outs,
+            "loss": abs(float(res.loss) - float(z[f"{name}/ref_loss"]))}
 
 
 def remat_hooks_case(tmp, name, mesh, strategy, z):
@@ -724,7 +805,7 @@ def run(rank, world, tmp, shape, cases):
                 res[case] = train_case(tmp, name, mesh, strategy, z,
                                        *cs, train=kind != "grad")
             elif kind.startswith("fault_") and kind[6:] in (
-                    "shrink", "batch", "clip", "cut"):
+                    "shrink", "batch", "clip", "cut", "gsq", "ssm"):
                 name, strategy = rest.split(",")
                 res[case] = train_case(tmp, name, mesh, strategy, z,
                                        train=kind in ("fault_clip",
@@ -736,6 +817,9 @@ def run(rank, world, tmp, shape, cases):
             elif kind == "hooks":
                 name, strategy = rest.split(",")
                 res[case] = hooks_case(tmp, name, mesh, strategy, z)
+            elif kind == "encoder":
+                name, strategy = rest.split(",")
+                res[case] = encoder_case(tmp, name, mesh, strategy, z)
         with open(os.path.join(tmp, f"result_{'x'.join(map(str, shape))}_"
                                     f"{rank}.json"), "w") as fh:
             json.dump(res, fh)

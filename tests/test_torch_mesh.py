@@ -289,5 +289,13 @@ def test_collective_bytes_equal_the_hand_count(run_2x2):
 @pytest.mark.parametrize("case", ["mla_heads", "paged", "verify", "grad",
                                   "grad_mla", "grad_mamba", "grad_cross"])
 def test_unsharded_cases_raise(run_2x2, case):
-    assert run_2x2["errors:"][case]
+    """Each case's ``ValueError`` names it (the worker checks the words);
+    MoE and MLA with a gradient still raise, naming 5b-iii-b, while
+    Mamba2 and cross-attention layers with a gradient (``grad_mamba``,
+    ``grad_cross``) now run with every grad leaf finite."""
+    got = run_2x2["errors:"][case]
+    if case in ("grad_mamba", "grad_cross"):
+        assert got.endswith("grad leaves, all finite"), got
+    else:
+        assert got
 
